@@ -13,3 +13,5 @@ jax.config.update("jax_enable_x64", False)
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running tests (subprocess / multidevice)")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc; skips without them")
