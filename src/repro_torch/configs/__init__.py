@@ -9,6 +9,7 @@ from repro_torch.configs.base import (ModelConfig, RunConfig,  # noqa: F401
                                       ShapeConfig, reduced)
 
 ARCHS = {
+    "bert-mlm-120m": "bert_mlm_120m",
     "starcoder2-3b": "starcoder2_3b",
 }
 

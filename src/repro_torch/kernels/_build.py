@@ -6,7 +6,9 @@ At first use every ``csrc/*.cu`` is compiled by its own ``nvcc`` process
 hash covers the source and the flags, so an edited source is rebuilt and
 an unchanged one is loaded as it is.  The libraries link the CUDA
 runtime statically and share PyTorch's context and streams through the
-driver.  ``launch_counts`` is where each wrapper counts its launches.
+driver.  ``function`` hands a wrapper one C entry point with its
+argument types set; ``launch_counts`` is where each wrapper counts its
+launches.
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -32,6 +34,7 @@ launch_counts: collections.Counter = collections.Counter()
 
 build_log: Dict[str, str] = {}     # kernel name -> nvcc's output (ptxas -v)
 _libs: Dict[str, ctypes.CDLL] = {}
+_fns: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
 _lock = threading.Lock()
 
 
@@ -91,3 +94,27 @@ def load(name: str) -> ctypes.CDLL:
                 build_all()
             _libs[name] = ctypes.CDLL(str(path))
         return _libs[name]
+
+
+def function(name: str, symbol: str, argtypes: Sequence) -> ctypes._CFuncPtr:
+    """``symbol`` of ``csrc/<name>.cu``'s library, returning a C int (a
+    cudaError_t), with ``argtypes`` set."""
+    key = (name, symbol)
+    f = _fns.get(key)
+    if f is None:
+        f = getattr(load(name), symbol)
+        f.argtypes = list(argtypes)
+        f.restype = ctypes.c_int
+        _fns[key] = f
+    return f
+
+
+def swap(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Put ``lib`` in place of ``csrc/<name>.cu``'s library (the planted
+    faults of ``chip_smoke.py``); returns the one it replaced."""
+    old = load(name)
+    with _lock:
+        _libs[name] = lib
+        for key in [k for k in _fns if k[0] == name]:
+            del _fns[key]
+    return old

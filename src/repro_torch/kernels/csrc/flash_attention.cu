@@ -5,6 +5,8 @@
 // attention with causal / sliding-window masks, logit softcap, any GQA
 // ratio (kv head = h / rep), masked logits at the finite -2e38, f32
 // running max / denominator / accumulator, out = acc / max(l, 1e-37).
+// On request it also writes each row's log-sum-exp m + log(max(l, 1e-37))
+// as (B, H, S) f32, which the backward (flash_attention_bwd.cu) reads.
 //
 // Design.  One thread block of four warps per (q tile of 64 rows, head,
 // batch).  The TPU's sequential k grid axis becomes a loop over 64-key
@@ -82,6 +84,7 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
+  float* lse;  // (B, H, S) or null
   long long q_sb, q_ss, q_sh;  // strides in elements; the D axis is contiguous
   long long k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh;
@@ -93,13 +96,22 @@ struct Params {
   float scale;
 };
 
+// the row's log-sum-exp; a compile-time choice (LSE), so that the
+// serving forward, which needs none, keeps the code it has without it.
+// Out of line on purpose: inlined, it changed how the compiler laid out
+// the k loop (10 branches instead of 26 in the D=64 body) and cost the
+// forward 30-40% on the H100; out of line it costs under 2%.
+__device__ __noinline__ void store_lse(const Params& p, int row, float m, float lsum) {
+  p.lse[(static_cast<long long>(blockIdx.z) * p.H + blockIdx.y) * p.S + row] = m + logf(lsum);
+}
+
 // f32 body: a 4x8 score tile and a 4x(D/8) output tile per thread.
 template <int D>
 constexpr int smem_floats() {
   return D * (BQ + 4) + BK * (D + 1) + BK * D + BK * (BQ + 4);
 }
 
-template <int D>
+template <int D, bool LSE>
 __global__ void __launch_bounds__(NT) flash_fwd_f32_kernel(Params p) {
   constexpr int QT_LD = BQ + 4;  // Qt[d][q]: float4 reads of 4 rows
   constexpr int K_LD = D + 1;    // Ks[k][d]: odd stride, conflict-free columns
@@ -247,6 +259,8 @@ __global__ void __launch_bounds__(NT) flash_fwd_f32_kernel(Params p) {
     const int qi = q0 + r * 4 + i;
     if (qi >= S) continue;
     const float lsum = fmaxf(l[i], 1e-37f);
+    if constexpr (LSE)
+      if (c == 0) store_lse(p, qi, m[i], lsum);
 #pragma unroll
     for (int jj = 0; jj < NJ; ++jj)
 #pragma unroll
@@ -262,7 +276,7 @@ constexpr int mma_smem_bytes() {
   return (BQ + 4 * BK) * (D + 8) * 2;  // Q, and K and V twice (double buffer)
 }
 
-template <int D>
+template <int D, bool LSE>
 __global__ void __launch_bounds__(NT) flash_fwd_mma_kernel(Params p) {
   using bf16 = __nv_bfloat16;
   constexpr int LD = D + 8;    // smem row stride (elements): +16 B per row
@@ -427,6 +441,8 @@ __global__ void __launch_bounds__(NT) flash_fwd_mma_kernel(Params p) {
   for (int r = 0; r < 2; ++r) {
     if (row[r] >= S) continue;
     const float lsum = fmaxf(l[r], 1e-37f);
+    if constexpr (LSE)
+      if (t == 0) store_lse(p, row[r], m[r], lsum);
 #pragma unroll
     for (int j = 0; j < NDT; ++j)
       *reinterpret_cast<__nv_bfloat162*>(op + row[r] * p.o_ss + j * 8 + 2 * t) =
@@ -448,25 +464,35 @@ cudaError_t launch_kernel(K kernel, int smem, const Params& p, int B, cudaStream
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool LSE>
 cudaError_t launch_f32(const Params& p, int B, cudaStream_t stream) {
   static bool configured = false;
-  return launch_kernel(flash_fwd_f32_kernel<D>, smem_floats<D>() * sizeof(float), p, B,
+  return launch_kernel(flash_fwd_f32_kernel<D, LSE>, smem_floats<D>() * sizeof(float), p, B,
                        stream, &configured);
 }
 
-template <int D>
+template <int D, bool LSE>
 cudaError_t launch_bf16(const Params& p, int B, cudaStream_t stream) {
   static bool configured = false;
-  return launch_kernel(flash_fwd_mma_kernel<D>, mma_smem_bytes<D>(), p, B, stream,
+  return launch_kernel(flash_fwd_mma_kernel<D, LSE>, mma_smem_bytes<D>(), p, B, stream,
                        &configured);
+}
+
+template <int D>
+cudaError_t launch_d(const Params& p, int B, int dtype, cudaStream_t st) {
+  const bool lse = p.lse != nullptr;
+  if (dtype == 0) return lse ? launch_f32<D, true>(p, B, st) : launch_f32<D, false>(p, B, st);
+  if (dtype == 1) return lse ? launch_bf16<D, true>(p, B, st) : launch_bf16<D, false>(p, B, st);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (then every row of q, k, v must start on
-// a 16-byte boundary).  Returns a cudaError_t (0 = launched).
+// a 16-byte boundary).  lse: (B, H, S) f32, or null for none.  Returns a
+// cudaError_t (0 = launched).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
+                                   float* lse,
                                    long long q_sb, long long q_ss, long long q_sh,
                                    long long k_sb, long long k_ss, long long k_sh,
                                    long long v_sb, long long v_ss, long long v_sh,
@@ -474,13 +500,11 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
                                    int B, int S, int H, int Hkv, int D, int dtype,
                                    int causal, int window, float softcap, float scale,
                                    void* stream) {
-  Params p{q, k, v, o,
+  Params p{q, k, v, o, lse,
            q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh,
            S, H, Hkv, causal, window, softcap, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 64) return launch_f32<64>(p, B, st);
-  if (dtype == 0 && D == 128) return launch_f32<128>(p, B, st);
-  if (dtype == 1 && D == 64) return launch_bf16<64>(p, B, st);
-  if (dtype == 1 && D == 128) return launch_bf16<128>(p, B, st);
+  if (D == 64) return launch_d<64>(p, B, dtype, st);
+  if (D == 128) return launch_d<128>(p, B, dtype, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

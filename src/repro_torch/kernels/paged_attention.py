@@ -17,18 +17,12 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128)
 REPS = (1, 2, 3, 4, 6, 8, 12, 16)     # H / Hkv the kernel is built for
 PAGES_PER_SPLIT = 8                   # pages one block reads (see the .cu)
-_fn = None
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+ARGTYPES = [_P] * 8 + [_I] * 8 + [_I, _F, _F, _P]
 
 
 def _kernel():
-    global _fn
-    if _fn is None:
-        f = _build.load("paged_attention").paged_attention_fwd
-        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        f.argtypes = [P] * 8 + [I] * 8 + [I, F, F, P]
-        f.restype = ctypes.c_int
-        _fn = f
-    return _fn
+    return _build.function("paged_attention", "paged_attention_fwd", ARGTYPES)
 
 
 def _check(q, k_pages, v_pages, block_tables, seq_lens, window):

@@ -1,5 +1,6 @@
 """Plain PyTorch versions of the kernels: the CPU path and the allclose
-targets the CUDA kernels are held against on the card.
+targets the CUDA kernels are held against on the card.  Their autograd is
+the plain backward (the JAX package's ``jax.vjp`` of its oracles).
 
 Same arithmetic as the JAX package's ``kernels/ref.py``: scores and
 softmax in f32, masked logits set to the finite -2e38."""
@@ -72,3 +73,9 @@ def paged_attention_ref(q, k_pages, v_pages, block_tables, seq_lens, *,
     w = torch.softmax(s, dim=-1)
     o = torch.einsum("bhrk,bkhd->bhrd", w.to(v.dtype), v)
     return o.reshape(B, H, D)
+
+
+def xent_ref(logits, labels):
+    """logits:(T,V) f32/bf16, labels:(T,) -> nll:(T,) f32."""
+    lp = torch.log_softmax(logits.float(), dim=-1)
+    return -torch.take_along_dim(lp, labels.long()[:, None], dim=-1)[:, 0]

@@ -7,10 +7,14 @@ Modes:
 
 Self-attention over a whole sequence always goes through
 ``kernels/ops.flash_attention`` (the CUDA kernel for CUDA tensors, its
-plain version for CPU tensors); paged decode through
-``kernels/ops.paged_attention``.  Sliding windows, qk-norm, MLA, the
-contiguous (non-paged) decode cache and sequence-sharded decode are not
-ported yet and raise ``NotImplementedError``.
+plain version for CPU tensors), causal or not and at any S; in train
+mode its backward is the flash backward kernel.  The JAX package routes
+only causal attention to its Pallas kernel in ``gqa_attend`` and the
+non-causal encoder through ``sharding.flash_attn_ctx`` under ddp.  Paged
+decode goes through ``kernels/ops.paged_attention``.  Sliding windows,
+qk-norm, MLA, the contiguous (non-paged) decode cache and
+sequence-sharded decode are not ported yet and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 

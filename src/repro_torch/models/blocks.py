@@ -11,6 +11,7 @@ attention raise ``NotImplementedError``.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ATTN, LayerSpec, ModelConfig, ScheduleGroup
 from repro_torch.models.attention import apply_attn, attn_specs
@@ -66,15 +67,30 @@ def apply_block(bp, h, cfg: ModelConfig, spec: LayerSpec, *, positions,
     return h, new_cache
 
 
+def _train_block(h, bp, cfg: ModelConfig, spec: LayerSpec, positions,
+                 causal: bool):
+    return apply_block(bp, h, cfg, spec, positions=positions, mode="train",
+                       causal=causal)[0]
+
+
 def apply_group(pg, h, cfg: ModelConfig, group: ScheduleGroup, *,
                 positions, mode: str, cache_g=None, pos=None,
-                causal: bool = True, paged=None):
+                causal: bool = True, paged=None, remat: bool = False):
     """Run the group's rows in order.  Returns (h, new_cache_g): in
     prefill the per-layer caches stacked over the ``layers`` axis; in
-    decode ``cache_g`` itself, whose pools the layers updated in place."""
+    decode ``cache_g`` itself, whose pools the layers updated in place.
+
+    ``remat`` in train mode checkpoints each LAYER (not the whole
+    pattern), as the JAX package's ``jax.checkpoint`` of ``one_block``
+    does: the backward recomputes one layer at a time, so a layer's
+    activations live only while its own backward runs."""
     new_caches = [[] for _ in group.pattern]
     for r in range(group.repeats):
         for pi, spec in enumerate(group.pattern):
+            if remat and mode == "train":
+                h = checkpoint(_train_block, h, layer_row(pg[pi], r), cfg, spec,
+                               positions, causal, use_reentrant=False)
+                continue
             cl = layer_row(cache_g[pi], r) if cache_g is not None else None
             h, nc = apply_block(layer_row(pg[pi], r), h, cfg, spec,
                                 positions=positions, mode=mode, cache=cl,

@@ -1,7 +1,11 @@
 """Shared primitive layers: norms, RoPE, MLPs, embeddings, softcap.
 
 Functions on tensors, in the JAX package's layouts; norms and RoPE
-compute in f32 and cast back, as there."""
+compute in f32 and cast back, as there.  Weights are cast to the
+activations' dtype where they are used, so f32 parameters train with
+bf16 activations (mixed precision; the gradients reach the f32 leaves).
+The JAX package instead promotes a bf16 activation times an f32 weight
+to f32."""
 from __future__ import annotations
 
 import torch
@@ -100,11 +104,14 @@ def _act(x, kind: str):
 
 
 def apply_mlp(p, x, cfg: ModelConfig):
+    def w(name):
+        return p[name].to(x.dtype)
+
     if cfg.gated_mlp:
-        h = _act(x @ p["wg"], cfg.mlp_act) * (x @ p["wi"])
-        return h @ p["wo"]
-    h = _act(x @ p["wi"] + p["bi"], cfg.mlp_act)
-    return h @ p["wo"] + p["bo"]
+        h = _act(x @ w("wg"), cfg.mlp_act) * (x @ w("wi"))
+        return h @ w("wo")
+    h = _act(x @ w("wi") + w("bi"), cfg.mlp_act)
+    return h @ w("wo") + w("bo")
 
 
 # ---------------------------------------------------------------------------

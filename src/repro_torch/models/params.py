@@ -116,8 +116,9 @@ def stack_specs(spec_tree, repeats: int):
 
 
 class ParamTree(nn.Module):
-    """A dict node of a parameter tree: leaves are (frozen) parameters,
-    dict children are ``ParamTree``s and list children ``ModuleList``s.
+    """A dict node of a parameter tree: leaves are parameters (frozen
+    until ``train.train_step.init_state`` makes them trainable), dict
+    children are ``ParamTree``s and list children ``ModuleList``s.
     ``tree["name"]`` reads a child, as the JAX code reads its dicts."""
 
     def __init__(self, tree: dict):

@@ -1,42 +1,63 @@
-"""Top-level model assembly: the decoder-only LM.
+"""Top-level model assembly: the decoder-only LM and the encoder-only
+model with its MLM head (BERT).
 
-Encoder (MLM head), encoder-decoder, VLM and shared-bank models raise
+Encoder-decoder, VLM and shared-bank models raise
 ``NotImplementedError`` until their slices are ported."""
 from __future__ import annotations
 
 from typing import Any, Dict
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ATTN, ModelConfig
 from repro_torch.models.blocks import apply_group, group_specs
 from repro_torch.models.layers import (add_positions, apply_norm, embed_specs,
                                        embed_tokens, norm_specs, unembed)
+from repro_torch.models.params import ParamSpec
 
 
 def _check_supported(cfg: ModelConfig):
-    if cfg.family == "encoder" or cfg.is_encoder_decoder or cfg.n_image_tokens:
+    if cfg.is_encoder_decoder or cfg.n_image_tokens:
         raise NotImplementedError(
-            f"{cfg.name}: the port has decoder-only LMs only")
+            f"{cfg.name}: the port has decoder-only LMs and encoders only")
 
 
 def model_specs(cfg: ModelConfig):
     _check_supported(cfg)
-    return {
+    specs = {
         "embed": embed_specs(cfg),
         "final_norm": norm_specs(cfg),
         "groups": [group_specs(cfg, g) for g in cfg.schedule],
     }
+    if cfg.family == "encoder":
+        d = cfg.d_model
+        specs["mlm"] = {
+            "dense": ParamSpec((d, d), ("embed", "embed2")),
+            "bias": ParamSpec((d,), ("embed",), init="zeros"),
+            "ln": norm_specs(cfg),
+            "out_bias": ParamSpec((cfg.vocab_size,), ("vocab",), init="zeros"),
+        }
+    return specs
 
 
 def head_apply(params, h, cfg: ModelConfig):
-    """Unembedding head on a (B, S_chunk, d) slice."""
+    """Unembedding head on a (B, S_chunk, d) slice (the chunked loss's);
+    for the encoder the MLM head: dense, tanh-GELU, LayerNorm, then the
+    tied unembedding plus its bias, in f32."""
+    if cfg.family == "encoder":
+        m = params["mlm"]
+        x = F.gelu(h @ m["dense"].to(h.dtype) + m["bias"].to(h.dtype),
+                   approximate="tanh")
+        x = apply_norm(m["ln"], x, cfg)
+        logits = x @ params["embed"]["tokens"].to(h.dtype).T
+        return logits.float() + m["out_bias"].float()
     return unembed(params["embed"], h, cfg)
 
 
 def forward(params, cfg: ModelConfig, batch: Dict[str, Any], *, mode: str,
             cache=None, act_dtype=torch.float32, return_hidden: bool = False,
-            paged=None):
+            paged=None, remat: bool = False):
     """Returns (logits | hidden, new_cache, aux).
 
     batch keys: tokens (B,S) [decode: (B,1)] and, in decode, pos: the
@@ -44,7 +65,9 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, Any], *, mode: str,
     paged-KV context threaded down to the attention layers (see
     ``serve/paged_cache.py``): in decode the cache leaves are page pools
     addressed through ``paged["tables"]`` and updated in place.  ``aux``
-    (the MoE loss in the JAX package) is always 0 here.
+    (the MoE loss in the JAX package) is always 0 here.  ``remat`` (train
+    mode) recomputes each layer in the backward, as the JAX package's
+    ``jax.checkpoint`` per layer does.
     """
     _check_supported(cfg)
     tokens = batch["tokens"]
@@ -65,7 +88,8 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, Any], *, mode: str,
         cache_g = cache["groups"][gi] if cache is not None else None
         h, ncg = apply_group(params["groups"][gi], h, cfg, group,
                              positions=positions, mode=mode, cache_g=cache_g,
-                             pos=pos, causal=causal, paged=paged)
+                             pos=pos, causal=causal, paged=paged,
+                             remat=remat)
         new_cache_groups.append(ncg)
 
     h = apply_norm(params["final_norm"], h, cfg)

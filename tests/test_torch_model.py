@@ -240,5 +240,5 @@ def test_unported_layers_raise():
     windowed = dataclasses.replace(tcfg, schedule=uniform_schedule(1, LayerSpec(window=16)))
     with pytest.raises(NotImplementedError):
         tpaged.build_pools(windowed, page=8, n_pages=4, device="cpu")
-    with pytest.raises(NotImplementedError):
-        build_model(dataclasses.replace(tcfg, family="encoder"), device="cpu")
+    with pytest.raises(NotImplementedError):   # the encoder family is ported (training slice)
+        build_model(dataclasses.replace(tcfg, is_encoder_decoder=True), device="cpu")
