@@ -4,13 +4,15 @@
     python3 chip_smoke.py                  # every phase, as CI runs it
     python3 chip_smoke.py --phases build,kernels
     python3 chip_smoke.py --phases build,train_path,train
+    python3 chip_smoke.py --phases build,ssm_path,ssm_serve
 
 Phases (any failure exits non-zero before the last line):
   build       build the CUDA kernels from src/repro_torch/kernels/csrc/
   kernels     hold each kernel (forward and backward) against its plain
               PyTorch version (backward: the plain version's autograd) on
               the card, f32 and bf16, at the stated tolerances, up to the
-              decode tick's and the training step's shapes
+              decode tick's, the training step's and the SSM prefill's
+              shapes
   faults      planted faults: builds copies of the kernels with one known
               bug each and checks that the kernel gate fails them
   path        starcoder2-3b at full width, depth cut to 2 layers, f32: the
@@ -19,6 +21,12 @@ Phases (any failure exits non-zero before the last line):
   serve       starcoder2-3b at full width and depth, bf16: 16 requests
               through repro_torch.launch.serve's engine; every prefill and
               decode tick must have gone through the kernels (launch counts)
+  ssm_path    mamba2-130m at full width, depth cut to 2 layers, f32: the
+              paged engine on cuda and on cpu must agree on prefill and
+              decode logits (a 300-token prompt: a full chunk and a ragged
+              one) and give the same greedy tokens over 8 decode steps
+  ssm_serve   mamba2-130m at full width and depth, bf16: 16 requests; every
+              layer of every prefill must have gone through ssd_scan
   train_path  bert-mlm-120m at full width, depth cut to 2 layers, f32: the
               same masked batches and initial parameters on cuda and on cpu
               must agree on the loss, every gradient leaf and 5 steps
@@ -29,8 +37,9 @@ Phases (any failure exits non-zero before the last line):
               gone through the kernels (launch counts per step)
   time        each kernel at its path's shapes against its plain version,
               its bound and a PyTorch call computing the same function
-              (SDPA, F.cross_entropy) as a yardstick: device time per call
-              (CUDA-graph replay) and time per back-to-back call
+              (SDPA, F.cross_entropy; none computes SSD) as a yardstick:
+              device time per call (CUDA-graph replay) and time per
+              back-to-back call
 
 The last line is the JSON device record; the line before it the card's
 name and power limit; before that one JSON line of kernel records, and
@@ -51,7 +60,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "chiprun_out"
-PHASES = ("build", "kernels", "faults", "path", "serve", "train_path", "train", "time")
+PHASES = ("build", "kernels", "faults", "path", "serve", "ssm_path", "ssm_serve", "train_path",
+          "train", "time")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the bounds below use them
 PEAK_BF16_FLOPS = 989e12
@@ -78,6 +88,16 @@ PATH_REL_TOL = 1e-4                         # max |cuda - cpu| / max |cpu|
 # kernel's own forward wrote.
 XENT_FWD_TOL = (1e-4, 1e-4)
 XENT_BWD_TOL = (1e-5, 1e-5)
+# ssd_scan, per element: |err| <= u_out |want| + (SSD_REL + 8 eps |acs|max)
+# want_abs + 1e-6, want_abs the plain version with |x|, |B|, |C| (the sum
+# of the terms' absolute values; decays and dt are positive).  SSD_REL
+# covers f32 sums taken in another order; the decay exponents acs_l -
+# acs_s come from an f32 cumsum of dt A, which in any order carries about
+# eps |acs| of error, the largest |acs| being a chunk's whole sum
+# (measured on the CPU against f64: at most 1.1 eps |acs|max of want_abs).
+# u_out = 2^-8 for a bf16 y (one rounding of the f32 result), 0 for f32 y
+# and for the f32 state.
+SSD_REL, F32_EPS = 1e-6, 2.0**-24
 
 
 def fail(msg: str):
@@ -137,6 +157,16 @@ XENT_CASES = [  # (T, V)
     (5, 1001),       # V odd: the scalar loads
     (300, 4099),     # one column past a tile
     (64, 50),        # less than one tile
+]
+
+SSD_CASES = [  # (B, S, H, P, G, N, chunk, scale of A)
+    (1, 1024, 24, 64, 1, 128, 256, 1.0),    # mamba2-130m's prefill at S = 1024
+    (1, 321, 24, 64, 1, 128, 256, 1.0),     # a full chunk and a ragged one of 65
+    (1, 65, 24, 64, 1, 128, 256, 1.0),      # the shortest serve prompt: one partial chunk
+    (2, 300, 8, 16, 2, 16, 32, 1.0),        # the reduced shapes, G = 2, ragged
+    (2, 200, 8, 32, 4, 64, 64, 1.0),        # G = 4, the 64-row tiles at chunk 64
+    (2, 250, 6, 16, 3, 8, 96, 1.0),         # chunk 96 (32-row tiles past the first), N 8
+    (1, 600, 4, 64, 1, 128, 256, 50.0),     # decays past f32's exp range above the diagonal
 ]
 
 
@@ -293,6 +323,40 @@ def xent_readings(torch, logits, labels, g):
     return fwd, bwd
 
 
+def _ssd_inputs(torch, case, dtype, gen):
+    """x, B, C normal in ``dtype``; dt softplus of a normal; A < 0 with
+    |A| log-uniform in [0.01, 1] times the case's scale, so some heads
+    carry their state across chunks and some forget within a few steps."""
+    B, S, H, P, G, N, _, scale = case
+    mk = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    u = torch.rand(H, generator=gen, device="cuda")
+    A = -torch.exp(math.log(0.01) * u) * scale
+    dt = torch.nn.functional.softplus(mk(B, S, H))
+    return mk(B, S, H, P).to(dtype), dt, A, mk(B, S, G, N).to(dtype), mk(B, S, G, N).to(dtype)
+
+
+def ssd_reading(torch, x, dt, A, Bm, Cm, chunk):
+    """The kernel's y and final state against the plain version on the
+    f32 values, per element under the SSD_REL limit; the worst of both."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_scan import ssd_scan_fwd
+
+    y, st = ssd_scan_fwd(x, dt, A, Bm, Cm, chunk)
+    f = [t.float() for t in (x, Bm, Cm)]
+    want = ref.ssd_ref(f[0], dt, A, f[1], f[2], chunk)
+    want_abs = ref.ssd_ref(f[0].abs(), dt, A, f[1].abs(), f[2].abs(), chunk)
+    S = x.shape[1]
+    a = torch.nn.functional.pad(dt * A, (0, 0, 0, (-S) % chunk))
+    acs_max = a.unflatten(1, (-1, chunk)).abs().sum(2).max().item()
+    rel = SSD_REL + 8 * F32_EPS * acs_max
+    u = BF16_U if x.dtype == torch.bfloat16 else 0.0
+    out = []
+    for got, w, wa, uu in ((y, want[0], want_abs[0], u), (st, want[1], want_abs[1], 0.0)):
+        err = (got.float() - w).abs()
+        out.append((err.max().item(), (err / (uu * w.abs() + rel * wa + 1e-6)).max().item()))
+    return max(out, key=lambda r: r[1])
+
+
 def kernel_readings(torch, dname, only=None):
     """(kernel, case, max abs error, error / limit) for every case, on
     inputs drawn from one seed; ``only``: the kernels to read."""
@@ -324,6 +388,10 @@ def kernel_readings(torch, dname, only=None):
             fwd, bwd = xent_readings(torch, *_xent_inputs(torch, case, dtype, gen))
             out.append(("fused_xent", case, *fwd))
             out.append(("fused_xent_bwd", case, *bwd))
+    if want("ssd_scan"):
+        for case in SSD_CASES:
+            out.append(("ssd_scan", case, *ssd_reading(
+                torch, *_ssd_inputs(torch, case, dtype, gen), case[6])))
     return out
 
 
@@ -358,9 +426,12 @@ FAULTS = [
      "dq drops the contribution of k tile 0 when there are more",
      "for (int kt = 0; kt < kt_hi; ++kt) {  // every k tile adds to dq",
      "for (int kt = kt_hi > 1 ? 1 : 0; kt < kt_hi; ++kt) {  // every k tile adds to dq"),
+    ("ssd_scan", ("ssd_scan",), "the state is carried without its exp(acs_L) decay",
+     "if (n < N) st[n * PC + tx] = carry * st[n * PC + tx] + acc[i];",
+     "if (n < N) st[n * PC + tx] = st[n * PC + tx] + acc[i];"),
 ]
 KERNELS = ("flash_attention", "flash_attention_bwd", "paged_attention", "fused_xent",
-           "fused_xent_bwd")
+           "fused_xent_bwd", "ssd_scan")
 
 
 def start_fault_builds():
@@ -438,66 +509,99 @@ def _tap(eng, log_):
     eng._prefill, eng._decode = prefill, decode
 
 
-def check_path(torch, rec):
+def compare_engines(torch, name, cfg, prompts, max_new, want_launches):
+    """The paged engine on cuda and on cpu (plain versions) from the same
+    f32 weights: each prefill's and decode tick's logits within
+    PATH_REL_TOL of the largest cpu logit, the same greedy tokens; the
+    cuda run's kernel launches must equal ``want_launches(engine)`` and
+    the cpu run must launch none."""
     import copy
 
-    from repro_torch.configs import default_run_config, get_config
-    from repro_torch.configs.base import LayerSpec, ShapeConfig, uniform_schedule
+    from repro_torch.configs import default_run_config
+    from repro_torch.configs.base import ShapeConfig
     from repro_torch.kernels import ops
-    from repro_torch.launch.serve import random_prompts, serve
+    from repro_torch.launch.serve import serve
     from repro_torch.models.model import build_model
     from repro_torch.serve.engine import PagedServeEngine
 
-    cfg = dataclasses.replace(get_config("starcoder2-3b"),
-                              schedule=uniform_schedule(2, LayerSpec()))
     run = default_run_config(cfg, ShapeConfig("serve", 0, 0, "decode"))
     model_cpu = build_model(cfg, seed=0, device="cpu")
     model_gpu = copy.deepcopy(model_cpu).to("cuda")   # the same weights
-    # a 300-token prompt: 20 pages, three of the paged kernel's 8-page splits
     eng_cpu, eng_gpu = (PagedServeEngine(m, run, page=16, n_pages=128, max_slots=4,
                                          max_pages=32) for m in (model_cpu, model_gpu))
-    prompts = random_prompts(2, [300, 37], cfg.vocab_size, seed=1)
     logs, outs = {}, {}
-    for name, eng in (("cpu", eng_cpu), ("cuda", eng_gpu)):
-        logs[name] = []
-        _tap(eng, logs[name])
+    for dev, eng in (("cpu", eng_cpu), ("cuda", eng_gpu)):
+        logs[dev] = []
+        _tap(eng, logs[dev])
         ops.reset_launch_counts()
-        outs[name] = serve(eng, prompts, max_new=9)
+        outs[dev] = serve(eng, prompts, max_new=max_new)
         counts = dict(ops.launch_counts)
-        log(f"path {name}: launches {counts}, ticks {eng.decode_ticks}")
-        if name == "cuda" and (counts.get("flash_attention") != 2 * len(prompts)
-                               or counts.get("paged_attention") != 2 * eng.decode_ticks):
-            fail(f"path: the cuda run did not go through the kernels: {counts}")
-        if name == "cpu" and counts:
-            fail(f"path: the cpu run launched kernels: {counts}")
+        log(f"{name} {dev}: launches {counts}, ticks {eng.decode_ticks}")
+        if dev == "cuda" and counts != want_launches(eng):
+            fail(f"{name}: the cuda run did not go through the kernels: {counts}, "
+                 f"expected {want_launches(eng)}")
+        if dev == "cpu" and counts:
+            fail(f"{name}: the cpu run launched kernels: {counts}")
     if outs["cpu"] != outs["cuda"]:
-        fail(f"path: greedy tokens differ: cpu {outs['cpu']} cuda {outs['cuda']}")
+        fail(f"{name}: greedy tokens differ: cpu {outs['cpu']} cuda {outs['cuda']}")
     worst = 0.0
     for (kind, a), (_, b) in zip(logs["cpu"], logs["cuda"], strict=True):
         rel = ((a - b).abs().max() / a.abs().max()).item()
         worst = max(worst, rel)
         if not torch.isfinite(b).all() or not rel <= PATH_REL_TOL:
-            fail(f"path: {kind} logits differ, relative error {rel}")
-    log(f"path: {len(logs['cpu'])} logit sets agree, max relative error "
+            fail(f"{name}: {kind} logits differ, relative error {rel}")
+    log(f"{name}: {len(logs['cpu'])} logit sets agree, max relative error "
         f"{worst:.3e} (tol {PATH_REL_TOL}); tokens equal")
-    rec["path"] = {"max_rel_err": worst, "logit_sets": len(logs["cpu"]),
-                   "tokens": outs["cuda"]}
+    return {"max_rel_err": worst, "logit_sets": len(logs["cpu"]), "tokens": outs["cuda"],
+            "decode_ticks": eng_gpu.decode_ticks}
 
 
-def run_serve(torch, rec, seed=0):
+def check_path(torch, rec):
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import LayerSpec, uniform_schedule
+    from repro_torch.launch.serve import random_prompts
+
+    cfg = dataclasses.replace(get_config("starcoder2-3b"),
+                              schedule=uniform_schedule(2, LayerSpec()))
+    # a 300-token prompt: 20 pages, three of the paged kernel's 8-page splits
+    prompts = random_prompts(2, [300, 37], cfg.vocab_size, seed=1)
+    rec["path"] = compare_engines(
+        torch, "path", cfg, prompts, 9,
+        lambda eng: {"flash_attention": 2 * len(prompts),
+                     "paged_attention": 2 * eng.decode_ticks})
+
+
+def check_ssm_path(torch, rec):
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import MAMBA, LayerSpec, uniform_schedule
+    from repro_torch.launch.serve import random_prompts
+
+    cfg = dataclasses.replace(get_config("mamba2-130m"),
+                              schedule=uniform_schedule(2, LayerSpec(kind=MAMBA, has_mlp=False)))
+    # 300 tokens: a full chunk of 256 carries its state into a ragged one of 44
+    prompts = random_prompts(2, [300, 37], cfg.vocab_size, seed=1)
+    rec["ssm_path"] = compare_engines(torch, "ssm_path", cfg, prompts, 9,
+                                      lambda eng: {"ssd_scan": 2 * len(prompts)})
+
+
+def run_serve(torch, rec, seed=0, arch="starcoder2-3b", key="serve"):
+    """``arch`` at full width and depth in bf16, random weights from
+    ``seed``: 16 requests, prompts uniform in 65-1024 tokens, 32 new tokens
+    each, all submitted at once; 8 slots, page 16.  Every layer's prefill
+    and (attention models) decode must launch its kernel."""
     import numpy as np
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import build_engine, random_prompts, serve
 
-    cfg = get_config("starcoder2-3b")
+    cfg = get_config(arch)
     n_req, max_new = 16, 32
     t0 = time.perf_counter()
     eng = build_engine(cfg, device="cuda", dtype="bfloat16", seed=seed, page=16,
                        n_pages=1024, max_slots=8, max_pages=128)
     torch.cuda.synchronize()
-    log(f"serve: model + pools built in {time.perf_counter() - t0:.1f}s, "
+    log(f"{key}: model + pools built in {time.perf_counter() - t0:.1f}s, "
         f"pools {eng.kv.pool_bytes() / 2**20:.0f} MiB")
     serve(eng, random_prompts(1, [64], cfg.vocab_size, seed + 99), max_new=2)  # warm-up
     lens = np.random.RandomState(seed).randint(65, 1025, n_req).tolist()
@@ -513,25 +617,71 @@ def run_serve(torch, rec, seed=0):
     counts = dict(ops.launch_counts)
     ticks = eng.decode_ticks - ticks0
     n_layers = cfg.n_layers
-    log(f"serve: launches {counts}, decode ticks {ticks}")
+    want = ({"ssd_scan": n_layers * n_req} if cfg.family == "ssm" else
+            {"flash_attention": n_layers * n_req, "paged_attention": n_layers * ticks})
+    log(f"{key}: launches {counts}, expected {want}, decode ticks {ticks}")
     if len(out) != n_req or any(len(t) != max_new for t in out.values()):
-        fail(f"serve: {len(out)} of {n_req} requests finished")
+        fail(f"{key}: {len(out)} of {n_req} requests finished")
     if any(not 0 <= t < cfg.vocab_size for toks in out.values() for t in toks):
-        fail("serve: a token id outside the vocabulary")
-    if counts.get("flash_attention") != n_layers * n_req:
-        fail(f"serve: flash launches {counts.get('flash_attention')} != {n_layers} x {n_req}")
-    if counts.get("paged_attention") != n_layers * ticks:
-        fail(f"serve: paged launches {counts.get('paged_attention')} != {n_layers} x {ticks}")
-    res = {"requests": n_req, "prompt_lens": lens, "max_new": max_new,
+        fail(f"{key}: a token id outside the vocabulary")
+    if counts != want:
+        fail(f"{key}: kernel launches {counts} != {want} ({n_layers} layers, "
+             f"{n_req} prefills, {ticks} ticks)")
+    res = {"arch": arch, "requests": n_req, "prompt_lens": lens, "max_new": max_new,
            "seconds": dt, "tokens_per_s": n_req * max_new / dt,
            "ttft_p50_ms": float(np.median(eng.samples["ttft_ms"])),
            "decode_tick_p50_ms": float(np.median(eng.samples["decode_tick_ms"])),
            "decode_ticks": ticks, "launches": counts}
-    log(f"serve: {json.dumps({k: v for k, v in res.items() if k != 'prompt_lens'})}")
-    rec["serve"] = res
-    rec["decode_profile"] = profile_ticks(torch, eng, cfg, res["decode_tick_p50_ms"])
+    log(f"{key}: {json.dumps({k: v for k, v in res.items() if k != 'prompt_lens'})}")
+    rec[key] = res
+    rec[f"{key}_prefill_profile"] = profile_prefill(torch, eng, cfg)
+    rec[f"{key}_decode_profile"] = profile_ticks(torch, eng, cfg, res["decode_tick_p50_ms"])
     del eng
     torch.cuda.empty_cache()
+
+
+def _by_class(kern, n):
+    out = {}
+    for e in kern:
+        c = _kernel_class(e.key)
+        out[c] = out.get(c, 0.0) + e.self_device_time_total / n / 1e3
+    return out
+
+
+def _device_kernels(torch, prof):
+    return [e for e in prof.key_averages()
+            if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+
+
+def profile_prefill(torch, eng, cfg, S=1024, n=3):
+    """Where one S-token prefill's time goes: ``n`` prefills of the engine
+    under torch.profiler; device busy time by class and the top device
+    operations against the host clock."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.serve import random_prompts
+
+    toks = torch.tensor(random_prompts(1, [S], cfg.vocab_size, 11), device="cuda")
+    eng._prefill(eng.model, toks, S)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            eng._prefill(eng.model, toks, S)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / n * 1e3
+    kern = _device_kernels(torch, prof)
+    busy = sum(e.self_device_time_total for e in kern) / n / 1e3
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
+    res = {"tokens": S, "prefill_wall_ms": wall, "device_busy_ms": busy,
+           "idle_share": 1 - busy / wall if busy else None,
+           "kernel_launches": sum(e.count for e in kern) / n,
+           "ms_by_class": _by_class(kern, n),
+           "top": [{"name": e.key[:80], "ms": e.self_device_time_total / n / 1e3,
+                    "calls": e.count / n} for e in top]}
+    log(f"prefill profile: {json.dumps(res)}")
+    return res
 
 
 def profile_ticks(torch, eng, cfg, tick_p50_ms, n_ticks=4):
@@ -555,15 +705,14 @@ def profile_ticks(torch, eng, cfg, tick_p50_ms, n_ticks=4):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / n_ticks * 1e3
     eng.serve()
-    kern = [e for e in prof.key_averages()
-            if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total > 0]
+    kern = _device_kernels(torch, prof)
     busy = sum(e.self_device_time_total for e in kern) / n_ticks / 1e3
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
     res = {"tick_wall_ms": wall, "device_busy_ms": busy,
            "idle_share": 1 - busy / wall if busy else None,
            "idle_share_vs_p50": 1 - busy / tick_p50_ms if busy else None,
            "kernel_launches_per_tick": sum(e.count for e in kern) / n_ticks,
+           "ms_per_tick_by_class": _by_class(kern, n_ticks),
            "top": [{"name": e.key[:80], "ms_per_tick": e.self_device_time_total / n_ticks / 1e3,
                     "calls_per_tick": e.count / n_ticks} for e in top]}
     log(f"decode profile: {json.dumps(res)}")
@@ -717,7 +866,7 @@ def run_train(torch, rec, seed=0, B=32, S=512, steps=20, n_prof=3):
 
 
 REPO_KERNELS = ("flash_fwd", "dq_mma", "dkdv_mma", "dq_f32", "dkdv_f32", "delta_kernel",
-                "xent_fwd", "xent_bwd", "paged_partial", "paged_combine")
+                "xent_fwd", "xent_bwd", "paged_partial", "paged_combine", "ssd_scan_kernel")
 
 
 def _kernel_class(name):
@@ -745,15 +894,10 @@ def profile_steps(torch, runner, state, batches, step_p50_s):
             state, _ = runner(state, b)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / n * 1e3
-    kern = [e for e in prof.key_averages()
-            if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total > 0]
+    kern = _device_kernels(torch, prof)
     busy = sum(e.self_device_time_total for e in kern) / n / 1e3
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:10]
-    by_class = {}
-    for e in kern:
-        c = _kernel_class(e.key)
-        by_class[c] = by_class.get(c, 0.0) + e.self_device_time_total / n / 1e3
+    by_class = _by_class(kern, n)
     res = {"step_wall_ms": wall, "device_busy_ms": busy,
            "idle_share": 1 - busy / wall if busy else None,
            "idle_share_vs_p50": 1 - busy / (step_p50_s * 1e3) if busy else None,
@@ -886,7 +1030,47 @@ def time_kernels(torch, rec):
         "bound_by": "operations" if flops / PEAK_BF16_FLOPS > nbytes / PEAK_BYTES else "bytes",
         "call_ms": call_ms, "plain_call_ms": plain_call_ms, "err_over_limit": ratio}
     log(f"time paged: {paged}")
-    rec["time"] = {"flash": flash, "paged": paged, **time_train_kernels(torch, checked, gen)}
+    rec["time"] = {"flash": flash, "paged": paged, "ssd": time_ssd(torch, checked, gen),
+                   **time_train_kernels(torch, checked, gen)}
+
+
+def ssd_work(B, S, H, P, G, N, L, es):
+    """(flops, bytes) the SSD scan needs: per (batch, head, chunk) C.state,
+    C B^T, its masked product with x and B^T x, the two middle ones over
+    the causal triangle only and the last chunk cut to S; each input read
+    once (x, B, C at ``es`` bytes, dt and A f32) and each output written
+    once (y at ``es``, the f32 state)."""
+    flops = 0
+    for c0 in range(0, S, L):
+        n = min(L, S - c0)
+        tri = n * (n + 1) // 2
+        flops += 2 * (n * N * P + tri * N + tri * P + N * n * P)
+    nbytes = es * (2 * B * S * H * P + 2 * B * S * G * N) + 4 * (B * S * H + H + B * H * N * P)
+    return flops * B * H, nbytes
+
+
+def time_ssd(torch, checked, gen):
+    """ssd_scan at mamba2-130m's prefill of 1024 tokens (B 1, H 24, P 64,
+    G 1, N 128, chunk 256), in bf16 (the serve path's dtype) and f32.  No
+    PyTorch call computes SSD: no library yardstick."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_scan import ssd_scan_fwd
+
+    case = SSD_CASES[0]
+    out = {}
+    for dname, peak in (("bfloat16", PEAK_BF16_FLOPS), ("float32", PEAK_F32_FLOPS)):
+        dtype = getattr(torch, dname)
+        x, dt, A, Bm, Cm = _ssd_inputs(torch, case, dtype, gen)
+        ratio = checked(f"ssd_scan {dname}", ssd_reading(torch, x, dt, A, Bm, Cm, case[6]))
+        ms, call_ms = time_ms(torch, lambda: ssd_scan_fwd(x, dt, A, Bm, Cm, case[6]))
+        plain_ms, plain_call_ms = time_ms(torch, lambda: ref.ssd_ref(x, dt, A, Bm, Cm, case[6]))
+        bound = _bound(*ssd_work(*case[:7], x.element_size()), peak)
+        out[dname] = {"shape": list(case[:7]), "ms": ms, "call_ms": call_ms,
+                      "plain_ms": plain_ms, "plain_call_ms": plain_call_ms,
+                      "library_ms": None, "bound_ms": bound[0], "bound_by": bound[1],
+                      "err_over_limit": ratio}
+        log(f"time ssd_scan {dname}: {out[dname]}")
+    return out
 
 
 def time_train_kernels(torch, checked, gen, B=32, S=512, H=12, D=64, T=3904, V=32768):
@@ -977,16 +1161,18 @@ def kernel_records(rec):
     and train), each counted from 0 just before it; the times are those of
     the shape each path runs (flash forward: the serve prefill at S=1024,
     with bert's shape under ``train_shape``; fused_xent: the f32 logits
-    the train path feeds it, with bf16 under ``bf16``)."""
+    the train path feeds it, with bf16 under ``bf16``; ssd_scan: the bf16
+    prefill at S=1024, with f32 under ``f32``)."""
     errs = rec.get("errors", {})
     t = rec.get("time", {})
-    paths = {"serve": rec.get("serve", {}).get("launches", {}),
-             "train": rec.get("train", {}).get("launches", {})}
+    paths = {key: rec.get(key, {}).get("launches", {}) for key in ("serve", "ssm_serve", "train")}
     flash_top = next((x for x in t.get("flash", []) if x["S"] == 1024), {})
     ft, xe = t.get("flash_train", {}), t.get("xent", {})
+    ssd = t.get("ssd", {})
     extra = {"flash_attention": {"train_shape": ft.get("fwd")},
              "fused_xent": {"bf16": xe.get("bfloat16", {}).get("fwd")},
-             "fused_xent_bwd": {"bf16": xe.get("bfloat16", {}).get("bwd")}}
+             "fused_xent_bwd": {"bf16": xe.get("bfloat16", {}).get("bwd")},
+             "ssd_scan": {"f32": ssd.get("float32")}}
     csrc = "src/repro_torch/kernels/csrc/"
     out = []
     for name, src, replaces, timing in (
@@ -999,7 +1185,9 @@ def kernel_records(rec):
             ("fused_xent", csrc + "fused_xent.cu",
              "src/repro/kernels/fused_xent.py:52", xe.get("float32", {}).get("fwd", {})),
             ("fused_xent_bwd", csrc + "fused_xent.cu",
-             "src/repro/kernels/ops.py:111", xe.get("float32", {}).get("bwd", {}))):
+             "src/repro/kernels/ops.py:111", xe.get("float32", {}).get("bwd", {})),
+            ("ssd_scan", csrc + "ssd_scan.cu",
+             "src/repro/kernels/ssd_scan.py:74", ssd.get("bfloat16", {}))):
         e = errs.get(name, {})
         by_path = {p: c[name] for p, c in paths.items() if c.get(name)}
         out.append({
@@ -1019,7 +1207,8 @@ def kernel_records(rec):
 def summary(rec):
     """The run's end-to-end and check readings in one short line (the
     details are in chiprun_out/chip_smoke.json)."""
-    sv, prof = rec.get("serve", {}), rec.get("decode_profile", {})
+    sv, prof = rec.get("serve", {}), rec.get("serve_decode_profile", {})
+    ssm, sprof = rec.get("ssm_serve", {}), rec.get("ssm_serve_decode_profile", {})
     keys = ("tokens_per_s", "ttft_p50_ms", "decode_tick_p50_ms", "decode_ticks")
     tr, tprof = rec.get("train", {}), rec.get("train", {}).get("profile", {})
     tkeys = ("step_time_p50_ms", "tokens_per_s", "mfu", "first_loss", "last_loss",
@@ -1028,13 +1217,19 @@ def summary(rec):
             "serve": {k: sv.get(k) for k in keys},
             "tick_device_busy_ms": prof.get("device_busy_ms"),
             "tick_launches": prof.get("kernel_launches_per_tick"),
+            "ssm_serve": {k: ssm.get(k) for k in keys},
+            "ssm_tick_device_busy_ms": sprof.get("device_busy_ms"),
+            "ssm_prefill_1024_device_busy_ms":
+                rec.get("ssm_serve_prefill_profile", {}).get("device_busy_ms"),
             "train": {k: tr.get(k) for k in tkeys},
             "train_step_device_busy_ms": tprof.get("device_busy_ms"),
             "train_step_launches": tprof.get("kernel_launches_per_step"),
             "path_max_rel_err": rec.get("path", {}).get("max_rel_err"),
+            "ssm_path_max_rel_err": rec.get("ssm_path", {}).get("max_rel_err"),
             "train_path_rel_err": rec.get("train_path", {}).get("rel_err"),
             "faults_max_ratio": {f["kernel"]: f["max_ratio"] for f in rec.get("faults", [])},
-            "flash_ms_by_S": {x["S"]: x["ms"] for x in rec.get("time", {}).get("flash", [])}}
+            "flash_ms_by_S": {x["S"]: x["ms"] for x in rec.get("time", {}).get("flash", [])},
+            "ssd_ms": {k: v["ms"] for k, v in rec.get("time", {}).get("ssd", {}).items()}}
 
 
 def main():
@@ -1073,7 +1268,10 @@ def main():
     rec["build_log"] = _build.build_log
     steps = {"kernels": check_kernels,
              "faults": lambda torch, rec: check_faults(torch, rec, fault_builds),
-             "path": check_path, "serve": run_serve, "train_path": check_train_path,
+             "path": check_path, "serve": run_serve, "ssm_path": check_ssm_path,
+             "ssm_serve": lambda torch, rec: run_serve(torch, rec, arch="mamba2-130m",
+                                                       key="ssm_serve"),
+             "train_path": check_train_path,
              "train": run_train, "time": time_kernels}
     for ph in PHASES[1:]:
         if ph in phases:

@@ -6,12 +6,14 @@ is no fallback.  ``launch_counts[name]`` counts the kernel launches
 (never the plain version's calls), the backward kernels under their own
 names (``flash_attention_bwd``, ``fused_xent_bwd``).
 
-``flash_attention`` and ``xent`` are differentiable.  As in the JAX
-package the backward recomputes from the saved inputs and never stores a
-score or probability matrix: on the CPU it is the autograd of the plain
-version run again (the JAX ``_fa_bwd`` / ``_xe_bwd`` vjp), on the card
-the backward kernel, fed the row log-sum-exp the forward kernel wrote.
-``paged_attention`` serves decode only and has no backward.
+``flash_attention``, ``xent`` and ``ssd`` are differentiable.  As in
+the JAX package the backward recomputes from the saved inputs and never
+stores a score or probability matrix: on the CPU it is the autograd of
+the plain version run again (the JAX ``_fa_bwd`` / ``_xe_bwd`` /
+``_ssd_bwd`` vjp), on the card the backward kernel, fed the row
+log-sum-exp the forward kernel wrote.  ``ssd`` has no backward kernel
+yet: on the card its backward raises.  ``paged_attention`` serves decode
+only and has no backward.
 """
 from __future__ import annotations
 
@@ -24,8 +26,9 @@ from repro_torch.kernels._build import launch_counts, reset_launch_counts  # noq
 
 
 def _plain_vjp(fn, inputs, grad):
-    """The gradient of ``fn(*inputs)`` for ``grad`` by the plain
-    version's autograd, recomputing its forward."""
+    """The gradient of ``fn(*inputs)`` for ``grad`` (a tuple where ``fn``
+    returns one) by the plain version's autograd, recomputing its
+    forward."""
     inputs = [x.detach().requires_grad_(True) for x in inputs]
     with torch.enable_grad():
         out = fn(*inputs)
@@ -121,3 +124,35 @@ def xent(logits, labels):
     """Per-token nll of logits:(T,V) f32/bf16 at labels:(T,) -> (T,) f32;
     see ``kernels/fused_xent.py``."""
     return _Xent.apply(logits, labels)
+
+
+class _Ssd(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, chunk):
+        ctx.chunk = chunk
+        if x.is_cuda:
+            from repro_torch.kernels.ssd_scan import ssd_scan_fwd
+
+            return ssd_scan_fwd(x, dt, A, B, C, chunk)
+        if x.device.type != "cpu":
+            raise ValueError(f"ssd: no kernel for device {x.device}")
+        if any(ctx.needs_input_grad[:5]):
+            ctx.save_for_backward(x, dt, A, B, C)
+        return kref.ssd_ref(x, dt, A, B, C, chunk)
+
+    @staticmethod
+    def backward(ctx, gy, gstate):
+        if gy.is_cuda:
+            raise NotImplementedError(
+                "ssd: no backward kernel on the card yet; it comes with the "
+                "mamba2 training slice (ROADMAP)")
+        grads = _plain_vjp(lambda *a: kref.ssd_ref(*a, chunk=ctx.chunk),
+                           ctx.saved_tensors, (gy, gstate))
+        return (*grads, None)
+
+
+def ssd(x, dt, A, B, C, chunk: int = 256):
+    """Mamba2 SSD chunked scan: x:(B,S,H,P), dt:(B,S,H), A:(H,),
+    B,C:(B,S,G,N) -> (y:(B,S,H,P) in x's dtype, final state (B,H,N,P)
+    f32); see ``kernels/ssd_scan.py``."""
+    return _Ssd.apply(x, dt, A, B, C, chunk)

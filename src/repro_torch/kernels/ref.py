@@ -3,12 +3,16 @@ targets the CUDA kernels are held against on the card.  Their autograd is
 the plain backward (the JAX package's ``jax.vjp`` of its oracles).
 
 Same arithmetic as the JAX package's ``kernels/ref.py``: scores and
-softmax in f32, masked logits set to the finite -2e38."""
+softmax in f32, masked logits set to the finite -2e38.  ``ssd_ref`` is
+the JAX package's chunked SSD oracle (``models/ssm.py::ssd_chunked``)
+and ``ssd_step`` its one-token recurrence, which the decode step runs as
+plain code (it has no kernel in either package)."""
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -2.0e38
 
@@ -79,3 +83,75 @@ def xent_ref(logits, labels):
     """logits:(T,V) f32/bf16, labels:(T,) -> nll:(T,) f32."""
     lp = torch.log_softmax(logits.float(), dim=-1)
     return -torch.take_along_dim(lp, labels.long()[:, None], dim=-1)[:, 0]
+
+
+def ssd_ref(x, dt, A, B, C, chunk: int, initial_state=None):
+    """Mamba2 SSD chunked scan.  x:(B,S,H,P) dt:(B,S,H) A:(H,) < 0,
+    B,C:(B,S,G,N), head h reading group h // (H/G).  Returns (y:(B,S,H,P)
+    in x's dtype, final_state:(B,H,N,P) f32).
+
+    S is padded with zeros to a multiple of ``chunk``: a padded step has
+    dt = 0, so its decay is exp(0) = 1 and it adds nothing to the state.
+    Within a chunk the decay exponent is masked to -inf above the
+    diagonal BEFORE the exp (where the difference is positive and can
+    overflow f32), so the autograd of this function has no 0 * inf."""
+    Bb, S, H, Pd = x.shape
+    G, N = B.shape[2], B.shape[3]
+    rep = H // G
+    L = chunk
+    pad = (-S) % L
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        B = F.pad(B, (0, 0, 0, 0, 0, pad))
+        C = F.pad(C, (0, 0, 0, 0, 0, pad))
+    nc = (S + pad) // L
+
+    xs = x.reshape(Bb, nc, L, H, Pd).float()
+    dts = dt.reshape(Bb, nc, L, H).float()
+    Bh = B.reshape(Bb, nc, L, G, N).repeat_interleave(rep, dim=3).to(x.dtype).float()
+    Ch = C.reshape(Bb, nc, L, G, N).repeat_interleave(rep, dim=3).to(x.dtype).float()
+
+    acs = torch.cumsum(dts * A.float(), dim=2)               # (B,nc,L,H)
+    # each chunk's contribution to the running state, and its decay
+    decay_out = torch.exp(acs[:, :, -1:, :] - acs)
+    cstate = torch.einsum("bclh,bclhn,bclhp->bchnp", decay_out * dts, Bh, xs)
+    cdecay = torch.exp(acs[:, :, -1, :])                      # (B,nc,H)
+
+    state = torch.zeros((Bb, H, N, Pd), dtype=torch.float32, device=x.device) \
+        if initial_state is None else initial_state.float()
+    states_in = []
+    for c in range(nc):
+        states_in.append(state)
+        state = cdecay[:, c, :, None, None] * state + cstate[:, c]
+    states_in = torch.stack(states_in, dim=1)                 # (B,nc,H,N,P)
+
+    # inter-chunk contribution
+    y_prev = torch.einsum("bclhn,bchnp->bclhp", Ch, states_in) \
+        * torch.exp(acs)[..., None]
+    # intra-chunk (dual, attention-like) contribution
+    scores = torch.einsum("bclhn,bcshn->bchls", Ch, Bh)
+    diff = acs[:, :, :, None, :] - acs[:, :, None, :, :]      # (B,nc,L,S,H)
+    lmask = torch.ones((L, L), dtype=torch.bool, device=x.device).tril()
+    lmat = torch.exp(torch.where(lmask[None, None, :, :, None], diff,
+                                 float("-inf")))
+    seg = scores * lmat.permute(0, 1, 4, 2, 3) \
+        * dts.permute(0, 1, 3, 2)[:, :, :, None, :]
+    y_intra = torch.einsum("bchls,bcshp->bclhp", seg, xs)
+
+    y = (y_prev + y_intra).reshape(Bb, nc * L, H, Pd)[:, :S]
+    return y.to(x.dtype), state
+
+
+def ssd_step(state, x, dt, A, B, C):
+    """One recurrent step.  state:(B,H,N,P) x:(B,H,P) dt:(B,H) B,C:(B,G,N)
+    -> (y:(B,H,P) in x's dtype, new state (B,H,N,P) f32)."""
+    rep = x.shape[1] // B.shape[1]
+    Bh = B.repeat_interleave(rep, dim=1).float()              # (B,H,N)
+    Ch = C.repeat_interleave(rep, dim=1).float()
+    dt = dt.float()
+    dA = torch.exp(dt * A.float())                            # (B,H)
+    upd = torch.einsum("bh,bhn,bhp->bhnp", dt, Bh, x.float())
+    new = dA[..., None, None] * state.float() + upd
+    y = torch.einsum("bhn,bhnp->bhp", Ch, new)
+    return y.to(x.dtype), new

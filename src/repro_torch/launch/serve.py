@@ -2,6 +2,7 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-3b \\
       --paged --batch 4 --prompt-len 32 --max-new 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m --paged
 
 Runs on the card; ``--device cpu`` runs the same path on the CPU with
 the kernels' plain versions (``--reduced`` makes that quick).  Weights

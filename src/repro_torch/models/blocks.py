@@ -5,31 +5,34 @@ group are stacked along a leading ``layers`` axis of size ``repeats``,
 as in the JAX package.  Where that package scans the group with
 ``lax.scan``, the port loops over the rows of the stacked axis in Python
 (eager PyTorch has nothing to gain from a scan).  The port has the ATTN
-block with a dense MLP; MoE, Mamba, MLA, shared banks and cross
-attention raise ``NotImplementedError``.
+block with a dense MLP and the MAMBA (Mamba2) block without one; MoE,
+MLA, shared banks, post-norms and cross attention raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ATTN, LayerSpec, ModelConfig, ScheduleGroup
+from repro_torch.configs.base import ATTN, MAMBA, LayerSpec, ModelConfig, ScheduleGroup
 from repro_torch.models.attention import apply_attn, attn_specs
 from repro_torch.models.layers import apply_mlp, apply_norm, mlp_specs, norm_specs
 from repro_torch.models.params import ParamTree, stack_specs
+from repro_torch.models.ssm import apply_mamba, ssm_specs
 
 
 def block_specs(cfg: ModelConfig, spec: LayerSpec):
-    if spec.kind != ATTN or spec.moe or not spec.has_mlp or cfg.post_norms:
+    if (spec.kind, spec.has_mlp) not in ((ATTN, True), (MAMBA, False)) \
+            or spec.moe or (spec.kind == ATTN and cfg.post_norms):
         raise NotImplementedError(
-            f"the port has ATTN blocks with a dense MLP only, not {spec} "
-            f"(post_norms={cfg.post_norms})")
-    return {
-        "ln1": norm_specs(cfg),
-        "mixer": attn_specs(cfg),
-        "ln2": norm_specs(cfg),
-        "mlp": mlp_specs(cfg),
-    }
+            f"the port has ATTN blocks with a dense MLP and MAMBA blocks "
+            f"without one, not {spec} (post_norms={cfg.post_norms})")
+    out = {"ln1": norm_specs(cfg),
+           "mixer": attn_specs(cfg) if spec.kind == ATTN else ssm_specs(cfg)}
+    if spec.has_mlp:
+        out["ln2"] = norm_specs(cfg)
+        out["mlp"] = mlp_specs(cfg)
+    return out
 
 
 def group_specs(cfg: ModelConfig, group: ScheduleGroup):
@@ -56,14 +59,19 @@ def apply_block(bp, h, cfg: ModelConfig, spec: LayerSpec, *, positions,
     new_cache = {}
     cache = cache or {}
     x = apply_norm(bp["ln1"], h, cfg)
-    mx, mc = apply_attn(bp["mixer"], x, cfg, spec, positions=positions,
-                        mode=mode, cache=cache.get("mixer"), pos=pos,
-                        causal=causal, paged=paged)
+    if spec.kind == MAMBA:
+        mx, mc = apply_mamba(bp["mixer"], x, cfg, mode=mode,
+                             cache=cache.get("mixer"))
+    else:
+        mx, mc = apply_attn(bp["mixer"], x, cfg, spec, positions=positions,
+                            mode=mode, cache=cache.get("mixer"), pos=pos,
+                            causal=causal, paged=paged)
     if mc is not None:
         new_cache["mixer"] = mc
     h = h + mx
-    x = apply_norm(bp["ln2"], h, cfg)
-    h = h + apply_mlp(bp["mlp"], x, cfg)
+    if spec.has_mlp:
+        x = apply_norm(bp["ln2"], h, cfg)
+        h = h + apply_mlp(bp["mlp"], x, cfg)
     return h, new_cache
 
 

@@ -43,6 +43,14 @@ def apply_norm(p, x, cfg: ModelConfig):
     return y.to(dtype)
 
 
+def rms_normalize(x, eps=1e-6):
+    """Weightless RMS norm over the last axis, in f32 (the core of the
+    Mamba2 gated norm)."""
+    dtype = x.dtype
+    x = x.float()
+    return (x * torch.rsqrt(x.square().mean(-1, keepdim=True) + eps)).to(dtype)
+
+
 # ---------------------------------------------------------------------------
 # Logit softcap (gemma2)
 # ---------------------------------------------------------------------------

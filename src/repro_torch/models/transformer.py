@@ -10,11 +10,12 @@ from typing import Any, Dict
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.base import ATTN, ModelConfig
+from repro_torch.configs.base import ATTN, MAMBA, ModelConfig
 from repro_torch.models.blocks import apply_group, group_specs
 from repro_torch.models.layers import (add_positions, apply_norm, embed_specs,
                                        embed_tokens, norm_specs, unembed)
 from repro_torch.models.params import ParamSpec
+from repro_torch.models.ssm import ssm_dims
 
 
 def _check_supported(cfg: ModelConfig):
@@ -105,16 +106,27 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, Any], *, mode: str,
 
 def cache_shapes(cfg: ModelConfig, B: int, S: int, dtype=torch.bfloat16):
     """``(shape, dtype)`` cache tree matching what prefill returns, with
-    the stacked ``layers`` axis."""
+    the stacked ``layers`` axis.  An SSM layer's leaves are its conv
+    tails in ``dtype`` and its state, always f32."""
     _check_supported(cfg)
     Hkv, D = cfg.n_kv_heads, cfg.head_dim
     groups = []
     for g in cfg.schedule:
         layers = []
         for spec in g.pattern:
+            r = g.repeats
+            if spec.kind == MAMBA:
+                _, H, Pd, G, N = ssm_dims(cfg)
+                K = cfg.ssm.d_conv
+                layers.append({"mixer": {
+                    "conv_x": ((r, B, K - 1, H, Pd), dtype),
+                    "conv_B": ((r, B, K - 1, G, N), dtype),
+                    "conv_C": ((r, B, K - 1, G, N), dtype),
+                    "state": ((r, B, H, N, Pd), torch.float32)}})
+                continue
             if spec.kind != ATTN or spec.window is not None:
                 raise NotImplementedError(f"no cache layout for {spec}")
-            shp = ((g.repeats, B, S, Hkv, D), dtype)
+            shp = ((r, B, S, Hkv, D), dtype)
             layers.append({"mixer": {"k": shp, "v": shp}})
         groups.append(layers)
     return {"groups": groups}

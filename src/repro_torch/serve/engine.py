@@ -3,8 +3,9 @@ paged KV cache (docs/serving.md of the JAX package describes the design).
 
 Requests are admitted from a FIFO queue whenever a batch slot, KV pages
 and token budget are free, prefilled one at a time through power-of-two
-buckets, written into the page pools, and join the fixed-shape decode
-step on the very next tick.  Finished sequences free their pages at
+buckets (at the exact prompt length for models with SSM layers), written
+into the pools, and join the fixed-shape decode step on the very next
+tick.  Finished sequences free their pages at
 once.  The JAX package's legacy static-batch ``ServeEngine`` is not
 ported yet.
 """
@@ -43,7 +44,9 @@ class PagedServeEngine:
     ``serve`` drives steps until everything submitted has completed.
 
     Prompt buckets: right-padded to the smallest power-of-two multiple of
-    the page size (keys past the true length are never attended).
+    the page size (keys past the true length are never attended).  A
+    model with SSM layers prefills at the exact prompt length instead:
+    padding would run through the recurrence and change the state.
 
     ``samples`` keeps the raw TTFT and decode-tick times (ms), the one
     record of both; ``metrics`` carries request counters, admission
@@ -63,8 +66,6 @@ class PagedServeEngine:
         cfg = self.model.cfg
         assert not cfg.is_encoder_decoder and not cfg.n_image_tokens, \
             "paged engine serves decoder-only LMs"
-        if any(s.kind == MAMBA for g in cfg.schedule for s in g.pattern):
-            raise NotImplementedError("SSM layers are not ported yet")
         self.device = next(self.model.parameters()).device
         if self.max_pages is None:
             self.max_pages = max(1, (self.n_pages - 1) // self.max_slots)
@@ -76,6 +77,8 @@ class PagedServeEngine:
             dtype=_act_dtype(self.run),    # the paged kernel takes q's dtype
             device=self.device)
         self.sched = FifoScheduler(self.max_tokens)
+        self._exact_prefill = any(
+            s.kind == MAMBA for g in cfg.schedule for s in g.pattern)
         self._prefill = make_paged_prefill_step(self.model, self.run)
         self._decode = make_paged_decode_step(self.model, self.run, self.page)
         self._active: Dict[int, Request] = {}
@@ -124,6 +127,8 @@ class PagedServeEngine:
 
     # ---- internals ---------------------------------------------------
     def _bucket(self, L: int) -> int:
+        if self._exact_prefill:
+            return L
         return _bucket_pow2(pages_for(L, self.page)) * self.page
 
     def _sample(self, logits, temperature: float) -> np.ndarray:
@@ -142,7 +147,7 @@ class PagedServeEngine:
             params, torch.from_numpy(padded).to(self.device), L)
         pages = self.kv.slot_pages[slot][:pages_for(L, self.page)]
         commit_prefill(self.kv.pools, cache, self.model.cfg, page=self.page,
-                       pages=torch.tensor(pages, device=self.device))
+                       slot=slot, pages=torch.tensor(pages, device=self.device))
         tok = int(self._sample(logits[:, -1], temperature)[0])
         t_sub = self._submit_t.pop(req.rid, None)
         if t_sub is not None:  # host-visible first token: TTFT

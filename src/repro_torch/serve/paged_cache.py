@@ -8,8 +8,10 @@ physical page id: admission allocates just the pages a request needs
 Layout (built by :func:`build_pools` through ``serve/cache.py``'s leaf
 walk): sequence leaves are ``(layers, n_pages, page, *feature)``, and ONE
 block table serves every layer, because the same physical page id
-indexes every layer's pool.  Fixed-size leaves (sliding-window rings,
-SSM state), dense per-slot rows in the JAX package, are not ported yet.
+indexes every layer's pool.  Fixed-size leaves (the SSM conv tails and
+state) are dense per-slot rows ``(layers, max_slots, *feature)``, written
+at admission into the request's batch row; the SSM state row stays f32
+whatever the pools' dtype.  Sliding-window rings are not ported yet.
 
 Physical page 0 is RESERVED as the trash page: it is never allocated,
 inactive batch slots' table rows point at it, and their (ignored) decode
@@ -81,7 +83,7 @@ class PageAllocator:
         return self.n_used / max(1, self.capacity)
 
 
-def build_pools(cfg: ModelConfig, *, page: int, n_pages: int,
+def build_pools(cfg: ModelConfig, *, page: int, n_pages: int, max_slots: int,
                 dtype=torch.float32, device=None):
     """Zero-initialized pool tree for ``cfg`` on ``device`` (``None`` =
     the card; structure mirrors the prefill cache, see the module
@@ -95,32 +97,35 @@ def build_pools(cfg: ModelConfig, *, page: int, n_pages: int,
                            device=device)
 
     def fixed_pool(name, v, spec):
-        raise NotImplementedError("fixed-size cache leaves (sliding-window "
-                                  "rings, SSM state) are not ported yet")
+        shape, dt = v                            # (layers, 1, *feature)
+        return torch.zeros((shape[0], max_slots, *shape[2:]), dtype=dt,
+                           device=device)
 
     return walk_cache(sds, cfg, seq_pool, fixed_pool)
 
 
-def _seq_leaves(tree, cfg: ModelConfig):
-    seq = []
-    walk_cache(tree, cfg, lambda n, v, s: seq.append(v), lambda n, v, s: v)
-    return seq
+def _flat_leaves(tree, cfg: ModelConfig):
+    seq, fixed = [], []
+    walk_cache(tree, cfg, lambda n, v, s: seq.append(v),
+               lambda n, v, s: fixed.append(v))
+    return seq, fixed
 
 
 def commit_prefill(pools, prefill_cache, cfg: ModelConfig, *, page: int,
-                   pages):
+                   slot: int, pages):
     """Write one request's prefill cache into the pools, in place.
 
     Sequence leaves are cut into ``page``-sized chunks (right-padded to a
     page multiple) and written at physical pages ``pages`` (a
-    ``(ceil(S/page),)`` int64 tensor on the pools' device).  The JAX
-    version also writes fixed-size leaves to the request's batch row; the
-    port has none yet (``build_pools`` refuses them).  Returns ``pools``.
+    ``(ceil(S/page),)`` int64 tensor on the pools' device); fixed leaves
+    are written to batch row ``slot`` and no other.  Returns ``pools``.
     """
-    pool_seq = _seq_leaves(pools, cfg)
-    new_seq = _seq_leaves(prefill_cache, cfg)
+    pool_seq, pool_fixed = _flat_leaves(pools, cfg)
+    new_seq, new_fixed = _flat_leaves(prefill_cache, cfg)
+    for pool, leaf in zip(pool_fixed, new_fixed, strict=True):
+        pool[:, slot] = leaf[:, 0].to(pool.dtype)
     n_chunks = pages.shape[0]
-    for pool, leaf in zip(pool_seq, new_seq):
+    for pool, leaf in zip(pool_seq, new_seq, strict=True):
         r, _, S = leaf.shape[:3]
         tail = leaf.shape[3:]
         x = leaf[:, 0]
@@ -156,8 +161,8 @@ class PagedKVCache:
         return cls(
             cfg=cfg, page=page, n_pages=n_pages, max_slots=max_slots,
             max_pages=max_pages,
-            pools=build_pools(cfg, page=page, n_pages=n_pages, dtype=dtype,
-                              device=device),
+            pools=build_pools(cfg, page=page, n_pages=n_pages,
+                              max_slots=max_slots, dtype=dtype, device=device),
             block_tables=np.zeros((max_slots, max_pages), np.int32),
             allocator=PageAllocator(n_pages),
             slot_pages=[None] * max_slots,
@@ -199,5 +204,5 @@ class PagedKVCache:
         return self.allocator.utilization()
 
     def pool_bytes(self) -> int:
-        return sum(x.numel() * x.element_size()
-                   for x in _seq_leaves(self.pools, self.cfg))
+        seq, fixed = _flat_leaves(self.pools, self.cfg)
+        return sum(x.numel() * x.element_size() for x in seq + fixed)

@@ -9,10 +9,10 @@ with the card need not have.)
 
 The kernels are held against their plain versions on the same inputs
 (f32 at the JAX kernel tests' 2e-5 for attention, 1e-4 and 1e-5 for the
-cross-entropy forward and backward), the backward kernels against the
-plain version's autograd, the engine on ``cuda`` against the same engine
-on ``cpu`` (same greedy tokens) and the train step likewise (losses
-within 1e-4)."""
+cross-entropy forward and backward, 1e-4 for the SSD scan), the backward
+kernels against the plain version's autograd, the engine on ``cuda``
+against the same engine on ``cpu`` (same greedy tokens, for starcoder2
+and mamba2) and the train step likewise (losses within 1e-4)."""
 import dataclasses
 
 import numpy as np
@@ -194,3 +194,91 @@ def test_train_step_cuda_matches_cpu(cuda):
             assert ops.launch_counts["flash_attention_bwd"] == 2 * len(batches)
             assert ops.launch_counts["fused_xent_bwd"] == len(batches)
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# SSM serving slice: the ssd_scan kernel
+# ---------------------------------------------------------------------------
+
+def _ssd_inputs(cuda, B, S, H, P, G, N, dtype=torch.float32):
+    g = torch.Generator(device=cuda).manual_seed(S + N)
+    x = torch.randn(B, S, H, P, generator=g, device=cuda).to(dtype)
+    dt = torch.nn.functional.softplus(torch.randn(B, S, H, generator=g, device=cuda))
+    A = -torch.exp(0.5 * torch.randn(H, generator=g, device=cuda))
+    Bm, Cm = (torch.randn(B, S, G, N, generator=g, device=cuda).to(dtype) for _ in range(2))
+    return x, dt, A, Bm, Cm
+
+
+def _assert_ssd_close(x, dt, A, Bm, Cm, chunk, y, st):
+    """Per element against the plain version on the f32 values: f32
+    sums in another order differ by about 1e-6 of the sum of absolute
+    terms (the plain version with |x|, |B|, |C|), and the decay exponents
+    by eps * |cumsum(dt A)| within a chunk, which the f32 cumsum of any
+    order carries; bf16 y adds one rounding, 2^-8 |y|."""
+    f = [t.float() for t in (x, dt, A, Bm, Cm)]
+    want_y, want_st = ref.ssd_ref(*f, chunk)
+    abs_y, abs_st = ref.ssd_ref(f[0].abs(), f[1], f[2], f[3].abs(), f[4].abs(), chunk)
+    S = x.shape[1]
+    a = torch.nn.functional.pad(dt * A, (0, 0, 0, (-S) % chunk))
+    amax = a.unflatten(1, (-1, chunk)).abs().sum(2).max().item()
+    rel = 1e-6 + 8 * 2.0**-24 * amax
+    u = 2.0**-8 if y.dtype == torch.bfloat16 else 0.0
+    for got, want, want_abs, uu in ((y, want_y, abs_y, u), (st, want_st, abs_st, 0.0)):
+        err = (got.float() - want).abs()
+        lim = uu * want.abs() + rel * want_abs + 1e-6
+        assert (err <= lim).all(), (err / lim).max()
+
+
+# ragged S (one partial chunk, a partial last chunk), G = 1, 2, 4, chunk
+# 32 / 64 / 96 / 256 (the 32-row and 64-row tile bodies), the serving shape
+@pytest.mark.parametrize("B,S,H,P,G,N,chunk", [
+    (2, 100, 4, 16, 2, 8, 32), (2, 77, 8, 16, 4, 16, 64), (1, 300, 4, 64, 1, 128, 256),
+    (1, 1024, 24, 64, 1, 128, 256), (2, 96, 6, 32, 2, 64, 96)])
+def test_ssd_kernel_matches_plain(cuda, B, S, H, P, G, N, chunk):
+    inp = _ssd_inputs(cuda, B, S, H, P, G, N)
+    ops.reset_launch_counts()
+    y, st = ops.ssd(*inp, chunk)
+    _assert_ssd_close(*inp, chunk, y, st)
+    assert ops.launch_counts["ssd_scan"] == 1
+
+
+@pytest.mark.parametrize("S", [65, 513])
+def test_ssd_bf16_kernel_near_plain(cuda, S):
+    """bf16 x, B, C: the kernel computes in f32 and rounds y once; the
+    state stays f32."""
+    inp = _ssd_inputs(cuda, 1, S, 24, 64, 1, 128, torch.bfloat16)
+    y, st = ops.ssd(*inp, 256)
+    assert y.dtype == torch.bfloat16 and st.dtype == torch.float32
+    _assert_ssd_close(*inp, 256, y, st)
+
+
+def test_ssd_kernel_is_deterministic(cuda):
+    inp = _ssd_inputs(cuda, 1, 700, 8, 64, 1, 128, torch.bfloat16)
+    (y1, s1), (y2, s2) = ops.ssd(*inp, 256), ops.ssd(*inp, 256)
+    assert torch.equal(y1, y2) and torch.equal(s1, s2)
+
+
+def test_ssd_backward_on_the_card_raises(cuda):
+    x, dt, A, Bm, Cm = _ssd_inputs(cuda, 1, 64, 2, 16, 1, 16)
+    x.requires_grad_(True)
+    y, _ = ops.ssd(x, dt, A, Bm, Cm, 32)
+    with pytest.raises(NotImplementedError, match="mamba2 training slice"):
+        y.sum().backward()
+
+
+def test_mamba2_engine_cuda_matches_cpu(cuda):
+    cfg = dataclasses.replace(reduced(get_config("mamba2-130m")),
+                              schedule=uniform_schedule(2, LayerSpec(kind="mamba", has_mlp=False)))
+    run = default_run_config(cfg, ShapeConfig("s", 16, 2, "decode"))
+    prompts = [np.random.RandomState(i).randint(4, cfg.vocab_size, n).tolist()
+               for i, n in enumerate((70, 13, 7))]
+    outs = []
+    for device in ("cpu", cuda):
+        eng = PagedServeEngine(build_model(cfg, device="cpu").to(device), run,
+                               page=8, n_pages=64, max_slots=2)
+        ops.reset_launch_counts()
+        rids = [eng.submit(p, 9) for p in prompts]
+        got = eng.serve()
+        outs.append([got[r] for r in rids])
+    assert outs[0] == outs[1]
+    assert ops.launch_counts["ssd_scan"] == 2 * len(prompts)

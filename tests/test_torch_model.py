@@ -209,7 +209,8 @@ def test_paged_decode_step_matches_jax(models, use_pallas):
     tables[0, :2] = (7, 3)
     tables[1, :2] = (12, 5)
     jpools = jpaged.build_pools(jcfg, page=page, n_pages=n_pages, max_slots=3)
-    tpools = tpaged.build_pools(tmodel.cfg, page=page, n_pages=n_pages, device="cpu")
+    tpools = tpaged.build_pools(tmodel.cfg, page=page, n_pages=n_pages, max_slots=3,
+                                device="cpu")
     for slot, toks in enumerate(prompts):
         pages = tables[slot, :jpaged.pages_for(toks.shape[1], page)]
         _, jc = jmodel.prefill(params, {"tokens": jnp.asarray(toks)})
@@ -217,7 +218,7 @@ def test_paged_decode_step_matches_jax(models, use_pallas):
                                        pages=jnp.asarray(pages))
         with torch.inference_mode():
             _, tc = tmodel.prefill({"tokens": torch.from_numpy(toks).long()})
-            tpaged.commit_prefill(tpools, tc, tmodel.cfg, page=page,
+            tpaged.commit_prefill(tpools, tc, tmodel.cfg, page=page, slot=slot,
                                   pages=torch.from_numpy(pages).long())
     tok = np.array([[11], [22], [0]], np.int32)
     pos = np.array([lens[0], lens[1], 0], np.int32)
@@ -239,6 +240,6 @@ def test_unported_layers_raise():
     _, tcfg = _cfgs()
     windowed = dataclasses.replace(tcfg, schedule=uniform_schedule(1, LayerSpec(window=16)))
     with pytest.raises(NotImplementedError):
-        tpaged.build_pools(windowed, page=8, n_pages=4, device="cpu")
+        tpaged.build_pools(windowed, page=8, n_pages=4, max_slots=1, device="cpu")
     with pytest.raises(NotImplementedError):   # the encoder family is ported (training slice)
         build_model(dataclasses.replace(tcfg, is_encoder_decoder=True), device="cpu")
