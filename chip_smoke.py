@@ -5,6 +5,8 @@
     python3 chip_smoke.py --phases build,kernels
     python3 chip_smoke.py --phases build,train_path,train
     python3 chip_smoke.py --phases build,ssm_path,ssm_serve
+    python3 chip_smoke.py --phases build,serve,train,time \
+        --against parent=build/parent/flash_attention.cu
 
 Phases (any failure exits non-zero before the last line):
   build       build the CUDA kernels from src/repro_torch/kernels/csrc/
@@ -41,6 +43,17 @@ Phases (any failure exits non-zero before the last line):
               device time per call (CUDA-graph replay) and time per
               back-to-back call
 
+--against NAME=SOURCE (repeatable) builds SOURCE, another version of the
+kernel source of its file name (csrc/<kernel>.cu; e.g. a parent commit's,
+from `git show`), and runs phases serve, train and time with it swapped
+in for the checkout's library as well, in the order: each NAME, the
+checkout twice, each NAME in reverse, so that a drift of the machine
+shows as a difference between one build's two readings.  The checkout's
+last run is the phase's record; every run's readings go to "against" in
+chiprun_out/chip_smoke.json.  In phase time another build's gate
+readings are logged but do not fail the run (a build with a part taken
+out, to see what that part costs, is wrong by design).
+
 The last line is the JSON device record; the line before it the card's
 name and power limit; before that one JSON line of kernel records, and
 before that a one-line summary of the run.
@@ -62,6 +75,7 @@ ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "chiprun_out"
 PHASES = ("build", "kernels", "faults", "path", "serve", "ssm_path", "ssm_serve", "train_path",
           "train", "time")
+AGAINST_PHASES = ("serve", "train", "time")     # the phases --against runs again
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the bounds below use them
 PEAK_BF16_FLOPS = 989e12
@@ -128,6 +142,15 @@ FLASH_CASES = [  # (B, S, H, Hkv, D, causal, window, softcap)
     (1, 384, 4, 1, 128, True, None, 30.0),     # softcap
     (1, 129, 4, 4, 64, False, 64, 20.0),       # non-causal window + softcap
     (1, 2048, 24, 2, 128, True, None, 0.0),    # S = 2048
+    # the bf16 body's tile edges: 128 q rows a block, 64 (D 64) or 128 keys a tile
+    (2, 1, 4, 2, 64, True, None, 0.0),         # S = 1
+    (1, 1, 8, 2, 128, False, None, 0.0),
+    (2, 127, 4, 1, 64, False, None, 0.0),      # a key short of a tile
+    (1, 127, 12, 1, 128, True, None, 0.0),
+    (2, 129, 4, 4, 64, True, None, 0.0),       # a key past a tile
+    (1, 129, 24, 2, 128, False, None, 30.0),
+    (1, 640, 8, 2, 128, True, 200, 0.0),       # a window of 200 crosses 128-key tiles
+    (2, 600, 4, 4, 64, False, 200, 0.0),
 ]
 
 PAGED_CASES = [  # (B, H, Hkv, D, P, NP, maxp, window, softcap, (pos lo, hi))
@@ -414,8 +437,9 @@ def check_kernels(torch, rec):
 FAULTS = [
     ("flash_attention", ("flash_attention",),
      "bf16 body drops keys 0-63 of every row that sees more than 512 keys",
-     "const float pw = key < S ? expf(",
-     "const float pw = key < S && !(k0 == 0 && kt_hi > 8) ? expf("),
+     "s[x] = hopper::exp2_approx(s[x] - m[(x >> 1) & 1]);",
+     "s[x] = k0 + (x / 4) * 8 + 2 * t < 64 && kt_hi * BK > 512 ? 0.f : "
+     "hopper::exp2_approx(s[x] - m[(x >> 1) & 1]);"),
     ("paged_attention", ("paged_attention",),
      "combine merges at most 8 splits (the first 1024 keys)",
      "s1 = j_hi / p.pps;", "s1 = min(j_hi / p.pps, s0 + 7);"),
@@ -434,6 +458,13 @@ KERNELS = ("flash_attention", "flash_attention_bwd", "paged_attention", "fused_x
            "fused_xent_bwd", "ssd_scan")
 
 
+def _start_nvcc(src, lib):
+    from repro_torch.kernels import _build
+
+    return subprocess.Popen(_build.nvcc_command(src, lib), stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
 def start_fault_builds():
     """Write the faulty sources under build/kernels/faults/ and start one
     nvcc for each; returns {kernel: (process, library path)}."""
@@ -448,9 +479,7 @@ def start_fault_builds():
             fail(f"faults: {name}.cu does not hold {old!r} once; update FAULTS")
         src, lib = d / f"{name}.cu", d / f"lib{name}.so"
         src.write_text(text.replace(old, new))
-        procs[name] = (subprocess.Popen([_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
-                                         str(src)], stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True), lib)
+        procs[name] = (_start_nvcc(src, lib), lib)
     return procs
 
 
@@ -485,6 +514,141 @@ def check_faults(torch, rec, procs):
                     "max_ratio": finite(max(r[3] for r in readings)),
                     "max_abs_err": finite(old), "former_flat_gate_fails": old > OLD_BF16_TOL})
     rec["faults"] = res
+
+
+def ptxas_report(log):
+    """{function: ptxas's lines on its registers and spills} from an nvcc
+    log built with ``-Xptxas -v``, and its warnings under "warnings"
+    (such as C7520, wgmma serialized)."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        if "warning" in line or "Performance Loss" in line:
+            out.setdefault("warnings", []).append(line.strip())
+        elif "Function properties for" in line:
+            cur = line.split("Function properties for", 1)[1].strip()
+        elif cur and ("spill" in line or "Used" in line):
+            out.setdefault(cur, []).append(line.strip())
+    return out
+
+
+def sass_counts(lib):
+    """{kernel function: {instruction: count}} in a built library's SASS
+    (``cuobjdump -sass``): HGMMA (wgmma), UTMALDG / UTMASTG (TMA load /
+    store), HMMA (mma.sync)."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    out = subprocess.run([str(Path(_build.nvcc()).parent / "cuobjdump"), "-sass", str(lib)],
+                         capture_output=True, text=True, check=True).stdout
+    res, fn = {}, None
+    for line in out.splitlines():
+        if line.strip().startswith("Function :"):
+            fn = line.split(":", 1)[1].strip()
+            res[fn] = dict.fromkeys(("HGMMA", "UTMALDG", "UTMASTG", "HMMA"), 0)
+        elif fn:
+            for op in res[fn]:
+                res[fn][op] += len(re.findall(rf"\b{op}\b", line))
+    return res
+
+
+def flash_build_facts(rec):
+    """The bf16 flash forward as built: ptxas's report (registers, spill
+    bytes) of each instance of ``flash_fwd_wgmma_kernel`` and its SASS
+    counts.  Fails unless every instance runs on HGMMA and UTMALDG with no
+    HMMA."""
+    from repro_torch.kernels import _build
+
+    ptxas = rec["ptxas"].get("flash_attention", {})
+    sass = sass_counts(_build._lib_path(_build.CSRC / "flash_attention.cu"))
+    bf16 = {k: v for k, v in sass.items() if "flash_fwd_wgmma" in k}
+    for k, v in bf16.items():
+        log(f"flash forward {k}: SASS {v}; ptxas {ptxas.get(k, 'not built in this run')}")
+    if not bf16 or any(v["HGMMA"] == 0 or v["UTMALDG"] == 0 or v["HMMA"] for v in bf16.values()):
+        fail(f"the bf16 flash forward does not run on wgmma and TMA alone: {bf16}")
+    rec["flash_fwd_build"] = {"ptxas": ptxas, "sass": sass}
+
+
+def parse_against(specs):
+    """[(name, kernel, source)] of the ``--against NAME=SOURCE`` options:
+    SOURCE stands for ``csrc/<kernel>.cu``, ``kernel`` its file's stem."""
+    from repro_torch.kernels import _build
+
+    out = []
+    for spec in specs:
+        name, _, src = spec.partition("=")
+        src = Path(src).resolve()
+        if not name or name == "checkout" or name in [a[0] for a in out]:
+            fail(f"--against {spec!r}: NAME must be new, and not 'checkout'")
+        if src.suffix != ".cu" or not src.is_file() or not (_build.CSRC / src.name).is_file():
+            fail(f"--against {spec!r}: SOURCE must be a file named after a kernel source "
+                 f"in {_build.CSRC}")
+        out.append((name, src.stem, src))
+    return out
+
+
+def start_against_builds(against):
+    """One nvcc for each ``--against`` source, into build/kernels/against/;
+    returns {name: (process, library path)}."""
+    from repro_torch.kernels import _build
+
+    d = _build.BUILD_DIR / "against"
+    d.mkdir(parents=True, exist_ok=True)
+    return {name: (_start_nvcc(src, d / f"lib{kernel}-{name}.so"), d / f"lib{kernel}-{name}.so")
+            for name, kernel, src in against}
+
+
+def load_against(rec, against, procs):
+    """{name: (kernel, loaded library)} of the ``--against`` builds, with
+    each build's source, ptxas report and SASS counts in ``rec``."""
+    import ctypes
+
+    libs, facts = {}, {}
+    for name, kernel, src in against:
+        proc, lib = procs[name]
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            fail(f"--against {name}: {src} did not build:\n{out}")
+        facts[name] = {"kernel": kernel, "source": str(src), "ptxas": ptxas_report(out),
+                       "sass": sass_counts(lib)}
+        libs[name] = (kernel, ctypes.CDLL(str(lib)))
+        log(f"against {name}: {kernel} from {src}; ptxas warnings "
+            f"{facts[name]['ptxas'].get('warnings', [])}")
+    rec["against_builds"] = facts
+    return libs
+
+
+def run_against(torch, rec, ph, step, libs):
+    """Phase ``ph`` with each ``--against`` build swapped in for its
+    kernel's library, and with the checkout's, in the order each build,
+    the checkout twice, each build in reverse.  The checkout's last run
+    becomes the phase's record; every run's summary and record go to
+    ``rec["against"][ph]``."""
+    from repro_torch.kernels import _build
+
+    runs = []
+    for name in [*libs, "checkout", "checkout", *reversed(libs)]:
+        r = {}
+        if name == "checkout":
+            step(torch, r)
+            last = r
+        else:
+            kernel, lib = libs[name]
+            good = _build.swap(kernel, lib)
+            try:
+                if ph == "time":
+                    time_kernels(torch, r, strict=False)
+                else:
+                    step(torch, r)
+            finally:
+                _build.swap(kernel, good)
+        reading = {k: v for k, v in summary(r).items()
+                   if v is not None and (not isinstance(v, dict) or any(
+                       x is not None for x in v.values()))}
+        log(f"against {ph} {name}: {json.dumps(reading)}")
+        runs.append({"build": name, "summary": reading, "record": r})
+    rec.update(last)
+    rec.setdefault("against", {})[ph] = runs
 
 
 # ---------------------------------------------------------------------------
@@ -963,7 +1127,20 @@ def _bound(flops, nbytes, peak_flops):
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes"
 
 
-def time_kernels(torch, rec):
+def flash_bound(q, k, causal, lse):
+    """(bound ms, what bounds it) of a bf16 flash forward: 4 D flops per
+    unmasked (query, key) pair and head, q, k, v read and o (and the f32
+    lse) written once."""
+    B, S, H, D = q.shape
+    pairs = S * (S + 1) / 2 if causal else S * S
+    nbytes = 2 * B * S * D * (2 * H + 2 * k.shape[2]) + (4 * B * H * S if lse else 0)
+    return _bound(4 * B * H * D * pairs, nbytes, PEAK_BF16_FLOPS)
+
+
+def time_kernels(torch, rec, strict=True):
+    """Phase ``time``.  ``strict``: a timed input outside the kernel gate
+    fails the run; otherwise (another build, ``--against``) its reading is
+    logged and kept."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
@@ -973,7 +1150,7 @@ def time_kernels(torch, rec):
     def checked(what, reading):   # the timed inputs are held to the kernel gate first
         err, ratio = reading
         log(f"time {what}: max_abs_err {err:.3e}, error/limit {ratio:.3f}")
-        if not ratio <= 1.0:
+        if strict and not ratio <= 1.0:
             fail(f"time {what}: error {err} is {ratio:.3f} x its limit")
         return ratio
 
@@ -985,8 +1162,6 @@ def time_kernels(torch, rec):
         q = torch.randn(1, S, H, D, generator=gen, device="cuda").to(bf)
         k = torch.randn(1, S, Hkv, D, generator=gen, device="cuda").to(bf)
         v = torch.randn(1, S, Hkv, D, generator=gen, device="cuda").to(bf)
-        flops = 4 * H * D * S * (S + 1) / 2          # unmasked causal pairs
-        nbytes = 2 * (2 * S * H * D + 2 * S * Hkv * D)
         ratio = checked(f"flash S={S}", flash_reading(torch, q, k, v, True))
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         ms, call_ms = time_ms(torch, lambda: flash_attention_fwd(q, k, v, causal=True))
@@ -994,12 +1169,10 @@ def time_kernels(torch, rec):
             torch, lambda: ref.flash_attention_ref(q, k, v, causal=True))
         lib_ms, lib_call_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True))
-        bound_s = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES)
+        bound = flash_bound(q, k, causal=True, lse=False)
         flash.append({
             "S": S, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "bound_ms": bound_s * 1e3,
-            "bound_by": "operations" if flops / PEAK_BF16_FLOPS > nbytes / PEAK_BYTES
-            else "bytes",
+            "bound_ms": bound[0], "bound_by": bound[1],
             "call_ms": call_ms, "plain_call_ms": plain_call_ms,
             "library_call_ms": lib_call_ms, "err_over_limit": ratio})
         log(f"time flash S={S}: {flash[-1]}")
@@ -1110,7 +1283,7 @@ def time_train_kernels(torch, checked, gen, B=32, S=512, H=12, D=64, T=3904, V=3
     bwd_lib = eager_ms(torch, lambda: torch.autograd.grad(
         o_lib, (qt, kt, vt), do.transpose(1, 2), retain_graph=True))
     io = B * S * H * D * 2
-    fwd_b = _bound(4 * B * H * S * S * D, 4 * io + B * H * S * 4, PEAK_BF16_FLOPS)
+    fwd_b = flash_bound(q, k, causal=False, lse=True)
     bwd_b = _bound(10 * B * H * S * S * D, 8 * io + B * H * S * 4, PEAK_BF16_FLOPS)
     out["flash_train"] = {
         "shape": [B, S, H, D], "dtype": "bfloat16", "causal": False,
@@ -1217,6 +1390,8 @@ def summary(rec):
             "serve": {k: sv.get(k) for k in keys},
             "tick_device_busy_ms": prof.get("device_busy_ms"),
             "tick_launches": prof.get("kernel_launches_per_tick"),
+            "prefill_1024_device_busy_ms":
+                rec.get("serve_prefill_profile", {}).get("device_busy_ms"),
             "ssm_serve": {k: ssm.get(k) for k in keys},
             "ssm_tick_device_busy_ms": sprof.get("device_busy_ms"),
             "ssm_prefill_1024_device_busy_ms":
@@ -1229,12 +1404,16 @@ def summary(rec):
             "train_path_rel_err": rec.get("train_path", {}).get("rel_err"),
             "faults_max_ratio": {f["kernel"]: f["max_ratio"] for f in rec.get("faults", [])},
             "flash_ms_by_S": {x["S"]: x["ms"] for x in rec.get("time", {}).get("flash", [])},
+            "flash_train_ms": rec.get("time", {}).get("flash_train", {}).get("fwd", {}).get("ms"),
             "ssd_ms": {k: v["ms"] for k, v in rec.get("time", {}).get("ssd", {}).items()}}
 
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(PHASES))
+    ap.add_argument("--against", action="append", default=[], metavar="NAME=SOURCE",
+                    help="also run phases serve, train and time with SOURCE's build of "
+                         "the kernel its file name names")
     args = ap.parse_args()
     phases = args.phases.split(",")
     if not set(phases) <= set(PHASES):
@@ -1256,16 +1435,23 @@ def main():
 
     from repro_torch.kernels import _build
 
+    against = parse_against(args.against)
     fault_builds = start_fault_builds() if "faults" in phases else None
+    against_builds = start_against_builds(against)
     t0 = time.perf_counter()
     _build.build_all()
     rec["build_s"] = time.perf_counter() - t0
     log(f"build: {rec['build_s']:.1f}s")
-    for name, text in _build.build_log.items():
-        for line in text.splitlines():
-            if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line:
-                log(f"ptxas {name}: {line.strip()}")
+    rec["ptxas"] = {name: ptxas_report(text) for name, text in _build.build_log.items()}
+    for name, report in rec["ptxas"].items():
+        for fn, lines in report.items():
+            for line in lines:
+                if fn == "warnings" or ("spill" in line and
+                                        "0 bytes spill stores, 0 bytes spill loads" not in line):
+                    log(f"ptxas {name} {fn}: {line}")
     rec["build_log"] = _build.build_log
+    flash_build_facts(rec)
+    against_libs = load_against(rec, against, against_builds)
     steps = {"kernels": check_kernels,
              "faults": lambda torch, rec: check_faults(torch, rec, fault_builds),
              "path": check_path, "serve": run_serve, "ssm_path": check_ssm_path,
@@ -1276,7 +1462,10 @@ def main():
     for ph in PHASES[1:]:
         if ph in phases:
             t0 = time.perf_counter()
-            steps[ph](torch, rec)
+            if against_libs and ph in AGAINST_PHASES:
+                run_against(torch, rec, ph, steps[ph], against_libs)
+            else:
+                steps[ph](torch, rec)
             log(f"phase {ph}: {time.perf_counter() - t0:.1f}s")
     rec["seconds"] = time.perf_counter() - t_all
     OUT.mkdir(exist_ok=True)

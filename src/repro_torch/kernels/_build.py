@@ -3,8 +3,11 @@
 At first use every ``csrc/*.cu`` is compiled by its own ``nvcc`` process
 (all started together) into a shared library with a plain C interface,
 ``build/kernels/lib<name>-<hash>.so`` under the repository root; the
-hash covers the source and the flags, so an edited source is rebuilt and
-an unchanged one is loaded as it is.  The libraries link the CUDA
+hash covers the source, every shared header ``csrc/*.cuh`` and the
+flags, so an edited source or header is rebuilt and an unchanged one is
+loaded as it is.  The flags put ``csrc/`` on the include path, so a copy
+of a source compiled elsewhere (``chip_smoke.py``'s planted faults)
+still finds the headers.  The libraries link the CUDA
 runtime statically and share PyTorch's context and streams through the
 driver.  ``function`` hands a wrapper one C entry point with its
 argument types set; ``launch_counts`` is where each wrapper counts its
@@ -26,7 +29,7 @@ from typing import Dict, Sequence, Tuple
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", str(CSRC))
 
 # kernel name -> launches since the last reset; only a wrapper that has
 # launched its kernel adds to it
@@ -52,8 +55,18 @@ def nvcc() -> str:
 
 
 def _lib_path(src: Path) -> Path:
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """The library of ``src``, named by a hash of the source, the headers
+    beside it and the flags."""
+    h = hashlib.sha256(src.read_bytes())
+    for hdr in sorted(src.parent.glob("*.cuh")):
+        h.update(hdr.name.encode() + b"\0" + hdr.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
+
+
+def nvcc_command(src: Path, out: Path) -> list:
+    """The nvcc command that builds ``src`` into the library ``out``."""
+    return [nvcc(), *NVCC_FLAGS, "-o", str(out), str(src)]
 
 
 def build_all() -> float:
@@ -68,8 +81,7 @@ def build_all() -> float:
         if out.exists():
             continue
         tmp = out.with_suffix(f".so.tmp{os.getpid()}")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-        procs[src.stem] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+        procs[src.stem] = (subprocess.Popen(nvcc_command(src, tmp), stdout=subprocess.PIPE,
                                             stderr=subprocess.STDOUT, text=True),
                            tmp, out)
     failed = []

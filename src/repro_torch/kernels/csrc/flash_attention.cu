@@ -1,4 +1,4 @@
-// Flash attention forward for Hopper (sm_90a), f32 and bf16.
+// Flash attention forward for Hopper (sm_90a), bf16 and f32.
 //
 // Replaces the TPU kernel `flash_attention_fwd` (body `_kernel`) in the
 // JAX package's kernels/flash_attention.py: tiled online-softmax
@@ -7,77 +7,83 @@
 // running max / denominator / accumulator, out = acc / max(l, 1e-37).
 // On request it also writes each row's log-sum-exp m + log(max(l, 1e-37))
 // as (B, H, S) f32, which the backward (flash_attention_bwd.cu) reads.
+// The TPU's sequential k grid axis becomes a loop over k tiles inside the
+// block; tiles that the causal / window mask hides completely are never
+// visited, and S need not be a multiple of a tile.
 //
-// Design.  One thread block of four warps per (q tile of 64 rows, head,
-// batch).  The TPU's sequential k grid axis becomes a loop over 64-key
-// tiles inside the block; m, l and acc live in registers, so nothing
-// carries between blocks.  Tiles that the causal / window mask hides
-// completely are never visited (the loop bounds do what the JAX
-// kernel's `pl.when` does).  S need not be a multiple of the tile: rows
-// past S are not stored and keys past S are dropped from the softmax.
+// What bounds it on the H100 (989 TFLOP/s bf16, 3.35 TB/s):
+// - serving prefill (starcoder2-3b: B 1, S <= 1024, H 24, Hkv 2, D 128,
+//   causal): 4 S^2 D H / 2 flops against (2 H + 2 Hkv) S D bf16 elements,
+//   far above the ~295 flop/byte ridge: the tensor cores (6.5 us at S 1024);
+// - training (bert-mlm-120m: B 32, S 512, H 12, D 64, not causal): 25.8
+//   GFLOP in 26 us against 101 MB of q, k, v, o and lse in 30 us: bytes,
+//   with the products close behind.  At D 64 the 100.7M exponentials
+//   need as long on the special-function units (16 a clock per SM) as
+//   the products on the tensor cores; measured, the softmax and the
+//   products add up rather than overlap, above the loads' own time.
 //
-// Two bodies, chosen by dtype:
-// - bf16 (the serving path): each warp owns 16 query rows; Q.K^T and
-//   P.V run on the tensor cores as mma.sync m16n8k16 bf16 products with
-//   f32 accumulators, operands fetched from shared memory by ldmatrix
-//   (rows padded by 16 bytes, so its reads are free of bank conflicts);
-//   P goes from the score accumulators to the A operand in registers,
-//   rounded to bf16.  K/V tiles arrive by cp.async into two buffers, the
-//   next tile's copy in flight while the current one is computed, and
-//   the q tiles with the most unmasked keys are started first.
-// - f32: the same tiles on the CUDA cores in f32 (a 4x8 score tile and
-//   a 4x(D/8) output tile per thread), exact to the f32 reference.
+// bf16 body (`flash_fwd_wgmma_kernel`), built on csrc/hopper.cuh (times,
+// and the measurements behind each choice, in PERF.md):
+// - a block takes 128 q rows of one (head, batch) as two consumer
+//   warpgroups of 64 rows.  Causal: the heads run fastest and the q tiles
+//   with the most unmasked keys first (longest processing time first),
+//   so the longest blocks start in the first wave.  Otherwise the q tiles
+//   of one head run together, so that K and V come from device memory
+//   once and then from L2;
+// - thread 0 loads Q once and the K and V tiles through a ring of
+//   shared-memory stages with TMA (128-byte swizzle, rows past S filled
+//   with zeros).  Each stage has a "full" mbarrier for K and one for V
+//   (expect_tx bytes) and an "empty" one for each, on which every
+//   consumer warp arrives when the products reading it are done (V is
+//   read an iteration after K).  At the start of each iteration thread 0
+//   refills what every warp released in the previous one, so the loads
+//   run a stage ahead and it never waits for a warp more than an
+//   iteration behind.  No producer warp: 2, 3 or 4 stages run equally
+//   fast, so the consumers do not wait on loads;
+// - S = Q K^T is a wgmma m64nBKk16 with both operands in shared memory
+//   (K-major descriptors); P goes from the f32 S fragment to bf16 pairs in
+//   registers, the A layout of O += P V, a wgmma m64nDk16 with V MN-major
+//   (transpose bit).  S of tile i and P V of tile i - 1 are issued
+//   together.  No branch on the thread surrounds a wgmma: ptxas
+//   serializes the products in a divergent path (its warning C7520);
+// - softmax in base 2 (log2 e folded into the scale, ex2.approx); the
+//   masks are applied only on the tiles that need one (a causal diagonal,
+//   a window's edge, the tile holding S's ragged end), chosen once per
+//   tile and block, and softcap is a template choice, so that no branch
+//   lies between a product's issue and its wait (ptxas waits at every
+//   join); softcap, when set, applies to every tile with the accurate
+//   tanhf (tanh.approx's ~2^-11 error times a softcap of 30 would pass
+//   the bf16 gate's 2^-8);
+// - the epilogue writes O / max(l, 1e-37) in bf16 into the warpgroup's
+//   Q rows of shared memory (swizzled, conflict-free) and stores them
+//   with one TMA store per 64-column box, which drops rows past S.
+// Tiles: D 64 takes 64 keys a tile and 3 stages (66 KB) in at most 128
+// registers a thread, so two blocks share an SM and one block's prologue
+// and epilogue overlap the other's products (128 keys at one block an SM
+// run slower); D 128 takes 128 keys and 2 stages (162 KB), one block
+// an SM, 64 + 64 f32 accumulators a thread.
 //
-// Bound on the H100.  At the serving shapes (S <= 1024, D = 128) the
-// work is compute: 4*S*S*D*H flops (halved when causal) against
-// (2*H + 2*Hkv)*S*D elements of traffic, far above the ~295 flop/byte
-// ridge, so the bound is the 989 TFLOP/s bf16 tensor-core peak.
-// mma.sync reaches only part of it; the wgmma / TMA pipeline with
-// warp-specialised producers is the later step.
+// f32 body (`flash_fwd_f32_kernel`, the exactness path): one block of
+// four warps per (q tile of 64 rows, head, batch), the same tiles on the
+// CUDA cores in f32 (a 4x8 score tile and a 4x(D/8) output tile per
+// thread), exact to the f32 reference.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
 
 constexpr float NEG_INF = -2.0e38f;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+// f32 body
 constexpr int BQ = 64;
 constexpr int BK = 64;
 constexpr int NT = 128;
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* smem, bool trans) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  if (trans)
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-  else
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-
-// d += a (16x16, row) * b (16x8, col); bf16 in, f32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 16-byte global -> shared copy that bypasses registers; pred false
-// zero-fills the 16 bytes and reads nothing
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(a), "l"(gmem),
-               "r"(pred ? 16 : 0));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 struct Params {
   const void* q;
@@ -89,18 +95,14 @@ struct Params {
   long long k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh;
   long long o_sb, o_ss, o_sh;
-  int S, H, Hkv;
+  int B, S, H, Hkv;
   int causal;
   int window;  // <= 0: no window
   float softcap;
   float scale;
 };
 
-// the row's log-sum-exp; a compile-time choice (LSE), so that the
-// serving forward, which needs none, keeps the code it has without it.
-// Out of line on purpose: inlined, it changed how the compiler laid out
-// the k loop (10 branches instead of 26 in the D=64 body) and cost the
-// forward 30-40% on the H100; out of line it costs under 2%.
+// the f32 body's row log-sum-exp (B, H, S); its grid is (q tile, head, batch)
 __device__ __noinline__ void store_lse(const Params& p, int row, float m, float lsum) {
   p.lse[(static_cast<long long>(blockIdx.z) * p.H + blockIdx.y) * p.S + row] = m + logf(lsum);
 }
@@ -270,227 +272,388 @@ __global__ void __launch_bounds__(NT) flash_fwd_f32_kernel(Params p) {
 }
 
 
-// bf16 body: 4 warps x 16 query rows; see the header.
-template <int D>
-constexpr int mma_smem_bytes() {
-  return (BQ + 4 * BK) * (D + 8) * 2;  // Q, and K and V twice (double buffer)
-}
+// ---------------------------------------------------------------------------
+// bf16 body: TMA ring and wgmma; see the header.
+// ---------------------------------------------------------------------------
 
-template <int D, bool LSE>
-__global__ void __launch_bounds__(NT) flash_fwd_mma_kernel(Params p) {
-  using bf16 = __nv_bfloat16;
-  constexpr int LD = D + 8;    // smem row stride (elements): +16 B per row
-  constexpr int CPR = D / 8;   // 16-byte chunks per row
-  constexpr int NKT = BK / 8;  // n tiles of the score block
-  constexpr int NDT = D / 8;   // n tiles of the output block
-  extern __shared__ uint4 smem_u4[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_u4);
-  bf16* Ks0 = Qs + BQ * LD;  // buffer b: Ks0 + b * 2 * BK * LD, V right after K
+constexpr int WQ = 128;    // q rows of a block
+constexpr int WNT = 256;   // two consumer warpgroups
+constexpr int BOX = 64;    // columns of a TMA box (128 bytes of bf16: the swizzle span)
+
+template <int D>
+struct Tiles;
+template <>
+struct Tiles<64> {
+  static constexpr int BK = 64, STAGES = 3, MIN_BLOCKS = 2;
+};
+template <>
+struct Tiles<128> {
+  static constexpr int BK = 128, STAGES = 2, MIN_BLOCKS = 1;
+};
+
+// shared memory, in bytes from a 1024-aligned base: Q as D/64 boxes of
+// WQ rows, then K of every stage, then V of every stage (box b of stage s
+// at (s * D/64 + b) boxes), then the barriers
+template <int D>
+struct Smem {
+  static constexpr int NB = D / BOX, BK = Tiles<D>::BK, STAGES = Tiles<D>::STAGES;
+  static constexpr int Q_BOX = WQ * BOX * 2, KV_BOX = BK * BOX * 2;
+  static constexpr int K = NB * Q_BOX;
+  static constexpr int V = K + STAGES * NB * KV_BOX;
+  static constexpr int BAR = V + STAGES * NB * KV_BOX;
+  static constexpr int BYTES = BAR + 8 * (1 + 4 * STAGES) + 1024;  // + alignment slack
+};
+
+template <int D, bool LSE, bool CAP>
+__global__ void __launch_bounds__(WNT, Tiles<D>::MIN_BLOCKS)
+    flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ CUtensorMap to, Params p) {
+  using L = Smem<D>;
+  constexpr int NB = L::NB, BK = L::BK, STAGES = L::STAGES;
+  static_assert(STAGES >= 2, "V of tile i is refilled two iterations after its use");
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = smem_raw + ((1024 - (hopper::smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sm + L::BAR);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + STAGES;
+  uint64_t* k_empty = v_full + STAGES;
+  uint64_t* v_empty = k_empty + STAGES;
+
   const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;  // mma fragment row group / column pair
-  // the last q tiles see the most keys under a causal mask: start them first
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;  // fragment row group / column pair
+  // Block order.  Causal: the heads fastest and the q tiles with the most
+  // unmasked keys first, so the longest blocks start in the first wave.
+  // Otherwise (equal blocks): the q tiles of one head, then the heads of
+  // one kv head, together, so that their K and V are read from device
+  // memory once and then from L2.
+  const int nq = (p.S + WQ - 1) / WQ;
+  int h, b, q0;
+  if (p.causal) {
+    h = blockIdx.x % p.H;
+    b = blockIdx.x / p.H % p.B;
+    q0 = (nq - 1 - static_cast<int>(blockIdx.x / (p.H * p.B))) * WQ;
+  } else {
+    q0 = blockIdx.x % nq * WQ;
+    h = blockIdx.x / nq % p.H;
+    b = blockIdx.x / (nq * p.H);
+  }
   const int S = p.S;
   const int hk = h / (p.H / p.Hkv);
-  const bf16* qp = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const bf16* kp = static_cast<const bf16*>(p.k) + b * p.k_sb + hk * p.k_sh;
-  const bf16* vp = static_cast<const bf16*>(p.v) + b * p.v_sb + hk * p.v_sh;
-  bf16* op = static_cast<bf16*>(p.o) + b * p.o_sb + h * p.o_sh;
-
-  for (int idx = tid; idx < BQ * CPR; idx += NT) {
-    const int r = idx / CPR, c = (idx % CPR) * 8;
-    const int s = q0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (s < S) val = *reinterpret_cast<const uint4*>(qp + s * p.q_ss + c);
-    *reinterpret_cast<uint4*>(Qs + r * LD + c) = val;
-  }
-  __syncthreads();
-  // this warp's Q rows as A fragments, kept for every k tile
-  uint32_t qf[D / 16][4];
-#pragma unroll
-  for (int kc = 0; kc < D / 16; ++kc)
-    ldsm_x4(qf[kc], Qs + (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + kc * 16 +
-                        (lane >> 4) * 8, false);
-
-  float o[NDT][4];
-#pragma unroll
-  for (int j = 0; j < NDT; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
-  const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
-
-  const int q_last = min(q0 + BQ, S) - 1;
+  const int q_last = min(q0 + WQ, S) - 1;
   const int kt_hi = p.causal ? q_last / BK + 1 : (S + BK - 1) / BK;
   const int kt_lo = p.window > 0 ? max(0, q0 - p.window + 1) / BK : 0;
+  const int n_tiles = kt_hi - kt_lo;
 
-  // K/V tile kt into buffer `into`, asynchronously; keys past S zero-filled
-  auto load_kv = [&](int kt, int into) {
-    bf16* Kb = Ks0 + into * 2 * BK * LD;
-    bf16* Vb = Kb + BK * LD;
-    for (int idx = tid; idx < BK * CPR; idx += NT) {
-      const int r = idx / CPR, c = (idx % CPR) * 8;
-      const int s = kt * BK + r;
-      const bool in = s < S;
-      cp_async16(Kb + r * LD + c, in ? kp + s * p.k_ss + c : kp, in);
-      cp_async16(Vb + r * LD + c, in ? vp + s * p.v_ss + c : vp, in);
-    }
-    asm volatile("cp.async.commit_group;\n" ::);
+  // K, or V, of tile kt_lo + i into stage i % STAGES (thread 0 only)
+  auto load_k = [&](int i) {
+    const int s = i % STAGES, k0 = (kt_lo + i) * BK;
+    hopper::mbar_expect_tx(&k_full[s], NB * L::KV_BOX);
+#pragma unroll
+    for (int x = 0; x < NB; ++x)
+      hopper::tma_load_4d(sm + L::K + (s * NB + x) * L::KV_BOX, &tk, &k_full[s], x * BOX, hk,
+                          k0, b);
   };
-  if (kt_lo < kt_hi) load_kv(kt_lo, 0);
-
-  for (int kt = kt_lo; kt < kt_hi; ++kt) {
-    const int k0 = kt * BK;
-    const int buf = (kt - kt_lo) & 1;
-    // the other buffer was last read in the previous iteration, which
-    // ended in a barrier: prefetch the next tile into it, then wait for
-    // this tile only
-    if (kt + 1 < kt_hi) {
-      load_kv(kt + 1, buf ^ 1);
-      asm volatile("cp.async.wait_group 1;\n" ::);
-    } else {
-      asm volatile("cp.async.wait_group 0;\n" ::);
+  auto load_v = [&](int i) {
+    const int s = i % STAGES, k0 = (kt_lo + i) * BK;
+    hopper::mbar_expect_tx(&v_full[s], NB * L::KV_BOX);
+#pragma unroll
+    for (int x = 0; x < NB; ++x)
+      hopper::tma_load_4d(sm + L::V + (s * NB + x) * L::KV_BOX, &tv, &v_full[s], x * BOX, hk,
+                          k0, b);
+  };
+  if (tid == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&k_full[s], 1);
+      hopper::mbar_init(&v_full[s], 1);
+      hopper::mbar_init(&k_empty[s], WNT / 32);  // every consumer warp
+      hopper::mbar_init(&v_empty[s], WNT / 32);
     }
-    __syncthreads();
-    const bf16* Ks = Ks0 + buf * 2 * BK * LD;
-    const bf16* Vs = Ks + BK * LD;
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    hopper::mbar_expect_tx(q_full, NB * L::Q_BOX);
+#pragma unroll
+    for (int x = 0; x < NB; ++x)
+      hopper::tma_load_4d(sm + x * L::Q_BOX, &tq, q_full, x * BOX, h, q0, b);
+    for (int i = 0; i < min(STAGES, n_tiles); ++i) {
+      load_k(i);
+      load_v(i);
+    }
+  }
 
-    float sc[NKT][4];
-#pragma unroll
-    for (int j = 0; j < NKT; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
-#pragma unroll
-    for (int kc = 0; kc < D / 16; ++kc)
-#pragma unroll
-      for (int np = 0; np < NKT / 2; ++np) {
-        uint32_t kb[4];  // B fragments of key tiles 2np (kb0, kb1) and 2np+1 (kb2, kb3)
-        ldsm_x4(kb, Ks + (np * 16 + (lane & 7) + (lane >> 4) * 8) * LD + kc * 16 +
-                        ((lane >> 3) & 1) * 8, false);
-        mma_bf16(sc[2 * np], qf[kc], kb[0], kb[1]);
-        mma_bf16(sc[2 * np + 1], qf[kc], kb[2], kb[3]);
-      }
+  // this warpgroup's rows r0 .. r0 + 63; this thread's rows row0, row0 + 8
+  const int r0 = q0 + wg * 64;
+  const int row0 = r0 + warp * 16 + g;
+  const uint32_t q_smem = hopper::smem_addr(sm) + wg * 64 * 128;
+  const uint32_t k_smem = hopper::smem_addr(sm + L::K);
+  const uint32_t v_smem = hopper::smem_addr(sm + L::V);
+  // scores go to base 2: s * scale * log2(e), or with a softcap c
+  // tanh(s * scale / c) * c * log2(e)
+  const float pre = CAP ? p.scale / p.softcap : p.scale * LOG2E;
+  const float post = p.softcap * LOG2E;
 
-    float mt[2] = {NEG_INF, NEG_INF};
+  float o[D / 2], s[BK / 2];
 #pragma unroll
-    for (int j = 0; j < NKT; ++j)
+  for (int x = 0; x < D / 2; ++x) o[x] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};  // l: this thread's columns only
+  hopper::mbar_wait(q_full, 0);
+
+  // this block's tile at k0 holds a masked key or a key past S
+  auto needs_mask = [&](int k0) {
+    return k0 + BK > S || (p.causal && k0 + BK - 1 > q0) ||
+           (p.window > 0 && k0 <= q0 + WQ - 1 - p.window);
+  };
+  // Scores to weights in place, with the running max and sum; alpha: the
+  // factor of the rows' earlier sums.  No branch between a product's issue
+  // and its wait (softcap and the mask are compile-time choices here, the
+  // mask a select per score): ptxas waits for the product at any join.
+  auto softmax = [&](int k0, float (&alpha)[2], auto masked) {
+    if constexpr (CAP) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const int key = k0 + j * 8 + 2 * t + (e & 1);
-        float s = sc[j][e] * p.scale;
-        if (p.softcap > 0.f) s = tanhf(s / p.softcap) * p.softcap;
-        bool ok = key < S;
-        if (p.causal) ok = ok && key <= row[r];
-        if (p.window > 0) ok = ok && key > row[r] - p.window;
-        sc[j][e] = ok ? s : NEG_INF;
-        mt[r] = fmaxf(mt[r], sc[j][e]);
+      for (int x = 0; x < BK / 2; ++x) s[x] = tanhf(s[x] * pre) * post;
+    } else {
+#pragma unroll
+      for (int x = 0; x < BK / 2; ++x) s[x] *= pre;
+    }
+    if constexpr (decltype(masked)::value) {
+#pragma unroll
+      for (int x = 0; x < BK / 2; ++x) {
+        // s[x]: row row0 + 8 ((x >> 1) & 1), key k0 + 8 (x / 4) + 2 t + (x & 1).
+        // A key past S is no key at all; a masked key keeps the JAX
+        // kernel's arithmetic (exp(-2e38 - m), wiped by a later alpha)
+        const int key = k0 + (x / 4) * 8 + 2 * t + (x & 1);
+        const int row = row0 + ((x >> 1) & 1) * 8;
+        const bool hidden = (p.causal && key > row) || (p.window > 0 && key <= row - p.window);
+        s[x] = key >= S ? -INFINITY : hidden ? NEG_INF : s[x];
       }
-    float alpha[2], rs[2] = {0.f, 0.f};
+    }
+    float mt[2] = {m[0], m[1]}, rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int x = 0; x < BK / 2; ++x) mt[(x >> 1) & 1] = fmaxf(mt[(x >> 1) & 1], s[x]);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       // the four threads of a row are four neighbouring lanes
       mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 1));
       mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 2));
-      const float m_new = fmaxf(m[r], mt[r]);
-      alpha[r] = expf(m[r] - m_new);
-      m[r] = m_new;
+      alpha[r] = hopper::exp2_approx(m[r] - mt[r]);
+      m[r] = mt[r];
     }
 #pragma unroll
-    for (int j = 0; j < NKT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + j * 8 + 2 * t + (e & 1);
-        const float pw = key < S ? expf(sc[j][e] - m[e >> 1]) : 0.f;
-        sc[j][e] = pw;
-        rs[e >> 1] += pw;
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
-      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
-      l[r] = l[r] * alpha[r] + rs[r];
+    for (int x = 0; x < BK / 2; ++x) {
+      s[x] = hopper::exp2_approx(s[x] - m[(x >> 1) & 1]);
+      rs[(x >> 1) & 1] += s[x];
     }
 #pragma unroll
-    for (int j = 0; j < NDT; ++j) {
-      o[j][0] *= alpha[0];
-      o[j][1] *= alpha[0];
-      o[j][2] *= alpha[1];
-      o[j][3] *= alpha[1];
-    }
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
+  };
+  // S = Q K^T of the tile in stage st, issued
+  auto issue_qk = [&](int st) {
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      hopper::wgmma_ss<BK, 0, 0>(
+          s, hopper::desc_sw128(q_smem + (kk / 4) * L::Q_BOX + (kk % 4) * 32, 16, 1024),
+          hopper::desc_sw128(k_smem + (st * NB + kk / 4) * L::KV_BOX + (kk % 4) * 32, 16, 1024),
+          kk > 0);
+    hopper::wgmma_commit();
+  };
+  // O += P V of the tile in stage st, issued; P in bf16 pairs, keys
+  // 16 kc .. 16 kc + 15 the A operand of step kc
+  uint32_t pa[BK / 16][4];
+  auto issue_pv = [&](int st) {
+#pragma unroll
+    for (int kc = 0; kc < BK / 16; ++kc)
+      hopper::wgmma_rs<D, 1>(
+          o, pa[kc],
+          hopper::desc_sw128(v_smem + st * NB * L::KV_BOX + kc * 16 * 128, L::KV_BOX, 1024), 1);
+    hopper::wgmma_commit();
+  };
+  auto fence_all = [&] {
+    hopper::fence_regs(s);
+    hopper::fence_regs(o);
+#pragma unroll
+    for (int kc = 0; kc < BK / 16; ++kc) hopper::fence_regs(pa[kc]);
+  };
+  auto rescale_and_pack = [&](const float (&alpha)[2]) {
+#pragma unroll
+    for (int x = 0; x < D / 2; ++x) o[x] *= alpha[(x >> 1) & 1];
+#pragma unroll
+    for (int kc = 0; kc < BK / 16; ++kc)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        pa[kc][e] = hopper::pack_bf16(s[8 * kc + 2 * e], s[8 * kc + 2 * e + 1]);
+  };
 
-#pragma unroll
-    for (int kc = 0; kc < BK / 16; ++kc) {
-      // score tiles 2kc, 2kc+1 are the A fragment of keys 16kc .. 16kc+15
-      const uint32_t pf[4] = {pack_bf16(sc[2 * kc][0], sc[2 * kc][1]),
-                              pack_bf16(sc[2 * kc][2], sc[2 * kc][3]),
-                              pack_bf16(sc[2 * kc + 1][0], sc[2 * kc + 1][1]),
-                              pack_bf16(sc[2 * kc + 1][2], sc[2 * kc + 1][3])};
-#pragma unroll
-      for (int dp = 0; dp < NDT / 2; ++dp) {
-        uint32_t vb[4];  // B fragments of output tiles 2dp (vb0, vb1) and 2dp+1 (vb2, vb3)
-        ldsm_x4(vb, Vs + (kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + dp * 16 +
-                        (lane >> 4) * 8, true);
-        mma_bf16(o[2 * dp], pf, vb[0], vb[1]);
-        mma_bf16(o[2 * dp + 1], pf, vb[2], vb[3]);
+  // An iteration issues S_i = Q K_i^T and O += P_{i-1} V_{i-1}, waits for
+  // S_i, computes P_i, then waits for the product (ptxas places that wait
+  // at the row max's first shuffle), rescales O and packs P_i; then K_i
+  // and V_{i-1} are released.
+  // Every branch around a wgmma depends on the block alone, so a
+  // warpgroup whose rows see none of a tile's keys computes it all the
+  // same: its weights come out 0, or are wiped by a later alpha.
+  float alpha[2];
+  auto first = [&](auto masked) {
+    hopper::mbar_wait(&k_full[0], 0);
+    fence_all();
+    hopper::wgmma_fence();
+    issue_qk(0);
+    hopper::wgmma_wait<0>();
+    fence_all();
+    if (lane == 0) hopper::mbar_arrive(&k_empty[0]);
+    softmax(kt_lo * BK, alpha, masked);
+    rescale_and_pack(alpha);
+  };
+  if (needs_mask(kt_lo * BK))
+    first(std::true_type{});
+  else
+    first(std::false_type{});
+  for (int i = 1; i < n_tiles; ++i) {
+    const int st = i % STAGES, pst = (i - 1) % STAGES;
+    // refill the stages that every warp released in the previous
+    // iteration: K of tile i - 1, V of tile i - 2
+    if (tid == 0) {
+      if (i - 1 + STAGES < n_tiles) {
+        hopper::mbar_wait(&k_empty[pst], ((i - 1) / STAGES) & 1);
+        load_k(i - 1 + STAGES);
+      }
+      if (i >= 2 && i - 2 + STAGES < n_tiles) {
+        hopper::mbar_wait(&v_empty[(i - 2) % STAGES], ((i - 2) / STAGES) & 1);
+        load_v(i - 2 + STAGES);
       }
     }
-    __syncthreads();  // every warp is done with this buffer
+    __syncwarp();
+    auto step = [&](auto masked) {
+      hopper::mbar_wait(&k_full[st], (i / STAGES) & 1);
+      hopper::mbar_wait(&v_full[pst], ((i - 1) / STAGES) & 1);
+      fence_all();
+      hopper::wgmma_fence();
+      issue_qk(st);
+      issue_pv(pst);
+      hopper::wgmma_wait<1>();
+      hopper::fence_regs(s);
+      softmax((kt_lo + i) * BK, alpha, masked);
+      hopper::wgmma_wait<0>();
+      fence_all();
+      if (lane == 0) {
+        hopper::mbar_arrive(&k_empty[st]);
+        hopper::mbar_arrive(&v_empty[pst]);
+      }
+      rescale_and_pack(alpha);
+    };
+    if (needs_mask((kt_lo + i) * BK))
+      step(std::true_type{});
+    else
+      step(std::false_type{});
+  }
+  {  // the last tile's product
+    const int pst = (n_tiles - 1) % STAGES;
+    hopper::mbar_wait(&v_full[pst], ((n_tiles - 1) / STAGES) & 1);
+    fence_all();
+    hopper::wgmma_fence();
+    issue_pv(pst);
+    hopper::wgmma_wait<0>();
+    fence_all();
   }
 
+  if (r0 >= S) return;  // the whole warpgroup lies past S
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    if (row[r] >= S) continue;
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     const float lsum = fmaxf(l[r], 1e-37f);
-    if constexpr (LSE)
-      if (t == 0) store_lse(p, row[r], m[r], lsum);
+    // O into this warpgroup's Q rows, swizzled as the TMA box expects:
+    // 16-byte chunk c of row rl at chunk c ^ (rl % 8)
+    const int rl = warp * 16 + g + 8 * r;
 #pragma unroll
-    for (int j = 0; j < NDT; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(op + row[r] * p.o_ss + j * 8 + 2 * t) =
-          __floats2bfloat162_rn(o[j][2 * r] / lsum, o[j][2 * r + 1] / lsum);
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(sm + (j / 8) * L::Q_BOX + (wg * 64 + rl) * 128 +
+                                         ((j % 8) ^ g) * 16 + t * 4) =
+          __floats2bfloat162_rn(o[4 * j + 2 * r] / lsum, o[4 * j + 2 * r + 1] / lsum);
+    if constexpr (LSE)
+      if (t == 0 && row0 + 8 * r < S)
+        p.lse[(static_cast<long long>(b) * p.H + h) * S + row0 + 8 * r] =
+            m[r] * LN2 + logf(lsum);
+  }
+  hopper::fence_proxy_async();
+  hopper::named_barrier(1 + wg, 128);
+  if (tid % 128 == 0) {
+#pragma unroll
+    for (int x = 0; x < NB; ++x)
+      hopper::tma_store_4d(&to, sm + x * L::Q_BOX + wg * 64 * 128, x * BOX, h, r0, b);
+    hopper::tma_store_commit();
+    hopper::tma_store_wait();
   }
 }
 
-template <typename K>
-cudaError_t launch_kernel(K kernel, int smem, const Params& p, int B, cudaStream_t stream,
-                          bool* configured) {
-  if (!*configured) {
-    cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+// a (B, S, H, D) bf16 tensor as a map over (D, H, S, B), read or written
+// in boxes of 64 columns x `rows` rows of one head
+bool bhsd_map(CUtensorMap* map, const void* base, int B, int S, int H, int D, long long sb,
+              long long ss, long long sh, int rows) {
+  const uint64_t dims[4] = {static_cast<uint64_t>(D), static_cast<uint64_t>(H),
+                            static_cast<uint64_t>(S), static_cast<uint64_t>(B)};
+  const uint64_t strides[3] = {static_cast<uint64_t>(sh) * 2, static_cast<uint64_t>(ss) * 2,
+                               static_cast<uint64_t>(sb) * 2};
+  const uint32_t box[4] = {BOX, 1, static_cast<uint32_t>(rows), 1};
+  return hopper::tensor_map_4d(map, base, dims, strides, box);
+}
+
+template <int D, bool LSE, bool CAP>
+cudaError_t launch_bf16(const Params& p, int B, cudaStream_t stream) {
+  constexpr int smem = Smem<D>::BYTES;
+  auto kernel = flash_fwd_wgmma_kernel<D, LSE, CAP>;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
-    *configured = true;
+    configured = true;
+  }
+  CUtensorMap tq, tk, tv, to;
+  if (!bhsd_map(&tq, p.q, B, p.S, p.H, D, p.q_sb, p.q_ss, p.q_sh, WQ) ||
+      !bhsd_map(&tk, p.k, B, p.S, p.Hkv, D, p.k_sb, p.k_ss, p.k_sh, Tiles<D>::BK) ||
+      !bhsd_map(&tv, p.v, B, p.S, p.Hkv, D, p.v_sb, p.v_ss, p.v_sh, Tiles<D>::BK) ||
+      !bhsd_map(&to, p.o, B, p.S, p.H, D, p.o_sb, p.o_ss, p.o_sh, 64))
+    return cudaErrorInvalidValue;
+  const dim3 grid(p.H * B * ((p.S + WQ - 1) / WQ));
+  kernel<<<grid, WNT, smem, stream>>>(tq, tk, tv, to, p);
+  return cudaGetLastError();
+}
+
+template <int D, bool LSE>
+cudaError_t launch_f32(const Params& p, int B, cudaStream_t stream) {
+  constexpr int smem = smem_floats<D>() * sizeof(float);
+  auto kernel = flash_fwd_f32_kernel<D, LSE>;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    configured = true;
   }
   dim3 grid((p.S + BQ - 1) / BQ, p.H, B);
   kernel<<<grid, NT, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <int D, bool LSE>
-cudaError_t launch_f32(const Params& p, int B, cudaStream_t stream) {
-  static bool configured = false;
-  return launch_kernel(flash_fwd_f32_kernel<D, LSE>, smem_floats<D>() * sizeof(float), p, B,
-                       stream, &configured);
-}
-
-template <int D, bool LSE>
-cudaError_t launch_bf16(const Params& p, int B, cudaStream_t stream) {
-  static bool configured = false;
-  return launch_kernel(flash_fwd_mma_kernel<D, LSE>, mma_smem_bytes<D>(), p, B, stream,
-                       &configured);
-}
-
 template <int D>
 cudaError_t launch_d(const Params& p, int B, int dtype, cudaStream_t st) {
   const bool lse = p.lse != nullptr;
   if (dtype == 0) return lse ? launch_f32<D, true>(p, B, st) : launch_f32<D, false>(p, B, st);
-  if (dtype == 1) return lse ? launch_bf16<D, true>(p, B, st) : launch_bf16<D, false>(p, B, st);
+  if (dtype == 1) {
+    if (p.softcap > 0.f)
+      return lse ? launch_bf16<D, true, true>(p, B, st) : launch_bf16<D, false, true>(p, B, st);
+    return lse ? launch_bf16<D, true, false>(p, B, st) : launch_bf16<D, false, false>(p, B, st);
+  }
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (then every row of q, k, v must start on
-// a 16-byte boundary).  lse: (B, H, S) f32, or null for none.  Returns a
-// cudaError_t (0 = launched).
+// dtype: 0 = float32, 1 = bfloat16 (then q, k, v must start on a 16-byte
+// boundary with strides of whole 16 bytes: the TMA's rule).  lse: (B, H,
+// S) f32, or null for none.  Returns a cudaError_t (0 = launched).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    float* lse,
                                    long long q_sb, long long q_ss, long long q_sh,
@@ -502,7 +665,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
                                    void* stream) {
   Params p{q, k, v, o, lse,
            q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh,
-           S, H, Hkv, causal, window, softcap, scale};
+           B, S, H, Hkv, causal, window, softcap, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D == 64) return launch_d<64>(p, B, dtype, st);
   if (D == 128) return launch_d<128>(p, B, dtype, st);

@@ -45,7 +45,10 @@ def _check(q, k, v, window, what="flash_attention kernel"):
 
 
 def _check_rows_aligned(what, **tensors):
-    """The bf16 (tensor-core) bodies load rows 16 B at a time."""
+    """The bf16 bodies' alignment: each tensor's base on 16 bytes and its
+    strides whole multiples of 8 elements (16 bytes), exactly what a TMA
+    tensor map requires of the forward's q, k, v, and what the backward's
+    16-byte row copies need."""
     for name, t in tensors.items():
         if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3]):
             raise ValueError(f"{what}: bf16 {name} rows must start on 16-byte boundaries")

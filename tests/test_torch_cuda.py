@@ -51,6 +51,63 @@ def test_flash_kernel_matches_plain(cuda, S, rep, causal, window, softcap):
     assert ops.launch_counts["flash_attention"] == 1
 
 
+def _plain_lse(q, k, causal, window, softcap):
+    """Each row's log-sum-exp of the masked f32 scores, (B, H, S)."""
+    B, S, H, D = q.shape
+    kr = k.repeat_interleave(H // k.shape[2], dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, kr) * D**-0.5
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    i = torch.arange(S, device=q.device)
+    ok = torch.ones(S, S, dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= i[None, :] <= i[:, None]
+    if window is not None:
+        ok &= i[None, :] > i[:, None] - window
+    return s.masked_fill(~ok, ref.NEG_INF).logsumexp(-1)
+
+
+# (rep, causal, window, softcap, lse): GQA 1 / 4 / 12, a window of 100 and
+# a softcap of 30, with and without the lse output
+BF16_FLASH_VARIANTS = [(1, True, None, 0.0, True), (4, False, None, 0.0, False),
+                       (12, True, 100, 0.0, True), (4, True, None, 30.0, False),
+                       (12, False, 100, 30.0, True)]
+
+
+@pytest.mark.parametrize("variant", BF16_FLASH_VARIANTS)
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("S", [1, 63, 127, 128, 129, 255, 513, 1024])
+def test_flash_bf16_kernel_tile_edges(cuda, S, D, variant):
+    """The bf16 (wgmma) body at the edges of its tiles (128 q rows a
+    block; 64 or 128 keys a tile) against the plain version on the same
+    bf16 values in f32, per element: u (|want| + want_abs) + 1e-5 with
+    u = 2^-8, want_abs the plain version with |v| (rounding the output and
+    P to bf16 costs at most u |want| and u P|v| / l), as chip_smoke.py's
+    gate.  The lse within 1e-4: f32 sums of up to 1024 exponentials in
+    another order, about 1024 x 2^-24 relative to l."""
+    rep, causal, window, softcap, want_lse = variant
+    g = torch.Generator(device=cuda).manual_seed(S * D + rep)
+    q = torch.randn(2, S, 2 * rep, D, generator=g, device=cuda).bfloat16()
+    k, v = (torch.randn(2, S, 2, D, generator=g, device=cuda).bfloat16() for _ in range(2))
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+
+    ops.reset_launch_counts()
+    got = flash_attention_fwd(q, k, v, causal=causal, window=window, softcap=softcap,
+                              return_lse=want_lse)
+    got, lse = got if want_lse else (got, None)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    opts = dict(causal=causal, window=window, softcap=softcap)
+    want = ref.flash_attention_ref(qf, kf, vf, **opts)
+    want_abs = ref.flash_attention_ref(qf, kf, vf.abs(), **opts)
+    err = (got.float() - want).abs()
+    lim = 2.0**-8 * (want.abs() + want_abs) + 1e-5
+    assert got.dtype == torch.bfloat16 and (err <= lim).all(), (err / lim).max()
+    if want_lse:
+        torch.testing.assert_close(lse, _plain_lse(qf, kf, causal, window, softcap),
+                                   atol=1e-4, rtol=0)
+    assert ops.launch_counts["flash_attention"] == 1
+
+
 @pytest.mark.parametrize("rep,window", [(12, None), (2, 9)])
 def test_paged_kernel_matches_plain(cuda, rep, window):
     g = torch.Generator(device=cuda).manual_seed(rep)
