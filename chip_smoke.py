@@ -9,7 +9,9 @@
         --against parent=build/parent/flash_attention.cu
 
 Phases (any failure exits non-zero before the last line):
-  build       build the CUDA kernels from src/repro_torch/kernels/csrc/
+  build       build the CUDA kernels from src/repro_torch/kernels/csrc/;
+              the bf16 flash forward and backward must run on wgmma and
+              TMA alone (SASS: HGMMA and UTMALDG, no HMMA; no ptxas C7520)
   kernels     hold each kernel (forward and backward) against its plain
               PyTorch version (backward: the plain version's autograd) on
               the card, f32 and bf16, at the stated tolerances, up to the
@@ -39,9 +41,9 @@ Phases (any failure exits non-zero before the last line):
               gone through the kernels (launch counts per step)
   time        each kernel at its path's shapes against its plain version,
               its bound and a PyTorch call computing the same function
-              (SDPA, F.cross_entropy; none computes SSD) as a yardstick:
-              device time per call (CUDA-graph replay) and time per
-              back-to-back call
+              (SDPA and its backward op, F.cross_entropy; none computes
+              SSD) as a yardstick: device time per call (CUDA-graph
+              replay) and time per back-to-back call
 
 --against NAME=SOURCE (repeatable) builds SOURCE, another version of the
 kernel source of its file name (csrc/<kernel>.cu; e.g. a parent commit's,
@@ -172,6 +174,10 @@ FLASH_BWD_CASES = [
     (2, 200, 12, 1, 64, False),     # rep 12, non-causal, ragged
     (1, 77, 6, 2, 64, False),       # one ragged tile and a half
     (8, 512, 12, 12, 64, False),    # bert-mlm-120m's attention
+    # the bf16 body's tile edges (64-row tiles, 128 rows or keys a block):
+    # at each S, D 64 and 128, causal and not, rep 1 and 4
+    *[(2, S, 2 * rep, 2, D, causal) for S in (63, 64, 65, 127, 129, 511, 513)
+      for D, causal, rep in ((64, True, 1), (128, False, 4), (64, False, 4), (128, True, 1))],
 ]
 
 XENT_CASES = [  # (T, V)
@@ -448,8 +454,13 @@ FAULTS = [
      "for (int c0 = 0; c0 + TILE < V; c0 += TILE) {  // vocab tiles, in order"),
     ("flash_attention_bwd", ("flash_attention_bwd",),
      "dq drops the contribution of k tile 0 when there are more",
-     "for (int kt = 0; kt < kt_hi; ++kt) {  // every k tile adds to dq",
-     "for (int kt = kt_hi > 1 ? 1 : 0; kt < kt_hi; ++kt) {  // every k tile adds to dq"),
+     "dp[x] = s[x] * (dp[x] - dl[(x >> 1) & 1]);  // dq: dS = P (dP - Delta)",
+     "dp[x] = i == 0 && n_tiles > 1 ? 0.f : s[x] * (dp[x] - dl[(x >> 1) & 1]);  "
+     "// dq: dS = P (dP - Delta)"),
+    ("flash_attention_bwd", ("flash_attention_bwd",),
+     "dkdv skips the last rep head of each kv head",
+     "const int n_iter = rep * nq;  // the ring runs over rep heads x q tiles",
+     "const int n_iter = (rep > 1 ? rep - 1 : rep) * nq;  // the ring runs over rep heads x q tiles"),
     ("ssd_scan", ("ssd_scan",), "the state is carried without its exp(acs_L) decay",
      "if (n < N) st[n * PC + tx] = carry * st[n * PC + tx] + acc[i];",
      "if (n < N) st[n * PC + tx] = st[n * PC + tx] + acc[i];"),
@@ -467,19 +478,19 @@ def _start_nvcc(src, lib):
 
 def start_fault_builds():
     """Write the faulty sources under build/kernels/faults/ and start one
-    nvcc for each; returns {kernel: (process, library path)}."""
+    nvcc for each; returns {index in FAULTS: (process, library path)}."""
     from repro_torch.kernels import _build
 
     d = _build.BUILD_DIR / "faults"
     d.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, _, _, old, new in FAULTS:
+    for i, (name, _, _, old, new) in enumerate(FAULTS):
         text = (_build.CSRC / f"{name}.cu").read_text()
         if text.count(old) != 1:
             fail(f"faults: {name}.cu does not hold {old!r} once; update FAULTS")
-        src, lib = d / f"{name}.cu", d / f"lib{name}.so"
+        src, lib = d / f"{name}-{i}.cu", d / f"lib{name}-{i}.so"
         src.write_text(text.replace(old, new))
-        procs[name] = (_start_nvcc(src, lib), lib)
+        procs[i] = (_start_nvcc(src, lib), lib)
     return procs
 
 
@@ -489,8 +500,8 @@ def check_faults(torch, rec, procs):
     from repro_torch.kernels import _build
 
     res = []
-    for name, kernels, bug, _, _ in FAULTS:
-        proc, lib = procs[name]
+    for i, (name, kernels, bug, _, _) in enumerate(FAULTS):
+        proc, lib = procs[i]
         out, _ = proc.communicate()
         if proc.returncode != 0:
             fail(f"faults: the faulty {name} did not build:\n{out}")
@@ -531,18 +542,14 @@ def ptxas_report(log):
     return out
 
 
-def sass_counts(lib):
-    """{kernel function: {instruction: count}} in a built library's SASS
-    (``cuobjdump -sass``): HGMMA (wgmma), UTMALDG / UTMASTG (TMA load /
-    store), HMMA (mma.sync)."""
+def parse_sass(text):
+    """{kernel function: {instruction: count}} in ``cuobjdump -sass``
+    output: HGMMA (wgmma), UTMALDG / UTMASTG (TMA load / store), HMMA
+    (mma.sync)."""
     import re
 
-    from repro_torch.kernels import _build
-
-    out = subprocess.run([str(Path(_build.nvcc()).parent / "cuobjdump"), "-sass", str(lib)],
-                         capture_output=True, text=True, check=True).stdout
     res, fn = {}, None
-    for line in out.splitlines():
+    for line in text.splitlines():
         if line.strip().startswith("Function :"):
             fn = line.split(":", 1)[1].strip()
             res[fn] = dict.fromkeys(("HGMMA", "UTMALDG", "UTMASTG", "HMMA"), 0)
@@ -552,21 +559,54 @@ def sass_counts(lib):
     return res
 
 
-def flash_build_facts(rec):
-    """The bf16 flash forward as built: ptxas's report (registers, spill
-    bytes) of each instance of ``flash_fwd_wgmma_kernel`` and its SASS
-    counts.  Fails unless every instance runs on HGMMA and UTMALDG with no
-    HMMA."""
+def sass_counts(lib):
+    """``parse_sass`` of a built library."""
     from repro_torch.kernels import _build
 
-    ptxas = rec["ptxas"].get("flash_attention", {})
-    sass = sass_counts(_build._lib_path(_build.CSRC / "flash_attention.cu"))
-    bf16 = {k: v for k, v in sass.items() if "flash_fwd_wgmma" in k}
-    for k, v in bf16.items():
-        log(f"flash forward {k}: SASS {v}; ptxas {ptxas.get(k, 'not built in this run')}")
-    if not bf16 or any(v["HGMMA"] == 0 or v["UTMALDG"] == 0 or v["HMMA"] for v in bf16.values()):
-        fail(f"the bf16 flash forward does not run on wgmma and TMA alone: {bf16}")
-    rec["flash_fwd_build"] = {"ptxas": ptxas, "sass": sass}
+    return parse_sass(subprocess.run(
+        [str(Path(_build.nvcc()).parent / "cuobjdump"), "-sass", str(lib)],
+        capture_output=True, text=True, check=True).stdout)
+
+
+# the bf16 flash bodies, which must run on wgmma and TMA alone: (kernel
+# source, a part of each of its functions' names)
+WGMMA_FUNCTIONS = (("flash_attention", "flash_fwd_wgmma"), ("flash_attention_bwd", "dq_wgmma"),
+                   ("flash_attention_bwd", "dkdv_wgmma"))
+
+
+def wgmma_route_faults(sass, part):
+    """What keeps the functions named by ``part`` in ``parse_sass``'s
+    counts off the wgmma and TMA route: none found, or one without HGMMA
+    or UTMALDG or with HMMA.  Empty when every one runs on them alone."""
+    fns = {k: v for k, v in sass.items() if part in k}
+    if not fns:
+        return [f"no function named {part}"]
+    return [f"{k}: {v}" for k, v in fns.items()
+            if v["HGMMA"] == 0 or v["UTMALDG"] == 0 or v["HMMA"]]
+
+
+def flash_build_facts(rec):
+    """The bf16 flash forward and backward as built: ptxas's report
+    (registers, spill bytes) and SASS counts of every instance of
+    ``WGMMA_FUNCTIONS``.  Fails unless each runs on HGMMA and UTMALDG with
+    no HMMA, or if ptxas serialized a wgmma (its warning C7520)."""
+    from repro_torch.kernels import _build
+
+    facts, faults = {}, []
+    for name in dict(WGMMA_FUNCTIONS):
+        ptxas = rec["ptxas"].get(name, {})
+        sass = sass_counts(_build._lib_path(_build.CSRC / f"{name}.cu"))
+        for _, part in (f for f in WGMMA_FUNCTIONS if f[0] == name):
+            for k, v in sass.items():
+                if part in k:
+                    log(f"{name} {k}: SASS {v}; ptxas {ptxas.get(k, 'not built in this run')}")
+            faults += wgmma_route_faults(sass, part)
+        faults += [w for w in ptxas.get("warnings", []) if "C7520" in w]
+        facts[name] = {"ptxas": ptxas, "sass": sass}
+    if faults:
+        fail(f"the bf16 flash kernels do not run on wgmma and TMA alone: {faults}")
+    rec["flash_fwd_build"] = facts["flash_attention"]
+    rec["flash_bwd_build"] = facts["flash_attention_bwd"]
 
 
 def parse_against(specs):
@@ -1029,8 +1069,9 @@ def run_train(torch, rec, seed=0, B=32, S=512, steps=20, n_prof=3):
     rec["train"] = res
 
 
-REPO_KERNELS = ("flash_fwd", "dq_mma", "dkdv_mma", "dq_f32", "dkdv_f32", "delta_kernel",
-                "xent_fwd", "xent_bwd", "paged_partial", "paged_combine", "ssd_scan_kernel")
+REPO_KERNELS = ("flash_fwd", "dq_wgmma", "dkdv_wgmma", "dq_mma", "dkdv_mma", "dq_f32",
+                "dkdv_f32", "delta_kernel", "xent_fwd", "xent_bwd", "paged_partial",
+                "paged_combine", "ssd_scan_kernel")
 
 
 def _kernel_class(name):
@@ -1125,6 +1166,90 @@ def _bound(flops, nbytes, peak_flops):
     """(bound ms, what bounds it)."""
     t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes"
+
+
+def flash_bwd_bound(q, k, causal):
+    """(bound ms, what bounds it) of a bf16 flash backward: five products
+    (S, dP, dV, dK, dQ) of 2 D flops per unmasked (query, key) pair and
+    head; q, o, do, dq and k, v, dk, dv moved once in bf16, the f32 lse
+    read once."""
+    B, S, H, D = q.shape
+    pairs = S * (S + 1) / 2 if causal else S * S
+    nbytes = 2 * B * S * D * (4 * H + 4 * k.shape[2]) + 4 * B * H * S
+    return _bound(10 * B * H * D * pairs, nbytes, PEAK_BF16_FLOPS)
+
+
+def device_ms_by_kernel(torch, fn, n=10):
+    """{device kernel: ms per call} of ``n`` eager calls of ``fn`` under
+    torch.profiler: how a call's device time splits between its kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[:80]: e.self_device_time_total / n / 1e3 for e in _device_kernels(torch, prof)}
+
+
+def sdpa_bwd(torch, q, k, v, do, causal):
+    """SDPA's flash-attention backward op on (B, H, S, D) copies of the
+    inputs, its forward run once: a callable that runs only the backward,
+    so that a CUDA graph can hold it.  K and V are repeated to H heads (the
+    op takes no GQA), so for GQA it computes dk and dv per query head."""
+    rep_ = q.shape[2] // k.shape[2]
+    qt, dot = (x.transpose(1, 2).contiguous() for x in (q, do))
+    kt, vt = (x.repeat_interleave(rep_, dim=2).transpose(1, 2).contiguous() for x in (k, v))
+    o, lse, cq, ck, mq, mk, seed, offset, _ = \
+        torch.ops.aten._scaled_dot_product_flash_attention(qt, kt, vt, 0.0, causal)
+    return lambda: torch.ops.aten._scaled_dot_product_flash_attention_backward(
+        dot, qt, kt, vt, o, lse, cq, ck, mq, mk, 0.0, causal, seed, offset)
+
+
+def time_flash_bwd(torch, checked, what, q, k, v, do, causal):
+    """The backward kernel at one shape against the gate, its bound, the
+    plain version's autograd (eager) and SDPA's backward op: ``ms`` and
+    ``library_ms`` by CUDA-graph replay, ``library_eager_ms`` SDPA's
+    autograd backward by back-to-back eager calls, and the kernel's
+    device time split by its device kernels."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_fwd
+
+    ratio = checked(f"flash_bwd {what}", flash_bwd_reading(torch, q, k, v, do, causal))
+    o, lse = flash_attention_fwd(q, k, v, causal=causal, return_lse=True)
+    run = lambda: flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    ms, call_ms = time_ms(torch, run)
+    qr, kr, vr = (x.detach().requires_grad_(True) for x in (q, k, v))
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+    with torch.enable_grad():
+        o_plain = ref.flash_attention_ref(qr, kr, vr, causal=causal)
+        o_lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                               enable_gqa=q.shape[2] != k.shape[2])
+    plain_ms = eager_ms(torch, lambda: torch.autograd.grad(
+        o_plain, (qr, kr, vr), do, retain_graph=True))
+    lib_eager = eager_ms(torch, lambda: torch.autograd.grad(
+        o_lib, (qt, kt, vt), do.transpose(1, 2), retain_graph=True))
+    del o_plain, o_lib
+    try:
+        lib_ms, lib_call_ms = time_ms(torch, sdpa_bwd(torch, q, k, v, do, causal))
+    except RuntimeError as e:       # a torch whose flash op this card or graph refuses
+        log(f"time flash_bwd {what}: SDPA's backward op not timed: {e}")
+        lib_ms = lib_call_ms = None
+    bound = flash_bwd_bound(q, k, causal)
+    res = {"shape": list(q.shape) + [k.shape[2]], "causal": causal, "ms": ms,
+           "call_ms": call_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+           "library_call_ms": lib_call_ms, "library_eager_ms": lib_eager,
+           "bound_ms": bound[0], "bound_by": bound[1], "err_over_limit": ratio,
+           "by_kernel": device_ms_by_kernel(torch, run),
+           "plain": "autograd backward, eager (CUDA events)",
+           "library": "aten._scaled_dot_product_flash_attention_backward by CUDA-graph "
+                      "replay (K, V repeated to H heads); library_eager_ms: SDPA's "
+                      "autograd backward, eager"}
+    log(f"time flash_bwd {what}: {res}")
+    return res
 
 
 def flash_bound(q, k, causal, lse):
@@ -1250,9 +1375,10 @@ def time_train_kernels(torch, checked, gen, B=32, S=512, H=12, D=64, T=3904, V=3
     """The train phase's kernels at its shapes: flash forward and backward
     at bert-mlm-120m's attention (bf16, non-causal), fused_xent forward
     and backward on one loss chunk (32 x 122 rows of 32768 logits) in
-    f32, the train path's dtype, and in bf16.  Library yardsticks: SDPA
-    and its autograd backward, F.cross_entropy and its autograd
-    backward."""
+    f32, the train path's dtype, and in bf16; the flash backward also at
+    starcoder2-3b's attention (GQA 24 / 2, D 128, causal, S 1024).
+    Library yardsticks: SDPA and its backward op, F.cross_entropy and its
+    autograd backward."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
@@ -1264,37 +1390,35 @@ def time_train_kernels(torch, checked, gen, B=32, S=512, H=12, D=64, T=3904, V=3
     q, k, v, do = (torch.randn(B, S, H, D, generator=gen, device="cuda").to(bf)
                    for _ in range(4))
     r_fwd = checked("flash train shape", flash_reading(torch, q, k, v, False))
-    r_bwd = checked("flash_bwd train shape", flash_bwd_reading(torch, q, k, v, do, False))
-    o, lse = flash_attention_fwd(q, k, v, causal=False, return_lse=True)
-    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
-    qr, kr, vr = (x.detach().requires_grad_(True) for x in (q, k, v))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     fwd_ms, fwd_call = time_ms(
         torch, lambda: flash_attention_fwd(q, k, v, causal=False, return_lse=True))
     fwd_nolse, _ = time_ms(torch, lambda: flash_attention_fwd(q, k, v, causal=False))
     fwd_plain, _ = time_ms(torch, lambda: ref.flash_attention_ref(q, k, v, causal=False))
     fwd_lib, _ = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt))
-    bwd_ms, bwd_call = time_ms(
-        torch, lambda: flash_attention_bwd(q, k, v, o, lse, do, causal=False))
-    with torch.enable_grad():
-        o_plain = ref.flash_attention_ref(qr, kr, vr, causal=False)
-        o_lib = F.scaled_dot_product_attention(qt, kt, vt)
-    bwd_plain = eager_ms(torch, lambda: torch.autograd.grad(
-        o_plain, (qr, kr, vr), do, retain_graph=True))
-    bwd_lib = eager_ms(torch, lambda: torch.autograd.grad(
-        o_lib, (qt, kt, vt), do.transpose(1, 2), retain_graph=True))
-    io = B * S * H * D * 2
     fwd_b = flash_bound(q, k, causal=False, lse=True)
-    bwd_b = _bound(10 * B * H * S * S * D, 8 * io + B * H * S * 4, PEAK_BF16_FLOPS)
     out["flash_train"] = {
         "shape": [B, S, H, D], "dtype": "bfloat16", "causal": False,
         "fwd": {"ms": fwd_ms, "ms_without_lse": fwd_nolse, "call_ms": fwd_call,
                 "plain_ms": fwd_plain, "library_ms": fwd_lib,
                 "bound_ms": fwd_b[0], "bound_by": fwd_b[1], "err_over_limit": r_fwd},
-        "bwd": {"ms": bwd_ms, "call_ms": bwd_call, "plain_ms": bwd_plain, "library_ms": bwd_lib,
-                "bound_ms": bwd_b[0], "bound_by": bwd_b[1], "err_over_limit": r_bwd,
-                "plain_and_library": "autograd backward, eager (CUDA events)"}}
-    log(f"time flash train shape: {out['flash_train']}")
-    del o_plain, o_lib, qt, kt, vt, qr, kr, vr, o, lse
+        "bwd": time_flash_bwd(torch, checked, "train shape", q, k, v, do, False)}
+    log(f"time flash train shape: {out['flash_train']['fwd']}")
+    # the host's cost of one backward call: eager calls at (1, 128, 12, 64),
+    # where the device takes about 0.01 ms
+    qs, ks, vs, dos = (x[:1, :128] for x in (q, k, v, do))
+    os_, lse_s = flash_attention_fwd(qs, ks, vs, causal=False, return_lse=True)
+    out["flash_train"]["bwd"]["host_call_ms"] = eager_ms(
+        torch, lambda: flash_attention_bwd(qs, ks, vs, os_, lse_s, dos, causal=False),
+        iters=50, warm=5)
+    log(f"time flash_bwd host cost of a call: {out['flash_train']['bwd']['host_call_ms']} ms")
+    # the serve shape (starcoder2-3b's attention at S 1024), whose kv heads
+    # give the dkdv pass only 16 blocks
+    q, do = (torch.randn(1, 1024, 24, 128, generator=gen, device="cuda").to(bf)
+             for _ in range(2))
+    k, v = (torch.randn(1, 1024, 2, 128, generator=gen, device="cuda").to(bf) for _ in range(2))
+    out["flash_bwd_gqa"] = time_flash_bwd(torch, checked, "gqa causal", q, k, v, do, True)
+    del q, k, v, do, qt, kt, vt, qs, ks, vs, dos, os_, lse_s
     out["xent"] = {}
     for dname in ("float32", "bfloat16"):
         dtype = getattr(torch, dname)
@@ -1333,7 +1457,8 @@ def kernel_records(rec):
     """One record per kernel.  ``launches``: the main paths' runs (serve
     and train), each counted from 0 just before it; the times are those of
     the shape each path runs (flash forward: the serve prefill at S=1024,
-    with bert's shape under ``train_shape``; fused_xent: the f32 logits
+    with bert's shape under ``train_shape``; flash backward: bert's shape,
+    starcoder2-3b's under ``gqa_causal_shape``; fused_xent: the f32 logits
     the train path feeds it, with bf16 under ``bf16``; ssd_scan: the bf16
     prefill at S=1024, with f32 under ``f32``)."""
     errs = rec.get("errors", {})
@@ -1342,7 +1467,13 @@ def kernel_records(rec):
     flash_top = next((x for x in t.get("flash", []) if x["S"] == 1024), {})
     ft, xe = t.get("flash_train", {}), t.get("xent", {})
     ssd = t.get("ssd", {})
+    bwd = ft.get("bwd", {})
     extra = {"flash_attention": {"train_shape": ft.get("fwd")},
+             "flash_attention_bwd": {"call_ms": bwd.get("call_ms"),
+                                     "host_call_ms": bwd.get("host_call_ms"),
+                                     "library_eager_ms": bwd.get("library_eager_ms"),
+                                     "by_kernel": bwd.get("by_kernel"),
+                                     "gqa_causal_shape": t.get("flash_bwd_gqa")},
              "fused_xent": {"bf16": xe.get("bfloat16", {}).get("fwd")},
              "fused_xent_bwd": {"bf16": xe.get("bfloat16", {}).get("bwd")},
              "ssd_scan": {"f32": ssd.get("float32")}}
@@ -1352,7 +1483,7 @@ def kernel_records(rec):
             ("flash_attention", csrc + "flash_attention.cu",
              "src/repro/kernels/flash_attention.py:85", flash_top),
             ("flash_attention_bwd", csrc + "flash_attention_bwd.cu",
-             "src/repro/kernels/ops.py:44", ft.get("bwd", {})),
+             "src/repro/kernels/ops.py:44", bwd),
             ("paged_attention", csrc + "paged_attention.cu",
              "src/repro/kernels/paged_attention.py:91", t.get("paged", {})),
             ("fused_xent", csrc + "fused_xent.cu",
@@ -1402,9 +1533,12 @@ def summary(rec):
             "path_max_rel_err": rec.get("path", {}).get("max_rel_err"),
             "ssm_path_max_rel_err": rec.get("ssm_path", {}).get("max_rel_err"),
             "train_path_rel_err": rec.get("train_path", {}).get("rel_err"),
-            "faults_max_ratio": {f["kernel"]: f["max_ratio"] for f in rec.get("faults", [])},
+            "faults_max_ratio": [[f["kernel"], f["max_ratio"]] for f in rec.get("faults", [])],
             "flash_ms_by_S": {x["S"]: x["ms"] for x in rec.get("time", {}).get("flash", [])},
             "flash_train_ms": rec.get("time", {}).get("flash_train", {}).get("fwd", {}).get("ms"),
+            "flash_bwd_train_ms":
+                rec.get("time", {}).get("flash_train", {}).get("bwd", {}).get("ms"),
+            "flash_bwd_gqa_ms": rec.get("time", {}).get("flash_bwd_gqa", {}).get("ms"),
             "ssd_ms": {k: v["ms"] for k, v in rec.get("time", {}).get("ssd", {}).items()}}
 
 

@@ -589,18 +589,6 @@ __global__ void __launch_bounds__(WNT, Tiles<D>::MIN_BLOCKS)
   }
 }
 
-// a (B, S, H, D) bf16 tensor as a map over (D, H, S, B), read or written
-// in boxes of 64 columns x `rows` rows of one head
-bool bhsd_map(CUtensorMap* map, const void* base, int B, int S, int H, int D, long long sb,
-              long long ss, long long sh, int rows) {
-  const uint64_t dims[4] = {static_cast<uint64_t>(D), static_cast<uint64_t>(H),
-                            static_cast<uint64_t>(S), static_cast<uint64_t>(B)};
-  const uint64_t strides[3] = {static_cast<uint64_t>(sh) * 2, static_cast<uint64_t>(ss) * 2,
-                               static_cast<uint64_t>(sb) * 2};
-  const uint32_t box[4] = {BOX, 1, static_cast<uint32_t>(rows), 1};
-  return hopper::tensor_map_4d(map, base, dims, strides, box);
-}
-
 template <int D, bool LSE, bool CAP>
 cudaError_t launch_bf16(const Params& p, int B, cudaStream_t stream) {
   constexpr int smem = Smem<D>::BYTES;
@@ -612,10 +600,10 @@ cudaError_t launch_bf16(const Params& p, int B, cudaStream_t stream) {
     configured = true;
   }
   CUtensorMap tq, tk, tv, to;
-  if (!bhsd_map(&tq, p.q, B, p.S, p.H, D, p.q_sb, p.q_ss, p.q_sh, WQ) ||
-      !bhsd_map(&tk, p.k, B, p.S, p.Hkv, D, p.k_sb, p.k_ss, p.k_sh, Tiles<D>::BK) ||
-      !bhsd_map(&tv, p.v, B, p.S, p.Hkv, D, p.v_sb, p.v_ss, p.v_sh, Tiles<D>::BK) ||
-      !bhsd_map(&to, p.o, B, p.S, p.H, D, p.o_sb, p.o_ss, p.o_sh, 64))
+  if (!hopper::bhsd_map(&tq, p.q, B, p.S, p.H, D, p.q_sb, p.q_ss, p.q_sh, WQ) ||
+      !hopper::bhsd_map(&tk, p.k, B, p.S, p.Hkv, D, p.k_sb, p.k_ss, p.k_sh, Tiles<D>::BK) ||
+      !hopper::bhsd_map(&tv, p.v, B, p.S, p.Hkv, D, p.v_sb, p.v_ss, p.v_sh, Tiles<D>::BK) ||
+      !hopper::bhsd_map(&to, p.o, B, p.S, p.H, D, p.o_sb, p.o_ss, p.o_sh, 64))
     return cudaErrorInvalidValue;
   const dim3 grid(p.H * B * ((p.S + WQ - 1) / WQ));
   kernel<<<grid, WNT, smem, stream>>>(tq, tk, tv, to, p);

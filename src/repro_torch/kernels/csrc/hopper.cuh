@@ -89,6 +89,17 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// `bytes` (a multiple of 16) of contiguous global memory into shared
+// memory, both 16-byte aligned; completion (its bytes) is reported to `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes),
+      "r"(smem_addr(bar))
+      : "memory");
+}
+
 // a box from shared memory into a 4-d tensor map; elements outside the
 // tensor are not written.  Call fence_proxy_async() and a barrier over
 // the writing threads first, and tma_store_wait() before the shared
@@ -302,6 +313,19 @@ inline bool tensor_map_4d(CUtensorMap* map, const void* base, const uint64_t (&d
             elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
          CUDA_SUCCESS;
+}
+
+// a (B, S, H, D) bf16 tensor (strides in elements, D contiguous) as a map
+// over (D, H, S, B), read or written in boxes of 64 columns x `rows` rows
+// of one head
+inline bool bhsd_map(CUtensorMap* map, const void* base, int B, int S, int H, int D,
+                     long long sb, long long ss, long long sh, int rows) {
+  const uint64_t dims[4] = {static_cast<uint64_t>(D), static_cast<uint64_t>(H),
+                            static_cast<uint64_t>(S), static_cast<uint64_t>(B)};
+  const uint64_t strides[3] = {static_cast<uint64_t>(sh) * 2, static_cast<uint64_t>(ss) * 2,
+                               static_cast<uint64_t>(sb) * 2};
+  const uint32_t box[4] = {64, 1, static_cast<uint32_t>(rows), 1};
+  return tensor_map_4d(map, base, dims, strides, box);
 }
 
 }  // namespace hopper

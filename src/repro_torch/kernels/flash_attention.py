@@ -47,8 +47,8 @@ def _check(q, k, v, window, what="flash_attention kernel"):
 def _check_rows_aligned(what, **tensors):
     """The bf16 bodies' alignment: each tensor's base on 16 bytes and its
     strides whole multiples of 8 elements (16 bytes), exactly what a TMA
-    tensor map requires of the forward's q, k, v, and what the backward's
-    16-byte row copies need."""
+    tensor map requires of the forward's q, k, v and the backward's q, k,
+    v, o and do."""
     for name, t in tensors.items():
         if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3]):
             raise ValueError(f"{what}: bf16 {name} rows must start on 16-byte boundaries")
@@ -112,7 +112,9 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     dv = torch.empty(k.shape, dtype=q.dtype, device=q.device)
     if S == 0 or B == 0:
         return dq, dk, dv
-    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    # scratch: each row's Delta = rowsum(do * o) and, for the bf16 body,
+    # its lse in base 2, in q tiles of 64 rows
+    delta = torch.empty((B, H, -(-S // 64), 2, 64), dtype=torch.float32, device=q.device)
     err = _build.function("flash_attention_bwd", "flash_attention_bwd", BWD_ARGTYPES)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),

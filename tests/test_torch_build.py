@@ -4,7 +4,8 @@ commands (``kernels/_build.py`` and ``chip_smoke.py``'s planted faults)
 put ``csrc/`` on the include path, and every planted fault of
 ``chip_smoke.py`` names a line its kernel source holds exactly once;
 ``chip_smoke.py --against`` builds another version of a kernel source, and
-its build phase reads ptxas's report of each function.
+its build phase reads ptxas's report of each function and holds the bf16
+flash kernels' SASS to wgmma and TMA.
 No nvcc is run: the commands are recorded, not executed."""
 import importlib.util
 import re
@@ -75,7 +76,7 @@ def test_both_build_commands_put_csrc_on_the_include_path(tmp_path, monkeypatch)
     monkeypatch.setattr(_FakeNvcc, "commands", [])
     cs = _chip_smoke()
     procs = cs.start_fault_builds()
-    assert set(procs) == {f[0] for f in cs.FAULTS}
+    assert set(procs) == set(range(len(cs.FAULTS)))     # one build per planted fault
     for cmd in _FakeNvcc.commands:
         # the faulty copy lies outside csrc/: only the flag finds the headers
         assert Path(cmd[-1]).parent == tmp_path / "kernels" / "faults"
@@ -108,6 +109,64 @@ def test_flash_cases_are_valid_shapes():
         B, S, H, Hkv, D, causal, window, softcap = case
         assert B >= 1 and S >= 1 and H % Hkv == 0 and D in (64, 128), case
         assert window is None or window >= 1, case
+
+
+def test_flash_bwd_cases_are_valid_shapes_and_cover_the_tile_edges():
+    """Each backward gate case is a shape the wrapper takes, and the bf16
+    body's tile edges (S 63-65, 127, 129, 511, 513 against 64-row tiles
+    and 128-row blocks) are each held at D 64 and 128, causal and not, rep
+    1 and 4."""
+    cases = _chip_smoke().FLASH_BWD_CASES
+    for case in cases:
+        B, S, H, Hkv, D, causal = case
+        assert B >= 1 and S >= 1 and H % Hkv == 0 and D in (64, 128), case
+        assert isinstance(causal, bool), case
+    for S in (63, 64, 65, 127, 129, 511, 513):
+        at = [c for c in cases if c[1] == S]
+        assert {c[4] for c in at} == {64, 128}, S
+        assert {c[5] for c in at} == {True, False}, S
+        assert {c[2] // c[3] for c in at} >= {1, 4}, S
+
+
+_SASS = """
+	code for sm_90a
+		Function : _ZN12_GLOBAL__N_115dq_wgmma_kernelILi64ELb0EEEvN6ParamsE
+	.headerflags	@"EF_CUDA_TEXMODE_UNIFIED EF_CUDA_64BIT_ADDRESS EF_CUDA_SM90"
+        /*0180*/                   UTMALDG.4D [UR8], [UR4] ;                            /* 0x0000000408 */
+        /*0b40*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT ;  /* 0x0000000418 */
+        /*0c10*/                   UTMASTG.4D [UR4], [UR6] ;                            /* 0x0000000406 */
+		Function : _ZN12_GLOBAL__N_117dkdv_wgmma_kernelILi64ELb1EEEvN6ParamsE
+        /*0180*/                   UTMALDG.4D [UR8], [UR4] ;                            /* 0x0000000408 */
+        /*0b40*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT ;  /* 0x0000000418 */
+		Function : _ZN12_GLOBAL__N_115dq_f32_kernelIfLi64EEEvN6ParamsE
+        /*0200*/                   FFMA R4, R5, R6, R4 ;                                /* 0x0000000604 */
+"""
+
+
+def test_wgmma_route_check_reads_canned_sass():
+    """The build phase's check that the bf16 flash kernels run on wgmma
+    and TMA alone: it passes SASS with HGMMA and UTMALDG, and fails SASS
+    where a function lacks either, holds HMMA, or is missing."""
+    cs = _chip_smoke()
+    sass = cs.parse_sass(_SASS)
+    assert sass["_ZN12_GLOBAL__N_115dq_wgmma_kernelILi64ELb0EEEvN6ParamsE"] == {
+        "HGMMA": 1, "UTMALDG": 1, "UTMASTG": 1, "HMMA": 0}
+    assert cs.wgmma_route_faults(sass, "dq_wgmma") == []
+    assert cs.wgmma_route_faults(sass, "dkdv_wgmma") == []
+    assert cs.wgmma_route_faults(sass, "flash_fwd_wgmma") == ["no function named flash_fwd_wgmma"]
+    assert len(cs.wgmma_route_faults(sass, "dq_f32")) == 1         # no HGMMA, no UTMALDG
+    for broken in (_SASS.replace("UTMALDG", "LDG.E.128"),
+                   _SASS.replace("HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4]", "NOP"),
+                   _SASS.replace("UTMASTG.4D", "HMMA.16816.F32.BF16")):
+        faults = cs.wgmma_route_faults(cs.parse_sass(broken), "dq_wgmma")
+        assert len(faults) == 1 and "dq_wgmma" in faults[0], broken
+
+
+def test_wgmma_functions_name_kernels_of_their_sources():
+    for name, part in _chip_smoke().WGMMA_FUNCTIONS:
+        text = (_build.CSRC / f"{name}.cu").read_text()
+        # a kernel's declaration: no ";" or "{" between __global__ and its name
+        assert re.search(rf"__global__ void[^;{{]*\b{part}\w*\(", text), (name, part)
 
 
 def test_against_builds_name_a_kernel_and_find_the_headers(tmp_path, monkeypatch):

@@ -214,6 +214,37 @@ def test_flash_bwd_bf16_kernel_near_plain(cuda, S, rep, causal, D):
         assert (a.grad.float() - b.grad).abs().max() <= 2e-2 * b.grad.abs().max()
 
 
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("rep", [1, 4])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("S", [63, 64, 65, 127, 129, 511, 513])
+def test_flash_bwd_bf16_kernel_tile_edges(cuda, S, D, causal, rep):
+    """The bf16 (wgmma) backward at the edges of its tiles (64-row q and
+    key tiles, 128 rows or keys a block) against the plain version's
+    autograd on the same bf16 values in f32, per element under
+    chip_smoke.py's limit u (|want| + want_abs) + 1e-5, u = 2^-8, want_abs
+    the bound on the kernel's bf16 roundings of P, dS and the forward's O
+    (``flash_bwd_reading``)."""
+    g = torch.Generator(device=cuda).manual_seed(S * D + rep + causal)
+    q, do = (torch.randn(2, S, 2 * rep, D, generator=g, device=cuda).bfloat16() for _ in range(2))
+    k, v = (torch.randn(2, S, 2, D, generator=g, device=cuda).bfloat16() for _ in range(2))
+    ops.reset_launch_counts()
+    err, ratio = _chip_smoke().flash_bwd_reading(torch, q, k, v, do, causal)
+    assert ratio <= 1.0, (err, ratio)
+    assert ops.launch_counts["flash_attention_bwd"] == 1
+
+
 def test_flash_bwd_kernel_is_deterministic(cuda):
     g = torch.Generator(device=cuda).manual_seed(3)
     q, k, v, w = (torch.randn(2, 300, 4, 64, generator=g, device=cuda).bfloat16()
