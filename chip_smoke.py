@@ -10,8 +10,9 @@
 
 Phases (any failure exits non-zero before the last line):
   build       build the CUDA kernels from src/repro_torch/kernels/csrc/;
-              the bf16 flash forward and backward must run on wgmma and
-              TMA alone (SASS: HGMMA and UTMALDG, no HMMA; no ptxas C7520)
+              the bf16 flash forward and backward and the bf16 SSD body's
+              product passes must run on wgmma and TMA alone (SASS: HGMMA
+              and UTMALDG, no HMMA; no ptxas C7520)
   kernels     hold each kernel (forward and backward) against its plain
               PyTorch version (backward: the plain version's autograd) on
               the card, f32 and bf16, at the stated tolerances, up to the
@@ -47,10 +48,10 @@ Phases (any failure exits non-zero before the last line):
 
 --against NAME=SOURCE (repeatable) builds SOURCE, another version of the
 kernel source of its file name (csrc/<kernel>.cu; e.g. a parent commit's,
-from `git show`), and runs phases serve, train and time with it swapped
-in for the checkout's library as well, in the order: each NAME, the
-checkout twice, each NAME in reverse, so that a drift of the machine
-shows as a difference between one build's two readings.  The checkout's
+from `git show`), and runs phases serve, ssm_serve, train and time with
+it swapped in for the checkout's library as well, in the order: each
+NAME, the checkout twice, each NAME in reverse, so that a drift of the
+machine shows as a difference between one build's two readings.  The checkout's
 last run is the phase's record; every run's readings go to "against" in
 chiprun_out/chip_smoke.json.  In phase time another build's gate
 readings are logged but do not fail the run (a build with a part taken
@@ -77,7 +78,7 @@ ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "chiprun_out"
 PHASES = ("build", "kernels", "faults", "path", "serve", "ssm_path", "ssm_serve", "train_path",
           "train", "time")
-AGAINST_PHASES = ("serve", "train", "time")     # the phases --against runs again
+AGAINST_PHASES = ("serve", "ssm_serve", "train", "time")   # the phases --against runs again
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the bounds below use them
 PEAK_BF16_FLOPS = 989e12
@@ -104,16 +105,26 @@ PATH_REL_TOL = 1e-4                         # max |cuda - cpu| / max |cpu|
 # kernel's own forward wrote.
 XENT_FWD_TOL = (1e-4, 1e-4)
 XENT_BWD_TOL = (1e-5, 1e-5)
-# ssd_scan, per element: |err| <= u_out |want| + (SSD_REL + 8 eps |acs|max)
-# want_abs + 1e-6, want_abs the plain version with |x|, |B|, |C| (the sum
-# of the terms' absolute values; decays and dt are positive).  SSD_REL
-# covers f32 sums taken in another order; the decay exponents acs_l -
-# acs_s come from an f32 cumsum of dt A, which in any order carries about
+# ssd_scan, per element: |err| <= u_out |want| + (SSD_REL + 8 eps |acs|max
+# + u_ops) want_abs + 1e-6, want_abs the plain version with |x|, |B|, |C|
+# (the sum of the terms' absolute values; decays and dt are positive).
+# SSD_REL covers f32 sums taken in another order; the decay exponents acs_l
+# - acs_s come from an f32 cumsum of dt A, which in any order carries about
 # eps |acs| of error, the largest |acs| being a chunk's whole sum
 # (measured on the CPU against f64: at most 1.1 eps |acs|max of want_abs).
 # u_out = 2^-8 for a bf16 y (one rounding of the f32 result), 0 for f32 y
-# and for the f32 state.
+# and for the f32 state.  u_ops: the roundings of the bf16 body of three
+# passes (kernels/ssd_scan.py:wgmma_body), 0 where another body runs:
+#   - SSD_U_OPERAND = 2^-8, y only: the mapped scores C B^T o exp(acs_l -
+#     acs_s) o dt_s and the carried state, each rounded to bf16 as a wgmma
+#     operand, move y by at most 2^-8 of the intra-chunk and of the
+#     inter-chunk part of want_abs;
+#   - SSD_U_SPLIT = 2^-16, the state and y: the state update's w x enters
+#     its product as two bf16 terms hi + lo, whose sum is within 2^-16 of
+#     w x, so each chunk's update, and the states it carries into y, by at
+#     most 2^-16 of their part of want_abs.
 SSD_REL, F32_EPS = 1e-6, 2.0**-24
+SSD_U_OPERAND, SSD_U_SPLIT = 2.0**-8, 2.0**-16
 
 
 def fail(msg: str):
@@ -196,6 +207,14 @@ SSD_CASES = [  # (B, S, H, P, G, N, chunk, scale of A)
     (2, 200, 8, 32, 4, 64, 64, 1.0),        # G = 4, the 64-row tiles at chunk 64
     (2, 250, 6, 16, 3, 8, 96, 1.0),         # chunk 96 (32-row tiles past the first), N 8
     (1, 600, 4, 64, 1, 128, 256, 50.0),     # decays past f32's exp range above the diagonal
+    # the bf16 body's edges (64-row tiles, 64-step key tiles, chunks of 64-256)
+    (1, 1024, 80, 64, 1, 64, 256, 1.0),     # zamba2-2.7b's N 64 at H 80
+    (2, 700, 8, 64, 2, 128, 256, 1.0),      # B 2, G 2, S ragged inside a 64-row tile
+    (1, 40, 24, 64, 1, 128, 256, 1.0),      # S < 64: one partial tile
+    (1, 512, 24, 64, 1, 128, 256, 1.0),     # S an exact multiple of the chunk
+    (2, 200, 8, 64, 4, 64, 64, 1.0),        # chunk 64: one tile a chunk, G 4
+    (1, 333, 6, 64, 3, 128, 128, 1.0),      # chunk 128, G 3
+    (1, 450, 4, 64, 2, 64, 192, 1.0),       # chunk 192
 ]
 
 
@@ -364,6 +383,21 @@ def _ssd_inputs(torch, case, dtype, gen):
     return mk(B, S, H, P).to(dtype), dt, A, mk(B, S, G, N).to(dtype), mk(B, S, G, N).to(dtype)
 
 
+def ssd_limits(torch, x, dt, A, N, chunk):
+    """(u_out, y's factor of want_abs, the state's factor of want_abs) of
+    the ssd_scan gate (see SSD_REL) for a call on these inputs."""
+    from repro_torch.kernels.ssd_scan import wgmma_body
+
+    S = x.shape[1]
+    a = torch.nn.functional.pad(dt * A, (0, 0, 0, (-S) % chunk))
+    acs_max = a.unflatten(1, (-1, chunk)).abs().sum(2).max().item()
+    rel = SSD_REL + 8 * F32_EPS * acs_max
+    u_out = BF16_U if x.dtype == torch.bfloat16 else 0.0
+    if wgmma_body(x.dtype, x.shape[3], N, chunk):
+        return u_out, rel + SSD_U_OPERAND + SSD_U_SPLIT, rel + SSD_U_SPLIT
+    return u_out, rel, rel
+
+
 def ssd_reading(torch, x, dt, A, Bm, Cm, chunk):
     """The kernel's y and final state against the plain version on the
     f32 values, per element under the SSD_REL limit; the worst of both."""
@@ -374,13 +408,10 @@ def ssd_reading(torch, x, dt, A, Bm, Cm, chunk):
     f = [t.float() for t in (x, Bm, Cm)]
     want = ref.ssd_ref(f[0], dt, A, f[1], f[2], chunk)
     want_abs = ref.ssd_ref(f[0].abs(), dt, A, f[1].abs(), f[2].abs(), chunk)
-    S = x.shape[1]
-    a = torch.nn.functional.pad(dt * A, (0, 0, 0, (-S) % chunk))
-    acs_max = a.unflatten(1, (-1, chunk)).abs().sum(2).max().item()
-    rel = SSD_REL + 8 * F32_EPS * acs_max
-    u = BF16_U if x.dtype == torch.bfloat16 else 0.0
+    u_out, rel_y, rel_st = ssd_limits(torch, x, dt, A, Bm.shape[3], chunk)
     out = []
-    for got, w, wa, uu in ((y, want[0], want_abs[0], u), (st, want[1], want_abs[1], 0.0)):
+    for got, w, wa, uu, rel in ((y, want[0], want_abs[0], u_out, rel_y),
+                                (st, want[1], want_abs[1], 0.0, rel_st)):
         err = (got.float() - w).abs()
         out.append((err.max().item(), (err / (uu * w.abs() + rel * wa + 1e-6)).max().item()))
     return max(out, key=lambda r: r[1])
@@ -464,6 +495,15 @@ FAULTS = [
     ("ssd_scan", ("ssd_scan",), "the state is carried without its exp(acs_L) decay",
      "if (n < N) st[n * PC + tx] = carry * st[n * PC + tx] + acc[i];",
      "if (n < N) st[n * PC + tx] = st[n * PC + tx] + acc[i];"),
+    ("ssd_scan", ("ssd_scan",), "bf16 body: the carry pass drops the chunks' decay",
+     "d[k] = dec[(c0 + k) * p.H];  // exp(acs_L) of the chunk",
+     "d[k] = 1.f;  // exp(acs_L) of the chunk"),
+    ("ssd_scan", ("ssd_scan",), "bf16 body: the state pass drops the lo half of w x",
+     "hopper::wgmma_ss<64, 1, 1>(u[mt], da, hopper::desc_sw128(xl + kk * 2048, BOX, 1024), 1);",
+     "// the lo half dropped"),
+    ("ssd_scan", ("ssd_scan",), "bf16 body: the out pass drops exp(acs_l) from C . state",
+     "for (int x = 0; x < 32; ++x) y[x] *= expf(acs_row[(x >> 1) & 1]);",
+     "for (int x = 0; x < 32; ++x) y[x] *= 1.f;"),
 ]
 KERNELS = ("flash_attention", "flash_attention_bwd", "paged_attention", "fused_xent",
            "fused_xent_bwd", "ssd_scan")
@@ -568,10 +608,11 @@ def sass_counts(lib):
         capture_output=True, text=True, check=True).stdout)
 
 
-# the bf16 flash bodies, which must run on wgmma and TMA alone: (kernel
-# source, a part of each of its functions' names)
+# the bf16 bodies' product passes, which must run on wgmma and TMA alone:
+# (kernel source, a part of each of its functions' names)
 WGMMA_FUNCTIONS = (("flash_attention", "flash_fwd_wgmma"), ("flash_attention_bwd", "dq_wgmma"),
-                   ("flash_attention_bwd", "dkdv_wgmma"))
+                   ("flash_attention_bwd", "dkdv_wgmma"), ("ssd_scan", "ssd_state_wgmma"),
+                   ("ssd_scan", "ssd_out_wgmma"))
 
 
 def wgmma_route_faults(sass, part):
@@ -585,11 +626,12 @@ def wgmma_route_faults(sass, part):
             if v["HGMMA"] == 0 or v["UTMALDG"] == 0 or v["HMMA"]]
 
 
-def flash_build_facts(rec):
-    """The bf16 flash forward and backward as built: ptxas's report
-    (registers, spill bytes) and SASS counts of every instance of
-    ``WGMMA_FUNCTIONS``.  Fails unless each runs on HGMMA and UTMALDG with
-    no HMMA, or if ptxas serialized a wgmma (its warning C7520)."""
+def wgmma_build_facts(rec):
+    """The bf16 flash forward and backward and the bf16 SSD body as
+    built: ptxas's report (registers, spill bytes) and SASS counts of
+    every instance of ``WGMMA_FUNCTIONS``.  Fails unless each runs on
+    HGMMA and UTMALDG with no HMMA, or if ptxas serialized a wgmma (its
+    warning C7520)."""
     from repro_torch.kernels import _build
 
     facts, faults = {}, []
@@ -604,9 +646,10 @@ def flash_build_facts(rec):
         faults += [w for w in ptxas.get("warnings", []) if "C7520" in w]
         facts[name] = {"ptxas": ptxas, "sass": sass}
     if faults:
-        fail(f"the bf16 flash kernels do not run on wgmma and TMA alone: {faults}")
+        fail(f"the bf16 product kernels do not run on wgmma and TMA alone: {faults}")
     rec["flash_fwd_build"] = facts["flash_attention"]
     rec["flash_bwd_build"] = facts["flash_attention_bwd"]
+    rec["ssd_build"] = facts["ssd_scan"]
 
 
 def parse_against(specs):
@@ -1071,7 +1114,8 @@ def run_train(torch, rec, seed=0, B=32, S=512, steps=20, n_prof=3):
 
 REPO_KERNELS = ("flash_fwd", "dq_wgmma", "dkdv_wgmma", "dq_mma", "dkdv_mma", "dq_f32",
                 "dkdv_f32", "delta_kernel", "xent_fwd", "xent_bwd", "paged_partial",
-                "paged_combine", "ssd_scan_kernel")
+                "paged_combine", "ssd_scan_kernel", "ssd_state_wgmma", "ssd_carry",
+                "ssd_out_wgmma")
 
 
 def _kernel_class(name):
@@ -1334,40 +1378,46 @@ def time_kernels(torch, rec, strict=True):
 
 def ssd_work(B, S, H, P, G, N, L, es):
     """(flops, bytes) the SSD scan needs: per (batch, head, chunk) C.state,
-    C B^T, its masked product with x and B^T x, the two middle ones over
-    the causal triangle only and the last chunk cut to S; each input read
-    once (x, B, C at ``es`` bytes, dt and A f32) and each output written
-    once (y at ``es``, the f32 state)."""
-    flops = 0
+    the masked product of C B^T with x over the causal triangle and B^T x,
+    and C B^T over the triangle once per (batch, group, chunk), the last
+    chunk cut to S; each input read once (x, B, C at ``es`` bytes, dt and
+    A f32) and each output written once (y at ``es``, the f32 state)."""
+    per_head = per_group = 0
     for c0 in range(0, S, L):
         n = min(L, S - c0)
         tri = n * (n + 1) // 2
-        flops += 2 * (n * N * P + tri * N + tri * P + N * n * P)
+        per_head += 2 * (n * N * P + tri * P + N * n * P)
+        per_group += 2 * tri * N
     nbytes = es * (2 * B * S * H * P + 2 * B * S * G * N) + 4 * (B * S * H + H + B * H * N * P)
-    return flops * B * H, nbytes
+    return per_head * B * H + per_group * B * G, nbytes
 
 
 def time_ssd(torch, checked, gen):
     """ssd_scan at mamba2-130m's prefill of 1024 tokens (B 1, H 24, P 64,
-    G 1, N 128, chunk 256), in bf16 (the serve path's dtype) and f32.  No
-    PyTorch call computes SSD: no library yardstick."""
+    G 1, N 128, chunk 256), in bf16 (the serve path's dtype) and f32, and
+    in bf16 at zamba2-2.7b's (H 80, N 64).  No PyTorch call computes SSD:
+    no library yardstick."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.ssd_scan import ssd_scan_fwd
 
-    case = SSD_CASES[0]
+    mamba2, zamba2 = SSD_CASES[0], next(c for c in SSD_CASES if c[2] == 80)
     out = {}
-    for dname, peak in (("bfloat16", PEAK_BF16_FLOPS), ("float32", PEAK_F32_FLOPS)):
+    for key, case, dname, peak in (("bfloat16", mamba2, "bfloat16", PEAK_BF16_FLOPS),
+                                   ("float32", mamba2, "float32", PEAK_F32_FLOPS),
+                                   ("zamba2_bf16", zamba2, "bfloat16", PEAK_BF16_FLOPS)):
         dtype = getattr(torch, dname)
         x, dt, A, Bm, Cm = _ssd_inputs(torch, case, dtype, gen)
-        ratio = checked(f"ssd_scan {dname}", ssd_reading(torch, x, dt, A, Bm, Cm, case[6]))
+        ratio = checked(f"ssd_scan {key}", ssd_reading(torch, x, dt, A, Bm, Cm, case[6]))
         ms, call_ms = time_ms(torch, lambda: ssd_scan_fwd(x, dt, A, Bm, Cm, case[6]))
         plain_ms, plain_call_ms = time_ms(torch, lambda: ref.ssd_ref(x, dt, A, Bm, Cm, case[6]))
         bound = _bound(*ssd_work(*case[:7], x.element_size()), peak)
-        out[dname] = {"shape": list(case[:7]), "ms": ms, "call_ms": call_ms,
-                      "plain_ms": plain_ms, "plain_call_ms": plain_call_ms,
-                      "library_ms": None, "bound_ms": bound[0], "bound_by": bound[1],
-                      "err_over_limit": ratio}
-        log(f"time ssd_scan {dname}: {out[dname]}")
+        out[key] = {"shape": list(case[:7]), "dtype": dname, "ms": ms, "call_ms": call_ms,
+                    "plain_ms": plain_ms, "plain_call_ms": plain_call_ms,
+                    "library_ms": None, "bound_ms": bound[0], "bound_by": bound[1],
+                    "err_over_limit": ratio,
+                    "by_kernel": device_ms_by_kernel(
+                        torch, lambda: ssd_scan_fwd(x, dt, A, Bm, Cm, case[6]))}
+        log(f"time ssd_scan {key}: {out[key]}")
     return out
 
 
@@ -1476,7 +1526,7 @@ def kernel_records(rec):
                                      "gqa_causal_shape": t.get("flash_bwd_gqa")},
              "fused_xent": {"bf16": xe.get("bfloat16", {}).get("fwd")},
              "fused_xent_bwd": {"bf16": xe.get("bfloat16", {}).get("bwd")},
-             "ssd_scan": {"f32": ssd.get("float32")}}
+             "ssd_scan": {"f32": ssd.get("float32"), "zamba2_bf16": ssd.get("zamba2_bf16")}}
     csrc = "src/repro_torch/kernels/csrc/"
     out = []
     for name, src, replaces, timing in (
@@ -1527,6 +1577,8 @@ def summary(rec):
             "ssm_tick_device_busy_ms": sprof.get("device_busy_ms"),
             "ssm_prefill_1024_device_busy_ms":
                 rec.get("ssm_serve_prefill_profile", {}).get("device_busy_ms"),
+            "ssm_prefill_1024_repo_kernels_ms": rec.get("ssm_serve_prefill_profile", {}).get(
+                "ms_by_class", {}).get("repo kernels"),
             "train": {k: tr.get(k) for k in tkeys},
             "train_step_device_busy_ms": tprof.get("device_busy_ms"),
             "train_step_launches": tprof.get("kernel_launches_per_step"),
@@ -1546,8 +1598,8 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(PHASES))
     ap.add_argument("--against", action="append", default=[], metavar="NAME=SOURCE",
-                    help="also run phases serve, train and time with SOURCE's build of "
-                         "the kernel its file name names")
+                    help="also run phases serve, ssm_serve, train and time with SOURCE's "
+                         "build of the kernel its file name names")
     args = ap.parse_args()
     phases = args.phases.split(",")
     if not set(phases) <= set(PHASES):
@@ -1584,7 +1636,7 @@ def main():
                                         "0 bytes spill stores, 0 bytes spill loads" not in line):
                     log(f"ptxas {name} {fn}: {line}")
     rec["build_log"] = _build.build_log
-    flash_build_facts(rec)
+    wgmma_build_facts(rec)
     against_libs = load_against(rec, against, against_builds)
     steps = {"kernels": check_kernels,
              "faults": lambda torch, rec: check_faults(torch, rec, fault_builds),

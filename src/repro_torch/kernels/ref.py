@@ -143,6 +143,63 @@ def ssd_ref(x, dt, A, B, C, chunk: int, initial_state=None):
     return y.to(x.dtype), state
 
 
+def _chunk_steps(dt, A, S, chunk):
+    """(slice, dt, acs) of each chunk of the S steps: dt:(B,n,H) f32 and
+    its inclusive cumsum of dt A."""
+    for c0 in range(0, S, chunk):
+        sl = slice(c0, min(S, c0 + chunk))
+        d = dt[:, sl].float()
+        yield sl, d, torch.cumsum(d * A.float(), dim=1)
+
+
+def ssd_chunk_states(x, dt, A, B, chunk: int):
+    """The plain version of the bf16 kernel's state pass: each chunk's own
+    state update U_c = B^T diag(exp(acs_L - acs) dt) x and its decay
+    exp(acs_L), chunk by chunk.  x:(B,S,H,P) dt:(B,S,H) A:(H,)
+    B:(B,S,G,N) -> (U:(B,nc,H,N,P), decay:(B,nc,H)), both f32."""
+    rep = x.shape[2] // B.shape[2]
+    us, decs = [], []
+    for sl, d, acs in _chunk_steps(dt, A, x.shape[1], chunk):
+        w = torch.exp(acs[:, -1:] - acs) * d                      # (B,n,H)
+        Bh = B[:, sl].float().repeat_interleave(rep, dim=2)
+        us.append(torch.einsum("blh,blhn,blhp->bhnp", w, Bh, x[:, sl].float()))
+        decs.append(torch.exp(acs[:, -1]))
+    return torch.stack(us, 1), torch.stack(decs, 1)
+
+
+def ssd_carry(U, decay, initial_state=None):
+    """The plain version of the carry pass: state_in(0) = the initial
+    state (zeros), state_in(c + 1) = decay_c state_in(c) + U_c.
+    U:(B,nc,H,N,P) decay:(B,nc,H) -> (state_in:(B,nc,H,N,P), the final
+    state (B,H,N,P)), f32."""
+    state = torch.zeros_like(U[:, 0]) if initial_state is None else initial_state.float()
+    states_in = []
+    for c in range(U.shape[1]):
+        states_in.append(state)
+        state = decay[:, c, :, None, None] * state + U[:, c]
+    return torch.stack(states_in, 1), state
+
+
+def ssd_chunk_outputs(x, dt, A, B, C, states_in, chunk: int):
+    """The plain version of the out pass: y of each chunk from the state
+    entering it, exp(acs_l) (C_l . state_in) + sum over s <= l of (C_l .
+    B_s) exp(acs_l - acs_s) dt_s x_s, the exponent masked before the exp.
+    -> y:(B,S,H,P) in x's dtype."""
+    rep = x.shape[2] // B.shape[2]
+    ys = []
+    for c, (sl, d, acs) in enumerate(_chunk_steps(dt, A, x.shape[1], chunk)):
+        Bh, Ch = (t[:, sl].float().repeat_interleave(rep, dim=2) for t in (B, C))
+        n = d.shape[1]
+        y = torch.einsum("blhn,bhnp->blhp", Ch, states_in[:, c].float()) \
+            * torch.exp(acs)[..., None]
+        diff = acs[:, :, None, :] - acs[:, None, :, :]            # (B,l,s,H)
+        causal = torch.ones((n, n), dtype=torch.bool, device=x.device).tril()
+        decay = torch.exp(torch.where(causal[None, :, :, None], diff, float("-inf")))
+        seg = torch.einsum("blhn,bshn->blsh", Ch, Bh) * decay * d[:, None]
+        ys.append(y + torch.einsum("blsh,bshp->blhp", seg, x[:, sl].float()))
+    return torch.cat(ys, 1).to(x.dtype)
+
+
 def ssd_step(state, x, dt, A, B, C):
     """One recurrent step.  state:(B,H,N,P) x:(B,H,P) dt:(B,H) B,C:(B,G,N)
     -> (y:(B,H,P) in x's dtype, new state (B,H,N,P) f32)."""

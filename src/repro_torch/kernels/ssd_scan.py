@@ -2,7 +2,10 @@
 (the port of the JAX package's Pallas ``kernels/ssd_scan.py::ssd_scan``).
 
 Takes CUDA tensors only; ``kernels/ops.py`` sends CPU tensors to the
-plain version in ``kernels/ref.py``."""
+plain version in ``kernels/ref.py``.  bf16 inputs at the shapes of
+``wgmma_body`` (every SSM config of the repo) run the three-pass body on
+TMA loads and wgmma products; f32 inputs, and bf16 at other shapes (the
+reduced test configs), run the one-pass body on the CUDA cores."""
 from __future__ import annotations
 
 import ctypes
@@ -14,6 +17,15 @@ from repro_torch.kernels import _build
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 ARGTYPES = [_P] * 7 + [_I] * 8 + [_P]
+PASSES = {"state": 1, "carry": 2, "out": 4}   # the bf16 body's passes, in order
+
+
+def wgmma_body(dtype, P: int, N: int, chunk: int) -> bool:
+    """Whether the kernel runs a call of these shapes on its bf16 body of
+    three passes (``csrc/ssd_scan.cu``'s ``wgmma_shape``, the same rule):
+    bf16, P 64, N 64 or 128, chunk a multiple of 64 up to 256."""
+    return (dtype == torch.bfloat16 and P == 64 and N in (64, 128)
+            and chunk % 64 == 0 and 64 <= chunk <= 256)
 
 
 def _check(x, dt, A, B, C, chunk):
@@ -42,33 +54,81 @@ def _check(x, dt, A, B, C, chunk):
 
 def _aligned(t):
     """``t`` contiguous and starting on a 16-byte boundary (the kernel
-    loads rows of 4 elements at a time)."""
+    loads rows of 4 elements at a time, the TMA whole boxes)."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _operands(x, dt, A, B, C, chunk):
+    """The kernel's operands, its outputs and the f32 buffer that holds
+    the final state (B,H,N,P) and, for the bf16 body, the scratch after
+    it: the chunk states (B,nc,H,N,P) in f32, again in bf16, and the chunk
+    decays (B,nc,H)."""
+    _check(x, dt, A, B, C, chunk)
+    Bb, S, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    x = _aligned(x)
+    ins = (x, dt.float().contiguous(), A.float().contiguous(),
+           _aligned(B.to(x.dtype)), _aligned(C.to(x.dtype)))
+    nc = -(-S // chunk)
+    n_state = Bb * H * N * P
+    n_work = Bb * nc * H * (N * P * 3 // 2 + 1) if wgmma_body(x.dtype, P, N, chunk) else 0
+    y = torch.empty((Bb, S, H, P), dtype=x.dtype, device=x.device)
+    buf = torch.empty(n_state + n_work, dtype=torch.float32, device=x.device)
+    return ins, y, buf, (Bb, S, H, P, G, N, chunk)
 
 
 def ssd_scan_fwd(x, dt, A, B, C, chunk: int):
     """x:(B,S,H,P) f32/bf16, dt:(B,S,H), A:(H,), B,C:(B,S,G,N) on the
     card -> (y:(B,S,H,P) in x's dtype, final_state:(B,H,N,P) f32).  dt
     and A are taken in f32, B and C in x's dtype; any S (the ragged last
-    chunk is masked), G dividing H."""
-    _check(x, dt, A, B, C, chunk)
-    Bb, S, H, P = x.shape
-    G, N = B.shape[2], B.shape[3]
-    x = _aligned(x)
-    dt = dt.float().contiguous()
-    A = A.float().contiguous()
-    B = _aligned(B.to(x.dtype))
-    C = _aligned(C.to(x.dtype))
-    y = torch.empty((Bb, S, H, P), dtype=x.dtype, device=x.device)
-    state = torch.empty((Bb, H, N, P), dtype=torch.float32, device=x.device)
+    chunk is masked), G dividing H.  One call counts one launch, however
+    many kernels it runs.  The final state is a view of the buffer that
+    also held the bf16 body's scratch."""
+    ins, y, buf, dims = _operands(x, dt, A, B, C, chunk)
+    Bb, S, H, P, G, N, _ = dims
+    state = buf[:Bb * H * N * P].view(Bb, H, N, P)
     if S == 0 or Bb == 0:
         return y, state.zero_()
     err = _build.function("ssd_scan", "ssd_scan_fwd", ARGTYPES)(
-        x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
-        y.data_ptr(), state.data_ptr(), Bb, S, H, P, G, N, chunk, DTYPES[x.dtype],
-        torch.cuda.current_stream(x.device).cuda_stream)
+        *(t.data_ptr() for t in ins), y.data_ptr(), buf.data_ptr(), *dims,
+        DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"ssd_scan kernel launch failed: cudaError {err}")
     _build.launch_counts["ssd_scan"] += 1
     return y, state
+
+
+def ssd_scan_bf16_passes(x, dt, A, B, C, chunk: int):
+    """The bf16 body one pass at a time, for holding each pass against its
+    plain version (``ref.ssd_chunk_states``, ``ref.ssd_carry``,
+    ``ref.ssd_ref``) on the card.  Returns a function ``run(pass_name)``
+    that launches that pass, and ``read()`` -> (chunk states (B,nc,H,N,P)
+    f32, the same in bf16, chunk decays (B,nc,H), final state (B,H,N,P),
+    y): the state pass writes the chunks' own updates and decays, the
+    carry pass replaces the updates with the states entering each chunk,
+    writes them in bf16 too and writes the final state, the out pass
+    writes y.  Counts no launch: no path runs it."""
+    if not wgmma_body(x.dtype, x.shape[3], B.shape[3], chunk):
+        raise ValueError(f"ssd_scan bf16 body: not its shape, {x.dtype} x "
+                         f"{tuple(x.shape)}, B {tuple(B.shape)}, chunk {chunk}")
+    ins, y, buf, dims = _operands(x, dt, A, B, C, chunk)
+    Bb, S, H, P, G, N, _ = dims
+    nc = -(-S // chunk)
+    n_state, n_chunks = Bb * H * N * P, Bb * nc * H * N * P
+    fn = _build.function("ssd_scan", "ssd_scan_bf16_passes", ARGTYPES)
+
+    def run(name):
+        err = fn(*(t.data_ptr() for t in ins), y.data_ptr(), buf.data_ptr(), *dims,
+                 PASSES[name], torch.cuda.current_stream(x.device).cuda_stream)
+        if err:
+            raise RuntimeError(f"ssd_scan {name} pass launch failed: cudaError {err}")
+
+    def read():
+        bf = buf[n_state + n_chunks:n_state + n_chunks * 3 // 2]
+        return (buf[n_state:n_state + n_chunks].view(Bb, nc, H, N, P),
+                bf.view(torch.bfloat16).view(Bb, nc, H, N, P),
+                buf[n_state + n_chunks * 3 // 2:].view(Bb, nc, H),
+                buf[:n_state].view(Bb, H, N, P), y)
+
+    return run, read

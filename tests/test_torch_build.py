@@ -5,7 +5,9 @@ put ``csrc/`` on the include path, and every planted fault of
 ``chip_smoke.py`` names a line its kernel source holds exactly once;
 ``chip_smoke.py --against`` builds another version of a kernel source, and
 its build phase reads ptxas's report of each function and holds the bf16
-flash kernels' SASS to wgmma and TMA.
+product kernels' SASS to wgmma and TMA.  The SSD gate's cases reach every
+edge of the bf16 body under the wrapper's shape rule, and the SSD bound
+counts the products the function needs.
 No nvcc is run: the commands are recorded, not executed."""
 import importlib.util
 import re
@@ -91,7 +93,18 @@ def test_every_include_names_a_header_in_csrc():
             assert inc in headers, (src.name, inc)
 
 
+def _kernel_bodies(text):
+    """{name of each __global__ function: its text up to the next one}."""
+    starts = [(m.start(), m.group(1)) for m in
+              re.finditer(r"__global__ void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\(",
+                          text)]
+    return {name: text[s:e] for (s, name), (e, _) in zip(starts, starts[1:] + [(len(text), "")])}
+
+
 def test_planted_faults_hold_their_lines_once_and_cover_every_kernel():
+    """Each fault's line is in its source once; the faults cover every
+    kernel of the gate, and each pass of the bf16 SSD body (its product
+    passes and the carry) holds a fault of its own."""
     cs = _chip_smoke()
     for name, kernels, bug, old, new in cs.FAULTS:
         text = (_build.CSRC / f"{name}.cu").read_text()
@@ -100,6 +113,13 @@ def test_planted_faults_hold_their_lines_once_and_cover_every_kernel():
         assert set(kernels) <= set(cs.KERNELS)
     covered = {k for f in cs.FAULTS for k in f[1]}
     assert covered == set(cs.KERNELS)
+    bodies = _kernel_bodies((_build.CSRC / "ssd_scan.cu").read_text())
+    ssd_faults = [f[3] for f in cs.FAULTS if f[0] == "ssd_scan"]
+    passes = [part for name, part in cs.WGMMA_FUNCTIONS if name == "ssd_scan"] + ["ssd_carry"]
+    assert len(passes) == 3
+    for part in passes + ["ssd_scan_kernel"]:
+        (fn,) = [k for k in bodies if k.startswith(part)]
+        assert sum(old in bodies[fn] for old in ssd_faults) == 1, part
 
 
 def test_flash_cases_are_valid_shapes():
@@ -163,10 +183,115 @@ def test_wgmma_route_check_reads_canned_sass():
 
 
 def test_wgmma_functions_name_kernels_of_their_sources():
-    for name, part in _chip_smoke().WGMMA_FUNCTIONS:
+    """Each entry of WGMMA_FUNCTIONS names a kernel of its source, the bf16
+    SSD body's two product passes among them, and every kernel of csrc/
+    is a repo kernel to the profiles (REPO_KERNELS)."""
+    cs = _chip_smoke()
+    for name, part in cs.WGMMA_FUNCTIONS:
         text = (_build.CSRC / f"{name}.cu").read_text()
         # a kernel's declaration: no ";" or "{" between __global__ and its name
         assert re.search(rf"__global__ void[^;{{]*\b{part}\w*\(", text), (name, part)
+    assert {p for n, p in cs.WGMMA_FUNCTIONS if n == "ssd_scan"} == {
+        "ssd_state_wgmma", "ssd_out_wgmma"}
+    for src in _build.CSRC.glob("*.cu"):
+        for fn in _kernel_bodies(src.read_text()):
+            assert cs._kernel_class(fn) == "repo kernels", (src.name, fn)
+
+
+def test_ssd_cases_are_valid_shapes_and_reach_the_bf16_bodys_edges():
+    """Every SSD gate case is a shape the wrapper takes, and under its
+    shape rule (``wgmma_body``) the bf16 body meets: mamba2-130m's prefill,
+    zamba2-2.7b's N 64 at H 80, B 2 with G 2 and S ragged inside a 64-row
+    tile, S < 64, S an exact multiple of the chunk, A at scale 50 with N
+    128, and each chunk it takes (64, 128, 192, 256); the reduced shapes
+    go to the other body."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan import wgmma_body
+
+    cases = _chip_smoke().SSD_CASES
+    for B, S, H, P, G, N, chunk, scale in cases:
+        assert B >= 1 and S >= 1 and H % G == 0 and scale > 0
+        assert P % 16 == 0 and N % 4 == 0 and N <= 128 and chunk % 32 == 0 and chunk <= 256
+    new = [c for c in cases if wgmma_body(torch.bfloat16, c[3], c[5], c[6])]
+    assert any(c[:7] == (1, 1024, 24, 64, 1, 128, 256) for c in new)
+    assert any(c[2] == 80 and c[5] == 64 and c[1] == 1024 for c in new)
+    assert any(c[0] == 2 and c[4] == 2 and c[1] % 64 and c[1] > 64 for c in new)
+    assert any(c[1] < 64 for c in new)
+    assert any(c[1] % c[6] == 0 and c[1] > c[6] for c in new)
+    assert any(c[7] == 50.0 and c[5] == 128 for c in new)
+    assert {c[6] for c in new} == {64, 128, 192, 256}
+    assert any(not wgmma_body(torch.bfloat16, c[3], c[5], c[6]) for c in cases)
+    assert not any(wgmma_body(torch.float32, c[3], c[5], c[6]) for c in cases)
+
+
+def test_ssd_shape_rule_serves_every_ssm_config_on_the_bf16_body():
+    """No SSM config of the repo (the JAX package's registry: mamba2-130m,
+    zamba2-2.7b) goes to the other bf16 body, nor the port's mamba2-130m;
+    the reduced configs' shapes do."""
+    import torch
+
+    from repro.configs import get_config as jget_config
+    from repro.configs import list_archs as jlist_archs
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels.ssd_scan import wgmma_body
+
+    ssm = [jget_config(n) for n in jlist_archs() if jget_config(n).ssm is not None]
+    assert {c.name for c in ssm} >= {"mamba2-130m", "zamba2-2.7b"}
+    for cfg in [*ssm, get_config("mamba2-130m")]:
+        s = cfg.ssm
+        assert wgmma_body(torch.bfloat16, s.head_dim, s.d_state, s.chunk), cfg.name
+    r = reduced(get_config("mamba2-130m")).ssm
+    assert not wgmma_body(torch.bfloat16, r.head_dim, r.d_state, r.chunk)
+
+
+def test_ssd_limits_add_the_bf16_bodys_terms_only_where_it_runs():
+    import torch
+
+    cs = _chip_smoke()
+    dt, A = torch.full((1, 300, 2), 0.5), torch.tensor([-1.0, -0.1])
+    for dtype, P, N, chunk, new in ((torch.bfloat16, 64, 128, 256, True),
+                                    (torch.bfloat16, 16, 16, 32, False),
+                                    (torch.float32, 64, 128, 256, False)):
+        x = torch.zeros(1, 300, 2, P, dtype=dtype)
+        u_out, rel_y, rel_st = cs.ssd_limits(torch, x, dt, A, N, chunk)
+        acs_max = 0.5 * min(chunk, 300)       # the largest |cumsum(dt A)| of a chunk
+        rel = cs.SSD_REL + 8 * cs.F32_EPS * acs_max
+        assert u_out == (cs.BF16_U if dtype == torch.bfloat16 else 0.0)
+        assert rel_y == pytest.approx(rel + new * (cs.SSD_U_OPERAND + cs.SSD_U_SPLIT))
+        assert rel_st == pytest.approx(rel + new * cs.SSD_U_SPLIT)
+
+
+@pytest.mark.parametrize("B,S,H,P,G,N,L", [
+    (1, 10, 2, 3, 1, 2, 4), (2, 9, 4, 2, 2, 3, 3), (1, 12, 6, 2, 3, 2, 4), (1, 5, 2, 2, 2, 2, 8)])
+def test_ssd_work_counts_the_causal_products_once(B, S, H, P, G, N, L):
+    """ssd_work's flops against a brute-force count: per (batch, head,
+    chunk) C . state over every row, the masked product with x and B^T x;
+    C B^T per (batch, group, chunk) over the causal pairs; 2 flops a
+    multiply-add.  Bytes: x, B, C, y once, dt, A and the state in f32."""
+    macs = 0
+    for _ in range(B):
+        for c0 in range(0, S, L):
+            rows = range(c0, min(S, c0 + L))
+            pairs = [(l, s) for l in rows for s in rows if s <= l]
+            macs += G * len(pairs) * N                        # C B^T, per group
+            macs += H * (len(rows) * N * P                    # C . state
+                         + len(pairs) * P                     # (masked C B^T) x
+                         + len(rows) * N * P)                 # B^T diag(w) x
+    flops, nbytes = _chip_smoke().ssd_work(B, S, H, P, G, N, L, 2)
+    assert flops == 2 * macs
+    assert nbytes == 2 * (2 * B * S * H * P + 2 * B * S * G * N) + 4 * (B * S * H + H + B * H * N * P)
+
+
+def test_ssd_work_at_the_serve_shape():
+    """mamba2-130m's 1024-token prefill: 1.24 GFLOP (f32 bound 0.0186 ms
+    at 67 TFLOP/s), bound by bytes in bf16 (0.0023 ms at 3.35 TB/s)."""
+    cs = _chip_smoke()
+    flops, nbytes = cs.ssd_work(1, 1024, 24, 64, 1, 128, 256, 2)
+    assert flops == pytest.approx(1.2432e9, rel=1e-4)
+    assert cs._bound(flops, nbytes, cs.PEAK_F32_FLOPS)[0] == pytest.approx(0.01856, rel=1e-3)
+    ms, by = cs._bound(flops, nbytes, cs.PEAK_BF16_FLOPS)
+    assert by == "bytes" and ms == pytest.approx(0.00230, rel=1e-2)
 
 
 def test_against_builds_name_a_kernel_and_find_the_headers(tmp_path, monkeypatch):

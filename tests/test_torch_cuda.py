@@ -14,6 +14,8 @@ kernels against the plain version's autograd, the engine on ``cuda``
 against the same engine on ``cpu`` (same greedy tokens, for starcoder2
 and mamba2) and the train step likewise (losses within 1e-4)."""
 import dataclasses
+import importlib.util
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -297,24 +299,33 @@ def _ssd_inputs(cuda, B, S, H, P, G, N, dtype=torch.float32):
     return x, dt, A, Bm, Cm
 
 
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _assert_within(got, want, want_abs, u_out, rel):
+    err = (got.float() - want).abs()
+    lim = u_out * want.abs() + rel * want_abs + 1e-6
+    assert (err <= lim).all(), (err / lim).max()
+
+
 def _assert_ssd_close(x, dt, A, Bm, Cm, chunk, y, st):
-    """Per element against the plain version on the f32 values: f32
-    sums in another order differ by about 1e-6 of the sum of absolute
-    terms (the plain version with |x|, |B|, |C|), and the decay exponents
-    by eps * |cumsum(dt A)| within a chunk, which the f32 cumsum of any
-    order carries; bf16 y adds one rounding, 2^-8 |y|."""
+    """Per element against the plain version on the f32 values, under
+    chip_smoke.py's gate (``SSD_REL``): f32 sums in another order differ by
+    about 1e-6 of the sum of absolute terms (the plain version with |x|,
+    |B|, |C|), and the decay exponents by eps * |cumsum(dt A)| within a
+    chunk, which the f32 cumsum of any order carries; bf16 y adds one
+    rounding, 2^-8 |y|, and the bf16 body its operands' roundings."""
     f = [t.float() for t in (x, dt, A, Bm, Cm)]
     want_y, want_st = ref.ssd_ref(*f, chunk)
     abs_y, abs_st = ref.ssd_ref(f[0].abs(), f[1], f[2], f[3].abs(), f[4].abs(), chunk)
-    S = x.shape[1]
-    a = torch.nn.functional.pad(dt * A, (0, 0, 0, (-S) % chunk))
-    amax = a.unflatten(1, (-1, chunk)).abs().sum(2).max().item()
-    rel = 1e-6 + 8 * 2.0**-24 * amax
-    u = 2.0**-8 if y.dtype == torch.bfloat16 else 0.0
-    for got, want, want_abs, uu in ((y, want_y, abs_y, u), (st, want_st, abs_st, 0.0)):
-        err = (got.float() - want).abs()
-        lim = uu * want.abs() + rel * want_abs + 1e-6
-        assert (err <= lim).all(), (err / lim).max()
+    u_out, rel_y, rel_st = _chip_smoke().ssd_limits(torch, x, dt, A, Bm.shape[3], chunk)
+    _assert_within(y, want_y, abs_y, u_out, rel_y)
+    _assert_within(st, want_st, abs_st, 0.0, rel_st)
 
 
 # ragged S (one partial chunk, a partial last chunk), G = 1, 2, 4, chunk
@@ -330,18 +341,66 @@ def test_ssd_kernel_matches_plain(cuda, B, S, H, P, G, N, chunk):
     assert ops.launch_counts["ssd_scan"] == 1
 
 
-@pytest.mark.parametrize("S", [65, 513])
-def test_ssd_bf16_kernel_near_plain(cuda, S):
-    """bf16 x, B, C: the kernel computes in f32 and rounds y once; the
-    state stays f32."""
-    inp = _ssd_inputs(cuda, 1, S, 24, 64, 1, 128, torch.bfloat16)
-    y, st = ops.ssd(*inp, 256)
+# the bf16 body of three passes (P 64, N 64 / 128, chunk 64-256) at its
+# edges, and the other body at a reduced shape
+@pytest.mark.parametrize("B,S,H,P,G,N,chunk", [
+    (1, 65, 24, 64, 1, 128, 256), (1, 513, 24, 64, 1, 128, 256), (1, 40, 24, 64, 1, 128, 256),
+    (1, 1024, 80, 64, 1, 64, 256), (2, 700, 8, 64, 2, 128, 256), (1, 512, 24, 64, 1, 128, 256),
+    (2, 200, 8, 64, 4, 64, 64), (1, 333, 6, 64, 3, 128, 128), (1, 450, 4, 64, 2, 64, 192),
+    (2, 300, 8, 16, 2, 16, 32)])
+def test_ssd_bf16_kernel_near_plain(cuda, B, S, H, P, G, N, chunk):
+    """bf16 x, B, C: y in bf16, the state in f32, within the gate's terms
+    for the body the shape rule picks."""
+    inp = _ssd_inputs(cuda, B, S, H, P, G, N, torch.bfloat16)
+    ops.reset_launch_counts()
+    y, st = ops.ssd(*inp, chunk)
     assert y.dtype == torch.bfloat16 and st.dtype == torch.float32
-    _assert_ssd_close(*inp, 256, y, st)
+    assert ops.launch_counts["ssd_scan"] == 1
+    _assert_ssd_close(*inp, chunk, y, st)
 
 
-def test_ssd_kernel_is_deterministic(cuda):
-    inp = _ssd_inputs(cuda, 1, 700, 8, 64, 1, 128, torch.bfloat16)
+@pytest.mark.parametrize("B,S,H,G,N,chunk", [
+    (1, 1024, 24, 1, 128, 256), (2, 700, 8, 2, 128, 256), (1, 40, 4, 1, 64, 256),
+    (2, 200, 8, 4, 64, 64)])
+def test_ssd_bf16_passes_match_their_plain_versions(cuda, B, S, H, G, N, chunk):
+    """Each pass of the bf16 body on the previous pass's own output: the
+    state pass's chunk updates (within 2^-16, the hi + lo split, of their
+    absolute terms) and decays against ``ref.ssd_chunk_states``; the carry
+    against ``ref.ssd_carry`` of the kernel's updates (f32 in the same
+    order) and its bf16 copy of them (rounded to nearest); the out pass
+    against ``ref.ssd_chunk_outputs`` of the kernel's carried states (y's
+    bf16 terms)."""
+    from repro_torch.kernels.ssd_scan import ssd_scan_bf16_passes
+
+    cs = _chip_smoke()
+    x, dt, A, Bm, Cm = _ssd_inputs(cuda, B, S, H, 64, G, N, torch.bfloat16)
+    u_out, rel_y, rel_st = cs.ssd_limits(torch, x, dt, A, N, chunk)
+    f = [t.float() for t in (x, Bm, Cm)]
+    run, read = ssd_scan_bf16_passes(x, dt, A, Bm, Cm, chunk)
+    run("state")
+    U, _, dec, _, _ = (t.clone() for t in read())
+    want_U, want_dec = ref.ssd_chunk_states(f[0], dt, A, f[1], chunk)
+    abs_U, _ = ref.ssd_chunk_states(f[0].abs(), dt, A, f[1].abs(), chunk)
+    _assert_within(U, want_U, abs_U, 0.0, rel_st)
+    _assert_within(dec, want_dec, want_dec, 0.0, rel_st)
+    run("carry")
+    states_in, states_bf, _, final, _ = (t.clone() for t in read())
+    want_in, want_final = ref.ssd_carry(U, dec)
+    abs_in, abs_final = ref.ssd_carry(U.abs(), dec)
+    _assert_within(states_in, want_in, abs_in, 0.0, cs.SSD_REL)
+    _assert_within(final, want_final, abs_final, 0.0, cs.SSD_REL)
+    assert torch.equal(states_bf, states_in.to(torch.bfloat16))
+    run("out")
+    y = read()[4]
+    want_y = ref.ssd_chunk_outputs(f[0], dt, A, f[1], f[2], states_in, chunk)
+    abs_y = ref.ssd_chunk_outputs(f[0].abs(), dt, A, f[1].abs(), f[2].abs(),
+                                  states_in.abs(), chunk)
+    _assert_within(y, want_y, abs_y, u_out, rel_y - cs.SSD_U_SPLIT)
+
+
+@pytest.mark.parametrize("N", [64, 128])
+def test_ssd_kernel_is_deterministic(cuda, N):
+    inp = _ssd_inputs(cuda, 1, 700, 8, 64, 1, N, torch.bfloat16)
     (y1, s1), (y2, s2) = ops.ssd(*inp, 256), ops.ssd(*inp, 256)
     assert torch.equal(y1, y2) and torch.equal(s1, s2)
 

@@ -86,6 +86,34 @@ def test_plain_ssd_matches_pallas_kernel_and_oracle(S, chunk):
     assert y.dtype == torch.float32 and st.shape == (2, 4, 8, 16)
 
 
+@pytest.mark.parametrize("B,S,H,P,G,N,chunk", [
+    (2, 100, 4, 16, 2, 8, 32), (1, 64, 2, 8, 1, 16, 64), (2, 70, 6, 16, 3, 8, 32)])
+def test_plain_ssd_passes_compose_to_the_scan(B, S, H, P, G, N, chunk):
+    """The plain versions of the bf16 kernel's three passes (chunk states
+    and decays, the carry, the chunk outputs) compose to ``ref.ssd_ref``;
+    the carry's final state matches the Pallas ``ssd_scan`` (interpret
+    mode) and the state passes the carry hands on are those the Pallas
+    kernel's sequential grid carries (its final state from a prefix of
+    the chunks), at the SSD bar."""
+    inp = _ssd_inputs(S + G, B, S, H, P, G, N)
+    x, dt, A, Bm, Cm = _t(inp)
+    U, decay = ref.ssd_chunk_states(x, dt, A, Bm, chunk)
+    nc = -(-S // chunk)
+    assert U.shape == (B, nc, H, N, P) and decay.shape == (B, nc, H)
+    states_in, final = ref.ssd_carry(U, decay)
+    y = ref.ssd_chunk_outputs(x, dt, A, Bm, Cm, states_in, chunk)
+    want_y, want_st = ref.ssd_ref(x, dt, A, Bm, Cm, chunk)
+    np.testing.assert_allclose(y.numpy(), want_y.numpy(), **SSD_TOL)
+    np.testing.assert_allclose(final.numpy(), want_st.numpy(), **SSD_TOL)
+    _, jfinal = jssd_scan(*_j(inp), chunk=chunk)
+    np.testing.assert_allclose(final.numpy(), np.asarray(jfinal), **SSD_TOL)
+    for c in range(1, nc):
+        _, jstate = jssd_scan(*_j([a[:, :c * chunk] if a.ndim > 1 else a for a in inp]),
+                              chunk=chunk)
+        np.testing.assert_allclose(states_in[:, c].numpy(), np.asarray(jstate), **SSD_TOL)
+    assert torch.equal(states_in[:, 0], torch.zeros_like(states_in[:, 0]))
+
+
 def test_plain_ssd_matches_step_recurrence():
     """The chunked dual form against the O(1) step run token by token,
     both the port's; the step also against the JAX ``ssd_step``."""
