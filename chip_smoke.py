@@ -10,9 +10,9 @@
 
 Phases (any failure exits non-zero before the last line):
   build       build the CUDA kernels from src/repro_torch/kernels/csrc/;
-              the bf16 flash forward and backward and the bf16 SSD body's
-              product passes must run on wgmma and TMA alone (SASS: HGMMA
-              and UTMALDG, no HMMA; no ptxas C7520)
+              the bf16 flash forward and backward, the bf16 SSD body's
+              product passes and the bf16 paged body must run on wgmma and
+              TMA alone (SASS: HGMMA and UTMALDG, no HMMA; no ptxas C7520)
   kernels     hold each kernel (forward and backward) against its plain
               PyTorch version (backward: the plain version's autograd) on
               the card, f32 and bf16, at the stated tolerances, up to the
@@ -172,9 +172,20 @@ PAGED_CASES = [  # (B, H, Hkv, D, P, NP, maxp, window, softcap, (pos lo, hi))
     (8, 24, 2, 128, 16, 160, 16, None, 30.0, (0, 255)),    # softcap
     (4, 8, 2, 64, 8, 64, 12, None, 0.0, (0, 95)),          # rep 4, D 64, page 8
     # the serve phase's decode tick: 128-page tables, prompts of 65-1024
-    # plus 32 new tokens, so up to 9 live 8-page splits for the combine
+    # plus 32 new tokens, so up to 17 live splits of 64 keys for the combine
     (8, 24, 2, 128, 16, 512, 128, None, 0.0, (65, 1055)),
     (8, 24, 2, 128, 16, 512, 128, 300, 0.0, (65, 1055)),   # window: splits past 0
+    # the bf16 wgmma body's edges (64-key splits of one stage, pages stacked
+    # into 64 rows; position 0 and a table live to its last column above)
+    (6, 2, 2, 128, 16, 80, 16, None, 0.0, (0, 255)),       # rep 1
+    (6, 32, 2, 128, 16, 80, 16, None, 0.0, (0, 255)),      # rep 16
+    (6, 8, 2, 64, 16, 80, 16, None, 0.0, (0, 255)),        # D 64 at P 16
+    (6, 24, 2, 128, 32, 80, 16, None, 0.0, (0, 511)),      # D 128 at P 32
+    (6, 24, 2, 128, 64, 40, 8, None, 0.0, (0, 511)),       # P 64: a page a stage
+    (16, 24, 2, 128, 16, 128, 8, None, 0.0, (63, 65)),     # positions at a stage's edge
+    (8, 24, 2, 128, 16, 160, 16, 5, 0.0, (0, 255)),        # a window inside a page
+    (6, 24, 2, 128, 16, 160, 32, 200, 0.0, (300, 500)),    # a window from inside a later split
+    (8, 24, 2, 128, 16, 160, 16, 40, 30.0, (0, 255)),      # window and softcap
 ]
 
 
@@ -224,15 +235,14 @@ def _flash_inputs(torch, case, dtype, gen):
     return mk(B, S, H, D), mk(B, S, Hkv, D), mk(B, S, Hkv, D)
 
 
-def _paged_inputs(torch, case, dtype, gen):
-    """Fragmented tables; positions in the case's range, the first two
-    active slots at its ends; up to two allocated pages past each
-    position (as the engine allocates for max_new) and trash page 0 past
-    each allocation; two inactive slots (all-zero tables, stale
-    positions; one past the table)."""
-    B, H, Hkv, D, P, NP, maxp, _, _, (lo, hi) = case
-    mk = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(dtype)
-    q, kp, vp = mk(B, H, D), mk(NP, P, Hkv, D), mk(NP, P, Hkv, D)
+def paged_tables(torch, case):
+    """The case's tables and positions, on the CPU: fragmented tables;
+    positions in the case's range, the first two active slots at its ends;
+    up to two allocated pages past each position (as the engine allocates
+    for max_new) and trash page 0 past each allocation; two inactive slots
+    (all-zero tables, stale positions; one past the table, by less than a
+    window, so that its row keeps a live key)."""
+    B, _, _, _, P, NP, maxp, window, _, (lo, hi) = case
     perm = (torch.randperm(NP - 1, generator=torch.Generator().manual_seed(1)) + 1).tolist()
     tables = torch.zeros((B, maxp), dtype=torch.int32)
     pos = torch.zeros((B,), dtype=torch.int32)
@@ -244,7 +254,15 @@ def _paged_inputs(torch, case, dtype, gen):
         tables[b, :n] = torch.tensor(pages, dtype=torch.int32)
         pos[b] = p
     pos[B - 2] = 3 * P + 5                # inactive: stale position
-    pos[B - 1] = maxp * P + 7             # inactive: stale, past the table
+    pos[B - 1] = maxp * P + (7 if window is None else min(7, window - 2))   # past the table
+    return tables, pos
+
+
+def _paged_inputs(torch, case, dtype, gen):
+    B, H, Hkv, D, P, NP, *_ = case
+    mk = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(dtype)
+    q, kp, vp = mk(B, H, D), mk(NP, P, Hkv, D), mk(NP, P, Hkv, D)
+    tables, pos = paged_tables(torch, case)
     return q, kp, vp, tables.cuda(), pos.cuda()
 
 
@@ -478,8 +496,15 @@ FAULTS = [
      "s[x] = k0 + (x / 4) * 8 + 2 * t < 64 && kt_hi * BK > 512 ? 0.f : "
      "hopper::exp2_approx(s[x] - m[(x >> 1) & 1]);"),
     ("paged_attention", ("paged_attention",),
-     "combine merges at most 8 splits (the first 1024 keys)",
+     "combine merges at most 8 splits (the first 512 keys at P 16 in bf16)",
      "s1 = j_hi / p.pps;", "s1 = min(j_hi / p.pps, s0 + 7);"),
+    ("paged_attention", ("paged_attention",), "wgmma body: the mask lets in the key after pos",
+     "const int key_hi = min(pos, (j1 + 1) * P - 1);",
+     "const int key_hi = min(pos + 1, (j1 + 1) * P - 1);"),
+    ("paged_attention", ("paged_attention",),
+     "wgmma body: the partial max goes to the combine in base 2",
+     "p.part_ml[prow * 2] = m[r] * LN2;  // the combine's natural-log units",
+     "p.part_ml[prow * 2] = m[r];  // the combine's natural-log units"),
     ("fused_xent", ("fused_xent", "fused_xent_bwd"), "forward skips the last vocab tile",
      "for (int c0 = 0; c0 < V; c0 += TILE) {  // vocab tiles, in order",
      "for (int c0 = 0; c0 + TILE < V; c0 += TILE) {  // vocab tiles, in order"),
@@ -612,7 +637,7 @@ def sass_counts(lib):
 # (kernel source, a part of each of its functions' names)
 WGMMA_FUNCTIONS = (("flash_attention", "flash_fwd_wgmma"), ("flash_attention_bwd", "dq_wgmma"),
                    ("flash_attention_bwd", "dkdv_wgmma"), ("ssd_scan", "ssd_state_wgmma"),
-                   ("ssd_scan", "ssd_out_wgmma"))
+                   ("ssd_scan", "ssd_out_wgmma"), ("paged_attention", "paged_wgmma"))
 
 
 def wgmma_route_faults(sass, part):
@@ -627,11 +652,11 @@ def wgmma_route_faults(sass, part):
 
 
 def wgmma_build_facts(rec):
-    """The bf16 flash forward and backward and the bf16 SSD body as
-    built: ptxas's report (registers, spill bytes) and SASS counts of
-    every instance of ``WGMMA_FUNCTIONS``.  Fails unless each runs on
-    HGMMA and UTMALDG with no HMMA, or if ptxas serialized a wgmma (its
-    warning C7520)."""
+    """The bf16 flash forward and backward, the bf16 SSD body and the
+    bf16 paged body as built: ptxas's report (registers, spill bytes) and
+    SASS counts of every instance of ``WGMMA_FUNCTIONS``.  Fails unless
+    each runs on HGMMA and UTMALDG with no HMMA, or if ptxas serialized a
+    wgmma (its warning C7520)."""
     from repro_torch.kernels import _build
 
     facts, faults = {}, []
@@ -650,6 +675,7 @@ def wgmma_build_facts(rec):
     rec["flash_fwd_build"] = facts["flash_attention"]
     rec["flash_bwd_build"] = facts["flash_attention_bwd"]
     rec["ssd_build"] = facts["ssd_scan"]
+    rec["paged_build"] = facts["paged_attention"]
 
 
 def parse_against(specs):
@@ -1114,8 +1140,8 @@ def run_train(torch, rec, seed=0, B=32, S=512, steps=20, n_prof=3):
 
 REPO_KERNELS = ("flash_fwd", "dq_wgmma", "dkdv_wgmma", "dq_mma", "dkdv_mma", "dq_f32",
                 "dkdv_f32", "delta_kernel", "xent_fwd", "xent_bwd", "paged_partial",
-                "paged_combine", "ssd_scan_kernel", "ssd_state_wgmma", "ssd_carry",
-                "ssd_out_wgmma")
+                "paged_wgmma", "paged_combine", "ssd_scan_kernel", "ssd_state_wgmma",
+                "ssd_carry", "ssd_out_wgmma")
 
 
 def _kernel_class(name):
@@ -1362,15 +1388,20 @@ def time_kernels(torch, rec, strict=True):
     ratio = max(checked(f"paged table set {r}", paged_reading(torch, q, kp, vp, tables[r], pos))
                 for r in range(R))
     it = iter(range(10**9))
-    ms, call_ms = time_ms(
-        torch, lambda: paged_attention_fwd(q, kp, vp, tables[next(it) % R], pos))
+    run = lambda: paged_attention_fwd(q, kp, vp, tables[next(it) % R], pos)
+    ms, call_ms = time_ms(torch, run)
     plain_ms, plain_call_ms = time_ms(torch, lambda: ref.paged_attention_ref(
         q, kp, vp, tables[next(it) % R], pos))
     paged = {
         "live_tokens": live, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
         "bound_ms": max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3,
         "bound_by": "operations" if flops / PEAK_BF16_FLOPS > nbytes / PEAK_BYTES else "bytes",
-        "call_ms": call_ms, "plain_call_ms": plain_call_ms, "err_over_limit": ratio}
+        "call_ms": call_ms, "plain_call_ms": plain_call_ms, "err_over_limit": ratio,
+        "by_kernel": device_ms_by_kernel(torch, run)}
+    # the host's cost of one call: eager calls at one slot of one page,
+    # where the device takes a few microseconds
+    one = (q[:1], kp[:2], vp[:2], tables[0][:1, :1].clamp(max=1), pos[:1].clamp(max=P - 1))
+    paged["host_call_ms"] = eager_ms(torch, lambda: paged_attention_fwd(*one), iters=50, warm=5)
     log(f"time paged: {paged}")
     rec["time"] = {"flash": flash, "paged": paged, "ssd": time_ssd(torch, checked, gen),
                    **time_train_kernels(torch, checked, gen)}
@@ -1519,6 +1550,8 @@ def kernel_records(rec):
     ssd = t.get("ssd", {})
     bwd = ft.get("bwd", {})
     extra = {"flash_attention": {"train_shape": ft.get("fwd")},
+             "paged_attention": {k: t.get("paged", {}).get(k)
+                                 for k in ("call_ms", "host_call_ms", "by_kernel")},
              "flash_attention_bwd": {"call_ms": bwd.get("call_ms"),
                                      "host_call_ms": bwd.get("host_call_ms"),
                                      "library_eager_ms": bwd.get("library_eager_ms"),
@@ -1570,6 +1603,7 @@ def summary(rec):
     return {"build_s": rec.get("build_s"), "seconds": rec.get("seconds"),
             "serve": {k: sv.get(k) for k in keys},
             "tick_device_busy_ms": prof.get("device_busy_ms"),
+            "tick_repo_kernels_ms": prof.get("ms_per_tick_by_class", {}).get("repo kernels"),
             "tick_launches": prof.get("kernel_launches_per_tick"),
             "prefill_1024_device_busy_ms":
                 rec.get("serve_prefill_profile", {}).get("device_busy_ms"),
@@ -1591,6 +1625,7 @@ def summary(rec):
             "flash_bwd_train_ms":
                 rec.get("time", {}).get("flash_train", {}).get("bwd", {}).get("ms"),
             "flash_bwd_gqa_ms": rec.get("time", {}).get("flash_bwd_gqa", {}).get("ms"),
+            "paged_ms": rec.get("time", {}).get("paged", {}).get("ms"),
             "ssd_ms": {k: v["ms"] for k, v in rec.get("time", {}).get("ssd", {}).items()}}
 
 

@@ -6,41 +6,86 @@
 // through a block table (B, maxp); keys 0..pos are live, with an
 // optional sliding window and logit softcap; online softmax in f32.
 //
-// Design.  The pages of each sequence are cut into splits of `pps`
-// pages, and one thread block per (kv head, sequence, split) serves all
-// `rep` query heads of that kv head, so each page of K/V is read once for
-// the rep heads (rep = 12 for starcoder2-3b; any rep in the dispatch
-// table below).  A block reads its own table row (the TPU kernel's
-// scalar prefetch); its eight warps take the split's pages round robin,
-// each warp a whole page at a time with its own running (m, l, acc); the
-// warps' states are merged through shared memory and written as the
-// split's partial state, and a second kernel merges the splits (the
-// TPU's sequential page axis becomes this two-pass reduction).  Pages
-// past `pos` or wholly behind the window are never read, and their
-// splits launch blocks that exit at once.  Table slots past an
-// allocation hold the trash page 0, and the page range stops at table
-// column maxp - 1 whatever a stale `pos` of an inactive slot says, so
-// every read stays inside the pool and the table.
+// Both bodies cut the pages of each sequence into splits, and one
+// thread block per (kv head, sequence, split) serves all `rep` query
+// heads of that kv head, so each page of K/V is read once for the rep
+// heads (rep = 12 for starcoder2-3b).  A block reads its own table row
+// (the TPU kernel's scalar prefetch) and writes its split's partial
+// state (running max m in natural-log units, denominator l, unnormalised
+// accumulator) to the f32 scratch; a second kernel, `paged_combine`,
+// merges the splits in a fixed order (the TPU's sequential page axis
+// becomes this two-pass reduction).  Pages past `pos` or wholly behind
+// the window are never read, and their splits launch blocks that exit at
+// once.  Table slots past an allocation hold the trash page 0, and the
+// page range stops at table column maxp - 1 whatever a stale `pos` of an
+// inactive slot says, so every read stays inside the pool and the table.
 //
 // Bound on the H100: bytes.  Each live key is read once as K and once
 // as V, 2*Hkv*D*itemsize bytes per token of every sequence, against
 // 4*H*D flops per token: ~1 flop/byte, so the bound is live KV bytes
-// over 3.35 TB/s.  The splits are what fill the card: 8 starcoder2
-// sequences give 16 (kv head, sequence) pairs, but ~128 blocks at
-// ~1000 tokens each.  The partial states add 4*(D+2) bytes per
-// (query head, split), written once and read once: at pps = 8 and
-// starcoder2's 12 query heads per kv head that is ~20% on top of the KV
-// bytes.
+// over 3.35 TB/s (0.0024 ms for 8 starcoder2 sequences of ~1000 tokens).
+// At that size the time is latency: the table read, the loads' round
+// trip and the softmax chain of each block, then the combine launch.
+//
+// bf16 body (`paged_wgmma_kernel`; the shapes of `wgmma_shape`, which
+// kernels/paged_attention.py:wgmma_body mirrors), built on csrc/hopper.cuh:
+// - split: SPLIT_KEYS = 64 keys, one stage (4 pages at P 16).  8
+//   starcoder2 sequences of ~1000 tokens give 2 x 8 x 16 = 256 blocks
+//   with live pages, two to an SM, every byte requested at once.  The
+//   partial states cost 4*(D+2) bytes per (query head, split), written
+//   once and read once by the combine: at rep 12 and D 128 that is 38% on
+//   top of the split's 32 KB of K/V, and stays in L2;
+// - producer: warp 4.  Each lane reads one table entry of the split's
+//   live pages before the barriers are set up, then issues that page's K
+//   and V boxes (64 columns x P rows of one kv head, a 4-d TMA box of the
+//   pool as it is) into its slot of the stage.  P-row page boxes at
+//   P in {8, 16, 32, 64} start on 1024-byte boundaries, so the pages of a
+//   stage stacked in shared memory have the layout of one 64-row
+//   128-byte-swizzled box, which `desc_sw128` describes.  Every stage of
+//   the split is requested before the first wait (with one stage a
+//   split, the whole split), so no slot is reused and there are no
+//   "empty" barriers;
+// - consumer: warpgroup 0.  Q's rep rows are loaded once into a 64-row
+//   swizzled tile (rows past rep zero: computed, never written).  S = Q
+//   K^T is a wgmma m64n64k16 over D / 16 steps; the per-column mask (key
+//   outside [key_lo, key_hi], which folds in the window, pos and the
+//   table's end), the softcap (tanh(s * scale / cap) * cap, after the
+//   scale, as the JAX kernel) and the online softmax in base 2 run in
+//   registers in f32; O += P V is a wgmma m64nDk16 with P packed to bf16
+//   from registers and V read MN-major.  The mask is a select on every
+//   score of every stage, so a window needs no variant and no branch;
+//   softcap is a template choice (nothing branches between a product's
+//   issue and its wait).  V rows of page slots past the split's last page
+//   are zeroed before the products (their P is 0, and 0 x NaN is NaN);
+// - products: at rep 12, 52 of wgmma's 64 rows are padding.  At the serve
+//   shape the products are ~0.5 GFLOP, 0.5 us at peak against 2.4 us of
+//   bytes: the tensor cores are there to take the per-token shuffle
+//   chain of the CUDA-core body off the critical path;
+// - host: the K and V tensor maps are cached by (base, NP, P, Hkv, D):
+//   an engine's pools never move, so a tick encodes none.
+//
+// f32 body (`paged_partial_kernel`, any rep of the dispatch table below,
+// and bf16 outside `wgmma_shape`): eight warps take the split's pages
+// round robin, each a whole page at a time with its own running (m, l,
+// acc), a score a warp-shuffle dot product; the warps' states merge
+// through shared memory.  Its split is the caller's `pps` pages.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+#include <mutex>
 #include <type_traits>
+#include <vector>
+
+#include "hopper.cuh"
 
 namespace {
 
 constexpr float NEG_INF = -2.0e38f;
-constexpr int NW = 8;  // warps per block
-constexpr int TU = 4;  // tokens whose K/V loads are issued together
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+constexpr int NW = 8;  // warps per block of the f32 body
+constexpr int TU = 4;  // tokens whose K/V loads are issued together (f32 body)
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -200,6 +245,241 @@ __global__ void __launch_bounds__(NW * 32) paged_partial_kernel(Params p) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 body: pages gathered by TMA, scored and summed by wgmma; see the header.
+// ---------------------------------------------------------------------------
+
+constexpr int BOX = 64;                 // columns of a TMA box (128 bytes of bf16)
+constexpr int BOX_BYTES = 64 * 128;     // a 64-row box
+constexpr int STAGE_KEYS = 64;          // keys of a stage: S's N, P V's depth
+constexpr int SPLIT_KEYS = 64;          // keys of a split (kernels/paged_attention.py)
+constexpr int STAGES = SPLIT_KEYS / STAGE_KEYS;
+constexpr int PRODUCER = 4;             // the producer warp, after the consumer warpgroup
+constexpr int WNT = 160;
+static_assert(SPLIT_KEYS % STAGE_KEYS == 0 && SPLIT_KEYS / 8 <= 32,
+              "a split is whole stages, one producer lane a page");
+
+__host__ __device__ constexpr bool wgmma_shape(int D, int P, int rep) {
+  return (D == 64 || D == 128) && (P == 8 || P == 16 || P == 32 || P == 64) && rep >= 1 &&
+         rep <= 16;
+}
+
+// shared memory, in bytes from a 1024-aligned base: Q as D/64 boxes of 64
+// rows, then K of every stage, then V of every stage (box x of stage i at
+// (i * D/64 + x) boxes; page slot u of a stage at rows u*P of each box),
+// then the barriers
+template <int D>
+struct WSmem {
+  static constexpr int NB = D / BOX;
+  static constexpr int K = NB * BOX_BYTES;
+  static constexpr int V = K + STAGES * NB * BOX_BYTES;
+  static constexpr int BAR = V + STAGES * NB * BOX_BYTES;
+  static constexpr int BYTES = BAR + 8 * 2 * STAGES + 1024;  // + alignment slack
+};
+
+template <int D, bool CAP>
+__global__ void __launch_bounds__(WNT) paged_wgmma_kernel(const __grid_constant__ CUtensorMap tk,
+                                                          const __grid_constant__ CUtensorMap tv,
+                                                          Params p) {
+  using L = WSmem<D>;
+  constexpr int NB = L::NB;
+  const int g = blockIdx.x, b = blockIdx.y, split = blockIdx.z;
+  // broadcast from lane 0, so that ptxas sees every branch below that
+  // depends on pos as warp-uniform (no wgmma in a divergent path)
+  const int pos = __shfl_sync(0xffffffffu, p.pos[b], 0);
+  int j_lo, j_hi;
+  live_pages(p, pos, &j_lo, &j_hi);
+  const int s_lo = split * p.pps;
+  const int j0 = max(j_lo, s_lo), j1 = min(j_hi, s_lo + p.pps - 1);
+  if (j0 > j1) return;  // nothing live here; the combine skips this split
+
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = smem_raw + ((1024 - (hopper::smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* k_full = reinterpret_cast<uint64_t*>(sm + L::BAR);
+  uint64_t* v_full = k_full + STAGES;
+
+  const int P = p.P;
+  const int sp = STAGE_KEYS / P;                  // pages a stage
+  const int n_pages = j1 - j0 + 1;
+  const int n_st = (n_pages + sp - 1) / sp;       // stages of this split
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0);
+  const int lane = threadIdx.x % 32;
+  const int tid = threadIdx.x;
+
+  // producer lanes read their page's table entry under the barriers' setup
+  int page_id = 0;
+  if (warp == PRODUCER && lane < n_pages) page_id = p.tables[(long long)b * p.maxp + j0 + lane];
+  if (tid == 0) {
+    for (int i = 0; i < STAGES; ++i) {
+      hopper::mbar_init(&k_full[i], 1);
+      hopper::mbar_init(&v_full[i], 1);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == PRODUCER) {
+    // every stage of the split requested before the first wait: lane u
+    // loads page j0 + u into slot u % sp of stage u / sp
+    const uint32_t page_bytes = NB * P * 128;
+    if (lane == 0) {
+      for (int i = 0; i < n_st; ++i) {
+        const uint32_t bytes = min(sp, n_pages - i * sp) * page_bytes;
+        hopper::mbar_expect_tx(&k_full[i], bytes);
+        hopper::mbar_expect_tx(&v_full[i], bytes);
+      }
+    }
+    __syncwarp();
+    if (lane < n_pages) {
+      const int i = lane / sp, row = (lane % sp) * P;
+#pragma unroll
+      for (int x = 0; x < NB; ++x) {
+        hopper::tma_load_4d(sm + L::K + (i * NB + x) * BOX_BYTES + row * 128, &tk, &k_full[i],
+                            x * BOX, g, 0, page_id);
+        hopper::tma_load_4d(sm + L::V + (i * NB + x) * BOX_BYTES + row * 128, &tv, &v_full[i],
+                            x * BOX, g, 0, page_id);
+      }
+    }
+    return;
+  }
+
+  // the consumer warpgroup.  Q: rows 0..rep-1 the kv head's query heads,
+  // rows past rep zero, 16-byte chunk c of row r at chunk c ^ (r % 8) (the
+  // TMA box's swizzle)
+  const int rep = p.H / p.Hkv;
+  const uint4* qg = static_cast<const uint4*>(p.q) + ((long long)b * p.H + g * rep) * (D / 8);
+  for (int c = tid; c < 64 * D / 8; c += 128) {
+    const int r = c / (D / 8), ch = c % (D / 8);
+    const uint4 val = r < rep ? qg[r * (D / 8) + ch] : make_uint4(0, 0, 0, 0);
+    *reinterpret_cast<uint4*>(sm + (ch / 8) * BOX_BYTES + r * 128 + ((ch % 8) ^ (r % 8)) * 16) =
+        val;
+  }
+  // V rows of the last stage's slots past the split's last page
+  const int zero_from = (n_pages - (n_st - 1) * sp) * P;
+  if (zero_from < STAGE_KEYS) {
+    for (int c = tid; c < NB * (STAGE_KEYS - zero_from) * 8; c += 128) {
+      const int x = c / ((STAGE_KEYS - zero_from) * 8), rc = c % ((STAGE_KEYS - zero_from) * 8);
+      *reinterpret_cast<uint4*>(sm + L::V + ((n_st - 1) * NB + x) * BOX_BYTES +
+                                (zero_from + rc / 8) * 128 + (rc % 8) * 16) =
+          make_uint4(0, 0, 0, 0);
+    }
+  }
+  hopper::fence_proxy_async();  // the writes above, before the products read them
+  hopper::named_barrier(1, 128);
+
+  // the live keys of this block; the window, pos and the table's end in one range
+  const int key_lo = max(j0 * P, p.window > 0 ? pos - p.window + 1 : 0);
+  const int key_hi = min(pos, (j1 + 1) * P - 1);
+  const int gr = lane / 4, t = lane % 4;  // fragment row group / column pair
+  // scores go to base 2: s * scale * log2(e), or with a softcap c
+  // tanh(s * scale / c) * c * log2(e)
+  const float pre = CAP ? p.scale / p.softcap : p.scale * LOG2E;
+  const float post = p.softcap * LOG2E;
+  const uint32_t q_smem = hopper::smem_addr(sm);
+  const uint32_t k_smem = hopper::smem_addr(sm + L::K);
+  const uint32_t v_smem = hopper::smem_addr(sm + L::V);
+
+  float o[D / 2], s[STAGE_KEYS / 2];
+#pragma unroll
+  for (int x = 0; x < D / 2; ++x) o[x] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};  // l: this thread's columns only
+  uint32_t pa[STAGE_KEYS / 16][4];
+  auto fence_all = [&] {
+    hopper::fence_regs(s);
+    hopper::fence_regs(o);
+#pragma unroll
+    for (int kc = 0; kc < STAGE_KEYS / 16; ++kc) hopper::fence_regs(pa[kc]);
+  };
+
+  for (int i = 0; i < n_st; ++i) {
+    // S = Q K^T of stage i
+    hopper::mbar_wait(&k_full[i], 0);
+    fence_all();
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      hopper::wgmma_ss<STAGE_KEYS, 0, 0>(
+          s, hopper::desc_sw128(q_smem + (kk / 4) * BOX_BYTES + (kk % 4) * 32, 16, 1024),
+          hopper::desc_sw128(k_smem + (i * NB + kk / 4) * BOX_BYTES + (kk % 4) * 32, 16, 1024),
+          kk > 0);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    fence_all();
+
+    // s[x]: row 16 warp + gr + 8 ((x >> 1) & 1), key key0 + 8 (x / 4) + 2 t + (x & 1)
+    const int key0 = (j0 + i * sp) * P;
+    if constexpr (CAP) {
+#pragma unroll
+      for (int x = 0; x < STAGE_KEYS / 2; ++x) s[x] = tanhf(s[x] * pre) * post;
+    } else {
+#pragma unroll
+      for (int x = 0; x < STAGE_KEYS / 2; ++x) s[x] *= pre;
+    }
+#pragma unroll
+    for (int x = 0; x < STAGE_KEYS / 2; ++x) {
+      const int key = key0 + (x / 4) * 8 + 2 * t + (x & 1);
+      s[x] = key < key_lo || key > key_hi ? NEG_INF : s[x];
+    }
+    float mt[2] = {m[0], m[1]}, rs[2] = {0.f, 0.f}, alpha[2];
+#pragma unroll
+    for (int x = 0; x < STAGE_KEYS / 2; ++x) mt[(x >> 1) & 1] = fmaxf(mt[(x >> 1) & 1], s[x]);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      // the four threads of a row are four neighbouring lanes
+      mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 1));
+      mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 2));
+      alpha[r] = hopper::exp2_approx(m[r] - mt[r]);
+      m[r] = mt[r];
+    }
+#pragma unroll
+    for (int x = 0; x < STAGE_KEYS / 2; ++x) {
+      s[x] = hopper::exp2_approx(s[x] - m[(x >> 1) & 1]);
+      rs[(x >> 1) & 1] += s[x];
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
+#pragma unroll
+    for (int x = 0; x < D / 2; ++x) o[x] *= alpha[(x >> 1) & 1];
+#pragma unroll
+    for (int kc = 0; kc < STAGE_KEYS / 16; ++kc)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        pa[kc][e] = hopper::pack_bf16(s[8 * kc + 2 * e], s[8 * kc + 2 * e + 1]);
+
+    // O += P V of stage i; keys 16 kc .. 16 kc + 15 the A operand of step kc
+    hopper::mbar_wait(&v_full[i], 0);
+    fence_all();
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < STAGE_KEYS / 16; ++kc)
+      hopper::wgmma_rs<D, 1>(
+          o, pa[kc],
+          hopper::desc_sw128(v_smem + i * NB * BOX_BYTES + kc * 16 * 128, BOX_BYTES, 1024), 1);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    fence_all();
+  }
+
+  // the rep live rows' partial state (warp 0 holds rows 0-15)
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int row = warp * 16 + gr + 8 * r;
+    if (row < rep) {
+      const long long prow = ((long long)b * p.H + g * rep + row) * p.nsplit + split;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<float2*>(p.part_acc + prow * D + 8 * j + 2 * t) =
+            make_float2(o[4 * j + 2 * r], o[4 * j + 2 * r + 1]);
+      if (t == 0) {
+        p.part_ml[prow * 2] = m[r] * LN2;  // the combine's natural-log units
+        p.part_ml[prow * 2 + 1] = l[r];
+      }
+    }
+  }
+}
+
 // One block per (query head, sequence), one thread per element of D:
 // merges the live splits' partial states and normalises.
 template <typename T, int D>
@@ -255,23 +535,85 @@ cudaError_t by_rep(const Params& p, int rep, int B, cudaStream_t st) {
   }
 }
 
+// The tensor map of a bf16 pool (NP, P, Hkv, D), read in boxes of one
+// page of one kv head (64 columns x P rows).  Cached by (base, NP, P, Hkv,
+// D), which fix the map: an engine's pools never move, so a decode tick
+// encodes none.  False if the encode fails.
+bool pool_map(const void* base, int NP, int P, int Hkv, int D, CUtensorMap* out) {
+  struct Entry {
+    CUtensorMap map;
+    const void* base;
+    int NP, P, Hkv, D;
+  };
+  static std::mutex mu;
+  static std::vector<Entry> cache;
+  std::lock_guard<std::mutex> lock(mu);
+  for (const Entry& e : cache)
+    if (e.base == base && e.NP == NP && e.P == P && e.Hkv == Hkv && e.D == D) {
+      *out = e.map;
+      return true;
+    }
+  Entry e{{}, base, NP, P, Hkv, D};
+  if (!hopper::bhsd_map(&e.map, base, NP, P, Hkv, D, static_cast<long long>(P) * Hkv * D,
+                        static_cast<long long>(Hkv) * D, D, P))
+    return false;
+  if (cache.size() >= 1024) cache.erase(cache.begin());  // oldest first
+  cache.push_back(e);
+  *out = e.map;
+  return true;
+}
+
+template <int D, bool CAP>
+cudaError_t launch_wgmma(const Params& p, int B, int NP, cudaStream_t stream) {
+  constexpr int smem = WSmem<D>::BYTES;
+  auto kernel = paged_wgmma_kernel<D, CAP>;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    configured = true;
+  }
+  CUtensorMap tk, tv;
+  if (!pool_map(p.k, NP, p.P, p.Hkv, D, &tk) || !pool_map(p.v, NP, p.P, p.Hkv, D, &tv))
+    return cudaErrorInvalidValue;
+  kernel<<<dim3(p.Hkv, B, p.nsplit), WNT, smem, stream>>>(tk, tv, p);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  paged_combine_kernel<__nv_bfloat16, D><<<dim3(p.H, B), D, 0, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t by_cap(const Params& p, int B, int NP, cudaStream_t st) {
+  return p.softcap > 0.f ? launch_wgmma<D, true>(p, B, NP, st)
+                         : launch_wgmma<D, false>(p, B, NP, st);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  part_ml / part_acc: f32 scratch of
-// (B, H, nsplit, 2) and (B, H, nsplit, D), nsplit = ceil(maxp / pps).
-// Returns a cudaError_t (0 = launched).
+// (B, H, nsplit, 2) and (B, H, nsplit, D), nsplit = ceil(maxp / pps) for
+// the f32 body, whose split is `pps` pages; the bf16 body, at the shapes
+// of `wgmma_shape`, splits at SPLIT_KEYS keys whatever `pps` says, and
+// then needs nsplit = ceil(maxp / (SPLIT_KEYS / P)), the pools (NP pages)
+// and q on 16-byte boundaries.  NP comes last, after the stream: a
+// library built from the entry without it ignores it.  Returns a
+// cudaError_t (0 = launched).
 extern "C" int paged_attention_fwd(const void* q, const void* k_pages, const void* v_pages,
                                    const int* tables, const int* pos, void* o,
                                    void* part_ml, void* part_acc,
                                    int B, int H, int Hkv, int D, int P, int maxp, int pps,
                                    int dtype, int window, float softcap, float scale,
-                                   void* stream) {
+                                   void* stream, int NP) {
+  const int rep = H / Hkv;
+  if (dtype == 1 && wgmma_shape(D, P, rep)) pps = SPLIT_KEYS / P;
   const int nsplit = (maxp + pps - 1) / pps;
   Params p{q, k_pages, v_pages, tables, pos, o,
            static_cast<float*>(part_ml), static_cast<float*>(part_acc),
            H, Hkv, P, maxp, pps, nsplit, window, softcap, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int rep = H / Hkv;
+  if (dtype == 1 && wgmma_shape(D, P, rep))
+    return D == 64 ? by_cap<64>(p, B, NP, st) : by_cap<128>(p, B, NP, st);
   if (dtype == 0 && D == 64) return by_rep<float, 64>(p, rep, B, st);
   if (dtype == 0 && D == 128) return by_rep<float, 128>(p, rep, B, st);
   if (dtype == 1 && D == 64) return by_rep<__nv_bfloat16, 64>(p, rep, B, st);

@@ -5,9 +5,9 @@ put ``csrc/`` on the include path, and every planted fault of
 ``chip_smoke.py`` names a line its kernel source holds exactly once;
 ``chip_smoke.py --against`` builds another version of a kernel source, and
 its build phase reads ptxas's report of each function and holds the bf16
-product kernels' SASS to wgmma and TMA.  The SSD gate's cases reach every
-edge of the bf16 body under the wrapper's shape rule, and the SSD bound
-counts the products the function needs.
+product kernels' SASS to wgmma and TMA.  The SSD and paged-attention gate
+cases reach every edge of their bf16 bodies under the wrappers' shape
+rules, and the SSD bound counts the products the function needs.
 No nvcc is run: the commands are recorded, not executed."""
 import importlib.util
 import re
@@ -103,8 +103,9 @@ def _kernel_bodies(text):
 
 def test_planted_faults_hold_their_lines_once_and_cover_every_kernel():
     """Each fault's line is in its source once; the faults cover every
-    kernel of the gate, and each pass of the bf16 SSD body (its product
-    passes and the carry) holds a fault of its own."""
+    kernel of the gate, each pass of the bf16 SSD body (its product
+    passes and the carry) holds a fault of its own, and the paged body on
+    wgmma holds two beside the combine's one."""
     cs = _chip_smoke()
     for name, kernels, bug, old, new in cs.FAULTS:
         text = (_build.CSRC / f"{name}.cu").read_text()
@@ -120,6 +121,11 @@ def test_planted_faults_hold_their_lines_once_and_cover_every_kernel():
     for part in passes + ["ssd_scan_kernel"]:
         (fn,) = [k for k in bodies if k.startswith(part)]
         assert sum(old in bodies[fn] for old in ssd_faults) == 1, part
+    bodies = _kernel_bodies((_build.CSRC / "paged_attention.cu").read_text())
+    paged_faults = [f[3] for f in cs.FAULTS if f[0] == "paged_attention"]
+    for part, n in (("paged_wgmma", 2), ("paged_combine", 1), ("paged_partial", 0)):
+        (fn,) = [k for k in bodies if k.startswith(part)]
+        assert sum(old in bodies[fn] for old in paged_faults) == n, part
 
 
 def test_flash_cases_are_valid_shapes():
@@ -193,6 +199,7 @@ def test_wgmma_functions_name_kernels_of_their_sources():
         assert re.search(rf"__global__ void[^;{{]*\b{part}\w*\(", text), (name, part)
     assert {p for n, p in cs.WGMMA_FUNCTIONS if n == "ssd_scan"} == {
         "ssd_state_wgmma", "ssd_out_wgmma"}
+    assert {p for n, p in cs.WGMMA_FUNCTIONS if n == "paged_attention"} == {"paged_wgmma"}
     for src in _build.CSRC.glob("*.cu"):
         for fn in _kernel_bodies(src.read_text()):
             assert cs._kernel_class(fn) == "repo kernels", (src.name, fn)
@@ -223,6 +230,88 @@ def test_ssd_cases_are_valid_shapes_and_reach_the_bf16_bodys_edges():
     assert {c[6] for c in new} == {64, 128, 192, 256}
     assert any(not wgmma_body(torch.bfloat16, c[3], c[5], c[6]) for c in cases)
     assert not any(wgmma_body(torch.float32, c[3], c[5], c[6]) for c in cases)
+
+
+def test_paged_cases_are_valid_shapes_and_reach_the_wgmma_bodys_edges():
+    """Every paged gate case is a shape the wrapper takes, with tables
+    whose allocated pages are distinct and cover each position and a live
+    key in every row (a row with none is undefined in the reference); and
+    under the shape rule (``wgmma_body``) the bf16 wgmma body meets rep 1
+    and 16, D 64 at P 16, D 128 at P 32, every page size it takes,
+    positions 63, 64 and 65 (a 64-key stage's edge), position 0, a table
+    live to its last column, a window smaller than a page, a window whose
+    first key lies inside a split past the first, and a window with a
+    softcap."""
+    import torch
+
+    from repro_torch.kernels.paged_attention import HEAD_DIMS, REPS, SPLIT_KEYS, wgmma_body
+
+    cs = _chip_smoke()
+    new = []
+    for case in cs.PAGED_CASES:
+        B, H, Hkv, D, P, NP, maxp, window, softcap, (lo, hi) = case
+        assert H % Hkv == 0 and H // Hkv in REPS and D in HEAD_DIMS and 0 <= lo <= hi, case
+        assert (window is None or window >= 1) and softcap >= 0, case
+        tables, pos = cs.paged_tables(torch, case)
+        assert tuple(tables.shape) == (B, maxp) and 0 <= int(tables.min()) <= int(tables.max()) < NP
+        used = tables[tables != 0]
+        assert used.unique().numel() == used.numel(), case
+        for b in range(B):
+            p = int(pos[b])
+            if b < B - 2:
+                assert lo <= p <= hi and (tables[b, :min(maxp, p // P + 1)] != 0).all(), case
+            first = 0 if window is None else max(0, p - window + 1)
+            assert first <= min(p, maxp * P - 1), case
+        if wgmma_body(torch.bfloat16, D, P, H // Hkv):
+            new.append((case, pos[:B - 2].tolist(), tables[:B - 2]))
+        assert not wgmma_body(torch.float32, D, P, H // Hkv)
+    assert {c[1] // c[2] for c, _, _ in new} >= {1, 16}
+    assert any(c[3] == 64 and c[4] == 16 for c, _, _ in new)
+    assert any(c[3] == 128 and c[4] == 32 for c, _, _ in new)
+    assert {c[4] for c, _, _ in new} == {8, 16, 32, 64}
+    assert any({63, 64, 65} <= set(ps) for _, ps, _ in new)
+    assert any(0 in ps for _, ps, _ in new)
+    assert any(p // c[4] == c[6] - 1 and (tb[b] != 0).all()
+               for c, ps, tb in new for b, p in enumerate(ps))
+    assert any(c[7] is not None and c[7] < c[4] for c, _, _ in new)
+    assert any(c[7] is not None and any(
+        p - c[7] + 1 > SPLIT_KEYS and (p - c[7] + 1) % SPLIT_KEYS for p in ps) for c, ps, _ in new)
+    assert any(c[7] is not None and c[8] > 0 for c, _, _ in new)
+
+
+def test_paged_shape_rule_sends_every_decode_to_the_wgmma_body():
+    """starcoder2-3b's decode at the engine's page size goes to the wgmma
+    body in bf16, as does every config of the repo whose head dim is 64
+    or 128 (the JAX package's registry); f32 and D 80 go to the other
+    body.  The wgmma body's split (SPLIT_KEYS) is the .cu's, and its
+    scratch holds the other body's splits too."""
+    import dataclasses
+
+    import torch
+
+    from repro.configs import get_config as jget_config
+    from repro.configs import list_archs as jlist_archs
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.paged_attention import (PAGES_PER_SPLIT, SPLIT_KEYS, n_splits,
+                                                     wgmma_body)
+    from repro_torch.serve.engine import PagedServeEngine
+
+    page = {f.name: f.default for f in dataclasses.fields(PagedServeEngine)}["page"]
+    sc = get_config("starcoder2-3b")
+    assert (sc.head_dim, sc.n_heads // sc.n_kv_heads, page) == (128, 12, 16)
+    assert wgmma_body(torch.bfloat16, sc.head_dim, page, sc.n_heads // sc.n_kv_heads)
+    assert not wgmma_body(torch.float32, sc.head_dim, page, sc.n_heads // sc.n_kv_heads)
+    cfgs = [jget_config(n) for n in jlist_archs()]
+    attn = [c for c in cfgs if c.n_heads and c.head_dim in (64, 128)]
+    assert {c.name for c in attn} >= {"starcoder2-3b", "llama3-8b", "qwen2-72b", "gemma2-27b"}
+    for c in attn:
+        assert wgmma_body(torch.bfloat16, c.head_dim, page, c.n_heads // c.n_kv_heads), c.name
+    assert not wgmma_body(torch.bfloat16, 80, page, 1)
+    src = (_build.CSRC / "paged_attention.cu").read_text()
+    assert re.search(rf"constexpr int SPLIT_KEYS = {SPLIT_KEYS};", src)
+    for P in (8, 16, 32, 64):
+        for maxp in (1, 7, 64, 128):
+            assert n_splits(maxp, P, True) >= -(-maxp // PAGES_PER_SPLIT)
 
 
 def test_ssd_shape_rule_serves_every_ssm_config_on_the_bf16_body():

@@ -31,6 +31,14 @@ pytestmark = pytest.mark.cuda
 TOL = dict(atol=2e-5, rtol=2e-5)
 
 
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -129,6 +137,26 @@ def test_paged_kernel_matches_plain(cuda, rep, window):
     assert ops.launch_counts["paged_attention"] == 1
 
 
+@pytest.mark.parametrize("case", _chip_smoke().PAGED_CASES, ids=str)
+def test_paged_bf16_kernel_near_plain(cuda, case):
+    """Every gate case of chip_smoke.py in bf16, where the wrapper's shape
+    rule sends all of them to the wgmma body: within u (|want| + want_abs)
+    + 1e-5 per element of ``ref.paged_attention_ref`` on the same bf16
+    values in f32 (u = 2^-8: the output's rounding and P's before P V),
+    one launch a call."""
+    from repro_torch.kernels.paged_attention import wgmma_body
+
+    cs = _chip_smoke()
+    B, H, Hkv, D, P, *_ = case
+    assert wgmma_body(torch.bfloat16, D, P, H // Hkv)
+    gen = torch.Generator(device=cuda).manual_seed(B * H + D + P)
+    inputs = cs._paged_inputs(torch, case, torch.bfloat16, gen)
+    ops.reset_launch_counts()
+    err, ratio = cs.paged_reading(torch, *inputs, case[7], case[8])
+    assert ratio <= 1.0, (err, ratio)
+    assert ops.launch_counts["paged_attention"] == 1
+
+
 def test_engine_cuda_matches_cpu(cuda):
     cfg = dataclasses.replace(reduced(get_config("starcoder2-3b")),
                               schedule=uniform_schedule(2, LayerSpec()))
@@ -216,17 +244,6 @@ def test_flash_bwd_bf16_kernel_near_plain(cuda, S, rep, causal, D):
         assert (a.grad.float() - b.grad).abs().max() <= 2e-2 * b.grad.abs().max()
 
 
-def _chip_smoke():
-    import importlib.util
-    from pathlib import Path
-
-    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
-    spec = importlib.util.spec_from_file_location("chip_smoke", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
 @pytest.mark.parametrize("rep", [1, 4])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("D", [64, 128])
@@ -297,14 +314,6 @@ def _ssd_inputs(cuda, B, S, H, P, G, N, dtype=torch.float32):
     A = -torch.exp(0.5 * torch.randn(H, generator=g, device=cuda))
     Bm, Cm = (torch.randn(B, S, G, N, generator=g, device=cuda).to(dtype) for _ in range(2))
     return x, dt, A, Bm, Cm
-
-
-def _chip_smoke():
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
 
 
 def _assert_within(got, want, want_abs, u_out, rel):
