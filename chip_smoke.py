@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases build,kernels
     python3 chip_smoke.py --phases build,train_path,train
     python3 chip_smoke.py --phases build,ssm_path,ssm_serve
+    python3 chip_smoke.py --phases build,train_cli
     python3 chip_smoke.py --phases build,serve,train,time \
         --against parent=build/parent/flash_attention.cu
 
@@ -40,6 +41,18 @@ Phases (any failure exits non-zero before the last line):
               repro_torch.train.trainer.train; the loss must fall and every
               attention and loss chunk, forward and backward, must have
               gone through the kernels (launch counts per step)
+  train_cli   bert-mlm-120m at full width and depth, f32 (the launcher's
+              defaults), batch 32 x 512 from the DataPipeline over a
+              3000-function corpus, through repro_torch.launch.train.main:
+              (a) 20 steps with the R3 autotune; (b) the same run with
+              sharded checkpoints, stopped after the step-10 one; (d) that
+              checkpoint resumed through runner.resume and TrainLoop with
+              the device prefetch 4 deep, and (c) through a fresh main
+              (depth 2), whose losses at steps 11-20 must each equal (a)'s
+              bit for bit; launch counts per step as in train, every batch
+              placed by the device prefetch, the loss falling; the
+              prefetch's batches equal to the host's at depths 2 and 4; then
+              python -m repro_torch.launch.train as a subprocess
   time        each kernel at its path's shapes against its plain version,
               its bound and a PyTorch call computing the same function
               (SDPA and its backward op, F.cross_entropy; none computes
@@ -77,7 +90,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "chiprun_out"
 PHASES = ("build", "kernels", "faults", "path", "serve", "ssm_path", "ssm_serve", "train_path",
-          "train", "time")
+          "train", "train_cli", "time")
 AGAINST_PHASES = ("serve", "ssm_serve", "train", "time")   # the phases --against runs again
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the bounds below use them
@@ -189,13 +202,17 @@ PAGED_CASES = [  # (B, H, Hkv, D, P, NP, maxp, window, softcap, (pos lo, hi))
 ]
 
 
+# bert-mlm-120m's attention at the train phases' batch 32 x 512: the shape
+# the train and train_cli phases give the flash forward and backward
+BERT_ATTN = (32, 512, 12, 12, 64, False)
+
 # the backward kernel: (B, S, H, Hkv, D, causal); no window or softcap yet
 FLASH_BWD_CASES = [
     (2, 256, 4, 4, 64, True),       # rep 1, causal
     (1, 300, 8, 2, 128, True),      # rep 4, D 128, ragged S
     (2, 200, 12, 1, 64, False),     # rep 12, non-causal, ragged
     (1, 77, 6, 2, 64, False),       # one ragged tile and a half
-    (8, 512, 12, 12, 64, False),    # bert-mlm-120m's attention
+    BERT_ATTN,
     # the bf16 body's tile edges (64-row tiles, 128 rows or keys a block):
     # at each S, D 64 and 128, causal and not, rep 1 and 4
     *[(2, S, 2 * rep, 2, D, causal) for S in (63, 64, 65, 127, 129, 511, 513)
@@ -457,7 +474,7 @@ def kernel_readings(torch, dname, only=None):
             B, S, H, Hkv, D, causal = case
             q, k, v = _flash_inputs(torch, (B, S, H, Hkv, D), dtype, gen)
             do = torch.randn(B, S, H, D, generator=gen, device="cuda").to(dtype)
-            if case[0] == 8 and want("flash_attention"):    # bert's forward shape too
+            if case == BERT_ATTN and want("flash_attention"):    # its forward too
                 out.append(("flash_attention", case, *flash_reading(torch, q, k, v, causal)))
             out.append(("flash_attention_bwd", case,
                         *flash_bwd_reading(torch, q, k, v, do, causal)))
@@ -1106,13 +1123,8 @@ def run_train(torch, rec, seed=0, B=32, S=512, steps=20, n_prof=3):
     wall = time.perf_counter() - t0
     counts = dict(ops.launch_counts)
     c = loss_chunk_len(B, S, cfg.vocab_size, 1)
-    n_chunks = -(-S // c)
-    L = cfg.n_layers
-    # per step: each layer's attention forward, again under remat, and its
-    # backward; each loss chunk's nll forward, again under its checkpoint,
-    # and its backward
-    want = {"flash_attention": 2 * L, "flash_attention_bwd": L,
-            "fused_xent": 2 * n_chunks, "fused_xent_bwd": n_chunks}
+    want = train_launches_per_step(cfg, B, S)
+    n_chunks = want["fused_xent_bwd"]
     per_step = {k: counts.get(k, 0) / steps for k in want}
     log(f"train: launches {counts}, per step {per_step}, expected {want}")
     if per_step != {k: float(v) for k, v in want.items()}:
@@ -1136,6 +1148,204 @@ def run_train(torch, rec, seed=0, B=32, S=512, steps=20, n_prof=3):
     log("train: " + json.dumps({k: v for k, v in res.items()
                                 if k not in ("losses", "telemetry", "profile")}))
     rec["train"] = res
+
+
+def train_launches_per_step(cfg, B, S):
+    """Kernel launches of one train step: each layer's attention forward,
+    again under remat, and its backward; each loss chunk's nll forward,
+    again under its checkpoint, and its backward."""
+    from repro_torch.train.train_step import loss_chunk_len
+
+    n_chunks = -(-S // loss_chunk_len(B, S, cfg.vocab_size, 1))
+    L = cfg.n_layers
+    return {"flash_attention": 2 * L, "flash_attention_bwd": L,
+            "fused_xent": 2 * n_chunks, "fused_xent_bwd": n_chunks}
+
+
+def check_prefetch(torch, pipe, n=16):
+    """The device prefetch hands out exactly the host batches, in order,
+    while the consumer's stream is kept busy (so copies run ahead and
+    freed blocks are reused), at ``device_prefetch`` 2 and 4."""
+    busy = torch.randn(4096, 4096, device="cuda")
+    out = {}
+    for size in (2, 4):
+        pipe.device_prefetch = size
+        bad = []
+        prefetch = pipe.device_batches()
+        for k, batch in zip(range(n), prefetch):
+            for _ in range(4):
+                busy = busy @ busy
+                busy = busy / busy.norm()
+            want = pipe.peek_batch(k)
+            bad += [(k, key) for key, t in batch.items()
+                    if not (t.is_cuda and torch.equal(t.cpu(), torch.as_tensor(want[key])))]
+        prefetch.close()
+        out[size] = {"batches": n, "puts": prefetch.puts, "mismatches": bad}
+        if bad:
+            fail(f"train_cli: device prefetch at size {size} handed out wrong batches {bad}")
+    torch.cuda.synchronize()
+    return out
+
+
+def run_train_cli(torch, rec, B=32, S=512, n_functions=3000):
+    """bert-mlm-120m at full width and depth through
+    repro_torch.launch.train.main, over one DataPipeline data dir: (a) 20
+    steps with the R3 autotune; (b) the same run with --ckpt-dir and
+    --ckpt-every 10, stopped by the fault point after its step-10
+    checkpoint (the lr schedule spans --steps, so the run that is
+    resumed must be launched with --steps 20); (d) steps 10 to 20 from
+    that checkpoint through runner.resume and TrainLoop, the device
+    prefetch 4 deep; (c) a fresh main with --resume, steps 10 to 20 at
+    the CLI's depth 2.  (c) and (d) must each repeat (a)'s losses bit for
+    bit.  Then the module entry point once as a subprocess."""
+    import os
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.configs import default_run_config, get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.scaling import model_flops
+    from repro_torch.data import DataPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as cli
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.faults import TransientWorkerError
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.models.model import build_model
+    from repro_torch.train.runner import DEFAULT_PEAK_FLOPS, StepRunner, TrainLoop, resume
+
+    cfg = get_config("bert-mlm-120m")
+    work = ROOT / "build" / "train_cli"
+    data, ck = work / "data", work / "ckpt"
+    shutil.rmtree(ck, ignore_errors=True)
+    base = ["--arch", "bert-mlm-120m", "--batch", str(B), "--seq", str(S),
+            "--n-functions", str(n_functions), "--data-dir", str(data), "--log-every", "1"]
+    want = train_launches_per_step(cfg, B, S)
+    res = {"batch": B, "seq": S, "n_functions": n_functions, "launches_per_step_want": want}
+
+    def counted(tag, argv, n_steps, train=None):
+        """One run, through cli.main(base + argv) unless ``train`` is
+        given, its kernel launches counted from 0."""
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, tlog = train() if train else cli.main(base + argv)
+        torch.cuda.synchronize()
+        counts = dict(ops.launch_counts)
+        n = n_steps + tlog.telemetry.get("probe_steps", 0)
+        per_step = {k: counts.get(k, 0) / n for k in want}
+        res[tag] = {"argv": argv, "wall_s": time.perf_counter() - t0, "launches": counts,
+                    "launches_per_step": per_step, "telemetry": tlog.telemetry,
+                    "losses": [m["loss"] for m in tlog.metrics], "steps": tlog.steps}
+        log(f"train_cli {tag}: launches {counts} over {n} steps, per step {per_step}")
+        if per_step != {k: float(v) for k, v in want.items()}:
+            fail(f"train_cli {tag}: kernel launches per step {per_step}, expected {want}")
+        if tlog.telemetry["device_puts"] < n_steps:
+            fail(f"train_cli {tag}: {tlog.telemetry['device_puts']} batches placed by the "
+                 f"device prefetch for {n_steps} steps")
+        return state, tlog
+
+    # (a) the uninterrupted run, workers auto-tuned
+    state_a, log_a = counted("a", ["--steps", "20", "--workers", "0"], 20)
+    losses_a = res["a"]["losses"]
+    if len(losses_a) != 20 or not all(math.isfinite(x) for x in losses_a) \
+            or not losses_a[-1] < losses_a[0]:
+        fail(f"train_cli a: losses {losses_a}")
+    del state_a
+
+    # (b) the same run with checkpoints, stopped after its step-10 checkpoint
+    ckpt_argv = ["--steps", "20", "--workers", "2", "--ckpt-dir", str(ck), "--ckpt-every", "10"]
+    fault = {"REPRO_FAULT_PHASE": "step", "REPRO_FAULT_STEP": "10", "REPRO_FAULT_MODE": "raise"}
+    os.environ.update(fault)
+    ops.reset_launch_counts()
+    try:
+        cli.main(base + ckpt_argv)
+        fail("train_cli b: the fault point at step 10 did not stop the run")
+    except TransientWorkerError as e:
+        log(f"train_cli b: stopped as planned: {e}")
+    finally:
+        for k in fault:
+            os.environ.pop(k)
+    torch.cuda.synchronize()
+    counts_b = dict(ops.launch_counts)
+    res["b"] = {"argv": ckpt_argv, "launches": counts_b,
+                "launches_per_step": {k: counts_b.get(k, 0) / 11 for k in want}}
+    if res["b"]["launches_per_step"] != {k: float(v) for k, v in want.items()}:
+        fail(f"train_cli b: launches {counts_b} over 11 steps, expected {want} a step")
+    if ckpt.latest_step(str(ck)) != 10:
+        fail(f"train_cli b: newest committed checkpoint {ckpt.latest_step(str(ck))}, not 10")
+    shard = Path(ckpt.step_dir(str(ck), 10)) / "shard-00000.npz"
+    res["b"]["ckpt_bytes"] = shard.stat().st_size
+    with np.load(shard) as z:
+        res["b"]["ckpt_opt_step"] = int(z["opt/step"])
+    if res["b"]["ckpt_opt_step"] != 10:
+        fail(f"train_cli b: ckpt-00000010 holds opt/step {res['b']['ckpt_opt_step']}")
+
+    # (d) the same resume through the library's entry points, with the
+    # pipeline's device prefetch 4 deep (the CLI's is 2): steps 11-20 must
+    # again be (a)'s, bit for bit.  Runner and pipeline are built as the
+    # CLI builds them.
+    run = default_run_config(cfg, ShapeConfig("cli", S, B, "train"))
+    pipe = DataPipeline.build(str(data), n_functions=n_functions, seq_len=S, batch_size=B,
+                              vocab_size=cfg.vocab_size, n_workers=2, device_prefetch=4,
+                              work_fn=cli.make_work_fn(cfg))
+    try:
+        runner = StepRunner(build_model(cfg), run,
+                            AdamWConfig(lr=3e-3, warmup_steps=2, total_steps=20))
+        state_d, start = resume(str(ck), runner, pipeline=pipe, step=10)
+        state_d, _ = counted("d", ["resume(step=10)", "device_prefetch=4"], 10,
+                             lambda: TrainLoop(runner, log_every=1).run(
+                                 pipe, 20, state=state_d, start_step=start))
+        if res["d"]["steps"] != list(range(11, 21)) or res["d"]["losses"] != losses_a[10:]:
+            fail(f"train_cli d: resumed losses at prefetch depth 4 "
+                 f"{list(zip(res['d']['steps'], res['d']['losses']))} "
+                 f"!= uninterrupted {losses_a[10:]}")
+
+        # where a step's time goes, on the CLI's f32 path and its batches
+        p50 = log_a.telemetry["step_time_p50"]
+        res["profile"] = profile_steps(torch, runner, state_d,
+                                       [runner.place_batch(pipe.peek_batch(k)) for k in range(3)],
+                                       p50)
+        del state_d, runner
+        res["prefetch_check"] = check_prefetch(torch, pipe)
+    finally:
+        pipe.close()
+
+    # (c) resumed in a fresh main: steps 11-20 must be (a)'s, bit for bit
+    state_c, log_c = counted("c", ckpt_argv + ["--resume", "--keep-last-k", "1"], 10)
+    if res["c"]["steps"] != list(range(11, 21)) or res["c"]["losses"] != losses_a[10:]:
+        fail(f"train_cli c: resumed losses {list(zip(res['c']['steps'], res['c']['losses']))} "
+             f"!= uninterrupted {losses_a[10:]}")
+    res["resume_bit_exact"] = True
+    del state_c
+
+    # the module entry point, as a user runs it
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", *base, "--steps", "3",
+                          "--workers", "2"], cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=600)
+    res["module_run"] = {"rc": out.returncode, "wall_s": time.perf_counter() - t0,
+                         "tail": out.stdout[-1500:], "stderr_tail": out.stderr[-1500:]}
+    if out.returncode != 0 or "[done]" not in out.stdout:
+        fail(f"train_cli: python -m repro_torch.launch.train exited {out.returncode}: "
+             f"{out.stderr[-2000:]}")
+    shutil.rmtree(ck, ignore_errors=True)
+
+    t_a, t_c = log_a.telemetry, res["c"]["telemetry"]
+    tokens = B * S
+    res.update(step_time_p50_ms=p50 * 1e3, tokens_per_s=tokens / p50,
+               mfu=model_flops(cfg, tokens) / (p50 * DEFAULT_PEAK_FLOPS),
+               data_wait_share=t_a["data_wait_s"] / t_a["total_s"],
+               data_wait_ms_per_step=t_a["data_wait_s"] / 20 * 1e3,
+               autotune={"n_workers": t_a["n_workers"], "device_prefetch": t_a["device_prefetch"]},
+               ckpt_host_copy_ms=t_c["ckpt_host_copy_s"] * 1e3,
+               ckpt_write_ms=t_c["ckpt_write_s"] * 1e3, ckpt_saves=t_c["ckpt_saves"],
+               ckpt_bytes=res["b"]["ckpt_bytes"],
+               first_loss=losses_a[0], last_loss=losses_a[-1], launches=res["a"]["launches"])
+    log("train_cli: " + json.dumps({k: v for k, v in res.items()
+                                    if k not in ("a", "b", "c", "profile", "module_run")}))
+    rec["train_cli"] = res
 
 
 REPO_KERNELS = ("flash_fwd", "dq_wgmma", "dkdv_wgmma", "dq_mma", "dkdv_mma", "dq_f32",
@@ -1238,15 +1448,21 @@ def _bound(flops, nbytes, peak_flops):
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes"
 
 
+def _flash_peak(q):
+    """The card's peak for a flash body's products: bf16 on the tensor
+    cores, f32 outside them."""
+    return PEAK_F32_FLOPS if q.element_size() == 4 else PEAK_BF16_FLOPS
+
+
 def flash_bwd_bound(q, k, causal):
-    """(bound ms, what bounds it) of a bf16 flash backward: five products
-    (S, dP, dV, dK, dQ) of 2 D flops per unmasked (query, key) pair and
-    head; q, o, do, dq and k, v, dk, dv moved once in bf16, the f32 lse
-    read once."""
+    """(bound ms, what bounds it) of a flash backward: five products (S,
+    dP, dV, dK, dQ) of 2 D flops per unmasked (query, key) pair and head;
+    q, o, do, dq and k, v, dk, dv moved once in the inputs' dtype, the f32
+    lse read once."""
     B, S, H, D = q.shape
     pairs = S * (S + 1) / 2 if causal else S * S
-    nbytes = 2 * B * S * D * (4 * H + 4 * k.shape[2]) + 4 * B * H * S
-    return _bound(10 * B * H * D * pairs, nbytes, PEAK_BF16_FLOPS)
+    nbytes = q.element_size() * B * S * D * (4 * H + 4 * k.shape[2]) + 4 * B * H * S
+    return _bound(10 * B * H * D * pairs, nbytes, _flash_peak(q))
 
 
 def device_ms_by_kernel(torch, fn, n=10):
@@ -1264,13 +1480,19 @@ def device_ms_by_kernel(torch, fn, n=10):
 
 
 def sdpa_bwd(torch, q, k, v, do, causal):
-    """SDPA's flash-attention backward op on (B, H, S, D) copies of the
+    """SDPA's flash-attention backward op (in f32, which the flash op
+    refuses, the memory-efficient one's) on (B, H, S, D) copies of the
     inputs, its forward run once: a callable that runs only the backward,
     so that a CUDA graph can hold it.  K and V are repeated to H heads (the
     op takes no GQA), so for GQA it computes dk and dv per query head."""
     rep_ = q.shape[2] // k.shape[2]
     qt, dot = (x.transpose(1, 2).contiguous() for x in (q, do))
     kt, vt = (x.repeat_interleave(rep_, dim=2).transpose(1, 2).contiguous() for x in (k, v))
+    if q.dtype == torch.float32:
+        o, lse, seed, offset = torch.ops.aten._scaled_dot_product_efficient_attention(
+            qt, kt, vt, None, True, 0.0, causal)
+        return lambda: torch.ops.aten._scaled_dot_product_efficient_attention_backward(
+            dot, qt, kt, vt, None, o, lse, seed, offset, 0.0, [True, True, True, False], causal)
     o, lse, cq, ck, mq, mk, seed, offset, _ = \
         torch.ops.aten._scaled_dot_product_flash_attention(qt, kt, vt, 0.0, causal)
     return lambda: torch.ops.aten._scaled_dot_product_flash_attention_backward(
@@ -1309,13 +1531,15 @@ def time_flash_bwd(torch, checked, what, q, k, v, do, causal):
         log(f"time flash_bwd {what}: SDPA's backward op not timed: {e}")
         lib_ms = lib_call_ms = None
     bound = flash_bwd_bound(q, k, causal)
-    res = {"shape": list(q.shape) + [k.shape[2]], "causal": causal, "ms": ms,
+    lib_op = "efficient" if q.dtype == torch.float32 else "flash"
+    res = {"shape": list(q.shape) + [k.shape[2]], "dtype": str(q.dtype).split(".")[1],
+           "causal": causal, "ms": ms,
            "call_ms": call_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
            "library_call_ms": lib_call_ms, "library_eager_ms": lib_eager,
            "bound_ms": bound[0], "bound_by": bound[1], "err_over_limit": ratio,
            "by_kernel": device_ms_by_kernel(torch, run),
            "plain": "autograd backward, eager (CUDA events)",
-           "library": "aten._scaled_dot_product_flash_attention_backward by CUDA-graph "
+           "library": f"aten._scaled_dot_product_{lib_op}_attention_backward by CUDA-graph "
                       "replay (K, V repeated to H heads); library_eager_ms: SDPA's "
                       "autograd backward, eager"}
     log(f"time flash_bwd {what}: {res}")
@@ -1323,13 +1547,14 @@ def time_flash_bwd(torch, checked, what, q, k, v, do, causal):
 
 
 def flash_bound(q, k, causal, lse):
-    """(bound ms, what bounds it) of a bf16 flash forward: 4 D flops per
+    """(bound ms, what bounds it) of a flash forward: 4 D flops per
     unmasked (query, key) pair and head, q, k, v read and o (and the f32
-    lse) written once."""
+    lse) written once in the inputs' dtype."""
     B, S, H, D = q.shape
     pairs = S * (S + 1) / 2 if causal else S * S
-    nbytes = 2 * B * S * D * (2 * H + 2 * k.shape[2]) + (4 * B * H * S if lse else 0)
-    return _bound(4 * B * H * D * pairs, nbytes, PEAK_BF16_FLOPS)
+    nbytes = q.element_size() * B * S * D * (2 * H + 2 * k.shape[2]) \
+        + (4 * B * H * S if lse else 0)
+    return _bound(4 * B * H * D * pairs, nbytes, _flash_peak(q))
 
 
 def time_kernels(torch, rec, strict=True):
@@ -1452,12 +1677,44 @@ def time_ssd(torch, checked, gen):
     return out
 
 
-def time_train_kernels(torch, checked, gen, B=32, S=512, H=12, D=64, T=3904, V=32768):
-    """The train phase's kernels at its shapes: flash forward and backward
-    at bert-mlm-120m's attention (bf16, non-causal), fused_xent forward
-    and backward on one loss chunk (32 x 122 rows of 32768 logits) in
-    f32, the train path's dtype, and in bf16; the flash backward also at
-    starcoder2-3b's attention (GQA 24 / 2, D 128, causal, S 1024).
+def time_flash_train(torch, checked, gen, dtype, what):
+    """Flash forward and backward at bert-mlm-120m's attention (BERT_ATTN)
+    in ``dtype``: the gate on the timed inputs, then each timed against
+    its bound, the plain version and SDPA."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+
+    B, S, H, _, D, causal = BERT_ATTN
+    q, k, v, do = (torch.randn(B, S, H, D, generator=gen, device="cuda").to(dtype)
+                   for _ in range(4))
+    r_fwd = checked(f"flash {what}", flash_reading(torch, q, k, v, causal))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    fwd_ms, fwd_call = time_ms(
+        torch, lambda: flash_attention_fwd(q, k, v, causal=causal, return_lse=True))
+    fwd_nolse, _ = time_ms(torch, lambda: flash_attention_fwd(q, k, v, causal=causal))
+    fwd_plain, _ = time_ms(torch, lambda: ref.flash_attention_ref(q, k, v, causal=causal))
+    fwd_lib, _ = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                                      is_causal=causal))
+    fwd_b = flash_bound(q, k, causal=causal, lse=True)
+    res = {
+        "shape": [B, S, H, D], "dtype": str(dtype).split(".")[1], "causal": causal,
+        "fwd": {"ms": fwd_ms, "ms_without_lse": fwd_nolse, "call_ms": fwd_call,
+                "plain_ms": fwd_plain, "library_ms": fwd_lib,
+                "bound_ms": fwd_b[0], "bound_by": fwd_b[1], "err_over_limit": r_fwd},
+        "bwd": time_flash_bwd(torch, checked, what, q, k, v, do, causal)}
+    log(f"time flash {what}: {res['fwd']}")
+    return res, (q, k, v, do)
+
+
+def time_train_kernels(torch, checked, gen, T=3904, V=32768):
+    """The train phases' kernels at their shapes: flash forward and
+    backward at bert-mlm-120m's attention (BERT_ATTN, non-causal) in bf16
+    and in f32 (the train_cli phase's dtype, on the f32 bodies), fused_xent
+    forward and backward on one loss chunk (32 x 122 rows of 32768 logits)
+    in f32, the train path's dtype, and in bf16; the flash backward also
+    at starcoder2-3b's attention (GQA 24 / 2, D 128, causal, S 1024).
     Library yardsticks: SDPA and its backward op, F.cross_entropy and its
     autograd backward."""
     import torch.nn.functional as F
@@ -1468,23 +1725,9 @@ def time_train_kernels(torch, checked, gen, B=32, S=512, H=12, D=64, T=3904, V=3
 
     out = {}
     bf = torch.bfloat16
-    q, k, v, do = (torch.randn(B, S, H, D, generator=gen, device="cuda").to(bf)
-                   for _ in range(4))
-    r_fwd = checked("flash train shape", flash_reading(torch, q, k, v, False))
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    fwd_ms, fwd_call = time_ms(
-        torch, lambda: flash_attention_fwd(q, k, v, causal=False, return_lse=True))
-    fwd_nolse, _ = time_ms(torch, lambda: flash_attention_fwd(q, k, v, causal=False))
-    fwd_plain, _ = time_ms(torch, lambda: ref.flash_attention_ref(q, k, v, causal=False))
-    fwd_lib, _ = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt))
-    fwd_b = flash_bound(q, k, causal=False, lse=True)
-    out["flash_train"] = {
-        "shape": [B, S, H, D], "dtype": "bfloat16", "causal": False,
-        "fwd": {"ms": fwd_ms, "ms_without_lse": fwd_nolse, "call_ms": fwd_call,
-                "plain_ms": fwd_plain, "library_ms": fwd_lib,
-                "bound_ms": fwd_b[0], "bound_by": fwd_b[1], "err_over_limit": r_fwd},
-        "bwd": time_flash_bwd(torch, checked, "train shape", q, k, v, do, False)}
-    log(f"time flash train shape: {out['flash_train']['fwd']}")
+    out["flash_train_f32"], _ = time_flash_train(torch, checked, gen, torch.float32,
+                                                 "train shape f32")
+    out["flash_train"], (q, k, v, do) = time_flash_train(torch, checked, gen, bf, "train shape")
     # the host's cost of one backward call: eager calls at (1, 128, 12, 64),
     # where the device takes about 0.01 ms
     qs, ks, vs, dos = (x[:1, :128] for x in (q, k, v, do))
@@ -1499,7 +1742,7 @@ def time_train_kernels(torch, checked, gen, B=32, S=512, H=12, D=64, T=3904, V=3
              for _ in range(2))
     k, v = (torch.randn(1, 1024, 2, 128, generator=gen, device="cuda").to(bf) for _ in range(2))
     out["flash_bwd_gqa"] = time_flash_bwd(torch, checked, "gqa causal", q, k, v, do, True)
-    del q, k, v, do, qt, kt, vt, qs, ks, vs, dos, os_, lse_s
+    del q, k, v, do, qs, ks, vs, dos, os_, lse_s
     out["xent"] = {}
     for dname in ("float32", "bfloat16"):
         dtype = getattr(torch, dname)
@@ -1535,28 +1778,35 @@ def time_train_kernels(torch, checked, gen, B=32, S=512, H=12, D=64, T=3904, V=3
 
 
 def kernel_records(rec):
-    """One record per kernel.  ``launches``: the main paths' runs (serve
-    and train), each counted from 0 just before it; the times are those of
+    """One record per kernel.  ``launches``: the main paths' runs (serve,
+    ssm_serve, train and train_cli's run (a)), each counted from 0 just
+    before it; the times are those of
     the shape each path runs (flash forward: the serve prefill at S=1024,
     with bert's shape under ``train_shape``; flash backward: bert's shape,
-    starcoder2-3b's under ``gqa_causal_shape``; fused_xent: the f32 logits
+    starcoder2-3b's under ``gqa_causal_shape``; both flash kernels at
+    bert's shape in f32, the train_cli path's, under ``train_shape_f32``,
+    with its bound at the f32 peak; fused_xent: the f32 logits
     the train path feeds it, with bf16 under ``bf16``; ssd_scan: the bf16
     prefill at S=1024, with f32 under ``f32``)."""
     errs = rec.get("errors", {})
     t = rec.get("time", {})
-    paths = {key: rec.get(key, {}).get("launches", {}) for key in ("serve", "ssm_serve", "train")}
+    paths = {key: rec.get(key, {}).get("launches", {})
+             for key in ("serve", "ssm_serve", "train", "train_cli")}
     flash_top = next((x for x in t.get("flash", []) if x["S"] == 1024), {})
     ft, xe = t.get("flash_train", {}), t.get("xent", {})
+    ft32 = t.get("flash_train_f32", {})
     ssd = t.get("ssd", {})
     bwd = ft.get("bwd", {})
-    extra = {"flash_attention": {"train_shape": ft.get("fwd")},
+    extra = {"flash_attention": {"train_shape": ft.get("fwd"),
+                                 "train_shape_f32": ft32.get("fwd")},
              "paged_attention": {k: t.get("paged", {}).get(k)
                                  for k in ("call_ms", "host_call_ms", "by_kernel")},
              "flash_attention_bwd": {"call_ms": bwd.get("call_ms"),
                                      "host_call_ms": bwd.get("host_call_ms"),
                                      "library_eager_ms": bwd.get("library_eager_ms"),
                                      "by_kernel": bwd.get("by_kernel"),
-                                     "gqa_causal_shape": t.get("flash_bwd_gqa")},
+                                     "gqa_causal_shape": t.get("flash_bwd_gqa"),
+                                     "train_shape_f32": ft32.get("bwd")},
              "fused_xent": {"bf16": xe.get("bfloat16", {}).get("fwd")},
              "fused_xent_bwd": {"bf16": xe.get("bfloat16", {}).get("bwd")},
              "ssd_scan": {"f32": ssd.get("float32"), "zamba2_bf16": ssd.get("zamba2_bf16")}}
@@ -1615,6 +1865,12 @@ def summary(rec):
                 "ms_by_class", {}).get("repo kernels"),
             "train": {k: tr.get(k) for k in tkeys},
             "train_step_device_busy_ms": tprof.get("device_busy_ms"),
+            "train_cli": {k: rec.get("train_cli", {}).get(k) for k in (
+                "step_time_p50_ms", "tokens_per_s", "mfu", "data_wait_share", "autotune",
+                "ckpt_host_copy_ms", "ckpt_write_ms", "first_loss", "last_loss",
+                "resume_bit_exact")},
+            "train_cli_step_device_busy_ms":
+                rec.get("train_cli", {}).get("profile", {}).get("device_busy_ms"),
             "train_step_launches": tprof.get("kernel_launches_per_step"),
             "path_max_rel_err": rec.get("path", {}).get("max_rel_err"),
             "ssm_path_max_rel_err": rec.get("ssm_path", {}).get("max_rel_err"),
@@ -1624,6 +1880,10 @@ def summary(rec):
             "flash_train_ms": rec.get("time", {}).get("flash_train", {}).get("fwd", {}).get("ms"),
             "flash_bwd_train_ms":
                 rec.get("time", {}).get("flash_train", {}).get("bwd", {}).get("ms"),
+            "flash_train_f32_ms":
+                rec.get("time", {}).get("flash_train_f32", {}).get("fwd", {}).get("ms"),
+            "flash_bwd_train_f32_ms":
+                rec.get("time", {}).get("flash_train_f32", {}).get("bwd", {}).get("ms"),
             "flash_bwd_gqa_ms": rec.get("time", {}).get("flash_bwd_gqa", {}).get("ms"),
             "paged_ms": rec.get("time", {}).get("paged", {}).get("ms"),
             "ssd_ms": {k: v["ms"] for k, v in rec.get("time", {}).get("ssd", {}).items()}}
@@ -1679,7 +1939,7 @@ def main():
              "ssm_serve": lambda torch, rec: run_serve(torch, rec, arch="mamba2-130m",
                                                        key="ssm_serve"),
              "train_path": check_train_path,
-             "train": run_train, "time": time_kernels}
+             "train": run_train, "train_cli": run_train_cli, "time": time_kernels}
     for ph in PHASES[1:]:
         if ph in phases:
             t0 = time.perf_counter()

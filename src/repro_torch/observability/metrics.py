@@ -1,22 +1,25 @@
 """Typed metrics registry: counters, gauges, fixed-bucket histograms.
 
 A trimmed copy of the JAX package's ``observability/metrics.py`` (the
-serve engine's subset: no Prometheus export, no bulk gauge import).
+serve engine's and the train loop's subset: no Prometheus export).
 Series names are the same as there (``docs/observability.md``).
 """
 from __future__ import annotations
 
 import bisect
 import json
+import math
 import os
 import threading
 import time
 from typing import Any, Dict, List, Optional, Sequence
 
 __all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry",
-           "TTFT_BUCKETS_MS", "DECODE_BUCKETS_MS"]
+           "STEP_TIME_BUCKETS_MS", "TTFT_BUCKETS_MS", "DECODE_BUCKETS_MS"]
 
 # bucket presets (milliseconds, upper bounds; +inf is implicit)
+STEP_TIME_BUCKETS_MS = (1, 2, 5, 10, 20, 50, 100, 200, 500, 1000, 2000,
+                        5000, 10000)
 TTFT_BUCKETS_MS = (1, 5, 10, 25, 50, 100, 250, 500, 1000, 2500, 5000)
 DECODE_BUCKETS_MS = (0.5, 1, 2, 5, 10, 25, 50, 100, 250, 500)
 
@@ -151,6 +154,19 @@ class MetricsRegistry:
 
     def names(self) -> List[str]:
         return list(self._metrics)
+
+    def set_gauges(self, values: Dict[str, Any],
+                   prefix: str = "") -> None:
+        """Bulk-import numeric dict entries as gauges (the telemetry
+        bridge: ``TrainLoop`` telemetry becomes named series).
+        Non-numeric and non-finite values are skipped."""
+        for k, v in values.items():
+            if isinstance(v, bool) or not isinstance(v, (int, float)):
+                continue
+            if isinstance(v, float) and not math.isfinite(v):
+                continue  # a NaN EMA/MFU would poison the JSONL stream
+            name = (prefix + k).replace(".", "_").replace("/", "_")
+            self.gauge(name).set(v)
 
     def snapshot(self) -> Dict[str, Any]:
         out: Dict[str, Any] = {}
