@@ -11,9 +11,10 @@
 
 Phases (any failure exits non-zero before the last line):
   build       build the CUDA kernels from src/repro_torch/kernels/csrc/;
-              the bf16 flash forward and backward, the bf16 SSD body's
-              product passes and the bf16 paged body must run on wgmma and
-              TMA alone (SASS: HGMMA and UTMALDG, no HMMA; no ptxas C7520)
+              the flash forward and backward (bf16, and f32 on three bf16
+              pieces), the bf16 SSD body's product passes and the bf16
+              paged body must run on wgmma and TMA alone (SASS: HGMMA and
+              UTMALDG, no HMMA; no ptxas C7520)
   kernels     hold each kernel (forward and backward) against its plain
               PyTorch version (backward: the plain version's autograd) on
               the card, f32 and bf16, at the stated tolerances, up to the
@@ -97,6 +98,11 @@ AGAINST_PHASES = ("serve", "ssm_serve", "train", "time")   # the phases --agains
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12                      # f32 outside the tensor cores
 PEAK_BYTES = 3.35e12
+# The f32 flash bodies form each f32 product as six bf16 wgmma products of
+# the operands' three bf16 pieces (csrc/hopper.cuh): f32 accuracy costs six
+# passes at the bf16 rate, so their bound takes the bf16 peak over six;
+# PEAK_F32_FLOPS, the CUDA cores' route, is kept beside it (bound_simt_ms)
+PEAK_F32_SPLIT_FLOPS = PEAK_BF16_FLOPS / 6
 
 # kernel vs plain version, per element: f32 |err| <= 2e-5 (the JAX kernel
 # tests' bar); bf16 |err| <= u * (|want| + want_abs) + 1e-5, u = 2^-8 the
@@ -217,6 +223,8 @@ FLASH_BWD_CASES = [
     # at each S, D 64 and 128, causal and not, rep 1 and 4
     *[(2, S, 2 * rep, 2, D, causal) for S in (63, 64, 65, 127, 129, 511, 513)
       for D, causal, rep in ((64, True, 1), (128, False, 4), (64, False, 4), (128, True, 1))],
+    # the f32 body's at D 128 (32-row q tiles in dkdv, 32-key tiles in dq)
+    (2, 31, 8, 2, 128, True), (2, 33, 2, 2, 128, False), (1, 97, 8, 2, 128, True),
 ]
 
 XENT_CASES = [  # (T, V)
@@ -504,48 +512,64 @@ def check_kernels(torch, rec):
 
 
 # planted faults: (source in csrc/, the kernels it serves, the bug, source
-# text, its replacement); the gate of one of those kernels must fail each
-# on at least one case
+# text, its replacement, the dtype of the readings); the gate of one of
+# those kernels must fail each on at least one case.  The f32 ones keep
+# only the first bf16 piece of one operand of each f32 body
+F32_PIECES_DROPPED = " if constexpr (NP == 3) w[1] = w[2] = 0;"
 FAULTS = [
     ("flash_attention", ("flash_attention",),
      "bf16 body drops keys 0-63 of every row that sees more than 512 keys",
      "s[x] = hopper::exp2_approx(s[x] - m[(x >> 1) & 1]);",
      "s[x] = k0 + (x / 4) * 8 + 2 * t < 64 && kt_hi * BK > 512 ? 0.f : "
-     "hopper::exp2_approx(s[x] - m[(x >> 1) & 1]);"),
+     "hopper::exp2_approx(s[x] - m[(x >> 1) & 1]);", "bfloat16"),
+    ("flash_attention", ("flash_attention",), "f32 body: P enters O += P V as bf16(P) alone",
+     "hopper::pack_bf16_pieces<NP>(s[8 * kc + 2 * e], s[8 * kc + 2 * e + 1], w);  // P's pieces",
+     "hopper::pack_bf16_pieces<NP>(s[8 * kc + 2 * e], s[8 * kc + 2 * e + 1], w);"
+     + F32_PIECES_DROPPED + "  // P's pieces", "float32"),
     ("paged_attention", ("paged_attention",),
      "combine merges at most 8 splits (the first 512 keys at P 16 in bf16)",
-     "s1 = j_hi / p.pps;", "s1 = min(j_hi / p.pps, s0 + 7);"),
+     "s1 = j_hi / p.pps;", "s1 = min(j_hi / p.pps, s0 + 7);", "bfloat16"),
     ("paged_attention", ("paged_attention",), "wgmma body: the mask lets in the key after pos",
      "const int key_hi = min(pos, (j1 + 1) * P - 1);",
-     "const int key_hi = min(pos + 1, (j1 + 1) * P - 1);"),
+     "const int key_hi = min(pos + 1, (j1 + 1) * P - 1);", "bfloat16"),
     ("paged_attention", ("paged_attention",),
      "wgmma body: the partial max goes to the combine in base 2",
      "p.part_ml[prow * 2] = m[r] * LN2;  // the combine's natural-log units",
-     "p.part_ml[prow * 2] = m[r];  // the combine's natural-log units"),
+     "p.part_ml[prow * 2] = m[r];  // the combine's natural-log units", "bfloat16"),
     ("fused_xent", ("fused_xent", "fused_xent_bwd"), "forward skips the last vocab tile",
      "for (int c0 = 0; c0 < V; c0 += TILE) {  // vocab tiles, in order",
-     "for (int c0 = 0; c0 + TILE < V; c0 += TILE) {  // vocab tiles, in order"),
+     "for (int c0 = 0; c0 + TILE < V; c0 += TILE) {  // vocab tiles, in order", "bfloat16"),
     ("flash_attention_bwd", ("flash_attention_bwd",),
      "dq drops the contribution of k tile 0 when there are more",
      "dp[x] = s[x] * (dp[x] - dl[(x >> 1) & 1]);  // dq: dS = P (dP - Delta)",
      "dp[x] = i == 0 && n_tiles > 1 ? 0.f : s[x] * (dp[x] - dl[(x >> 1) & 1]);  "
-     "// dq: dS = P (dP - Delta)"),
+     "// dq: dS = P (dP - Delta)", "bfloat16"),
     ("flash_attention_bwd", ("flash_attention_bwd",),
      "dkdv skips the last rep head of each kv head",
      "const int n_iter = rep * nq;  // the ring runs over rep heads x q tiles",
-     "const int n_iter = (rep > 1 ? rep - 1 : rep) * nq;  // the ring runs over rep heads x q tiles"),
+     "const int n_iter = (rep > 1 ? rep - 1 : rep) * nq;  // the ring runs over rep heads x q tiles",
+     "bfloat16"),
+    ("flash_attention_bwd", ("flash_attention_bwd",), "f32 dq: dS enters dQ += dS K as bf16(dS) alone",
+     "hopper::pack_bf16_pieces<NP>(dp[8 * kc + 2 * e], dp[8 * kc + 2 * e + 1], w);  // dS's pieces",
+     "hopper::pack_bf16_pieces<NP>(dp[8 * kc + 2 * e], dp[8 * kc + 2 * e + 1], w);"
+     + F32_PIECES_DROPPED + "  // dS's pieces", "float32"),
+    ("flash_attention_bwd", ("flash_attention_bwd",),
+     "f32 dkdv: P^T enters dV += P^T dO as bf16(P^T) alone",
+     "hopper::pack_bf16_pieces<NP>(s[8 * kc + 2 * e], s[8 * kc + 2 * e + 1], w);  // P^T's pieces",
+     "hopper::pack_bf16_pieces<NP>(s[8 * kc + 2 * e], s[8 * kc + 2 * e + 1], w);"
+     + F32_PIECES_DROPPED + "  // P^T's pieces", "float32"),
     ("ssd_scan", ("ssd_scan",), "the state is carried without its exp(acs_L) decay",
      "if (n < N) st[n * PC + tx] = carry * st[n * PC + tx] + acc[i];",
-     "if (n < N) st[n * PC + tx] = st[n * PC + tx] + acc[i];"),
+     "if (n < N) st[n * PC + tx] = st[n * PC + tx] + acc[i];", "bfloat16"),
     ("ssd_scan", ("ssd_scan",), "bf16 body: the carry pass drops the chunks' decay",
      "d[k] = dec[(c0 + k) * p.H];  // exp(acs_L) of the chunk",
-     "d[k] = 1.f;  // exp(acs_L) of the chunk"),
+     "d[k] = 1.f;  // exp(acs_L) of the chunk", "bfloat16"),
     ("ssd_scan", ("ssd_scan",), "bf16 body: the state pass drops the lo half of w x",
      "hopper::wgmma_ss<64, 1, 1>(u[mt], da, hopper::desc_sw128(xl + kk * 2048, BOX, 1024), 1);",
-     "// the lo half dropped"),
+     "// the lo half dropped", "bfloat16"),
     ("ssd_scan", ("ssd_scan",), "bf16 body: the out pass drops exp(acs_l) from C . state",
      "for (int x = 0; x < 32; ++x) y[x] *= expf(acs_row[(x >> 1) & 1]);",
-     "for (int x = 0; x < 32; ++x) y[x] *= 1.f;"),
+     "for (int x = 0; x < 32; ++x) y[x] *= 1.f;", "bfloat16"),
 ]
 KERNELS = ("flash_attention", "flash_attention_bwd", "paged_attention", "fused_xent",
            "fused_xent_bwd", "ssd_scan")
@@ -566,7 +590,7 @@ def start_fault_builds():
     d = _build.BUILD_DIR / "faults"
     d.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for i, (name, _, _, old, new) in enumerate(FAULTS):
+    for i, (name, _, _, old, new, _) in enumerate(FAULTS):
         text = (_build.CSRC / f"{name}.cu").read_text()
         if text.count(old) != 1:
             fail(f"faults: {name}.cu does not hold {old!r} once; update FAULTS")
@@ -582,30 +606,31 @@ def check_faults(torch, rec, procs):
     from repro_torch.kernels import _build
 
     res = []
-    for i, (name, kernels, bug, _, _) in enumerate(FAULTS):
+    for i, (name, kernels, bug, _, _, dname) in enumerate(FAULTS):
         proc, lib = procs[i]
         out, _ = proc.communicate()
         if proc.returncode != 0:
             fail(f"faults: the faulty {name} did not build:\n{out}")
         good = _build.swap(name, ctypes.CDLL(str(lib)))
         try:
-            readings = [r for r in kernel_readings(torch, "bfloat16", only=kernels)
+            readings = [r for r in kernel_readings(torch, dname, only=kernels)
                         if r[0] in kernels]
         finally:
             _build.swap(name, good)
         caught = [(case, err, ratio) for _, case, err, ratio in readings if ratio > 1.0]
         old = max(err for _, _, err, _ in readings)
-        log(f"faults: {name} with '{bug}': gate fails {len(caught)} of {len(readings)} "
-            f"cases {[c[0] for c in caught]}, max error/limit "
-            f"{max(r[3] for r in readings):.2f}; max abs error {old:.3e} against the "
-            f"former flat {OLD_BF16_TOL}")
+        log(f"faults: {name} {dname} with '{bug}': gate fails {len(caught)} of "
+            f"{len(readings)} cases {[c[0] for c in caught]}, max error/limit "
+            f"{max(r[3] for r in readings):.2f}; max abs error {old:.3e}"
+            + (f" against the former flat {OLD_BF16_TOL}" if dname == "bfloat16" else ""))
         if not caught:
             fail(f"faults: the kernel gate passed {name} with the planted bug '{bug}'")
         finite = lambda x: x if math.isfinite(x) else str(x)   # the record stays JSON
-        res.append({"kernel": name, "bug": bug, "cases_failed": len(caught),
+        res.append({"kernel": name, "dtype": dname, "bug": bug, "cases_failed": len(caught),
                     "cases": len(readings), "failed": [list(map(str, c)) for c in caught],
                     "max_ratio": finite(max(r[3] for r in readings)),
-                    "max_abs_err": finite(old), "former_flat_gate_fails": old > OLD_BF16_TOL})
+                    "max_abs_err": finite(old),
+                    "former_flat_gate_fails": old > OLD_BF16_TOL if dname == "bfloat16" else None})
     rec["faults"] = res
 
 
@@ -650,10 +675,14 @@ def sass_counts(lib):
         capture_output=True, text=True, check=True).stdout)
 
 
-# the bf16 bodies' product passes, which must run on wgmma and TMA alone:
-# (kernel source, a part of each of its functions' names)
+# the product passes that must run on wgmma and TMA alone: the bf16 bodies
+# and the f32 flash bodies on three bf16 pieces; (kernel source, a part of
+# each of its functions' names)
 WGMMA_FUNCTIONS = (("flash_attention", "flash_fwd_wgmma"), ("flash_attention_bwd", "dq_wgmma"),
-                   ("flash_attention_bwd", "dkdv_wgmma"), ("ssd_scan", "ssd_state_wgmma"),
+                   ("flash_attention_bwd", "dkdv_wgmma"),
+                   ("flash_attention", "flash_fwd_f32_wgmma"),
+                   ("flash_attention_bwd", "dq_f32_wgmma"),
+                   ("flash_attention_bwd", "dkdv_f32_wgmma"), ("ssd_scan", "ssd_state_wgmma"),
                    ("ssd_scan", "ssd_out_wgmma"), ("paged_attention", "paged_wgmma"))
 
 
@@ -669,9 +698,9 @@ def wgmma_route_faults(sass, part):
 
 
 def wgmma_build_facts(rec):
-    """The bf16 flash forward and backward, the bf16 SSD body and the
-    bf16 paged body as built: ptxas's report (registers, spill bytes) and
-    SASS counts of every instance of ``WGMMA_FUNCTIONS``.  Fails unless
+    """The flash forward and backward (bf16 and f32), the bf16 SSD body and
+    the bf16 paged body as built: ptxas's report (registers, spill bytes)
+    and SASS counts of every instance of ``WGMMA_FUNCTIONS``.  Fails unless
     each runs on HGMMA and UTMALDG with no HMMA, or if ptxas serialized a
     wgmma (its warning C7520)."""
     from repro_torch.kernels import _build
@@ -688,7 +717,7 @@ def wgmma_build_facts(rec):
         faults += [w for w in ptxas.get("warnings", []) if "C7520" in w]
         facts[name] = {"ptxas": ptxas, "sass": sass}
     if faults:
-        fail(f"the bf16 product kernels do not run on wgmma and TMA alone: {faults}")
+        fail(f"the product kernels do not run on wgmma and TMA alone: {faults}")
     rec["flash_fwd_build"] = facts["flash_attention"]
     rec["flash_bwd_build"] = facts["flash_attention_bwd"]
     rec["ssd_build"] = facts["ssd_scan"]
@@ -1349,7 +1378,7 @@ def run_train_cli(torch, rec, B=32, S=512, n_functions=3000):
 
 
 REPO_KERNELS = ("flash_fwd", "dq_wgmma", "dkdv_wgmma", "dq_mma", "dkdv_mma", "dq_f32",
-                "dkdv_f32", "delta_kernel", "xent_fwd", "xent_bwd", "paged_partial",
+                "dkdv_f32", "delta_kernel", "split3", "xent_fwd", "xent_bwd", "paged_partial",
                 "paged_wgmma", "paged_combine", "ssd_scan_kernel", "ssd_state_wgmma",
                 "ssd_carry", "ssd_out_wgmma")
 
@@ -1450,19 +1479,19 @@ def _bound(flops, nbytes, peak_flops):
 
 def _flash_peak(q):
     """The card's peak for a flash body's products: bf16 on the tensor
-    cores, f32 outside them."""
-    return PEAK_F32_FLOPS if q.element_size() == 4 else PEAK_BF16_FLOPS
+    cores; f32 as six bf16 passes (PEAK_F32_SPLIT_FLOPS)."""
+    return PEAK_F32_SPLIT_FLOPS if q.element_size() == 4 else PEAK_BF16_FLOPS
 
 
-def flash_bwd_bound(q, k, causal):
+def flash_bwd_bound(q, k, causal, peak=None):
     """(bound ms, what bounds it) of a flash backward: five products (S,
-    dP, dV, dK, dQ) of 2 D flops per unmasked (query, key) pair and head;
-    q, o, do, dq and k, v, dk, dv moved once in the inputs' dtype, the f32
-    lse read once."""
+    dP, dV, dK, dQ) of 2 D flops per unmasked (query, key) pair and head
+    at ``peak`` (default ``_flash_peak``); q, o, do, dq and k, v, dk, dv
+    moved once in the inputs' dtype, the f32 lse read once."""
     B, S, H, D = q.shape
     pairs = S * (S + 1) / 2 if causal else S * S
     nbytes = q.element_size() * B * S * D * (4 * H + 4 * k.shape[2]) + 4 * B * H * S
-    return _bound(10 * B * H * D * pairs, nbytes, _flash_peak(q))
+    return _bound(10 * B * H * D * pairs, nbytes, peak or _flash_peak(q))
 
 
 def device_ms_by_kernel(torch, fn, n=10):
@@ -1531,12 +1560,14 @@ def time_flash_bwd(torch, checked, what, q, k, v, do, causal):
         log(f"time flash_bwd {what}: SDPA's backward op not timed: {e}")
         lib_ms = lib_call_ms = None
     bound = flash_bwd_bound(q, k, causal)
-    lib_op = "efficient" if q.dtype == torch.float32 else "flash"
+    f32 = q.dtype == torch.float32
+    lib_op = "efficient" if f32 else "flash"
     res = {"shape": list(q.shape) + [k.shape[2]], "dtype": str(q.dtype).split(".")[1],
            "causal": causal, "ms": ms,
            "call_ms": call_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
            "library_call_ms": lib_call_ms, "library_eager_ms": lib_eager,
            "bound_ms": bound[0], "bound_by": bound[1], "err_over_limit": ratio,
+           "bound_simt_ms": flash_bwd_bound(q, k, causal, PEAK_F32_FLOPS)[0] if f32 else None,
            "by_kernel": device_ms_by_kernel(torch, run),
            "plain": "autograd backward, eager (CUDA events)",
            "library": f"aten._scaled_dot_product_{lib_op}_attention_backward by CUDA-graph "
@@ -1546,15 +1577,16 @@ def time_flash_bwd(torch, checked, what, q, k, v, do, causal):
     return res
 
 
-def flash_bound(q, k, causal, lse):
+def flash_bound(q, k, causal, lse, peak=None):
     """(bound ms, what bounds it) of a flash forward: 4 D flops per
-    unmasked (query, key) pair and head, q, k, v read and o (and the f32
-    lse) written once in the inputs' dtype."""
+    unmasked (query, key) pair and head at ``peak`` (default
+    ``_flash_peak``), q, k, v read and o (and the f32 lse) written once in
+    the inputs' dtype."""
     B, S, H, D = q.shape
     pairs = S * (S + 1) / 2 if causal else S * S
     nbytes = q.element_size() * B * S * D * (2 * H + 2 * k.shape[2]) \
         + (4 * B * H * S if lse else 0)
-    return _bound(4 * B * H * D * pairs, nbytes, _flash_peak(q))
+    return _bound(4 * B * H * D * pairs, nbytes, peak or _flash_peak(q))
 
 
 def time_kernels(torch, rec, strict=True):
@@ -1702,7 +1734,11 @@ def time_flash_train(torch, checked, gen, dtype, what):
         "shape": [B, S, H, D], "dtype": str(dtype).split(".")[1], "causal": causal,
         "fwd": {"ms": fwd_ms, "ms_without_lse": fwd_nolse, "call_ms": fwd_call,
                 "plain_ms": fwd_plain, "library_ms": fwd_lib,
-                "bound_ms": fwd_b[0], "bound_by": fwd_b[1], "err_over_limit": r_fwd},
+                "bound_ms": fwd_b[0], "bound_by": fwd_b[1], "err_over_limit": r_fwd,
+                "bound_simt_ms": flash_bound(q, k, causal, True, PEAK_F32_FLOPS)[0]
+                if dtype == torch.float32 else None,
+                "by_kernel": device_ms_by_kernel(
+                    torch, lambda: flash_attention_fwd(q, k, v, causal=causal, return_lse=True))},
         "bwd": time_flash_bwd(torch, checked, what, q, k, v, do, causal)}
     log(f"time flash {what}: {res['fwd']}")
     return res, (q, k, v, do)
@@ -1711,8 +1747,8 @@ def time_flash_train(torch, checked, gen, dtype, what):
 def time_train_kernels(torch, checked, gen, T=3904, V=32768):
     """The train phases' kernels at their shapes: flash forward and
     backward at bert-mlm-120m's attention (BERT_ATTN, non-causal) in bf16
-    and in f32 (the train_cli phase's dtype, on the f32 bodies), fused_xent
-    forward and backward on one loss chunk (32 x 122 rows of 32768 logits)
+    and in f32 (the train_cli phase's dtype, on the f32 bodies: three bf16
+    pieces on wgmma), fused_xent forward and backward on one loss chunk (32 x 122 rows of 32768 logits)
     in f32, the train path's dtype, and in bf16; the flash backward also
     at starcoder2-3b's attention (GQA 24 / 2, D 128, causal, S 1024).
     Library yardsticks: SDPA and its backward op, F.cross_entropy and its
@@ -1785,7 +1821,8 @@ def kernel_records(rec):
     with bert's shape under ``train_shape``; flash backward: bert's shape,
     starcoder2-3b's under ``gqa_causal_shape``; both flash kernels at
     bert's shape in f32, the train_cli path's, under ``train_shape_f32``,
-    with its bound at the f32 peak; fused_xent: the f32 logits
+    with its bound at PEAK_F32_SPLIT_FLOPS and, as ``bound_simt_ms``, at
+    the CUDA cores' f32 peak; fused_xent: the f32 logits
     the train path feeds it, with bf16 under ``bf16``; ssd_scan: the bf16
     prefill at S=1024, with f32 under ``f32``)."""
     errs = rec.get("errors", {})

@@ -1,4 +1,4 @@
-// Flash attention forward for Hopper (sm_90a), bf16 and f32.
+// Flash attention forward for Hopper (sm_90a), bf16 and f32, on wgmma.
 //
 // Replaces the TPU kernel `flash_attention_fwd` (body `_kernel`) in the
 // JAX package's kernels/flash_attention.py: tiled online-softmax
@@ -63,10 +63,37 @@
 // run slower); D 128 takes 128 keys and 2 stages (162 KB), one block
 // an SM, 64 + 64 f32 accumulators a thread.
 //
-// f32 body (`flash_fwd_f32_kernel`, the exactness path): one block of
-// four warps per (q tile of 64 rows, head, batch), the same tiles on the
-// CUDA cores in f32 (a 4x8 score tile and a 4x(D/8) output tile per
-// thread), exact to the f32 reference.
+//
+// f32 body (`flash_fwd_f32_wgmma_kernel`, the exactness path, the train
+// CLI's dtype): the same body (`fwd_body`) on the bf16 tensor cores, its
+// operands as three bf16 pieces each (csrc/hopper.cuh).
+// - A pre-pass of the same C call (`hopper::split3`) writes q, k and v as
+//   pieces x0 = bf16(x), x1 = bf16(x - x0), x2 = bf16(x - x0 - x1) into
+//   the wrapper's bf16 scratch, one (3, B, S, heads, D) tensor each, which
+//   the bf16 tensor maps read unchanged (piece p of batch b at p B + b);
+//   so the f32 inputs need no TMA alignment.  P is split in registers,
+//   straight from the f32 accumulator, into three A fragments.
+// - S = sum over i + j <= 2 of Q_i K_j^T and O += sum of P_i V_j: six bf16
+//   wgmma products each, the smallest terms first, every product exact;
+//   the terms dropped (i + j > 2) are of order 2^-24 |A| |B|, as are the
+//   pieces' own rounding.  Softmax, the running max and sum and lse stay
+//   f32.  O accumulates on the tensor cores (their accumulation does not
+//   round to nearest, but S / BK tiles of six products, each rescaled by
+//   alpha, stay far inside the bar: PERF.md).
+// - Bound: six passes at 989 TFLOP/s, 165 TFLOP/s effective (2.5x the CUDA
+//   cores' 67): 0.156 ms for bert-mlm-120m's 25.8 GFLOP at B 32, S 512.
+// - The bf16 body's approximations, held against the f32 bar of 2e-5
+//   (|O| <= max |v|, about 4 for normal inputs): ex2.approx's relative
+//   error of about 2^-22 moves each weight, and so O, by 2.4e-7 of its
+//   size; folding scale * log2(e) into one f32 factor errs by 2^-24 of
+//   the exponent (|s scale| < 20 here: under 1e-6 of a weight); the
+//   -2e38 of a hidden key and -inf past S give exactly 0, as in f32.  The
+//   softcap keeps the accurate tanhf.  Measured on the card, the f32
+//   gate's worst error (PERF.md) is the card's own accumulation order on
+//   top of these.
+// - Tiles: D 64 as bf16 with 3 stages (198 KB, one block an SM); D 128
+//   takes 32-key tiles and 2 stages (198 KB).  O is stored in f32 from the
+//   fragment, 8 bytes a store.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -80,10 +107,6 @@ namespace {
 constexpr float NEG_INF = -2.0e38f;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
-// f32 body
-constexpr int BQ = 64;
-constexpr int BK = 64;
-constexpr int NT = 128;
 
 struct Params {
   const void* q;
@@ -102,216 +125,52 @@ struct Params {
   float scale;
 };
 
-// the f32 body's row log-sum-exp (B, H, S); its grid is (q tile, head, batch)
-__device__ __noinline__ void store_lse(const Params& p, int row, float m, float lsum) {
-  p.lse[(static_cast<long long>(blockIdx.z) * p.H + blockIdx.y) * p.S + row] = m + logf(lsum);
-}
-
-// f32 body: a 4x8 score tile and a 4x(D/8) output tile per thread.
-template <int D>
-constexpr int smem_floats() {
-  return D * (BQ + 4) + BK * (D + 1) + BK * D + BK * (BQ + 4);
-}
-
-template <int D, bool LSE>
-__global__ void __launch_bounds__(NT) flash_fwd_f32_kernel(Params p) {
-  constexpr int QT_LD = BQ + 4;  // Qt[d][q]: float4 reads of 4 rows
-  constexpr int K_LD = D + 1;    // Ks[k][d]: odd stride, conflict-free columns
-  constexpr int PT_LD = BQ + 4;  // Pt[k][q]
-  constexpr int NJ = D / 32;     // float4 column groups of the output tile
-  extern __shared__ float4 smem4[];
-  float* Qt = reinterpret_cast<float*>(smem4);
-  float* Ks = Qt + D * QT_LD;
-  float* Vs = Ks + BK * K_LD;
-  float* Pt = Vs + BK * D;
-
-  const int tid = threadIdx.x;
-  const int r = tid >> 3;  // this thread's rows: r*4 .. r*4+3
-  const int c = tid & 7;   // score columns c + 8j; output columns c*4 + 32jj + e
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int S = p.S;
-  const int hk = h / (p.H / p.Hkv);
-
-  const float* qp = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const float* kp = static_cast<const float*>(p.k) + b * p.k_sb + hk * p.k_sh;
-  const float* vp = static_cast<const float*>(p.v) + b * p.v_sb + hk * p.v_sh;
-  float* op = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh;
-
-  for (int idx = tid; idx < BQ * D; idx += NT) {
-    const int qi = idx / D, d = idx % D;
-    const int s = q0 + qi;
-    Qt[d * QT_LD + qi] = s < S ? qp[s * p.q_ss + d] : 0.f;
-  }
-
-  float m[4], l[4], acc[4][NJ * 4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int x = 0; x < NJ * 4; ++x) acc[i][x] = 0.f;
-  }
-
-  // k tiles that hold at least one unmasked key of this q tile
-  const int q_last = min(q0 + BQ, S) - 1;
-  const int kt_hi = p.causal ? q_last / BK + 1 : (S + BK - 1) / BK;
-  const int kt_lo = p.window > 0 ? max(0, q0 - p.window + 1) / BK : 0;
-
-  for (int kt = kt_lo; kt < kt_hi; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // the previous tile's readers are done
-    for (int idx = tid; idx < BK * D; idx += NT) {
-      const int kk = idx / D, d = idx % D;
-      const int s = k0 + kk;
-      float kx = 0.f, vx = 0.f;
-      if (s < S) {
-        kx = kp[s * p.k_ss + d];
-        vx = vp[s * p.v_ss + d];
-      }
-      Ks[kk * K_LD + d] = kx;
-      Vs[kk * D + d] = vx;
-    }
-    __syncthreads();
-
-    float sc[4][8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) sc[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      const float4 qv = *reinterpret_cast<const float4*>(&Qt[d * QT_LD + r * 4]);
-      const float qa[4] = {qv.x, qv.y, qv.z, qv.w};
-      float kv[8];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) kv[j] = Ks[(c + 8 * j) * K_LD + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) sc[i][j] = fmaf(qa[i], kv[j], sc[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = q0 + r * 4 + i;
-      float mt = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int kj = k0 + c + 8 * j;
-        float s = sc[i][j] * p.scale;
-        if (p.softcap > 0.f) s = tanhf(s / p.softcap) * p.softcap;
-        bool ok = kj < S;
-        if (p.causal) ok = ok && kj <= qi;
-        if (p.window > 0) ok = ok && kj > qi - p.window;
-        sc[i][j] = ok ? s : NEG_INF;
-        mt = fmaxf(mt, sc[i][j]);
-      }
-      // the 8 threads of a row are 8 neighbouring lanes
-      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
-      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
-      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 4));
-      const float m_new = fmaxf(m[i], mt);
-      const float alpha = expf(m[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        // a key past S is no key at all; a masked key keeps the JAX
-        // kernel's arithmetic (exp(-2e38 - m), wiped by a later alpha)
-        const float pj = (k0 + c + 8 * j < S) ? expf(sc[i][j] - m_new) : 0.f;
-        sc[i][j] = pj;
-        rs += pj;
-      }
-      rs += __shfl_xor_sync(0xffffffffu, rs, 1);
-      rs += __shfl_xor_sync(0xffffffffu, rs, 2);
-      rs += __shfl_xor_sync(0xffffffffu, rs, 4);
-      l[i] = l[i] * alpha + rs;
-      m[i] = m_new;
-#pragma unroll
-      for (int x = 0; x < NJ * 4; ++x) acc[i][x] *= alpha;
-    }
-
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) Pt[(c + 8 * j) * PT_LD + r * 4 + i] = sc[i][j];
-    __syncthreads();
-
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 pv = *reinterpret_cast<const float4*>(&Pt[kk * PT_LD + r * 4]);
-      const float pa[4] = {pv.x, pv.y, pv.z, pv.w};
-#pragma unroll
-      for (int jj = 0; jj < NJ; ++jj) {
-        const float4 vv = *reinterpret_cast<const float4*>(&Vs[kk * D + c * 4 + 32 * jj]);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          acc[i][jj * 4 + 0] = fmaf(pa[i], vv.x, acc[i][jj * 4 + 0]);
-          acc[i][jj * 4 + 1] = fmaf(pa[i], vv.y, acc[i][jj * 4 + 1]);
-          acc[i][jj * 4 + 2] = fmaf(pa[i], vv.z, acc[i][jj * 4 + 2]);
-          acc[i][jj * 4 + 3] = fmaf(pa[i], vv.w, acc[i][jj * 4 + 3]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + r * 4 + i;
-    if (qi >= S) continue;
-    const float lsum = fmaxf(l[i], 1e-37f);
-    if constexpr (LSE)
-      if (c == 0) store_lse(p, qi, m[i], lsum);
-#pragma unroll
-    for (int jj = 0; jj < NJ; ++jj)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        op[qi * p.o_ss + c * 4 + 32 * jj + e] = acc[i][jj * 4 + e] / lsum;
-  }
-}
-
-
-// ---------------------------------------------------------------------------
-// bf16 body: TMA ring and wgmma; see the header.
-// ---------------------------------------------------------------------------
-
 constexpr int WQ = 128;    // q rows of a block
 constexpr int WNT = 256;   // two consumer warpgroups
 constexpr int BOX = 64;    // columns of a TMA box (128 bytes of bf16: the swizzle span)
 
-template <int D>
+// Tiles of the body whose operands are NP bf16 pieces (1: bf16 inputs;
+// 3: f32 inputs, see hopper.cuh).
+template <int D, int NP>
 struct Tiles;
 template <>
-struct Tiles<64> {
+struct Tiles<64, 1> {
   static constexpr int BK = 64, STAGES = 3, MIN_BLOCKS = 2;
 };
 template <>
-struct Tiles<128> {
+struct Tiles<128, 1> {
   static constexpr int BK = 128, STAGES = 2, MIN_BLOCKS = 1;
 };
+template <>
+struct Tiles<64, 3> {
+  static constexpr int BK = 64, STAGES = 3, MIN_BLOCKS = 1;
+};
+template <>
+struct Tiles<128, 3> {
+  static constexpr int BK = 32, STAGES = 2, MIN_BLOCKS = 1;
+};
 
-// shared memory, in bytes from a 1024-aligned base: Q as D/64 boxes of
-// WQ rows, then K of every stage, then V of every stage (box b of stage s
-// at (s * D/64 + b) boxes), then the barriers
-template <int D>
+// shared memory, in bytes from a 1024-aligned base: Q as NP pieces of D/64
+// boxes of WQ rows, then K of every stage, then V of every stage (box x of
+// piece p of stage s at ((s * NP + p) * D/64 + x) boxes), then the barriers
+template <int D, int NP>
 struct Smem {
-  static constexpr int NB = D / BOX, BK = Tiles<D>::BK, STAGES = Tiles<D>::STAGES;
+  static constexpr int NB = D / BOX, BK = Tiles<D, NP>::BK, STAGES = Tiles<D, NP>::STAGES;
   static constexpr int Q_BOX = WQ * BOX * 2, KV_BOX = BK * BOX * 2;
-  static constexpr int K = NB * Q_BOX;
-  static constexpr int V = K + STAGES * NB * KV_BOX;
-  static constexpr int BAR = V + STAGES * NB * KV_BOX;
+  static constexpr int K = NP * NB * Q_BOX;
+  static constexpr int V = K + STAGES * NP * NB * KV_BOX;
+  static constexpr int BAR = V + STAGES * NP * NB * KV_BOX;
   static constexpr int BYTES = BAR + 8 * (1 + 4 * STAGES) + 1024;  // + alignment slack
 };
 
-template <int D, bool LSE, bool CAP>
-__global__ void __launch_bounds__(WNT, Tiles<D>::MIN_BLOCKS)
-    flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
-                           const __grid_constant__ CUtensorMap tk,
-                           const __grid_constant__ CUtensorMap tv,
-                           const __grid_constant__ CUtensorMap to, Params p) {
-  using L = Smem<D>;
-  constexpr int NB = L::NB, BK = L::BK, STAGES = L::STAGES;
+// The body of both kernels; tq, tk, tv read the operands' pieces (B' =
+// NP B, piece p of batch b at p B + b), `to` writes a bf16 O (NP = 1).
+template <int D, int NP, bool LSE, bool CAP>
+__device__ __forceinline__ void fwd_body(const CUtensorMap& tq, const CUtensorMap& tk,
+                                         const CUtensorMap& tv, const CUtensorMap& to,
+                                         const Params& p) {
+  using L = Smem<D, NP>;
+  constexpr int NB = L::NB, BK = L::BK, STAGES = L::STAGES, NPAIR = hopper::n_pairs(NP);
   static_assert(STAGES >= 2, "V of tile i is refilled two iterations after its use");
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = smem_raw + ((1024 - (hopper::smem_addr(smem_raw) & 1023)) & 1023);
@@ -350,19 +209,23 @@ __global__ void __launch_bounds__(WNT, Tiles<D>::MIN_BLOCKS)
   // K, or V, of tile kt_lo + i into stage i % STAGES (thread 0 only)
   auto load_k = [&](int i) {
     const int s = i % STAGES, k0 = (kt_lo + i) * BK;
-    hopper::mbar_expect_tx(&k_full[s], NB * L::KV_BOX);
+    hopper::mbar_expect_tx(&k_full[s], NP * NB * L::KV_BOX);
 #pragma unroll
-    for (int x = 0; x < NB; ++x)
-      hopper::tma_load_4d(sm + L::K + (s * NB + x) * L::KV_BOX, &tk, &k_full[s], x * BOX, hk,
-                          k0, b);
+    for (int pc = 0; pc < NP; ++pc)
+#pragma unroll
+      for (int x = 0; x < NB; ++x)
+        hopper::tma_load_4d(sm + L::K + ((s * NP + pc) * NB + x) * L::KV_BOX, &tk, &k_full[s],
+                            x * BOX, hk, k0, pc * p.B + b);
   };
   auto load_v = [&](int i) {
     const int s = i % STAGES, k0 = (kt_lo + i) * BK;
-    hopper::mbar_expect_tx(&v_full[s], NB * L::KV_BOX);
+    hopper::mbar_expect_tx(&v_full[s], NP * NB * L::KV_BOX);
 #pragma unroll
-    for (int x = 0; x < NB; ++x)
-      hopper::tma_load_4d(sm + L::V + (s * NB + x) * L::KV_BOX, &tv, &v_full[s], x * BOX, hk,
-                          k0, b);
+    for (int pc = 0; pc < NP; ++pc)
+#pragma unroll
+      for (int x = 0; x < NB; ++x)
+        hopper::tma_load_4d(sm + L::V + ((s * NP + pc) * NB + x) * L::KV_BOX, &tv, &v_full[s],
+                            x * BOX, hk, k0, pc * p.B + b);
   };
   if (tid == 0) {
     hopper::mbar_init(q_full, 1);
@@ -376,10 +239,13 @@ __global__ void __launch_bounds__(WNT, Tiles<D>::MIN_BLOCKS)
   }
   __syncthreads();
   if (tid == 0) {
-    hopper::mbar_expect_tx(q_full, NB * L::Q_BOX);
+    hopper::mbar_expect_tx(q_full, NP * NB * L::Q_BOX);
 #pragma unroll
-    for (int x = 0; x < NB; ++x)
-      hopper::tma_load_4d(sm + x * L::Q_BOX, &tq, q_full, x * BOX, h, q0, b);
+    for (int pc = 0; pc < NP; ++pc)
+#pragma unroll
+      for (int x = 0; x < NB; ++x)
+        hopper::tma_load_4d(sm + (pc * NB + x) * L::Q_BOX, &tq, q_full, x * BOX, h, q0,
+                            pc * p.B + b);
     for (int i = 0; i < min(STAGES, n_tiles); ++i) {
       load_k(i);
       load_v(i);
@@ -451,32 +317,48 @@ __global__ void __launch_bounds__(WNT, Tiles<D>::MIN_BLOCKS)
 #pragma unroll
     for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
   };
-  // S = Q K^T of the tile in stage st, issued
+  // S = Q K^T of the tile in stage st, issued: the sum over the piece
+  // pairs (i, j) of Q_i K_j^T, smallest first
   auto issue_qk = [&](int st) {
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      hopper::wgmma_ss<BK, 0, 0>(
-          s, hopper::desc_sw128(q_smem + (kk / 4) * L::Q_BOX + (kk % 4) * 32, 16, 1024),
-          hopper::desc_sw128(k_smem + (st * NB + kk / 4) * L::KV_BOX + (kk % 4) * 32, 16, 1024),
-          kk > 0);
+    for (int k = 0; k < NPAIR; ++k)
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        hopper::wgmma_ss<BK, 0, 0>(
+            s,
+            hopper::desc_sw128(
+                q_smem + (hopper::pair_i(NP, k) * NB + kk / 4) * L::Q_BOX + (kk % 4) * 32, 16,
+                1024),
+            hopper::desc_sw128(
+                k_smem + ((st * NP + hopper::pair_j(NP, k)) * NB + kk / 4) * L::KV_BOX +
+                    (kk % 4) * 32,
+                16, 1024),
+            k > 0 || kk > 0);
     hopper::wgmma_commit();
   };
-  // O += P V of the tile in stage st, issued; P in bf16 pairs, keys
-  // 16 kc .. 16 kc + 15 the A operand of step kc
-  uint32_t pa[BK / 16][4];
+  // O += P V of the tile in stage st, issued: over the piece pairs, P_i in
+  // bf16 pairs (keys 16 kc .. 16 kc + 15 the A operand of step kc) and V_j
+  uint32_t pa[NP][BK / 16][4];
   auto issue_pv = [&](int st) {
 #pragma unroll
-    for (int kc = 0; kc < BK / 16; ++kc)
-      hopper::wgmma_rs<D, 1>(
-          o, pa[kc],
-          hopper::desc_sw128(v_smem + st * NB * L::KV_BOX + kc * 16 * 128, L::KV_BOX, 1024), 1);
+    for (int k = 0; k < NPAIR; ++k)
+#pragma unroll
+      for (int kc = 0; kc < BK / 16; ++kc)
+        hopper::wgmma_rs<D, 1>(
+            o, pa[hopper::pair_i(NP, k)][kc],
+            hopper::desc_sw128(
+                v_smem + (st * NP + hopper::pair_j(NP, k)) * NB * L::KV_BOX + kc * 16 * 128,
+                L::KV_BOX, 1024),
+            1);
     hopper::wgmma_commit();
   };
   auto fence_all = [&] {
     hopper::fence_regs(s);
     hopper::fence_regs(o);
 #pragma unroll
-    for (int kc = 0; kc < BK / 16; ++kc) hopper::fence_regs(pa[kc]);
+    for (int pc = 0; pc < NP; ++pc)
+#pragma unroll
+      for (int kc = 0; kc < BK / 16; ++kc) hopper::fence_regs(pa[pc][kc]);
   };
   auto rescale_and_pack = [&](const float (&alpha)[2]) {
 #pragma unroll
@@ -484,8 +366,12 @@ __global__ void __launch_bounds__(WNT, Tiles<D>::MIN_BLOCKS)
 #pragma unroll
     for (int kc = 0; kc < BK / 16; ++kc)
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        pa[kc][e] = hopper::pack_bf16(s[8 * kc + 2 * e], s[8 * kc + 2 * e + 1]);
+      for (int e = 0; e < 4; ++e) {
+        uint32_t w[NP];
+        hopper::pack_bf16_pieces<NP>(s[8 * kc + 2 * e], s[8 * kc + 2 * e + 1], w);  // P's pieces
+#pragma unroll
+        for (int pc = 0; pc < NP; ++pc) pa[pc][kc][e] = w[pc];
+      }
   };
 
   // An iteration issues S_i = Q K_i^T and O += P_{i-1} V_{i-1}, waits for
@@ -565,83 +451,139 @@ __global__ void __launch_bounds__(WNT, Tiles<D>::MIN_BLOCKS)
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     const float lsum = fmaxf(l[r], 1e-37f);
-    // O into this warpgroup's Q rows, swizzled as the TMA box expects:
-    // 16-byte chunk c of row rl at chunk c ^ (rl % 8)
-    const int rl = warp * 16 + g + 8 * r;
+    const int row = row0 + 8 * r;
+    if constexpr (NP == 1) {
+      // O into this warpgroup's Q rows, swizzled as the TMA box expects:
+      // 16-byte chunk c of row rl at chunk c ^ (rl % 8)
+      const int rl = warp * 16 + g + 8 * r;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(sm + (j / 8) * L::Q_BOX + (wg * 64 + rl) * 128 +
-                                         ((j % 8) ^ g) * 16 + t * 4) =
-          __floats2bfloat162_rn(o[4 * j + 2 * r] / lsum, o[4 * j + 2 * r + 1] / lsum);
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(sm + (j / 8) * L::Q_BOX + (wg * 64 + rl) * 128 +
+                                           ((j % 8) ^ g) * 16 + t * 4) =
+            __floats2bfloat162_rn(o[4 * j + 2 * r] / lsum, o[4 * j + 2 * r + 1] / lsum);
+    } else if (row < S) {  // f32 O straight from the fragment, 8 bytes a store
+      float* orow = static_cast<float*>(p.o) + b * p.o_sb + row * p.o_ss + h * p.o_sh;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<float2*>(orow + 8 * j + 2 * t) =
+            make_float2(o[4 * j + 2 * r] / lsum, o[4 * j + 2 * r + 1] / lsum);
+    }
     if constexpr (LSE)
-      if (t == 0 && row0 + 8 * r < S)
-        p.lse[(static_cast<long long>(b) * p.H + h) * S + row0 + 8 * r] =
-            m[r] * LN2 + logf(lsum);
+      if (t == 0 && row < S)
+        p.lse[(static_cast<long long>(b) * p.H + h) * S + row] = m[r] * LN2 + logf(lsum);
   }
-  hopper::fence_proxy_async();
-  hopper::named_barrier(1 + wg, 128);
-  if (tid % 128 == 0) {
+  if constexpr (NP == 1) {
+    hopper::fence_proxy_async();
+    hopper::named_barrier(1 + wg, 128);
+    if (tid % 128 == 0) {
 #pragma unroll
-    for (int x = 0; x < NB; ++x)
-      hopper::tma_store_4d(&to, sm + x * L::Q_BOX + wg * 64 * 128, x * BOX, h, r0, b);
-    hopper::tma_store_commit();
-    hopper::tma_store_wait();
+      for (int x = 0; x < NB; ++x)
+        hopper::tma_store_4d(&to, sm + x * L::Q_BOX + wg * 64 * 128, x * BOX, h, r0, b);
+      hopper::tma_store_commit();
+      hopper::tma_store_wait();
+    }
   }
 }
 
+// bf16 q, k, v and O
 template <int D, bool LSE, bool CAP>
-cudaError_t launch_bf16(const Params& p, int B, cudaStream_t stream) {
-  constexpr int smem = Smem<D>::BYTES;
-  auto kernel = flash_fwd_wgmma_kernel<D, LSE, CAP>;
+__global__ void __launch_bounds__(WNT, Tiles<D, 1>::MIN_BLOCKS)
+    flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ CUtensorMap to, Params p) {
+  fwd_body<D, 1, LSE, CAP>(tq, tk, tv, to, p);
+}
+
+// f32 q, k, v (read as their three bf16 pieces) and O; `to` is not read
+template <int D, bool LSE, bool CAP>
+__global__ void __launch_bounds__(WNT, Tiles<D, 3>::MIN_BLOCKS)
+    flash_fwd_f32_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                               const __grid_constant__ CUtensorMap tk,
+                               const __grid_constant__ CUtensorMap tv,
+                               const __grid_constant__ CUtensorMap to, Params p) {
+  fwd_body<D, 3, LSE, CAP>(tq, tk, tv, to, p);
+}
+
+// The bf16 operands the kernel reads: q, k, v as (NP B, S, heads, D) with
+// strides in elements, D contiguous.
+struct Operands {
+  const void* ptr[3];
+  long long stride[3][3];
+};
+
+template <int D, int NP, bool LSE, bool CAP>
+cudaError_t launch(const Params& p, const Operands& x, cudaStream_t stream) {
+  constexpr int smem = Smem<D, NP>::BYTES;
+  auto kernel = [] {
+    if constexpr (NP == 1)
+      return flash_fwd_wgmma_kernel<D, LSE, CAP>;
+    else
+      return flash_fwd_f32_wgmma_kernel<D, LSE, CAP>;
+  }();
   static bool configured = false;
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
     configured = true;
   }
-  CUtensorMap tq, tk, tv, to;
-  if (!hopper::bhsd_map(&tq, p.q, B, p.S, p.H, D, p.q_sb, p.q_ss, p.q_sh, WQ) ||
-      !hopper::bhsd_map(&tk, p.k, B, p.S, p.Hkv, D, p.k_sb, p.k_ss, p.k_sh, Tiles<D>::BK) ||
-      !hopper::bhsd_map(&tv, p.v, B, p.S, p.Hkv, D, p.v_sb, p.v_ss, p.v_sh, Tiles<D>::BK) ||
-      !hopper::bhsd_map(&to, p.o, B, p.S, p.H, D, p.o_sb, p.o_ss, p.o_sh, 64))
+  const int nb = NP * p.B, BK = Tiles<D, NP>::BK;
+  auto map = [&](CUtensorMap* m, int i, int heads, int rows) {
+    return hopper::bhsd_map(m, x.ptr[i], nb, p.S, heads, D, x.stride[i][0], x.stride[i][1],
+                            x.stride[i][2], rows);
+  };
+  CUtensorMap tq, tk, tv, to{};
+  if (!map(&tq, 0, p.H, WQ) || !map(&tk, 1, p.Hkv, BK) || !map(&tv, 2, p.Hkv, BK) ||
+      (NP == 1 && !hopper::bhsd_map(&to, p.o, p.B, p.S, p.H, D, p.o_sb, p.o_ss, p.o_sh, 64)))
     return cudaErrorInvalidValue;
-  const dim3 grid(p.H * B * ((p.S + WQ - 1) / WQ));
+  const dim3 grid(p.H * p.B * ((p.S + WQ - 1) / WQ));
   kernel<<<grid, WNT, smem, stream>>>(tq, tk, tv, to, p);
   return cudaGetLastError();
 }
 
-template <int D, bool LSE>
-cudaError_t launch_f32(const Params& p, int B, cudaStream_t stream) {
-  constexpr int smem = smem_floats<D>() * sizeof(float);
-  auto kernel = flash_fwd_f32_kernel<D, LSE>;
-  static bool configured = false;
-  if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
-    configured = true;
-  }
-  dim3 grid((p.S + BQ - 1) / BQ, p.H, B);
-  kernel<<<grid, NT, smem, stream>>>(p);
-  return cudaGetLastError();
+template <int D, int NP>
+cudaError_t launch_opts(const Params& p, const Operands& x, cudaStream_t st) {
+  const bool lse = p.lse != nullptr;
+  if (p.softcap > 0.f)
+    return lse ? launch<D, NP, true, true>(p, x, st) : launch<D, NP, false, true>(p, x, st);
+  return lse ? launch<D, NP, true, false>(p, x, st) : launch<D, NP, false, false>(p, x, st);
 }
 
 template <int D>
-cudaError_t launch_d(const Params& p, int B, int dtype, cudaStream_t st) {
-  const bool lse = p.lse != nullptr;
-  if (dtype == 0) return lse ? launch_f32<D, true>(p, B, st) : launch_f32<D, false>(p, B, st);
-  if (dtype == 1) {
-    if (p.softcap > 0.f)
-      return lse ? launch_bf16<D, true, true>(p, B, st) : launch_bf16<D, false, true>(p, B, st);
-    return lse ? launch_bf16<D, true, false>(p, B, st) : launch_bf16<D, false, false>(p, B, st);
-  }
-  return cudaErrorInvalidValue;
+cudaError_t launch_d(const Params& p, int dtype, void* pieces, cudaStream_t st) {
+  if (dtype == 1)
+    return launch_opts<D, 1>(p, {{p.q, p.k, p.v}, {{p.q_sb, p.q_ss, p.q_sh},
+                                                        {p.k_sb, p.k_ss, p.k_sh},
+                                                        {p.v_sb, p.v_ss, p.v_sh}}}, st);
+  if (dtype != 0 || pieces == nullptr) return cudaErrorInvalidValue;
+  // f32: q, k, v into their pieces, one (3, B, S, heads, D) bf16 tensor
+  // each, one after the other in the caller's scratch
+  const long long rq = static_cast<long long>(p.S) * p.H * D, rk = static_cast<long long>(p.S) * p.Hkv * D;
+  __nv_bfloat16* pq = static_cast<__nv_bfloat16*>(pieces);
+  __nv_bfloat16* pk = pq + 3 * p.B * rq;
+  __nv_bfloat16* pv = pk + 3 * p.B * rk;
+  const hopper::SplitArgs a{{static_cast<const float*>(p.q), static_cast<const float*>(p.k),
+                             static_cast<const float*>(p.v), nullptr},
+                            {pq, pk, pv, nullptr},
+                            {p.q_sb, p.k_sb, p.v_sb, 0},
+                            {p.q_ss, p.k_ss, p.v_ss, 0},
+                            {p.q_sh, p.k_sh, p.v_sh, 0},
+                            {p.H, p.Hkv, p.Hkv, 0}};
+  cudaError_t e = hopper::split3(a, 3, p.B, p.S, D, st);
+  if (e != cudaSuccess) return e;
+  return launch_opts<D, 3>(p, {{pq, pk, pv}, {{rq, static_cast<long long>(p.H) * D, D},
+                                               {rk, static_cast<long long>(p.Hkv) * D, D},
+                                               {rk, static_cast<long long>(p.Hkv) * D, D}}}, st);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (then q, k, v must start on a 16-byte
-// boundary with strides of whole 16 bytes: the TMA's rule).  lse: (B, H,
-// S) f32, or null for none.  Returns a cudaError_t (0 = launched).
+// dtype: 0 = float32 (then `pieces` is bf16 scratch of 3 B S (H + 2 Hkv) D
+// elements for q, k and v as three bf16 pieces each), 1 = bfloat16 (then q,
+// k, v must start on a 16-byte boundary with strides of whole 16 bytes:
+// the TMA's rule).  lse: (B, H, S) f32, or null for none.  Returns a
+// cudaError_t (0 = launched).  `pieces` comes last, after the stream, so
+// that a caller passing it can drive a build of an earlier source.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    float* lse,
                                    long long q_sb, long long q_ss, long long q_sh,
@@ -650,12 +592,12 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
                                    long long o_sb, long long o_ss, long long o_sh,
                                    int B, int S, int H, int Hkv, int D, int dtype,
                                    int causal, int window, float softcap, float scale,
-                                   void* stream) {
+                                   void* stream, void* pieces) {
   Params p{q, k, v, o, lse,
            q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh,
            B, S, H, Hkv, causal, window, softcap, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 64) return launch_d<64>(p, B, dtype, st);
-  if (D == 128) return launch_d<128>(p, B, dtype, st);
+  if (D == 64) return launch_d<64>(p, dtype, pieces, st);
+  if (D == 128) return launch_d<128>(p, dtype, pieces, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,4 +1,4 @@
-// Flash attention backward for Hopper (sm_90a), f32 and bf16.
+// Flash attention backward for Hopper (sm_90a), f32 and bf16, on wgmma.
 //
 // The JAX package has no Pallas backward: its `kernels/ops.py` takes the
 // vjp of the pure-jnp `flash_attention_ref` (`_fa_bwd`), which XLA
@@ -61,35 +61,53 @@
 // which drops rows past S.  dq fits two blocks an SM at D 64; dkdv holds
 // dK and dV (64 x D f32 each per warpgroup) and runs one.
 //
-// f32 body (the exactness path): three launches, Delta by one warp per
-// row, then dq and dkdv blocks of four warps per 64-row tile with the same
-// tiles on the CUDA cores in f32 (a 4 x 8 score tile and a 4 x D/8 output
-// tile per thread, tiles in shared memory at an odd row stride), exact to
-// the f32 reference.
+// f32 body (`dq_f32_wgmma_kernel`, `dkdv_f32_wgmma_kernel`: the exactness
+// path, the train CLI's dtype): the same two passes (`dq_body`,
+// `dkdv_body`) on the bf16 tensor cores, every operand as three bf16
+// pieces (csrc/hopper.cuh), no atomics, so bit-exact resume still holds.
+// - A pre-pass of the same C call (`hopper::split3`) writes q, k, v and
+//   dO as pieces x0 = bf16(x), x1 = bf16(x - x0), x2 = bf16(x - x0 - x1)
+//   into the wrapper's bf16 scratch (one (3, B, S, heads, D) tensor each,
+//   read by the bf16 tensor maps, piece p of batch b at p B + b).  P and
+//   dS are split in registers into three A fragments each.
+// - Each of the seven products is the sum over i + j <= 2 of the pieces'
+//   bf16 products, the smallest first, each exact: the terms dropped are
+//   of order 2^-24 |A| |B|.  Delta = rowsum(dO O) is exact f32 arithmetic
+//   on the f32 O and dO, read from device memory by dq (no O tile in
+//   shared memory); P, dS and lse stay f32.
+// - The gradients' long sums (dQ over the keys; dK and dV over rep heads
+//   x S rows) do not accumulate on the tensor cores: each tile's products
+//   go into a fresh 64-column f32 partial, which an f32 add (round to
+//   nearest) brings into the gradient (`add_partial`).  The tensor cores'
+//   accumulation drops up to an ulp of the running sum a step, always the
+//   same way; summed over the whole chain (six pieces a product, rep x S
+//   rows) it put GQA and S-512 cases at up to 2.8x the 2e-5 bar on the
+//   card, and 0.48x with the partials (PERF.md §6).
+// - Bound: five products at 989 / 6 TFLOP/s (six bf16 passes each, 2.5x
+//   the CUDA cores' 67): 0.391 ms at bert-mlm-120m's B 32, S 512; the
+//   seven this design computes take 0.55 ms at that rate.
+// - The approximations against the f32 bar of 2e-5: ex2.approx (relative
+//   2^-22) and lse * log2(e) in f32 (2^-24 of |lse|, under 1e-6 of a
+//   weight at |lse| < 20) move P by about 1e-6 of itself; the f32 sums of
+//   each product in another order than the reference's carry 2^-24 of
+//   each term's size.
+// - Shapes (`Shape`): D 64 keeps the bf16 tiles with two stages (dq 193
+//   KB, dkdv 194 KB, one block an SM).  D 128 takes one consumer warpgroup
+//   a block (the three pieces of two warpgroups' resident tiles would
+//   need 288 KB), 32-key dq stages and 32-row dkdv stages (193 KB each).
+//   dkdv forms P^T and dS^T, then holds P^T's pieces and dS^T's in turn in
+//   one set of A registers for dV += P^T dO and dK += dS^T Q; the
+//   gradients are stored in f32 from the fragments.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 #include <type_traits>
+#include <utility>
 
 #include "hopper.cuh"
 
 namespace {
-
-constexpr int BQ = 64;   // q rows per tile
-constexpr int BK = 64;   // keys per tile
-constexpr int NT = 128;  // threads per block of dq / dkdv
-constexpr int SLD = 65;  // row stride of the (64 x 64) score tiles in smem
-
-template <typename T>
-__device__ __forceinline__ float to_f(T x);
-template <>
-__device__ __forceinline__ float to_f<float>(float x) { return x; }
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
 
 struct Params {
   const void* q;
@@ -98,8 +116,8 @@ struct Params {
   const void* o;
   const void* dout;
   const float* lse;  // (B, H, S)
-  // scratch: the f32 body's Delta (B, H, S); the bf16 body's lse * log2(e)
-  // and Delta as (B, H, ceil(S / 64), 2, 64), written by its dq pass
+  // scratch: each row's lse * log2(e) and Delta as (B, H, ceil(S / 64), 2,
+  // 64), written by the dq pass
   float* delta;
   void* dq;          // (B, S, H, D) contiguous
   void* dk;          // (B, S, Hkv, D) contiguous
@@ -114,316 +132,60 @@ struct Params {
   float scale;
 };
 
-// rows [s0, s0 + 64) of one head of x (strides sb/ss, head base applied)
-// into smem rows of stride D + 1, zero past S
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, long long ss, int s0,
-                                          int S) {
-  for (int idx = threadIdx.x; idx < 64 * D; idx += NT) {
-    const int r = idx / D, d = idx % D;
-    const int s = s0 + r;
-    dst[r * (D + 1) + d] = s < S ? to_f<T>(src[s * ss + d]) : 0.f;
-  }
-}
-
-// ---------------------------------------------------------------- delta
-template <typename T, int D>
-__global__ void __launch_bounds__(256) delta_kernel(Params p) {
-  const long long row = (static_cast<long long>(blockIdx.x) * 256 + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  const long long n_rows = static_cast<long long>(p.B) * p.S * p.H;
-  if (row >= n_rows) return;
-  const int h = row % p.H;
-  const int s = (row / p.H) % p.S;
-  const int b = row / (static_cast<long long>(p.H) * p.S);
-  const T* o = static_cast<const T*>(p.o) + b * p.o_sb + s * p.o_ss + h * p.o_sh;
-  const T* d = static_cast<const T*>(p.dout) + b * p.do_sb + s * p.do_ss + h * p.do_sh;
-  float acc = 0.f;
-#pragma unroll
-  for (int i = lane; i < D; i += 32) acc = fmaf(to_f<T>(o[i]), to_f<T>(d[i]), acc);
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) p.delta[(static_cast<long long>(b) * p.H + h) * p.S + s] = acc;
-}
-
-// Scores and dP of the (64 q rows x 64 keys) tile: this thread's rows
-// r*4 + i, keys c + 8j, then P and dS in place (sc <- P, dp <- dS).
-template <int D>
-__device__ __forceinline__ void tile_p_ds(const float* Qs, const float* dOs, const float* Ks,
-                                          const float* Vs, const float* lse_s,
-                                          const float* dl_s, int q0, int k0, int r, int c,
-                                          const Params& p, float (&sc)[4][8],
-                                          float (&dp)[4][8]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) sc[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    float qa[4], da[4], kb[8], vb[8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      qa[i] = Qs[(r * 4 + i) * (D + 1) + d];
-      da[i] = dOs[(r * 4 + i) * (D + 1) + d];
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      kb[j] = Ks[(c + 8 * j) * (D + 1) + d];
-      vb[j] = Vs[(c + 8 * j) * (D + 1) + d];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        sc[i][j] = fmaf(qa[i], kb[j], sc[i][j]);
-        dp[i][j] = fmaf(da[i], vb[j], dp[i][j]);
-      }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + r * 4 + i;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int kj = k0 + c + 8 * j;
-      bool ok = qi < p.S && kj < p.S;
-      if (p.causal) ok = ok && kj <= qi;
-      const float pw = ok ? expf(sc[i][j] * p.scale - lse_s[r * 4 + i]) : 0.f;
-      sc[i][j] = pw;
-      dp[i][j] = pw * (dp[i][j] - dl_s[r * 4 + i]);
-    }
-  }
-}
-
-// ------------------------------------------------------------- f32: dq
-template <int D>
-constexpr int dq_smem_bytes() {
-  return (4 * 64 * (D + 1) + 64 * SLD + 2 * 64) * 4;
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(NT) dq_f32_kernel(Params p) {
-  extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);
-  float* dOs = Qs + 64 * (D + 1);
-  float* Ks = dOs + 64 * (D + 1);
-  float* Vs = Ks + 64 * (D + 1);
-  float* dSs = Vs + 64 * (D + 1);
-  float* lse_s = dSs + 64 * SLD;
-  float* dl_s = lse_s + 64;
-
-  const int tid = threadIdx.x;
-  const int r = tid >> 3, c = tid & 7;
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int S = p.S;
-  const int hk = h / (p.H / p.Hkv);
-  const T* qp = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* dop = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
-  const T* kp = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
-  const T* vp = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
-  const long long row0 = (static_cast<long long>(b) * p.H + h) * S;
-
-  load_tile<T, D>(Qs, qp, p.q_ss, q0, S);
-  load_tile<T, D>(dOs, dop, p.do_ss, q0, S);
-  if (tid < 64) {
-    const int s = q0 + tid;
-    lse_s[tid] = s < S ? p.lse[row0 + s] : 0.f;
-    dl_s[tid] = s < S ? p.delta[row0 + s] : 0.f;
-  }
-
-  float acc[4][D / 8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int jj = 0; jj < D / 8; ++jj) acc[i][jj] = 0.f;
-
-  const int q_last = min(q0 + BQ, S) - 1;
-  const int kt_hi = p.causal ? q_last / BK + 1 : (S + BK - 1) / BK;
-  for (int kt = 0; kt < kt_hi; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<T, D>(Ks, kp, p.k_ss, k0, S);
-    load_tile<T, D>(Vs, vp, p.v_ss, k0, S);
-    __syncthreads();
-    float sc[4][8], ds[4][8];
-    tile_p_ds<D>(Qs, dOs, Ks, Vs, lse_s, dl_s, q0, k0, r, c, p, sc, ds);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) dSs[(r * 4 + i) * SLD + c + 8 * j] = ds[i][j];
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = dSs[(r * 4 + i) * SLD + kk];
-#pragma unroll
-      for (int jj = 0; jj < D / 8; ++jj) {
-        const float kv = Ks[kk * (D + 1) + c + 8 * jj];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][jj] = fmaf(a[i], kv, acc[i][jj]);
-      }
-    }
-  }
-
-  T* dqp = static_cast<T*>(p.dq) + (static_cast<long long>(b) * S * p.H + h) * D;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + r * 4 + i;
-    if (qi >= S) continue;
-#pragma unroll
-    for (int jj = 0; jj < D / 8; ++jj)
-      dqp[static_cast<long long>(qi) * p.H * D + c + 8 * jj] = from_f<T>(acc[i][jj] * p.scale);
-  }
-}
-
-// ----------------------------------------------------------- f32: dkdv
-template <int D>
-constexpr int dkdv_smem_bytes() {
-  return (4 * 64 * (D + 1) + 2 * 64 * SLD + 2 * 64) * 4;
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(NT) dkdv_f32_kernel(Params p) {
-  extern __shared__ float4 smem4[];
-  float* Ks = reinterpret_cast<float*>(smem4);
-  float* Vs = Ks + 64 * (D + 1);
-  float* Qs = Vs + 64 * (D + 1);
-  float* dOs = Qs + 64 * (D + 1);
-  float* Ps = dOs + 64 * (D + 1);
-  float* dSs = Ps + 64 * SLD;
-  float* lse_s = dSs + 64 * SLD;
-  float* dl_s = lse_s + 64;
-
-  const int tid = threadIdx.x;
-  const int r = tid >> 3, c = tid & 7;  // scores: q rows r*4+i, keys c+8j
-  const int k0 = blockIdx.x * BK;       // dK/dV: keys r*4+i, columns c+8jj
-  const int hk = blockIdx.y, b = blockIdx.z;
-  const int S = p.S;
-  const int rep = p.H / p.Hkv;
-  const T* kp = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
-  const T* vp = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
-
-  load_tile<T, D>(Ks, kp, p.k_ss, k0, S);
-  load_tile<T, D>(Vs, vp, p.v_ss, k0, S);
-
-  float dk[4][D / 8], dv[4][D / 8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int jj = 0; jj < D / 8; ++jj) dk[i][jj] = dv[i][jj] = 0.f;
-
-  const int qt_lo = p.causal ? k0 / BQ : 0;  // q tiles that see a key of this tile
-  const int n_qt = (S + BQ - 1) / BQ;
-  for (int rr = 0; rr < rep; ++rr) {
-    const int h = hk * rep + rr;
-    const T* qp = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-    const T* dop = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
-    const long long row0 = (static_cast<long long>(b) * p.H + h) * S;
-    for (int qt = qt_lo; qt < n_qt; ++qt) {
-      const int q0 = qt * BQ;
-      __syncthreads();  // the previous tile's readers are done
-      load_tile<T, D>(Qs, qp, p.q_ss, q0, S);
-      load_tile<T, D>(dOs, dop, p.do_ss, q0, S);
-      if (tid < 64) {
-        const int s = q0 + tid;
-        lse_s[tid] = s < S ? p.lse[row0 + s] : 0.f;
-        dl_s[tid] = s < S ? p.delta[row0 + s] : 0.f;
-      }
-      __syncthreads();
-      float sc[4][8], ds[4][8];
-      tile_p_ds<D>(Qs, dOs, Ks, Vs, lse_s, dl_s, q0, k0, r, c, p, sc, ds);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          Ps[(r * 4 + i) * SLD + c + 8 * j] = sc[i][j];
-          dSs[(r * 4 + i) * SLD + c + 8 * j] = ds[i][j];
-        }
-      __syncthreads();
-#pragma unroll 2
-      for (int qq = 0; qq < BQ; ++qq) {
-        float pa[4], sa[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          pa[i] = Ps[qq * SLD + r * 4 + i];
-          sa[i] = dSs[qq * SLD + r * 4 + i];
-        }
-#pragma unroll
-        for (int jj = 0; jj < D / 8; ++jj) {
-          const float dov = dOs[qq * (D + 1) + c + 8 * jj];
-          const float qv = Qs[qq * (D + 1) + c + 8 * jj];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            dv[i][jj] = fmaf(pa[i], dov, dv[i][jj]);
-            dk[i][jj] = fmaf(sa[i], qv, dk[i][jj]);
-          }
-        }
-      }
-    }
-  }
-
-  const long long kv_row = static_cast<long long>(p.Hkv) * D;
-  T* dkp = static_cast<T*>(p.dk) + (static_cast<long long>(b) * S * p.Hkv + hk) * D;
-  T* dvp = static_cast<T*>(p.dv) + (static_cast<long long>(b) * S * p.Hkv + hk) * D;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int kj = k0 + r * 4 + i;
-    if (kj >= S) continue;
-#pragma unroll
-    for (int jj = 0; jj < D / 8; ++jj) {
-      dkp[kj * kv_row + c + 8 * jj] = from_f<T>(dk[i][jj] * p.scale);
-      dvp[kj * kv_row + c + 8 * jj] = from_f<T>(dv[i][jj]);
-    }
-  }
-}
-
-
-
-// ---------------------------------------------------------------------------
-// bf16 body: TMA ring and wgmma; see the header.
-// ---------------------------------------------------------------------------
-
-constexpr int WNT = 256;                   // two consumer warpgroups
 constexpr int BOX = 64;                    // columns of a box: 128 bytes of bf16, the swizzle span
-constexpr int TILE = 64;                   // rows of every box: a warpgroup's rows, a q or k tile
+constexpr int TILE = 64;                   // a warpgroup's rows or keys; the q tiles of the scratch
 constexpr int BOX_BYTES = TILE * BOX * 2;
-constexpr int STAT_BYTES = 2 * TILE * 4;   // a q tile's lse * log2(e) and Delta
 constexpr float LOG2E = 1.4426950408889634f;
 
-template <int D>
-struct Stages;
+// Shapes of the bodies whose operands are NP bf16 pieces (1: bf16 inputs;
+// 3: f32 inputs, see hopper.cuh).  WG: consumer warpgroups of a block (64
+// q rows in dq, 64 keys in dkdv, each); DQ_BK: keys of a dq stage; QT: q
+// rows of a dkdv stage; DQ_BLOCKS: dq blocks an SM (launch bounds).
+template <int D, int NP>
+struct Shape;
 template <>
-struct Stages<64> {  // dq at two blocks an SM
-  static constexpr int DQ = 3, DKDV = 3, DQ_BLOCKS = 2;
+struct Shape<64, 1> {
+  static constexpr int WG = 2, DQ_BK = 64, DQ_STAGES = 3, DQ_BLOCKS = 2, QT = 64, KV_STAGES = 3;
 };
 template <>
-struct Stages<128> {
-  static constexpr int DQ = 2, DKDV = 3, DQ_BLOCKS = 1;
+struct Shape<128, 1> {
+  static constexpr int WG = 2, DQ_BK = 64, DQ_STAGES = 2, DQ_BLOCKS = 1, QT = 64, KV_STAGES = 3;
+};
+template <>
+struct Shape<64, 3> {
+  static constexpr int WG = 2, DQ_BK = 64, DQ_STAGES = 2, DQ_BLOCKS = 1, QT = 64, KV_STAGES = 2;
+};
+template <>
+struct Shape<128, 3> {  // one warpgroup: the resident pieces of two would need 288 KB
+  static constexpr int WG = 1, DQ_BK = 32, DQ_STAGES = 2, DQ_BLOCKS = 1, QT = 32, KV_STAGES = 2;
 };
 
-// dq: Q, dO and O of the block's 128 rows as (warpgroup, box) boxes of 64
-// rows, then K and V of each stage (box x of stage s at s * NB + x), then
-// the barriers; bytes from a 1024-aligned base
-template <int D>
+// dq: Q, dO (and with bf16 inputs O) of the block's rows as (warpgroup,
+// piece, box) boxes of 64 rows, then K and V of each stage (box x of piece
+// p of stage s at (s * NP + p) * NB + x, DQ_BK rows a box), then the
+// barriers; bytes from a 1024-aligned base
+template <int D, int NP>
 struct DqSmem {
-  static constexpr int NB = D / BOX, STAGES = Stages<D>::DQ;
-  static constexpr int Q = 0, DO = 2 * NB * BOX_BYTES, O = 4 * NB * BOX_BYTES;
-  static constexpr int K = 6 * NB * BOX_BYTES;
-  static constexpr int V = K + STAGES * NB * BOX_BYTES;
-  static constexpr int BAR = V + STAGES * NB * BOX_BYTES;
+  static constexpr int NB = D / BOX, WG = Shape<D, NP>::WG, BK = Shape<D, NP>::DQ_BK;
+  static constexpr int STAGES = Shape<D, NP>::DQ_STAGES, KB = BK * BOX * 2;
+  static constexpr int Q = 0, DO = WG * NP * NB * BOX_BYTES, O = 2 * DO;
+  static constexpr int K = O + (NP == 1 ? DO : 0);  // f32 inputs: Delta from device memory
+  static constexpr int V = K + STAGES * NP * NB * KB;
+  static constexpr int BAR = V + STAGES * NP * NB * KB;
   static constexpr int BYTES = BAR + 8 * (1 + 2 * STAGES) + 1024;  // + alignment slack
 };
 
-// dkdv: K and V of the block's 128 keys as (warpgroup, box) boxes, then Q
-// and dO of each stage, each stage's lse and Delta, then the barriers
-template <int D>
+// dkdv: K and V of the block's keys as (warpgroup, piece, box) boxes, then
+// Q and dO of each stage (QT rows a box), each stage's lse and Delta, then
+// the barriers
+template <int D, int NP>
 struct KvSmem {
-  static constexpr int NB = D / BOX, STAGES = Stages<D>::DKDV;
-  static constexpr int K = 0, V = 2 * NB * BOX_BYTES, Q = 4 * NB * BOX_BYTES;
-  static constexpr int DO = Q + STAGES * NB * BOX_BYTES;
-  static constexpr int STAT = DO + STAGES * NB * BOX_BYTES;
-  static constexpr int BAR = STAT + STAGES * STAT_BYTES;
+  static constexpr int NB = D / BOX, WG = Shape<D, NP>::WG, QT = Shape<D, NP>::QT;
+  static constexpr int STAGES = Shape<D, NP>::KV_STAGES, QB = QT * BOX * 2, STAT_B = 2 * QT * 4;
+  static constexpr int K = 0, V = WG * NP * NB * BOX_BYTES, Q = 2 * V;
+  static constexpr int DO = Q + STAGES * NP * NB * QB;
+  static constexpr int STAT = DO + STAGES * NP * NB * QB;
+  static constexpr int BAR = STAT + STAGES * STAT_B;
   static constexpr int BYTES = BAR + 8 * (1 + 2 * STAGES) + 1024;
 };
 
@@ -432,15 +194,17 @@ __device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
 }
 
 // 16-wide slice kk of the reduction axis of a K-major operand: a tile of
-// 64 rows stored as D/64 boxes from `base`
+// ROWS rows stored as D/64 boxes from `base`
+template <int ROWS>
 __device__ __forceinline__ uint64_t kmajor(uint32_t base, int kk) {
-  return hopper::desc_sw128(base + (kk / 4) * BOX_BYTES + (kk % 4) * 32, 16, 1024);
+  return hopper::desc_sw128(base + (kk / 4) * ROWS * 128 + (kk % 4) * 32, 16, 1024);
 }
 
 // 16-row slice kc of an MN-major operand read from the same kind of tile
-// (its rows the reduction axis, its D/64 boxes along N)
+// (its ROWS rows the reduction axis, its D/64 boxes along N)
+template <int ROWS>
 __device__ __forceinline__ uint64_t mnmajor(uint32_t base, int kc) {
-  return hopper::desc_sw128(base + kc * 16 * 128, BOX_BYTES, 1024);
+  return hopper::desc_sw128(base + kc * 16 * 128, ROWS * 128, 1024);
 }
 
 // rowsum(a * b) of row rl of a warpgroup's boxes at `a` and `b`: the four
@@ -470,6 +234,23 @@ __device__ __forceinline__ float row_dot(const uint8_t* a, const uint8_t* b, int
   return acc;
 }
 
+// rowsum(dO * O) of row `row` of head h, batch b, exact in f32 from the
+// f32 tensors in device memory (0 past S): the four threads of the row
+// (t = 0..3) take every fourth element and add
+template <int D>
+__device__ __forceinline__ float row_dot_f32(const Params& p, int b, int h, int row, int t) {
+  float acc = 0.f;
+  if (row < p.S) {
+    const float* o = static_cast<const float*>(p.o) + b * p.o_sb + row * p.o_ss + h * p.o_sh;
+    const float* d = static_cast<const float*>(p.dout) + b * p.do_sb + row * p.do_ss + h * p.do_sh;
+#pragma unroll
+    for (int i = t; i < D; i += 4) acc = fmaf(o[i], d[i], acc);
+  }
+  acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+  acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+  return acc;
+}
+
 // A warpgroup's 64 x D accumulator times `scale`, in bf16, into its D/64
 // boxes at `box`, swizzled as a TMA box expects; this thread holds rows
 // rl0 and rl0 + 8, columns 8 j + 2 t and the next
@@ -485,6 +266,24 @@ __device__ __forceinline__ void acc_to_boxes(uint8_t* box, const float (&acc)[D 
           __floats2bfloat162_rn(acc[4 * j + 2 * r] * scale, acc[4 * j + 2 * r + 1] * scale);
 }
 
+// The same accumulator times `scale` in f32 straight into rows row0 and
+// row0 + 8 (this thread's) of head h of a contiguous (B, S, heads, D)
+// tensor, 8 bytes a store; rows past S are dropped
+template <int D>
+__device__ __forceinline__ void acc_to_f32(float* out, const float (&acc)[D / 2], float scale,
+                                           int b, int S, int heads, int h, int row0, int t) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= S) continue;
+    float* dst = out + ((static_cast<long long>(b) * S + row) * heads + h) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(dst + 8 * j + 2 * t) =
+          make_float2(acc[4 * j + 2 * r] * scale, acc[4 * j + 2 * r + 1] * scale);
+  }
+}
+
 // the D/64 boxes at `box` to rows row .. row + 63 of head h of a map;
 // after every thread of the warpgroup wrote its part (call from one thread)
 template <int NB>
@@ -496,15 +295,51 @@ __device__ __forceinline__ void store_boxes(const CUtensorMap* map, const uint8_
   hopper::tma_store_wait();
 }
 
-// Pass 1: dQ, and each row's Delta and lse * log2(e) for pass 2.
-template <int D, bool CAUSAL>
-__global__ void __launch_bounds__(WNT, Stages<D>::DQ_BLOCKS)
-    dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
-                    const __grid_constant__ CUtensorMap to, const __grid_constant__ CUtensorMap tk,
-                    const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdq,
-                    Params p) {
-  using L = DqSmem<D>;
-  constexpr int NB = L::NB, STAGES = L::STAGES;
+// acc (64 x D, f32) += A B over the NP-piece pairs, A (64 x K) the pieces
+// in registers and B (K x D) MN-major from `b`, its pieces `piece` bytes
+// apart and its 64-column boxes `box` bytes apart: per 64 columns into a
+// fresh partial on the tensor cores, then added in f32, so that their
+// accumulation (which does not round to nearest: each step can drop up to
+// an ulp of the running sum, always the same way) spans one tile's
+// products instead of the whole sum.  Waits for its products.
+template <int D, int NP, int K>
+__device__ __forceinline__ void add_partial(float (&acc)[D / 2], uint32_t (&a)[NP][K / 16][4],
+                                            uint32_t b, int piece, int box) {
+  float part[32];
+#pragma unroll
+  for (int h = 0; h < D / 64; ++h) {
+#pragma unroll
+    for (int pc = 0; pc < NP; ++pc)
+#pragma unroll
+      for (int kc = 0; kc < K / 16; ++kc) hopper::fence_regs(a[pc][kc]);
+    hopper::fence_regs(part);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < hopper::n_pairs(NP); ++k)
+#pragma unroll
+      for (int kc = 0; kc < K / 16; ++kc)
+        hopper::wgmma_rs<64, 1>(part, a[hopper::pair_i(NP, k)][kc],
+                                mnmajor<K>(b + hopper::pair_j(NP, k) * piece + h * box, kc),
+                                k > 0 || kc > 0);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(part);
+#pragma unroll
+    for (int x = 0; x < 32; ++x) acc[32 * h + x] += part[x];
+  }
+}
+
+// Pass 1: dQ, and each row's Delta and lse * log2(e) for pass 2.  The maps
+// read the operands' pieces (B' = NP B, piece p of batch b at p B + b); O
+// (read for Delta) and dQ (written) are maps of bf16 tensors (NP = 1).
+template <int D, int NP, bool CAUSAL>
+__device__ __forceinline__ void dq_body(const CUtensorMap& tq, const CUtensorMap& tdo,
+                                        const CUtensorMap& to, const CUtensorMap& tk,
+                                        const CUtensorMap& tv, const CUtensorMap& tdq,
+                                        const Params& p) {
+  using L = DqSmem<D, NP>;
+  constexpr int NB = L::NB, STAGES = L::STAGES, WG = L::WG, BK = L::BK, KB = L::KB;
+  constexpr int ROWS = WG * TILE, NPAIR = hopper::n_pairs(NP);
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = align_1024(smem_raw);
   uint64_t* qo_full = reinterpret_cast<uint64_t*>(sm + L::BAR);
@@ -518,59 +353,63 @@ __global__ void __launch_bounds__(WNT, Stages<D>::DQ_BLOCKS)
   // Block order as the forward's: causal, the heads fastest and the q
   // tiles with the most keys first; otherwise a head's q tiles together,
   // so that its K and V come from device memory once and then from L2
-  const int nq = (S + 2 * TILE - 1) / (2 * TILE);
+  const int nq = (S + ROWS - 1) / ROWS;
   int h, b, q0;
   if (CAUSAL) {
     h = blockIdx.x % p.H;
     b = blockIdx.x / p.H % p.B;
-    q0 = (nq - 1 - static_cast<int>(blockIdx.x / (p.H * p.B))) * 2 * TILE;
+    q0 = (nq - 1 - static_cast<int>(blockIdx.x / (p.H * p.B))) * ROWS;
   } else {
-    q0 = blockIdx.x % nq * 2 * TILE;
+    q0 = blockIdx.x % nq * ROWS;
     h = blockIdx.x / nq % p.H;
     b = blockIdx.x / (nq * p.H);
   }
   const int hk = h / (p.H / p.Hkv);
-  const int n_tiles = CAUSAL ? (min(q0 + 2 * TILE, S) - 1) / TILE + 1 : (S + TILE - 1) / TILE;
+  const int n_tiles = CAUSAL ? (min(q0 + ROWS, S) - 1) / BK + 1 : (S + BK - 1) / BK;
 
   // K and V of key tile i into stage i % STAGES (thread 0 only)
   auto load_kv = [&](int i) {
     const int s = i % STAGES;
-    hopper::mbar_expect_tx(&kv_full[s], 2 * NB * BOX_BYTES);
+    hopper::mbar_expect_tx(&kv_full[s], 2 * NP * NB * KB);
 #pragma unroll
-    for (int x = 0; x < NB; ++x) {
-      hopper::tma_load_4d(sm + L::K + (s * NB + x) * BOX_BYTES, &tk, &kv_full[s], x * BOX, hk,
-                          i * TILE, b);
-      hopper::tma_load_4d(sm + L::V + (s * NB + x) * BOX_BYTES, &tv, &kv_full[s], x * BOX, hk,
-                          i * TILE, b);
-    }
+    for (int pc = 0; pc < NP; ++pc)
+#pragma unroll
+      for (int x = 0; x < NB; ++x) {
+        const int off = ((s * NP + pc) * NB + x) * KB;
+        hopper::tma_load_4d(sm + L::K + off, &tk, &kv_full[s], x * BOX, hk, i * BK, pc * p.B + b);
+        hopper::tma_load_4d(sm + L::V + off, &tv, &kv_full[s], x * BOX, hk, i * BK, pc * p.B + b);
+      }
   };
   if (tid == 0) {
     hopper::mbar_init(qo_full, 1);
     for (int s = 0; s < STAGES; ++s) {
       hopper::mbar_init(&kv_full[s], 1);
-      hopper::mbar_init(&kv_empty[s], WNT / 32);  // every consumer warp
+      hopper::mbar_init(&kv_empty[s], WG * 4);  // every consumer warp
     }
     hopper::mbar_fence_init();
   }
   __syncthreads();
   if (tid == 0) {
-    hopper::mbar_expect_tx(qo_full, 6 * NB * BOX_BYTES);
-    for (int w = 0; w < 2; ++w)
+    hopper::mbar_expect_tx(qo_full, (NP == 1 ? 3 : 2) * WG * NP * NB * BOX_BYTES);
+    for (int w = 0; w < WG; ++w)
 #pragma unroll
-      for (int x = 0; x < NB; ++x) {
-        const int off = (w * NB + x) * BOX_BYTES;
-        hopper::tma_load_4d(sm + L::Q + off, &tq, qo_full, x * BOX, h, q0 + w * TILE, b);
-        hopper::tma_load_4d(sm + L::DO + off, &tdo, qo_full, x * BOX, h, q0 + w * TILE, b);
-        hopper::tma_load_4d(sm + L::O + off, &to, qo_full, x * BOX, h, q0 + w * TILE, b);
-      }
+      for (int pc = 0; pc < NP; ++pc)
+#pragma unroll
+        for (int x = 0; x < NB; ++x) {
+          const int off = ((w * NP + pc) * NB + x) * BOX_BYTES, row = q0 + w * TILE;
+          hopper::tma_load_4d(sm + L::Q + off, &tq, qo_full, x * BOX, h, row, pc * p.B + b);
+          hopper::tma_load_4d(sm + L::DO + off, &tdo, qo_full, x * BOX, h, row, pc * p.B + b);
+          if constexpr (NP == 1)
+            hopper::tma_load_4d(sm + L::O + off, &to, qo_full, x * BOX, h, row, b);
+        }
     for (int i = 0; i < min(STAGES, n_tiles); ++i) load_kv(i);
   }
 
   // this warpgroup's rows r0 .. r0 + 63; this thread's r0 + rl0 and r0 + rl0 + 8
   const int r0 = q0 + wg * TILE;
   const int rl0 = warp * 16 + g;
-  const uint32_t q_s = hopper::smem_addr(sm + L::Q + wg * NB * BOX_BYTES);
-  const uint32_t do_s = hopper::smem_addr(sm + L::DO + wg * NB * BOX_BYTES);
+  const uint32_t q_s = hopper::smem_addr(sm + L::Q + wg * NP * NB * BOX_BYTES);
+  const uint32_t do_s = hopper::smem_addr(sm + L::DO + wg * NP * NB * BOX_BYTES);
   const uint32_t k_s = hopper::smem_addr(sm + L::K);
   const uint32_t v_s = hopper::smem_addr(sm + L::V);
   const float scale2 = p.scale * LOG2E;
@@ -583,8 +422,11 @@ __global__ void __launch_bounds__(WNT, Stages<D>::DQ_BLOCKS)
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int rl = rl0 + 8 * r, row = r0 + rl;
-    const float d = row_dot<NB>(sm + L::O + wg * NB * BOX_BYTES,
-                                sm + L::DO + wg * NB * BOX_BYTES, rl, t);
+    float d;
+    if constexpr (NP == 1)
+      d = row_dot<NB>(sm + L::O + wg * NB * BOX_BYTES, sm + L::DO + wg * NB * BOX_BYTES, rl, t);
+    else
+      d = row_dot_f32<D>(p, b, h, row, t);
     dl[r] = row < S ? d : 0.f;
     lse2[r] = row < S ? p.lse[(static_cast<long long>(b) * p.H + h) * S + row] * LOG2E : INFINITY;
     if (t == 0 && row < n_qt * TILE) {
@@ -594,8 +436,8 @@ __global__ void __launch_bounds__(WNT, Stages<D>::DQ_BLOCKS)
     }
   }
 
-  float s[TILE / 2], dp[TILE / 2], dq[D / 2];
-  uint32_t da[TILE / 16][4];
+  float s[BK / 2], dp[BK / 2], dq[D / 2];
+  uint32_t da[NP][BK / 16][4];
 #pragma unroll
   for (int x = 0; x < D / 2; ++x) dq[x] = 0.f;
   auto fence_all = [&] {
@@ -603,16 +445,19 @@ __global__ void __launch_bounds__(WNT, Stages<D>::DQ_BLOCKS)
     hopper::fence_regs(dp);
     hopper::fence_regs(dq);
 #pragma unroll
-    for (int kc = 0; kc < TILE / 16; ++kc) hopper::fence_regs(da[kc]);
+    for (int pc = 0; pc < NP; ++pc)
+#pragma unroll
+      for (int kc = 0; kc < BK / 16; ++kc) hopper::fence_regs(da[pc][kc]);
   };
 
   // An iteration issues S = Q K^T and dP = dO V^T, waits for S, computes P
   // while dP runs, waits for dP, packs dS and issues dQ += dS K, waits for
-  // it and releases the stage.  Every branch around a wgmma depends on
-  // the block alone, so a warpgroup that sees none of a tile's keys
-  // computes it all the same, with P = 0.
+  // it and releases the stage; each product the sum over the piece pairs
+  // (i, j), smallest first.  Every branch around a wgmma depends on the
+  // block alone, so a warpgroup that sees none of a tile's keys computes
+  // it all the same, with P = 0.
   for (int i = 0; i < n_tiles; ++i) {
-    const int st = i % STAGES, k0 = i * TILE;
+    const int st = i % STAGES, k0 = i * BK;
     // refill the stage that every warp released in the previous iteration
     if (tid == 0 && i >= 1 && i - 1 + STAGES < n_tiles) {
       hopper::mbar_wait(&kv_empty[(i - 1) % STAGES], ((i - 1) / STAGES) & 1);
@@ -620,23 +465,31 @@ __global__ void __launch_bounds__(WNT, Stages<D>::DQ_BLOCKS)
     }
     __syncwarp();
     auto step = [&](auto masked) {
-      const uint32_t kst = k_s + st * NB * BOX_BYTES, vst = v_s + st * NB * BOX_BYTES;
+      const uint32_t kst = k_s + st * NP * NB * KB, vst = v_s + st * NP * NB * KB;
       hopper::mbar_wait(&kv_full[st], (i / STAGES) & 1);
       fence_all();
       hopper::wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        hopper::wgmma_ss<TILE, 0, 0>(s, kmajor(q_s, kk), kmajor(kst, kk), kk > 0);
+      for (int k = 0; k < NPAIR; ++k)
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          hopper::wgmma_ss<BK, 0, 0>(s, kmajor<TILE>(q_s + hopper::pair_i(NP, k) * NB * BOX_BYTES, kk),
+                                     kmajor<BK>(kst + hopper::pair_j(NP, k) * NB * KB, kk),
+                                     k > 0 || kk > 0);
       hopper::wgmma_commit();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        hopper::wgmma_ss<TILE, 0, 0>(dp, kmajor(do_s, kk), kmajor(vst, kk), kk > 0);
+      for (int k = 0; k < NPAIR; ++k)
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          hopper::wgmma_ss<BK, 0, 0>(dp, kmajor<TILE>(do_s + hopper::pair_i(NP, k) * NB * BOX_BYTES, kk),
+                                     kmajor<BK>(vst + hopper::pair_j(NP, k) * NB * KB, kk),
+                                     k > 0 || kk > 0);
       hopper::wgmma_commit();
       hopper::wgmma_wait<1>();
       hopper::fence_regs(s);
       // s[x]: row r0 + rl0 + 8 ((x >> 1) & 1), key k0 + 8 (x / 4) + 2 t + (x & 1)
 #pragma unroll
-      for (int x = 0; x < TILE / 2; ++x) {
+      for (int x = 0; x < BK / 2; ++x) {
         const int r = (x >> 1) & 1;
         s[x] = hopper::exp2_approx(fmaf(s[x], scale2, -lse2[r]));
         if constexpr (decltype(masked)::value) {
@@ -647,48 +500,60 @@ __global__ void __launch_bounds__(WNT, Stages<D>::DQ_BLOCKS)
       hopper::wgmma_wait<0>();
       hopper::fence_regs(dp);
 #pragma unroll
-      for (int x = 0; x < TILE / 2; ++x)
+      for (int x = 0; x < BK / 2; ++x)
         dp[x] = s[x] * (dp[x] - dl[(x >> 1) & 1]);  // dq: dS = P (dP - Delta)
 #pragma unroll
-      for (int kc = 0; kc < TILE / 16; ++kc)
+      for (int kc = 0; kc < BK / 16; ++kc)
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          da[kc][e] = hopper::pack_bf16(dp[8 * kc + 2 * e], dp[8 * kc + 2 * e + 1]);
-      fence_all();
-      hopper::wgmma_fence();
+        for (int e = 0; e < 4; ++e) {
+          uint32_t w[NP];
+          hopper::pack_bf16_pieces<NP>(dp[8 * kc + 2 * e], dp[8 * kc + 2 * e + 1], w);  // dS's pieces
 #pragma unroll
-      for (int kc = 0; kc < TILE / 16; ++kc)
-        hopper::wgmma_rs<D, 1>(dq, da[kc], mnmajor(kst, kc), 1);
-      hopper::wgmma_commit();
-      hopper::wgmma_wait<0>();
-      fence_all();
+          for (int pc = 0; pc < NP; ++pc) da[pc][kc][e] = w[pc];
+        }
+      if constexpr (NP == 1) {
+        fence_all();
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kc = 0; kc < BK / 16; ++kc)
+          hopper::wgmma_rs<D, 1>(dq, da[0][kc], mnmajor<BK>(kst, kc), 1);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        fence_all();
+      } else {
+        add_partial<D, NP, BK>(dq, da, kst, NB * KB, KB);  // dQ += dS K, per tile
+      }
       if (lane == 0) hopper::mbar_arrive(&kv_empty[st]);
     };
     // the causal diagonal, and the tile holding S's ragged end
-    if (k0 + TILE > S || (CAUSAL && k0 + TILE - 1 > q0))
+    if (k0 + BK > S || (CAUSAL && k0 + BK - 1 > q0))
       step(std::true_type{});
     else
       step(std::false_type{});
   }
 
   if (r0 >= S) return;  // the whole warpgroup lies past S
-  acc_to_boxes<D>(sm + L::Q + wg * NB * BOX_BYTES, dq, p.scale, rl0, g, t);
-  hopper::fence_proxy_async();
-  hopper::named_barrier(1 + wg, 128);
-  if (tid % 128 == 0) store_boxes<NB>(&tdq, sm + L::Q + wg * NB * BOX_BYTES, h, r0, b);
+  if constexpr (NP == 1) {
+    acc_to_boxes<D>(sm + L::Q + wg * NB * BOX_BYTES, dq, p.scale, rl0, g, t);
+    hopper::fence_proxy_async();
+    hopper::named_barrier(1 + wg, 128);
+    if (tid % 128 == 0) store_boxes<NB>(&tdq, sm + L::Q + wg * NB * BOX_BYTES, h, r0, b);
+  } else {
+    acc_to_f32<D>(static_cast<float*>(p.dq), dq, p.scale, b, S, p.H, h, r0 + rl0, t);
+  }
 }
 
-// Pass 2: dK and dV, reading the lse and Delta that pass 1 wrote.
-template <int D, bool CAUSAL>
-__global__ void __launch_bounds__(WNT, 1)
-    dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
-                      const __grid_constant__ CUtensorMap tdo,
-                      const __grid_constant__ CUtensorMap tk,
-                      const __grid_constant__ CUtensorMap tv,
-                      const __grid_constant__ CUtensorMap tdk,
-                      const __grid_constant__ CUtensorMap tdv, Params p) {
-  using L = KvSmem<D>;
-  constexpr int NB = L::NB, STAGES = L::STAGES;
+// Pass 2: dK and dV, reading the lse and Delta that pass 1 wrote.  The
+// maps read the operands' pieces; dK and dV are written through maps of
+// bf16 tensors (NP = 1).
+template <int D, int NP, bool CAUSAL>
+__device__ __forceinline__ void dkdv_body(const CUtensorMap& tq, const CUtensorMap& tdo,
+                                          const CUtensorMap& tk, const CUtensorMap& tv,
+                                          const CUtensorMap& tdk, const CUtensorMap& tdv,
+                                          const Params& p) {
+  using L = KvSmem<D, NP>;
+  constexpr int NB = L::NB, STAGES = L::STAGES, WG = L::WG, QT = L::QT, QB = L::QB;
+  constexpr int KEYS = WG * TILE, NPAIR = hopper::n_pairs(NP);
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = align_1024(smem_raw);
   uint64_t* kv_full = reinterpret_cast<uint64_t*>(sm + L::BAR);
@@ -701,7 +566,7 @@ __global__ void __launch_bounds__(WNT, 1)
   const int S = p.S;
   // Block order: causal, the key tiles that the most q tiles see first;
   // otherwise a kv head's key tiles together (its q and dO from L2)
-  const int nk = (S + 2 * TILE - 1) / (2 * TILE);
+  const int nk = (S + KEYS - 1) / KEYS;
   int kt, hk, b;
   if (CAUSAL) {
     hk = blockIdx.x % p.Hkv;
@@ -712,105 +577,132 @@ __global__ void __launch_bounds__(WNT, 1)
     hk = blockIdx.x / nk % p.Hkv;
     b = blockIdx.x / (nk * p.Hkv);
   }
-  const int k0 = kt * 2 * TILE;
+  const int k0 = kt * KEYS;
   const int rep = p.H / p.Hkv;
-  const int n_qt = (S + TILE - 1) / TILE;
-  const int qt_lo = CAUSAL ? k0 / TILE : 0;  // the first q tile that sees a key of the block
+  const int n_qt = (S + QT - 1) / QT;        // q tiles of QT rows
+  const int n_st = (S + TILE - 1) / TILE;    // the scratch's q tiles of 64 rows
+  const int qt_lo = CAUSAL ? k0 / QT : 0;    // the first q tile that sees a key of the block
   const int nq = n_qt - qt_lo;
   const int n_iter = rep * nq;  // the ring runs over rep heads x q tiles
 
   // Q, dO, lse and Delta of iteration i into stage i % STAGES (thread 0 only)
   auto load_q = [&](int i) {
     const int s = i % STAGES, h = hk * rep + i / nq, qt = qt_lo + i % nq;
-    hopper::mbar_expect_tx(&q_full[s], 2 * NB * BOX_BYTES + STAT_BYTES);
+    hopper::mbar_expect_tx(&q_full[s], 2 * NP * NB * QB + L::STAT_B);
 #pragma unroll
-    for (int x = 0; x < NB; ++x) {
-      hopper::tma_load_4d(sm + L::Q + (s * NB + x) * BOX_BYTES, &tq, &q_full[s], x * BOX, h,
-                          qt * TILE, b);
-      hopper::tma_load_4d(sm + L::DO + (s * NB + x) * BOX_BYTES, &tdo, &q_full[s], x * BOX, h,
-                          qt * TILE, b);
+    for (int pc = 0; pc < NP; ++pc)
+#pragma unroll
+      for (int x = 0; x < NB; ++x) {
+        const int off = ((s * NP + pc) * NB + x) * QB;
+        hopper::tma_load_4d(sm + L::Q + off, &tq, &q_full[s], x * BOX, h, qt * QT, pc * p.B + b);
+        hopper::tma_load_4d(sm + L::DO + off, &tdo, &q_full[s], x * BOX, h, qt * QT, pc * p.B + b);
+      }
+    const float* stat = p.delta + ((static_cast<long long>(b) * p.H + h) * n_st + qt * QT / TILE) *
+                                      2 * TILE + qt * QT % TILE;
+    uint8_t* dst = sm + L::STAT + s * L::STAT_B;
+    if constexpr (QT == TILE) {
+      hopper::bulk_load(dst, stat, L::STAT_B, &q_full[s]);
+    } else {  // this tile's part of the scratch tile's lse, then of its Delta
+      hopper::bulk_load(dst, stat, QT * 4, &q_full[s]);
+      hopper::bulk_load(dst + QT * 4, stat + TILE, QT * 4, &q_full[s]);
     }
-    hopper::bulk_load(sm + L::STAT + s * STAT_BYTES,
-                      p.delta + ((static_cast<long long>(b) * p.H + h) * n_qt + qt) * 2 * TILE,
-                      STAT_BYTES, &q_full[s]);
   };
   if (tid == 0) {
     hopper::mbar_init(kv_full, 1);
     for (int s = 0; s < STAGES; ++s) {
       hopper::mbar_init(&q_full[s], 1);
-      hopper::mbar_init(&q_empty[s], WNT / 32);
+      hopper::mbar_init(&q_empty[s], WG * 4);
     }
     hopper::mbar_fence_init();
   }
   __syncthreads();
   if (tid == 0) {
-    hopper::mbar_expect_tx(kv_full, 4 * NB * BOX_BYTES);
-    for (int w = 0; w < 2; ++w)
+    hopper::mbar_expect_tx(kv_full, 2 * WG * NP * NB * BOX_BYTES);
+    for (int w = 0; w < WG; ++w)
 #pragma unroll
-      for (int x = 0; x < NB; ++x) {
-        const int off = (w * NB + x) * BOX_BYTES;
-        hopper::tma_load_4d(sm + L::K + off, &tk, kv_full, x * BOX, hk, k0 + w * TILE, b);
-        hopper::tma_load_4d(sm + L::V + off, &tv, kv_full, x * BOX, hk, k0 + w * TILE, b);
-      }
+      for (int pc = 0; pc < NP; ++pc)
+#pragma unroll
+        for (int x = 0; x < NB; ++x) {
+          const int off = ((w * NP + pc) * NB + x) * BOX_BYTES, key = k0 + w * TILE;
+          hopper::tma_load_4d(sm + L::K + off, &tk, kv_full, x * BOX, hk, key, pc * p.B + b);
+          hopper::tma_load_4d(sm + L::V + off, &tv, kv_full, x * BOX, hk, key, pc * p.B + b);
+        }
     for (int i = 0; i < min(STAGES, n_iter); ++i) load_q(i);
   }
 
   // this warpgroup's keys k0 + 64 wg ..; this thread's key0 and key0 + 8
   const int rl0 = warp * 16 + g;
   const int key0 = k0 + wg * TILE + rl0;
-  const uint32_t k_s = hopper::smem_addr(sm + L::K + wg * NB * BOX_BYTES);
-  const uint32_t v_s = hopper::smem_addr(sm + L::V + wg * NB * BOX_BYTES);
+  const uint32_t k_s = hopper::smem_addr(sm + L::K + wg * NP * NB * BOX_BYTES);
+  const uint32_t v_s = hopper::smem_addr(sm + L::V + wg * NP * NB * BOX_BYTES);
   const uint32_t q_s = hopper::smem_addr(sm + L::Q);
   const uint32_t do_s = hopper::smem_addr(sm + L::DO);
   const float scale2 = p.scale * LOG2E;
 
-  float s[TILE / 2], dp[TILE / 2], dk[D / 2], dv[D / 2];
-  uint32_t pa[TILE / 16][4], da[TILE / 16][4];
+  // P^T and dS^T as A operands: bf16 inputs keep both (one commit for dV
+  // and dK); on pieces `pa` holds P^T's and then dS^T's
+  float s[QT / 2], dp[QT / 2], dk[D / 2], dv[D / 2];
+  uint32_t pa[NP][QT / 16][4], da[QT / 16][4];
 #pragma unroll
   for (int x = 0; x < D / 2; ++x) dk[x] = dv[x] = 0.f;
+  auto fence_pa = [&] {
+#pragma unroll
+    for (int pc = 0; pc < NP; ++pc)
+#pragma unroll
+      for (int kc = 0; kc < QT / 16; ++kc) hopper::fence_regs(pa[pc][kc]);
+  };
   auto fence_all = [&] {
     hopper::fence_regs(s);
     hopper::fence_regs(dp);
     hopper::fence_regs(dk);
     hopper::fence_regs(dv);
+    fence_pa();
+    if constexpr (NP == 1)
 #pragma unroll
-    for (int kc = 0; kc < TILE / 16; ++kc) {
-      hopper::fence_regs(pa[kc]);
-      hopper::fence_regs(da[kc]);
-    }
+      for (int kc = 0; kc < QT / 16; ++kc) hopper::fence_regs(da[kc]);
   };
   hopper::mbar_wait(kv_full, 0);
 
   // An iteration issues S^T = K Q^T and dP^T = V dO^T, waits for S^T,
   // computes P^T while dP^T runs, waits, forms dS^T, packs both and issues
   // dV += P^T dO and dK += dS^T Q, waits for them and releases the stage.
+  // On pieces, dV is issued as soon as P^T is packed, and dS^T is formed
+  // while it runs.
   for (int i = 0; i < n_iter; ++i) {
-    const int st = i % STAGES, q0 = (qt_lo + i % nq) * TILE;
+    const int st = i % STAGES, q0 = (qt_lo + i % nq) * QT;
     if (tid == 0 && i >= 1 && i - 1 + STAGES < n_iter) {
       hopper::mbar_wait(&q_empty[(i - 1) % STAGES], ((i - 1) / STAGES) & 1);
       load_q(i - 1 + STAGES);
     }
     __syncwarp();
     auto step = [&](auto masked) {
-      const uint32_t qst = q_s + st * NB * BOX_BYTES, dost = do_s + st * NB * BOX_BYTES;
-      const float* lse2 = reinterpret_cast<const float*>(sm + L::STAT + st * STAT_BYTES);
-      const float* dl = lse2 + TILE;
+      const uint32_t qst = q_s + st * NP * NB * QB, dost = do_s + st * NP * NB * QB;
+      const float* lse2 = reinterpret_cast<const float*>(sm + L::STAT + st * L::STAT_B);
+      const float* dl = lse2 + QT;
       hopper::mbar_wait(&q_full[st], (i / STAGES) & 1);
       fence_all();
       hopper::wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        hopper::wgmma_ss<TILE, 0, 0>(s, kmajor(k_s, kk), kmajor(qst, kk), kk > 0);
+      for (int k = 0; k < NPAIR; ++k)
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          hopper::wgmma_ss<QT, 0, 0>(s, kmajor<TILE>(k_s + hopper::pair_i(NP, k) * NB * BOX_BYTES, kk),
+                                     kmajor<QT>(qst + hopper::pair_j(NP, k) * NB * QB, kk),
+                                     k > 0 || kk > 0);
       hopper::wgmma_commit();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        hopper::wgmma_ss<TILE, 0, 0>(dp, kmajor(v_s, kk), kmajor(dost, kk), kk > 0);
+      for (int k = 0; k < NPAIR; ++k)
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          hopper::wgmma_ss<QT, 0, 0>(dp, kmajor<TILE>(v_s + hopper::pair_i(NP, k) * NB * BOX_BYTES, kk),
+                                     kmajor<QT>(dost + hopper::pair_j(NP, k) * NB * QB, kk),
+                                     k > 0 || kk > 0);
       hopper::wgmma_commit();
       hopper::wgmma_wait<1>();
       hopper::fence_regs(s);
       // s[4 j + e]: key key0 + 8 (e >> 1), q row q0 + 8 j + 2 t + (e & 1)
 #pragma unroll
-      for (int j = 0; j < TILE / 8; ++j) {
+      for (int j = 0; j < QT / 8; ++j) {
         const float2 l = *reinterpret_cast<const float2*>(lse2 + 8 * j + 2 * t);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
@@ -820,37 +712,66 @@ __global__ void __launch_bounds__(WNT, 1)
             s[x] = key0 + 8 * (e >> 1) > q0 + 8 * j + 2 * t + (e & 1) ? 0.f : s[x];
         }
       }
-      hopper::wgmma_wait<0>();
-      hopper::fence_regs(dp);
+      auto form_ds = [&] {
 #pragma unroll
-      for (int j = 0; j < TILE / 8; ++j) {
-        const float2 d = *reinterpret_cast<const float2*>(dl + 8 * j + 2 * t);
+        for (int j = 0; j < QT / 8; ++j) {
+          const float2 d = *reinterpret_cast<const float2*>(dl + 8 * j + 2 * t);
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          dp[4 * j + e] = s[4 * j + e] * (dp[4 * j + e] - (e & 1 ? d.y : d.x));  // dS^T
-      }
-#pragma unroll
-      for (int kc = 0; kc < TILE / 16; ++kc)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          pa[kc][e] = hopper::pack_bf16(s[8 * kc + 2 * e], s[8 * kc + 2 * e + 1]);
-          da[kc][e] = hopper::pack_bf16(dp[8 * kc + 2 * e], dp[8 * kc + 2 * e + 1]);
+          for (int e = 0; e < 4; ++e)
+            dp[4 * j + e] = s[4 * j + e] * (dp[4 * j + e] - (e & 1 ? d.y : d.x));  // dS^T
         }
-      fence_all();
-      hopper::wgmma_fence();
+      };
+      if constexpr (NP == 1) {
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(dp);
+        form_ds();
 #pragma unroll
-      for (int kc = 0; kc < TILE / 16; ++kc)
-        hopper::wgmma_rs<D, 1>(dv, pa[kc], mnmajor(dost, kc), 1);
+        for (int kc = 0; kc < QT / 16; ++kc)
 #pragma unroll
-      for (int kc = 0; kc < TILE / 16; ++kc)
-        hopper::wgmma_rs<D, 1>(dk, da[kc], mnmajor(qst, kc), 1);
-      hopper::wgmma_commit();
+          for (int e = 0; e < 4; ++e) {
+            pa[0][kc][e] = hopper::pack_bf16(s[8 * kc + 2 * e], s[8 * kc + 2 * e + 1]);
+            da[kc][e] = hopper::pack_bf16(dp[8 * kc + 2 * e], dp[8 * kc + 2 * e + 1]);
+          }
+        fence_all();
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kc = 0; kc < QT / 16; ++kc)
+          hopper::wgmma_rs<D, 1>(dv, pa[0][kc], mnmajor<QT>(dost, kc), 1);
+#pragma unroll
+        for (int kc = 0; kc < QT / 16; ++kc)
+          hopper::wgmma_rs<D, 1>(dk, da[kc], mnmajor<QT>(qst, kc), 1);
+        hopper::wgmma_commit();
+      } else {  // dV and dK each through per-64-column partials (add_partial)
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(dp);
+        form_ds();
+#pragma unroll
+        for (int kc = 0; kc < QT / 16; ++kc)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            uint32_t w[NP];
+            hopper::pack_bf16_pieces<NP>(s[8 * kc + 2 * e], s[8 * kc + 2 * e + 1], w);  // P^T's pieces
+#pragma unroll
+            for (int pc = 0; pc < NP; ++pc) pa[pc][kc][e] = w[pc];
+          }
+        add_partial<D, NP, QT>(dv, pa, dost, NB * QB, QB);
+#pragma unroll
+        for (int kc = 0; kc < QT / 16; ++kc)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            uint32_t w[NP];
+            hopper::pack_bf16_pieces<NP>(dp[8 * kc + 2 * e], dp[8 * kc + 2 * e + 1], w);  // dS^T's pieces
+#pragma unroll
+            for (int pc = 0; pc < NP; ++pc) pa[pc][kc][e] = w[pc];
+          }
+        add_partial<D, NP, QT>(dk, pa, qst, NB * QB, QB);
+      }
       hopper::wgmma_wait<0>();
       fence_all();
       if (lane == 0) hopper::mbar_arrive(&q_empty[st]);
     };
     // causal: the q tiles that hold a row before one of the block's keys
-    if (CAUSAL && k0 + 2 * TILE - 1 > q0)
+    if (CAUSAL && k0 + KEYS - 1 > q0)
       step(std::true_type{});
     else
       step(std::false_type{});
@@ -858,14 +779,64 @@ __global__ void __launch_bounds__(WNT, 1)
 
   const int kr0 = k0 + wg * TILE;
   if (kr0 >= S) return;  // the whole warpgroup lies past S
-  acc_to_boxes<D>(sm + L::K + wg * NB * BOX_BYTES, dk, p.scale, rl0, g, t);
-  acc_to_boxes<D>(sm + L::V + wg * NB * BOX_BYTES, dv, 1.f, rl0, g, t);
-  hopper::fence_proxy_async();
-  hopper::named_barrier(1 + wg, 128);
-  if (tid % 128 == 0) {
-    store_boxes<NB>(&tdk, sm + L::K + wg * NB * BOX_BYTES, hk, kr0, b);
-    store_boxes<NB>(&tdv, sm + L::V + wg * NB * BOX_BYTES, hk, kr0, b);
+  if constexpr (NP == 1) {
+    acc_to_boxes<D>(sm + L::K + wg * NB * BOX_BYTES, dk, p.scale, rl0, g, t);
+    acc_to_boxes<D>(sm + L::V + wg * NB * BOX_BYTES, dv, 1.f, rl0, g, t);
+    hopper::fence_proxy_async();
+    hopper::named_barrier(1 + wg, 128);
+    if (tid % 128 == 0) {
+      store_boxes<NB>(&tdk, sm + L::K + wg * NB * BOX_BYTES, hk, kr0, b);
+      store_boxes<NB>(&tdv, sm + L::V + wg * NB * BOX_BYTES, hk, kr0, b);
+    }
+  } else {
+    acc_to_f32<D>(static_cast<float*>(p.dk), dk, p.scale, b, S, p.Hkv, hk, key0, t);
+    acc_to_f32<D>(static_cast<float*>(p.dv), dv, 1.f, b, S, p.Hkv, hk, key0, t);
   }
+}
+
+// bf16 inputs and gradients
+template <int D, bool CAUSAL>
+__global__ void __launch_bounds__(Shape<D, 1>::WG * 128, Shape<D, 1>::DQ_BLOCKS)
+    dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
+                    const __grid_constant__ CUtensorMap to, const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdq,
+                    Params p) {
+  dq_body<D, 1, CAUSAL>(tq, tdo, to, tk, tv, tdq, p);
+}
+
+template <int D, bool CAUSAL>
+__global__ void __launch_bounds__(Shape<D, 1>::WG * 128, 1)
+    dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tdo,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const __grid_constant__ CUtensorMap tdk,
+                      const __grid_constant__ CUtensorMap tdv, Params p) {
+  dkdv_body<D, 1, CAUSAL>(tq, tdo, tk, tv, tdk, tdv, p);
+}
+
+// f32 inputs (read as their three bf16 pieces) and gradients; `to`, `tdq`,
+// `tdk` and `tdv` are not read
+template <int D, bool CAUSAL>
+__global__ void __launch_bounds__(Shape<D, 3>::WG * 128, Shape<D, 3>::DQ_BLOCKS)
+    dq_f32_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tdo,
+                        const __grid_constant__ CUtensorMap to,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        const __grid_constant__ CUtensorMap tdq, Params p) {
+  dq_body<D, 3, CAUSAL>(tq, tdo, to, tk, tv, tdq, p);
+}
+
+template <int D, bool CAUSAL>
+__global__ void __launch_bounds__(Shape<D, 3>::WG * 128, 1)
+    dkdv_f32_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tdo,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tdk,
+                          const __grid_constant__ CUtensorMap tdv, Params p) {
+  dkdv_body<D, 3, CAUSAL>(tq, tdo, tk, tv, tdk, tdv, p);
 }
 
 // ------------------------------------------------------------------ launch
@@ -878,56 +849,90 @@ cudaError_t set_smem(K kernel, int smem, bool* configured) {
   return e;
 }
 
-template <int D, bool CAUSAL>
-cudaError_t launch_bf16(const Params& p, cudaStream_t st) {
-  auto dq = dq_wgmma_kernel<D, CAUSAL>;
-  auto dkdv = dkdv_wgmma_kernel<D, CAUSAL>;
+// The bf16 operands the kernels read: q, k, v, o (bf16 inputs only) and
+// dout as (NP B, S, heads, D) with strides in elements, D contiguous.
+struct Operands {
+  const void* ptr[5];
+  long long stride[5][3];
+};
+
+template <int D, int NP, bool CAUSAL>
+cudaError_t launch(const Params& p, const Operands& x, cudaStream_t st) {
+  using T = Shape<D, NP>;
+  auto [dq, dkdv] = [] {
+    if constexpr (NP == 1)
+      return std::make_pair(dq_wgmma_kernel<D, CAUSAL>, dkdv_wgmma_kernel<D, CAUSAL>);
+    else
+      return std::make_pair(dq_f32_wgmma_kernel<D, CAUSAL>, dkdv_f32_wgmma_kernel<D, CAUSAL>);
+  }();
   static bool dq_ok = false, dkdv_ok = false;
   cudaError_t e;
-  if ((e = set_smem(dq, DqSmem<D>::BYTES, &dq_ok)) != cudaSuccess) return e;
-  if ((e = set_smem(dkdv, KvSmem<D>::BYTES, &dkdv_ok)) != cudaSuccess) return e;
-  // the gradients are contiguous
-  const long long q_row = static_cast<long long>(p.H) * D;
-  const long long kv_row = static_cast<long long>(p.Hkv) * D;
-  CUtensorMap tq, tdo, to, tk, tv, tdq, tdk, tdv;
-  if (!hopper::bhsd_map(&tq, p.q, p.B, p.S, p.H, D, p.q_sb, p.q_ss, p.q_sh, TILE) ||
-      !hopper::bhsd_map(&tdo, p.dout, p.B, p.S, p.H, D, p.do_sb, p.do_ss, p.do_sh, TILE) ||
-      !hopper::bhsd_map(&to, p.o, p.B, p.S, p.H, D, p.o_sb, p.o_ss, p.o_sh, TILE) ||
-      !hopper::bhsd_map(&tk, p.k, p.B, p.S, p.Hkv, D, p.k_sb, p.k_ss, p.k_sh, TILE) ||
-      !hopper::bhsd_map(&tv, p.v, p.B, p.S, p.Hkv, D, p.v_sb, p.v_ss, p.v_sh, TILE) ||
-      !hopper::bhsd_map(&tdq, p.dq, p.B, p.S, p.H, D, p.S * q_row, q_row, D, TILE) ||
-      !hopper::bhsd_map(&tdk, p.dk, p.B, p.S, p.Hkv, D, p.S * kv_row, kv_row, D, TILE) ||
-      !hopper::bhsd_map(&tdv, p.dv, p.B, p.S, p.Hkv, D, p.S * kv_row, kv_row, D, TILE))
-    return cudaErrorInvalidValue;
-  const unsigned n2 = (p.S + 2 * TILE - 1) / (2 * TILE);
-  dq<<<n2 * p.H * p.B, WNT, DqSmem<D>::BYTES, st>>>(tq, tdo, to, tk, tv, tdq, p);
+  if ((e = set_smem(dq, DqSmem<D, NP>::BYTES, &dq_ok)) != cudaSuccess) return e;
+  if ((e = set_smem(dkdv, KvSmem<D, NP>::BYTES, &dkdv_ok)) != cudaSuccess) return e;
+  auto map = [&](CUtensorMap* m, int i, int heads, int rows) {
+    return hopper::bhsd_map(m, x.ptr[i], NP * p.B, p.S, heads, D, x.stride[i][0], x.stride[i][1],
+                            x.stride[i][2], rows);
+  };
+  // dq reads 64-row boxes of q and dO and DQ_BK-row ones of k and v; dkdv
+  // 64-row boxes of k and v and QT-row ones of q and dO
+  CUtensorMap tq, tdo, tk, tv, tq2, tdo2, tk2, tv2, to{}, tdq{}, tdk{}, tdv{};
+  bool ok = map(&tq, 0, p.H, TILE) && map(&tdo, 4, p.H, TILE) && map(&tk, 1, p.Hkv, T::DQ_BK) &&
+            map(&tv, 2, p.Hkv, T::DQ_BK) && map(&tq2, 0, p.H, T::QT) &&
+            map(&tdo2, 4, p.H, T::QT) && map(&tk2, 1, p.Hkv, TILE) && map(&tv2, 2, p.Hkv, TILE);
+  if constexpr (NP == 1) {  // O and the gradients, bf16 and contiguous
+    const long long q_row = static_cast<long long>(p.H) * D;
+    const long long kv_row = static_cast<long long>(p.Hkv) * D;
+    ok = ok && map(&to, 3, p.H, TILE) &&
+         hopper::bhsd_map(&tdq, p.dq, p.B, p.S, p.H, D, p.S * q_row, q_row, D, TILE) &&
+         hopper::bhsd_map(&tdk, p.dk, p.B, p.S, p.Hkv, D, p.S * kv_row, kv_row, D, TILE) &&
+         hopper::bhsd_map(&tdv, p.dv, p.B, p.S, p.Hkv, D, p.S * kv_row, kv_row, D, TILE);
+  }
+  if (!ok) return cudaErrorInvalidValue;
+  const unsigned n2 = (p.S + T::WG * TILE - 1) / (T::WG * TILE);
+  dq<<<n2 * p.H * p.B, T::WG * 128, DqSmem<D, NP>::BYTES, st>>>(tq, tdo, to, tk, tv, tdq, p);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  dkdv<<<n2 * p.Hkv * p.B, WNT, KvSmem<D>::BYTES, st>>>(tq, tdo, tk, tv, tdk, tdv, p);
+  dkdv<<<n2 * p.Hkv * p.B, T::WG * 128, KvSmem<D, NP>::BYTES, st>>>(tq2, tdo2, tk2, tv2, tdk, tdv,
+                                                                      p);
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_f32(const Params& p, cudaStream_t st) {
-  static bool dq_ok = false, dkdv_ok = false;
-  const long long n_rows = static_cast<long long>(p.B) * p.S * p.H;
-  delta_kernel<float, D><<<static_cast<unsigned>((n_rows * 32 + 255) / 256), 256, 0, st>>>(p);
-  cudaError_t e;
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  if ((e = set_smem(dq_f32_kernel<float, D>, dq_smem_bytes<D>(), &dq_ok)) != cudaSuccess) return e;
-  dq_f32_kernel<float, D><<<dim3((p.S + BQ - 1) / BQ, p.H, p.B), NT, dq_smem_bytes<D>(), st>>>(p);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  if ((e = set_smem(dkdv_f32_kernel<float, D>, dkdv_smem_bytes<D>(), &dkdv_ok)) != cudaSuccess)
-    return e;
-  dkdv_f32_kernel<float, D>
-      <<<dim3((p.S + BK - 1) / BK, p.Hkv, p.B), NT, dkdv_smem_bytes<D>(), st>>>(p);
-  return cudaGetLastError();
+template <int D, int NP>
+cudaError_t launch_causal(const Params& p, const Operands& x, cudaStream_t st) {
+  return p.causal ? launch<D, NP, true>(p, x, st) : launch<D, NP, false>(p, x, st);
 }
 
 template <int D>
-cudaError_t launch_d(const Params& p, int dtype, cudaStream_t st) {
-  if (dtype == 0) return launch_f32<D>(p, st);
-  if (dtype == 1) return p.causal ? launch_bf16<D, true>(p, st) : launch_bf16<D, false>(p, st);
-  return cudaErrorInvalidValue;
+cudaError_t launch_d(const Params& p, int dtype, void* pieces, cudaStream_t st) {
+  if (dtype == 1)
+    return launch_causal<D, 1>(p, {{p.q, p.k, p.v, p.o, p.dout},
+                                   {{p.q_sb, p.q_ss, p.q_sh}, {p.k_sb, p.k_ss, p.k_sh},
+                                    {p.v_sb, p.v_ss, p.v_sh}, {p.o_sb, p.o_ss, p.o_sh},
+                                    {p.do_sb, p.do_ss, p.do_sh}}}, st);
+  if (dtype != 0 || pieces == nullptr) return cudaErrorInvalidValue;
+  // f32: q, k, v and dO into their pieces, one (3, B, S, heads, D) bf16
+  // tensor each, one after the other in the caller's scratch; Delta reads
+  // the f32 O and dO
+  const long long rq = static_cast<long long>(p.S) * p.H * D;
+  const long long rk = static_cast<long long>(p.S) * p.Hkv * D;
+  __nv_bfloat16* pq = static_cast<__nv_bfloat16*>(pieces);
+  __nv_bfloat16* pk = pq + 3 * p.B * rq;
+  __nv_bfloat16* pv = pk + 3 * p.B * rk;
+  __nv_bfloat16* pdo = pv + 3 * p.B * rk;
+  const hopper::SplitArgs a{
+      {static_cast<const float*>(p.q), static_cast<const float*>(p.k),
+       static_cast<const float*>(p.v), static_cast<const float*>(p.dout)},
+      {pq, pk, pv, pdo},
+      {p.q_sb, p.k_sb, p.v_sb, p.do_sb},
+      {p.q_ss, p.k_ss, p.v_ss, p.do_ss},
+      {p.q_sh, p.k_sh, p.v_sh, p.do_sh},
+      {p.H, p.Hkv, p.Hkv, p.H}};
+  cudaError_t e = hopper::split3(a, 4, p.B, p.S, D, st);
+  if (e != cudaSuccess) return e;
+  const long long sq[3] = {rq, static_cast<long long>(p.H) * D, D};
+  const long long sk[3] = {rk, static_cast<long long>(p.Hkv) * D, D};
+  return launch_causal<D, 3>(p, {{pq, pk, pv, nullptr, pdo},
+                                 {{sq[0], sq[1], sq[2]}, {sk[0], sk[1], sk[2]},
+                                  {sk[0], sk[1], sk[2]}, {0, 0, 0}, {sq[0], sq[1], sq[2]}}}, st);
 }
 
 }  // namespace
@@ -935,9 +940,12 @@ cudaError_t launch_d(const Params& p, int dtype, cudaStream_t st) {
 // Inputs (B, S, H|Hkv, D) with the given strides (elements, D contiguous);
 // lse (B, H, S) f32 from the forward; delta f32 scratch of B H ceil(S/64)
 // 128 elements; dq, dk, dv contiguous in the inputs' dtype.  dtype: 0 =
-// float32, 1 = bfloat16 (then q, k, v, o and dout must start on a 16-byte
-// boundary with strides of whole 16 bytes: the TMA's rule).  Returns a
-// cudaError_t (0 = launched).
+// float32 (then `pieces` is bf16 scratch of 3 B S (2 H + 2 Hkv) D elements
+// for q, k, v and dout as three bf16 pieces each), 1 = bfloat16 (then q,
+// k, v, o and dout must start on a 16-byte boundary with strides of whole
+// 16 bytes: the TMA's rule).  Returns a cudaError_t (0 = launched).
+// `pieces` comes last, after the stream, so that a caller passing it can
+// drive a build of an earlier source.
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                                    const void* dout, const float* lse, float* delta, void* dq,
                                    void* dk, void* dv, long long q_sb, long long q_ss,
@@ -946,13 +954,14 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
                                    long long v_sh, long long o_sb, long long o_ss,
                                    long long o_sh, long long do_sb, long long do_ss,
                                    long long do_sh, int B, int S, int H, int Hkv, int D,
-                                   int dtype, int causal, float scale, void* stream) {
+                                   int dtype, int causal, float scale, void* stream,
+                                   void* pieces) {
   Params p{q,    k,    v,    o,    dout, lse,  delta, dq,    dk,    dv,    q_sb,  q_ss,
            q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,  o_sb,  o_ss,  o_sh,  do_sb, do_ss,
            do_sh, B,   S,    H,    Hkv,  causal, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B <= 0 || S <= 0) return 0;
-  if (D == 64) return static_cast<int>(launch_d<64>(p, dtype, st));
-  if (D == 128) return static_cast<int>(launch_d<128>(p, dtype, st));
+  if (D == 64) return static_cast<int>(launch_d<64>(p, dtype, pieces, st));
+  if (D == 128) return static_cast<int>(launch_d<128>(p, dtype, pieces, st));
   return static_cast<int>(cudaErrorInvalidValue);
 }

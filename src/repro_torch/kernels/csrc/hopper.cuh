@@ -183,16 +183,18 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t smem_byte_addr, uint32_t
          static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | static_cast<uint64_t>(1) << 62;
 }
 
+#define HK_R16 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
 #define HK_R32                                                                            \
-  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
-  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+  HK_R16 ", %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, " \
+         "%31"
 #define HK_R64                                                                          \
   HK_R32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, " \
          "%47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
 #define HK_D8(d, i)                                                                     \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
       "+f"(d[i + 6]), "+f"(d[i + 7])
-#define HK_D32(d) HK_D8(d, 0), HK_D8(d, 8), HK_D8(d, 16), HK_D8(d, 24)
+#define HK_D16(d) HK_D8(d, 0), HK_D8(d, 8)
+#define HK_D32(d) HK_D16(d), HK_D8(d, 16), HK_D8(d, 24)
 #define HK_D64(d) HK_D32(d), HK_D8(d, 32), HK_D8(d, 40), HK_D8(d, 48), HK_D8(d, 56)
 
 // d (64 x N, f32) = A B + (scale_d ? d : 0), A (64 x 16) and B (16 x N)
@@ -203,8 +205,15 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t smem_byte_addr, uint32_t
 template <int N, int TA, int TB>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db,
                                          int scale_d) {
-  static_assert(N == 64 || N == 128, "wgmma_ss: N 64 or 128");
-  if constexpr (N == 64) {
+  static_assert(N == 32 || N == 64 || N == 128, "wgmma_ss: N 32, 64 or 128");
+  if constexpr (N == 32) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {" HK_R16
+        "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+        : HK_D16(d)
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+  } else if constexpr (N == 64) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" HK_R32
@@ -247,9 +256,11 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
   }
 }
 
+#undef HK_R16
 #undef HK_R32
 #undef HK_R64
 #undef HK_D8
+#undef HK_D16
 #undef HK_D32
 #undef HK_D64
 
@@ -264,6 +275,124 @@ __device__ __forceinline__ float exp2_approx(float x) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// ---------------------------------------------------------------------------
+// f32 operands on the bf16 tensor cores, as three bf16 pieces
+// ---------------------------------------------------------------------------
+//
+// x = x0 + x1 + x2 with x0 = bf16(x), x1 = bf16(x - x0), x2 = bf16(x - x0
+// - x1): each difference is exact in f32, and the three pieces carry
+// f32's 24 bits of mantissa (their sum is within 2^-24 |x| of x).  An f32
+// product A B is then the sum over the pairs i + j <= 2 of A_i B_j: six
+// bf16 wgmma products, each product exact; the terms dropped (i + j > 2)
+// are of order 2^-24 |A| |B|.  The tensor cores' f32 accumulation does
+// not round to nearest (a step can drop an ulp of the running sum, the
+// same way each time), so a long sum is best accumulated in partials
+// added in f32 (flash_attention_bwd.cu's add_partial).  NP = 1 is a bf16
+// operand as it is.
+
+// the number of piece pairs (i, j), i + j < np, of a product on np pieces
+__host__ __device__ constexpr int n_pairs(int np) { return np * (np + 1) / 2; }
+
+// pair k in the order of their sums, the smallest terms first; np = 3:
+// (0,2) (1,1) (2,0) (0,1) (1,0) (0,0)
+__host__ __device__ constexpr int pair_i(int np, int k) {
+  for (int lv = np - 1; lv >= 0; --lv) {
+    if (k <= lv) return k;
+    k -= lv + 1;
+  }
+  return 0;
+}
+__host__ __device__ constexpr int pair_j(int np, int k) {
+  for (int lv = np - 1; lv >= 0; --lv) {
+    if (k <= lv) return lv - k;
+    k -= lv + 1;
+  }
+  return 0;
+}
+
+// the NP bf16 pieces of (lo, hi), each packed as a wgmma A-register pair
+template <int NP>
+__device__ __forceinline__ void pack_bf16_pieces(float lo, float hi, uint32_t (&out)[NP]) {
+#pragma unroll
+  for (int i = 0; i < NP; ++i) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    out[i] = *reinterpret_cast<const uint32_t*>(&v);
+    const float2 f = __bfloat1622float2(v);
+    lo -= f.x;
+    hi -= f.y;
+  }
+}
+
+// Up to four (B, S, heads, D) f32 tensors (any strides, D contiguous),
+// each into its pieces: a contiguous bf16 (3, B, S, heads, D), which a
+// tensor map reads as (B' = 3 B, S, heads, D), piece p of batch b at p B + b.
+struct SplitArgs {
+  const float* src[4];
+  __nv_bfloat16* dst[4];
+  long long sb[4], ss[4], sh[4];
+  int heads[4];
+};
+
+template <typename T>
+__device__ __forceinline__ T pick(const T (&a)[4], int i) {  // no local-memory copy of `a`
+  return i == 0 ? a[0] : i == 1 ? a[1] : i == 2 ? a[2] : a[3];
+}
+
+// eight elements of a row a thread (two float4 loads where the row is
+// 16-byte aligned, one 16-byte store a piece); blockIdx.y: the tensor
+template <int D>
+__global__ void __launch_bounds__(256) split3_kernel(const __grid_constant__ SplitArgs a, int B,
+                                                      int S) {
+  static_assert(D % 8 == 0, "eight elements of one row a thread");
+  const int x = blockIdx.y;
+  const int heads = pick(a.heads, x);
+  const long long n = static_cast<long long>(B) * S * heads * D;
+  const long long i = (static_cast<long long>(blockIdx.x) * 256 + threadIdx.x) * 8;
+  if (i >= n) return;
+  const unsigned row = static_cast<unsigned>(i / D);  // (b, s, h)
+  const unsigned h = row % heads, bs = row / heads;
+  const long long s = bs % S, b = bs / S;
+  const float* src =
+      pick(a.src, x) + b * pick(a.sb, x) + s * pick(a.ss, x) + h * pick(a.sh, x) + i % D;
+  float v[8];
+  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    const float4 lo = reinterpret_cast<const float4*>(src)[0];
+    const float4 hi = reinterpret_cast<const float4*>(src)[1];
+    v[0] = lo.x, v[1] = lo.y, v[2] = lo.z, v[3] = lo.w;
+    v[4] = hi.x, v[5] = hi.y, v[6] = hi.z, v[7] = hi.w;
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = src[e];
+  }
+  uint32_t out[3][4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    uint32_t w[3];
+    pack_bf16_pieces<3>(v[2 * e], v[2 * e + 1], w);
+#pragma unroll
+    for (int p = 0; p < 3; ++p) out[p][e] = w[p];
+  }
+  __nv_bfloat16* dst = pick(a.dst, x) + i;
+#pragma unroll
+  for (int p = 0; p < 3; ++p)
+    *reinterpret_cast<uint4*>(dst + p * n) = make_uint4(out[p][0], out[p][1], out[p][2], out[p][3]);
+}
+
+// launches split3_kernel over the first n of `a`'s tensors
+inline cudaError_t split3(const SplitArgs& a, int n, int B, int S, int D, cudaStream_t st) {
+  int heads = 0;
+  for (int x = 0; x < n; ++x) heads = a.heads[x] > heads ? a.heads[x] : heads;
+  const dim3 grid(
+      static_cast<unsigned>((static_cast<long long>(B) * S * heads * D / 8 + 255) / 256), n);
+  if (D == 64)
+    split3_kernel<64><<<grid, 256, 0, st>>>(a, B, S);
+  else if (D == 128)
+    split3_kernel<128><<<grid, 256, 0, st>>>(a, B, S);
+  else
+    return cudaErrorInvalidValue;
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------

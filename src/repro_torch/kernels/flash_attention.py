@@ -4,6 +4,15 @@
 ``csrc/flash_attention_bwd.cu`` (the backward, which the JAX package
 takes as the vjp of ``flash_attention_ref``).
 
+Both run on the tensor cores (wgmma) in either dtype.  bf16 inputs are
+the products' operands as they are.  f32 inputs are first split, by a
+pre-pass of the same launch, into three bf16 pieces each (x = x0 + x1 +
+x2, ``ref.split3``), and every f32 product is the sum of the six bf16
+products of pieces i + j <= 2, exact in the f32 accumulator: f32
+accuracy (the terms dropped are of order 2^-24 |A| |B|) at a sixth of
+the bf16 rate, against the CUDA cores' 67 TFLOP/s.  The wrapper
+allocates the pieces as bf16 scratch.
+
 Takes CUDA tensors only; ``kernels/ops.py`` sends CPU tensors to the
 plain version in ``kernels/ref.py``."""
 from __future__ import annotations
@@ -18,8 +27,9 @@ from repro_torch.kernels import _build
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128)
 _P, _L, _I, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
-FWD_ARGTYPES = [_P] * 5 + [_L] * 12 + [_I] * 8 + [_F, _F, _P]
-BWD_ARGTYPES = [_P] * 10 + [_L] * 15 + [_I] * 7 + [_F, _P]
+# the stream, then the f32 inputs' pieces (null for bf16)
+FWD_ARGTYPES = [_P] * 5 + [_L] * 12 + [_I] * 8 + [_F, _F, _P, _P]
+BWD_ARGTYPES = [_P] * 10 + [_L] * 15 + [_I] * 7 + [_F, _P, _P]
 
 
 def _check(q, k, v, window, what="flash_attention kernel"):
@@ -54,6 +64,14 @@ def _check_rows_aligned(what, **tensors):
             raise ValueError(f"{what}: bf16 {name} rows must start on 16-byte boundaries")
 
 
+def _pieces(q, n_elements):
+    """bf16 scratch for the three pieces of each f32 input (None for
+    bf16 inputs)."""
+    if q.dtype != torch.float32:
+        return None
+    return torch.empty(3 * n_elements, dtype=torch.bfloat16, device=q.device)
+
+
 def flash_attention_fwd(q, k, v, *, causal: bool = True,
                         window: Optional[int] = None, softcap: float = 0.0,
                         scale: Optional[float] = None, return_lse: bool = False):
@@ -70,13 +88,15 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
         if return_lse else None
     if S == 0:
         return (o, lse) if return_lse else o
+    pieces = _pieces(q, q.numel() + k.numel() + v.numel())
     err = _build.function("flash_attention", "flash_attention_fwd", FWD_ARGTYPES)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr() if return_lse else None,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
         B, S, H, k.shape[2], D, DTYPES[q.dtype], int(causal),
         int(window or 0), float(softcap), float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        torch.cuda.current_stream(q.device).cuda_stream,
+        pieces.data_ptr() if pieces is not None else None)
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed: cudaError {err}")
     _build.launch_counts["flash_attention"] += 1
@@ -112,15 +132,17 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     dv = torch.empty(k.shape, dtype=q.dtype, device=q.device)
     if S == 0 or B == 0:
         return dq, dk, dv
-    # scratch: each row's Delta = rowsum(do * o) and, for the bf16 body,
-    # its lse in base 2, in q tiles of 64 rows
+    # scratch: each row's Delta = rowsum(do * o) and its lse in base 2, in
+    # q tiles of 64 rows, then (f32) the pieces of q, k, v and do
     delta = torch.empty((B, H, -(-S // 64), 2, 64), dtype=torch.float32, device=q.device)
+    pieces = _pieces(q, 2 * q.numel() + k.numel() + v.numel())
     err = _build.function("flash_attention_bwd", "flash_attention_bwd", BWD_ARGTYPES)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
         *do.stride()[:3], B, S, H, k.shape[2], D, DTYPES[q.dtype], int(causal),
-        float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+        float(scale), torch.cuda.current_stream(q.device).cuda_stream,
+        pieces.data_ptr() if pieces is not None else None)
     if err:
         raise RuntimeError(f"flash_attention_bwd kernel launch failed: cudaError {err}")
     _build.launch_counts["flash_attention_bwd"] += 1

@@ -43,6 +43,20 @@ def flash_attention_ref(q, k, v, *, causal: bool = True,
     return o.reshape(B, S, H, D)
 
 
+def split3(x):
+    """The three bf16 pieces of an f32 tensor, as the flash kernels feed f32
+    operands to the bf16 tensor cores: x0 = bf16(x), x1 = bf16(x - x0), x2 =
+    bf16(x - x0 - x1).  Each difference is exact in f32, and x0 + x1 + x2
+    is within 2^-24 |x| of x."""
+    pieces = []
+    rest = x.float()
+    for _ in range(3):
+        p = rest.to(torch.bfloat16)
+        pieces.append(p)
+        rest = rest - p.float()
+    return tuple(pieces)
+
+
 def paged_attention_ref(q, k_pages, v_pages, block_tables, seq_lens, *,
                         window: Optional[int] = None, softcap: float = 0.0,
                         scale: Optional[float] = None):

@@ -101,17 +101,33 @@ def _kernel_bodies(text):
     return {name: text[s:e] for (s, name), (e, _) in zip(starts, starts[1:] + [(len(text), "")])}
 
 
+def _device_body(text, name):
+    """The text of the device function ``name`` (a kernel's body shared by
+    its bf16 and f32 kernels), up to its closing brace at column 0."""
+    start = re.search(rf"void {name}\(", text).start()
+    return text[start:text.index("\n}\n", start)]
+
+
 def test_planted_faults_hold_their_lines_once_and_cover_every_kernel():
     """Each fault's line is in its source once; the faults cover every
     kernel of the gate, each pass of the bf16 SSD body (its product
     passes and the carry) holds a fault of its own, and the paged body on
-    wgmma holds two beside the combine's one."""
+    wgmma holds two beside the combine's one.  Each f32 flash body (the
+    forward, dq, dkdv) holds one fault read in f32 that keeps only the
+    first bf16 piece of one of its operands."""
     cs = _chip_smoke()
-    for name, kernels, bug, old, new in cs.FAULTS:
+    for name, kernels, bug, old, new, dname in cs.FAULTS:
         text = (_build.CSRC / f"{name}.cu").read_text()
         assert text.count(old) == 1, (name, bug, old)
         assert new != old and text.replace(old, new).count(new) == 1
         assert set(kernels) <= set(cs.KERNELS)
+        assert dname in ("bfloat16", "float32")
+        assert (cs.F32_PIECES_DROPPED in new) == (dname == "float32"), bug
+    f32 = [f for f in cs.FAULTS if f[5] == "float32"]
+    for name, body in (("flash_attention", "fwd_body"), ("flash_attention_bwd", "dq_body"),
+                       ("flash_attention_bwd", "dkdv_body")):
+        text = _device_body((_build.CSRC / f"{name}.cu").read_text(), body)
+        assert sum(f[0] == name and f[3] in text for f in f32) == 1, body
     covered = {k for f in cs.FAULTS for k in f[1]}
     assert covered == set(cs.KERNELS)
     bodies = _kernel_bodies((_build.CSRC / "ssd_scan.cu").read_text())
@@ -190,13 +206,17 @@ def test_wgmma_route_check_reads_canned_sass():
 
 def test_wgmma_functions_name_kernels_of_their_sources():
     """Each entry of WGMMA_FUNCTIONS names a kernel of its source, the bf16
-    SSD body's two product passes among them, and every kernel of csrc/
-    is a repo kernel to the profiles (REPO_KERNELS)."""
+    SSD body's two product passes and the f32 flash bodies among them, and
+    every kernel of csrc/ is a repo kernel to the profiles
+    (REPO_KERNELS)."""
     cs = _chip_smoke()
     for name, part in cs.WGMMA_FUNCTIONS:
         text = (_build.CSRC / f"{name}.cu").read_text()
         # a kernel's declaration: no ";" or "{" between __global__ and its name
         assert re.search(rf"__global__ void[^;{{]*\b{part}\w*\(", text), (name, part)
+    assert {p for n, p in cs.WGMMA_FUNCTIONS if n.startswith("flash")} == {
+        "flash_fwd_wgmma", "dq_wgmma", "dkdv_wgmma",                    # bf16
+        "flash_fwd_f32_wgmma", "dq_f32_wgmma", "dkdv_f32_wgmma"}        # f32 on pieces
     assert {p for n, p in cs.WGMMA_FUNCTIONS if n == "ssd_scan"} == {
         "ssd_state_wgmma", "ssd_out_wgmma"}
     assert {p for n, p in cs.WGMMA_FUNCTIONS if n == "paged_attention"} == {"paged_wgmma"}
@@ -370,6 +390,29 @@ def test_ssd_work_counts_the_causal_products_once(B, S, H, P, G, N, L):
     flops, nbytes = _chip_smoke().ssd_work(B, S, H, P, G, N, L, 2)
     assert flops == 2 * macs
     assert nbytes == 2 * (2 * B * S * H * P + 2 * B * S * G * N) + 4 * (B * S * H + H + B * H * N * P)
+
+
+def test_f32_flash_bounds_at_the_cli_shape():
+    """The f32 flash bodies' bounds at the train CLI's attention
+    (BERT_ATTN, f32): six bf16 passes a product, so 989/6 TFLOP/s: the
+    forward's 25.8 GFLOP in 0.156 ms and the backward's five products in
+    0.391 ms, both bound by operations; at the CUDA cores' 67 TFLOP/s
+    (bound_simt_ms) 0.385 and 0.962 ms.  bf16 keeps the bf16 peak."""
+    import torch
+
+    cs = _chip_smoke()
+    B, S, H, Hkv, D, causal = cs.BERT_ATTN
+    q = torch.empty(B, S, H, D, device="meta")
+    k = torch.empty(B, S, Hkv, D, device="meta")
+    assert cs.PEAK_F32_SPLIT_FLOPS == cs.PEAK_BF16_FLOPS / 6
+    ms, by = cs.flash_bound(q, k, causal, True)
+    assert by == "operations" and ms == pytest.approx(0.1563, rel=1e-3)
+    ms, by = cs.flash_bwd_bound(q, k, causal)
+    assert by == "operations" and ms == pytest.approx(0.3909, rel=1e-3)
+    assert cs.flash_bound(q, k, causal, True, cs.PEAK_F32_FLOPS)[0] == pytest.approx(0.3846, rel=1e-3)
+    assert cs.flash_bwd_bound(q, k, causal, cs.PEAK_F32_FLOPS)[0] == pytest.approx(0.9616, rel=1e-3)
+    qb, kb = q.to(torch.bfloat16), k.to(torch.bfloat16)
+    assert cs.flash_bwd_bound(qb, kb, causal)[0] == pytest.approx(0.06514, rel=1e-3)
 
 
 def test_ssd_work_at_the_serve_shape():
