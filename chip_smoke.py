@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases build,train_path,train
     python3 chip_smoke.py --phases build,ssm_path,ssm_serve
     python3 chip_smoke.py --phases build,train_cli
+    python3 chip_smoke.py --phases build,ddp_path,ddp
     python3 chip_smoke.py --phases build,serve,train,time \
         --against parent=build/parent/flash_attention.cu
 
@@ -54,6 +55,26 @@ Phases (any failure exits non-zero before the last line):
               placed by the device prefetch, the loss falling; the
               prefetch's batches equal to the host's at depths 2 and 4; then
               python -m repro_torch.launch.train as a subprocess
+  ddp_path    bert-mlm-120m at full width, 2 layers, f32, global batch 8 x
+              512 with ragged masks: 2 ranks on the one card over gloo
+              (processes spawned by the phase) against one process on the
+              card: each summed gradient leaf, at bucket sizes 0.05 and 25
+              MB, within 1e-5 of its scale of one process computing the
+              same global loss on the ranks' row shards, and within 1e-4
+              of the one-process 8-row batch; 5 steps of losses within
+              1e-5; one all-reduce per bucket per step, every hook once
+  ddp         bert-mlm-120m at full width and depth, f32, through
+              python -m torch.distributed.run --nproc-per-node 2 -m
+              repro_torch.launch.train (gloo on the one card), --batch 16 a
+              rank from the DataPipeline, lr 1e-5, 20 steps: rank 0's losses within
+              1e-4 of one process at --batch 32, the ranks' parameters
+              equal, launches and 11 all-reduces per rank per step; stopped
+              after step 11 and resumed by 2 ranks, bit for bit; then 20
+              steps at the launcher's lr 3e-3 by 2 ranks (spawned by the
+              phase), equal bit for bit to one process forming the
+              gradient in the ranks' f32 order with no collective (the
+              gap to the plain 32-row step recorded); the step's
+              all-reduce waits, exposed sync and device busy per rank
   time        each kernel at its path's shapes against its plain version,
               its bound and a PyTorch call computing the same function
               (SDPA and its backward op, F.cross_entropy; none computes
@@ -91,7 +112,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "chiprun_out"
 PHASES = ("build", "kernels", "faults", "path", "serve", "ssm_path", "ssm_serve", "train_path",
-          "train", "train_cli", "time")
+          "train", "train_cli", "ddp_path", "ddp", "time")
 AGAINST_PHASES = ("serve", "ssm_serve", "train", "time")   # the phases --against runs again
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the bounds below use them
@@ -1377,6 +1398,525 @@ def run_train_cli(torch, rec, B=32, S=512, n_functions=3000):
     rec["train_cli"] = res
 
 
+# ---------------------------------------------------------------------------
+# data parallel: two ranks on the one card over gloo
+# ---------------------------------------------------------------------------
+
+DDP_WORLD = 2
+# per leaf, max |2 ranks - reference| / max |reference|.  The reference of
+# DDP_GRAD_REL is one process computing the same global loss on the ranks'
+# row shards (each shard's nll over the global mask sum, the backwards
+# accumulated, no collective): it isolates what the sync adds.  The
+# one-process 8-row batch is held at PATH_REL_TOL: computing it on 4-row
+# shards moves embed.positions by 1.04e-5 of its scale on the card (cuBLAS
+# picks its kernels by shape; 9e-7 on the CPU), with or without a
+# collective (recorded as ``shards_vs_batch``; PERF.md, data parallel).
+DDP_GRAD_REL = 1e-5
+DDP_LOSS_REL = 1e-5                  # ddp_path: each step's loss, against the 8-row batch
+DDP_TRAJ_REL = 1e-4                  # ddp: rank 0's losses against one process, 20 steps
+# the ddp phase's learning rate.  Data parallelism reorders f32 sums (3
+# loss chunks of 244 positions against 5 of 122, 16-row against 32-row
+# products), and AdamW's early steps are nearly lr * sign(g): a gradient
+# element near zero whose sign the rounding flips moves by 2 lr.  Over
+# 20 steps rank 0 drifted from one process by about lr of the loss: 2.0e-3
+# at the launcher's 3e-3, 1.2e-3 at 1e-3, 9.8e-5 at 1e-4 on the H100
+# (PERF.md, data parallel).  At 3e-3 the phase holds the ranks instead to
+# one process in their f32 order with no collective (``order_witness``),
+# bit for bit
+DDP_LR = 1e-5
+DDP_PATH_MB = (0.05, 25.0)           # bucket sizes of ddp_path: several buckets, and the default
+DDP_RAGGED = (512, 300, 17, 450, 511, 128, 64, 256)   # loss-mask length of each row
+
+
+def leaf_errors(ours, ref):
+    """Per leaf max |ours - ref| / max |ref|; the ZERO_GRAD leaves (exact
+    gradient 0) are held to 0 at the scale of their reference leaf."""
+    err = {k: ((ours[k] - ref[k]).abs().max() / ref[k].abs().max()).item()
+           for k in ref if k not in ZERO_GRAD}
+    for k, ref_leaf in ZERO_GRAD.items():
+        err[k] = max(ours[k].abs().max().item(), ref[k].abs().max().item()) \
+            / ref[ref_leaf].abs().max().item()
+    return err
+
+
+def ddp_batches(torch, cfg, n, B=8, S=512, seed=7):
+    """``n`` masked global batches whose rows have the loss-mask lengths
+    DDP_RAGGED (the two ranks' shards hold different token counts)."""
+    out = mlm_batches(torch, cfg, n, B, S, seed)
+    for b in out:
+        for r, length in enumerate(DDP_RAGGED[:B]):
+            b["loss_mask"][r, length:] = 0
+    return out
+
+
+def spawn_ddp(mode, spec, timeout=900):
+    """``python3 chip_smoke.py --ddp-worker MODE`` in DDP_WORLD processes
+    joined through a file store (the JAX package's coordinator
+    variables), on the one card; returns each rank's result.  All are
+    stopped, and the phase fails, if one fails or outlasts ``timeout``."""
+    import os
+
+    work = ROOT / "build" / "ddp"
+    work.mkdir(parents=True, exist_ok=True)
+    store = work / f"store-{mode}-{time.time_ns()}"
+    outs = [work / f"{mode}-rank{r}.json" for r in range(DDP_WORLD)]
+    for o in outs:
+        o.unlink(missing_ok=True)
+    procs = []
+    for r in range(DDP_WORLD):
+        env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+               "REPRO_COORDINATOR": f"file://{store}", "REPRO_NUM_PROCESSES": str(DDP_WORLD),
+               "REPRO_PROCESS_ID": str(r), "REPRO_DIST_TIMEOUT_S": "300"}
+        procs.append(subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--ddp-worker", mode,
+             "--ddp-spec", json.dumps({**spec, "out": str(outs[r])})],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs, t_end = [], time.time() + timeout
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=max(1.0, t_end - time.time()))[0])
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        fail(f"ddp {mode}: a rank outlasted {timeout} s")
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            fail(f"ddp {mode}: rank {r} exited {p.returncode}: {text[-3000:]}")
+    return [json.loads(o.read_text()) for o in outs]
+
+
+def ddp_worker(torch, mode, spec):
+    """One rank of a ``spawn_ddp`` run: join the group, run ``mode``, and
+    write the result where ``spec["out"]`` says."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import maybe_initialize_distributed
+
+    info = maybe_initialize_distributed()
+    res = {"rank": info.rank, "world": info.world, "backend": info.backend,
+           "device": str(info.device)}
+    res.update((ddp_path_rank if mode == "path" else ddp_profile_rank)(torch, info, spec))
+    Path(spec["out"]).write_text(json.dumps(res))
+    dist.destroy_process_group()
+
+
+def _ddp_path_setup(torch):
+    from repro_torch.configs import default_run_config, get_config
+    from repro_torch.configs.base import LayerSpec, ShapeConfig, uniform_schedule
+    from repro_torch.train.optimizer import AdamWConfig
+
+    cfg = dataclasses.replace(get_config("bert-mlm-120m"),
+                              schedule=uniform_schedule(2, LayerSpec()))
+    run = default_run_config(cfg, ShapeConfig("ddp_path", 512, 8, "train"))
+    return cfg, run, AdamWConfig(lr=1e-4, warmup_steps=2, total_steps=5), ddp_batches(torch, cfg, 6)
+
+
+def ddp_path_rank(torch, info, spec):
+    """ddp_path on one rank: the summed gradients of batch 0 at each bucket
+    size of DDP_PATH_MB against the one-process ones (``spec["ref"]``),
+    then 5 steps at 25 MB; all-reduces and hook firings counted."""
+    import numpy as np
+
+    from repro_torch.distributed import gradsync
+    from repro_torch.distributed.sharding import ParallelPlan
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+    from repro_torch.train.train_step import init_state, make_grad_fn, make_train_step
+
+    cfg, run, opt, batches = _ddp_path_setup(torch)
+    model = build_model(cfg, seed=0, device=info.device)
+    rows = slice(info.rank * 4, (info.rank + 1) * 4)
+    local = [{k: v[rows].to(info.device) for k, v in b.items()} for b in batches]
+    refs = {}
+    for name in ("shards", "batch"):
+        with np.load(spec[name]) as z:
+            refs[name] = {k: torch.from_numpy(z[k]).to(info.device) for k in z.files}
+    out = {"grads": {}}
+    for mb in DDP_PATH_MB:
+        plan = ParallelPlan.for_run(run, info.world, grad_bucket_mb=mb)
+        gf = make_grad_fn(model, run, plan)
+        params = init_state(model, run, seed=None)["params"]
+        gradsync.reset_counts()
+        ops.reset_launch_counts()
+        loss, grads, _ = gf(params, local[0])
+        g = {"grad_sync": plan.grad_sync, "n_buckets": len(gf.sync.buckets),
+             "all_reduces": gradsync.counts["grad_all_reduce"],
+             "hook_fires": sorted(set(gf.sync.hook_fires)), "loss": loss.item(),
+             "launches": dict(ops.launch_counts)}
+        for name, ref in refs.items():
+            err = leaf_errors(grads, ref)
+            worst = max(err, key=err.get)
+            g[name] = {"max_rel_err": err[worst], "worst_leaf": worst}
+        out["grads"][str(mb)] = g
+        del params, grads
+    plan = ParallelPlan.for_run(run, info.world, grad_bucket_mb=25.0)
+    state = init_state(model, run, seed=None)
+    step = make_train_step(model, run, opt, plan)
+    out["losses"], out["step_all_reduces"], out["step_hook_fires"] = [], [], []
+    for b in local[1:]:
+        gradsync.reset_counts()
+        state, m = step(state, b)
+        out["losses"].append(m["loss"].item())
+        out["step_all_reduces"].append(gradsync.counts["grad_all_reduce"])
+        out["step_hook_fires"].append(sorted(set(step.sync.hook_fires)))
+    out["step_n_buckets"] = len(step.sync.buckets)
+    return out
+
+
+def check_ddp_path(torch, rec):
+    """bert-mlm-120m at full width, 2 layers, f32, global batch 8 x 512
+    with ragged masks: two ranks on the card over gloo against one
+    process on the card (the summed gradients against the same global
+    loss on the ranks' row shards and against the 8-row batch; 5 steps
+    of losses), one all-reduce per bucket per step, every hook once."""
+    import numpy as np
+
+    from repro_torch.models.model import build_model
+    from repro_torch.train.train_step import (init_state, make_grad_fn, make_train_step,
+                                              shard_sums)
+
+    cfg, run, opt, batches = _ddp_path_setup(torch)
+    model = build_model(cfg, seed=0, device="cuda")
+    on = [{k: v.cuda() for k, v in b.items()} for b in batches]
+    refs = {"batch": ROOT / "build" / "ddp" / "path_ref_batch.npz",
+            "shards": ROOT / "build" / "ddp" / "path_ref_shards.npz"}
+    refs["batch"].parent.mkdir(parents=True, exist_ok=True)
+    params = init_state(model, run, seed=None)["params"]
+    loss, grads, _ = make_grad_fn(model, run)(params, on[0])
+    np.savez(refs["batch"], **{k: g.detach().cpu().numpy() for k, g in grads.items()})
+    # the same global loss on the ranks' row shards, in this process
+    params = init_state(model, run, seed=None)["params"]
+    den = on[0]["loss_mask"].sum().clamp(min=1.0)
+    rows = on[0]["tokens"].shape[0] // DDP_WORLD
+    for r in range(DDP_WORLD):
+        s_nll, _, _, aux = shard_sums(model, params, {k: v[r * rows:(r + 1) * rows]
+                                                      for k, v in on[0].items()}, run)
+        (s_nll / den + aux / DDP_WORLD).backward()
+    shard_grads = {k: p.grad for k, p in params.named_parameters()}
+    np.savez(refs["shards"], **{k: g.cpu().numpy() for k, g in shard_grads.items()})
+    # the rounding of the shard shapes alone, no collective (recorded)
+    err = leaf_errors(shard_grads, grads)
+    worst = max(err, key=err.get)
+    state = init_state(model, run, seed=None)
+    step = make_train_step(model, run, opt)
+    want = [step(state, b)[1]["loss"].item() for b in on[1:]]
+    one = {"loss": loss.item(), "losses": want,
+           "shards_vs_batch": {"max_rel_err": err[worst], "worst_leaf": worst}}
+    del model, params, grads, shard_grads, state, on
+    torch.cuda.empty_cache()
+    ranks = spawn_ddp("path", {k: str(v) for k, v in refs.items()})
+    for v in refs.values():
+        v.unlink()
+    bad = []
+    for r in ranks:
+        if r["backend"] != "gloo" or r["world"] != DDP_WORLD:
+            bad.append(f"rank {r['rank']}: backend {r['backend']}, world {r['world']}")
+        for mb, g in r["grads"].items():
+            if g["grad_sync"] != "bucketed_overlap" or g["all_reduces"] != g["n_buckets"] \
+                    or g["hook_fires"] != [1] \
+                    or not g["shards"]["max_rel_err"] <= DDP_GRAD_REL \
+                    or not g["batch"]["max_rel_err"] <= PATH_REL_TOL \
+                    or not abs(g["loss"] - one["loss"]) <= DDP_LOSS_REL * abs(one["loss"]):
+                bad.append(f"rank {r['rank']} at {mb} MB: {g}")
+        nb = r["step_n_buckets"]
+        rel = max_rel(r["losses"], want)
+        r["losses_max_rel_err"] = rel
+        if r["step_all_reduces"] != [nb] * len(want) or \
+                any(h != [1] for h in r["step_hook_fires"]) or not rel <= DDP_LOSS_REL:
+            bad.append(f"rank {r['rank']} steps: losses {r['losses']} (one process {want}), "
+                       f"all-reduces {r['step_all_reduces']} for {nb} buckets, "
+                       f"hooks {r['step_hook_fires']}")
+    log(f"ddp_path: one process {one}; ranks {json.dumps(ranks)}")
+    if len(DDP_PATH_MB) > 1 and ranks[0]["grads"][str(DDP_PATH_MB[0])]["n_buckets"] <= \
+            ranks[0]["grads"][str(DDP_PATH_MB[-1])]["n_buckets"]:
+        bad.append("the small bucket size did not make more buckets")
+    if bad:
+        fail("ddp_path: " + "; ".join(bad))
+    rec["ddp_path"] = {"one_process": one, "ranks": ranks}
+
+
+def ddp_profile_rank(torch, info, spec):
+    """The ddp cell's step on one rank, full depth, f32, ``spec["batch"]``
+    rows a rank: ``spec["steps"]`` steps at ``spec["lr"]`` on this rank's
+    rows of the WITNESS_SEED batches (the losses), timed with the device
+    synchronised at the end of the backward and after each wait
+    (``BucketedAllReduce.timed``): step wall time, each bucket's
+    all-reduce wait and the exposed sync, the first two steps left out;
+    then the step under torch.profiler for its device busy time."""
+    import numpy as np
+
+    from repro_torch.models.model import build_model
+    from repro_torch.train.runner import StepRunner
+
+    B, S, n = spec["batch"], spec["seq"], spec["steps"]
+    cfg, run, opt = witness_setup(B * info.world, S, n, spec["lr"])
+    runner = StepRunner(build_model(cfg, seed=0, device=info.device), run, opt)
+    runner.sync.timed = True
+    rows = slice(info.rank * B, (info.rank + 1) * B)
+    batches = [runner.place_batch({k: v[rows] for k, v in b.items()})
+               for b in mlm_batches(torch, cfg, n, B * info.world, S, WITNESS_SEED)]
+    state = runner.init_state(0)
+    losses, wall, waits, exposed = [], [], [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = runner(state, b)
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t0)
+        waits.append(runner.sync.last_wait_s)
+        exposed.append(runner.sync.last_exposed_s)
+        losses.append(m["loss"].item())
+    wall, waits, exposed = wall[2:], waits[2:], exposed[2:]
+    p50 = float(np.median(wall))
+    res = {"losses": losses, "step_p50_ms": p50 * 1e3,
+           "exposed_sync_ms": float(np.median(exposed)) * 1e3,
+           "bucket_wait_ms": [float(np.median(w)) * 1e3 for w in zip(*waits)],
+           "bucket_mb": [b.mb for b in runner.sync.buckets]}
+    runner.sync.timed = False
+    res["profile"] = profile_steps(torch, runner, state, batches[:3], p50)
+    return res
+
+
+# the ddp phase's witness of f32 reordering: 20 steps at the launcher's
+# default lr on batches from WITNESS_SEED, by 2 ranks and by one process
+# in the ranks' order (gated bit for bit) and in the batch's (recorded)
+WITNESS_LR = 3e-3
+WITNESS_SEED = 11
+
+
+def witness_setup(global_batch, S, steps, lr):
+    from repro_torch.configs import default_run_config, get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.train.optimizer import AdamWConfig
+
+    cfg = get_config("bert-mlm-120m")
+    run = default_run_config(cfg, ShapeConfig("ddp", S, global_batch, "train"))
+    return cfg, run, AdamWConfig(lr=lr, warmup_steps=2, total_steps=steps)
+
+
+def order_witness(torch, B, S, steps, lr):
+    """One process, no collective, on the ranks' global batches at ``lr``:
+    the losses of the plain step over all DDP_WORLD x B rows, and of the
+    same step with its gradient formed as the ranks form it (each B-row
+    shard's nll over the global mask sum, 3 loss chunks of 244 positions
+    against 5 of 122, the shards' backwards accumulated)."""
+    from repro_torch.models.model import build_model
+    from repro_torch.train.optimizer import adamw_update
+    from repro_torch.train.runner import StepRunner
+    from repro_torch.train.train_step import shard_sums
+
+    cfg, run, opt = witness_setup(B * DDP_WORLD, S, steps, lr)
+    runner = StepRunner(build_model(cfg, seed=0, device="cuda"), run, opt)
+    batches = [runner.place_batch(b)
+               for b in mlm_batches(torch, cfg, steps, B * DDP_WORLD, S, WITNESS_SEED)]
+    state = runner.init_state(0)
+    plain = [runner(state, b)[1]["loss"].item() for b in batches]
+    state, shards = runner.init_state(0), []
+    named = dict(state["params"].named_parameters())
+    for b in batches:
+        den = b["loss_mask"].sum().clamp(min=1.0)
+        nll = aux_sum = 0.0
+        for r in range(DDP_WORLD):
+            s_nll, _, _, aux = shard_sums(runner.model, state["params"],
+                                          {k: v[r * B:(r + 1) * B] for k, v in b.items()}, run)
+            (s_nll / den + aux / DDP_WORLD).backward()
+            nll, aux_sum = nll + s_nll.detach(), aux_sum + aux.detach()
+        _, state["opt"], _ = adamw_update(opt, {k: p.grad for k, p in named.items()},
+                                          state["opt"], named)
+        for p in named.values():
+            p.grad = None
+        shards.append((nll / den + aux_sum / DDP_WORLD).item())
+    return plain, shards
+
+
+def max_rel(a, b):
+    return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+
+def torchrun_train(args, tag, env=None, timeout=900):
+    """``python -m torch.distributed.run --standalone --nproc-per-node
+    DDP_WORLD -m repro_torch.launch.train ARGS``: returns (exit code, each
+    rank's stdout and stderr, torchrun's own output), the ranks' from
+    torchrun's log directory."""
+    import os
+    import shutil
+
+    logs = ROOT / "build" / "ddp" / f"logs-{tag}"
+    shutil.rmtree(logs, ignore_errors=True)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(DDP_WORLD), "--log-dir", str(logs), "--redirects", "3",
+           "-m", "repro_torch.launch.train", *args]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=timeout,
+                         env={**os.environ, "PYTHONPATH": str(ROOT / "src"), **(env or {})})
+    ranks = []
+    for r in range(DDP_WORLD):
+        found = sorted(logs.glob(f"**/attempt_0/{r}/stdout.log"))
+        err = sorted(logs.glob(f"**/attempt_0/{r}/stderr.log"))
+        ranks.append({"stdout": found[-1].read_text() if found else "",
+                      "stderr": err[-1].read_text() if err else ""})
+    log(f"ddp {tag}: torchrun exited {out.returncode} in {time.perf_counter() - t0:.1f}s")
+    return out.returncode, ranks, out
+
+
+def _cli_lines(stdout):
+    """The launcher's per-step losses {step: loss} and its [gradsync],
+    [kernels] and [telemetry] fields."""
+    import re
+
+    losses = {int(m.group(1)): float(m.group(2))
+              for m in re.finditer(r"^\s+step\s+(\d+) loss=(\S+)", stdout, re.M)}
+    fields = {}
+    for line in stdout.splitlines():
+        if line.startswith("[kernels]"):
+            fields["launches"] = json.loads(line.split("launches=", 1)[1])
+        elif line.startswith("[gradsync]") or line.startswith("[telemetry]") \
+                or line.startswith("[plan] mode=") or line.startswith("[dist]"):
+            key = line[1:line.index("]")]
+            fields[key] = line
+    return losses, fields
+
+
+def _field(line, name):
+    import re
+
+    m = re.search(rf"{name}=(\S+)", line or "")
+    return m.group(1) if m else None
+
+
+def _shards_equal(a, b, keys=None):
+    """Whether two checkpoint shards hold the same arrays, bit for bit."""
+    import numpy as np
+
+    with np.load(a) as x, np.load(b) as y:
+        names = [k for k in x.files if keys is None or k.split("/")[0] in keys]
+        return sorted(x.files) == sorted(y.files) and \
+            all(np.array_equal(x[k], y[k]) for k in names)
+
+
+def run_ddp(torch, rec, B=16, S=512, n_functions=3000, steps=20):
+    """bert-mlm-120m at full width and depth through ``torch.distributed.run
+    -m repro_torch.launch.train`` with 2 ranks on the card (gloo), f32,
+    --batch 16 a rank from the DataPipeline: (a) 20 steps with a final
+    checkpoint; (b) the same stopped after step 11 (a checkpoint at 10);
+    (c) resumed by 2 ranks to 20; all at lr DDP_LR.  Against one process
+    at --batch 32 in this process: rank 0's losses within DDP_TRAJ_REL; the ranks'
+    checkpoints of (a) equal each other (replicas) and (c)'s, bit for bit;
+    launches and all-reduces per rank per step.  Then 20 steps at
+    WITNESS_LR by one process in two f32 orders (``order_witness``) and by
+    2 ranks spawned here, which also time the step and profile it: the
+    ranks' losses equal each other and the one process's in their order
+    bit for bit; the gaps to the batch's order recorded."""
+    import shutil
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.scaling import model_flops
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as cli
+    from repro_torch.train import checkpoint as ckpt
+
+    cfg = get_config("bert-mlm-120m")
+    work = ROOT / "build" / "ddp"
+    ck_a, ck_b = work / "ckpt-a", work / "ckpt-b"
+    for d in (ck_a, ck_b):
+        shutil.rmtree(d, ignore_errors=True)
+    base = ["--arch", "bert-mlm-120m", "--seq", str(S), "--n-functions", str(n_functions),
+            "--data-dir", str(ROOT / "build" / "train_cli" / "data"), "--log-every", "1",
+            "--workers", "2", "--steps", str(steps), "--lr", str(DDP_LR)]
+    want = train_launches_per_step(cfg, B, S)
+    res = {"batch_per_rank": B, "world": DDP_WORLD, "seq": S, "steps": steps,
+           "launches_per_step_want": want}
+
+    # the one-process run at the global batch, in this process
+    ops.reset_launch_counts()
+    _, log_one = cli.main(base + ["--batch", str(B * DDP_WORLD)])
+    one = [m["loss"] for m in log_one.metrics]
+    res["one_process"] = {"losses": one, "step_time_p50_ms":
+                          log_one.telemetry["step_time_p50"] * 1e3}
+
+    rc, ranks_a, out = torchrun_train(base + ["--batch", str(B), "--ckpt-dir", str(ck_a)], "a")
+    if rc != 0:
+        fail(f"ddp a: torchrun exited {rc}: {out.stderr[-2000:]} "
+             f"{[r['stderr'][-2000:] for r in ranks_a]}")
+    parsed = [_cli_lines(r["stdout"]) for r in ranks_a]
+    bad = []
+    for r, (losses, f) in enumerate(parsed):
+        if f"process {r}/{DDP_WORLD} backend=gloo" not in f.get("dist", ""):
+            bad.append(f"rank {r} [dist]: {f.get('dist')}")
+        per_step = {k: f.get("launches", {}).get(k, 0) / steps for k in want}
+        n_red = _field(f.get("gradsync"), "per_step")
+        res[f"rank{r}"] = {"losses": [losses.get(i) for i in range(1, steps + 1)],
+                           "launches_per_step": per_step, "lines": f}
+        if per_step != {k: float(v) for k, v in want.items()}:
+            bad.append(f"rank {r}: launches per step {per_step}, expected {want}")
+        nb = int(_field(f.get("plan"), "buckets") or -1)
+        if n_red is None or float(n_red) != nb or nb != 11 or \
+                _field(f.get("gradsync"), "hooks_once") != "True":
+            bad.append(f"rank {r}: {f.get('gradsync')} for {nb} buckets (11 expected)")
+    l0 = res["rank0"]["losses"]
+    rel = max_rel(l0, one) if None not in l0 else math.inf
+    res["traj_max_rel_err"] = rel
+    if not rel <= DDP_TRAJ_REL:
+        bad.append(f"rank 0 losses {l0} vs one process {one}: max rel {rel}")
+    if parsed[0][0] != parsed[1][0]:
+        bad.append("the ranks printed different losses")
+    shard = lambda d, r: Path(ckpt.step_dir(str(d), steps)) / f"shard-{r:05d}.npz"
+    if not _shards_equal(shard(ck_a, 0), shard(ck_a, 1), keys=("params", "opt")):
+        bad.append("the ranks' final parameters or moments differ")
+    if bad:
+        fail("ddp a: " + "; ".join(bad))
+
+    # (b) stopped after step 11, its step-10 checkpoint committed; (c) resumed
+    fault = {"REPRO_FAULT_PHASE": "step", "REPRO_FAULT_STEP": "10", "REPRO_FAULT_MODE": "raise"}
+    ck_args = base + ["--batch", str(B), "--ckpt-dir", str(ck_b), "--ckpt-every", "10"]
+    rc_b, ranks_b, _ = torchrun_train(ck_args, "b", env=fault)
+    if rc_b == 0 or not all("TransientWorkerError" in r["stderr"] for r in ranks_b) \
+            or ckpt.latest_step(str(ck_b)) != 10:
+        fail(f"ddp b: exit {rc_b}, newest checkpoint {ckpt.latest_step(str(ck_b))} (10 wanted)")
+    rc_c, ranks_c, out = torchrun_train(ck_args + ["--resume"], "c")
+    if rc_c != 0:
+        fail(f"ddp c: torchrun exited {rc_c}: {[r['stderr'][-2000:] for r in ranks_c]}")
+    for r, rank in enumerate(ranks_c):
+        losses, _ = _cli_lines(rank["stdout"])
+        want_c = {i: parsed[r][0][i] for i in range(11, steps + 1)}
+        if f"[resume] host {r} restored shard at step 10" not in rank["stdout"] \
+                or losses != want_c or not _shards_equal(shard(ck_a, r), shard(ck_b, r)):
+            fail(f"ddp c: rank {r} resumed losses {losses} != uninterrupted {want_c}, or "
+                 "its final checkpoint differs")
+    res["resume_bit_exact"] = True
+    for d in (ck_a, ck_b):
+        shutil.rmtree(d, ignore_errors=True)
+
+    f0 = parsed[0][1]
+    p50 = float(_field(f0.get("telemetry"), "step_p50").rstrip("ms")) / 1e3
+    tokens = B * S * DDP_WORLD
+    res.update(step_time_p50_ms=p50 * 1e3, global_tokens_per_s=tokens / p50,
+               mfu_per_card=model_flops(cfg, tokens) / DDP_WORLD / (p50 * PEAK_BF16_FLOPS),
+               plan=f0.get("plan"), gradsync_line=f0.get("gradsync"),
+               launches=parsed[0][1].get("launches", {}))
+    plain, shards = order_witness(torch, B, S, steps, WITNESS_LR)
+    torch.cuda.empty_cache()
+    res["profile"] = spawn_ddp("profile", {"batch": B, "seq": S, "steps": steps,
+                                           "lr": WITNESS_LR})
+    ranks = [p.pop("losses") for p in res["profile"]]
+    if ranks[0] != ranks[1] or ranks[0] != shards:
+        fail(f"ddp witness at lr {WITNESS_LR}: the ranks' losses {ranks} differ from each "
+             f"other or from one process in their order {shards}")
+    res["lr_witness"] = {
+        "lr": WITNESS_LR, "plain": plain, "shard_order": shards, "ranks": ranks[0],
+        **{f"{name}{tag}": max_rel(a[:k], b[:k])
+           for name, a, b in (("shard_order_vs_plain", shards, plain),
+                              ("ranks_vs_plain", ranks[0], plain),
+                              ("ranks_vs_shard_order", ranks[0], shards))
+           for tag, k in (("", steps), ("_first6", 6))}}
+    log("ddp lr witness: " + json.dumps(res["lr_witness"]))
+    log("ddp: " + json.dumps({k: v for k, v in res.items()
+                              if k not in ("rank0", "rank1", "profile")}))
+    log("ddp profile: " + json.dumps([{k: v for k, v in p.items() if k != "profile"}
+                                      for p in res["profile"]]))
+    rec["ddp"] = res
+
+
 REPO_KERNELS = ("flash_fwd", "dq_wgmma", "dkdv_wgmma", "dq_mma", "dkdv_mma", "dq_f32",
                 "dkdv_f32", "delta_kernel", "split3", "xent_fwd", "xent_bwd", "paged_partial",
                 "paged_wgmma", "paged_combine", "ssd_scan_kernel", "ssd_state_wgmma",
@@ -1815,8 +2355,8 @@ def time_train_kernels(torch, checked, gen, T=3904, V=32768):
 
 def kernel_records(rec):
     """One record per kernel.  ``launches``: the main paths' runs (serve,
-    ssm_serve, train and train_cli's run (a)), each counted from 0 just
-    before it; the times are those of
+    ssm_serve, train, train_cli's run (a) and rank 0 of ddp's run (a)),
+    each counted from 0 just before it; the times are those of
     the shape each path runs (flash forward: the serve prefill at S=1024,
     with bert's shape under ``train_shape``; flash backward: bert's shape,
     starcoder2-3b's under ``gqa_causal_shape``; both flash kernels at
@@ -1828,7 +2368,7 @@ def kernel_records(rec):
     errs = rec.get("errors", {})
     t = rec.get("time", {})
     paths = {key: rec.get(key, {}).get("launches", {})
-             for key in ("serve", "ssm_serve", "train", "train_cli")}
+             for key in ("serve", "ssm_serve", "train", "train_cli", "ddp")}
     flash_top = next((x for x in t.get("flash", []) if x["S"] == 1024), {})
     ft, xe = t.get("flash_train", {}), t.get("xent", {})
     ft32 = t.get("flash_train_f32", {})
@@ -1909,6 +2449,15 @@ def summary(rec):
             "train_cli_step_device_busy_ms":
                 rec.get("train_cli", {}).get("profile", {}).get("device_busy_ms"),
             "train_step_launches": tprof.get("kernel_launches_per_step"),
+            "ddp": {k: rec.get("ddp", {}).get(k) for k in (
+                "step_time_p50_ms", "global_tokens_per_s", "traj_max_rel_err",
+                "resume_bit_exact")},
+            "ddp_profile": [{k: p.get(k) for k in ("step_p50_ms", "exposed_sync_ms")} |
+                            {"device_busy_ms": p.get("profile", {}).get("device_busy_ms")}
+                            for p in rec.get("ddp", {}).get("profile", [])],
+            "ddp_path_max_rel_err": {name: max((g[name]["max_rel_err"] for r in rec.get(
+                "ddp_path", {}).get("ranks", []) for g in r["grads"].values()), default=None)
+                for name in ("shards", "batch")},
             "path_max_rel_err": rec.get("path", {}).get("max_rel_err"),
             "ssm_path_max_rel_err": rec.get("ssm_path", {}).get("max_rel_err"),
             "train_path_rel_err": rec.get("train_path", {}).get("rel_err"),
@@ -1932,6 +2481,8 @@ def main():
     ap.add_argument("--against", action="append", default=[], metavar="NAME=SOURCE",
                     help="also run phases serve, ssm_serve, train and time with SOURCE's "
                          "build of the kernel its file name names")
+    ap.add_argument("--ddp-worker", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--ddp-spec", default="{}", help=argparse.SUPPRESS)
     args = ap.parse_args()
     phases = args.phases.split(",")
     if not set(phases) <= set(PHASES):
@@ -1945,6 +2496,9 @@ def main():
     sys.path.insert(0, str(ROOT / "src"))
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 phases in full f32
     torch.backends.cudnn.allow_tf32 = False
+    if args.ddp_worker:         # one rank of a spawn_ddp run
+        ddp_worker(torch, args.ddp_worker, json.loads(args.ddp_spec))
+        return
     card = gpu_line()
     log(f"{card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}")
@@ -1976,7 +2530,8 @@ def main():
              "ssm_serve": lambda torch, rec: run_serve(torch, rec, arch="mamba2-130m",
                                                        key="ssm_serve"),
              "train_path": check_train_path,
-             "train": run_train, "train_cli": run_train_cli, "time": time_kernels}
+             "train": run_train, "train_cli": run_train_cli, "ddp_path": check_ddp_path,
+             "ddp": run_ddp, "time": time_kernels}
     for ph in PHASES[1:]:
         if ph in phases:
             t0 = time.perf_counter()

@@ -4,8 +4,17 @@ memory limit shrinks the per-device batch.
 The JAX package scans the microbatches with ``lax.scan`` and sums their
 gradient trees; here each microbatch's backward adds into the
 parameters' ``.grad`` (PyTorch's own accumulation), so peak activation
-memory is that of ONE microbatch.  The data-parallel ``sync_grads`` hook
-of the JAX version comes with the DDP slice.
+memory is that of ONE microbatch.
+
+Accumulation composes with data-parallel gradient sync through the
+``sync_grads`` hook (``distributed.gradsync.BucketedAllReduce``):
+microbatch gradients accumulate LOCALLY, with no cross-rank traffic, and
+the hook is armed for the final microbatch's backward only, so that each
+bucket's all-reduce starts as that backward completes the bucket and
+runs once per step.  Syncing every microbatch, the classic ddp scaling
+bug, would multiply the communication by ``n_micro`` for the same
+result.  The hook scales each bucket by ``1 / n_micro`` before its
+reduction, as the JAX hook receives the averaged tree.
 """
 from __future__ import annotations
 
@@ -15,14 +24,17 @@ import torch
 
 
 def accumulate_grads(loss_fn: Callable, params, batch: Dict[str, torch.Tensor],
-                     n_micro: int):
+                     n_micro: int, sync_grads=None):
     """loss_fn(params, microbatch) -> (loss, metrics).
 
     Splits every leaf of ``batch`` along axis 0 into ``n_micro`` equal
     microbatches and averages (loss, grads, metrics) over them.  Returns
     (loss, grads, metrics): ``grads`` maps each parameter name of
     ``params`` (an ``nn.Module``) to its gradient, which also sits in the
-    parameter's ``.grad``; metrics are detached."""
+    parameter's ``.grad``; metrics are detached.  ``sync_grads`` (bound to
+    ``params`` with ``bind``) is armed before the final microbatch's
+    backward and finished after it; the gradients it leaves in ``.grad``
+    are the synchronised average."""
     named = dict(params.named_parameters())
     for p in named.values():
         p.grad = None
@@ -33,20 +45,26 @@ def accumulate_grads(loss_fn: Callable, params, batch: Dict[str, torch.Tensor],
                 raise ValueError(f"batch[{k!r}] of {x.shape[0]} rows does not "
                                  f"split into {n_micro} microbatches")
     micro = [{k: x.chunk(n_micro)[i] for k, x in batch.items()} for i in range(n_micro)]
+    if sync_grads is not None:
+        sync_grads.bind(params)
     loss_sum, met_sum = None, None
-    for mb in micro:
+    for i, mb in enumerate(micro):
         loss, metrics = loss_fn(params, mb)
+        if sync_grads is not None and i == n_micro - 1:
+            sync_grads.arm(1.0 / n_micro)
         loss.backward()
         loss = loss.detach().float()
         metrics = {k: v.detach().float() for k, v in metrics.items()}
         loss_sum = loss if loss_sum is None else loss_sum + loss
         met_sum = metrics if met_sum is None else {k: met_sum[k] + v for k, v in metrics.items()}
+    if sync_grads is not None:
+        sync_grads.finish()
     scale = 1.0 / n_micro
     grads = {}
     for name, p in named.items():
         if p.grad is None:
             p.grad = torch.zeros_like(p)
-        elif n_micro > 1:
+        elif n_micro > 1 and sync_grads is None:
             p.grad.mul_(scale)
         grads[name] = p.grad
     if n_micro > 1:

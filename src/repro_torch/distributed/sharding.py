@@ -1,11 +1,17 @@
-"""Per-host batch slicing for multi-host data parallelism.
+"""Per-host batch slicing and the data-parallel plan.
 
-The port's copy of the two helpers of the JAX package's
-``distributed/sharding.py`` that the data pipeline uses; the rest of
-that module (logical axis rules, shardings over a mesh) comes with the
-data-parallel and sharded slices.
+The port's copy of the parts of the JAX package's
+``distributed/sharding.py`` that ddp needs: the two batch-slicing
+helpers the data pipeline uses, the gradient-sync strategy names and the
+ddp subset of ``ParallelPlan``.  The logical axis rules and the sharded
+modes (fsdp, tp, pp) come with ROADMAP A8 and A11.
 """
 from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict, Optional
+
+import torch
 
 
 def local_batch_size(global_batch: int, process_count: int) -> int:
@@ -29,3 +35,133 @@ def process_batch_slice(global_batch: int, process_index: int,
             f"process_index={process_index} out of range "
             f"[0, {process_count})")
     return slice(process_index * b_loc, (process_index + 1) * b_loc)
+
+
+# ---------------------------------------------------------------------------
+# The ddp subset of the JAX ParallelPlan
+# ---------------------------------------------------------------------------
+
+# gradient-sync strategies, with the JAX package's names:
+#   bucketed_overlap — one all-reduce per reverse-layer bucket, issued from
+#                      backward hooks (gradsync.BucketedAllReduce)
+#   xla_fused        — the fallback: one all-reduce of the whole tree after
+#                      the backward, the batch split into GLOBAL microbatches
+#                      (the JAX partitioner's path: overlap off, or a
+#                      microbatch count that does not divide the local batch)
+#   none             — one data-parallel shard: nothing to synchronise
+GRAD_SYNC_BUCKETED = "bucketed_overlap"
+GRAD_SYNC_XLA = "xla_fused"
+GRAD_SYNC_NONE = "none"
+
+# the modes of the JAX plan the port does not run yet, with their ROADMAP item
+UNPORTED_MODES = {"fsdp": "A8", "tp": "A11", "fsdp_tp": "A11", "pp": "A11", "pp_dp": "A11"}
+
+
+@dataclass(frozen=True)
+class ParallelPlan:
+    """The ddp half of the JAX package's ``ParallelPlan``: which
+    gradient-sync strategy keeps the data-parallel replicas equal, over
+    how many shards and at what bucket size.
+
+    Where the JAX plan reads a mesh, this one reads the size of the
+    default process group (``world``; ``None`` = no process group, the
+    JAX ``mesh=None``).  As in JAX the batch is sharded over the group
+    only when the global batch divides by it; otherwise ``dp_size`` is 1
+    and nothing is synchronised."""
+
+    mode: str
+    world: Optional[int] = None
+    global_batch: int = 0
+    grad_bucket_mb: float = 25.0
+    overlap: bool = True
+    microbatch: int = 1
+
+    @classmethod
+    def make(cls, world: Optional[int], mode: str, global_batch: int, *,
+             grad_bucket_mb: float = 25.0, overlap: bool = True,
+             microbatch: int = 1) -> "ParallelPlan":
+        """Plan for one (process group size, mode, global batch).
+        ``overlap=False`` pins the fused baseline.  Over more than one
+        process a mode other than ddp raises, naming its ROADMAP item; on
+        one process every mode trains the same (nothing to shard)."""
+        if mode in UNPORTED_MODES and world and world > 1:
+            raise NotImplementedError(
+                f"sharding mode {mode!r} is not ported yet (ROADMAP "
+                f"{UNPORTED_MODES[mode]}); the port runs ddp")
+        if mode != "ddp" and mode not in UNPORTED_MODES:
+            raise KeyError(f"unknown sharding mode {mode!r}; known: "
+                           f"{sorted(['ddp', *UNPORTED_MODES])}")
+        return cls(mode=mode, world=world, global_batch=global_batch,
+                   grad_bucket_mb=grad_bucket_mb, overlap=overlap,
+                   microbatch=max(1, microbatch))
+
+    @classmethod
+    def for_run(cls, run, world: Optional[int] = None, *, grad_bucket_mb: float = 25.0,
+                overlap: bool = True) -> "ParallelPlan":
+        """Plan of a ``RunConfig`` (mode, global batch and microbatch
+        count read off ``run``)."""
+        return cls.make(world, run.sharding, run.shape.global_batch,
+                        grad_bucket_mb=grad_bucket_mb, overlap=overlap,
+                        microbatch=run.microbatch or 1)
+
+    @property
+    def dp_size(self) -> int:
+        if not self.world or self.global_batch % self.world:
+            return 1
+        return self.world
+
+    @property
+    def local_batch(self) -> int:
+        """Batch rows of one data-parallel shard (one rank)."""
+        return self.global_batch // self.dp_size
+
+    @property
+    def grad_sync(self) -> str:
+        """``bucketed_overlap`` when the local batch splits into the
+        microbatches and overlap is on; ``xla_fused`` otherwise; ``none``
+        with one shard."""
+        if self.world is None or self.dp_size <= 1:
+            return GRAD_SYNC_NONE
+        divisible = self.local_batch % self.microbatch == 0 \
+            and self.local_batch >= self.microbatch
+        if self.overlap and divisible:
+            return GRAD_SYNC_BUCKETED
+        return GRAD_SYNC_XLA
+
+    @property
+    def fallback_reason(self) -> Optional[str]:
+        """Why the plan declined the bucketed path (None when it did not)."""
+        if self.grad_sync != GRAD_SYNC_XLA:
+            return None
+        if not self.overlap:
+            return "overlap disabled"
+        return "indivisible microbatch"
+
+    def grad_leaves(self, params, param_dtype: Optional[torch.dtype] = None) -> list:
+        """The gradient leaves of ``params`` at sync width, shapes only
+        (meta tensors), in the JAX flatten order: f32 accumulators when
+        ``microbatch > 1``, else ``param_dtype`` (default: each leaf's)."""
+        from repro_torch.distributed.gradsync import flat_leaves
+
+        def dtype(p):
+            return torch.float32 if self.microbatch > 1 else (param_dtype or p.dtype)
+
+        return [torch.empty(p.shape, device="meta", dtype=dtype(p))
+                for _, p in flat_leaves(params)]
+
+    def grad_buckets(self, params, param_dtype: Optional[torch.dtype] = None):
+        """Reverse-layer buckets over ``params``' gradients, or None when
+        the plan does not bucket."""
+        if self.grad_sync != GRAD_SYNC_BUCKETED:
+            return None
+        from repro_torch.distributed.gradsync import partition_buckets
+
+        return partition_buckets(self.grad_leaves(params, param_dtype),
+                                 bucket_mb=self.grad_bucket_mb)
+
+    def describe(self) -> Dict[str, Any]:
+        """Flat summary for logs and telemetry (the JAX keys that apply)."""
+        return {"mode": self.mode, "dp_axes": ["data"] if self.dp_size > 1 else [],
+                "dp_size": self.dp_size, "local_batch": self.local_batch,
+                "microbatch": self.microbatch, "grad_sync": self.grad_sync, "grad_bucket_mb": self.grad_bucket_mb,
+                "fallback_reason": self.fallback_reason}

@@ -1,10 +1,13 @@
-"""Training launcher: the paper's pretraining run on one card.
+"""Training launcher: the paper's pretraining run, on one card or data
+parallel over several processes.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch bert-mlm-120m \\
       --steps 200 --batch 32 --seq 512 [--workers 0] \\
       [--ckpt-dir runs/ck --ckpt-every 50 --keep-last-k 3] [--resume]
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --reduced \\
       --steps 20 --batch 8 --seq 64 --n-functions 300
+  PYTHONPATH=src torchrun --standalone --nproc-per-node 2 \\
+      -m repro_torch.launch.train --batch 16 --seq 512 [--grad-bucket-mb 25]
 
 The twin of the JAX package's ``launch/train.py``, with its flags,
 defaults (f32 parameters and activations through
@@ -19,23 +22,36 @@ manifest; ``--keep-last-k`` prunes older committed ones) and
 ``--resume`` continues bit for bit from the newest complete one, or from
 ``--ckpt-step N`` (pinned against GC for the rest of the run).
 ``--process-index/--process-count`` set this host's slice of the
-deterministic global batch order.
+deterministic global batch order (by default the process group's rank
+and size).
+
+Data parallelism (``--sharding ddp``, the default): started by
+``torchrun`` (or with the JAX package's ``REPRO_COORDINATOR``,
+``REPRO_NUM_PROCESSES``, ``REPRO_PROCESS_ID``), every process joins the
+process group (``distributed.maybe_initialize_distributed``, printed as
+the ``[dist]`` line with its backend), trains ``--batch`` rows of a
+global batch of ``--batch`` x processes, and the gradients are summed by
+one all-reduce per reverse-layer bucket of ``--grad-bucket-mb``.  On
+the card only rank 0 builds the kernels, and the others load them after
+a barrier.
 
 Runs on the card unless ``--device cpu`` asks for the CPU (the kernels'
-plain versions; ``--reduced`` makes that quick).  One process trains on
-one device: ``--sharding`` takes only ``ddp``, and the JAX launcher's
-parallel, journal and straggler flags exit with the ROADMAP item that
-brings them.  ``main(argv)`` returns ``(state, TrainerLog)``, so the
-same run can be driven in process.
+plain versions; ``--reduced`` makes that quick).  ``--sharding`` takes
+only ``ddp``, and the JAX launcher's other parallel, journal and
+straggler flags exit with the ROADMAP item that brings them.
+``main(argv)`` returns ``(state, TrainerLog)``, so the same run can be
+driven in process.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import tempfile
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import default_run_config, get_config
 from repro_torch.configs import reduced as reduce_cfg
@@ -43,19 +59,20 @@ from repro_torch.configs.base import ShapeConfig
 from repro_torch.core.mlm import mask_tokens
 from repro_torch.data import DataPipeline, NetworkFS
 from repro_torch.data.tokenizer import MASK
-from repro_torch.device import resolve_device
+from repro_torch.distributed import maybe_initialize_distributed
+from repro_torch.kernels import ops
 from repro_torch.models.model import build_model
 from repro_torch.observability import MetricsRegistry, Tracer, set_tracer
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.optimizer import AdamWConfig
 from repro_torch.train.runner import StepRunner, TrainLoop, resume
 
-# the JAX launcher's flags that one process on one card cannot honour yet,
-# each with the ROADMAP item that brings it; none is ignored silently
+# the JAX launcher's flags that the port cannot honour yet, each with the
+# ROADMAP item that brings it; none is ignored silently
 REFUSED_FLAGS = {
     "--pipeline-stages": "A11", "--expert-parallel": "A11",
     "--tensor-parallel": "A11", "--pp-schedule": "A11",
-    "--grad-bucket-mb": "A5", "--elastic-restore": "A12",
+    "--elastic-restore": "A12",
     "--journal-dir": "A12", "--journal-k": "A12",
     "--straggler-every": "A12", "--straggler-ratio": "A12",
 }
@@ -99,13 +116,16 @@ def build_parser() -> argparse.ArgumentParser:
                          "K after each save (0 = keep all)")
     ap.add_argument("--sharding", default="ddp",
                     choices=["ddp", *SHARDING_ITEMS],
-                    help="parallelism mode; only ddp (one process, one "
-                         "device) is ported")
+                    help="parallelism mode; only ddp (data parallel, one "
+                         "process a shard) is ported")
+    ap.add_argument("--grad-bucket-mb", type=float, default=25.0,
+                    help="gradient all-reduce bucket size (MB); one "
+                         "all-reduce per bucket, issued during the backward")
     ap.add_argument("--microbatch", type=int, default=0,
                     help="grad-accumulation split of the local batch "
                          "(0 = no split)")
-    ap.add_argument("--process-index", type=int, default=0)
-    ap.add_argument("--process-count", type=int, default=1)
+    ap.add_argument("--process-index", type=int, default=None)
+    ap.add_argument("--process-count", type=int, default=None)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--trace-dir", default=None,
                     help="write a Perfetto-loadable span timeline to "
@@ -125,15 +145,18 @@ def _refuse_unported(ap: argparse.ArgumentParser, args) -> None:
             ap.error(f"{flag} is not ported yet (ROADMAP {item})")
     if args.sharding != "ddp":
         ap.error(f"--sharding {args.sharding} is not ported yet "
-                 f"(ROADMAP {SHARDING_ITEMS[args.sharding]}); one process "
-                 "trains on one device (ddp)")
+                 f"(ROADMAP {SHARDING_ITEMS[args.sharding]}); the port "
+                 "runs ddp")
 
 
-def make_work_fn(cfg):
+def make_work_fn(cfg, process_index: int = 0, process_count: int = 1):
     """The per-batch ``work_fn`` the loader workers run: for an encoder,
     BERT masking by ``core.mlm.mask_tokens`` on a CPU ``torch.Generator``
     seeded from the pipeline's per-batch rng (so the masked stream is a
-    pure function of the cursor); for a decoder, next-token labels."""
+    pure function of the cursor); for a decoder, next-token labels.  With
+    several processes the draws are made for the whole global batch and
+    this host's rows taken from them, so the hosts' masks together are
+    those one process draws for the same global batch."""
     is_mlm = cfg.family == "encoder"
 
     def work(batch, rng):
@@ -143,8 +166,13 @@ def make_work_fn(cfg):
             return {"tokens": toks, "labels": torch.roll(toks, -1, dims=1),
                     "loss_mask": attn}
         gen = torch.Generator().manual_seed(int(rng.integers(1 << 30)))
-        inputs, labels, mask = mask_tokens(gen, toks, cfg.vocab_size, MASK)
-        return {"tokens": inputs, "labels": labels, "loss_mask": mask * attn}
+        b = toks.shape[0]
+        rows = slice(process_index * b, (process_index + 1) * b)
+        full = toks.new_zeros((b * process_count, toks.shape[1]))
+        full[rows] = toks
+        inputs, labels, mask = mask_tokens(gen, full, cfg.vocab_size, MASK)
+        return {"tokens": inputs[rows], "labels": labels[rows],
+                "loss_mask": mask[rows] * attn}
 
     return work
 
@@ -153,9 +181,14 @@ def main(argv=None):
     ap = build_parser()
     args = ap.parse_args(argv)
     _refuse_unported(ap, args)
-    device = resolve_device(args.device)
     if args.resume and not args.ckpt_dir:
         ap.error("--resume needs --ckpt-dir")
+    # the process group first (env-keyed; a no-op for one process)
+    info = maybe_initialize_distributed(args.device)
+    device = info.device
+    if info.backend is not None:
+        print(f"[dist] torch.distributed initialized: process "
+              f"{info.rank}/{info.world} backend={info.backend} device={device}")
     # One intra-op thread, on either device.  On the card the host only
     # launches kernels and feeds batches, while the loader workers mask
     # each batch with small torch ops of their own, which a pool of every
@@ -164,6 +197,10 @@ def main(argv=None):
     # change order between runs and a resumed run would not repeat the
     # uninterrupted one bit for bit.
     torch.set_num_threads(1)
+    if args.process_index is None:
+        args.process_index = info.rank
+    if args.process_count is None:
+        args.process_count = info.world
     pidx, pcount = args.process_index, args.process_count
 
     cfg = get_config(args.arch)
@@ -175,13 +212,18 @@ def main(argv=None):
     print(f"[data] building pipeline in {data_dir} "
           f"(host {pidx}/{pcount}, per-host batch {args.batch})")
     t0 = time.perf_counter()
+    # one data dir for the whole group: rank 0 builds it, the others reuse it
+    if info.world > 1 and info.rank != 0:
+        dist.barrier()
     pipeline = DataPipeline.build(
         data_dir, n_functions=args.n_functions, seq_len=args.seq,
         batch_size=args.batch, vocab_size=cfg.vocab_size,
         network=NetworkFS(agg_bw=2e9, readers=8),
         seed=args.data_seed, process_index=pidx, process_count=pcount,
         n_workers=max(1, args.workers),
-        work_fn=make_work_fn(cfg))
+        work_fn=make_work_fn(cfg, pidx, pcount))
+    if info.world > 1 and info.rank == 0:
+        dist.barrier()
     print(f"[R1+R2] packed+staged {pipeline.ds.n_examples} examples "
           f"({pipeline.batches_per_epoch} global batches/epoch) "
           f"in {time.perf_counter() - t0:.2f}s")
@@ -190,25 +232,49 @@ def main(argv=None):
     tracer = Tracer(process_index=pidx) if args.trace_dir else None
     prev_tracer = set_tracer(tracer) if tracer is not None else None
     try:
-        return _train(args, cfg, device, pipeline, tracer)
+        return _train(args, cfg, device, pipeline, tracer, info.world)
     finally:
         pipeline.close()
         if tracer is not None:
             set_tracer(prev_tracer)
 
 
-def _train(args, cfg, device, pipeline, tracer):
+def _build_kernels(device, world: int) -> None:
+    """On the card with several processes: rank 0 builds every kernel while
+    the others wait at a barrier, then load what it built (two ranks
+    would otherwise run nvcc for the same libraries)."""
+    if device.type != "cuda" or world <= 1:
+        return
+    if dist.get_rank() == 0:
+        from repro_torch.kernels import _build
+
+        _build.build_all()
+    dist.barrier()
+
+
+def _train(args, cfg, device, pipeline, tracer, world: int):
     pidx, pcount = args.process_index, args.process_count
     registry = MetricsRegistry()
+    _build_kernels(device, world)
     model = build_model(cfg, device=device)
-    run = default_run_config(cfg, ShapeConfig("cli", args.seq, args.batch, "train"),
+    # every process of the group trains --batch rows of one global batch
+    gbatch = args.batch * world
+    run = default_run_config(cfg, ShapeConfig("cli", args.seq, gbatch, "train"),
                              microbatch=args.microbatch)
     opt = AdamWConfig(lr=args.lr, warmup_steps=max(2, args.steps // 20),
                       total_steps=args.steps)
-    runner = StepRunner(model, run, opt)
-    print(f"[plan] mode=ddp dp_size=1 grad_sync=none device={runner.device} "
-          f"param_dtype={run.param_dtype} activation_dtype={run.activation_dtype} "
-          f"microbatch={run.microbatch or 1}")
+    runner = StepRunner(model, run, opt, grad_bucket_mb=args.grad_bucket_mb)
+    gs = runner.grad_sync_info()
+    print(f"[plan] mode={gs['mode']} dp_axes={gs['dp_axes']} "
+          f"dp_size={gs['dp_size']} grad_sync={gs['grad_sync']} "
+          f"buckets={gs['n_buckets']} "
+          f"comm={gs['comm_bytes']/1e6:.1f}MB/step "
+          f"wire={gs['wire_bytes_per_device']/1e6:.1f}MB/dev")
+    if gs.get("fallback_reason"):
+        print(f"[plan] fallback: {gs['fallback_reason']}")
+    print(f"[plan] device={runner.device} param_dtype={run.param_dtype} "
+          f"activation_dtype={run.activation_dtype} microbatch={run.microbatch or 1} "
+          f"global_batch={gbatch}")
 
     probe_steps = 0
     if args.workers == 0:
@@ -255,8 +321,11 @@ def _train(args, cfg, device, pipeline, tracer):
                      process_index=pidx, process_count=pcount,
                      metrics=registry, metrics_jsonl=args.metrics_jsonl)
     print(f"[train] {cfg.name}: {cfg.n_layers}L d={cfg.d_model} on {runner.device}, "
-          f"steps {start_step}->{args.steps}")
+          f"{world} process(es), steps {start_step}->{args.steps}")
+    before = dict(ops.launch_counts)
     state, log = loop.run(pipeline, args.steps, state=state, start_step=start_step)
+    launches = {k: n - before.get(k, 0) for k, n in ops.launch_counts.items()
+                if n > before.get(k, 0)}
     log.telemetry.update(probe_steps=probe_steps, start_step=start_step,
                          n_workers=pipeline.n_workers,
                          device_prefetch=pipeline.device_prefetch)
@@ -273,7 +342,19 @@ def _train(args, cfg, device, pipeline, tracer):
           f"data_wait={t['data_wait_s'] / max(t['total_s'], 1e-9) * 100:.1f}% "
           f"device_puts={t['device_puts']} ckpt_saves={t['ckpt_saves']} "
           f"ckpt_host_copy={t['ckpt_host_copy_s']*1e3:.1f}ms "
-          f"ckpt_write={t['ckpt_write_s']*1e3:.1f}ms")
+          f"ckpt_write={t['ckpt_write_s']*1e3:.1f}ms "
+          f"grad_sync={t['grad_sync']}/{t['grad_buckets']}bkt/"
+          f"{t['grad_comm_bytes']/1e6:.1f}MB")
+    if runner.sync is not None:
+        n_run = args.steps - start_step
+        print(f"[gradsync] rank={pidx} all_reduces={t['grad_all_reduces']} "
+              f"per_step={t['grad_all_reduces'] / max(n_run, 1):g} "
+              f"hooks_once={t['grad_hooks_once']} "
+              f"exposed_sync_p50={t['grad_exposed_sync_p50_s']*1e3:.2f}ms "
+              f"bucket_wait_ms={[round(w * 1e3, 3) for w in t['grad_bucket_wait_s']]}")
+    if launches:
+        print(f"[kernels] rank={pidx} steps={args.steps - start_step} "
+              f"launches={json.dumps(launches, sort_keys=True)}")
     if args.metrics_jsonl:
         print(f"[metrics] wrote {args.metrics_jsonl}")
     if tracer is not None:
@@ -291,3 +372,5 @@ def _sync(device) -> None:
 
 if __name__ == "__main__":
     main()
+    if dist.is_initialized():
+        dist.destroy_process_group()

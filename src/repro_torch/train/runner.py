@@ -1,7 +1,9 @@
-"""Asynchronous training execution on one device: StepRunner + TrainLoop.
+"""Asynchronous training execution: StepRunner + TrainLoop.
 
   StepRunner  — owns the train step of ``train_step.make_train_step``, the
-                device its state lives on, and the MFU estimate.
+                device its state lives on, its data-parallel plan (one
+                process a shard, the gradients summed across the process
+                group) and the MFU estimate.
   TrainLoop   — drives the runner without blocking the host on the
                 device: batches arrive through the pinned, side-stream
                 ``data.device_prefetch`` (a ``DataPipeline`` hands its own
@@ -17,7 +19,7 @@ names; the loop's phases are spans of the installed tracer
 (``docs/observability.md``).  :func:`resume` restores a sharded
 checkpoint and re-aims the pipeline, so the continued run repeats the
 uninterrupted one.  The rollback journal and the straggler monitor
-(ROADMAP A12) and a mesh (A5) raise ``NotImplementedError``.
+(ROADMAP A12) raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -28,11 +30,14 @@ from typing import Any, Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import RunConfig
 from repro_torch.core.scaling import model_flops
 from repro_torch.data.device_prefetch import DevicePrefetch, as_tensors, on_device
 from repro_torch.data.pipeline import DataPipeline
+from repro_torch.distributed import gradsync
+from repro_torch.distributed.sharding import ParallelPlan
 from repro_torch.models.model import Model
 from repro_torch.observability import STEP_TIME_BUCKETS_MS, get_tracer
 from repro_torch.train import checkpoint as ckpt
@@ -108,28 +113,59 @@ class AsyncMetrics:
 
 
 class StepRunner:
-    """Owns the train step and the device of its state (the device of
-    ``model``'s parameters).  ``mesh`` must be None: the data-parallel
-    runner comes with the DDP slice."""
+    """Owns the train step, the device of its state (the device of
+    ``model``'s parameters) and its :class:`ParallelPlan`.
 
-    def __init__(self, model: Model, run: RunConfig, opt: AdamWConfig, mesh=None):
-        if mesh is not None:
-            _not_yet("a StepRunner over a mesh (DDP)", "A5")
-        self.model, self.run, self.opt = model, run, opt
+    ``plan=None`` derives the plan from ``run`` and the default process
+    group, as the JAX runner derives it from its mesh: with no group, or
+    a group of one, the step runs on one process; with a group of N, each
+    rank trains its 1/N of ``run.shape.global_batch`` and the gradients
+    are summed (``grad_bucket_mb`` sizes the buckets).  Every rank must
+    run the same steps: a collective one rank skips hangs the others."""
+
+    def __init__(self, model: Model, run: RunConfig, opt: AdamWConfig,
+                 plan: Optional[ParallelPlan] = None, grad_bucket_mb: float = 25.0):
+        if plan is None:
+            world = dist.get_world_size() if dist.is_initialized() else None
+            plan = ParallelPlan.for_run(run, world, grad_bucket_mb=grad_bucket_mb)
+        if plan.world and plan.world > 1 and plan.dp_size == 1:
+            raise ValueError(f"global batch {plan.global_batch} does not split over "
+                             f"{plan.world} processes")
+        self.model, self.run, self.opt, self.plan = model, run, opt, plan
         self.device = next(model.parameters()).device
-        self._step = make_train_step(model, run, opt)
+        self._step = make_train_step(model, run, opt, plan)
+        self.sync = self._step.sync     # the bucket hooks' owner, or None
 
     def init_state(self, seed: int = 0):
         return init_state(self.model, self.run, seed)
 
     def place_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         """The batch's leaves (numpy or tensors) on the state's device; a
-        leaf already there (from the device prefetch) is left untouched."""
+        leaf already there (from the device prefetch) is left untouched.
+        Under data parallelism the batch is this rank's rows."""
         return {k: v if on_device(v, self.device) else v.to(self.device, non_blocking=True)
                 for k, v in as_tensors(batch).items()}
 
     def __call__(self, state, batch):
         return self._step(state, self.place_batch(batch))
+
+    # -- gradient-sync telemetry -----------------------------------------
+    def grad_sync_info(self) -> Dict[str, Any]:
+        """The plan's grad-sync shape and its communication per step, under
+        the JAX runner's keys: strategy, bucket count, each bucket's
+        payload (``bucket_bytes``) and the ring all-reduce's wire bytes
+        per device (``wire_bytes_per_device``)."""
+        info = dict(self.plan.describe())
+        info.update(n_buckets=0, comm_bytes=0, bucket_bytes=[], wire_bytes_per_device=0.0)
+        buckets = self.plan.grad_buckets(self.model, getattr(torch, self.run.param_dtype))
+        if buckets is None:
+            return info
+        stats = gradsync.bucket_plan_stats(buckets)
+        info.update(stats)
+        info["bucket_bytes"] = [b.nbytes for b in buckets]
+        info["wire_bytes_per_device"] = gradsync.ring_allreduce_bytes(
+            stats["comm_bytes"], self.plan.dp_size)
+        return info
 
     # -- cost / MFU ------------------------------------------------------
     def flops_per_step(self, tokens_per_step: int) -> float:
@@ -265,6 +301,10 @@ class TrainLoop:
             "train_step_time_ms", STEP_TIME_BUCKETS_MS,
             help="per-step wall time") if self.metrics is not None else None
 
+        sync = runner.sync
+        n_reduce0 = gradsync.counts["grad_all_reduce"]
+        hooks_once = True      # every leaf's hook fired once in every step
+        exposed, waits = [], []   # per step: host s from backward end to last bucket
         blocked = 0.0          # host time spent waiting (stalls)
         data_wait = 0.0        # the part of it spent waiting for a batch
         drain_s = 0.0          # end-of-run metric drain (NOT steady stall)
@@ -309,6 +349,10 @@ class TrainLoop:
                 tw = time.perf_counter()
                 state, metrics = runner(state, batch)
                 tracer.complete("dispatch", "compute", tw, time.perf_counter())
+                if sync is not None:
+                    hooks_once &= all(f == 1 for f in sync.hook_fires)
+                    exposed.append(sync.last_exposed_s)
+                    waits.append(sync.last_wait_s)
                 # the host-kill window: step i dispatched, the device
                 # possibly still mid-backward
                 fault_point("step", i)
@@ -391,6 +435,7 @@ class TrainLoop:
 
         total = time.perf_counter() - t_start
         n_steps = steps - start_step
+        gs = runner.grad_sync_info()
         log.telemetry = {
             "total_s": total,
             "host_blocked_s": blocked,
@@ -406,9 +451,25 @@ class TrainLoop:
             "ckpt_saves": saver_stats.n_saved if saver_stats else 0,
             "ckpt_host_copy_s": saver_stats.host_copy_s if saver_stats else 0.0,
             "ckpt_write_s": saver_stats.write_s if saver_stats else 0.0,
+            # the plan's gradient sync and its volume per step (JAX names)
+            "grad_sync": gs["grad_sync"],
+            "grad_buckets": gs["n_buckets"],
+            "grad_comm_bytes": gs["comm_bytes"],
+            "grad_wire_bytes_per_device": gs["wire_bytes_per_device"],
+            # what this run issued: gradient all-reduces, whether each
+            # leaf's hook fired once a step, and the host's wait for the
+            # buckets after the backward (steps after the first)
+            "grad_all_reduces": gradsync.counts["grad_all_reduce"] - n_reduce0,
+            "grad_hooks_once": hooks_once if sync is not None else None,
+            "grad_exposed_sync_p50_s": float(np.median(exposed[1:]))
+            if len(exposed) > 1 else float("nan"),
+            "grad_bucket_wait_s": [float(np.median(w)) for w in zip(*waits[1:])]
+            if len(waits) > 1 else [],
         }
         if self.metrics is not None:
             self.metrics.set_gauges(log.telemetry, prefix="train_")
+            # the plan's communication volume as named series (JAX names)
+            self.metrics.set_gauges(gradsync.metric_series(gs), prefix="grad_")
             if self.metrics_jsonl:
                 self.metrics.write_jsonl(self.metrics_jsonl, step=steps,
                                          extra={"final": True})

@@ -1,14 +1,23 @@
-"""Step builders: the single-device training step (loss, gradients,
-AdamW) and the two steps the paged serving engine runs.
+"""Step builders: the training step (loss, gradients, AdamW), single
+device or data-parallel, and the two steps the paged serving engine runs.
 
-The training step follows the JAX package's single-device branch of
-``make_train_step``: ``loss_for`` runs the model in train mode (each
-layer rematerialised when ``run.remat``), then ``chunked_xent`` streams
-the head and the per-token nll one sequence block at a time, each block
-under ``torch.utils.checkpoint`` as under ``jax.checkpoint``, with the
-nll from ``kernels/ops.xent`` on every device.  The state is
-``{"params": Model, "opt": {...}}``; a step updates it in place and
-returns it with its metrics (0-d tensors, not yet read on the host).
+The training step follows the JAX package's ``make_train_step``:
+``loss_for`` runs the model in train mode (each layer rematerialised
+when ``run.remat``), then ``chunked_xent`` streams the head and the
+per-token nll one sequence block at a time, each block under
+``torch.utils.checkpoint`` as under ``jax.checkpoint``, with the nll from
+``kernels/ops.xent`` on every device.  The state is ``{"params": Model,
+"opt": {...}}``; a step updates it in place and returns it with its
+metrics (0-d tensors, not yet read on the host).
+
+Under a data-parallel plan (``distributed.sharding.ParallelPlan``, one
+process a shard) every rank runs the per-shard loss on its rows and the
+gradients are summed across the process group: ``bucketed_overlap`` by
+one all-reduce per reverse-layer bucket from backward hooks, the
+``xla_fused`` fallback by one all-reduce after the backward over global
+microbatches.  AdamW then applies the same summed gradient on every rank,
+so the replicas stay equal without a broadcast.  ``make_grad_fn`` is the
+step minus the optimizer; both share one core.
 """
 from __future__ import annotations
 
@@ -16,11 +25,15 @@ import copy
 from typing import Callable, Dict, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.core.accum import accumulate_grads
+from repro_torch.distributed import gradsync
+from repro_torch.distributed.sharding import (GRAD_SYNC_BUCKETED, GRAD_SYNC_NONE,
+                                              ParallelPlan)
 from repro_torch.kernels import ops as kops
 from repro_torch.models.model import Model
 from repro_torch.models.transformer import forward, head_apply
@@ -77,11 +90,10 @@ def chunked_xent(params, h, labels, loss_mask, cfg: ModelConfig, *,
     return s_nll, s_acc, s_den
 
 
-def loss_for(model: Model, params, batch: Dict[str, torch.Tensor], *,
-             run: RunConfig):
-    """Loss + metrics (``xent``, ``acc``, ``tokens``, ``aux_loss``,
-    ``loss``) of one device's batch, the JAX package's global branch
-    without a mesh.  ``params`` is the parameter tree (a ``Model``)."""
+def shard_sums(model: Model, params, batch: Dict[str, torch.Tensor], run: RunConfig):
+    """(sum nll, sum correct, loss-mask sum, aux) of the rows in ``batch``;
+    the loss blocks' length follows these rows, as in the JAX per-shard
+    call."""
     cfg = model.cfg
     h, _, aux = forward(params, cfg, batch, mode="train", act_dtype=_act_dtype(run),
                         return_hidden=True, remat=run.remat)
@@ -91,6 +103,33 @@ def loss_for(model: Model, params, batch: Dict[str, torch.Tensor], *,
         mask = torch.ones(labels.shape, dtype=torch.float32, device=labels.device)
     c = loss_chunk_len(labels.shape[0], labels.shape[1], cfg.vocab_size, 1)
     s_nll, s_acc, s_den = chunked_xent(params, h, labels, mask, cfg, chunk=c)
+    return s_nll, s_acc, s_den, aux
+
+
+def loss_for(model: Model, params, batch: Dict[str, torch.Tensor], *,
+             run: RunConfig, dp_size: int = 1):
+    """Loss + metrics (``xent``, ``acc``, ``tokens``, ``aux_loss``,
+    ``loss``).  ``params`` is the parameter tree (a ``Model``).
+
+    * Global (``dp_size`` 1): the loss of this batch.
+    * Per-shard (``dp_size`` > 1, the JAX ``axis_names`` call): ``batch``
+      is this rank's shard (the default process group's) and the
+      returned loss its contribution
+      ``s_nll / global_den + aux / dp_size``, built so that a plain SUM of
+      the ranks' gradients is the global-batch gradient.  Only the mask
+      sum is reduced before the backward, on a detached tensor; the
+      metrics are reduced with it (outside autograd) and are global."""
+    s_nll, s_acc, s_den, aux = shard_sums(model, params, batch, run)
+    if dp_size > 1:
+        red = torch.stack([s_den, s_nll, s_acc, aux]).detach().float()
+        dist.all_reduce(red)
+        g_den, g_nll, g_acc, g_aux = red.unbind()
+        den = torch.clamp(g_den, min=1.0)
+        loss = s_nll / den + aux / dp_size
+        xent = g_nll / den
+        metrics = {"xent": xent, "acc": g_acc / den, "tokens": g_den,
+                   "aux_loss": g_aux / dp_size, "loss": xent + g_aux / dp_size}
+        return loss, metrics
     den = torch.clamp(s_den, min=1.0)
     loss = s_nll / den
     metrics = {"xent": loss.detach(), "acc": s_acc / den, "tokens": s_den}
@@ -100,18 +139,108 @@ def loss_for(model: Model, params, batch: Dict[str, torch.Tensor], *,
     return loss, metrics
 
 
-def make_train_step(model: Model, run: RunConfig, opt: AdamWConfig) -> Callable:
+def _bucketed_accum(model: Model, run: RunConfig, plan: ParallelPlan):
+    """Shared core of the bucketed ddp step and grad function: per-shard
+    loss, local microbatch accumulation, one all-reduce per reverse-layer
+    bucket from the final microbatch's backward.  Returns ``accum(params,
+    local_batch) -> (loss, grads, metrics)`` (the loss is this shard's
+    contribution; grads and metrics are global) with the hooks' owner as
+    ``accum.sync``."""
+    buckets = plan.grad_buckets(model, getattr(torch, run.param_dtype))
+    sync = gradsync.BucketedAllReduce(buckets)
+
+    def accum(params, batch):
+        def loss_fn(p, b):
+            return loss_for(model, p, b, run=run, dp_size=plan.dp_size)
+
+        return accumulate_grads(loss_fn, params, batch, run.microbatch or 1, sync_grads=sync)
+
+    accum.sync = sync
+    return accum
+
+
+def _fused_accum(model: Model, run: RunConfig, plan: ParallelPlan):
+    """The ``xla_fused`` fallback, as the JAX partitioner runs it: the
+    GLOBAL batch splits into ``n_micro`` microbatches of ``global /
+    n_micro`` rows, each averaged over its own global mask sum, and the
+    gradients are summed by one all-reduce after the backward.  A rank
+    runs the part of each microbatch that lies in its rows (possibly
+    none); one all-reduce of the per-microbatch mask sums comes first."""
+    n = run.microbatch or 1
+    G, local = plan.global_batch, plan.local_batch
+    if G % n:
+        raise ValueError(f"global batch {G} does not split into {n} microbatches")
+    c = G // n
+
+    def accum(params, batch):
+        lo = dist.get_rank() * local
+        pieces = [(m, max(m * c, lo) - lo, min((m + 1) * c, lo + local) - lo) for m in range(n)]
+        ref = batch["labels"]
+        mask = batch.get("loss_mask")
+        if mask is None:
+            mask = torch.ones(ref.shape, dtype=torch.float32, device=ref.device)
+        den = torch.stack([mask[a:b].float().sum() if b > a else
+                           torch.zeros((), device=ref.device) for _, a, b in pieces])
+        dist.all_reduce(den)
+        tokens, den = den, torch.clamp(den, min=1.0)
+        named = dict(params.named_parameters())
+        for p in named.values():
+            p.grad = None
+        sums = torch.zeros((n, 3), dtype=torch.float32, device=ref.device)
+        loss_sum = torch.zeros((), dtype=torch.float32, device=ref.device)
+        for m, a, b in pieces:
+            if b <= a:
+                continue
+            s_nll, s_acc, _, aux = shard_sums(model, params,
+                                               {k: v[a:b] for k, v in batch.items()}, run)
+            # aux is a row mean: this piece's share of its microbatch's
+            share = aux * ((b - a) / c)
+            loss = (s_nll / den[m] + share) / n
+            loss.backward()
+            loss_sum = loss_sum + loss.detach().float()
+            sums[m] = torch.stack([s_nll, s_acc, share]).detach().float()
+        for p in named.values():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        leaves = [p.grad for _, p in gradsync.flat_leaves(params)]
+        gradsync.fused_all_reduce(leaves)
+        dist.all_reduce(sums)
+        xent = (sums[:, 0] / den).mean()
+        aux = sums[:, 2].mean()
+        metrics = {"xent": xent, "acc": (sums[:, 1] / den).mean(), "tokens": tokens.mean(),
+                   "aux_loss": aux, "loss": xent + aux}
+        return loss_sum, {k: p.grad for k, p in named.items()}, metrics
+
+    accum.sync = None
+    return accum
+
+
+def _accum(model: Model, run: RunConfig, plan: Optional[ParallelPlan]):
+    """The gradient core of ``plan``'s strategy: (params, batch) -> (loss,
+    grads, metrics), with ``.sync`` the bucket hooks' owner or None."""
+    if plan is None or plan.grad_sync == GRAD_SYNC_NONE:
+        def accum(params, batch):
+            return accumulate_grads(lambda p, b: loss_for(model, p, b, run=run),
+                                    params, batch, run.microbatch or 1)
+
+        accum.sync = None
+        return accum
+    if plan.grad_sync == GRAD_SYNC_BUCKETED:
+        return _bucketed_accum(model, run, plan)
+    return _fused_accum(model, run, plan)
+
+
+def make_train_step(model: Model, run: RunConfig, opt: AdamWConfig,
+                    plan: Optional[ParallelPlan] = None) -> Callable:
     """(state, batch) -> (state, metrics); state = {params, opt}, updated
-    in place.  Single device: the data-parallel and sharded steps of the
-    JAX package come with later slices."""
+    in place.  ``plan`` picks the gradient sync (module docstring); under
+    a data-parallel plan ``batch`` is this rank's shard.  The step's
+    ``sync`` attribute is the bucket hooks' owner (or None)."""
+    accum = _accum(model, run, plan)
 
     def step(state, batch):
-        def loss_fn(p, b):
-            return loss_for(model, p, b, run=run)
-
         params = state["params"]
-        loss, grads, metrics = accumulate_grads(loss_fn, params, batch,
-                                                run.microbatch or 1)
+        _, grads, metrics = accum(params, batch)
         named = dict(params.named_parameters())
         _, new_opt, opt_metrics = adamw_update(opt, grads, state["opt"], named)
         for p in named.values():
@@ -119,7 +248,31 @@ def make_train_step(model: Model, run: RunConfig, opt: AdamWConfig) -> Callable:
         metrics = {**metrics, **opt_metrics}
         return {"params": params, "opt": new_opt}, metrics
 
+    step.sync = accum.sync
     return step
+
+
+def make_grad_fn(model: Model, run: RunConfig,
+                 plan: Optional[ParallelPlan] = None) -> Callable:
+    """(params, batch) -> (loss, grads, metrics) under ``plan``'s gradient
+    sync: the train step minus the optimizer update.  Under a
+    data-parallel plan the loss is the global one (the shards'
+    contributions summed) and the gradients are the summed ones, as the
+    JAX ``make_grad_fn`` returns them.  As there, with ``microbatch > 1``
+    AND a ragged mask the bucketed path (per-shard microbatches) and the
+    fused one (global microbatches) weigh tokens differently."""
+    accum = _accum(model, run, plan)
+    sharded = plan is not None and plan.grad_sync != GRAD_SYNC_NONE
+
+    def grad_fn(params, batch):
+        loss, grads, metrics = accum(params, batch)
+        if sharded:
+            loss = loss.clone()
+            dist.all_reduce(loss)
+        return loss, grads, metrics
+
+    grad_fn.sync = accum.sync
+    return grad_fn
 
 
 def _param_device(model: Model) -> torch.device:

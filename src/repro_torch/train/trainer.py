@@ -16,7 +16,7 @@ from repro_torch.train.runner import (StepRunner, TrainerLog,  # noqa: F401
 
 def train(model: Model, run: RunConfig, opt: AdamWConfig,
           data: Iterable[Dict[str, Any]], *, steps: int,
-          seed: int = 0, mesh=None, log_every: int = 10,
+          seed: int = 0, plan=None, log_every: int = 10,
           ckpt_path: Optional[str] = None, ckpt_every: int = 0,
           ckpt_dir: Optional[str] = None, start_step: int = 0,
           keep_last_k: int = 0, process_index: int = 0,
@@ -28,9 +28,10 @@ def train(model: Model, run: RunConfig, opt: AdamWConfig,
     unless the model was built with ``device="cpu"``); a given ``state``
     is trained in place.  ``ckpt_dir`` selects the sharded resumable
     layout (``data`` may be a ``DataPipeline``; its position is
-    checkpointed alongside the state — see ``train/checkpoint.py``)."""
+    checkpointed alongside the state — see ``train/checkpoint.py``).
+    ``plan`` is the data-parallel plan (``StepRunner``'s)."""
     if runner is None:
-        runner = StepRunner(model, run, opt, mesh)
+        runner = StepRunner(model, run, opt, plan)
     kw = {} if peak_flops is None else {"peak_flops": peak_flops}
     loop = TrainLoop(runner, log_every=log_every, ckpt_path=ckpt_path,
                      ckpt_every=ckpt_every, ckpt_dir=ckpt_dir,

@@ -30,6 +30,7 @@ from repro_torch.configs.base import LayerSpec, RunConfig, ShapeConfig, uniform_
 from repro_torch.core import scaling
 from repro_torch.core.accum import accumulate_grads
 from repro_torch.core.mlm import lm_loss, mask_tokens, mlm_loss
+from repro_torch.distributed.sharding import ParallelPlan
 from repro_torch.kernels import ops
 from repro_torch.models.model import build_model
 from repro_torch.models.params import flatten_tree
@@ -405,8 +406,8 @@ def test_runner_unported_options_raise():
     for kw in ({"journal": object()}, {"straggler_every": 3}):
         with pytest.raises(NotImplementedError, match="A12"):
             TrainLoop(runner, **kw)
-    with pytest.raises(NotImplementedError, match="A5"):
-        StepRunner(model, run, opt, mesh=object())
+    with pytest.raises(NotImplementedError, match="A8"):
+        StepRunner(model, run, opt, plan=ParallelPlan.make(2, "fsdp", run.shape.global_batch))
 
 
 def test_async_metrics_keeps_push_order_and_bounds_the_window():
