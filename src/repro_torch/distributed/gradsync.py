@@ -12,7 +12,9 @@ during the final microbatch's backward, flattens the full bucket into one
 buffer, scales it by ``1 / n_micro`` and starts the reduction
 asynchronously, so that it runs under the rest of the backward.
 ``finish`` waits for every bucket and copies the sums back into
-``.grad``.
+``.grad``, or into the f32 accumulator of a parameter whose microbatch
+gradients are summed in f32 (``core.accum``): there the bucket reduces
+that accumulator plus the final microbatch's gradient.
 
 Gradient-correctness invariant (the classic ddp bucketing bug): the sync
 is a plain SUM, issued once per STEP, after the final microbatch, never
@@ -209,9 +211,14 @@ class BucketedAllReduce:
                 self._ready(i)
         return hook
 
-    def arm(self, scale: float = 1.0) -> None:
+    def arm(self, scale: float = 1.0, acc=None) -> None:
+        """``acc``: {parameter: its f32 accumulator} of the parameters whose
+        earlier microbatches were summed in f32; their buckets reduce
+        accumulator + gradient and the result is left in the accumulator."""
         self.armed = True
         self.scale = scale
+        acc = acc or {}
+        self._acc = [acc.get(p) for p in self._leaves]
         self.hook_fires = [0] * len(self._leaves)
         self._pending = [len(b.indices) for b in self.buckets]
         self._next = 0
@@ -227,9 +234,22 @@ class BucketedAllReduce:
             self._issue(self._next)
             self._next += 1
 
+    def _source(self, i: int) -> torch.Tensor:
+        """Leaf ``i``'s gradient to reduce: its ``.grad``, or the f32
+        accumulator with the final microbatch's ``.grad`` added in (then
+        dropped)."""
+        p, a = self._leaves[i], self._acc[i]
+        if a is None:
+            return p.grad
+        if p.grad is not None:
+            a.add_(p.grad)
+            p.grad = None
+        return a
+
     def _issue(self, b: int) -> None:
         bucket = self.buckets[b]
-        flat = _flat([p.grad for p in self._leaves], bucket, self.scale)
+        srcs = {i: self._source(i) for i in bucket.indices}
+        flat = _flat(srcs, bucket, self.scale)
         counts["grad_all_reduce"] += 1
         self._works.append((b, flat, dist.all_reduce(flat, async_op=True)))
 
@@ -244,8 +264,8 @@ class BucketedAllReduce:
         if self.timed and cuda:
             torch.cuda.synchronize()
         t_start = time.perf_counter()
-        for p in self._leaves:
-            if p.grad is None:
+        for p, a in zip(self._leaves, self._acc):
+            if p.grad is None and a is None:
                 p.grad = torch.zeros_like(p)
         while self._next < len(self.buckets):
             self._issue(self._next)
@@ -260,7 +280,8 @@ class BucketedAllReduce:
             self.last_wait_s.append(t1 - t0)
             tracer.complete("allreduce_wait", "gradsync", t0, t1, bucket=b,
                             mb=self.buckets[b].mb)
-            _unflat(flat, [p.grad for p in self._leaves], self.buckets[b])
+            _unflat(flat, [p.grad if a is None else a for p, a in zip(self._leaves, self._acc)],
+                    self.buckets[b])
         self.last_exposed_s = time.perf_counter() - t_start
         self.armed = False
         self._works = []

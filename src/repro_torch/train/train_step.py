@@ -30,7 +30,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, RunConfig
-from repro_torch.core.accum import accumulate_grads
+from repro_torch.core.accum import accumulate_grads, add_into, f32_accumulators
 from repro_torch.distributed import gradsync
 from repro_torch.distributed.sharding import (GRAD_SYNC_BUCKETED, GRAD_SYNC_NONE,
                                               ParallelPlan)
@@ -186,6 +186,8 @@ def _fused_accum(model: Model, run: RunConfig, plan: ParallelPlan):
         named = dict(params.named_parameters())
         for p in named.values():
             p.grad = None
+        # bf16 parameters sum their microbatches in f32 (core.accum)
+        acc = f32_accumulators(named, n)
         sums = torch.zeros((n, 3), dtype=torch.float32, device=ref.device)
         loss_sum = torch.zeros((), dtype=torch.float32, device=ref.device)
         for m, a, b in pieces:
@@ -197,19 +199,20 @@ def _fused_accum(model: Model, run: RunConfig, plan: ParallelPlan):
             share = aux * ((b - a) / c)
             loss = (s_nll / den[m] + share) / n
             loss.backward()
+            add_into(acc, named)
             loss_sum = loss_sum + loss.detach().float()
             sums[m] = torch.stack([s_nll, s_acc, share]).detach().float()
-        for p in named.values():
-            if p.grad is None:
+        for k, p in named.items():
+            if p.grad is None and k not in acc:
                 p.grad = torch.zeros_like(p)
-        leaves = [p.grad for _, p in gradsync.flat_leaves(params)]
-        gradsync.fused_all_reduce(leaves)
+        grads = {k: acc.get(k, p.grad) for k, p in named.items()}
+        gradsync.fused_all_reduce([grads[k] for k, _ in gradsync.flat_leaves(params)])
         dist.all_reduce(sums)
         xent = (sums[:, 0] / den).mean()
         aux = sums[:, 2].mean()
         metrics = {"xent": xent, "acc": (sums[:, 1] / den).mean(), "tokens": tokens.mean(),
                    "aux_loss": aux, "loss": xent + aux}
-        return loss_sum, {k: p.grad for k, p in named.items()}, metrics
+        return loss_sum, grads, metrics
 
     accum.sync = None
     return accum
