@@ -4,15 +4,15 @@ A CPU tensor goes to the plain version in ``kernels/ref.py``; a CUDA
 tensor goes to the hand-written kernel, which launches or raises — there
 is no fallback.  ``launch_counts[name]`` counts the kernel launches
 (never the plain version's calls), the backward kernels under their own
-names (``flash_attention_bwd``, ``fused_xent_bwd``).
+names (``flash_attention_bwd``, ``fused_xent_bwd``, ``ssd_scan_bwd``).
 
 ``flash_attention``, ``xent`` and ``ssd`` are differentiable.  As in
 the JAX package the backward recomputes from the saved inputs and never
 stores a score or probability matrix: on the CPU it is the autograd of
 the plain version run again (the JAX ``_fa_bwd`` / ``_xe_bwd`` /
-``_ssd_bwd`` vjp), on the card the backward kernel, fed the row
-log-sum-exp the forward kernel wrote.  ``ssd`` has no backward kernel
-yet: on the card its backward raises.  ``paged_attention`` serves decode
+``_ssd_bwd`` vjp), on the card the backward kernel (flash and xent fed
+the row log-sum-exp their forward kernel wrote; ``ssd`` recomputes its
+chunk states from x, dt, A, B and C).  ``paged_attention`` serves decode
 only and has no backward.
 """
 from __future__ import annotations
@@ -130,24 +130,25 @@ class _Ssd(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dt, A, B, C, chunk):
         ctx.chunk = chunk
+        if x.device.type not in ("cuda", "cpu"):
+            raise ValueError(f"ssd: no kernel for device {x.device}")
+        if any(ctx.needs_input_grad[:5]):
+            ctx.save_for_backward(x, dt, A, B, C)
         if x.is_cuda:
             from repro_torch.kernels.ssd_scan import ssd_scan_fwd
 
             return ssd_scan_fwd(x, dt, A, B, C, chunk)
-        if x.device.type != "cpu":
-            raise ValueError(f"ssd: no kernel for device {x.device}")
-        if any(ctx.needs_input_grad[:5]):
-            ctx.save_for_backward(x, dt, A, B, C)
         return kref.ssd_ref(x, dt, A, B, C, chunk)
 
     @staticmethod
     def backward(ctx, gy, gstate):
         if gy.is_cuda:
-            raise NotImplementedError(
-                "ssd: no backward kernel on the card yet; it comes with the "
-                "mamba2 training slice (ROADMAP)")
-        grads = _plain_vjp(lambda *a: kref.ssd_ref(*a, chunk=ctx.chunk),
-                           ctx.saved_tensors, (gy, gstate))
+            from repro_torch.kernels.ssd_scan import ssd_scan_bwd
+
+            grads = ssd_scan_bwd(*ctx.saved_tensors, gy, gstate, ctx.chunk)
+        else:
+            grads = _plain_vjp(lambda *a: kref.ssd_ref(*a, chunk=ctx.chunk),
+                               ctx.saved_tensors, (gy, gstate))
         return (*grads, None)
 
 

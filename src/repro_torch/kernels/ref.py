@@ -214,6 +214,120 @@ def ssd_chunk_outputs(x, dt, A, B, C, states_in, chunk: int):
     return torch.cat(ys, 1).to(x.dtype)
 
 
+# The backward of ``ssd_ref``, as the four passes of the backward kernel
+# (``csrc/ssd_scan_bwd.cu``).  The states entering each chunk come from the
+# forward's state and carry passes (``ssd_chunk_states``, ``ssd_carry``);
+# the gradient of the state leaving each chunk, dS_out, from
+# ``ssd_chunk_state_grads`` and the reverse carry ``ssd_carry_grads``; each
+# chunk's gradients from ``ssd_chunk_grads``, per head; ``ssd_head_sums``
+# sums a group's heads and dA's partials.  ``ssd_bwd_ref`` composes them.
+# The judge is the autograd of ``ssd_ref``; these are the kernel's passes
+# in plain code, held to it on the CPU.
+
+def ssd_chunk_state_grads(dt, A, C, gy, chunk: int):
+    """The output side of the backward's first pass: each chunk's
+    V_c = sum over l of exp(acs_l) C_l gy_l^T, what y's inter-chunk term
+    sends back to the state entering the chunk.  dt:(B,S,H) A:(H,)
+    C:(B,S,G,N) gy:(B,S,H,P) -> V:(B,nc,H,N,P) f32."""
+    rep = gy.shape[2] // C.shape[2]
+    vs = []
+    for sl, d, acs in _chunk_steps(dt, A, gy.shape[1], chunk):
+        Ch = C[:, sl].float().repeat_interleave(rep, dim=2)
+        vs.append(torch.einsum("blh,blhn,blhp->bhnp", torch.exp(acs), Ch, gy[:, sl].float()))
+    return torch.stack(vs, 1)
+
+
+def ssd_carry_grads(V, decay, gstate):
+    """The reverse carry, the backward's only sequential part: dS_out of
+    the last chunk is the final state's gradient, and dS_out(c - 1) =
+    decay_c dS_out(c) + V_c.  V:(B,nc,H,N,P) decay:(B,nc,H)
+    gstate:(B,H,N,P) -> dS_out:(B,nc,H,N,P) f32."""
+    r = gstate.float()
+    out = [None] * V.shape[1]
+    for c in reversed(range(V.shape[1])):
+        out[c] = r
+        r = decay[:, c, :, None, None] * r + V[:, c]
+    return torch.stack(out, 1)
+
+
+def ssd_chunk_grads(x, dt, A, B, C, gy, states_in, dstates, chunk: int):
+    """The backward's per-chunk pass, for each (batch, chunk, head): from
+    the state entering the chunk S, the gradient of the state leaving it
+    dS and gy, with acs the chunk's inclusive cumsum of dt A, acs_L its
+    last (real) step, E[l,s] = exp(acs_l - acs_s) for s <= l (the exponent
+    masked before the exp), w_s = exp(acs_L - acs_s) dt_s:
+      dx_s  = sum_{l>=s} (C_l.B_s) E dt_s gy_l + w_s B_s dS
+      dC_l  = exp(acs_l) S gy_l + sum_{s<=l} (gy_l.x_s) E dt_s B_s
+      dB_s  = sum_{l>=s} (gy_l.x_s) E dt_s C_l + w_s dS x_s
+      ddt_s = sum_{l>=s} (gy_l.x_s)(C_l.B_s) E + exp(acs_L - acs_s) B_s dS x_s
+              + A da_s
+    where da is the reverse cumsum over the chunk of the gradient of acs
+    (y's inter term, the intra pairs at l and at s, the state update at
+    s and at L, and the state's decay exp(acs_L) <dS, S> at L), and dA's
+    partial is sum_s dt_s da_s.  Returns (dx:(B,S,H,P), ddt:(B,S,H), dA
+    partials (B,nc,H), dB and dC of each head (B,S,H,N)), all f32."""
+    rep = x.shape[2] // B.shape[2]
+    out = {k: [] for k in ("dx", "ddt", "dA", "dB", "dC")}
+    for c, (sl, d, acs) in enumerate(_chunk_steps(dt, A, x.shape[1], chunk)):
+        xs, gys = x[:, sl].float(), gy[:, sl].float()
+        Bh, Ch = (t[:, sl].float().repeat_interleave(rep, dim=2) for t in (B, C))
+        S_in, dS = states_in[:, c].float(), dstates[:, c].float()
+        n = d.shape[1]
+        acs_L = acs[:, -1:]                                       # (B,1,H)
+        e = torch.exp(acs)
+        to_end = torch.exp(acs_L - acs)
+        w = to_end * d
+        causal = torch.ones((n, n), dtype=torch.bool, device=x.device).tril()
+        E = torch.exp(torch.where(causal[None, :, :, None],
+                                  acs[:, :, None, :] - acs[:, None, :, :], float("-inf")))
+        CB = torch.einsum("blhn,bshn->blsh", Ch, Bh)
+        G = torch.einsum("blhp,bshp->blsh", gys, xs)
+        R = G * CB * E                                            # (B,l,s,H)
+        T = R * d[:, None]
+        W = G * E * d[:, None]
+        bds = torch.einsum("bshn,bhnp->bshp", Bh, dS)
+        u = torch.einsum("bhnp,blhp->blhn", S_in, gys)
+        sB = (bds * xs).sum(-1)                                   # (B,s,H)
+        out["dx"].append(torch.einsum("blsh,blhp->bshp", CB * E * d[:, None], gys)
+                         + w[..., None] * bds)
+        out["dC"].append(torch.einsum("blsh,bshn->blhn", W, Bh) + e[..., None] * u)
+        out["dB"].append(torch.einsum("blsh,blhn->bshn", W, Ch)
+                         + w[..., None] * torch.einsum("bhnp,bshp->bshn", dS, xs))
+        dacs = e * (Ch * u).sum(-1) + T.sum(2) - T.sum(1) - w * sB
+        last = (w * sB).sum(1) + torch.exp(acs_L[:, 0]) * (dS * S_in).sum((-2, -1))
+        dacs = torch.cat([dacs[:, :-1], dacs[:, -1:] + last[:, None]], 1)
+        da = dacs.flip(1).cumsum(1).flip(1)
+        out["ddt"].append(R.sum(1) + to_end * sB + A.float() * da)
+        out["dA"].append((d * da).sum(1))
+    return (torch.cat(out["dx"], 1), torch.cat(out["ddt"], 1), torch.stack(out["dA"], 1),
+            torch.cat(out["dB"], 1), torch.cat(out["dC"], 1))
+
+
+def ssd_head_sums(dB_h, dC_h, dA_part, G: int):
+    """The backward's last pass: dB and dC (B,S,G,N) as the sums of each
+    group's heads, in head order, and dA (H,) as the sum of its (batch,
+    chunk) partials."""
+    Bb, S, H, N = dB_h.shape
+    rep = H // G
+    return (dB_h.view(Bb, S, G, rep, N).sum(3), dC_h.view(Bb, S, G, rep, N).sum(3),
+            dA_part.sum((0, 1)))
+
+
+def ssd_bwd_ref(x, dt, A, B, C, gy, gstate, chunk: int):
+    """The gradients of ``ssd_ref(x, dt, A, B, C, chunk)`` for (gy, gstate)
+    from the backward's passes: (dx, ddt, dA, dB, dC), each in its input's
+    dtype (B and C reach the scan in x's dtype, as in ``ssd_ref``)."""
+    U, decay = ssd_chunk_states(x, dt, A, B.to(x.dtype), chunk)
+    states_in, _ = ssd_carry(U, decay)
+    dstates = ssd_carry_grads(ssd_chunk_state_grads(dt, A, C.to(x.dtype), gy, chunk),
+                              decay, gstate)
+    dx, ddt, dA_part, dB_h, dC_h = ssd_chunk_grads(x, dt, A, B.to(x.dtype), C.to(x.dtype),
+                                                   gy, states_in, dstates, chunk)
+    dB, dC, dA = ssd_head_sums(dB_h, dC_h, dA_part, B.shape[2])
+    return (dx.to(x.dtype), ddt.to(dt.dtype), dA.to(A.dtype),
+            dB.to(x.dtype).to(B.dtype), dC.to(x.dtype).to(C.dtype))
+
+
 def ssd_step(state, x, dt, A, B, C):
     """One recurrent step.  state:(B,H,N,P) x:(B,H,P) dt:(B,H) B,C:(B,G,N)
     -> (y:(B,H,P) in x's dtype, new state (B,H,N,P) f32)."""

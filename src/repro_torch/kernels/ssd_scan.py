@@ -1,11 +1,14 @@
-"""Mamba2 SSD chunked scan: wrapper of the CUDA kernel ``csrc/ssd_scan.cu``
-(the port of the JAX package's Pallas ``kernels/ssd_scan.py::ssd_scan``).
+"""Mamba2 SSD chunked scan: wrappers of the CUDA kernels ``csrc/ssd_scan.cu``
+(the port of the JAX package's Pallas ``kernels/ssd_scan.py::ssd_scan``)
+and ``csrc/ssd_scan_bwd.cu`` (its backward, the JAX package's vjp of
+``ssd_ref``).
 
 Takes CUDA tensors only; ``kernels/ops.py`` sends CPU tensors to the
 plain version in ``kernels/ref.py``.  bf16 inputs at the shapes of
-``wgmma_body`` (every SSM config of the repo) run the three-pass body on
-TMA loads and wgmma products; f32 inputs, and bf16 at other shapes (the
-reduced test configs), run the one-pass body on the CUDA cores."""
+``wgmma_body`` (every SSM config of the repo) run the forward's
+three-pass body on TMA loads and wgmma products; f32 inputs, and bf16 at
+other shapes (the reduced test configs), run the one-pass body on the
+CUDA cores.  The backward runs on the CUDA cores in f32 for both dtypes."""
 from __future__ import annotations
 
 import ctypes
@@ -17,6 +20,8 @@ from repro_torch.kernels import _build
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 ARGTYPES = [_P] * 7 + [_I] * 8 + [_P]
+BWD_ARGTYPES = [_P] * 13 + [_I] * 8 + [_P]
+BWD_HEAD_DIMS = (16, 32, 64)    # the backward's P
 PASSES = {"state": 1, "carry": 2, "out": 4}   # the bf16 body's passes, in order
 
 
@@ -132,3 +137,46 @@ def ssd_scan_bf16_passes(x, dt, A, B, C, chunk: int):
                 buf[:n_state].view(Bb, H, N, P), y)
 
     return run, read
+
+
+def ssd_scan_bwd(x, dt, A, B, C, gy, gstate, chunk: int):
+    """The gradients of ``ssd_scan_fwd(x, dt, A, B, C, chunk)`` for the
+    output gradients gy:(B,S,H,P) and gstate:(B,H,N,P) on the card ->
+    (dx in x's dtype, ddt f32 (B,S,H), dA f32 (H,), dB and dC (B,S,G,N)
+    in B's and C's dtypes), as the autograd of ``ref.ssd_ref`` gives them:
+    B and C reach the scan in x's dtype, so their gradients are rounded to
+    it first.  Recomputes the chunk states from the inputs (nothing of the
+    forward is kept); P must be 16, 32 or 64.  One call counts one launch,
+    under ``ssd_scan_bwd``."""
+    _check(x, dt, A, B, C, chunk)
+    Bb, S, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    if P not in BWD_HEAD_DIMS:
+        raise ValueError(f"ssd_scan backward kernel: takes P in {BWD_HEAD_DIMS}; got P={P}")
+    for name, t, shape in (("gy", gy, (Bb, S, H, P)), ("gstate", gstate, (Bb, H, N, P))):
+        if not t.is_cuda or tuple(t.shape) != shape:
+            raise ValueError(f"ssd_scan backward kernel: {name} must be a CUDA tensor of "
+                             f"shape {shape}; got {tuple(t.shape)} on {t.device}")
+    x = _aligned(x)
+    ins = (x, dt.float().contiguous(), A.float().contiguous(), _aligned(B.to(x.dtype)),
+           _aligned(C.to(x.dtype)), _aligned(gy.to(x.dtype)), _aligned(gstate.float()))
+    dx = torch.empty_like(x)
+    ddt = torch.empty((Bb, S, H), dtype=torch.float32, device=x.device)
+    dA = torch.empty((H,), dtype=torch.float32, device=x.device)
+    dB = torch.empty((Bb, S, G, N), dtype=x.dtype, device=x.device)
+    dC = torch.empty_like(dB)
+    nc = -(-S // chunk)
+    work = torch.empty(2 * Bb * nc * H * N * P + 2 * Bb * S * H * N + 2 * Bb * nc * H,
+                       dtype=torch.float32, device=x.device)
+    if S == 0 or Bb == 0:
+        for t in (dx, ddt, dA, dB, dC):
+            t.zero_()
+    else:
+        err = _build.function("ssd_scan_bwd", "ssd_scan_bwd", BWD_ARGTYPES)(
+            *(t.data_ptr() for t in ins), *(t.data_ptr() for t in (dx, ddt, dA, dB, dC, work)),
+            Bb, S, H, P, G, N, chunk, DTYPES[x.dtype],
+            torch.cuda.current_stream(x.device).cuda_stream)
+        if err:
+            raise RuntimeError(f"ssd_scan backward kernel launch failed: cudaError {err}")
+        _build.launch_counts["ssd_scan_bwd"] += 1
+    return dx, ddt.to(dt.dtype), dA.to(A.dtype), dB.to(B.dtype), dC.to(C.dtype)
