@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phases build,ssm_path,ssm_serve
     python3 chip_smoke.py --phases build,train_cli
     python3 chip_smoke.py --phases build,ddp_path,ddp
+    python3 chip_smoke.py --phases build,ssm_train_path,ssm_train
     python3 chip_smoke.py --phases build,serve,train,time \
         --against parent=build/parent/flash_attention.cu
 
@@ -55,6 +56,22 @@ Phases (any failure exits non-zero before the last line):
               placed by the device prefetch, the loss falling; the
               prefetch's batches equal to the host's at depths 2 and 4; then
               python -m repro_torch.launch.train as a subprocess
+  ssm_train_path
+              mamba2-130m at full width, depth cut to 2 layers, f32, B 2 x
+              S 600 (a full chunk and a ragged one): the same next-token
+              batches and initial parameters on cuda and on cpu must agree
+              on the loss, every gradient leaf and 5 steps; the same
+              gradients computed twice on the card are equal bit for bit
+  ssm_train   mamba2-130m at full width and depth, B 16 x S 1024 from the
+              DataPipeline: (a) 20 steps of repro_torch.launch.train.main
+              at its f32 defaults; (b) the same run
+              with checkpoints, stopped after step 11 and resumed from its
+              step-10 checkpoint, whose losses must equal (a)'s bit for
+              bit; (c) 20 steps of trainer.train with bf16 parameters and
+              activations at microbatch 2, every gradient handed to AdamW
+              in f32; the loss falls in each, and every SSD scan and loss
+              chunk, forward and backward, goes through the kernels
+              (launch counts per step); step time, MFU and device busy
   ddp_path    bert-mlm-120m at full width, 2 layers, f32, global batch 8 x
               512 with ragged masks: 2 ranks on the one card over gloo
               (processes spawned by the phase) against one process on the
@@ -78,8 +95,8 @@ Phases (any failure exits non-zero before the last line):
   time        each kernel at its path's shapes against its plain version,
               its bound and a PyTorch call computing the same function
               (SDPA and its backward op, F.cross_entropy; none computes
-              SSD) as a yardstick: device time per call (CUDA-graph
-              replay) and time per back-to-back call
+              SSD or its backward) as a yardstick: device time per call
+              (CUDA-graph replay) and time per back-to-back call
 
 --against NAME=SOURCE (repeatable) builds SOURCE, another version of the
 kernel source of its file name (csrc/<kernel>.cu; e.g. a parent commit's,
@@ -112,7 +129,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "chiprun_out"
 PHASES = ("build", "kernels", "faults", "path", "serve", "ssm_path", "ssm_serve", "train_path",
-          "train", "train_cli", "ddp_path", "ddp", "time")
+          "train", "train_cli", "ssm_train_path", "ssm_train", "ddp_path", "ddp", "time")
 AGAINST_PHASES = ("serve", "ssm_serve", "train", "time")   # the phases --against runs again
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the bounds below use them
@@ -165,6 +182,14 @@ XENT_BWD_TOL = (1e-5, 1e-5)
 #     most 2^-16 of their part of want_abs.
 SSD_REL, F32_EPS = 1e-6, 2.0**-24
 SSD_U_OPERAND, SSD_U_SPLIT = 2.0**-8, 2.0**-16
+# ssd_scan's backward, per element of each gradient (dx, ddt, dA, dB, dC)
+# against the autograd of the plain ssd_ref on the f32 values: |err| <=
+# SSD_BWD_REL max|want| + SSD_BWD_ATOL, the JAX ssd tests' 1e-4 taken of the
+# gradient's scale (its sums run over whole chunks, in another order); in
+# bf16 plus u |want| on dx, dB and dC, u = 2^-8: the kernel reads the bf16
+# inputs exactly and computes in f32, so its one rounding is the output's
+# (ddt and dA go out in f32)
+SSD_BWD_REL, SSD_BWD_ATOL = 1e-4, 1e-6
 
 
 def fail(msg: str):
@@ -272,6 +297,19 @@ SSD_CASES = [  # (B, S, H, P, G, N, chunk, scale of A)
     (2, 200, 8, 64, 4, 64, 64, 1.0),        # chunk 64: one tile a chunk, G 4
     (1, 333, 6, 64, 3, 128, 128, 1.0),      # chunk 128, G 3
     (1, 450, 4, 64, 2, 64, 192, 1.0),       # chunk 192
+]
+
+
+# mamba2-130m's SSD scan in the ssm_train phase: (B, S, H, P, G, N, chunk)
+MAMBA2_TRAIN = (16, 1024, 24, 64, 1, 128, 256)
+
+SSD_BWD_CASES = [  # (B, S, H, P, G, N, chunk, a non-zero gstate)
+    (*MAMBA2_TRAIN, False),                 # the train shape; train mode's zero gstate
+    (2, 1000, 24, 64, 1, 128, 256, False),  # S ragged inside the last chunk
+    (2, 700, 8, 64, 2, 128, 256, True),     # G 2 at H 8, a non-zero gstate
+    (1, 100, 24, 64, 1, 128, 256, True),    # S < chunk
+    (2, 300, 8, 16, 2, 16, 32, True),       # the reduced shapes: P 16, chunk 32
+    (2, 250, 6, 32, 3, 8, 96, True),        # chunk 96 (32-row tiles), P 32, N 8, G 3
 ]
 
 
@@ -481,6 +519,37 @@ def ssd_reading(torch, x, dt, A, Bm, Cm, chunk):
     return max(out, key=lambda r: r[1])
 
 
+def _ssd_bwd_inputs(torch, case, dtype, gen):
+    """The scan's inputs (``_ssd_inputs``, A at scale 1), gy in ``dtype``
+    and an f32 gstate, normal or (train mode) zero."""
+    B, S, H, P, G, N, chunk, nonzero = case
+    ins = _ssd_inputs(torch, (B, S, H, P, G, N, chunk, 1.0), dtype, gen)
+    gy = torch.randn(B, S, H, P, generator=gen, device="cuda").to(dtype)
+    gstate = torch.randn(B, H, N, P, generator=gen, device="cuda")
+    return (*ins, gy, gstate if nonzero else torch.zeros_like(gstate))
+
+
+def ssd_bwd_reading(torch, x, dt, A, Bm, Cm, gy, gstate, chunk):
+    """The backward kernel's five gradients against the autograd of the
+    plain ssd_ref on the f32 values (see SSD_BWD_REL); the worst."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd
+
+    got = ssd_scan_bwd(x, dt, A, Bm, Cm, gy, gstate, chunk)
+    xs = [t.detach().float().requires_grad_(True) for t in (x, dt, A, Bm, Cm)]
+    with torch.enable_grad():
+        outs = ref.ssd_ref(*xs, chunk)
+    want = torch.autograd.grad(outs, xs, (gy.float(), gstate.float()))
+    u = BF16_U if x.dtype == torch.bfloat16 else 0.0
+    out = []
+    for name, g, w in zip(("dx", "ddt", "dA", "dB", "dC"), got, want):
+        err = (g.float() - w).abs()
+        lim = (u if name in ("dx", "dB", "dC") else 0.0) * w.abs() \
+            + SSD_BWD_REL * w.abs().max() + SSD_BWD_ATOL
+        out.append((err.max().item(), (err / lim).max().item()))
+    return max(out, key=lambda r: r[1])
+
+
 def kernel_readings(torch, dname, only=None):
     """(kernel, case, max abs error, error / limit) for every case, on
     inputs drawn from one seed; ``only``: the kernels to read."""
@@ -516,6 +585,10 @@ def kernel_readings(torch, dname, only=None):
         for case in SSD_CASES:
             out.append(("ssd_scan", case, *ssd_reading(
                 torch, *_ssd_inputs(torch, case, dtype, gen), case[6])))
+    if want("ssd_scan_bwd"):
+        for case in SSD_BWD_CASES:
+            out.append(("ssd_scan_bwd", case, *ssd_bwd_reading(
+                torch, *_ssd_bwd_inputs(torch, case, dtype, gen), case[6])))
     return out
 
 
@@ -591,9 +664,16 @@ FAULTS = [
     ("ssd_scan", ("ssd_scan",), "bf16 body: the out pass drops exp(acs_l) from C . state",
      "for (int x = 0; x < 32; ++x) y[x] *= expf(acs_row[(x >> 1) & 1]);",
      "for (int x = 0; x < 32; ++x) y[x] *= 1.f;", "bfloat16"),
+    ("ssd_scan_bwd", ("ssd_scan_bwd",), "backward: the reverse carry drops exp(acs_L)",
+     "r = make_float4(fmaf(d, r.x, v.x), fmaf(d, r.y, v.y), fmaf(d, r.z, v.z), fmaf(d, r.w, v.w));",
+     "r = make_float4(r.x + v.x, r.y + v.y, r.z + v.z, r.w + v.w);", "bfloat16"),
+    ("ssd_scan_bwd", ("ssd_scan_bwd",), "backward: dB skips the last head of its group",
+     "for (int r = 0; r < rep; ++r) sb += p.dBh[head0 + r * p.N];  // dB: the group's heads, in order",
+     "for (int r = 0; r < rep - 1; ++r) sb += p.dBh[head0 + r * p.N];  // dB: the group's heads, in order",
+     "bfloat16"),
 ]
 KERNELS = ("flash_attention", "flash_attention_bwd", "paged_attention", "fused_xent",
-           "fused_xent_bwd", "ssd_scan")
+           "fused_xent_bwd", "ssd_scan", "ssd_scan_bwd")
 
 
 def _start_nvcc(src, lib):
@@ -1399,6 +1479,247 @@ def run_train_cli(torch, rec, B=32, S=512, n_functions=3000):
 
 
 # ---------------------------------------------------------------------------
+# mamba2 training
+# ---------------------------------------------------------------------------
+
+def lm_batches(torch, vocab, n, B, S, seed):
+    """``n`` next-token batches of random tokens from ``seed`` with the
+    JAX launcher's decoder labels: the tokens rolled by one and the
+    attention mask as the loss mask (the last row's final 100 positions
+    padding), on the CPU."""
+    gen = torch.Generator().manual_seed(seed)
+    out = []
+    for _ in range(n):
+        toks = torch.randint(4, vocab, (B, S), generator=gen)
+        attn = torch.ones(B, S)
+        attn[-1, S - 100:] = 0.0
+        toks[-1, S - 100:] = 0
+        out.append({"tokens": toks, "labels": torch.roll(toks, -1, 1), "loss_mask": attn})
+    return out
+
+
+def ssm_launches_per_step(cfg, B, S, micro=1):
+    """Kernel launches of one mamba2 train step at ``micro`` microbatches:
+    each layer's scan forward, again under remat, and its backward; each
+    loss chunk's nll forward, again under its checkpoint, and its
+    backward; all per microbatch, whose B / micro rows set the chunks."""
+    from repro_torch.train.train_step import loss_chunk_len
+
+    n_chunks = -(-S // loss_chunk_len(B // micro, S, cfg.vocab_size, 1))
+    L = cfg.n_layers
+    return {"ssd_scan": 2 * L * micro, "ssd_scan_bwd": L * micro,
+            "fused_xent": 2 * n_chunks * micro, "fused_xent_bwd": n_chunks * micro}
+
+
+def check_ssm_train_path(torch, rec, B=2, S=600, n_steps=5):
+    """mamba2-130m at full width, 2 layers, f32: loss and every gradient
+    leaf of one next-token batch, then ``n_steps`` train steps, on cuda
+    and on cpu from the same parameters and batches (PATH_REL_TOL per
+    leaf and per loss); on cuda the gradients of the same batch twice,
+    which must be equal bit for bit."""
+    import copy
+
+    from repro_torch.configs import default_run_config, get_config
+    from repro_torch.configs.base import MAMBA, LayerSpec, ShapeConfig, uniform_schedule
+    from repro_torch.core.accum import accumulate_grads
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import init_state, loss_for, make_train_step
+
+    cfg = dataclasses.replace(get_config("mamba2-130m"),
+                              schedule=uniform_schedule(2, LayerSpec(kind=MAMBA, has_mlp=False)))
+    run = default_run_config(cfg, ShapeConfig("ssm_train_path", S, B, "train"))
+    opt = AdamWConfig(lr=1e-4, warmup_steps=2, total_steps=n_steps)
+    model_cpu = build_model(cfg, seed=0, device="cpu")
+    batches = lm_batches(torch, cfg.vocab_size, n_steps + 1, B, S, seed=1)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        model = copy.deepcopy(model_cpu).to(dev)
+        state = init_state(model, run, seed=None)
+        on = lambda b: {k: v.to(dev) for k, v in b.items()}
+        grad = lambda: accumulate_grads(lambda p, b: loss_for(model, p, b, run=run),
+                                        state["params"], on(batches[0]), 1)
+        ops.reset_launch_counts()
+        loss, grads, _ = grad()
+        grads = {k: g.detach().cpu().clone() for k, g in grads.items()}
+        if dev == "cuda":
+            _, again, _ = grad()
+            unequal = [k for k, g in again.items() if not torch.equal(g.cpu(), grads[k])]
+            if unequal:
+                fail(f"ssm_train_path: the same gradients twice differ in {unequal}")
+        step = make_train_step(model, run, opt)
+        losses = [step(state, on(b))[1]["loss"].item() for b in batches[1:]]
+        res[dev] = (loss.item(), grads, losses, dict(ops.launch_counts))
+        log(f"ssm_train_path {dev}: loss {loss.item():.6f}, steps {losses}, "
+            f"launches {res[dev][3]}")
+    n_fb = 2 + n_steps
+    want = {k: v * n_fb for k, v in ssm_launches_per_step(cfg, B, S).items()}
+    if res["cpu"][3] or res["cuda"][3] != want:
+        fail(f"ssm_train_path: cuda launches {res['cuda'][3]} (expected {want}), "
+             f"cpu launches {res['cpu'][3]}")
+    rel = lambda a, b: abs(a - b) / abs(b)
+    errs = {"loss": rel(res["cuda"][0], res["cpu"][0]),
+            "steps": max(rel(a, b) for a, b in zip(res["cuda"][2], res["cpu"][2]))}
+    gc, gp = res["cuda"][1], res["cpu"][1]
+    leaf = {k: ((gc[k] - gp[k]).abs().max() / gp[k].abs().max()).item() for k in gp}
+    errs["grad_leaf"] = max(leaf.values())
+    worst = max(leaf, key=leaf.get)
+    log(f"ssm_train_path: relative errors {errs} (tol {PATH_REL_TOL}); worst leaf {worst}")
+    if not all(v <= PATH_REL_TOL for v in errs.values()) \
+            or not all(math.isfinite(x) for x in res["cuda"][2]):
+        fail(f"ssm_train_path: cuda and cpu differ: {errs}, worst leaf {worst} {leaf[worst]}")
+    rec["ssm_train_path"] = {"rel_err": errs, "worst_leaf": worst, "grad_leaf_rel": leaf,
+                             "losses_cuda": res["cuda"][2], "losses_cpu": res["cpu"][2],
+                             "launches": res["cuda"][3], "repeat_bit_equal": True}
+
+
+def run_ssm_train(torch, rec, B=16, S=1024, n_functions=1000):
+    """mamba2-130m at full width and depth, B x S from one DataPipeline
+    data dir (1000 functions: 283 rows of 1024, so the 20 steps wrap into
+    a second epoch; building it takes about a third of the 45 s that 3000
+    take): (a) 20 steps of launch.train.main (f32, 2 loader workers; phase
+    train_cli runs the R3 autotune); (b)
+    the same run with --ckpt-every 10, stopped by the fault point after
+    step 11, then --resume from its step-10 checkpoint, whose losses at
+    steps 11-20 must be (a)'s bit for bit; (c) 20 steps of trainer.train
+    with bf16 parameters and activations at microbatch 2 on the
+    pipeline's first 20 batches, every gradient AdamW gets checked to be
+    f32.  Launches per step, the loss falling, step p50, tokens/s, MFU;
+    where the step's device time goes (torch.profiler) for (a) and (c)."""
+    import os
+    import shutil
+
+    from repro_torch.configs import default_run_config, get_config
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.core.scaling import model_flops
+    from repro_torch.data import DataPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as cli
+    from repro_torch.models.model import build_model
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.faults import TransientWorkerError
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.runner import DEFAULT_PEAK_FLOPS, StepRunner
+    from repro_torch.train.trainer import train
+
+    cfg = get_config("mamba2-130m")
+    work = ROOT / "build" / "ssm_train"
+    data, ck = work / "data", work / "ckpt"
+    shutil.rmtree(ck, ignore_errors=True)
+    base = ["--arch", "mamba2-130m", "--batch", str(B), "--seq", str(S),
+            "--n-functions", str(n_functions), "--data-dir", str(data), "--log-every", "1"]
+    tokens = B * S
+    res = {"batch": B, "seq": S}
+
+    def counted(tag, fn, n_steps, want):
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, tlog = fn()
+        torch.cuda.synchronize()
+        counts = dict(ops.launch_counts)
+        n = n_steps + tlog.telemetry.get("probe_steps", 0)
+        per_step = {k: counts.get(k, 0) / n for k in want}
+        losses = [m["loss"] for m in tlog.metrics]
+        p50 = tlog.telemetry["step_time_p50"]
+        res[tag] = {"wall_s": time.perf_counter() - t0, "launches": counts,
+                    "launches_per_step": per_step, "launches_per_step_want": want,
+                    "losses": losses, "steps": tlog.steps, "step_time_p50_ms": p50 * 1e3,
+                    "tokens_per_s": tokens / p50,
+                    "mfu": model_flops(cfg, tokens) / (p50 * DEFAULT_PEAK_FLOPS),
+                    "telemetry": tlog.telemetry}
+        log(f"ssm_train {tag}: launches {counts} over {n} steps, per step {per_step}, "
+            f"p50 {p50 * 1e3:.1f} ms, losses {losses[0]:.4f} -> {losses[-1]:.4f}")
+        if per_step != {k: float(v) for k, v in want.items()}:
+            fail(f"ssm_train {tag}: kernel launches per step {per_step}, expected {want}")
+        if not all(math.isfinite(x) for x in losses):
+            fail(f"ssm_train {tag}: losses {losses}")
+        return state, tlog
+
+    want = ssm_launches_per_step(cfg, B, S)
+    # (a) the uninterrupted CLI run
+    state_a, _ = counted("a", lambda: cli.main(base + ["--steps", "20", "--workers", "2"]), 20,
+                         want)
+    losses_a = res["a"]["losses"]
+    if len(losses_a) != 20 or not losses_a[-1] < losses_a[0]:
+        fail(f"ssm_train a: losses {losses_a}")
+    del state_a
+
+    # (b) the same run with checkpoints, stopped after step 11, resumed
+    ckpt_argv = ["--steps", "20", "--workers", "2", "--ckpt-dir", str(ck), "--ckpt-every", "10"]
+    fault = {"REPRO_FAULT_PHASE": "step", "REPRO_FAULT_STEP": "10", "REPRO_FAULT_MODE": "raise"}
+    os.environ.update(fault)
+    try:
+        cli.main(base + ckpt_argv)
+        fail("ssm_train b: the fault point at step 10 did not stop the run")
+    except TransientWorkerError as e:
+        log(f"ssm_train b: stopped as planned: {e}")
+    finally:
+        for k in fault:
+            os.environ.pop(k)
+    if ckpt.latest_step(str(ck)) != 10:
+        fail(f"ssm_train b: newest committed checkpoint {ckpt.latest_step(str(ck))}, not 10")
+    state_b, _ = counted("b", lambda: cli.main(base + ckpt_argv + ["--resume"]), 10, want)
+    if res["b"]["steps"] != list(range(11, 21)) or res["b"]["losses"] != losses_a[10:]:
+        fail(f"ssm_train b: resumed losses {list(zip(res['b']['steps'], res['b']['losses']))} "
+             f"!= uninterrupted {losses_a[10:]}")
+    res["resume_bit_exact"] = True
+    shutil.rmtree(ck, ignore_errors=True)
+
+    # where the f32 CLI step's time goes, on the pipeline's batches
+    pipe = DataPipeline.build(str(data), n_functions=n_functions, seq_len=S, batch_size=B,
+                              vocab_size=cfg.vocab_size, work_fn=cli.make_work_fn(cfg))
+    try:
+        host = [pipe.peek_batch(k) for k in range(20)]
+    finally:
+        pipe.close()
+    runner = StepRunner(build_model(cfg), default_run_config(cfg, ShapeConfig("cli", S, B, "train")),
+                        AdamWConfig(lr=3e-3, warmup_steps=2, total_steps=20))
+    res["a"]["profile"] = profile_steps(torch, runner, state_b,
+                                        [runner.place_batch(b) for b in host[:3]],
+                                        res["a"]["step_time_p50_ms"] / 1e3)
+    del state_b, runner
+
+    # (c) bf16 parameters and activations at microbatch 2 through trainer.train
+    run = RunConfig(model=cfg, shape=ShapeConfig("ssm_train_bf16", S, B, "train"), sharding="ddp",
+                    param_dtype="bfloat16", activation_dtype="bfloat16", microbatch=2)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=5, total_steps=20)
+    dtypes = set()
+    real = ts.adamw_update
+
+    def spy(c, grads, opt_state, params):
+        dtypes.update(str(g.dtype) for g in grads.values())
+        return real(c, grads, opt_state, params)
+
+    ts.adamw_update = spy
+    try:
+        model = build_model(cfg, seed=0, device="cuda")
+        state_c, _ = counted("c", lambda: train(model, run, opt, iter(host), steps=20,
+                                                log_every=1, seed=0),
+                             20, ssm_launches_per_step(cfg, B, S, 2))
+    finally:
+        ts.adamw_update = real
+    res["c"]["adamw_grad_dtypes"] = sorted(dtypes)
+    if dtypes != {"torch.float32"}:
+        fail(f"ssm_train c: AdamW got gradients of dtypes {sorted(dtypes)}, not only f32")
+    if not res["c"]["losses"][-1] < res["c"]["losses"][0]:
+        fail(f"ssm_train c: losses {res['c']['losses']}")
+    runner = StepRunner(model, run, opt)
+    res["c"]["profile"] = profile_steps(torch, runner, state_c,
+                                        [runner.place_batch(b) for b in host[:3]],
+                                        res["c"]["step_time_p50_ms"] / 1e3)
+    res["c"]["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del state_c, runner, model
+    torch.cuda.empty_cache()
+    res.update(launches=res["a"]["launches"], first_loss=losses_a[0], last_loss=losses_a[-1],
+               step_time_p50_ms=res["a"]["step_time_p50_ms"], tokens_per_s=res["a"]["tokens_per_s"],
+               mfu=res["a"]["mfu"], model_flops_per_step=model_flops(cfg, tokens))
+    log("ssm_train: " + json.dumps({k: v for k, v in res.items() if k not in ("a", "b", "c")}))
+    rec["ssm_train"] = res
+
+
+# ---------------------------------------------------------------------------
 # data parallel: two ranks on the one card over gloo
 # ---------------------------------------------------------------------------
 
@@ -1920,7 +2241,7 @@ def run_ddp(torch, rec, B=16, S=512, n_functions=3000, steps=20):
 REPO_KERNELS = ("flash_fwd", "dq_wgmma", "dkdv_wgmma", "dq_mma", "dkdv_mma", "dq_f32",
                 "dkdv_f32", "delta_kernel", "split3", "xent_fwd", "xent_bwd", "paged_partial",
                 "paged_wgmma", "paged_combine", "ssd_scan_kernel", "ssd_state_wgmma",
-                "ssd_carry", "ssd_out_wgmma")
+                "ssd_carry", "ssd_out_wgmma", "ssd_bwd_")
 
 
 def _kernel_class(name):
@@ -2201,6 +2522,7 @@ def time_kernels(torch, rec, strict=True):
     paged["host_call_ms"] = eager_ms(torch, lambda: paged_attention_fwd(*one), iters=50, warm=5)
     log(f"time paged: {paged}")
     rec["time"] = {"flash": flash, "paged": paged, "ssd": time_ssd(torch, checked, gen),
+                   "ssd_bwd": time_ssd_bwd(torch, checked, gen),
                    **time_train_kernels(torch, checked, gen)}
 
 
@@ -2246,6 +2568,63 @@ def time_ssd(torch, checked, gen):
                     "by_kernel": device_ms_by_kernel(
                         torch, lambda: ssd_scan_fwd(x, dt, A, Bm, Cm, case[6]))}
         log(f"time ssd_scan {key}: {out[key]}")
+    return out
+
+
+def ssd_bwd_work(B, S, H, P, G, N, L, es):
+    """(flops, bytes) the SSD scan's backward needs: per (batch, head,
+    chunk of n steps) five products over (n, N, P) (the chunk's state
+    update U and V_c = sum exp(acs_l) C_l gy_l^T, B dS, dS x, S gy), and
+    over the n (n + 1) / 2 causal pairs gy x^T and M^T gy (P each) and the
+    weighted sums for dB and dC (N each); C B^T over the pairs once per
+    (batch, group, chunk); each input read once (x, gy, B, C at ``es``
+    bytes, dt, A and gstate f32) and each gradient written once (dx, dB,
+    dC at ``es``, ddt and dA f32)."""
+    per_head = per_group = 0
+    for c0 in range(0, S, L):
+        n = min(L, S - c0)
+        tri = n * (n + 1) // 2
+        per_head += 2 * (5 * n * N * P + tri * (2 * P + 2 * N))
+        per_group += 2 * tri * N
+    nbytes = es * (3 * B * S * H * P + 4 * B * S * G * N) \
+        + 4 * (2 * B * S * H + 2 * H + B * H * N * P)
+    return per_head * B * H + per_group * B * G, nbytes
+
+
+def time_ssd_bwd(torch, checked, gen):
+    """The backward kernel at mamba2-130m's train shape (MAMBA2_TRAIN, a
+    zero gstate as in train mode) in f32 (the CLI's) and bf16, against
+    its bound (by operations and by bytes, at the f32 CUDA-core peak and
+    at the bf16 peak) and the plain version's autograd (eager).  No
+    PyTorch call computes it: no library yardstick."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd
+
+    out = {}
+    for dname, peak in (("float32", PEAK_F32_FLOPS), ("bfloat16", PEAK_BF16_FLOPS)):
+        dtype = getattr(torch, dname)
+        case = (*MAMBA2_TRAIN, False)
+        ins = _ssd_bwd_inputs(torch, case, dtype, gen)
+        chunk = case[6]
+        ratio = checked(f"ssd_scan_bwd {dname}", ssd_bwd_reading(torch, *ins, chunk))
+        run = lambda: ssd_scan_bwd(*ins, chunk)
+        ms, call_ms = time_ms(torch, run)
+        xs = [t.detach().requires_grad_(True) for t in ins[:5]]
+        with torch.enable_grad():
+            outs = ref.ssd_ref(*xs, chunk)
+        plain_ms = eager_ms(torch, lambda: torch.autograd.grad(outs, xs, ins[5:],
+                                                               retain_graph=True), iters=5)
+        del outs, xs
+        flops, nbytes = ssd_bwd_work(*MAMBA2_TRAIN, ins[0].element_size())
+        bound = _bound(flops, nbytes, peak)
+        out[dname] = {"shape": list(MAMBA2_TRAIN), "dtype": dname, "ms": ms, "call_ms": call_ms,
+                      "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound[0],
+                      "bound_by": bound[1], "bound_ops_ms": flops / peak * 1e3,
+                      "bound_bytes_ms": nbytes / PEAK_BYTES * 1e3, "flops": flops,
+                      "bytes": nbytes, "err_over_limit": ratio,
+                      "by_kernel": device_ms_by_kernel(torch, run),
+                      "plain": "autograd backward of ref.ssd_ref, eager (CUDA events)"}
+        log(f"time ssd_scan_bwd {dname}: {out[dname]}")
     return out
 
 
@@ -2364,15 +2743,19 @@ def kernel_records(rec):
     with its bound at PEAK_F32_SPLIT_FLOPS and, as ``bound_simt_ms``, at
     the CUDA cores' f32 peak; fused_xent: the f32 logits
     the train path feeds it, with bf16 under ``bf16``; ssd_scan: the bf16
-    prefill at S=1024, with f32 under ``f32``)."""
+    prefill at S=1024, with f32 under ``f32``; its backward: mamba2-130m's
+    train shape in f32, the CLI's, with bf16 under ``bf16``).  The
+    ssm_train path's launches are run (a)'s, the CLI's; run (c)'s, bf16 at
+    microbatch 2, are under ``ssm_train_bf16``."""
     errs = rec.get("errors", {})
     t = rec.get("time", {})
     paths = {key: rec.get(key, {}).get("launches", {})
-             for key in ("serve", "ssm_serve", "train", "train_cli", "ddp")}
+             for key in ("serve", "ssm_serve", "train", "train_cli", "ssm_train", "ddp")}
+    paths["ssm_train_bf16"] = rec.get("ssm_train", {}).get("c", {}).get("launches", {})
     flash_top = next((x for x in t.get("flash", []) if x["S"] == 1024), {})
     ft, xe = t.get("flash_train", {}), t.get("xent", {})
     ft32 = t.get("flash_train_f32", {})
-    ssd = t.get("ssd", {})
+    ssd, ssd_bwd = t.get("ssd", {}), t.get("ssd_bwd", {})
     bwd = ft.get("bwd", {})
     extra = {"flash_attention": {"train_shape": ft.get("fwd"),
                                  "train_shape_f32": ft32.get("fwd")},
@@ -2386,7 +2769,10 @@ def kernel_records(rec):
                                      "train_shape_f32": ft32.get("bwd")},
              "fused_xent": {"bf16": xe.get("bfloat16", {}).get("fwd")},
              "fused_xent_bwd": {"bf16": xe.get("bfloat16", {}).get("bwd")},
-             "ssd_scan": {"f32": ssd.get("float32"), "zamba2_bf16": ssd.get("zamba2_bf16")}}
+             "ssd_scan": {"f32": ssd.get("float32"), "zamba2_bf16": ssd.get("zamba2_bf16")},
+             "ssd_scan_bwd": {"bf16": ssd_bwd.get("bfloat16"),
+                              "bound_ops_ms": ssd_bwd.get("float32", {}).get("bound_ops_ms"),
+                              "bound_bytes_ms": ssd_bwd.get("float32", {}).get("bound_bytes_ms")}}
     csrc = "src/repro_torch/kernels/csrc/"
     out = []
     for name, src, replaces, timing in (
@@ -2401,7 +2787,9 @@ def kernel_records(rec):
             ("fused_xent_bwd", csrc + "fused_xent.cu",
              "src/repro/kernels/ops.py:111", xe.get("float32", {}).get("bwd", {})),
             ("ssd_scan", csrc + "ssd_scan.cu",
-             "src/repro/kernels/ssd_scan.py:74", ssd.get("bfloat16", {}))):
+             "src/repro/kernels/ssd_scan.py:74", ssd.get("bfloat16", {})),
+            ("ssd_scan_bwd", csrc + "ssd_scan_bwd.cu",
+             "src/repro/kernels/ops.py:87", ssd_bwd.get("float32", {}))):
         e = errs.get(name, {})
         by_path = {p: c[name] for p, c in paths.items() if c.get(name)}
         out.append({
@@ -2449,6 +2837,15 @@ def summary(rec):
             "train_cli_step_device_busy_ms":
                 rec.get("train_cli", {}).get("profile", {}).get("device_busy_ms"),
             "train_step_launches": tprof.get("kernel_launches_per_step"),
+            "ssm_train": {k: rec.get("ssm_train", {}).get(k) for k in (
+                "step_time_p50_ms", "tokens_per_s", "mfu", "first_loss", "last_loss",
+                "resume_bit_exact")},
+            "ssm_train_bf16_p50_ms": rec.get("ssm_train", {}).get("c", {}).get("step_time_p50_ms"),
+            "ssm_train_step_device_busy_ms": rec.get("ssm_train", {}).get("a", {}).get(
+                "profile", {}).get("device_busy_ms"),
+            "ssm_train_bf16_step_device_busy_ms": rec.get("ssm_train", {}).get("c", {}).get(
+                "profile", {}).get("device_busy_ms"),
+            "ssm_train_path_rel_err": rec.get("ssm_train_path", {}).get("rel_err"),
             "ddp": {k: rec.get("ddp", {}).get(k) for k in (
                 "step_time_p50_ms", "global_tokens_per_s", "traj_max_rel_err",
                 "resume_bit_exact")},
@@ -2472,7 +2869,8 @@ def summary(rec):
                 rec.get("time", {}).get("flash_train_f32", {}).get("bwd", {}).get("ms"),
             "flash_bwd_gqa_ms": rec.get("time", {}).get("flash_bwd_gqa", {}).get("ms"),
             "paged_ms": rec.get("time", {}).get("paged", {}).get("ms"),
-            "ssd_ms": {k: v["ms"] for k, v in rec.get("time", {}).get("ssd", {}).items()}}
+            "ssd_ms": {k: v["ms"] for k, v in rec.get("time", {}).get("ssd", {}).items()},
+            "ssd_bwd_ms": {k: v["ms"] for k, v in rec.get("time", {}).get("ssd_bwd", {}).items()}}
 
 
 def main():
@@ -2530,7 +2928,9 @@ def main():
              "ssm_serve": lambda torch, rec: run_serve(torch, rec, arch="mamba2-130m",
                                                        key="ssm_serve"),
              "train_path": check_train_path,
-             "train": run_train, "train_cli": run_train_cli, "ddp_path": check_ddp_path,
+             "train": run_train, "train_cli": run_train_cli,
+             "ssm_train_path": check_ssm_train_path, "ssm_train": run_ssm_train,
+             "ddp_path": check_ddp_path,
              "ddp": run_ddp, "time": time_kernels}
     for ph in PHASES[1:]:
         if ph in phases:

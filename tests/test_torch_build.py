@@ -474,3 +474,94 @@ ptxas warning : Registers are spilled to local memory in function '_Z6kernelILi6
         "_Z9store_lsev": ["0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"],
         "_Z6kernelILi64EEvv": ["8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads",
                                "ptxas info    : Used 128 registers, used 16 barriers"]}
+
+
+def test_ssd_bwd_source_is_built_for_sm_90a_with_its_c_entry(tmp_path, monkeypatch):
+    """The SSD backward's source is one of the sources the build compiles,
+    for sm_90a; its C entry takes the wrapper's arguments (13 pointers, 8
+    ints, the stream); its five kernels sum in a fixed order (no atomics)
+    and each planted fault of the backward lies in a pass of its own (the
+    reverse carry, the head sums)."""
+    from repro_torch.kernels.ssd_scan import BWD_ARGTYPES
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "kernels")
+    monkeypatch.setattr(_build, "nvcc", lambda: "nvcc")
+    monkeypatch.setattr(subprocess, "Popen", _FakeNvcc)
+    monkeypatch.setattr(_FakeNvcc, "commands", [])
+    _build.build_all()
+    (cmd,) = [c for c in _FakeNvcc.commands if Path(c[-1]).name == "ssd_scan_bwd.cu"]
+    assert "arch=compute_90a,code=sm_90a" in cmd
+    text = (_build.CSRC / "ssd_scan_bwd.cu").read_text()
+    sig = re.search(r'extern "C" int ssd_scan_bwd\(([^)]*)\)', text).group(1)
+    params = [a.strip() for a in sig.split(",")]
+    assert len(params) == len(BWD_ARGTYPES) == 22
+    assert all("*" in a for a in params[:13]) and params[-1] == "void* stream"
+    assert all(a.startswith("int ") for a in params[13:21])
+    assert not re.search(r"\batomic\w*\(", text)
+    bodies = _kernel_bodies(text)
+    assert sorted(bodies) == ["ssd_bwd_carry_kernel", "ssd_bwd_dA_kernel", "ssd_bwd_grad_kernel",
+                              "ssd_bwd_heads_kernel", "ssd_bwd_state_kernel"]
+    faults = [f[3] for f in _chip_smoke().FAULTS if f[0] == "ssd_scan_bwd"]
+    assert [sum(old in bodies[k] for old in faults) for k in
+            ("ssd_bwd_carry_kernel", "ssd_bwd_heads_kernel")] == [1, 1]
+
+
+@pytest.mark.parametrize("B,S,H,P,G,N,L", [
+    (1, 10, 2, 3, 1, 2, 4), (2, 9, 4, 2, 2, 3, 3), (1, 12, 6, 2, 3, 2, 4), (1, 5, 2, 2, 2, 2, 8)])
+def test_ssd_bwd_work_counts_the_products_once(B, S, H, P, G, N, L):
+    """ssd_bwd_work's flops against a brute-force count: per (batch, head,
+    chunk) the five products over (rows, N, P) and, over the causal
+    pairs, gy x^T and M^T gy (P each) and the sums for dB and dC (N
+    each); C B^T per (batch, group, chunk); 2 flops a multiply-add.
+    Bytes: x, gy, dx, B, C, dB, dC once at 2 bytes, dt, ddt, A, dA and
+    gstate in f32."""
+    macs = 0
+    for _ in range(B):
+        for c0 in range(0, S, L):
+            rows = range(c0, min(S, c0 + L))
+            pairs = [(l, s) for l in rows for s in rows if s <= l]
+            macs += G * len(pairs) * N
+            macs += H * (5 * len(rows) * N * P + len(pairs) * (2 * P + 2 * N))
+    flops, nbytes = _chip_smoke().ssd_bwd_work(B, S, H, P, G, N, L, 2)
+    assert flops == 2 * macs
+    assert nbytes == 2 * (3 * B * S * H * P + 4 * B * S * G * N) \
+        + 4 * (2 * B * S * H + 2 * H + B * H * N * P)
+
+
+def test_ssd_bwd_cases_and_bound_at_the_train_shape():
+    """The backward's gate meets mamba2-130m's train shape, a ragged S, G 2
+    at H 8, S shorter than the chunk and a non-zero gstate, each a shape
+    the wrapper takes; at the train shape it needs 71.6 GFLOP (1.068 ms at
+    the f32 CUDA-core peak, 0.0724 ms at the bf16 one) and moves 183.5 MB
+    in bf16 (0.0548 ms)."""
+    from repro_torch.kernels.ssd_scan import BWD_HEAD_DIMS
+
+    cs = _chip_smoke()
+    cases = cs.SSD_BWD_CASES
+    for B, S, H, P, G, N, chunk, nonzero in cases:
+        assert P in BWD_HEAD_DIMS and N % 4 == 0 and N <= 128 and H % G == 0
+        assert chunk % 32 == 0 and chunk <= 256 and isinstance(nonzero, bool)
+    assert cases[0][:7] == cs.MAMBA2_TRAIN == (16, 1024, 24, 64, 1, 128, 256)
+    assert any(c[1] % c[6] and c[1] > c[6] for c in cases)
+    assert any(c[4] == 2 and c[2] == 8 for c in cases)
+    assert any(c[1] < c[6] for c in cases)
+    assert any(c[7] for c in cases) and not cases[0][7]
+    flops, nbytes = cs.ssd_bwd_work(*cs.MAMBA2_TRAIN, 2)
+    assert flops == pytest.approx(71.557e9, rel=1e-4) and nbytes == pytest.approx(183.5e6, rel=1e-3)
+    assert cs._bound(flops, nbytes, cs.PEAK_F32_FLOPS)[0] == pytest.approx(1.068, rel=1e-3)
+    ms, by = cs._bound(flops, nbytes, cs.PEAK_BF16_FLOPS)
+    assert by == "operations" and ms == pytest.approx(0.07235, rel=1e-3)
+
+
+def test_ssm_launches_per_step_at_the_train_shape():
+    """mamba2-130m at B 16 x S 1024: 24 layers, so 48 scans (remat) and 24
+    backwards a microbatch; loss chunks of 159 positions (7) at 16 rows,
+    of 318 (4) at the 8 rows of microbatch 2."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("mamba2-130m")
+    cs = _chip_smoke()
+    assert cs.ssm_launches_per_step(cfg, 16, 1024) == {
+        "ssd_scan": 48, "ssd_scan_bwd": 24, "fused_xent": 14, "fused_xent_bwd": 7}
+    assert cs.ssm_launches_per_step(cfg, 16, 1024, 2) == {
+        "ssd_scan": 96, "ssd_scan_bwd": 48, "fused_xent": 16, "fused_xent_bwd": 8}

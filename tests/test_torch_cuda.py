@@ -415,11 +415,47 @@ def test_ssd_kernel_is_deterministic(cuda, N):
 
 
 def test_ssd_backward_on_the_card_raises(cuda):
-    x, dt, A, Bm, Cm = _ssd_inputs(cuda, 1, 64, 2, 16, 1, 16)
+    """The backward of ``ops.ssd`` on the card runs the backward kernel,
+    with no plain fallback: at a head dim the kernel refuses (P 48; it
+    takes 16, 32, 64) it raises."""
+    x, dt, A, Bm, Cm = _ssd_inputs(cuda, 1, 64, 2, 48, 1, 16)
     x.requires_grad_(True)
     y, _ = ops.ssd(x, dt, A, Bm, Cm, 32)
-    with pytest.raises(NotImplementedError, match="mamba2 training slice"):
+    ops.reset_launch_counts()
+    with pytest.raises(ValueError, match="takes P in"):
         y.sum().backward()
+    assert not ops.launch_counts
+
+
+# ragged S, S < chunk, G = 1 and 2, chunk 32 / 96 / 256 (the 32-row and
+# 64-row tiles), P 16 / 32 / 64, zero and normal gstate
+@pytest.mark.parametrize("B,S,H,P,G,N,chunk", [
+    (2, 100, 4, 16, 2, 8, 32), (1, 300, 8, 64, 1, 128, 256), (2, 96, 6, 32, 2, 16, 96),
+    (1, 40, 4, 64, 2, 64, 256)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_backward_kernel_matches_plain_autograd(cuda, B, S, H, P, G, N, chunk, dtype):
+    """``ops.ssd``'s backward on the card (one ``ssd_scan_bwd`` launch)
+    against the autograd of the plain version on the f32 values, under
+    chip_smoke.py's gate: 1e-4 of each gradient's max, plus one bf16
+    rounding of dx, dB and dC in bf16; and the same gradients twice."""
+    cs = _chip_smoke()
+    inp = _ssd_inputs(cuda, B, S, H, P, G, N, dtype)
+    g = torch.Generator(device=cuda).manual_seed(7)
+    gy = torch.randn(B, S, H, P, generator=g, device=cuda).to(dtype)
+    gstate = torch.randn(B, H, N, P, generator=g, device=cuda) * (B % 2)
+
+    def grads():
+        xs = [t.detach().clone().requires_grad_(True) for t in inp]
+        y, st = ops.ssd(*xs, chunk)
+        torch.autograd.backward((y, st), (gy, gstate))
+        return [t.grad for t in xs]
+
+    ops.reset_launch_counts()
+    got = grads()
+    assert ops.launch_counts["ssd_scan_bwd"] == 1
+    assert all(torch.equal(a, b) for a, b in zip(got, grads()))
+    err, ratio = cs.ssd_bwd_reading(torch, *inp, gy, gstate, chunk)
+    assert ratio <= 1.0, (err, ratio)
 
 
 def test_mamba2_engine_cuda_matches_cpu(cuda):
