@@ -130,7 +130,10 @@ def flat_leaves(params: torch.nn.Module, prefix: str = "") -> List[Tuple[str, to
     return out
 
 
-def _flat(grads: Sequence[torch.Tensor], bucket: GradBucket, scale: float) -> torch.Tensor:
+def _flat(grads, bucket: GradBucket, scale: float) -> torch.Tensor:
+    """The bucket's leaves (``grads[i]`` for each flat index i: a list of
+    every leaf, or a dict of the bucket's) raveled into one buffer of the
+    bucket's dtype, scaled."""
     flat = torch.cat([grads[i].reshape(-1).to(bucket.dtype) for i in bucket.indices])
     if scale != 1.0:
         flat.mul_(scale)

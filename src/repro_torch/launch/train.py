@@ -6,6 +6,8 @@ parallel over several processes.
       [--ckpt-dir runs/ck --ckpt-every 50 --keep-last-k 3] [--resume]
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --reduced \\
       --steps 20 --batch 8 --seq 64 --n-functions 300
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-130m \\
+      --steps 200 --batch 16 --seq 1024
   PYTHONPATH=src torchrun --standalone --nproc-per-node 2 \\
       -m repro_torch.launch.train --batch 16 --seq 512 [--grad-bucket-mb 25]
 
@@ -40,7 +42,9 @@ plain versions; ``--reduced`` makes that quick).  ``--sharding`` takes
 only ``ddp``, and the JAX launcher's other parallel, journal and
 straggler flags exit with the ROADMAP item that brings them.
 ``main(argv)`` returns ``(state, TrainerLog)``, so the same run can be
-driven in process.
+driven in process.  An encoder trains on BERT masks, any other model
+(mamba2-130m, say) on the JAX launcher's next-token labels: the tokens
+rolled by one, the attention mask as the loss mask.
 """
 from __future__ import annotations
 
