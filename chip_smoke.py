@@ -1577,15 +1577,15 @@ def check_ssm_train_path(torch, rec, B=2, S=600, n_steps=5):
                              "launches": res["cuda"][3], "repeat_bit_equal": True}
 
 
-def run_ssm_train(torch, rec, B=16, S=1024, n_functions=1000):
+def run_ssm_train(torch, rec, B=16, S=1024, n_functions=400):
     """mamba2-130m at full width and depth, B x S from one DataPipeline
-    data dir (1000 functions: 283 rows of 1024, so the 20 steps wrap into
-    a second epoch; building it takes about a third of the 45 s that 3000
-    take): (a) 20 steps of launch.train.main (f32, 2 loader workers; phase
-    train_cli runs the R3 autotune); (b)
-    the same run with --ckpt-every 10, stopped by the fault point after
-    step 11, then --resume from its step-10 checkpoint, whose losses at
-    steps 11-20 must be (a)'s bit for bit; (c) 20 steps of trainer.train
+    data dir (400 functions: 103 rows of 1024, 6 batches an epoch, which
+    the 20 steps wrap; the corpus build grows with the function count):
+    (a) 20 steps of launch.train.main (f32, 2 loader workers; phase
+    train_cli runs the R3 autotune); (b) the same run with --ckpt-every
+    10, stopped by the fault point after step 11, then --resume from its
+    step-10 checkpoint, whose losses at steps 11-20 must be (a)'s bit for
+    bit; (c) 20 steps of trainer.train
     with bf16 parameters and activations at microbatch 2 on the
     pipeline's first 20 batches, every gradient AdamW gets checked to be
     f32.  Launches per step, the loss falling, step p50, tokens/s, MFU;
@@ -1680,7 +1680,7 @@ def run_ssm_train(torch, rec, B=16, S=1024, n_functions=1000):
     runner = StepRunner(build_model(cfg), default_run_config(cfg, ShapeConfig("cli", S, B, "train")),
                         AdamWConfig(lr=3e-3, warmup_steps=2, total_steps=20))
     res["a"]["profile"] = profile_steps(torch, runner, state_b,
-                                        [runner.place_batch(b) for b in host[:3]],
+                                        [runner.place_batch(b) for b in host[:2]],
                                         res["a"]["step_time_p50_ms"] / 1e3)
     del state_b, runner
 
@@ -1710,7 +1710,7 @@ def run_ssm_train(torch, rec, B=16, S=1024, n_functions=1000):
         fail(f"ssm_train c: losses {res['c']['losses']}")
     runner = StepRunner(model, run, opt)
     res["c"]["profile"] = profile_steps(torch, runner, state_c,
-                                        [runner.place_batch(b) for b in host[:3]],
+                                        [runner.place_batch(b) for b in host[:2]],
                                         res["c"]["step_time_p50_ms"] / 1e3)
     res["c"]["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
     del state_c, runner, model
