@@ -41,14 +41,19 @@ def f32_accumulators(named: Dict[str, torch.nn.Parameter],
             for k, p in named.items() if p.dtype != torch.float32}
 
 
+def fold(p: torch.nn.Parameter, acc: torch.Tensor) -> torch.Tensor:
+    """Move ``p.grad`` into its f32 accumulator ``acc`` (``.grad`` is left
+    None for the next microbatch); returns ``acc``."""
+    if p.grad is not None:
+        acc.add_(p.grad)
+        p.grad = None
+    return acc
+
+
 def add_into(acc: Dict[str, torch.Tensor], named: Dict[str, torch.nn.Parameter]) -> None:
-    """Move each accumulated parameter's ``.grad`` into its f32 accumulator
-    (``.grad`` is left None for the next microbatch)."""
+    """:func:`fold` of every accumulated parameter."""
     for k, a in acc.items():
-        p = named[k]
-        if p.grad is not None:
-            a.add_(p.grad)
-            p.grad = None
+        fold(named[k], a)
 
 
 def accumulate_grads(loss_fn: Callable, params, batch: Dict[str, torch.Tensor],

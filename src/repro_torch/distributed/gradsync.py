@@ -40,6 +40,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+from repro_torch.core.accum import fold
 from repro_torch.observability import get_tracer
 
 __all__ = ["DEFAULT_BUCKET_MB", "GradBucket", "BucketedAllReduce",
@@ -242,12 +243,7 @@ class BucketedAllReduce:
         accumulator with the final microbatch's ``.grad`` added in (then
         dropped)."""
         p, a = self._leaves[i], self._acc[i]
-        if a is None:
-            return p.grad
-        if p.grad is not None:
-            a.add_(p.grad)
-            p.grad = None
-        return a
+        return p.grad if a is None else fold(p, a)
 
     def _issue(self, b: int) -> None:
         bucket = self.buckets[b]

@@ -54,13 +54,15 @@
 // Bound on the H100 (67 TFLOP/s f32 outside the tensor cores, 989 bf16,
 // 3.35 TB/s).  The function needs, per (batch, head, chunk of n steps),
 // five products over the chunk's (n, N, P): U_c, V_c, B dS, dS x and S gy;
-// over the n (n + 1) / 2 causal pairs, gy x^T (P), M^T gy for dx (P), and
-// the weighted sums for dB and dC (N each); and C B^T over the pairs once
-// per (batch, group, chunk).  At mamba2-130m's train shape (B 16, S 1024,
-// H 24, P 64, G 1, N 128, L 256) that is 71.6 GFLOP, 1.07 ms at the f32
-// peak, 0.072 ms at the bf16 one; moving the inputs and the gradients once
-// takes 0.054 ms in bf16.  This body runs every product on the CUDA cores
-// in f32: a simple kernel that is right, far from the bf16 bound (a
+// over the n (n + 1) / 2 causal pairs, gy x^T (P) and M^T gy for dx (P).
+// Per (batch, group, chunk) it needs C B^T over the pairs and the weighted
+// sums for dB and dC (N each): those are linear in the pair weights, so the
+// weights summed over the group's heads serve them once.  At mamba2-130m's
+// train shape (B 16, S 1024, H 24, P 64, G 1, N 128, L 256) that is 46.8
+// GFLOP, 0.70 ms at the f32 peak, 0.047 ms at the bf16 one; moving the
+// inputs and the gradients once takes 0.055 ms in bf16, its bound there.
+// This body runs every product on the CUDA cores in f32, and the dB and dC
+// sums per head: a simple kernel that is right, far from the bf16 bound (a
 // wgmma / TMA redesign is ROADMAP B4).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

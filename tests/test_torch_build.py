@@ -511,8 +511,8 @@ def test_ssd_bwd_source_is_built_for_sm_90a_with_its_c_entry(tmp_path, monkeypat
 def test_ssd_bwd_work_counts_the_products_once(B, S, H, P, G, N, L):
     """ssd_bwd_work's flops against a brute-force count: per (batch, head,
     chunk) the five products over (rows, N, P) and, over the causal
-    pairs, gy x^T and M^T gy (P each) and the sums for dB and dC (N
-    each); C B^T per (batch, group, chunk); 2 flops a multiply-add.
+    pairs, gy x^T and M^T gy (P each); C B^T and the sums for dB and dC
+    (N each) per (batch, group, chunk); 2 flops a multiply-add.
     Bytes: x, gy, dx, B, C, dB, dC once at 2 bytes, dt, ddt, A, dA and
     gstate in f32."""
     macs = 0
@@ -520,8 +520,8 @@ def test_ssd_bwd_work_counts_the_products_once(B, S, H, P, G, N, L):
         for c0 in range(0, S, L):
             rows = range(c0, min(S, c0 + L))
             pairs = [(l, s) for l in rows for s in rows if s <= l]
-            macs += G * len(pairs) * N
-            macs += H * (5 * len(rows) * N * P + len(pairs) * (2 * P + 2 * N))
+            macs += G * len(pairs) * 3 * N
+            macs += H * (5 * len(rows) * N * P + len(pairs) * 2 * P)
     flops, nbytes = _chip_smoke().ssd_bwd_work(B, S, H, P, G, N, L, 2)
     assert flops == 2 * macs
     assert nbytes == 2 * (3 * B * S * H * P + 4 * B * S * G * N) \
@@ -531,9 +531,9 @@ def test_ssd_bwd_work_counts_the_products_once(B, S, H, P, G, N, L):
 def test_ssd_bwd_cases_and_bound_at_the_train_shape():
     """The backward's gate meets mamba2-130m's train shape, a ragged S, G 2
     at H 8, S shorter than the chunk and a non-zero gstate, each a shape
-    the wrapper takes; at the train shape it needs 71.6 GFLOP (1.068 ms at
-    the f32 CUDA-core peak, 0.0724 ms at the bf16 one) and moves 183.5 MB
-    in bf16 (0.0548 ms)."""
+    the wrapper takes; at the train shape it needs 46.8 GFLOP (0.698 ms at
+    the f32 CUDA-core peak, 0.0473 ms at the bf16 one) and moves 183.5 MB
+    in bf16 (0.0548 ms), so in bf16 its bound is the bytes'."""
     from repro_torch.kernels.ssd_scan import BWD_HEAD_DIMS
 
     cs = _chip_smoke()
@@ -547,10 +547,10 @@ def test_ssd_bwd_cases_and_bound_at_the_train_shape():
     assert any(c[1] < c[6] for c in cases)
     assert any(c[7] for c in cases) and not cases[0][7]
     flops, nbytes = cs.ssd_bwd_work(*cs.MAMBA2_TRAIN, 2)
-    assert flops == pytest.approx(71.557e9, rel=1e-4) and nbytes == pytest.approx(183.5e6, rel=1e-3)
-    assert cs._bound(flops, nbytes, cs.PEAK_F32_FLOPS)[0] == pytest.approx(1.068, rel=1e-3)
+    assert flops == pytest.approx(46.764e9, rel=1e-4) and nbytes == pytest.approx(183.5e6, rel=1e-3)
+    assert cs._bound(flops, nbytes, cs.PEAK_F32_FLOPS)[0] == pytest.approx(0.698, rel=1e-3)
     ms, by = cs._bound(flops, nbytes, cs.PEAK_BF16_FLOPS)
-    assert by == "operations" and ms == pytest.approx(0.07235, rel=1e-3)
+    assert by == "bytes" and ms == pytest.approx(0.05478, rel=1e-3)
 
 
 def test_ssm_launches_per_step_at_the_train_shape():
