@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phases build,train_cli
     python3 chip_smoke.py --phases build,ddp_path,ddp
     python3 chip_smoke.py --phases build,ssm_train_path,ssm_train
+    python3 chip_smoke.py --phases build,gemma_path,gemma_serve,gemma_train_path,gemma_train
     python3 chip_smoke.py --phases build,serve,train,time \
         --against parent=build/parent/flash_attention.cu
 
@@ -15,8 +16,10 @@ Phases (any failure exits non-zero before the last line):
   build       build the CUDA kernels from src/repro_torch/kernels/csrc/;
               the flash forward and backward (bf16, and f32 on three bf16
               pieces), the bf16 SSD body's product passes and the bf16
-              paged body must run on wgmma and TMA alone (SASS: HGMMA and
-              UTMALDG, no HMMA; no ptxas C7520)
+              paged body, at every head dim they take, must run on wgmma
+              and TMA alone (SASS: HGMMA and UTMALDG, no HMMA; no ptxas
+              C7520); the flash backward's head-dim-256 body runs on the
+              CUDA cores by design (SIMT_FUNCTIONS) and is only logged
   kernels     hold each kernel (forward and backward) against its plain
               PyTorch version (backward: the plain version's autograd) on
               the card, f32 and bf16, at the stated tolerances, up to the
@@ -34,6 +37,14 @@ Phases (any failure exits non-zero before the last line):
               paged engine on cuda and on cpu must agree on prefill and
               decode logits (a 300-token prompt: a full chunk and a ragged
               one) and give the same greedy tokens over 8 decode steps
+  gemma_path  gemma3-4b at full width, depth cut to 2 layers (local with
+              window 1024, global), f32: as path, prompts of 1500 and 37
+              tokens (the long one's ring filled ragged under its bucket,
+              then overwritten by its decode)
+  gemma_serve gemma3-4b at full width and depth, bf16: 16 requests with
+              prompts of 600-3000 tokens; every layer's prefill through
+              the flash kernel, every tick the paged kernel in the 5 global
+              layers only (the 29 windowed ones decode over their rings)
   ssm_serve   mamba2-130m at full width and depth, bf16: 16 requests; every
               layer of every prefill must have gone through ssd_scan
   train_path  bert-mlm-120m at full width, depth cut to 2 layers, f32: the
@@ -50,6 +61,9 @@ Phases (any failure exits non-zero before the last line):
               batches and initial parameters on cuda and on cpu must agree
               on the loss, every gradient leaf and 5 steps; the same
               gradients computed twice on the card are equal bit for bit
+  gemma_train_path
+              gemma3-4b at full width, 2 layers (local, global), f32, B 2 x
+              S 1500: as ssm_train_path (the windowed flash backward)
   train_cli   bert-mlm-120m at full width and depth, f32 (the launcher's
               defaults), batch 32 x 512 from the DataPipeline over a
               3000-function corpus, through repro_torch.launch.train.main:
@@ -72,6 +86,12 @@ Phases (any failure exits non-zero before the last line):
               in f32; the loss falls in each, and every SSD scan and loss
               chunk, forward and backward, goes through the kernels
               (launch counts per step); step time, MFU and device busy
+  gemma_train gemma3-4b at full width, depth cut to 6 (5 local, 1 global), B
+              4 x S 2048 from the DataPipeline with the launcher's rolled
+              labels: (a) 20 steps of trainer.train in f32, (b) 20 in bf16
+              at microbatch 2; the loss falls, launches per step exact
+              (2L flash forwards, L backwards, 2C and C xent at V 262144),
+              step time, MFU and device busy
   ddp_path    bert-mlm-120m at full width, 2 layers, f32, global batch 8 x
               512 with ragged masks: 2 ranks on the one card over gloo
               (processes spawned by the phase) against one process on the
@@ -96,7 +116,9 @@ Phases (any failure exits non-zero before the last line):
               its bound and a PyTorch call computing the same function
               (SDPA and its backward op, F.cross_entropy; none computes
               SSD or its backward) as a yardstick: device time per call
-              (CUDA-graph replay) and time per back-to-back call
+              (CUDA-graph replay) and time per back-to-back call; gemma3's
+              head-dim-256 flash forward and backward (window 1024 and
+              none) and paged decode at its serve and train shapes
 
 --against NAME=SOURCE (repeatable) builds SOURCE, another version of the
 kernel source of its file name (csrc/<kernel>.cu; e.g. a parent commit's,
@@ -131,8 +153,9 @@ OUT = ROOT / "chiprun_out"
 # ssm_train_path runs before train_cli: launch.train.main leaves the process
 # one intra-op thread (its bit-exact resume needs it), which would slow the
 # full-width CPU reference of ssm_train_path 3.5x
-PHASES = ("build", "kernels", "faults", "path", "serve", "ssm_path", "ssm_serve", "train_path",
-          "train", "ssm_train_path", "train_cli", "ssm_train", "ddp_path", "ddp", "time")
+PHASES = ("build", "kernels", "faults", "path", "serve", "gemma_path", "gemma_serve", "ssm_path",
+          "ssm_serve", "train_path", "train", "ssm_train_path", "gemma_train_path", "train_cli",
+          "ssm_train", "gemma_train", "ddp_path", "ddp", "time")
 AGAINST_PHASES = ("serve", "ssm_serve", "train", "time")   # the phases --against runs again
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the bounds below use them
@@ -214,6 +237,12 @@ def gpu_line() -> str:
 # kernels vs plain versions
 # ---------------------------------------------------------------------------
 
+# gemma3-4b's attention (B, S, H, Hkv, D, causal): a serve prefill at S
+# 2048, and the gemma_train phase's B 4 x S 2048
+GEMMA_WINDOW = 1024                        # gemma3-4b's local layers
+GEMMA_SERVE_ATTN = (1, 2048, 8, 4, 256, True)
+GEMMA_TRAIN_ATTN = (4, 2048, 8, 4, 256, True)
+
 FLASH_CASES = [  # (B, S, H, Hkv, D, causal, window, softcap)
     (2, 256, 4, 4, 64, True, None, 0.0),       # rep 1
     (1, 300, 8, 2, 128, True, None, 0.0),      # rep 4, ragged S
@@ -232,6 +261,16 @@ FLASH_CASES = [  # (B, S, H, Hkv, D, causal, window, softcap)
     (1, 129, 24, 2, 128, False, None, 30.0),
     (1, 640, 8, 2, 128, True, 200, 0.0),       # a window of 200 crosses 128-key tiles
     (2, 600, 4, 4, 64, False, 200, 0.0),
+    # head dim 256 (gemma3-4b: 8 q / 4 kv heads): the serve prefill at S
+    # 2048 (a local layer's window 1024, and a global layer), the train
+    # shape B 4 x S 2048, and the D-256 bodies' edges (bf16: 128 q rows a
+    # block, 64-key tiles; f32: 64 rows a block, 16-key tiles)
+    GEMMA_SERVE_ATTN + (GEMMA_WINDOW, 0.0), GEMMA_SERVE_ATTN + (None, 0.0),
+    GEMMA_TRAIN_ATTN + (GEMMA_WINDOW, 0.0), GEMMA_TRAIN_ATTN + (None, 0.0),
+    (2, 1, 8, 4, 256, True, None, 0.0),
+    (2, 129, 8, 4, 256, True, 40, 0.0),
+    (1, 65, 8, 4, 256, False, None, 0.0),
+    (1, 300, 8, 4, 256, False, 100, 20.0),      # non-causal window + softcap
 ]
 
 PAGED_CASES = [  # (B, H, Hkv, D, P, NP, maxp, window, softcap, (pos lo, hi))
@@ -254,6 +293,11 @@ PAGED_CASES = [  # (B, H, Hkv, D, P, NP, maxp, window, softcap, (pos lo, hi))
     (8, 24, 2, 128, 16, 160, 16, 5, 0.0, (0, 255)),        # a window inside a page
     (6, 24, 2, 128, 16, 160, 32, 200, 0.0, (300, 500)),    # a window from inside a later split
     (8, 24, 2, 128, 16, 160, 16, 40, 30.0, (0, 255)),      # window and softcap
+    # head dim 256 (gemma3-4b's global layers, rep 2): 8 slots of about 2000
+    # tokens, page 16; a window; short tables
+    (8, 8, 4, 256, 16, 1100, 136, None, 0.0, (1800, 2100)),
+    (8, 8, 4, 256, 16, 600, 64, 100, 0.0, (0, 1000)),
+    (6, 8, 4, 256, 16, 80, 16, None, 0.0, (0, 255)),
 ]
 
 
@@ -261,7 +305,7 @@ PAGED_CASES = [  # (B, H, Hkv, D, P, NP, maxp, window, softcap, (pos lo, hi))
 # the train and train_cli phases give the flash forward and backward
 BERT_ATTN = (32, 512, 12, 12, 64, False)
 
-# the backward kernel: (B, S, H, Hkv, D, causal); no window or softcap yet
+# the backward kernel: (B, S, H, Hkv, D, causal[, window]); no softcap yet
 FLASH_BWD_CASES = [
     (2, 256, 4, 4, 64, True),       # rep 1, causal
     (1, 300, 8, 2, 128, True),      # rep 4, D 128, ragged S
@@ -274,6 +318,17 @@ FLASH_BWD_CASES = [
       for D, causal, rep in ((64, True, 1), (128, False, 4), (64, False, 4), (128, True, 1))],
     # the f32 body's at D 128 (32-row q tiles in dkdv, 32-key tiles in dq)
     (2, 31, 8, 2, 128, True), (2, 33, 2, 2, 128, False), (1, 97, 8, 2, 128, True),
+    # a sliding window at D 64 and 128: edges inside and across the tiles,
+    # causal and not, GQA, ragged S
+    (2, 600, 8, 2, 64, True, 200), (1, 513, 8, 2, 128, True, 100),
+    (2, 300, 4, 4, 64, False, 64), (1, 700, 8, 2, 128, True, 65),
+    (2, 333, 8, 2, 128, True, 50), (2, 129, 4, 4, 64, True, 1),
+    (1, 200, 6, 2, 128, False, 33),
+    # head dim 256 (the CUDA-core body): gemma3's train shape with its
+    # window and without, and the blocks' edges (16 rows or keys, 32-key
+    # or 32-row tiles)
+    GEMMA_TRAIN_ATTN + (GEMMA_WINDOW,), GEMMA_TRAIN_ATTN,
+    (2, 77, 8, 4, 256, False), (1, 130, 8, 4, 256, True, 40), (2, 33, 8, 2, 256, False, 16),
 ]
 
 XENT_CASES = [  # (T, V)
@@ -394,9 +449,33 @@ def _plain_grads(torch, fn, inputs, grad):
     return out.detach(), torch.autograd.grad(out, xs, grad.float())
 
 
-def flash_bwd_reading(torch, q, k, v, do, causal):
+def _attention_grads64(torch, q, k, v, do, causal, window):
+    """dq, dk, dv of the plain version's function (softmax attention,
+    masked, scale D^-1/2) computed in f64 throughout, on the f32 inputs:
+    the f32 backward gate's reference.  The plain version itself takes its
+    scores in f32, and at head dim 256 and S 2048 its own f32 rounding
+    reaches 2.76e-5 (PERF.md, PR 22), above the 2e-5 bar; against this
+    reference the gate reads the kernel's error alone."""
+    xs = [x.detach().double().requires_grad_(True) for x in (q, k, v)]
+    S, rep = q.shape[1], q.shape[2] // k.shape[2]
+    with torch.enable_grad():
+        kr, vr = (x.repeat_interleave(rep, 2) for x in xs[1:])
+        s = torch.einsum("bqhd,bkhd->bhqk", xs[0], kr) * q.shape[3]**-0.5
+        i = torch.arange(S, device=q.device)
+        hide = torch.zeros(S, S, dtype=torch.bool, device=q.device)
+        if causal:
+            hide |= i[None, :] > i[:, None]
+        if window is not None:
+            hide |= i[None, :] <= i[:, None] - window
+        p = torch.softmax(s.masked_fill(hide, -math.inf), -1)
+        out = torch.einsum("bhqk,bkhd->bqhd", p, vr)
+    return torch.autograd.grad(out, xs, do.double())
+
+
+def flash_bwd_reading(torch, q, k, v, do, causal, window=None):
     """The backward kernel (fed the forward kernel's o and lse) against
-    the autograd of the plain version on the f32 inputs.  bf16 limit per
+    the autograd of the plain version on the f32 inputs (f32 kernels: the
+    same function in f64, ``_attention_grads64``).  bf16 limit per
     element: u (|want| + want_abs) + 1e-5 with u = 2^-8.  The kernel
     recomputes S and dP exactly (bf16 products, f32 sums) and P in f32
     from the forward's f32 lse; the bf16 roundings it makes are
@@ -413,23 +492,29 @@ def flash_bwd_reading(torch, q, k, v, do, causal):
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_fwd
 
-    o, lse = flash_attention_fwd(q, k, v, causal=causal, return_lse=True)
-    got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
-    fn = lambda q_, k_, v_: ref.flash_attention_ref(q_, k_, v_, causal=causal)
-    _, want = _plain_grads(torch, fn, (q, k, v), do)
+    o, lse = flash_attention_fwd(q, k, v, causal=causal, window=window, return_lse=True)
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal, window=window)
     dname = str(q.dtype).split(".")[1]
     if dname == "float32":
+        want = _attention_grads64(torch, q, k, v, do, causal, window)
         return max((gate(torch, g, w, None, dname) for g, w in zip(got, want)),
                    key=lambda r: r[1])
+    fn = lambda q_, k_, v_: ref.flash_attention_ref(q_, k_, v_, causal=causal, window=window)
+    _, want = _plain_grads(torch, fn, (q, k, v), do)
     B, S, H, D = q.shape
     Hkv = k.shape[2]
     rep_ = H // Hkv
     qf, kf, vf, dof = (x.float().transpose(1, 2) for x in (q, k, v, do))   # (B,h,S,D)
     kf, vf = (x.repeat_interleave(rep_, dim=1) for x in (kf, vf))
     s = (qf @ kf.transpose(-1, -2)) * D**-0.5
+    i = torch.arange(S, device=q.device)
+    hide = torch.zeros(S, S, dtype=torch.bool, device=q.device)
     if causal:
-        s = s.masked_fill(torch.ones(S, S, dtype=torch.bool, device=q.device).triu(1),
-                          ref.NEG_INF)
+        hide |= i[None, :] > i[:, None]
+    if window is not None:
+        hide |= i[None, :] <= i[:, None] - window
+    s = s.masked_fill(hide, ref.NEG_INF)
+    del hide
     p = torch.softmax(s, dim=-1)                                  # (B,H,S,S)
     o = p @ vf
     dabs = (dof.abs() * (o.abs() + p @ vf.abs())).sum(-1, keepdim=True)   # (B,H,S,1)
@@ -572,13 +657,14 @@ def kernel_readings(torch, dname, only=None):
                 torch, *_paged_inputs(torch, case, dtype, gen), window, cap)))
     if want("flash_attention_bwd"):
         for case in FLASH_BWD_CASES:
-            B, S, H, Hkv, D, causal = case
+            B, S, H, Hkv, D, causal, *window = case
             q, k, v = _flash_inputs(torch, (B, S, H, Hkv, D), dtype, gen)
             do = torch.randn(B, S, H, D, generator=gen, device="cuda").to(dtype)
             if case == BERT_ATTN and want("flash_attention"):    # its forward too
                 out.append(("flash_attention", case, *flash_reading(torch, q, k, v, causal)))
-            out.append(("flash_attention_bwd", case,
-                        *flash_bwd_reading(torch, q, k, v, do, causal)))
+            out.append(("flash_attention_bwd", case, *flash_bwd_reading(
+                torch, q, k, v, do, causal, window[0] if window else None)))
+            del q, k, v, do
     if want("fused_xent", "fused_xent_bwd"):
         for case in XENT_CASES:
             fwd, bwd = xent_readings(torch, *_xent_inputs(torch, case, dtype, gen))
@@ -655,6 +741,15 @@ FAULTS = [
      "hopper::pack_bf16_pieces<NP>(s[8 * kc + 2 * e], s[8 * kc + 2 * e + 1], w);  // P^T's pieces",
      "hopper::pack_bf16_pieces<NP>(s[8 * kc + 2 * e], s[8 * kc + 2 * e + 1], w);"
      + F32_PIECES_DROPPED + "  // P^T's pieces", "float32"),
+    ("flash_attention_bwd", ("flash_attention_bwd",),
+     "dq: the window's edge one key off (key q - W is let in)",
+     "const bool behind = p.window > 0 && key <= row - p.window;  // dq: outside the window",
+     "const bool behind = p.window > 0 && key < row - p.window;  // dq: outside the window",
+     "bfloat16"),
+    ("flash_attention", ("flash_attention",),
+     "D-256 tiles: S = Q K^T skips the last 64-column box of the head dim",
+     "for (int kk = 0; kk < D / 16; ++kk)",
+     "for (int kk = 0; kk < (D == 256 ? D / 16 - 4 : D / 16); ++kk)", "bfloat16"),
     ("ssd_scan", ("ssd_scan",), "the state is carried without its exp(acs_L) decay",
      "if (n < N) st[n * PC + tx] = carry * st[n * PC + tx] + acc[i];",
      "if (n < N) st[n * PC + tx] = st[n * PC + tx] + acc[i];", "bfloat16"),
@@ -790,6 +885,12 @@ WGMMA_FUNCTIONS = (("flash_attention", "flash_fwd_wgmma"), ("flash_attention_bwd
                    ("ssd_scan", "ssd_out_wgmma"), ("paged_attention", "paged_wgmma"))
 
 
+# the D-256 flash backward's body, on the CUDA cores by design (ROADMAP
+# queues its redesign onto wgmma): named here and left out of the route
+# check; the build phase logs its ptxas report
+SIMT_FUNCTIONS = (("flash_attention_bwd", "dq_simt"), ("flash_attention_bwd", "dkdv_simt"))
+
+
 def wgmma_route_faults(sass, part):
     """What keeps the functions named by ``part`` in ``parse_sass``'s
     counts off the wgmma and TMA route: none found, or one without HGMMA
@@ -818,6 +919,11 @@ def wgmma_build_facts(rec):
                 if part in k:
                     log(f"{name} {k}: SASS {v}; ptxas {ptxas.get(k, 'not built in this run')}")
             faults += wgmma_route_faults(sass, part)
+        for _, part in (f for f in SIMT_FUNCTIONS if f[0] == name):
+            for k, v in sass.items():
+                if part in k:
+                    log(f"{name} {k} (CUDA cores, no wgmma by design): SASS {v}; "
+                        f"ptxas {ptxas.get(k, 'not built in this run')}")
         faults += [w for w in ptxas.get("warnings", []) if "C7520" in w]
         facts[name] = {"ptxas": ptxas, "sass": sass}
     if faults:
@@ -932,12 +1038,13 @@ def _tap(eng, log_):
     eng._prefill, eng._decode = prefill, decode
 
 
-def compare_engines(torch, name, cfg, prompts, max_new, want_launches):
+def compare_engines(torch, name, cfg, prompts, max_new, want_launches, engine_kw=None):
     """The paged engine on cuda and on cpu (plain versions) from the same
     f32 weights: each prefill's and decode tick's logits within
     PATH_REL_TOL of the largest cpu logit, the same greedy tokens; the
     cuda run's kernel launches must equal ``want_launches(engine)`` and
-    the cpu run must launch none."""
+    the cpu run must launch none.  ``engine_kw``: the engines' pool
+    sizes (default 4 slots of up to 32 pages of 16 tokens)."""
     import copy
 
     from repro_torch.configs import default_run_config
@@ -950,8 +1057,8 @@ def compare_engines(torch, name, cfg, prompts, max_new, want_launches):
     run = default_run_config(cfg, ShapeConfig("serve", 0, 0, "decode"))
     model_cpu = build_model(cfg, seed=0, device="cpu")
     model_gpu = copy.deepcopy(model_cpu).to("cuda")   # the same weights
-    eng_cpu, eng_gpu = (PagedServeEngine(m, run, page=16, n_pages=128, max_slots=4,
-                                         max_pages=32) for m in (model_cpu, model_gpu))
+    engine_kw = engine_kw or dict(page=16, n_pages=128, max_slots=4, max_pages=32)
+    eng_cpu, eng_gpu = (PagedServeEngine(m, run, **engine_kw) for m in (model_cpu, model_gpu))
     logs, outs = {}, {}
     for dev, eng in (("cpu", eng_cpu), ("cuda", eng_gpu)):
         logs[dev] = []
@@ -1007,11 +1114,64 @@ def check_ssm_path(torch, rec):
                                       lambda eng: {"ssd_scan": 2 * len(prompts)})
 
 
-def run_serve(torch, rec, seed=0, arch="starcoder2-3b", key="serve"):
+def gemma_cfg(n_layers):
+    """gemma3-4b at full width, its depth cut to ``n_layers``: 2, one
+    local layer (window 1024) and one global; 6, the first pattern group
+    once (5 local, 1 global); 34, the whole model."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ATTN, LayerSpec, ScheduleGroup
+
+    cfg = get_config("gemma3-4b")
+    if n_layers == cfg.n_layers:
+        return cfg
+    local, glob = LayerSpec(kind=ATTN, window=GEMMA_WINDOW), LayerSpec(kind=ATTN)
+    pattern = {2: (local, glob), 6: (local,) * 5 + (glob,)}[n_layers]
+    return dataclasses.replace(cfg, schedule=(ScheduleGroup(pattern=pattern, repeats=1),))
+
+
+def check_gemma_path(torch, rec):
+    """gemma3-4b at full width, 2 layers (local, global), f32: prompts of
+    1500 tokens (past the window: a ragged ring fill under the 2048-token
+    bucket) and 37; 9 new tokens, so the long prompt's decode writes over
+    its ring's oldest positions.  Every prefill launches the flash kernel
+    in both layers (the window in the local one), every tick the paged
+    kernel in the global layer only."""
+    from repro_torch.launch.serve import random_prompts
+
+    cfg = gemma_cfg(2)
+    prompts = random_prompts(2, [1500, 37], cfg.vocab_size, seed=1)
+    rec["gemma_path"] = compare_engines(
+        torch, "gemma_path", cfg, prompts, 9,
+        lambda eng: {"flash_attention": 2 * len(prompts),
+                     "paged_attention": global_attn_layers(cfg) * eng.decode_ticks},
+        engine_kw=dict(page=16, n_pages=256, max_slots=4, max_pages=128))
+
+
+def run_gemma_serve(torch, rec):
+    """gemma3-4b at full width and depth, bf16: 16 requests with prompts
+    uniform in 600-3000 tokens (most past the window), 32 new tokens each,
+    8 slots of up to 192 pages of 16 tokens; device busy of a 2048-token
+    prefill and of a tick."""
+    run_serve(torch, rec, arch="gemma3-4b", key="gemma_serve", lens=(600, 3000),
+              n_pages=2048, max_pages=192, prefill_S=2048)
+
+
+def global_attn_layers(cfg):
+    """The attention layers without a sliding window: the ones that decode
+    through the paged kernel (a windowed layer decodes over its ring)."""
+    from repro_torch.configs.base import ATTN
+
+    return sum(g.repeats * sum(s.kind == ATTN and s.window is None for s in g.pattern)
+               for g in cfg.schedule)
+
+
+def run_serve(torch, rec, seed=0, arch="starcoder2-3b", key="serve", lens=(65, 1024),
+              n_pages=1024, max_pages=128, prefill_S=1024):
     """``arch`` at full width and depth in bf16, random weights from
-    ``seed``: 16 requests, prompts uniform in 65-1024 tokens, 32 new tokens
-    each, all submitted at once; 8 slots, page 16.  Every layer's prefill
-    and (attention models) decode must launch its kernel."""
+    ``seed``: 16 requests, prompts uniform in ``lens`` tokens, 32 new
+    tokens each, all submitted at once; 8 slots, page 16.  Every layer's
+    prefill must launch its kernel (flash, or ssd_scan), and every decode
+    tick the paged kernel once a global attention layer."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -1022,12 +1182,12 @@ def run_serve(torch, rec, seed=0, arch="starcoder2-3b", key="serve"):
     n_req, max_new = 16, 32
     t0 = time.perf_counter()
     eng = build_engine(cfg, device="cuda", dtype="bfloat16", seed=seed, page=16,
-                       n_pages=1024, max_slots=8, max_pages=128)
+                       n_pages=n_pages, max_slots=8, max_pages=max_pages)
     torch.cuda.synchronize()
     log(f"{key}: model + pools built in {time.perf_counter() - t0:.1f}s, "
         f"pools {eng.kv.pool_bytes() / 2**20:.0f} MiB")
     serve(eng, random_prompts(1, [64], cfg.vocab_size, seed + 99), max_new=2)  # warm-up
-    lens = np.random.RandomState(seed).randint(65, 1025, n_req).tolist()
+    lens = np.random.RandomState(seed).randint(lens[0], lens[1] + 1, n_req).tolist()
     prompts = random_prompts(n_req, lens, cfg.vocab_size, seed + 1)
     eng.samples = {k: [] for k in eng.samples}
     ticks0 = eng.decode_ticks
@@ -1041,7 +1201,8 @@ def run_serve(torch, rec, seed=0, arch="starcoder2-3b", key="serve"):
     ticks = eng.decode_ticks - ticks0
     n_layers = cfg.n_layers
     want = ({"ssd_scan": n_layers * n_req} if cfg.family == "ssm" else
-            {"flash_attention": n_layers * n_req, "paged_attention": n_layers * ticks})
+            {"flash_attention": n_layers * n_req,
+             "paged_attention": global_attn_layers(cfg) * ticks})
     log(f"{key}: launches {counts}, expected {want}, decode ticks {ticks}")
     if len(out) != n_req or any(len(t) != max_new for t in out.values()):
         fail(f"{key}: {len(out)} of {n_req} requests finished")
@@ -1057,7 +1218,7 @@ def run_serve(torch, rec, seed=0, arch="starcoder2-3b", key="serve"):
            "decode_ticks": ticks, "launches": counts}
     log(f"{key}: {json.dumps({k: v for k, v in res.items() if k != 'prompt_lens'})}")
     rec[key] = res
-    rec[f"{key}_prefill_profile"] = profile_prefill(torch, eng, cfg)
+    rec[f"{key}_prefill_profile"] = profile_prefill(torch, eng, cfg, S=prefill_S)
     rec[f"{key}_decode_profile"] = profile_ticks(torch, eng, cfg, res["decode_tick_p50_ms"])
     del eng
     torch.cuda.empty_cache()
@@ -1710,6 +1871,162 @@ def run_ssm_train(torch, rec, B=16, S=1024, n_functions=400):
     rec["ssm_train"] = res
 
 
+def lm_launches_per_step(cfg, B, S, micro=1):
+    """Kernel launches of one train step of an attention LM at ``micro``
+    microbatches: each layer's flash forward, again under remat, and its
+    backward; each loss chunk's nll forward, again under its checkpoint,
+    and its backward; all per microbatch, whose B / micro rows set the
+    chunks."""
+    from repro_torch.train.train_step import loss_chunk_len
+
+    n_chunks = -(-S // loss_chunk_len(B // micro, S, cfg.vocab_size, 1))
+    L = cfg.n_layers
+    return {"flash_attention": 2 * L * micro, "flash_attention_bwd": L * micro,
+            "fused_xent": 2 * n_chunks * micro, "fused_xent_bwd": n_chunks * micro}
+
+
+def check_gemma_train_path(torch, rec, B=2, S=1500, n_steps=5):
+    """gemma3-4b at full width, 2 layers (local with window 1024, global),
+    f32, B x S next-token batches (S past the window and ragged against
+    every tile): loss and every gradient leaf of one batch, then
+    ``n_steps`` train steps, on cuda and on cpu from the same parameters
+    and batches (PATH_REL_TOL per leaf and per loss); on cuda the
+    gradients of the same batch twice, which must be equal bit for bit."""
+    import copy
+
+    from repro_torch.configs import default_run_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.accum import accumulate_grads
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import init_state, loss_for, make_train_step
+
+    cfg = gemma_cfg(2)
+    run = default_run_config(cfg, ShapeConfig("gemma_train_path", S, B, "train"))
+    opt = AdamWConfig(lr=1e-4, warmup_steps=2, total_steps=n_steps)
+    model_cpu = build_model(cfg, seed=0, device="cpu")
+    batches = lm_batches(torch, cfg.vocab_size, n_steps + 1, B, S, seed=1)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        t0 = time.perf_counter()
+        model = copy.deepcopy(model_cpu).to(dev)
+        state = init_state(model, run, seed=None)
+        on = lambda b: {k: v.to(dev) for k, v in b.items()}
+        grad = lambda: accumulate_grads(lambda p, b: loss_for(model, p, b, run=run),
+                                        state["params"], on(batches[0]), 1)
+        ops.reset_launch_counts()
+        loss, grads, _ = grad()
+        grads = {k: g.detach().cpu().clone() for k, g in grads.items()}
+        if dev == "cuda":
+            _, again, _ = grad()
+            unequal = [k for k, g in again.items() if not torch.equal(g.cpu(), grads[k])]
+            if unequal:
+                fail(f"gemma_train_path: the same gradients twice differ in {unequal}")
+            del again
+        step = make_train_step(model, run, opt)
+        losses = [step(state, on(b))[1]["loss"].item() for b in batches[1:]]
+        res[dev] = (loss.item(), grads, losses, dict(ops.launch_counts))
+        log(f"gemma_train_path {dev}: loss {loss.item():.6f}, steps {losses}, "
+            f"launches {res[dev][3]}, {time.perf_counter() - t0:.1f}s")
+        del model, state, step
+    n_fb = 2 + n_steps
+    want = {k: v * n_fb for k, v in lm_launches_per_step(cfg, B, S).items()}
+    if res["cpu"][3] or res["cuda"][3] != want:
+        fail(f"gemma_train_path: cuda launches {res['cuda'][3]} (expected {want}), "
+             f"cpu launches {res['cpu'][3]}")
+    rel = lambda a, b: abs(a - b) / abs(b)
+    errs = {"loss": rel(res["cuda"][0], res["cpu"][0]),
+            "steps": max(rel(a, b) for a, b in zip(res["cuda"][2], res["cpu"][2]))}
+    gc, gp = res["cuda"][1], res["cpu"][1]
+    leaf = {k: ((gc[k] - gp[k]).abs().max() / gp[k].abs().max()).item() for k in gp}
+    errs["grad_leaf"] = max(leaf.values())
+    worst = max(leaf, key=leaf.get)
+    log(f"gemma_train_path: relative errors {errs} (tol {PATH_REL_TOL}); worst leaf {worst}")
+    if not all(v <= PATH_REL_TOL for v in errs.values()) \
+            or not all(math.isfinite(x) for x in res["cuda"][2]):
+        fail(f"gemma_train_path: cuda and cpu differ: {errs}, worst leaf {worst} {leaf[worst]}")
+    rec["gemma_train_path"] = {"rel_err": errs, "worst_leaf": worst, "grad_leaf_rel": leaf,
+                               "losses_cuda": res["cuda"][2], "losses_cpu": res["cpu"][2],
+                               "launches": res["cuda"][3], "repeat_bit_equal": True}
+
+
+def run_gemma_train(torch, rec, B=4, S=2048, n_functions=400, steps=20):
+    """gemma3-4b at full width, depth cut to 6 (its first pattern group:
+    5 local layers with window 1024, then a global one; at full depth the
+    f32 parameters, gradients and AdamW state alone take about 62 GB), B x
+    S from the DataPipeline with the launcher's rolled next-token labels:
+    (a) ``steps`` steps of trainer.train with f32 parameters and
+    activations, (b) ``steps`` with bf16 ones at microbatch 2 (gradients
+    summed in f32).  The loss falls in each; launches per step exact; step
+    p50, tokens/s, MFU (6ND) and where the device time goes."""
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.core.scaling import model_flops
+    from repro_torch.data import DataPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as cli
+    from repro_torch.models.model import build_model
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.runner import DEFAULT_PEAK_FLOPS, StepRunner
+    from repro_torch.train.trainer import train
+
+    cfg = dataclasses.replace(gemma_cfg(6), max_position=max(S, 2048))
+    data = ROOT / "build" / "gemma_train" / "data"
+    t0 = time.perf_counter()
+    pipe = DataPipeline.build(str(data), n_functions=n_functions, seq_len=S, batch_size=B,
+                              vocab_size=cfg.vocab_size, work_fn=cli.make_work_fn(cfg))
+    try:
+        host = [pipe.peek_batch(k) for k in range(steps)]
+    finally:
+        pipe.close()
+    if not all(torch.equal(b["labels"], torch.roll(b["tokens"], -1, 1)) for b in host):
+        fail("gemma_train: the pipeline's labels are not the tokens rolled by one")
+    tokens = B * S
+    res = {"batch": B, "seq": S, "layers": cfg.n_layers, "data_s": time.perf_counter() - t0,
+           "model_flops_per_step": model_flops(cfg, tokens)}
+    for tag, dtype, micro, lr in (("a", "float32", 1, 1e-3), ("b", "bfloat16", 2, 1e-3)):
+        run = RunConfig(model=cfg, shape=ShapeConfig(f"gemma_train_{tag}", S, B, "train"),
+                        sharding="ddp", param_dtype=dtype, activation_dtype=dtype,
+                        microbatch=micro if micro > 1 else 0)
+        opt = AdamWConfig(lr=lr, warmup_steps=5, total_steps=steps)
+        want = lm_launches_per_step(cfg, B, S, micro)
+        model = build_model(cfg, seed=0, device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, tlog = train(model, run, opt, iter(host), steps=steps, log_every=1, seed=0)
+        torch.cuda.synchronize()
+        counts = dict(ops.launch_counts)
+        per_step = {k: counts.get(k, 0) / steps for k in want}
+        losses = [m["loss"] for m in tlog.metrics]
+        p50 = tlog.telemetry["step_time_p50"]
+        r = {"dtype": dtype, "microbatch": micro, "wall_s": time.perf_counter() - t0,
+             "launches": counts, "launches_per_step": per_step, "launches_per_step_want": want,
+             "losses": losses, "step_time_p50_ms": p50 * 1e3, "tokens_per_s": tokens / p50,
+             "mfu": model_flops(cfg, tokens) / (p50 * DEFAULT_PEAK_FLOPS),
+             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+             "telemetry": tlog.telemetry}
+        log(f"gemma_train {tag}: launches {counts} over {steps} steps, per step {per_step}, "
+            f"p50 {p50 * 1e3:.1f} ms, losses {losses[0]:.4f} -> {losses[-1]:.4f}")
+        if per_step != {k: float(v) for k, v in want.items()}:
+            fail(f"gemma_train {tag}: kernel launches per step {per_step}, expected {want}")
+        if len(losses) != steps or not all(math.isfinite(x) for x in losses) \
+                or not losses[-1] < losses[0]:
+            fail(f"gemma_train {tag}: losses {losses}")
+        runner = StepRunner(model, run, opt)
+        r["profile"] = profile_steps(torch, runner, state,
+                                     [runner.place_batch(b) for b in host[:2]], p50)
+        res[tag] = r
+        del state, runner, model, tlog
+        torch.cuda.empty_cache()
+    a = res["a"]
+    res.update(launches=a["launches"], first_loss=a["losses"][0], last_loss=a["losses"][-1],
+               step_time_p50_ms=a["step_time_p50_ms"], tokens_per_s=a["tokens_per_s"],
+               mfu=a["mfu"])
+    log("gemma_train: " + json.dumps({k: v for k, v in res.items() if k not in ("a", "b")}))
+    rec["gemma_train"] = res
+
+
 # ---------------------------------------------------------------------------
 # data parallel: two ranks on the one card over gloo
 # ---------------------------------------------------------------------------
@@ -2229,7 +2546,7 @@ def run_ddp(torch, rec, B=16, S=512, n_functions=3000, steps=20):
     rec["ddp"] = res
 
 
-REPO_KERNELS = ("flash_fwd", "dq_wgmma", "dkdv_wgmma", "dq_mma", "dkdv_mma", "dq_f32",
+REPO_KERNELS = ("flash_fwd", "dq_wgmma", "dkdv_wgmma", "dq_mma", "dkdv_mma", "dq_f32", "_simt_kernel",
                 "dkdv_f32", "delta_kernel", "split3", "xent_fwd", "xent_bwd", "paged_partial",
                 "paged_wgmma", "paged_combine", "ssd_scan_kernel", "ssd_state_wgmma",
                 "ssd_carry", "ssd_out_wgmma", "ssd_bwd_")
@@ -2335,13 +2652,26 @@ def _flash_peak(q):
     return PEAK_F32_SPLIT_FLOPS if q.element_size() == 4 else PEAK_BF16_FLOPS
 
 
-def flash_bwd_bound(q, k, causal, peak=None):
+def attn_pairs(S, causal, window=None):
+    """The (query, key) pairs a row-wise mask leaves: keys j <= i when
+    causal, and j > i - window with a window."""
+    import numpy as np
+
+    if window is None:
+        return S * (S + 1) / 2 if causal else S * S
+    i = np.arange(S)
+    lo = np.maximum(0, i - window + 1)
+    hi = i if causal else np.full(S, S - 1)
+    return float((hi - lo + 1).sum())
+
+
+def flash_bwd_bound(q, k, causal, peak=None, window=None):
     """(bound ms, what bounds it) of a flash backward: five products (S,
     dP, dV, dK, dQ) of 2 D flops per unmasked (query, key) pair and head
     at ``peak`` (default ``_flash_peak``); q, o, do, dq and k, v, dk, dv
     moved once in the inputs' dtype, the f32 lse read once."""
     B, S, H, D = q.shape
-    pairs = S * (S + 1) / 2 if causal else S * S
+    pairs = attn_pairs(S, causal, window)
     nbytes = q.element_size() * B * S * D * (4 * H + 4 * k.shape[2]) + 4 * B * H * S
     return _bound(10 * B * H * D * pairs, nbytes, peak or _flash_peak(q))
 
@@ -2380,62 +2710,77 @@ def sdpa_bwd(torch, q, k, v, do, causal):
         dot, qt, kt, vt, o, lse, cq, ck, mq, mk, 0.0, causal, seed, offset)
 
 
-def time_flash_bwd(torch, checked, what, q, k, v, do, causal):
+def window_mask(torch, S, window, device):
+    """SDPA's boolean mask (True: attend) of a causal sliding window."""
+    i = torch.arange(S, device=device)
+    return (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+
+
+def time_flash_bwd(torch, checked, what, q, k, v, do, causal, window=None):
     """The backward kernel at one shape against the gate, its bound, the
     plain version's autograd (eager) and SDPA's backward op: ``ms`` and
     ``library_ms`` by CUDA-graph replay, ``library_eager_ms`` SDPA's
     autograd backward by back-to-back eager calls, and the kernel's
-    device time split by its device kernels."""
+    device time split by its device kernels.  With a (causal) window SDPA
+    takes it as an explicit mask, and its backward op takes no mask:
+    ``library_ms`` is then its autograd backward, eager."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_fwd
 
-    ratio = checked(f"flash_bwd {what}", flash_bwd_reading(torch, q, k, v, do, causal))
-    o, lse = flash_attention_fwd(q, k, v, causal=causal, return_lse=True)
-    run = lambda: flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    ratio = checked(f"flash_bwd {what}", flash_bwd_reading(torch, q, k, v, do, causal, window))
+    o, lse = flash_attention_fwd(q, k, v, causal=causal, window=window, return_lse=True)
+    run = lambda: flash_attention_bwd(q, k, v, o, lse, do, causal=causal, window=window)
     ms, call_ms = time_ms(torch, run)
     qr, kr, vr = (x.detach().requires_grad_(True) for x in (q, k, v))
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+    mask = None if window is None else window_mask(torch, q.shape[1], window, q.device)
     with torch.enable_grad():
-        o_plain = ref.flash_attention_ref(qr, kr, vr, causal=causal)
-        o_lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+        o_plain = ref.flash_attention_ref(qr, kr, vr, causal=causal, window=window)
+        o_lib = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                               is_causal=causal and mask is None,
                                                enable_gqa=q.shape[2] != k.shape[2])
     plain_ms = eager_ms(torch, lambda: torch.autograd.grad(
         o_plain, (qr, kr, vr), do, retain_graph=True))
     lib_eager = eager_ms(torch, lambda: torch.autograd.grad(
         o_lib, (qt, kt, vt), do.transpose(1, 2), retain_graph=True))
     del o_plain, o_lib
-    try:
-        lib_ms, lib_call_ms = time_ms(torch, sdpa_bwd(torch, q, k, v, do, causal))
-    except RuntimeError as e:       # a torch whose flash op this card or graph refuses
-        log(f"time flash_bwd {what}: SDPA's backward op not timed: {e}")
-        lib_ms = lib_call_ms = None
-    bound = flash_bwd_bound(q, k, causal)
+    if window is not None:
+        lib_ms, lib_call_ms = lib_eager, None
+    else:
+        try:
+            lib_ms, lib_call_ms = time_ms(torch, sdpa_bwd(torch, q, k, v, do, causal))
+        except RuntimeError as e:       # a torch whose flash op this card or graph refuses
+            log(f"time flash_bwd {what}: SDPA's backward op not timed: {e}")
+            lib_ms = lib_call_ms = None
+    bound = flash_bwd_bound(q, k, causal, window=window)
     f32 = q.dtype == torch.float32
     lib_op = "efficient" if f32 else "flash"
     res = {"shape": list(q.shape) + [k.shape[2]], "dtype": str(q.dtype).split(".")[1],
-           "causal": causal, "ms": ms,
+           "causal": causal, "window": window, "ms": ms,
            "call_ms": call_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
            "library_call_ms": lib_call_ms, "library_eager_ms": lib_eager,
            "bound_ms": bound[0], "bound_by": bound[1], "err_over_limit": ratio,
-           "bound_simt_ms": flash_bwd_bound(q, k, causal, PEAK_F32_FLOPS)[0] if f32 else None,
+           "bound_simt_ms": flash_bwd_bound(q, k, causal, PEAK_F32_FLOPS, window)[0]
+           if f32 else None,
            "by_kernel": device_ms_by_kernel(torch, run),
            "plain": "autograd backward, eager (CUDA events)",
            "library": f"aten._scaled_dot_product_{lib_op}_attention_backward by CUDA-graph "
                       "replay (K, V repeated to H heads); library_eager_ms: SDPA's "
-                      "autograd backward, eager"}
+                      "autograd backward, eager" if window is None else
+                      "SDPA's autograd backward with the window as a boolean mask, eager"}
     log(f"time flash_bwd {what}: {res}")
     return res
 
 
-def flash_bound(q, k, causal, lse, peak=None):
+def flash_bound(q, k, causal, lse, peak=None, window=None):
     """(bound ms, what bounds it) of a flash forward: 4 D flops per
     unmasked (query, key) pair and head at ``peak`` (default
     ``_flash_peak``), q, k, v read and o (and the f32 lse) written once in
     the inputs' dtype."""
     B, S, H, D = q.shape
-    pairs = S * (S + 1) / 2 if causal else S * S
+    pairs = attn_pairs(S, causal, window)
     nbytes = q.element_size() * B * S * D * (2 * H + 2 * k.shape[2]) \
         + (4 * B * H * S if lse else 0)
     return _bound(4 * B * H * D * pairs, nbytes, peak or _flash_peak(q))
@@ -2514,7 +2859,87 @@ def time_kernels(torch, rec, strict=True):
     log(f"time paged: {paged}")
     rec["time"] = {"flash": flash, "paged": paged, "ssd": time_ssd(torch, checked, gen),
                    "ssd_bwd": time_ssd_bwd(torch, checked, gen),
-                   **time_train_kernels(torch, checked, gen)}
+                   **time_train_kernels(torch, checked, gen),
+                   "gemma": time_gemma_kernels(torch, checked, gen)}
+
+
+def time_gemma_kernels(torch, checked, gen, iters=5, reps=3):
+    """gemma3-4b's attention kernels at head dim 256, causal: the flash
+    forward at a 2048-token serve prefill in bf16, with the local layers'
+    window of 1024 and without; forward (with lse) and backward at the
+    gemma_train shape (B 4 x S 2048) in bf16 and f32, window and none; the
+    paged decode of its global layers, 8 slots of about 2000 tokens, in
+    bf16.  SDPA (enable_gqa; the window as an explicit boolean mask) is
+    the yardstick.  Fewer graph replays than the small shapes take."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.paged_attention import paged_attention_fwd
+
+    def fwd_row(what, q, k, v, window, lse):
+        ratio = checked(f"flash {what}", flash_reading(torch, q, k, v, True, window))
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        mask = None if window is None else window_mask(torch, q.shape[1], window, q.device)
+        run = lambda: flash_attention_fwd(q, k, v, causal=True, window=window, return_lse=lse)
+        ms, call_ms = time_ms(torch, run, iters, reps)
+        plain_ms, _ = time_ms(torch, lambda: ref.flash_attention_ref(
+            q, k, v, causal=True, window=window), iters, reps)
+        lib_ms, _ = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=mask is None, enable_gqa=True), iters, reps)
+        b = flash_bound(q, k, True, lse=lse, window=window)
+        row = {"shape": list(q.shape) + [k.shape[2]], "dtype": str(q.dtype).split(".")[1],
+               "window": window, "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+               "library_ms": lib_ms, "bound_ms": b[0], "bound_by": b[1], "err_over_limit": ratio,
+               "library": "SDPA" + (" with the window as a boolean mask" if window else "")}
+        log(f"time flash {what}: {row}")
+        return row
+
+    mk = lambda shape, dtype: torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+    out = {"flash_serve": [], "flash_train": {}}
+    B, S, H, Hkv, D, _ = GEMMA_SERVE_ATTN
+    q, k, v = mk((B, S, H, D), torch.bfloat16), *(mk((B, S, Hkv, D), torch.bfloat16)
+                                                  for _ in range(2))
+    for window in (GEMMA_WINDOW, None):
+        out["flash_serve"].append(fwd_row(f"gemma serve window={window}", q, k, v, window,
+                                          False))
+    B, S, H, Hkv, D, _ = GEMMA_TRAIN_ATTN
+    for dname in ("bfloat16", "float32"):
+        dtype = getattr(torch, dname)
+        q, do = (mk((B, S, H, D), dtype) for _ in range(2))
+        k, v = (mk((B, S, Hkv, D), dtype) for _ in range(2))
+        for window in (GEMMA_WINDOW, None):
+            what = f"gemma train {dname} window={window}"
+            out["flash_train"].setdefault(dname, {})["window" if window else "global"] = {
+                "fwd": fwd_row(what, q, k, v, window, True),
+                "bwd": time_flash_bwd(torch, checked, what, q, k, v, do, True, window)}
+        del q, k, v, do
+    # paged: the global layers' decode tick, 8 slots x ~2000 live tokens;
+    # two disjoint table sets alternate, 67 MB of K/V each (L2: 50 MB)
+    B, H, Hkv, D, P, maxp, R = 8, 8, 4, 256, 16, 128, 2
+    NP = 1 + R * B * maxp
+    kp, vp = (mk((NP, P, Hkv, D), torch.bfloat16) for _ in range(2))
+    q = mk((B, H, D), torch.bfloat16)
+    pos = torch.tensor([2000 - 9 * b for b in range(B)], dtype=torch.int32, device="cuda")
+    ids = torch.randperm(NP - 1, generator=torch.Generator().manual_seed(4)) + 1
+    tables = [ids[r * B * maxp:(r + 1) * B * maxp].reshape(B, maxp).int().cuda()
+              for r in range(R)]
+    live = int((pos + 1).sum())
+    nbytes = live * 2 * Hkv * D * 2 + 2 * q.numel() * 2 + B * (maxp + 1) * 4
+    b = _bound(4 * H * D * live, nbytes, PEAK_BF16_FLOPS)
+    ratio = max(checked(f"paged gemma table set {r}",
+                        paged_reading(torch, q, kp, vp, tables[r], pos)) for r in range(R))
+    it = iter(range(10**9))
+    run = lambda: paged_attention_fwd(q, kp, vp, tables[next(it) % R], pos)
+    ms, call_ms = time_ms(torch, run)
+    plain_ms, _ = time_ms(torch, lambda: ref.paged_attention_ref(
+        q, kp, vp, tables[next(it) % R], pos))
+    out["paged"] = {"shape": [B, H, Hkv, D, P], "live_tokens": live, "ms": ms,
+                    "call_ms": call_ms, "plain_ms": plain_ms, "library_ms": None,
+                    "bound_ms": b[0], "bound_by": b[1], "err_over_limit": ratio,
+                    "by_kernel": device_ms_by_kernel(torch, run)}
+    log(f"time paged gemma: {out['paged']}")
+    return out
 
 
 def ssd_work(B, S, H, P, G, N, L, es):
@@ -2742,23 +3167,34 @@ def kernel_records(rec):
     errs = rec.get("errors", {})
     t = rec.get("time", {})
     paths = {key: rec.get(key, {}).get("launches", {})
-             for key in ("serve", "ssm_serve", "train", "train_cli", "ssm_train", "ddp")}
+             for key in ("serve", "ssm_serve", "train", "train_cli", "ssm_train", "ddp",
+                         "gemma_serve", "gemma_train")}
     paths["ssm_train_bf16"] = rec.get("ssm_train", {}).get("c", {}).get("launches", {})
+    paths["gemma_train_bf16"] = rec.get("gemma_train", {}).get("b", {}).get("launches", {})
+    gm = t.get("gemma", {})
+    gtrain = gm.get("flash_train", {})      # {dtype: {"window" | "global": {fwd, bwd}}}
     flash_top = next((x for x in t.get("flash", []) if x["S"] == 1024), {})
     ft, xe = t.get("flash_train", {}), t.get("xent", {})
     ft32 = t.get("flash_train_f32", {})
     ssd, ssd_bwd = t.get("ssd", {}), t.get("ssd_bwd", {})
     bwd = ft.get("bwd", {})
     extra = {"flash_attention": {"train_shape": ft.get("fwd"),
-                                 "train_shape_f32": ft32.get("fwd")},
-             "paged_attention": {k: t.get("paged", {}).get(k)
-                                 for k in ("call_ms", "host_call_ms", "by_kernel")},
+                                 "train_shape_f32": ft32.get("fwd"),
+                                 "gemma_serve_shape": gm.get("flash_serve"),
+                                 "gemma_train_shape": {d: {k: r.get("fwd") for k, r in v.items()}
+                                                       for d, v in gtrain.items()}},
+             "paged_attention": {**{k: t.get("paged", {}).get(k)
+                                    for k in ("call_ms", "host_call_ms", "by_kernel")},
+                                 "gemma_shape": gm.get("paged")},
              "flash_attention_bwd": {"call_ms": bwd.get("call_ms"),
                                      "host_call_ms": bwd.get("host_call_ms"),
                                      "library_eager_ms": bwd.get("library_eager_ms"),
                                      "by_kernel": bwd.get("by_kernel"),
                                      "gqa_causal_shape": t.get("flash_bwd_gqa"),
-                                     "train_shape_f32": ft32.get("bwd")},
+                                     "train_shape_f32": ft32.get("bwd"),
+                                     "gemma_train_shape": {d: {k: r.get("bwd")
+                                                               for k, r in v.items()}
+                                                           for d, v in gtrain.items()}},
              "fused_xent": {"bf16": xe.get("bfloat16", {}).get("fwd")},
              "fused_xent_bwd": {"bf16": xe.get("bfloat16", {}).get("bwd")},
              "ssd_scan": {"f32": ssd.get("float32"), "zamba2_bf16": ssd.get("zamba2_bf16")},
@@ -2838,6 +3274,17 @@ def summary(rec):
             "ssm_train_bf16_step_device_busy_ms": rec.get("ssm_train", {}).get("c", {}).get(
                 "profile", {}).get("device_busy_ms"),
             "ssm_train_path_rel_err": rec.get("ssm_train_path", {}).get("rel_err"),
+            "gemma_path_max_rel_err": rec.get("gemma_path", {}).get("max_rel_err"),
+            "gemma_serve": {k: rec.get("gemma_serve", {}).get(k) for k in keys},
+            "gemma_tick_device_busy_ms":
+                rec.get("gemma_serve_decode_profile", {}).get("device_busy_ms"),
+            "gemma_prefill_2048_device_busy_ms":
+                rec.get("gemma_serve_prefill_profile", {}).get("device_busy_ms"),
+            "gemma_train_path_rel_err": rec.get("gemma_train_path", {}).get("rel_err"),
+            "gemma_train": {tag: {k: rec.get("gemma_train", {}).get(tag, {}).get(k) for k in (
+                "step_time_p50_ms", "tokens_per_s", "mfu")} | {
+                "device_busy_ms": rec.get("gemma_train", {}).get(tag, {}).get(
+                    "profile", {}).get("device_busy_ms")} for tag in ("a", "b")},
             "ddp": {k: rec.get("ddp", {}).get(k) for k in (
                 "step_time_p50_ms", "global_tokens_per_s", "traj_max_rel_err",
                 "resume_bit_exact")},
@@ -2922,6 +3369,8 @@ def main():
              "train_path": check_train_path,
              "train": run_train, "train_cli": run_train_cli,
              "ssm_train_path": check_ssm_train_path, "ssm_train": run_ssm_train,
+             "gemma_path": check_gemma_path, "gemma_serve": run_gemma_serve,
+             "gemma_train_path": check_gemma_train_path, "gemma_train": run_gemma_train,
              "ddp_path": check_ddp_path,
              "ddp": run_ddp, "time": time_kernels}
     for ph in PHASES[1:]:

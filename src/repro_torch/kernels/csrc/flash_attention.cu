@@ -61,7 +61,9 @@
 // registers a thread, so two blocks share an SM and one block's prologue
 // and epilogue overlap the other's products (128 keys at one block an SM
 // run slower); D 128 takes 128 keys and 2 stages (162 KB), one block
-// an SM, 64 + 64 f32 accumulators a thread.
+// an SM, 64 + 64 f32 accumulators a thread; D 256 (gemma3) 64 keys and 2
+// stages (192 KB), 128 + 32 f32 accumulators of O and S a thread, O += P V
+// one wgmma m64n256k16 a 16-key step.
 //
 //
 // f32 body (`flash_fwd_f32_wgmma_kernel`, the exactness path, the train
@@ -92,8 +94,9 @@
 //   gate's worst error (PERF.md) is the card's own accumulation order on
 //   top of these.
 // - Tiles: D 64 as bf16 with 3 stages (198 KB, one block an SM); D 128
-//   takes 32-key tiles and 2 stages (198 KB).  O is stored in f32 from the
-//   fragment, 8 bytes a store.
+//   takes 32-key tiles and 2 stages (198 KB); D 256 one consumer warpgroup
+//   (Q's pieces are 96 KB for its 64 rows) and 16-key tiles in 2 stages
+//   (192 KB).  O is stored in f32 from the fragment, 8 bytes a store.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -125,29 +128,36 @@ struct Params {
   float scale;
 };
 
-constexpr int WQ = 128;    // q rows of a block
-constexpr int WNT = 256;   // two consumer warpgroups
 constexpr int BOX = 64;    // columns of a TMA box (128 bytes of bf16: the swizzle span)
 
 // Tiles of the body whose operands are NP bf16 pieces (1: bf16 inputs;
-// 3: f32 inputs, see hopper.cuh).
+// 3: f32 inputs, see hopper.cuh).  WG: consumer warpgroups of a block, 64
+// q rows each.
 template <int D, int NP>
 struct Tiles;
 template <>
 struct Tiles<64, 1> {
-  static constexpr int BK = 64, STAGES = 3, MIN_BLOCKS = 2;
+  static constexpr int BK = 64, STAGES = 3, MIN_BLOCKS = 2, WG = 2;
 };
 template <>
 struct Tiles<128, 1> {
-  static constexpr int BK = 128, STAGES = 2, MIN_BLOCKS = 1;
+  static constexpr int BK = 128, STAGES = 2, MIN_BLOCKS = 1, WG = 2;
+};
+template <>
+struct Tiles<256, 1> {  // 128 + 32 + 16 f32 registers of O, S and P a thread
+  static constexpr int BK = 64, STAGES = 2, MIN_BLOCKS = 1, WG = 2;
 };
 template <>
 struct Tiles<64, 3> {
-  static constexpr int BK = 64, STAGES = 3, MIN_BLOCKS = 1;
+  static constexpr int BK = 64, STAGES = 3, MIN_BLOCKS = 1, WG = 2;
 };
 template <>
 struct Tiles<128, 3> {
-  static constexpr int BK = 32, STAGES = 2, MIN_BLOCKS = 1;
+  static constexpr int BK = 32, STAGES = 2, MIN_BLOCKS = 1, WG = 2;
+};
+template <>
+struct Tiles<256, 3> {  // Q's three pieces: 96 KB for one warpgroup's 64 rows
+  static constexpr int BK = 16, STAGES = 2, MIN_BLOCKS = 1, WG = 1;
 };
 
 // shared memory, in bytes from a 1024-aligned base: Q as NP pieces of D/64
@@ -156,6 +166,7 @@ struct Tiles<128, 3> {
 template <int D, int NP>
 struct Smem {
   static constexpr int NB = D / BOX, BK = Tiles<D, NP>::BK, STAGES = Tiles<D, NP>::STAGES;
+  static constexpr int WQ = 64 * Tiles<D, NP>::WG, WNT = 128 * Tiles<D, NP>::WG;  // q rows, threads
   static constexpr int Q_BOX = WQ * BOX * 2, KV_BOX = BK * BOX * 2;
   static constexpr int K = NP * NB * Q_BOX;
   static constexpr int V = K + STAGES * NP * NB * KV_BOX;
@@ -171,6 +182,7 @@ __device__ __forceinline__ void fwd_body(const CUtensorMap& tq, const CUtensorMa
                                          const Params& p) {
   using L = Smem<D, NP>;
   constexpr int NB = L::NB, BK = L::BK, STAGES = L::STAGES, NPAIR = hopper::n_pairs(NP);
+  constexpr int WQ = L::WQ, WNT = L::WNT;
   static_assert(STAGES >= 2, "V of tile i is refilled two iterations after its use");
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = smem_raw + ((1024 - (hopper::smem_addr(smem_raw) & 1023)) & 1023);
@@ -487,7 +499,7 @@ __device__ __forceinline__ void fwd_body(const CUtensorMap& tq, const CUtensorMa
 
 // bf16 q, k, v and O
 template <int D, bool LSE, bool CAP>
-__global__ void __launch_bounds__(WNT, Tiles<D, 1>::MIN_BLOCKS)
+__global__ void __launch_bounds__(Smem<D, 1>::WNT, Tiles<D, 1>::MIN_BLOCKS)
     flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tk,
                            const __grid_constant__ CUtensorMap tv,
@@ -497,7 +509,7 @@ __global__ void __launch_bounds__(WNT, Tiles<D, 1>::MIN_BLOCKS)
 
 // f32 q, k, v (read as their three bf16 pieces) and O; `to` is not read
 template <int D, bool LSE, bool CAP>
-__global__ void __launch_bounds__(WNT, Tiles<D, 3>::MIN_BLOCKS)
+__global__ void __launch_bounds__(Smem<D, 3>::WNT, Tiles<D, 3>::MIN_BLOCKS)
     flash_fwd_f32_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                                const __grid_constant__ CUtensorMap tk,
                                const __grid_constant__ CUtensorMap tv,
@@ -527,7 +539,7 @@ cudaError_t launch(const Params& p, const Operands& x, cudaStream_t stream) {
     if (e != cudaSuccess) return e;
     configured = true;
   }
-  const int nb = NP * p.B, BK = Tiles<D, NP>::BK;
+  const int nb = NP * p.B, BK = Tiles<D, NP>::BK, WQ = Smem<D, NP>::WQ;
   auto map = [&](CUtensorMap* m, int i, int heads, int rows) {
     return hopper::bhsd_map(m, x.ptr[i], nb, p.S, heads, D, x.stride[i][0], x.stride[i][1],
                             x.stride[i][2], rows);
@@ -537,7 +549,7 @@ cudaError_t launch(const Params& p, const Operands& x, cudaStream_t stream) {
       (NP == 1 && !hopper::bhsd_map(&to, p.o, p.B, p.S, p.H, D, p.o_sb, p.o_ss, p.o_sh, 64)))
     return cudaErrorInvalidValue;
   const dim3 grid(p.H * p.B * ((p.S + WQ - 1) / WQ));
-  kernel<<<grid, WNT, smem, stream>>>(tq, tk, tv, to, p);
+  kernel<<<grid, Smem<D, NP>::WNT, smem, stream>>>(tq, tk, tv, to, p);
   return cudaGetLastError();
 }
 
@@ -599,5 +611,6 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D == 64) return launch_d<64>(p, dtype, pieces, st);
   if (D == 128) return launch_d<128>(p, dtype, pieces, st);
+  if (D == 256) return launch_d<256>(p, dtype, pieces, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

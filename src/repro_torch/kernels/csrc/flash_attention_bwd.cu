@@ -9,9 +9,10 @@
 //   dP = dO v^T,   Delta = rowsum(dO * O),   dS = P * (dP - Delta)
 //   dV = P^T dO,   dK = scale * dS^T q,      dQ = scale * dS k,
 // so no (S, S) score or probability matrix ever reaches device memory.
-// Causal or not, any GQA ratio (kv head = h / rep: dK and dV sum over the
-// rep query heads of their kv head), D in {64, 128}, ragged S.  Window
-// and logit softcap are refused by the wrapper.
+// Causal or not, with a sliding window or not (key j is seen by row i
+// when i - W < j, and j <= i if causal), any GQA ratio (kv head = h /
+// rep: dK and dV sum over the rep query heads of their kv head), D in
+// {64, 128, 256}, ragged S.  The logit softcap is refused by the wrapper.
 //
 // No atomics: dQ has its own pass over the q tiles (it recomputes S and
 // dP, seven products instead of FlashAttention-2's five with a float
@@ -130,6 +131,7 @@ struct Params {
   int B, S, H, Hkv;
   int causal;
   float scale;
+  int window;  // <= 0: no window
 };
 
 constexpr int BOX = 64;                    // columns of a box: 128 bytes of bf16, the swizzle span
@@ -365,11 +367,15 @@ __device__ __forceinline__ void dq_body(const CUtensorMap& tq, const CUtensorMap
     b = blockIdx.x / (nq * p.H);
   }
   const int hk = h / (p.H / p.Hkv);
-  const int n_tiles = CAUSAL ? (min(q0 + ROWS, S) - 1) / BK + 1 : (S + BK - 1) / BK;
+  // the key tiles that meet the rows' keys: (q - W, q] (causal), up to S
+  const int kt_hi = CAUSAL ? (min(q0 + ROWS, S) - 1) / BK + 1 : (S + BK - 1) / BK;
+  const int kt_lo = p.window > 0 ? max(0, q0 - p.window + 1) / BK : 0;
+  const int n_tiles = kt_hi - kt_lo;
 
-  // K and V of key tile i into stage i % STAGES (thread 0 only)
+  // K and V of key tile kt_lo + i into stage i % STAGES (thread 0 only)
   auto load_kv = [&](int i) {
     const int s = i % STAGES;
+    i += kt_lo;
     hopper::mbar_expect_tx(&kv_full[s], 2 * NP * NB * KB);
 #pragma unroll
     for (int pc = 0; pc < NP; ++pc)
@@ -457,7 +463,7 @@ __device__ __forceinline__ void dq_body(const CUtensorMap& tq, const CUtensorMap
   // block alone, so a warpgroup that sees none of a tile's keys computes
   // it all the same, with P = 0.
   for (int i = 0; i < n_tiles; ++i) {
-    const int st = i % STAGES, k0 = i * BK;
+    const int st = i % STAGES, k0 = (kt_lo + i) * BK;
     // refill the stage that every warp released in the previous iteration
     if (tid == 0 && i >= 1 && i - 1 + STAGES < n_tiles) {
       hopper::mbar_wait(&kv_empty[(i - 1) % STAGES], ((i - 1) / STAGES) & 1);
@@ -493,8 +499,9 @@ __device__ __forceinline__ void dq_body(const CUtensorMap& tq, const CUtensorMap
         const int r = (x >> 1) & 1;
         s[x] = hopper::exp2_approx(fmaf(s[x], scale2, -lse2[r]));
         if constexpr (decltype(masked)::value) {
-          const int key = k0 + (x / 4) * 8 + 2 * t + (x & 1);
-          s[x] = key >= S || (CAUSAL && key > r0 + rl0 + 8 * r) ? 0.f : s[x];
+          const int key = k0 + (x / 4) * 8 + 2 * t + (x & 1), row = r0 + rl0 + 8 * r;
+          const bool behind = p.window > 0 && key <= row - p.window;  // dq: outside the window
+          s[x] = key >= S || (CAUSAL && key > row) || behind ? 0.f : s[x];
         }
       }
       hopper::wgmma_wait<0>();
@@ -525,8 +532,10 @@ __device__ __forceinline__ void dq_body(const CUtensorMap& tq, const CUtensorMap
       }
       if (lane == 0) hopper::mbar_arrive(&kv_empty[st]);
     };
-    // the causal diagonal, and the tile holding S's ragged end
-    if (k0 + BK > S || (CAUSAL && k0 + BK - 1 > q0))
+    // the causal diagonal, the window's edge, and the tile holding S's
+    // ragged end; tiles wholly outside the window are never visited
+    if (k0 + BK > S || (CAUSAL && k0 + BK - 1 > q0) ||
+        (p.window > 0 && k0 <= q0 + ROWS - 1 - p.window))
       step(std::true_type{});
     else
       step(std::false_type{});
@@ -582,7 +591,9 @@ __device__ __forceinline__ void dkdv_body(const CUtensorMap& tq, const CUtensorM
   const int n_qt = (S + QT - 1) / QT;        // q tiles of QT rows
   const int n_st = (S + TILE - 1) / TILE;    // the scratch's q tiles of 64 rows
   const int qt_lo = CAUSAL ? k0 / QT : 0;    // the first q tile that sees a key of the block
-  const int nq = n_qt - qt_lo;
+  // and the last: rows past the block's last key by W - 1 or more see none
+  const int qt_hi = p.window > 0 ? min(n_qt, (k0 + KEYS - 2 + p.window) / QT + 1) : n_qt;
+  const int nq = qt_hi - qt_lo;
   const int n_iter = rep * nq;  // the ring runs over rep heads x q tiles
 
   // Q, dO, lse and Delta of iteration i into stage i % STAGES (thread 0 only)
@@ -708,8 +719,10 @@ __device__ __forceinline__ void dkdv_body(const CUtensorMap& tq, const CUtensorM
         for (int e = 0; e < 4; ++e) {
           const int x = 4 * j + e;
           s[x] = hopper::exp2_approx(fmaf(s[x], scale2, -(e & 1 ? l.y : l.x)));
-          if constexpr (decltype(masked)::value)
-            s[x] = key0 + 8 * (e >> 1) > q0 + 8 * j + 2 * t + (e & 1) ? 0.f : s[x];
+          if constexpr (decltype(masked)::value) {
+            const int key = key0 + 8 * (e >> 1), row = q0 + 8 * j + 2 * t + (e & 1);
+            s[x] = (CAUSAL && key > row) || (p.window > 0 && key <= row - p.window) ? 0.f : s[x];
+          }
         }
       }
       auto form_ds = [&] {
@@ -770,8 +783,9 @@ __device__ __forceinline__ void dkdv_body(const CUtensorMap& tq, const CUtensorM
       fence_all();
       if (lane == 0) hopper::mbar_arrive(&q_empty[st]);
     };
-    // causal: the q tiles that hold a row before one of the block's keys
-    if (CAUSAL && k0 + KEYS - 1 > q0)
+    // causal: the q tiles that hold a row before one of the block's keys;
+    // a window: those that hold a row W or more past one of them
+    if ((CAUSAL && k0 + KEYS - 1 > q0) || (p.window > 0 && k0 <= q0 + QT - 1 - p.window))
       step(std::true_type{});
     else
       step(std::false_type{});
@@ -855,6 +869,252 @@ struct Operands {
   const void* ptr[5];
   long long stride[5][3];
 };
+
+// ---------------------------------------------------------------- D 256
+// The CUDA-core body of head dim 256 (gemma3), both dtypes: the same two
+// passes, every product in f32 arithmetic on the inputs' values, each sum
+// in a fixed order (no atomics: gradients repeat bit for bit).  A block
+// of SNT threads takes SR q rows (dq) or SR keys (dkdv) of one head and
+// streams tiles of ST keys (dq) or ST q rows (dkdv, over the rep heads of
+// its kv head) through shared memory as f32, rows padded to D + 1 floats
+// so that the threads of a warp read distinct banks.  Per tile each
+// thread forms two scores and their dP as D-long dot products, the block
+// writes P (dkdv) and dS to shared memory, and each thread adds D / 16
+// columns of its row's (or key's) gradients: each tile's terms into a
+// fresh f32 partial, added once a tile to an f64 total, so that a rounding
+// error grows with the tile's 32 terms, not with the thousands of keys or
+// rows (rep x S for dK and dV) the sum runs over.  The dot products, and
+// Delta = rowsum(dO O), accumulate in f64: dS = P (dP - Delta) subtracts
+// two numbers of size |dO| |V| ~ sqrt(D), and at D 256 the f32 rounding
+// of 256-term sums, carried into dK over 2 x 2048 rows, is of the order
+// of the 2e-5 gate itself (PERF.md, PR 22).  Masks are selects: no
+// tensor-core product waits here.  Only the tiles that meet the causal
+// and window ranges are visited.  The register and shared-memory budget
+// of wgmma bodies at D 256 (the dkdv accumulators alone would take 256
+// registers a thread) is the redesign ROADMAP queues.
+constexpr int SR = 16;   // q rows (dq) or keys (dkdv) of a block
+constexpr int ST = 32;   // keys (dq) or q rows (dkdv) of a streamed tile
+constexpr int SNT = 256;
+
+__device__ __forceinline__ float ldf(const float* x) { return *x; }
+__device__ __forceinline__ float ldf(const __nv_bfloat16* x) { return __bfloat162float(*x); }
+__device__ __forceinline__ void stf(float* x, float v) { *x = v; }
+__device__ __forceinline__ void stf(__nv_bfloat16* x, float v) { *x = __float2bfloat16(v); }
+
+template <int D>
+constexpr int simt_smem_floats() {  // the larger of the two passes' layouts
+  return 2 * SR * (D + 1) + 2 * ST * (D + 1) + 2 * SR * ST + 2 * ST;
+}
+
+// rows r0 .. r0 + n - 1 of head h, batch b, of a (B, S, heads, D) tensor
+// into `dst` as f32, row stride D + 1; zeros past S
+template <typename T, int D>
+__device__ __forceinline__ void rows_to_smem(float* dst, const void* src, long long sb,
+                                             long long ss, long long sh, int b, int h, int r0,
+                                             int n, int S) {
+  const T* base = static_cast<const T*>(src) + b * sb + h * sh;
+  for (int i = threadIdx.x; i < n * D; i += SNT) {
+    const int r = i / D, d = i % D, row = r0 + r;
+    dst[r * (D + 1) + d] = row < S ? ldf(base + row * ss + d) : 0.f;
+  }
+}
+
+// a . b and c . d of D-long f32 rows, accumulated in f64
+template <int D>
+__device__ __forceinline__ void dot2(const float* a, const float* b, const float* c,
+                                     const float* d, double* ab, double* cd) {
+  double x[2] = {0.0, 0.0}, y[2] = {0.0, 0.0};
+#pragma unroll 4
+  for (int i = 0; i < D; i += 2)
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      x[u] = fma(static_cast<double>(a[i + u]), static_cast<double>(b[i + u]), x[u]);
+      y[u] = fma(static_cast<double>(c[i + u]), static_cast<double>(d[i + u]), y[u]);
+    }
+  *ab = x[0] + x[1];
+  *cd = y[0] + y[1];
+}
+
+__device__ __forceinline__ bool hidden(const Params& p, int key, int row) {
+  return key >= p.S || row >= p.S || (p.causal && key > row) ||
+         (p.window > 0 && key <= row - p.window);  // simt: outside the window
+}
+
+// Pass 1 at D 256: dQ, and each row's Delta and lse * log2(e) for pass 2.
+template <typename T, int D>
+__global__ void __launch_bounds__(SNT) dq_simt_kernel(Params p) {
+  constexpr int LD = D + 1, NC = D / 16;
+  extern __shared__ float fsm[];
+  float* qs = fsm;               // [SR][LD]
+  float* dos = qs + SR * LD;     // [SR][LD]
+  float* ks = dos + SR * LD;     // [ST][LD]
+  float* vs = ks + ST * LD;      // [ST][LD]
+  float* ds = vs + ST * LD;      // [SR][ST]
+  float* lse2 = ds + SR * ST;    // [SR]
+  float* dl = lse2 + SR;         // [SR]
+  const int q0 = blockIdx.x * SR, h = blockIdx.y, b = blockIdx.z, S = p.S;
+  const int hk = h / (p.H / p.Hkv), tid = threadIdx.x;
+  rows_to_smem<T, D>(qs, p.q, p.q_sb, p.q_ss, p.q_sh, b, h, q0, SR, S);
+  rows_to_smem<T, D>(dos, p.dout, p.do_sb, p.do_ss, p.do_sh, b, h, q0, SR, S);
+  __syncthreads();
+  // Delta = rowsum(dO O) and lse * log2(e) (past S: 0 and +inf); a warp a row
+  const int warp = tid / 32, lane = tid % 32, n_st = (S + TILE - 1) / TILE;
+  for (int r = warp; r < SR; r += SNT / 32) {
+    const int row = q0 + r;
+    double acc = 0.0;
+    if (row < S) {
+      const T* o = static_cast<const T*>(p.o) + b * p.o_sb + row * p.o_ss + h * p.o_sh;
+      for (int d = lane; d < D; d += 32)
+        acc = fma(static_cast<double>(ldf(o + d)), static_cast<double>(dos[r * LD + d]), acc);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    if (lane == 0) {
+      lse2[r] = row < S ? p.lse[(static_cast<long long>(b) * p.H + h) * S + row] * LOG2E
+                        : INFINITY;
+      dl[r] = row < S ? static_cast<float>(acc) : 0.f;
+      if (row < S) {
+        float* stat = p.delta + ((static_cast<long long>(b) * p.H + h) * n_st + row / TILE) * 2 * TILE;
+        stat[row % TILE] = lse2[r];
+        stat[TILE + row % TILE] = dl[r];
+      }
+    }
+  }
+  // the keys any row of the block sees: (q0 - W, last row] (causal)
+  const int k_hi = p.causal ? min(q0 + SR, S) - 1 : S - 1;
+  const int k_lo = p.window > 0 ? max(0, q0 - p.window + 1) : 0;
+  const int sr = tid / 16, sk = tid % 16, row = q0 + sr;
+  const float scale2 = p.scale * LOG2E;
+  double acc[NC];
+#pragma unroll
+  for (int j = 0; j < NC; ++j) acc[j] = 0.0;
+  for (int k0 = k_lo / ST * ST; k0 <= k_hi; k0 += ST) {
+    __syncthreads();  // the previous tile's K, V and dS are consumed
+    rows_to_smem<T, D>(ks, p.k, p.k_sb, p.k_ss, p.k_sh, b, hk, k0, ST, S);
+    rows_to_smem<T, D>(vs, p.v, p.v_sb, p.v_ss, p.v_sh, b, hk, k0, ST, S);
+    __syncthreads();
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int kk = sk + 16 * e;
+      double sc, dp;
+      dot2<D>(qs + sr * LD, ks + kk * LD, dos + sr * LD, vs + kk * LD, &sc, &dp);
+      const float pr = hidden(p, k0 + kk, row)
+                           ? 0.f
+                           : exp2f(fmaf(static_cast<float>(sc), scale2, -lse2[sr]));
+      ds[sr * ST + kk] = pr * static_cast<float>(dp - dl[sr]);
+    }
+    __syncthreads();
+    float part[NC];  // this tile's dS K
+#pragma unroll
+    for (int j = 0; j < NC; ++j) part[j] = 0.f;
+    for (int kk = 0; kk < ST; ++kk) {
+      const float w = ds[sr * ST + kk];
+#pragma unroll
+      for (int j = 0; j < NC; ++j) part[j] = fmaf(w, ks[kk * LD + sk + 16 * j], part[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < NC; ++j) acc[j] += part[j];
+  }
+  if (row < S) {
+    T* dst = static_cast<T*>(p.dq) + ((static_cast<long long>(b) * S + row) * p.H + h) * D;
+#pragma unroll
+    for (int j = 0; j < NC; ++j) stf(dst + sk + 16 * j, static_cast<float>(acc[j] * p.scale));
+  }
+}
+
+// Pass 2 at D 256: dK and dV, reading the lse and Delta that pass 1 wrote.
+template <typename T, int D>
+__global__ void __launch_bounds__(SNT) dkdv_simt_kernel(Params p) {
+  constexpr int LD = D + 1, NC = D / 16;
+  extern __shared__ float fsm[];
+  float* ks = fsm;               // [SR][LD]
+  float* vs = ks + SR * LD;      // [SR][LD]
+  float* qs = vs + SR * LD;      // [ST][LD]
+  float* dos = qs + ST * LD;     // [ST][LD]
+  float* pt = dos + ST * LD;     // [SR][ST]: P^T
+  float* dst = pt + SR * ST;     // [SR][ST]: dS^T
+  float* lse2 = dst + SR * ST;   // [ST]
+  float* dl = lse2 + ST;         // [ST]
+  const int k0 = blockIdx.x * SR, hk = blockIdx.y, b = blockIdx.z, S = p.S;
+  const int rep = p.H / p.Hkv, tid = threadIdx.x, n_st = (S + TILE - 1) / TILE;
+  rows_to_smem<T, D>(ks, p.k, p.k_sb, p.k_ss, p.k_sh, b, hk, k0, SR, S);
+  rows_to_smem<T, D>(vs, p.v, p.v_sb, p.v_ss, p.v_sh, b, hk, k0, SR, S);
+  // the rows that see a key of the block: [k0 (causal), last key + W - 1]
+  const int r_lo = p.causal ? k0 : 0;
+  const int r_hi = p.window > 0 ? min(S - 1, min(k0 + SR, S) - 2 + p.window) : S - 1;
+  const int sk = tid / 16, sr = tid % 16, key = k0 + sk;
+  const float scale2 = p.scale * LOG2E;
+  double dk[NC], dv[NC];
+#pragma unroll
+  for (int j = 0; j < NC; ++j) dk[j] = dv[j] = 0.0;
+  for (int hh = 0; hh < rep; ++hh) {
+    const int h = hk * rep + hh;
+    for (int r0 = r_lo / ST * ST; r0 <= r_hi; r0 += ST) {
+      __syncthreads();  // the previous tile's q, dO, P^T and dS^T are consumed
+      rows_to_smem<T, D>(qs, p.q, p.q_sb, p.q_ss, p.q_sh, b, h, r0, ST, S);
+      rows_to_smem<T, D>(dos, p.dout, p.do_sb, p.do_ss, p.do_sh, b, h, r0, ST, S);
+      if (tid < ST) {
+        const int row = r0 + tid;
+        const float* stat =
+            p.delta + ((static_cast<long long>(b) * p.H + h) * n_st + row / TILE) * 2 * TILE;
+        lse2[tid] = row < S ? stat[row % TILE] : INFINITY;
+        dl[tid] = row < S ? stat[TILE + row % TILE] : 0.f;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int rr = sr + 16 * e;
+        double sc, dp;
+        dot2<D>(ks + sk * LD, qs + rr * LD, vs + sk * LD, dos + rr * LD, &sc, &dp);
+        const float pr = hidden(p, key, r0 + rr)
+                             ? 0.f
+                             : exp2f(fmaf(static_cast<float>(sc), scale2, -lse2[rr]));
+        pt[sk * ST + rr] = pr;
+        dst[sk * ST + rr] = pr * static_cast<float>(dp - dl[rr]);
+      }
+      __syncthreads();
+      float pv[NC], pk[NC];  // this tile's P^T dO and dS^T q
+#pragma unroll
+      for (int j = 0; j < NC; ++j) pv[j] = pk[j] = 0.f;
+      for (int rr = 0; rr < ST; ++rr) {
+        const float pw = pt[sk * ST + rr], dw = dst[sk * ST + rr];
+#pragma unroll
+        for (int j = 0; j < NC; ++j) {
+          pv[j] = fmaf(pw, dos[rr * LD + sr + 16 * j], pv[j]);
+          pk[j] = fmaf(dw, qs[rr * LD + sr + 16 * j], pk[j]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NC; ++j) {
+        dv[j] += pv[j];
+        dk[j] += pk[j];
+      }
+    }
+  }
+  if (key < S) {
+    const long long off = ((static_cast<long long>(b) * S + key) * p.Hkv + hk) * D;
+    T* dkp = static_cast<T*>(p.dk) + off;
+    T* dvp = static_cast<T*>(p.dv) + off;
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      stf(dkp + sr + 16 * j, static_cast<float>(dk[j] * p.scale));
+      stf(dvp + sr + 16 * j, static_cast<float>(dv[j]));
+    }
+  }
+}
+
+template <typename T, int D>
+cudaError_t launch_simt(const Params& p, cudaStream_t st) {
+  constexpr int smem = simt_smem_floats<D>() * 4;
+  static bool dq_ok = false, dkdv_ok = false;
+  cudaError_t e;
+  if ((e = set_smem(dq_simt_kernel<T, D>, smem, &dq_ok)) != cudaSuccess) return e;
+  if ((e = set_smem(dkdv_simt_kernel<T, D>, smem, &dkdv_ok)) != cudaSuccess) return e;
+  dq_simt_kernel<T, D><<<dim3((p.S + SR - 1) / SR, p.H, p.B), SNT, smem, st>>>(p);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  dkdv_simt_kernel<T, D><<<dim3((p.S + SR - 1) / SR, p.Hkv, p.B), SNT, smem, st>>>(p);
+  return cudaGetLastError();
+}
 
 template <int D, int NP, bool CAUSAL>
 cudaError_t launch(const Params& p, const Operands& x, cudaStream_t st) {
@@ -943,9 +1203,10 @@ cudaError_t launch_d(const Params& p, int dtype, void* pieces, cudaStream_t st) 
 // float32 (then `pieces` is bf16 scratch of 3 B S (2 H + 2 Hkv) D elements
 // for q, k, v and dout as three bf16 pieces each), 1 = bfloat16 (then q,
 // k, v, o and dout must start on a 16-byte boundary with strides of whole
-// 16 bytes: the TMA's rule).  Returns a cudaError_t (0 = launched).
-// `pieces` comes last, after the stream, so that a caller passing it can
-// drive a build of an earlier source.
+// 16 bytes: the TMA's rule).  window: <= 0 for none.  D 256 runs the
+// CUDA-core body (`pieces` unused).  Returns a cudaError_t (0 = launched).
+// `pieces` and `window` come last, after the stream, so that a caller
+// passing them can drive a build of an earlier source.
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                                    const void* dout, const float* lse, float* delta, void* dq,
                                    void* dk, void* dv, long long q_sb, long long q_ss,
@@ -955,13 +1216,15 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
                                    long long o_sh, long long do_sb, long long do_ss,
                                    long long do_sh, int B, int S, int H, int Hkv, int D,
                                    int dtype, int causal, float scale, void* stream,
-                                   void* pieces) {
+                                   void* pieces, int window) {
   Params p{q,    k,    v,    o,    dout, lse,  delta, dq,    dk,    dv,    q_sb,  q_ss,
            q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,  o_sb,  o_ss,  o_sh,  do_sb, do_ss,
-           do_sh, B,   S,    H,    Hkv,  causal, scale};
+           do_sh, B,   S,    H,    Hkv,  causal, scale, window};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B <= 0 || S <= 0) return 0;
   if (D == 64) return static_cast<int>(launch_d<64>(p, dtype, pieces, st));
   if (D == 128) return static_cast<int>(launch_d<128>(p, dtype, pieces, st));
+  if (D == 256 && dtype == 0) return static_cast<int>(launch_simt<float, 256>(p, st));
+  if (D == 256 && dtype == 1) return static_cast<int>(launch_simt<__nv_bfloat16, 256>(p, st));
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -190,12 +190,21 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t smem_byte_addr, uint32_t
 #define HK_R64                                                                          \
   HK_R32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, " \
          "%47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+#define HK_R128                                                                          \
+  HK_R64 ", %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, " \
+         "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "   \
+         "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, "    \
+         "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, "     \
+         "%123, %124, %125, %126, %127"
 #define HK_D8(d, i)                                                                     \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
       "+f"(d[i + 6]), "+f"(d[i + 7])
 #define HK_D16(d) HK_D8(d, 0), HK_D8(d, 8)
 #define HK_D32(d) HK_D16(d), HK_D8(d, 16), HK_D8(d, 24)
 #define HK_D64(d) HK_D32(d), HK_D8(d, 32), HK_D8(d, 40), HK_D8(d, 48), HK_D8(d, 56)
+#define HK_D128(d)                                                                      \
+  HK_D64(d), HK_D8(d, 64), HK_D8(d, 72), HK_D8(d, 80), HK_D8(d, 88), HK_D8(d, 96),      \
+      HK_D8(d, 104), HK_D8(d, 112), HK_D8(d, 120)
 
 // d (64 x N, f32) = A B + (scale_d ? d : 0), A (64 x 16) and B (16 x N)
 // bf16 in shared memory; TA / TB = 1 for an MN-major A / B.  The
@@ -205,8 +214,15 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t smem_byte_addr, uint32_t
 template <int N, int TA, int TB>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db,
                                          int scale_d) {
-  static_assert(N == 32 || N == 64 || N == 128, "wgmma_ss: N 32, 64 or 128");
-  if constexpr (N == 32) {
+  static_assert(N == 16 || N == 32 || N == 64 || N == 128, "wgmma_ss: N 16, 32, 64 or 128");
+  if constexpr (N == 16) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, %8, %9, p, 1, 1, %11, %12;\n}\n"
+        : HK_D8(d, 0)
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+  } else if constexpr (N == 32) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {" HK_R16
@@ -238,7 +254,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_
 template <int N, int TB>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db,
                                          int scale_d) {
-  static_assert(N == 64 || N == 128, "wgmma_rs: N 64 or 128");
+  static_assert(N == 64 || N == 128 || N == 256, "wgmma_rs: N 64, 128 or 256");
   if constexpr (N == 64) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
@@ -246,12 +262,19 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
         "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
         : HK_D32(d)
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
-  } else {
+  } else if constexpr (N == 128) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" HK_R64
         "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
         : HK_D64(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {" HK_R128
+        "}, {%128, %129, %130, %131}, %132, p, 1, 1, %134;\n}\n"
+        : HK_D128(d)
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
   }
 }
@@ -259,10 +282,12 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
 #undef HK_R16
 #undef HK_R32
 #undef HK_R64
+#undef HK_R128
 #undef HK_D8
 #undef HK_D16
 #undef HK_D32
 #undef HK_D64
+#undef HK_D128
 
 // 2^x on the special-function unit (ex2.approx: relative error about
 // 2^-22; results below 2^-126 flush to 0, and 2^-inf = 0)
@@ -390,6 +415,8 @@ inline cudaError_t split3(const SplitArgs& a, int n, int B, int S, int D, cudaSt
     split3_kernel<64><<<grid, 256, 0, st>>>(a, B, S);
   else if (D == 128)
     split3_kernel<128><<<grid, 256, 0, st>>>(a, B, S);
+  else if (D == 256)
+    split3_kernel<256><<<grid, 256, 0, st>>>(a, B, S);
   else
     return cudaErrorInvalidValue;
   return cudaGetLastError();

@@ -62,7 +62,9 @@
 //   bytes: the tensor cores are there to take the per-token shuffle
 //   chain of the CUDA-core body off the critical path;
 // - host: the K and V tensor maps are cached by (base, NP, P, Hkv, D):
-//   an engine's pools never move, so a tick encodes none.
+//   an engine's pools never move, so a tick encodes none;
+// - D 256 (gemma3's global layers): a page is four 64-column boxes, O a
+//   wgmma m64n256k16 a 16-key step, 128 + 32 f32 accumulators a thread.
 //
 // f32 body (`paged_partial_kernel`, any rep of the dispatch table below,
 // and bf16 outside `wgmma_shape`): eight warps take the split's pages
@@ -95,18 +97,22 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16(x);
 }
 
-// N contiguous elements in one vector load (N * sizeof(T) in {4, 8, 16})
+// N contiguous elements in vector loads of up to 16 bytes (N * sizeof(T)
+// in {4, 8, 16} or a multiple of 16)
 template <typename T, int N>
 __device__ __forceinline__ void load_f(const T* ptr, float* out) {
-  constexpr int BYTES = N * sizeof(T);
+  constexpr int BYTES = N * sizeof(T) < 16 ? N * sizeof(T) : 16, PER = BYTES / sizeof(T);
   using V = typename std::conditional<
       BYTES == 16, uint4,
       typename std::conditional<BYTES == 8, uint2, unsigned int>::type>::type;
-  static_assert(BYTES == 16 || BYTES == 8 || BYTES == 4, "vector width");
-  const V raw = *reinterpret_cast<const V*>(ptr);
-  const T* e = reinterpret_cast<const T*>(&raw);
+  static_assert((BYTES == 16 && N % PER == 0) || BYTES == 8 || BYTES == 4, "vector width");
 #pragma unroll
-  for (int i = 0; i < N; ++i) out[i] = to_f(e[i]);
+  for (int c = 0; c < N / PER; ++c) {
+    const V raw = reinterpret_cast<const V*>(ptr)[c];
+    const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int i = 0; i < PER; ++i) out[c * PER + i] = to_f(e[i]);
+  }
 }
 
 struct Params {
@@ -260,7 +266,7 @@ static_assert(SPLIT_KEYS % STAGE_KEYS == 0 && SPLIT_KEYS / 8 <= 32,
               "a split is whole stages, one producer lane a page");
 
 __host__ __device__ constexpr bool wgmma_shape(int D, int P, int rep) {
-  return (D == 64 || D == 128) && (P == 8 || P == 16 || P == 32 || P == 64) && rep >= 1 &&
+  return (D == 64 || D == 128 || D == 256) && (P == 8 || P == 16 || P == 32 || P == 64) && rep >= 1 &&
          rep <= 16;
 }
 
@@ -613,10 +619,14 @@ extern "C" int paged_attention_fwd(const void* q, const void* k_pages, const voi
            H, Hkv, P, maxp, pps, nsplit, window, softcap, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1 && wgmma_shape(D, P, rep))
-    return D == 64 ? by_cap<64>(p, B, NP, st) : by_cap<128>(p, B, NP, st);
+    return D == 64    ? by_cap<64>(p, B, NP, st)
+           : D == 128 ? by_cap<128>(p, B, NP, st)
+                      : by_cap<256>(p, B, NP, st);
   if (dtype == 0 && D == 64) return by_rep<float, 64>(p, rep, B, st);
   if (dtype == 0 && D == 128) return by_rep<float, 128>(p, rep, B, st);
+  if (dtype == 0 && D == 256) return by_rep<float, 256>(p, rep, B, st);
   if (dtype == 1 && D == 64) return by_rep<__nv_bfloat16, 64>(p, rep, B, st);
   if (dtype == 1 && D == 128) return by_rep<__nv_bfloat16, 128>(p, rep, B, st);
+  if (dtype == 1 && D == 256) return by_rep<__nv_bfloat16, 256>(p, rep, B, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

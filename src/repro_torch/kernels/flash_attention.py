@@ -4,7 +4,10 @@
 ``csrc/flash_attention_bwd.cu`` (the backward, which the JAX package
 takes as the vjp of ``flash_attention_ref``).
 
-Both run on the tensor cores (wgmma) in either dtype.  bf16 inputs are
+At head dim 64 and 128 both run on the tensor cores (wgmma) in either
+dtype; at head dim 256 the forward does too, and the backward runs a
+simpler body on the CUDA cores in f32 arithmetic (``dq_simt_kernel``,
+``dkdv_simt_kernel``).  bf16 inputs are
 the products' operands as they are.  f32 inputs are first split, by a
 pre-pass of the same launch, into three bf16 pieces each (x = x0 + x1 +
 x2, ``ref.split3``), and every f32 product is the sum of the six bf16
@@ -25,11 +28,13 @@ import torch
 from repro_torch.kernels import _build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 _P, _L, _I, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
-# the stream, then the f32 inputs' pieces (null for bf16)
+# the stream, then the f32 inputs' pieces (null for bf16); the backward
+# then its window, after them, so that a library built from a source
+# without it takes the same call
 FWD_ARGTYPES = [_P] * 5 + [_L] * 12 + [_I] * 8 + [_F, _F, _P, _P]
-BWD_ARGTYPES = [_P] * 10 + [_L] * 15 + [_I] * 7 + [_F, _P, _P]
+BWD_ARGTYPES = [_P] * 10 + [_L] * 15 + [_I] * 7 + [_F, _P, _P, _I]
 
 
 def _check(q, k, v, window, what="flash_attention kernel"):
@@ -110,10 +115,10 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     ``do`` (B,S,H,D), from the forward's inputs, its output ``o`` and its
     ``lse`` (B,H,S) f32.  Gradients come back contiguous in q's dtype;
     for GQA dk and dv sum over each kv head's query heads.  Deterministic:
-    no atomics.  Window and softcap are not supported yet."""
-    if window is not None or softcap:
+    no atomics.  A logit softcap is not supported yet."""
+    if softcap:
         raise NotImplementedError(
-            "flash_attention backward kernel: no sliding window or softcap yet")
+            "flash_attention backward kernel: no logit softcap yet")
     what = "flash_attention_bwd kernel"
     _check(q, k, v, window, what)
     B, S, H, D = q.shape
@@ -133,16 +138,17 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     if S == 0 or B == 0:
         return dq, dk, dv
     # scratch: each row's Delta = rowsum(do * o) and its lse in base 2, in
-    # q tiles of 64 rows, then (f32) the pieces of q, k, v and do
+    # q tiles of 64 rows, then (f32 on the tensor cores, D < 256) the
+    # pieces of q, k, v and do
     delta = torch.empty((B, H, -(-S // 64), 2, 64), dtype=torch.float32, device=q.device)
-    pieces = _pieces(q, 2 * q.numel() + k.numel() + v.numel())
+    pieces = _pieces(q, 2 * q.numel() + k.numel() + v.numel()) if D < 256 else None
     err = _build.function("flash_attention_bwd", "flash_attention_bwd", BWD_ARGTYPES)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
         *do.stride()[:3], B, S, H, k.shape[2], D, DTYPES[q.dtype], int(causal),
         float(scale), torch.cuda.current_stream(q.device).cuda_stream,
-        pieces.data_ptr() if pieces is not None else None)
+        pieces.data_ptr() if pieces is not None else None, int(window or 0))
     if err:
         raise RuntimeError(f"flash_attention_bwd kernel launch failed: cudaError {err}")
     _build.launch_counts["flash_attention_bwd"] += 1

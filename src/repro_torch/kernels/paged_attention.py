@@ -4,8 +4,8 @@
 
 Takes CUDA tensors only; ``kernels/ops.py`` sends CPU tensors to the
 plain version in ``kernels/ref.py``.  bf16 calls at the shapes of
-``wgmma_body`` (every decode of the repo's configs at head dim 64 or
-128) run the body on TMA page gathers and wgmma products; f32 calls, and
+``wgmma_body`` (every decode of the repo's configs at head dim 64, 128
+or 256) run the body on TMA page gathers and wgmma products; f32 calls, and
 bf16 at other shapes, run the body on the CUDA cores."""
 from __future__ import annotations
 
@@ -17,7 +17,7 @@ import torch
 from repro_torch.kernels import _build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 REPS = (1, 2, 3, 4, 6, 8, 12, 16)     # H / Hkv the CUDA-core body is built for
 PAGES_PER_SPLIT = 8                   # pages one block of the CUDA-core body reads
 SPLIT_KEYS = 64                       # keys one block of the wgmma body reads (the .cu's)
@@ -33,7 +33,7 @@ ARGTYPES = [_P] * 8 + [_I] * 8 + [_I, _F, _F, _P, _I]
 def wgmma_body(dtype, D: int, P: int, rep: int) -> bool:
     """Whether the kernel runs a call of these shapes on its wgmma body
     (``csrc/paged_attention.cu``'s ``wgmma_shape``, the same rule): bf16,
-    head dim 64 or 128, page 8, 16, 32 or 64 tokens, 1 to 16 query heads
+    head dim 64, 128 or 256, page 8, 16, 32 or 64 tokens, 1 to 16 query heads
     per kv head."""
     return (dtype == torch.bfloat16 and D in HEAD_DIMS and P in (8, 16, 32, 64)
             and 1 <= rep <= 16)

@@ -1,19 +1,23 @@
-"""Attention: MHA/GQA with qkv bias.
+"""Attention: MHA/GQA with qkv bias, qk-norm and sliding windows.
 
 Modes:
   train   — full sequence, causal (or bidirectional for the encoder family)
-  prefill — like train, additionally returns the layer's K/V cache
-  decode  — one query token per slot against the paged KV pools
+  prefill — like train, additionally returns the layer's K/V cache (for a
+            sliding-window layer its ring of the last W positions)
+  decode  — one query token per slot: a global layer against the paged KV
+            pools, a sliding-window layer against its per-slot ring
 
 Self-attention over a whole sequence always goes through
 ``kernels/ops.flash_attention`` (the CUDA kernel for CUDA tensors, its
-plain version for CPU tensors), causal or not and at any S; in train
-mode its backward is the flash backward kernel.  The JAX package routes
-only causal attention to its Pallas kernel in ``gqa_attend`` and the
-non-causal encoder through ``sharding.flash_attn_ctx`` under ddp.  Paged
-decode goes through ``kernels/ops.paged_attention``.  Sliding windows,
-qk-norm, MLA, the contiguous (non-paged) decode cache and
-sequence-sharded decode are not ported yet and raise
+plain version for CPU tensors), causal or not, windowed or not, at any
+S; in train mode its backward is the flash backward kernel.  The JAX
+package routes only causal attention to its Pallas kernel in
+``gqa_attend`` and the non-causal encoder through
+``sharding.flash_attn_ctx`` under ddp.  Paged decode of a global layer
+goes through ``kernels/ops.paged_attention``; a windowed layer decodes
+by the plain masked attention over its ring, as the JAX package does
+(no kernel there either).  MLA, the contiguous (non-paged) decode cache
+and sequence-sharded decode are not ported yet and raise
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -22,7 +26,7 @@ import torch
 
 from repro_torch.configs.base import ATTN, LayerSpec, ModelConfig
 from repro_torch.kernels import ops as kops
-from repro_torch.models.layers import apply_rope, softcap
+from repro_torch.models.layers import apply_rope, rms_normalize, softcap
 from repro_torch.models.params import ParamSpec
 
 NEG_INF = -2.0e38
@@ -40,6 +44,9 @@ def attn_specs(cfg: ModelConfig):
         out["bq"] = ParamSpec((H, D), ("heads", "head_dim"), init="zeros")
         out["bk"] = ParamSpec((Hkv, D), ("kv_heads", "head_dim"), init="zeros")
         out["bv"] = ParamSpec((Hkv, D), ("kv_heads", "head_dim"), init="zeros")
+    if cfg.qk_norm:
+        out["q_norm"] = ParamSpec((D,), ("head_dim",), init="ones")
+        out["k_norm"] = ParamSpec((D,), ("head_dim",), init="ones")
     return out
 
 
@@ -88,7 +95,16 @@ def _project_qkv(p, h, cfg: ModelConfig):
         q = q + p["bq"].to(h.dtype)
         k = k + p["bk"].to(h.dtype)
         v = v + p["bv"].to(h.dtype)
+    if cfg.qk_norm:
+        q = rms_normalize(q) * p["q_norm"].to(h.dtype)
+        k = rms_normalize(k) * p["k_norm"].to(h.dtype)
     return q, k, v
+
+
+def _theta(cfg: ModelConfig, spec: LayerSpec) -> float:
+    if spec.window is not None and cfg.rope_local_theta:
+        return cfg.rope_local_theta
+    return cfg.rope_theta
 
 
 def _out_proj(o, p, h):  # "bshe,hed->bsd"
@@ -102,22 +118,27 @@ def apply_attn(p, h, cfg: ModelConfig, spec: LayerSpec, *, positions,
 
     ``paged`` carries the serving engine's paged-KV context
     (serve/paged_cache.py).  In decode it is ``{"tables": (B,maxp)
-    int32, "page": P}`` with ``pos`` a per-slot (B,) tensor and the
-    layer's cache leaves page POOLS (NP,P,Hkv,D), which this call updates
-    in place.  In prefill it is ``{"length": L}``, the true prompt length
-    of a right-padded bucket (only sliding-window rings read it)."""
-    if spec.kind != ATTN or spec.window is not None or cfg.qk_norm:
+    int32, "page": P}`` with ``pos`` a per-slot (B,) tensor; a global
+    layer's cache leaves are page POOLS (NP,P,Hkv,D), a windowed layer's
+    its per-slot rings (B,W,Hkv,D) with their clock ``pos`` (B,W), and
+    this call updates either in place.  In prefill it is ``{"length":
+    L}``, the true prompt length of a right-padded bucket (only
+    sliding-window rings read it)."""
+    if spec.kind != ATTN:
         raise NotImplementedError(
-            "the port has full-attention GQA layers only (no sliding "
-            "window, qk-norm or MLA yet)")
+            f"the port has GQA attention layers only, not {spec.kind} (MLA)")
     B = h.shape[0]
+    theta = _theta(cfg, spec)
     if mode in ("train", "prefill"):
         q, k, v = _project_qkv(p, h, cfg)
         if cfg.pos_type == "rope":
-            q = apply_rope(q, positions, cfg.rope_theta)
-            k = apply_rope(k, positions, cfg.rope_theta)
+            q = apply_rope(q, positions, theta)
+            k = apply_rope(k, positions, theta)
         o = gqa_attend(q, k, v, None, cfg, causal=causal, window=spec.window)
-        new_cache = _fill_cache(k, v) if mode == "prefill" else None
+        new_cache = None
+        if mode == "prefill":
+            length = paged.get("length") if paged else None
+            new_cache = _fill_cache(k, v, spec, length=length)
         return _out_proj(o, p, h), new_cache
 
     # ------------------------------------------------------------- decode
@@ -126,8 +147,13 @@ def apply_attn(p, h, cfg: ModelConfig, spec: LayerSpec, *, positions,
     q, k_new, v_new = _project_qkv(p, h, cfg)  # (B,1,H,D) / (B,1,Hkv,D)
     if cfg.pos_type == "rope":
         pos_arr = pos.reshape(B, 1)            # per-slot positions
-        q = apply_rope(q, pos_arr, cfg.rope_theta)
-        k_new = apply_rope(k_new, pos_arr, cfg.rope_theta)
+        q = apply_rope(q, pos_arr, theta)
+        k_new = apply_rope(k_new, pos_arr, theta)
+    if spec.window is not None:
+        # per-slot dense ring: a fixed-size pool row per slot
+        mask = _sliding_update_paged(cache, k_new, v_new, pos, spec.window)
+        o = gqa_attend(q, cache["k"], cache["v"], mask, cfg)
+        return _out_proj(o, p, h), cache
     o, new_cache = _paged_attend(q, k_new, v_new, cache, pos, cfg, paged)
     return _out_proj(o, p, h), new_cache
 
@@ -159,5 +185,54 @@ def _paged_attend(q, k_new, v_new, cache, pos, cfg: ModelConfig, paged):
     return o[:, None], cache
 
 
-def _fill_cache(k, v):
-    return {"k": k, "v": v}
+def _sliding_update_paged(cache, k_new, v_new, pos, window: int):
+    """Write each slot's new K/V and position into its ring, IN PLACE (the
+    JAX version returns updated copies), at slot ``pos % window``; returns
+    the additive (B,1,1,W) mask of the ring entries the query sees (written,
+    not ahead of ``pos``, inside the window)."""
+    B = k_new.shape[0]
+    b_idx = torch.arange(B, device=k_new.device)
+    pos_l = pos.long()
+    slot = pos_l % window
+    cache["k"][b_idx, slot] = k_new[:, 0].to(cache["k"].dtype)
+    cache["v"][b_idx, slot] = v_new[:, 0].to(cache["v"].dtype)
+    cache["pos"][b_idx, slot] = pos.to(cache["pos"].dtype)
+    pos_ids = cache["pos"]
+    p = pos_l[:, None]
+    valid = (pos_ids >= 0) & (pos_ids <= p) & (pos_ids > p - window)
+    return torch.where(valid, 0.0, NEG_INF)[:, None, None].float()
+
+
+def _fill_cache(k, v, spec: LayerSpec, length=None):
+    """A global layer's cache is its K and V; a windowed layer's is the
+    ring of its last W positions (slot = position % W) with their clock
+    ``pos`` (-1 where empty), which has no batch axis."""
+    if spec.window is None:
+        return {"k": k, "v": v}
+    W = spec.window
+    S = k.shape[1]
+    if length is not None:
+        # ragged fill: the prompt really ends at ``length``, the buffer is
+        # right-padded to S.  Ring slot s gets the largest position
+        # p <= length-1 with p % W == s (and >= length-W); pad positions
+        # never enter the ring.
+        s_ids = torch.arange(W, device=k.device)
+        p_ids = (length - 1) - ((length - 1 - s_ids) % W)
+        ok = p_ids >= 0
+        idx = p_ids.clamp(0, S - 1)
+        keep = ok[None, :, None, None]
+        kc = torch.where(keep, k[:, idx], k.new_zeros(()))
+        vc = torch.where(keep, v[:, idx], v.new_zeros(()))
+        return {"k": kc, "v": vc,
+                "pos": torch.where(ok, p_ids, -1).to(torch.int32)}
+    if S >= W:
+        pos_ids = torch.arange(S - W, S, device=k.device)
+        inv = torch.argsort(pos_ids % W)        # ring layout: slot = pos % W
+        return {"k": k[:, S - W:][:, inv], "v": v[:, S - W:][:, inv],
+                "pos": pos_ids[inv].to(torch.int32)}
+    pad = W - S
+    pos_ids = torch.cat([torch.arange(S, device=k.device),
+                         torch.full((pad,), -1, device=k.device)])
+    return {"k": torch.cat([k, k.new_zeros((k.shape[0], pad, *k.shape[2:]))], 1),
+            "v": torch.cat([v, v.new_zeros((v.shape[0], pad, *v.shape[2:]))], 1),
+            "pos": pos_ids.to(torch.int32)}

@@ -5,8 +5,8 @@ group are stacked along a leading ``layers`` axis of size ``repeats``,
 as in the JAX package.  Where that package scans the group with
 ``lax.scan``, the port loops over the rows of the stacked axis in Python
 (eager PyTorch has nothing to gain from a scan).  The port has the ATTN
-block with a dense MLP and the MAMBA (Mamba2) block without one; MoE,
-MLA, shared banks, post-norms and cross attention raise
+block with a dense MLP (and gemma's post-norms) and the MAMBA (Mamba2)
+block without one; MoE, MLA, shared banks and cross attention raise
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -23,15 +23,19 @@ from repro_torch.models.ssm import apply_mamba, ssm_specs
 
 def block_specs(cfg: ModelConfig, spec: LayerSpec):
     if (spec.kind, spec.has_mlp) not in ((ATTN, True), (MAMBA, False)) \
-            or spec.moe or (spec.kind == ATTN and cfg.post_norms):
+            or spec.moe:
         raise NotImplementedError(
             f"the port has ATTN blocks with a dense MLP and MAMBA blocks "
-            f"without one, not {spec} (post_norms={cfg.post_norms})")
+            f"without one, not {spec}")
     out = {"ln1": norm_specs(cfg),
            "mixer": attn_specs(cfg) if spec.kind == ATTN else ssm_specs(cfg)}
+    if cfg.post_norms and spec.kind != MAMBA:
+        out["post1"] = norm_specs(cfg)
     if spec.has_mlp:
         out["ln2"] = norm_specs(cfg)
         out["mlp"] = mlp_specs(cfg)
+        if cfg.post_norms:
+            out["post2"] = norm_specs(cfg)
     return out
 
 
@@ -68,10 +72,15 @@ def apply_block(bp, h, cfg: ModelConfig, spec: LayerSpec, *, positions,
                             causal=causal, paged=paged)
     if mc is not None:
         new_cache["mixer"] = mc
+    if cfg.post_norms and spec.kind != MAMBA:
+        mx = apply_norm(bp["post1"], mx, cfg)
     h = h + mx
     if spec.has_mlp:
         x = apply_norm(bp["ln2"], h, cfg)
-        h = h + apply_mlp(bp["mlp"], x, cfg)
+        mx = apply_mlp(bp["mlp"], x, cfg)
+        if cfg.post_norms:
+            mx = apply_norm(bp["post2"], mx, cfg)
+        h = h + mx
     return h, new_cache
 
 

@@ -107,7 +107,9 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, Any], *, mode: str,
 def cache_shapes(cfg: ModelConfig, B: int, S: int, dtype=torch.bfloat16):
     """``(shape, dtype)`` cache tree matching what prefill returns, with
     the stacked ``layers`` axis.  An SSM layer's leaves are its conv
-    tails in ``dtype`` and its state, always f32."""
+    tails in ``dtype`` and its state, always f32; a sliding-window
+    layer's its ring of W = min(window, S) positions and the ring's clock
+    ``pos`` (int32, no batch axis)."""
     _check_supported(cfg)
     Hkv, D = cfg.n_kv_heads, cfg.head_dim
     groups = []
@@ -124,8 +126,14 @@ def cache_shapes(cfg: ModelConfig, B: int, S: int, dtype=torch.bfloat16):
                     "conv_C": ((r, B, K - 1, G, N), dtype),
                     "state": ((r, B, H, N, Pd), torch.float32)}})
                 continue
-            if spec.kind != ATTN or spec.window is not None:
+            if spec.kind != ATTN:
                 raise NotImplementedError(f"no cache layout for {spec}")
+            if spec.window is not None:
+                W = min(spec.window, S)
+                shp = ((r, B, W, Hkv, D), dtype)
+                layers.append({"mixer": {"k": shp, "v": shp,
+                                         "pos": ((r, W), torch.int32)}})
+                continue
             shp = ((r, B, S, Hkv, D), dtype)
             layers.append({"mixer": {"k": shp, "v": shp}})
         groups.append(layers)

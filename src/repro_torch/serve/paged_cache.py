@@ -9,9 +9,10 @@ Layout (built by :func:`build_pools` through ``serve/cache.py``'s leaf
 walk): sequence leaves are ``(layers, n_pages, page, *feature)``, and ONE
 block table serves every layer, because the same physical page id
 indexes every layer's pool.  Fixed-size leaves (the SSM conv tails and
-state) are dense per-slot rows ``(layers, max_slots, *feature)``, written
-at admission into the request's batch row; the SSM state row stays f32
-whatever the pools' dtype.  Sliding-window rings are not ported yet.
+state, and the sliding-window rings with their clock ``pos``) are dense
+per-slot rows ``(layers, max_slots, *feature)``, written at admission
+into the request's batch row; the SSM state row stays f32 whatever the
+pools' dtype, and a ring's clock is int32, -1 where the ring is empty.
 
 Physical page 0 is RESERVED as the trash page: it is never allocated,
 inactive batch slots' table rows point at it, and their (ignored) decode
@@ -89,7 +90,11 @@ def build_pools(cfg: ModelConfig, *, page: int, n_pages: int, max_slots: int,
     the card; structure mirrors the prefill cache, see the module
     docstring for the leaf layouts)."""
     device = resolve_device(device)
-    sds = cache_shapes(cfg, 1, page, dtype)
+    # template shapes at a seq length >= every sliding window, so ring
+    # leaves come out at their full W
+    max_win = max([s.window for g in cfg.schedule for s in g.pattern
+                   if s.window is not None] or [0])
+    sds = cache_shapes(cfg, 1, max(page, max_win), dtype)
 
     def seq_pool(name, v, spec):
         shape, dt = v                            # (layers, 1, S0, *tail)
@@ -98,6 +103,9 @@ def build_pools(cfg: ModelConfig, *, page: int, n_pages: int, max_slots: int,
 
     def fixed_pool(name, v, spec):
         shape, dt = v                            # (layers, 1, *feature)
+        if name == "pos":                        # ring clock: (layers, W)
+            return torch.full((shape[0], max_slots, shape[1]), -1, dtype=dt,
+                              device=device)
         return torch.zeros((shape[0], max_slots, *shape[2:]), dtype=dt,
                            device=device)
 
@@ -123,7 +131,9 @@ def commit_prefill(pools, prefill_cache, cfg: ModelConfig, *, page: int,
     pool_seq, pool_fixed = _flat_leaves(pools, cfg)
     new_seq, new_fixed = _flat_leaves(prefill_cache, cfg)
     for pool, leaf in zip(pool_fixed, new_fixed, strict=True):
-        pool[:, slot] = leaf[:, 0].to(pool.dtype)
+        # a ring's clock "pos" has no batch axis in the prefill cache
+        row = leaf if leaf.dim() == pool.dim() - 1 else leaf[:, 0]
+        pool[:, slot] = row.to(pool.dtype)
     n_chunks = pages.shape[0]
     for pool, leaf in zip(pool_seq, new_seq, strict=True):
         r, _, S = leaf.shape[:3]

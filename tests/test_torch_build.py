@@ -145,12 +145,17 @@ def test_planted_faults_hold_their_lines_once_and_cover_every_kernel():
 
 
 def test_flash_cases_are_valid_shapes():
-    """Each gate case is a shape the wrapper takes (D 64 / 128, H a
-    multiple of Hkv, window >= 1)."""
-    for case in _chip_smoke().FLASH_CASES:
+    """Each gate case is a shape the wrapper takes (D 64 / 128 / 256, H a
+    multiple of Hkv, window >= 1); gemma3's serve and train shapes are
+    held at D 256 with its window of 1024 and without."""
+    cs = _chip_smoke()
+    for case in cs.FLASH_CASES:
         B, S, H, Hkv, D, causal, window, softcap = case
-        assert B >= 1 and S >= 1 and H % Hkv == 0 and D in (64, 128), case
+        assert B >= 1 and S >= 1 and H % Hkv == 0 and D in (64, 128, 256), case
         assert window is None or window >= 1, case
+    for shape in (cs.GEMMA_SERVE_ATTN, cs.GEMMA_TRAIN_ATTN):
+        assert shape[4] == 256
+        assert {c[6] for c in cs.FLASH_CASES if c[:6] == shape} == {1024, None}
 
 
 def test_flash_bwd_cases_are_valid_shapes_and_cover_the_tile_edges():
@@ -158,11 +163,16 @@ def test_flash_bwd_cases_are_valid_shapes_and_cover_the_tile_edges():
     body's tile edges (S 63-65, 127, 129, 511, 513 against 64-row tiles
     and 128-row blocks) are each held at D 64 and 128, causal and not, rep
     1 and 4."""
-    cases = _chip_smoke().FLASH_BWD_CASES
+    cs = _chip_smoke()
+    cases = cs.FLASH_BWD_CASES
     for case in cases:
-        B, S, H, Hkv, D, causal = case
-        assert B >= 1 and S >= 1 and H % Hkv == 0 and D in (64, 128), case
-        assert isinstance(causal, bool), case
+        B, S, H, Hkv, D, causal, *window = case
+        assert B >= 1 and S >= 1 and H % Hkv == 0 and D in (64, 128, 256), case
+        assert isinstance(causal, bool) and window in ([], [None]) or window[0] >= 1, case
+    windowed = [c for c in cases if len(c) > 6 and c[6] is not None]
+    assert {c[4] for c in windowed} == {64, 128, 256}
+    assert {c[5] for c in windowed} == {True, False}
+    assert cs.GEMMA_TRAIN_ATTN + (1024,) in cases and cs.GEMMA_TRAIN_ATTN in cases
     for S in (63, 64, 65, 127, 129, 511, 513):
         at = [c for c in cases if c[1] == S]
         assert {c[4] for c in at} == {64, 128}, S

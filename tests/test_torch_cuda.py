@@ -85,7 +85,7 @@ BF16_FLASH_VARIANTS = [(1, True, None, 0.0, True), (4, False, None, 0.0, False),
 
 
 @pytest.mark.parametrize("variant", BF16_FLASH_VARIANTS)
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 @pytest.mark.parametrize("S", [1, 63, 127, 128, 129, 255, 513, 1024])
 def test_flash_bf16_kernel_tile_edges(cuda, S, D, variant):
     """The bf16 (wgmma) body at the edges of its tiles (128 q rows a
@@ -262,6 +262,63 @@ def test_flash_bwd_bf16_kernel_tile_edges(cuda, S, D, causal, rep):
     err, ratio = _chip_smoke().flash_bwd_reading(torch, q, k, v, do, causal)
     assert ratio <= 1.0, (err, ratio)
     assert ops.launch_counts["flash_attention_bwd"] == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,D,rep,causal,window", [
+    (600, 64, 4, True, 200), (513, 128, 4, True, 100), (300, 64, 1, False, 64),
+    (130, 256, 2, True, 40), (77, 256, 2, False, None), (700, 256, 2, True, 256)])
+def test_flash_bwd_kernel_window_and_head_dim_256(cuda, S, D, rep, causal, window, dtype):
+    """The backward with a sliding window (the wgmma bodies at D 64 and
+    128, the CUDA-core body at D 256) against the plain version's autograd,
+    per element under chip_smoke.py's gate (f32: 2e-5; bf16: u (|want| +
+    want_abs) + 1e-5)."""
+    g = torch.Generator(device=cuda).manual_seed(S * D + rep)
+    q, do = (torch.randn(2, S, 2 * rep, D, generator=g, device=cuda).to(dtype) for _ in range(2))
+    k, v = (torch.randn(2, S, 2, D, generator=g, device=cuda).to(dtype) for _ in range(2))
+    ops.reset_launch_counts()
+    err, ratio = _chip_smoke().flash_bwd_reading(torch, q, k, v, do, causal, window)
+    assert ratio <= 1.0, (err, ratio)
+    assert ops.launch_counts["flash_attention_bwd"] == 1
+
+
+@pytest.mark.parametrize("D", [128, 256])
+def test_flash_bwd_window_kernel_is_deterministic(cuda, D):
+    g = torch.Generator(device=cuda).manual_seed(D)
+    q, w = (torch.randn(2, 300, 4, D, generator=g, device=cuda) for _ in range(2))
+    k, v = (torch.randn(2, 300, 2, D, generator=g, device=cuda) for _ in range(2))
+    grads = []
+    for _ in range(2):
+        ts = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        (ops.flash_attention(*ts, True, 70) * w).sum().backward()
+        grads.append([t.grad for t in ts])
+    assert all(torch.equal(a, b) for a, b in zip(*grads))
+
+
+def test_gemma_engine_cuda_matches_cpu(cuda):
+    """Reduced gemma3 (a local layer of window 16, a global one): the
+    paged engine on the card gives the cpu engine's greedy tokens, prompts
+    shorter and longer than the window, decoding past it."""
+    from repro_torch.configs.base import ScheduleGroup
+
+    cfg = dataclasses.replace(
+        reduced(get_config("gemma3-4b")), head_dim=256,
+        schedule=(ScheduleGroup(pattern=(LayerSpec(window=16), LayerSpec()), repeats=1),))
+    run = default_run_config(cfg, ShapeConfig("s", 16, 2, "decode"))
+    prompts = [list(np.random.RandomState(i).randint(4, cfg.vocab_size, n))
+               for i, n in enumerate((70, 13, 5))]
+    outs = []
+    for dev in ("cpu", "cuda"):
+        eng = PagedServeEngine(build_model(cfg, seed=0, device=dev), run, page=8, n_pages=64,
+                               max_slots=3)
+        ops.reset_launch_counts()
+        rids = [eng.submit(p, 20) for p in prompts]
+        got = eng.serve()
+        outs.append([got[r] for r in rids])
+        if dev == "cuda":
+            assert ops.launch_counts["flash_attention"] == 2 * len(prompts)
+            assert ops.launch_counts["paged_attention"] == eng.decode_ticks
+    assert outs[0] == outs[1]
 
 
 def test_flash_bwd_kernel_is_deterministic(cuda):

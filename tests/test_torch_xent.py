@@ -121,11 +121,15 @@ def test_flash_grad_ragged_matches_ref_vjp():
 
 @pytest.mark.parametrize("window,softcap", [(16, 0.0), (None, 30.0)])
 def test_flash_bwd_kernel_refuses_window_and_softcap(window, softcap):
-    """The backward kernel has no window or softcap yet; the CPU path's
-    plain autograd does (the decoder slice needs them on the card)."""
+    """The backward kernel takes a sliding window (the gemma3 slice) but
+    has no softcap yet: a window passes the wrapper's refusal and meets
+    its device check, a softcap is refused; the CPU path's plain autograd
+    takes both."""
     q, k, v, w = (torch.from_numpy(x) for x in _flash_inputs(1, 1, 64, 2, 2, 64))
     lse = torch.zeros(1, 2, 64)
-    with pytest.raises(NotImplementedError, match="window or softcap"):
+    err, match = (ValueError, "not on a CUDA device") if window else \
+        (NotImplementedError, "no logit softcap")
+    with pytest.raises(err, match=match):
         flash_attention_bwd(q, k, v, q, lse, w, window=window, softcap=softcap)
     tq = q.clone().requires_grad_(True)
     ops.flash_attention(tq, k, v, True, window, softcap).sum().backward()
