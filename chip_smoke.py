@@ -63,7 +63,8 @@ Phases (any failure exits non-zero before the last line):
               gradients computed twice on the card are equal bit for bit
   gemma_train_path
               gemma3-4b at full width, 2 layers (local, global), f32, B 2 x
-              S 1500: as ssm_train_path (the windowed flash backward)
+              S 1100, one step: as ssm_train_path (the windowed flash
+              backward at head dim 256)
   train_cli   bert-mlm-120m at full width and depth, f32 (the launcher's
               defaults), batch 32 x 512 from the DataPipeline over a
               3000-function corpus, through repro_torch.launch.train.main:
@@ -324,11 +325,13 @@ FLASH_BWD_CASES = [
     (2, 300, 4, 4, 64, False, 64), (1, 700, 8, 2, 128, True, 65),
     (2, 333, 8, 2, 128, True, 50), (2, 129, 4, 4, 64, True, 1),
     (1, 200, 6, 2, 128, False, 33),
-    # head dim 256 (the CUDA-core body): gemma3's train shape with its
-    # window and without, and the blocks' edges (16 rows or keys, 32-key
-    # or 32-row tiles)
+    # head dim 256 (bf16: one warpgroup, 32-key and 32-row tiles, dK and
+    # dV in two halves; f32: the CUDA-core body, 16 rows or keys a block):
+    # gemma3's train shape with its window and without, and the tiles'
+    # edges
     GEMMA_TRAIN_ATTN + (GEMMA_WINDOW,), GEMMA_TRAIN_ATTN,
     (2, 77, 8, 4, 256, False), (1, 130, 8, 4, 256, True, 40), (2, 33, 8, 2, 256, False, 16),
+    (2, 96, 8, 4, 256, True), (1, 200, 4, 4, 256, False, 70),
 ]
 
 XENT_CASES = [  # (T, V)
@@ -885,9 +888,10 @@ WGMMA_FUNCTIONS = (("flash_attention", "flash_fwd_wgmma"), ("flash_attention_bwd
                    ("ssd_scan", "ssd_out_wgmma"), ("paged_attention", "paged_wgmma"))
 
 
-# the D-256 flash backward's body, on the CUDA cores by design (ROADMAP
-# queues its redesign onto wgmma): named here and left out of the route
-# check; the build phase logs its ptxas report
+# the f32 flash backward's body at head dim 256, on the CUDA cores by
+# design (its three bf16 pieces do not fit the wgmma bodies' shared
+# memory; ROADMAP queues its redesign): named here and left out of the
+# route check; the build phase logs its ptxas report
 SIMT_FUNCTIONS = (("flash_attention_bwd", "dq_simt"), ("flash_attention_bwd", "dkdv_simt"))
 
 
@@ -1444,16 +1448,17 @@ def run_train(torch, rec, seed=0, B=32, S=512, steps=20, n_prof=3):
     rec["train"] = res
 
 
-def train_launches_per_step(cfg, B, S):
-    """Kernel launches of one train step: each layer's attention forward,
-    again under remat, and its backward; each loss chunk's nll forward,
-    again under its checkpoint, and its backward."""
+def train_launches_per_step(cfg, B, S, micro=1):
+    """Kernel launches of one train step at ``micro`` microbatches: each
+    layer's attention forward, again under remat, and its backward; each
+    loss chunk's nll forward, again under its checkpoint, and its
+    backward; all per microbatch, whose B / micro rows set the chunks."""
     from repro_torch.train.train_step import loss_chunk_len
 
-    n_chunks = -(-S // loss_chunk_len(B, S, cfg.vocab_size, 1))
+    n_chunks = -(-S // loss_chunk_len(B // micro, S, cfg.vocab_size, 1))
     L = cfg.n_layers
-    return {"flash_attention": 2 * L, "flash_attention_bwd": L,
-            "fused_xent": 2 * n_chunks, "fused_xent_bwd": n_chunks}
+    return {"flash_attention": 2 * L * micro, "flash_attention_bwd": L * micro,
+            "fused_xent": 2 * n_chunks * micro, "fused_xent_bwd": n_chunks * micro}
 
 
 def check_prefetch(torch, pipe, n=16):
@@ -1675,30 +1680,42 @@ def ssm_launches_per_step(cfg, B, S, micro=1):
             "fused_xent": 2 * n_chunks * micro, "fused_xent_bwd": n_chunks * micro}
 
 
-def check_ssm_train_path(torch, rec, B=2, S=600, n_steps=5):
-    """mamba2-130m at full width, 2 layers, f32: loss and every gradient
-    leaf of one next-token batch, then ``n_steps`` train steps, on cuda
-    and on cpu from the same parameters and batches (PATH_REL_TOL per
-    leaf and per loss); on cuda the gradients of the same batch twice,
-    which must be equal bit for bit."""
+def check_ssm_train_path(torch, rec):
+    """mamba2-130m at full width, 2 layers, f32, B 2 x S 600 (a full chunk
+    and a ragged one): ``check_lm_train_path``."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import MAMBA, LayerSpec, uniform_schedule
+
+    cfg = dataclasses.replace(get_config("mamba2-130m"),
+                              schedule=uniform_schedule(2, LayerSpec(kind=MAMBA, has_mlp=False)))
+    check_lm_train_path(torch, rec, "ssm_train_path", cfg, ssm_launches_per_step, B=2, S=600,
+                        n_steps=5)
+
+
+def check_lm_train_path(torch, rec, key, cfg, launches_per_step, B, S, n_steps):
+    """A next-token model ``cfg`` at full width, f32: loss and every
+    gradient leaf of one B x S batch, then ``n_steps`` train steps, on
+    cuda and on cpu from the same parameters and batches (PATH_REL_TOL
+    per leaf and per loss); on cuda the gradients of the same batch
+    twice, which must be equal bit for bit, and the kernel launches
+    ``launches_per_step(cfg, B, S)`` a forward and backward."""
     import copy
 
-    from repro_torch.configs import default_run_config, get_config
-    from repro_torch.configs.base import MAMBA, LayerSpec, ShapeConfig, uniform_schedule
+    from repro_torch.configs import default_run_config
+    from repro_torch.configs.base import ShapeConfig
     from repro_torch.core.accum import accumulate_grads
     from repro_torch.kernels import ops
     from repro_torch.models.model import build_model
     from repro_torch.train.optimizer import AdamWConfig
     from repro_torch.train.train_step import init_state, loss_for, make_train_step
 
-    cfg = dataclasses.replace(get_config("mamba2-130m"),
-                              schedule=uniform_schedule(2, LayerSpec(kind=MAMBA, has_mlp=False)))
-    run = default_run_config(cfg, ShapeConfig("ssm_train_path", S, B, "train"))
+    run = default_run_config(cfg, ShapeConfig(key, S, B, "train"))
     opt = AdamWConfig(lr=1e-4, warmup_steps=2, total_steps=n_steps)
     model_cpu = build_model(cfg, seed=0, device="cpu")
     batches = lm_batches(torch, cfg.vocab_size, n_steps + 1, B, S, seed=1)
     res = {}
     for dev in ("cpu", "cuda"):
+        t0 = time.perf_counter()
         model = copy.deepcopy(model_cpu).to(dev)
         state = init_state(model, run, seed=None)
         on = lambda b: {k: v.to(dev) for k, v in b.items()}
@@ -1711,16 +1728,18 @@ def check_ssm_train_path(torch, rec, B=2, S=600, n_steps=5):
             _, again, _ = grad()
             unequal = [k for k, g in again.items() if not torch.equal(g.cpu(), grads[k])]
             if unequal:
-                fail(f"ssm_train_path: the same gradients twice differ in {unequal}")
+                fail(f"{key}: the same gradients twice differ in {unequal}")
+            del again
         step = make_train_step(model, run, opt)
         losses = [step(state, on(b))[1]["loss"].item() for b in batches[1:]]
         res[dev] = (loss.item(), grads, losses, dict(ops.launch_counts))
-        log(f"ssm_train_path {dev}: loss {loss.item():.6f}, steps {losses}, "
-            f"launches {res[dev][3]}")
+        log(f"{key} {dev}: loss {loss.item():.6f}, steps {losses}, "
+            f"launches {res[dev][3]}, {time.perf_counter() - t0:.1f}s")
+        del model, state, step
     n_fb = 2 + n_steps
-    want = {k: v * n_fb for k, v in ssm_launches_per_step(cfg, B, S).items()}
+    want = {k: v * n_fb for k, v in launches_per_step(cfg, B, S).items()}
     if res["cpu"][3] or res["cuda"][3] != want:
-        fail(f"ssm_train_path: cuda launches {res['cuda'][3]} (expected {want}), "
+        fail(f"{key}: cuda launches {res['cuda'][3]} (expected {want}), "
              f"cpu launches {res['cpu'][3]}")
     rel = lambda a, b: abs(a - b) / abs(b)
     errs = {"loss": rel(res["cuda"][0], res["cpu"][0]),
@@ -1729,13 +1748,13 @@ def check_ssm_train_path(torch, rec, B=2, S=600, n_steps=5):
     leaf = {k: ((gc[k] - gp[k]).abs().max() / gp[k].abs().max()).item() for k in gp}
     errs["grad_leaf"] = max(leaf.values())
     worst = max(leaf, key=leaf.get)
-    log(f"ssm_train_path: relative errors {errs} (tol {PATH_REL_TOL}); worst leaf {worst}")
+    log(f"{key}: relative errors {errs} (tol {PATH_REL_TOL}); worst leaf {worst}")
     if not all(v <= PATH_REL_TOL for v in errs.values()) \
             or not all(math.isfinite(x) for x in res["cuda"][2]):
-        fail(f"ssm_train_path: cuda and cpu differ: {errs}, worst leaf {worst} {leaf[worst]}")
-    rec["ssm_train_path"] = {"rel_err": errs, "worst_leaf": worst, "grad_leaf_rel": leaf,
-                             "losses_cuda": res["cuda"][2], "losses_cpu": res["cpu"][2],
-                             "launches": res["cuda"][3], "repeat_bit_equal": True}
+        fail(f"{key}: cuda and cpu differ: {errs}, worst leaf {worst} {leaf[worst]}")
+    rec[key] = {"rel_err": errs, "worst_leaf": worst, "grad_leaf_rel": leaf,
+                "losses_cuda": res["cuda"][2], "losses_cpu": res["cpu"][2],
+                "launches": res["cuda"][3], "repeat_bit_equal": True}
 
 
 def run_ssm_train(torch, rec, B=16, S=1024, n_functions=400):
@@ -1871,84 +1890,15 @@ def run_ssm_train(torch, rec, B=16, S=1024, n_functions=400):
     rec["ssm_train"] = res
 
 
-def lm_launches_per_step(cfg, B, S, micro=1):
-    """Kernel launches of one train step of an attention LM at ``micro``
-    microbatches: each layer's flash forward, again under remat, and its
-    backward; each loss chunk's nll forward, again under its checkpoint,
-    and its backward; all per microbatch, whose B / micro rows set the
-    chunks."""
-    from repro_torch.train.train_step import loss_chunk_len
-
-    n_chunks = -(-S // loss_chunk_len(B // micro, S, cfg.vocab_size, 1))
-    L = cfg.n_layers
-    return {"flash_attention": 2 * L * micro, "flash_attention_bwd": L * micro,
-            "fused_xent": 2 * n_chunks * micro, "fused_xent_bwd": n_chunks * micro}
-
-
-def check_gemma_train_path(torch, rec, B=2, S=1500, n_steps=5):
+def check_gemma_train_path(torch, rec):
     """gemma3-4b at full width, 2 layers (local with window 1024, global),
-    f32, B x S next-token batches (S past the window and ragged against
-    every tile): loss and every gradient leaf of one batch, then
-    ``n_steps`` train steps, on cuda and on cpu from the same parameters
-    and batches (PATH_REL_TOL per leaf and per loss); on cuda the
-    gradients of the same batch twice, which must be equal bit for bit."""
-    import copy
-
-    from repro_torch.configs import default_run_config
-    from repro_torch.configs.base import ShapeConfig
-    from repro_torch.core.accum import accumulate_grads
-    from repro_torch.kernels import ops
-    from repro_torch.models.model import build_model
-    from repro_torch.train.optimizer import AdamWConfig
-    from repro_torch.train.train_step import init_state, loss_for, make_train_step
-
-    cfg = gemma_cfg(2)
-    run = default_run_config(cfg, ShapeConfig("gemma_train_path", S, B, "train"))
-    opt = AdamWConfig(lr=1e-4, warmup_steps=2, total_steps=n_steps)
-    model_cpu = build_model(cfg, seed=0, device="cpu")
-    batches = lm_batches(torch, cfg.vocab_size, n_steps + 1, B, S, seed=1)
-    res = {}
-    for dev in ("cpu", "cuda"):
-        t0 = time.perf_counter()
-        model = copy.deepcopy(model_cpu).to(dev)
-        state = init_state(model, run, seed=None)
-        on = lambda b: {k: v.to(dev) for k, v in b.items()}
-        grad = lambda: accumulate_grads(lambda p, b: loss_for(model, p, b, run=run),
-                                        state["params"], on(batches[0]), 1)
-        ops.reset_launch_counts()
-        loss, grads, _ = grad()
-        grads = {k: g.detach().cpu().clone() for k, g in grads.items()}
-        if dev == "cuda":
-            _, again, _ = grad()
-            unequal = [k for k, g in again.items() if not torch.equal(g.cpu(), grads[k])]
-            if unequal:
-                fail(f"gemma_train_path: the same gradients twice differ in {unequal}")
-            del again
-        step = make_train_step(model, run, opt)
-        losses = [step(state, on(b))[1]["loss"].item() for b in batches[1:]]
-        res[dev] = (loss.item(), grads, losses, dict(ops.launch_counts))
-        log(f"gemma_train_path {dev}: loss {loss.item():.6f}, steps {losses}, "
-            f"launches {res[dev][3]}, {time.perf_counter() - t0:.1f}s")
-        del model, state, step
-    n_fb = 2 + n_steps
-    want = {k: v * n_fb for k, v in lm_launches_per_step(cfg, B, S).items()}
-    if res["cpu"][3] or res["cuda"][3] != want:
-        fail(f"gemma_train_path: cuda launches {res['cuda'][3]} (expected {want}), "
-             f"cpu launches {res['cpu'][3]}")
-    rel = lambda a, b: abs(a - b) / abs(b)
-    errs = {"loss": rel(res["cuda"][0], res["cpu"][0]),
-            "steps": max(rel(a, b) for a, b in zip(res["cuda"][2], res["cpu"][2]))}
-    gc, gp = res["cuda"][1], res["cpu"][1]
-    leaf = {k: ((gc[k] - gp[k]).abs().max() / gp[k].abs().max()).item() for k in gp}
-    errs["grad_leaf"] = max(leaf.values())
-    worst = max(leaf, key=leaf.get)
-    log(f"gemma_train_path: relative errors {errs} (tol {PATH_REL_TOL}); worst leaf {worst}")
-    if not all(v <= PATH_REL_TOL for v in errs.values()) \
-            or not all(math.isfinite(x) for x in res["cuda"][2]):
-        fail(f"gemma_train_path: cuda and cpu differ: {errs}, worst leaf {worst} {leaf[worst]}")
-    rec["gemma_train_path"] = {"rel_err": errs, "worst_leaf": worst, "grad_leaf_rel": leaf,
-                               "losses_cuda": res["cuda"][2], "losses_cpu": res["cpu"][2],
-                               "launches": res["cuda"][3], "repeat_bit_equal": True}
+    B 2 x S 1100 (past the window and ragged against every tile), one
+    step: ``check_lm_train_path``.  The cpu side's forward and backward
+    costs about 16 s a thousand tokens on the card machine's 8 cores,
+    nearly all of it the tied unembedding at vocab 262144 (B 2 x S 1500
+    with 5 steps took 343 s: PERF.md, PR 22), hence S 1100 and one step."""
+    check_lm_train_path(torch, rec, "gemma_train_path", gemma_cfg(2), train_launches_per_step,
+                        B=2, S=1100, n_steps=1)
 
 
 def run_gemma_train(torch, rec, B=4, S=2048, n_functions=400, steps=20):
@@ -1989,7 +1939,7 @@ def run_gemma_train(torch, rec, B=4, S=2048, n_functions=400, steps=20):
                         sharding="ddp", param_dtype=dtype, activation_dtype=dtype,
                         microbatch=micro if micro > 1 else 0)
         opt = AdamWConfig(lr=lr, warmup_steps=5, total_steps=steps)
-        want = lm_launches_per_step(cfg, B, S, micro)
+        want = train_launches_per_step(cfg, B, S, micro)
         model = build_model(cfg, seed=0, device="cuda")
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launch_counts()
@@ -2885,8 +2835,13 @@ def time_gemma_kernels(torch, checked, gen, iters=5, reps=3):
         ms, call_ms = time_ms(torch, run, iters, reps)
         plain_ms, _ = time_ms(torch, lambda: ref.flash_attention_ref(
             q, k, v, causal=True, window=window), iters, reps)
-        lib_ms, _ = time_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, is_causal=mask is None, enable_gqa=True), iters, reps)
+        lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                     is_causal=mask is None, enable_gqa=True)
+        try:
+            lib_ms, _ = time_ms(torch, lib, iters, reps)
+        except RuntimeError as e:   # a torch whose masked SDPA a graph refuses: eager
+            log(f"time flash {what}: SDPA not captured in a graph ({e}); timed eager")
+            lib_ms = eager_ms(torch, lib, iters)
         b = flash_bound(q, k, True, lse=lse, window=window)
         row = {"shape": list(q.shape) + [k.shape[2]], "dtype": str(q.dtype).split(".")[1],
                "window": window, "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
@@ -3244,6 +3199,7 @@ def summary(rec):
     tkeys = ("step_time_p50_ms", "tokens_per_s", "mfu", "first_loss", "last_loss",
              "launches_per_step")
     return {"build_s": rec.get("build_s"), "seconds": rec.get("seconds"),
+            "phase_s": rec.get("phase_s"),
             "serve": {k: sv.get(k) for k in keys},
             "tick_device_busy_ms": prof.get("device_busy_ms"),
             "tick_repo_kernels_ms": prof.get("ms_per_tick_by_class", {}).get("repo kernels"),
@@ -3380,7 +3336,8 @@ def main():
                 run_against(torch, rec, ph, steps[ph], against_libs)
             else:
                 steps[ph](torch, rec)
-            log(f"phase {ph}: {time.perf_counter() - t0:.1f}s")
+            rec.setdefault("phase_s", {})[ph] = time.perf_counter() - t0
+            log(f"phase {ph}: {rec['phase_s'][ph]:.1f}s")
     rec["seconds"] = time.perf_counter() - t_all
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(rec, indent=1))

@@ -60,7 +60,15 @@
 // anywhere (their lse is +inf).  Epilogues scale, round to bf16, write
 // into the warpgroup's own input rows of shared memory and store by TMA,
 // which drops rows past S.  dq fits two blocks an SM at D 64; dkdv holds
-// dK and dV (64 x D f32 each per warpgroup) and runs one.
+// dK and dV (64 x D f32 each per warpgroup) and runs one.  D 256 (gemma3,
+// `Shape<256, 1>`): one warpgroup a block, 32-key dq stages (dQ alone is
+// 128 f32 registers a thread) and 32-row dkdv stages, and dkdv splits dK
+// and dV into two halves of 128 columns, a block each (NH): both halves
+// recompute S^T and dP^T over the whole head dim, so dkdv does 1.5x the
+// products of one pass, in 176 registers instead of 300.  A sliding
+// window: dq visits only the key tiles that meet (q - W, q], dkdv only
+// the q tiles that meet [k, k + W); tiles across the window's edge take
+// the masked variant.  f32 at D 256 runs the CUDA-core body below.
 //
 // f32 body (`dq_f32_wgmma_kernel`, `dkdv_f32_wgmma_kernel`: the exactness
 // path, the train CLI's dtype): the same two passes (`dq_body`,
@@ -142,24 +150,38 @@ constexpr float LOG2E = 1.4426950408889634f;
 // Shapes of the bodies whose operands are NP bf16 pieces (1: bf16 inputs;
 // 3: f32 inputs, see hopper.cuh).  WG: consumer warpgroups of a block (64
 // q rows in dq, 64 keys in dkdv, each); DQ_BK: keys of a dq stage; QT: q
-// rows of a dkdv stage; DQ_BLOCKS: dq blocks an SM (launch bounds).
+// rows of a dkdv stage; DQ_BLOCKS: dq blocks an SM (launch bounds); NH:
+// the parts of the head dim that dkdv splits dK and dV into, a block each
+// (each recomputes S^T and dP^T over the whole head dim).
 template <int D, int NP>
 struct Shape;
 template <>
 struct Shape<64, 1> {
-  static constexpr int WG = 2, DQ_BK = 64, DQ_STAGES = 3, DQ_BLOCKS = 2, QT = 64, KV_STAGES = 3;
+  static constexpr int WG = 2, DQ_BK = 64, DQ_STAGES = 3, DQ_BLOCKS = 2, QT = 64, KV_STAGES = 3,
+                       NH = 1;
 };
 template <>
 struct Shape<128, 1> {
-  static constexpr int WG = 2, DQ_BK = 64, DQ_STAGES = 2, DQ_BLOCKS = 1, QT = 64, KV_STAGES = 3;
+  static constexpr int WG = 2, DQ_BK = 64, DQ_STAGES = 2, DQ_BLOCKS = 1, QT = 64, KV_STAGES = 3,
+                       NH = 1;
+};
+// D 256: dQ alone is 128 f32 registers a thread, and dK and dV of 64 keys
+// x 256 would be 256, so one warpgroup, 32-row tiles, and dK and dV in
+// two halves of 128 columns
+template <>
+struct Shape<256, 1> {
+  static constexpr int WG = 1, DQ_BK = 32, DQ_STAGES = 2, DQ_BLOCKS = 1, QT = 32, KV_STAGES = 3,
+                       NH = 2;
 };
 template <>
 struct Shape<64, 3> {
-  static constexpr int WG = 2, DQ_BK = 64, DQ_STAGES = 2, DQ_BLOCKS = 1, QT = 64, KV_STAGES = 2;
+  static constexpr int WG = 2, DQ_BK = 64, DQ_STAGES = 2, DQ_BLOCKS = 1, QT = 64, KV_STAGES = 2,
+                       NH = 1;
 };
 template <>
 struct Shape<128, 3> {  // one warpgroup: the resident pieces of two would need 288 KB
-  static constexpr int WG = 1, DQ_BK = 32, DQ_STAGES = 2, DQ_BLOCKS = 1, QT = 32, KV_STAGES = 2;
+  static constexpr int WG = 1, DQ_BK = 32, DQ_STAGES = 2, DQ_BLOCKS = 1, QT = 32, KV_STAGES = 2,
+                       NH = 1;
 };
 
 // dq: Q, dO (and with bf16 inputs O) of the block's rows as (warpgroup,
@@ -286,13 +308,15 @@ __device__ __forceinline__ void acc_to_f32(float* out, const float (&acc)[D / 2]
   }
 }
 
-// the D/64 boxes at `box` to rows row .. row + 63 of head h of a map;
-// after every thread of the warpgroup wrote its part (call from one thread)
+// NB boxes at `box` to rows row .. row + 63 of head h of a map, from
+// column col0; after every thread of the warpgroup wrote its part (call
+// from one thread)
 template <int NB>
 __device__ __forceinline__ void store_boxes(const CUtensorMap* map, const uint8_t* box, int h,
-                                            int row, int b) {
+                                            int row, int b, int col0 = 0) {
 #pragma unroll
-  for (int x = 0; x < NB; ++x) hopper::tma_store_4d(map, box + x * BOX_BYTES, x * BOX, h, row, b);
+  for (int x = 0; x < NB; ++x)
+    hopper::tma_store_4d(map, box + x * BOX_BYTES, col0 + x * BOX, h, row, b);
   hopper::tma_store_commit();
   hopper::tma_store_wait();
 }
@@ -563,6 +587,8 @@ __device__ __forceinline__ void dkdv_body(const CUtensorMap& tq, const CUtensorM
   using L = KvSmem<D, NP>;
   constexpr int NB = L::NB, STAGES = L::STAGES, WG = L::WG, QT = L::QT, QB = L::QB;
   constexpr int KEYS = WG * TILE, NPAIR = hopper::n_pairs(NP);
+  constexpr int NH = Shape<D, NP>::NH, DH = D / NH;  // this block's columns of dK and dV
+  static_assert(NP == 1 || NH == 1, "the f32 epilogue stores whole rows");
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = align_1024(smem_raw);
   uint64_t* kv_full = reinterpret_cast<uint64_t*>(sm + L::BAR);
@@ -576,15 +602,16 @@ __device__ __forceinline__ void dkdv_body(const CUtensorMap& tq, const CUtensorM
   // Block order: causal, the key tiles that the most q tiles see first;
   // otherwise a kv head's key tiles together (its q and dO from L2)
   const int nk = (S + KEYS - 1) / KEYS;
+  const int part = blockIdx.x % NH, bid = blockIdx.x / NH;  // columns part * DH ..
   int kt, hk, b;
   if (CAUSAL) {
-    hk = blockIdx.x % p.Hkv;
-    b = blockIdx.x / p.Hkv % p.B;
-    kt = blockIdx.x / (p.Hkv * p.B);
+    hk = bid % p.Hkv;
+    b = bid / p.Hkv % p.B;
+    kt = bid / (p.Hkv * p.B);
   } else {
-    kt = blockIdx.x % nk;
-    hk = blockIdx.x / nk % p.Hkv;
-    b = blockIdx.x / (nk * p.Hkv);
+    kt = bid % nk;
+    hk = bid / nk % p.Hkv;
+    b = bid / (nk * p.Hkv);
   }
   const int k0 = kt * KEYS;
   const int rep = p.H / p.Hkv;
@@ -648,11 +675,12 @@ __device__ __forceinline__ void dkdv_body(const CUtensorMap& tq, const CUtensorM
   const uint32_t v_s = hopper::smem_addr(sm + L::V + wg * NP * NB * BOX_BYTES);
   const uint32_t q_s = hopper::smem_addr(sm + L::Q);
   const uint32_t do_s = hopper::smem_addr(sm + L::DO);
+  const uint32_t col = part * (DH / BOX) * QB;  // this block's columns of a q or dO tile
   const float scale2 = p.scale * LOG2E;
 
   // P^T and dS^T as A operands: bf16 inputs keep both (one commit for dV
   // and dK); on pieces `pa` holds P^T's and then dS^T's
-  float s[QT / 2], dp[QT / 2], dk[D / 2], dv[D / 2];
+  float s[QT / 2], dp[QT / 2], dk[DH / 2], dv[DH / 2];
   uint32_t pa[NP][QT / 16][4], da[QT / 16][4];
 #pragma unroll
   for (int x = 0; x < D / 2; ++x) dk[x] = dv[x] = 0.f;
@@ -749,10 +777,10 @@ __device__ __forceinline__ void dkdv_body(const CUtensorMap& tq, const CUtensorM
         hopper::wgmma_fence();
 #pragma unroll
         for (int kc = 0; kc < QT / 16; ++kc)
-          hopper::wgmma_rs<D, 1>(dv, pa[0][kc], mnmajor<QT>(dost, kc), 1);
+          hopper::wgmma_rs<DH, 1>(dv, pa[0][kc], mnmajor<QT>(dost + col, kc), 1);
 #pragma unroll
         for (int kc = 0; kc < QT / 16; ++kc)
-          hopper::wgmma_rs<D, 1>(dk, da[kc], mnmajor<QT>(qst, kc), 1);
+          hopper::wgmma_rs<DH, 1>(dk, da[kc], mnmajor<QT>(qst + col, kc), 1);
         hopper::wgmma_commit();
       } else {  // dV and dK each through per-64-column partials (add_partial)
         hopper::wgmma_wait<0>();
@@ -767,7 +795,7 @@ __device__ __forceinline__ void dkdv_body(const CUtensorMap& tq, const CUtensorM
 #pragma unroll
             for (int pc = 0; pc < NP; ++pc) pa[pc][kc][e] = w[pc];
           }
-        add_partial<D, NP, QT>(dv, pa, dost, NB * QB, QB);
+        add_partial<DH, NP, QT>(dv, pa, dost + col, NB * QB, QB);
 #pragma unroll
         for (int kc = 0; kc < QT / 16; ++kc)
 #pragma unroll
@@ -777,7 +805,7 @@ __device__ __forceinline__ void dkdv_body(const CUtensorMap& tq, const CUtensorM
 #pragma unroll
             for (int pc = 0; pc < NP; ++pc) pa[pc][kc][e] = w[pc];
           }
-        add_partial<D, NP, QT>(dk, pa, qst, NB * QB, QB);
+        add_partial<DH, NP, QT>(dk, pa, qst + col, NB * QB, QB);
       }
       hopper::wgmma_wait<0>();
       fence_all();
@@ -794,13 +822,13 @@ __device__ __forceinline__ void dkdv_body(const CUtensorMap& tq, const CUtensorM
   const int kr0 = k0 + wg * TILE;
   if (kr0 >= S) return;  // the whole warpgroup lies past S
   if constexpr (NP == 1) {
-    acc_to_boxes<D>(sm + L::K + wg * NB * BOX_BYTES, dk, p.scale, rl0, g, t);
-    acc_to_boxes<D>(sm + L::V + wg * NB * BOX_BYTES, dv, 1.f, rl0, g, t);
+    acc_to_boxes<DH>(sm + L::K + wg * NB * BOX_BYTES, dk, p.scale, rl0, g, t);
+    acc_to_boxes<DH>(sm + L::V + wg * NB * BOX_BYTES, dv, 1.f, rl0, g, t);
     hopper::fence_proxy_async();
     hopper::named_barrier(1 + wg, 128);
     if (tid % 128 == 0) {
-      store_boxes<NB>(&tdk, sm + L::K + wg * NB * BOX_BYTES, hk, kr0, b);
-      store_boxes<NB>(&tdv, sm + L::V + wg * NB * BOX_BYTES, hk, kr0, b);
+      store_boxes<DH / BOX>(&tdk, sm + L::K + wg * NB * BOX_BYTES, hk, kr0, b, part * DH);
+      store_boxes<DH / BOX>(&tdv, sm + L::V + wg * NB * BOX_BYTES, hk, kr0, b, part * DH);
     }
   } else {
     acc_to_f32<D>(static_cast<float*>(p.dk), dk, p.scale, b, S, p.Hkv, hk, key0, t);
@@ -871,35 +899,28 @@ struct Operands {
 };
 
 // ---------------------------------------------------------------- D 256
-// The CUDA-core body of head dim 256 (gemma3), both dtypes: the same two
-// passes, every product in f32 arithmetic on the inputs' values, each sum
-// in a fixed order (no atomics: gradients repeat bit for bit).  A block
-// of SNT threads takes SR q rows (dq) or SR keys (dkdv) of one head and
-// streams tiles of ST keys (dq) or ST q rows (dkdv, over the rep heads of
-// its kv head) through shared memory as f32, rows padded to D + 1 floats
-// so that the threads of a warp read distinct banks.  Per tile each
-// thread forms two scores and their dP as D-long dot products, the block
-// writes P (dkdv) and dS to shared memory, and each thread adds D / 16
-// columns of its row's (or key's) gradients: each tile's terms into a
-// fresh f32 partial, added once a tile to an f64 total, so that a rounding
-// error grows with the tile's 32 terms, not with the thousands of keys or
-// rows (rep x S for dK and dV) the sum runs over.  The dot products, and
-// Delta = rowsum(dO O), accumulate in f64: dS = P (dP - Delta) subtracts
-// two numbers of size |dO| |V| ~ sqrt(D), and at D 256 the f32 rounding
-// of 256-term sums, carried into dK over 2 x 2048 rows, is of the order
-// of the 2e-5 gate itself (PERF.md, PR 22).  Masks are selects: no
-// tensor-core product waits here.  Only the tiles that meet the causal
-// and window ranges are visited.  The register and shared-memory budget
-// of wgmma bodies at D 256 (the dkdv accumulators alone would take 256
-// registers a thread) is the redesign ROADMAP queues.
+// The CUDA-core body of head dim 256 (gemma3) in f32, whose three bf16
+// pieces do not fit the wgmma bodies' shared memory (one warpgroup's
+// resident Q and dO pieces alone take 192 KB): the same two passes, in
+// f32 and f64 arithmetic on the f32 inputs, each sum in a fixed order (no
+// atomics: gradients repeat bit for bit).  A block of SNT threads takes
+// SR q rows (dq) or SR keys (dkdv) of one head and streams tiles of ST
+// keys (dq) or ST q rows (dkdv, over the rep heads of its kv head)
+// through shared memory, rows padded to D + 1 floats so that the threads
+// of a warp read distinct banks.  Per tile each thread forms two scores
+// and their dP as D-long dot products, the block writes P (dkdv) and dS
+// to shared memory, and each thread adds D / 16 columns of its row's (or
+// key's) gradients: each tile's terms into a fresh f32 partial, added
+// once a tile to an f64 total, so that a rounding error grows with the
+// tile's 32 terms, not with the thousands of keys or rows (rep x S for
+// dK and dV) the sum runs over.  The dot products, and Delta = rowsum(dO
+// O), accumulate in f64: dS = P (dP - Delta) subtracts two numbers of
+// size |dO| |V| ~ sqrt(D).  Masks are selects.  Only the tiles that meet
+// the causal and window ranges are visited.  Its redesign (pieces split
+// in shared memory, or on the bf16 body's halves) is queued in ROADMAP.
 constexpr int SR = 16;   // q rows (dq) or keys (dkdv) of a block
 constexpr int ST = 32;   // keys (dq) or q rows (dkdv) of a streamed tile
 constexpr int SNT = 256;
-
-__device__ __forceinline__ float ldf(const float* x) { return *x; }
-__device__ __forceinline__ float ldf(const __nv_bfloat16* x) { return __bfloat162float(*x); }
-__device__ __forceinline__ void stf(float* x, float v) { *x = v; }
-__device__ __forceinline__ void stf(__nv_bfloat16* x, float v) { *x = __float2bfloat16(v); }
 
 template <int D>
 constexpr int simt_smem_floats() {  // the larger of the two passes' layouts
@@ -908,14 +929,14 @@ constexpr int simt_smem_floats() {  // the larger of the two passes' layouts
 
 // rows r0 .. r0 + n - 1 of head h, batch b, of a (B, S, heads, D) tensor
 // into `dst` as f32, row stride D + 1; zeros past S
-template <typename T, int D>
+template <int D>
 __device__ __forceinline__ void rows_to_smem(float* dst, const void* src, long long sb,
                                              long long ss, long long sh, int b, int h, int r0,
                                              int n, int S) {
-  const T* base = static_cast<const T*>(src) + b * sb + h * sh;
+  const float* base = static_cast<const float*>(src) + b * sb + h * sh;
   for (int i = threadIdx.x; i < n * D; i += SNT) {
     const int r = i / D, d = i % D, row = r0 + r;
-    dst[r * (D + 1) + d] = row < S ? ldf(base + row * ss + d) : 0.f;
+    dst[r * (D + 1) + d] = row < S ? base[row * ss + d] : 0.f;
   }
 }
 
@@ -941,7 +962,7 @@ __device__ __forceinline__ bool hidden(const Params& p, int key, int row) {
 }
 
 // Pass 1 at D 256: dQ, and each row's Delta and lse * log2(e) for pass 2.
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(SNT) dq_simt_kernel(Params p) {
   constexpr int LD = D + 1, NC = D / 16;
   extern __shared__ float fsm[];
@@ -954,8 +975,8 @@ __global__ void __launch_bounds__(SNT) dq_simt_kernel(Params p) {
   float* dl = lse2 + SR;         // [SR]
   const int q0 = blockIdx.x * SR, h = blockIdx.y, b = blockIdx.z, S = p.S;
   const int hk = h / (p.H / p.Hkv), tid = threadIdx.x;
-  rows_to_smem<T, D>(qs, p.q, p.q_sb, p.q_ss, p.q_sh, b, h, q0, SR, S);
-  rows_to_smem<T, D>(dos, p.dout, p.do_sb, p.do_ss, p.do_sh, b, h, q0, SR, S);
+  rows_to_smem<D>(qs, p.q, p.q_sb, p.q_ss, p.q_sh, b, h, q0, SR, S);
+  rows_to_smem<D>(dos, p.dout, p.do_sb, p.do_ss, p.do_sh, b, h, q0, SR, S);
   __syncthreads();
   // Delta = rowsum(dO O) and lse * log2(e) (past S: 0 and +inf); a warp a row
   const int warp = tid / 32, lane = tid % 32, n_st = (S + TILE - 1) / TILE;
@@ -963,9 +984,9 @@ __global__ void __launch_bounds__(SNT) dq_simt_kernel(Params p) {
     const int row = q0 + r;
     double acc = 0.0;
     if (row < S) {
-      const T* o = static_cast<const T*>(p.o) + b * p.o_sb + row * p.o_ss + h * p.o_sh;
+      const float* o = static_cast<const float*>(p.o) + b * p.o_sb + row * p.o_ss + h * p.o_sh;
       for (int d = lane; d < D; d += 32)
-        acc = fma(static_cast<double>(ldf(o + d)), static_cast<double>(dos[r * LD + d]), acc);
+        acc = fma(static_cast<double>(o[d]), static_cast<double>(dos[r * LD + d]), acc);
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
@@ -990,8 +1011,8 @@ __global__ void __launch_bounds__(SNT) dq_simt_kernel(Params p) {
   for (int j = 0; j < NC; ++j) acc[j] = 0.0;
   for (int k0 = k_lo / ST * ST; k0 <= k_hi; k0 += ST) {
     __syncthreads();  // the previous tile's K, V and dS are consumed
-    rows_to_smem<T, D>(ks, p.k, p.k_sb, p.k_ss, p.k_sh, b, hk, k0, ST, S);
-    rows_to_smem<T, D>(vs, p.v, p.v_sb, p.v_ss, p.v_sh, b, hk, k0, ST, S);
+    rows_to_smem<D>(ks, p.k, p.k_sb, p.k_ss, p.k_sh, b, hk, k0, ST, S);
+    rows_to_smem<D>(vs, p.v, p.v_sb, p.v_ss, p.v_sh, b, hk, k0, ST, S);
     __syncthreads();
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
@@ -1016,14 +1037,14 @@ __global__ void __launch_bounds__(SNT) dq_simt_kernel(Params p) {
     for (int j = 0; j < NC; ++j) acc[j] += part[j];
   }
   if (row < S) {
-    T* dst = static_cast<T*>(p.dq) + ((static_cast<long long>(b) * S + row) * p.H + h) * D;
+    float* dst = static_cast<float*>(p.dq) + ((static_cast<long long>(b) * S + row) * p.H + h) * D;
 #pragma unroll
-    for (int j = 0; j < NC; ++j) stf(dst + sk + 16 * j, static_cast<float>(acc[j] * p.scale));
+    for (int j = 0; j < NC; ++j) dst[sk + 16 * j] = static_cast<float>(acc[j] * p.scale);
   }
 }
 
 // Pass 2 at D 256: dK and dV, reading the lse and Delta that pass 1 wrote.
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(SNT) dkdv_simt_kernel(Params p) {
   constexpr int LD = D + 1, NC = D / 16;
   extern __shared__ float fsm[];
@@ -1037,8 +1058,8 @@ __global__ void __launch_bounds__(SNT) dkdv_simt_kernel(Params p) {
   float* dl = lse2 + ST;         // [ST]
   const int k0 = blockIdx.x * SR, hk = blockIdx.y, b = blockIdx.z, S = p.S;
   const int rep = p.H / p.Hkv, tid = threadIdx.x, n_st = (S + TILE - 1) / TILE;
-  rows_to_smem<T, D>(ks, p.k, p.k_sb, p.k_ss, p.k_sh, b, hk, k0, SR, S);
-  rows_to_smem<T, D>(vs, p.v, p.v_sb, p.v_ss, p.v_sh, b, hk, k0, SR, S);
+  rows_to_smem<D>(ks, p.k, p.k_sb, p.k_ss, p.k_sh, b, hk, k0, SR, S);
+  rows_to_smem<D>(vs, p.v, p.v_sb, p.v_ss, p.v_sh, b, hk, k0, SR, S);
   // the rows that see a key of the block: [k0 (causal), last key + W - 1]
   const int r_lo = p.causal ? k0 : 0;
   const int r_hi = p.window > 0 ? min(S - 1, min(k0 + SR, S) - 2 + p.window) : S - 1;
@@ -1051,8 +1072,8 @@ __global__ void __launch_bounds__(SNT) dkdv_simt_kernel(Params p) {
     const int h = hk * rep + hh;
     for (int r0 = r_lo / ST * ST; r0 <= r_hi; r0 += ST) {
       __syncthreads();  // the previous tile's q, dO, P^T and dS^T are consumed
-      rows_to_smem<T, D>(qs, p.q, p.q_sb, p.q_ss, p.q_sh, b, h, r0, ST, S);
-      rows_to_smem<T, D>(dos, p.dout, p.do_sb, p.do_ss, p.do_sh, b, h, r0, ST, S);
+      rows_to_smem<D>(qs, p.q, p.q_sb, p.q_ss, p.q_sh, b, h, r0, ST, S);
+      rows_to_smem<D>(dos, p.dout, p.do_sb, p.do_ss, p.do_sh, b, h, r0, ST, S);
       if (tid < ST) {
         const int row = r0 + tid;
         const float* stat =
@@ -1093,26 +1114,26 @@ __global__ void __launch_bounds__(SNT) dkdv_simt_kernel(Params p) {
   }
   if (key < S) {
     const long long off = ((static_cast<long long>(b) * S + key) * p.Hkv + hk) * D;
-    T* dkp = static_cast<T*>(p.dk) + off;
-    T* dvp = static_cast<T*>(p.dv) + off;
+    float* dkp = static_cast<float*>(p.dk) + off;
+    float* dvp = static_cast<float*>(p.dv) + off;
 #pragma unroll
     for (int j = 0; j < NC; ++j) {
-      stf(dkp + sr + 16 * j, static_cast<float>(dk[j] * p.scale));
-      stf(dvp + sr + 16 * j, static_cast<float>(dv[j]));
+      dkp[sr + 16 * j] = static_cast<float>(dk[j] * p.scale);
+      dvp[sr + 16 * j] = static_cast<float>(dv[j]);
     }
   }
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch_simt(const Params& p, cudaStream_t st) {
   constexpr int smem = simt_smem_floats<D>() * 4;
   static bool dq_ok = false, dkdv_ok = false;
   cudaError_t e;
-  if ((e = set_smem(dq_simt_kernel<T, D>, smem, &dq_ok)) != cudaSuccess) return e;
-  if ((e = set_smem(dkdv_simt_kernel<T, D>, smem, &dkdv_ok)) != cudaSuccess) return e;
-  dq_simt_kernel<T, D><<<dim3((p.S + SR - 1) / SR, p.H, p.B), SNT, smem, st>>>(p);
+  if ((e = set_smem(dq_simt_kernel<D>, smem, &dq_ok)) != cudaSuccess) return e;
+  if ((e = set_smem(dkdv_simt_kernel<D>, smem, &dkdv_ok)) != cudaSuccess) return e;
+  dq_simt_kernel<D><<<dim3((p.S + SR - 1) / SR, p.H, p.B), SNT, smem, st>>>(p);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  dkdv_simt_kernel<T, D><<<dim3((p.S + SR - 1) / SR, p.Hkv, p.B), SNT, smem, st>>>(p);
+  dkdv_simt_kernel<D><<<dim3((p.S + SR - 1) / SR, p.Hkv, p.B), SNT, smem, st>>>(p);
   return cudaGetLastError();
 }
 
@@ -1151,8 +1172,8 @@ cudaError_t launch(const Params& p, const Operands& x, cudaStream_t st) {
   const unsigned n2 = (p.S + T::WG * TILE - 1) / (T::WG * TILE);
   dq<<<n2 * p.H * p.B, T::WG * 128, DqSmem<D, NP>::BYTES, st>>>(tq, tdo, to, tk, tv, tdq, p);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  dkdv<<<n2 * p.Hkv * p.B, T::WG * 128, KvSmem<D, NP>::BYTES, st>>>(tq2, tdo2, tk2, tv2, tdk, tdv,
-                                                                      p);
+  dkdv<<<n2 * p.Hkv * p.B * T::NH, T::WG * 128, KvSmem<D, NP>::BYTES, st>>>(
+      tq2, tdo2, tk2, tv2, tdk, tdv, p);
   return cudaGetLastError();
 }
 
@@ -1168,31 +1189,36 @@ cudaError_t launch_d(const Params& p, int dtype, void* pieces, cudaStream_t st) 
                                    {{p.q_sb, p.q_ss, p.q_sh}, {p.k_sb, p.k_ss, p.k_sh},
                                     {p.v_sb, p.v_ss, p.v_sh}, {p.o_sb, p.o_ss, p.o_sh},
                                     {p.do_sb, p.do_ss, p.do_sh}}}, st);
-  if (dtype != 0 || pieces == nullptr) return cudaErrorInvalidValue;
-  // f32: q, k, v and dO into their pieces, one (3, B, S, heads, D) bf16
-  // tensor each, one after the other in the caller's scratch; Delta reads
-  // the f32 O and dO
-  const long long rq = static_cast<long long>(p.S) * p.H * D;
-  const long long rk = static_cast<long long>(p.S) * p.Hkv * D;
-  __nv_bfloat16* pq = static_cast<__nv_bfloat16*>(pieces);
-  __nv_bfloat16* pk = pq + 3 * p.B * rq;
-  __nv_bfloat16* pv = pk + 3 * p.B * rk;
-  __nv_bfloat16* pdo = pv + 3 * p.B * rk;
-  const hopper::SplitArgs a{
-      {static_cast<const float*>(p.q), static_cast<const float*>(p.k),
-       static_cast<const float*>(p.v), static_cast<const float*>(p.dout)},
-      {pq, pk, pv, pdo},
-      {p.q_sb, p.k_sb, p.v_sb, p.do_sb},
-      {p.q_ss, p.k_ss, p.v_ss, p.do_ss},
-      {p.q_sh, p.k_sh, p.v_sh, p.do_sh},
-      {p.H, p.Hkv, p.Hkv, p.H}};
-  cudaError_t e = hopper::split3(a, 4, p.B, p.S, D, st);
-  if (e != cudaSuccess) return e;
-  const long long sq[3] = {rq, static_cast<long long>(p.H) * D, D};
-  const long long sk[3] = {rk, static_cast<long long>(p.Hkv) * D, D};
-  return launch_causal<D, 3>(p, {{pq, pk, pv, nullptr, pdo},
-                                 {{sq[0], sq[1], sq[2]}, {sk[0], sk[1], sk[2]},
-                                  {sk[0], sk[1], sk[2]}, {0, 0, 0}, {sq[0], sq[1], sq[2]}}}, st);
+  if (dtype != 0) return cudaErrorInvalidValue;
+  if constexpr (D == 256) {  // f32: the CUDA-core body
+    return launch_simt<D>(p, st);
+  } else {
+    if (pieces == nullptr) return cudaErrorInvalidValue;
+    // f32: q, k, v and dO into their pieces, one (3, B, S, heads, D) bf16
+    // tensor each, one after the other in the caller's scratch; Delta reads
+    // the f32 O and dO
+    const long long rq = static_cast<long long>(p.S) * p.H * D;
+    const long long rk = static_cast<long long>(p.S) * p.Hkv * D;
+    __nv_bfloat16* pq = static_cast<__nv_bfloat16*>(pieces);
+    __nv_bfloat16* pk = pq + 3 * p.B * rq;
+    __nv_bfloat16* pv = pk + 3 * p.B * rk;
+    __nv_bfloat16* pdo = pv + 3 * p.B * rk;
+    const hopper::SplitArgs a{
+        {static_cast<const float*>(p.q), static_cast<const float*>(p.k),
+         static_cast<const float*>(p.v), static_cast<const float*>(p.dout)},
+        {pq, pk, pv, pdo},
+        {p.q_sb, p.k_sb, p.v_sb, p.do_sb},
+        {p.q_ss, p.k_ss, p.v_ss, p.do_ss},
+        {p.q_sh, p.k_sh, p.v_sh, p.do_sh},
+        {p.H, p.Hkv, p.Hkv, p.H}};
+    cudaError_t e = hopper::split3(a, 4, p.B, p.S, D, st);
+    if (e != cudaSuccess) return e;
+    const long long sq[3] = {rq, static_cast<long long>(p.H) * D, D};
+    const long long sk[3] = {rk, static_cast<long long>(p.Hkv) * D, D};
+    return launch_causal<D, 3>(p, {{pq, pk, pv, nullptr, pdo},
+                                   {{sq[0], sq[1], sq[2]}, {sk[0], sk[1], sk[2]},
+                                    {sk[0], sk[1], sk[2]}, {0, 0, 0}, {sq[0], sq[1], sq[2]}}}, st);
+  }
 }
 
 }  // namespace
@@ -1224,7 +1250,6 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
   if (B <= 0 || S <= 0) return 0;
   if (D == 64) return static_cast<int>(launch_d<64>(p, dtype, pieces, st));
   if (D == 128) return static_cast<int>(launch_d<128>(p, dtype, pieces, st));
-  if (D == 256 && dtype == 0) return static_cast<int>(launch_simt<float, 256>(p, st));
-  if (D == 256 && dtype == 1) return static_cast<int>(launch_simt<__nv_bfloat16, 256>(p, st));
+  if (D == 256) return static_cast<int>(launch_d<256>(p, dtype, pieces, st));
   return static_cast<int>(cudaErrorInvalidValue);
 }

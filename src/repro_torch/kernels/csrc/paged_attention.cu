@@ -528,6 +528,15 @@ cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
 
 template <typename T, int D>
 cudaError_t by_rep(const Params& p, int rep, int B, cudaStream_t st) {
+  if constexpr (D == 256) {  // gemma3's rep is 2; at rep 12 and 16 a thread would spill 5 KB
+    switch (rep) {
+      case 1: return launch<T, D, 1>(p, B, st);
+      case 2: return launch<T, D, 2>(p, B, st);
+      case 4: return launch<T, D, 4>(p, B, st);
+      case 8: return launch<T, D, 8>(p, B, st);
+      default: return cudaErrorInvalidValue;
+    }
+  }
   switch (rep) {
     case 1: return launch<T, D, 1>(p, B, st);
     case 2: return launch<T, D, 2>(p, B, st);

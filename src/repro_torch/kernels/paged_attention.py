@@ -19,6 +19,7 @@ from repro_torch.kernels import _build
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128, 256)
 REPS = (1, 2, 3, 4, 6, 8, 12, 16)     # H / Hkv the CUDA-core body is built for
+REPS_256 = (1, 2, 4, 8)               # ... at head dim 256
 PAGES_PER_SPLIT = 8                   # pages one block of the CUDA-core body reads
 SPLIT_KEYS = 64                       # keys one block of the wgmma body reads (the .cu's)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -75,9 +76,10 @@ def _check(q, k_pages, v_pages, block_tables, seq_lens, window):
     B, H, D = q.shape
     _, P, Hkv, _ = k_pages.shape
     wgmma = H % Hkv == 0 and wgmma_body(q.dtype, D, P, H // Hkv)
-    if k_pages.shape[3] != D or H % Hkv or not (wgmma or H // Hkv in REPS):
+    reps = REPS_256 if D == 256 else REPS
+    if k_pages.shape[3] != D or H % Hkv or not (wgmma or H // Hkv in reps):
         raise ValueError(f"paged_attention kernel: H={H}, Hkv={Hkv}, D={D} "
-                         f"vs pool D={k_pages.shape[3]}; H/Hkv must be in {REPS}, "
+                         f"vs pool D={k_pages.shape[3]}; H/Hkv must be in {reps}, "
                          "or 1 to 16 for bf16 at the wgmma body's pages")
     if D not in HEAD_DIMS:
         raise ValueError(f"paged_attention kernel: head_dim {D} not in {HEAD_DIMS}")
