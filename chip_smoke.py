@@ -26,7 +26,9 @@ Phases (any failure exits non-zero before the last line):
               decode tick's, the training step's and the SSM prefill's
               shapes
   faults      planted faults: builds copies of the kernels with one known
-              bug each and checks that the kernel gate fails them
+              bug each and checks that the kernel gate fails them (runs
+              after ddp; the builds start with the build phase at the
+              lowest CPU priority)
   path        starcoder2-3b at full width, depth cut to 2 layers, f32: the
               paged engine on cuda and on cpu (plain versions) must agree on
               prefill and decode logits and give the same greedy tokens
@@ -62,7 +64,7 @@ Phases (any failure exits non-zero before the last line):
               on the loss, every gradient leaf and 5 steps; the same
               gradients computed twice on the card are equal bit for bit
   gemma_train_path
-              gemma3-4b at full width, 2 layers (local, global), f32, B 2 x
+              gemma3-4b at full width, 2 layers (local, global), f32, B 1 x
               S 1100, one step: as ssm_train_path (the windowed flash
               backward at head dim 256)
   train_cli   bert-mlm-120m at full width and depth, f32 (the launcher's
@@ -153,10 +155,12 @@ ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "chiprun_out"
 # ssm_train_path runs before train_cli: launch.train.main leaves the process
 # one intra-op thread (its bit-exact resume needs it), which would slow the
-# full-width CPU reference of ssm_train_path 3.5x
-PHASES = ("build", "kernels", "faults", "path", "serve", "gemma_path", "gemma_serve", "ssm_path",
+# full-width CPU reference of ssm_train_path 3.5x.  faults runs late: its
+# builds, started at the lowest CPU priority beside the build phase, take
+# the cores the phases between leave idle
+PHASES = ("build", "kernels", "path", "serve", "gemma_path", "gemma_serve", "ssm_path",
           "ssm_serve", "train_path", "train", "ssm_train_path", "gemma_train_path", "train_cli",
-          "ssm_train", "gemma_train", "ddp_path", "ddp", "time")
+          "ssm_train", "gemma_train", "ddp_path", "ddp", "faults", "time")
 AGAINST_PHASES = ("serve", "ssm_serve", "train", "time")   # the phases --against runs again
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the bounds below use them
@@ -777,16 +781,20 @@ KERNELS = ("flash_attention", "flash_attention_bwd", "paged_attention", "fused_x
            "fused_xent_bwd", "ssd_scan", "ssd_scan_bwd")
 
 
-def _start_nvcc(src, lib):
+def _start_nvcc(src, lib, nice=False):
+    """nvcc for ``src`` into ``lib``; ``nice``: at the lowest CPU priority."""
     from repro_torch.kernels import _build
 
-    return subprocess.Popen(_build.nvcc_command(src, lib), stdout=subprocess.PIPE,
+    return subprocess.Popen((["nice", "-n", "19"] if nice else []) + _build.nvcc_command(src, lib),
+                            stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
 
 
 def start_fault_builds():
     """Write the faulty sources under build/kernels/faults/ and start one
-    nvcc for each; returns {index in FAULTS: (process, library path)}."""
+    nvcc for each, at the lowest CPU priority (the phases before phase
+    faults keep the cores they need); returns {index in FAULTS: (process,
+    library path)}."""
     from repro_torch.kernels import _build
 
     d = _build.BUILD_DIR / "faults"
@@ -798,7 +806,7 @@ def start_fault_builds():
             fail(f"faults: {name}.cu does not hold {old!r} once; update FAULTS")
         src, lib = d / f"{name}-{i}.cu", d / f"lib{name}-{i}.so"
         src.write_text(text.replace(old, new))
-        procs[i] = (_start_nvcc(src, lib), lib)
+        procs[i] = (_start_nvcc(src, lib, nice=True), lib)
     return procs
 
 
@@ -1892,13 +1900,14 @@ def run_ssm_train(torch, rec, B=16, S=1024, n_functions=400):
 
 def check_gemma_train_path(torch, rec):
     """gemma3-4b at full width, 2 layers (local with window 1024, global),
-    B 2 x S 1100 (past the window and ragged against every tile), one
+    B 1 x S 1100 (past the window and ragged against every tile), one
     step: ``check_lm_train_path``.  The cpu side's forward and backward
     costs about 16 s a thousand tokens on the card machine's 8 cores,
     nearly all of it the tied unembedding at vocab 262144 (B 2 x S 1500
-    with 5 steps took 343 s: PERF.md, PR 22), hence S 1100 and one step."""
+    with 5 steps took 343 s: PERF.md, PR 22), hence 1100 tokens and one
+    step."""
     check_lm_train_path(torch, rec, "gemma_train_path", gemma_cfg(2), train_launches_per_step,
-                        B=2, S=1100, n_steps=1)
+                        B=1, S=1100, n_steps=1)
 
 
 def run_gemma_train(torch, rec, B=4, S=2048, n_functions=400, steps=20):
@@ -2666,7 +2675,7 @@ def window_mask(torch, S, window, device):
     return (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
 
 
-def time_flash_bwd(torch, checked, what, q, k, v, do, causal, window=None):
+def time_flash_bwd(torch, checked, what, q, k, v, do, causal, window=None, iters=20, reps=5):
     """The backward kernel at one shape against the gate, its bound, the
     plain version's autograd (eager) and SDPA's backward op: ``ms`` and
     ``library_ms`` by CUDA-graph replay, ``library_eager_ms`` SDPA's
@@ -2682,7 +2691,7 @@ def time_flash_bwd(torch, checked, what, q, k, v, do, causal, window=None):
     ratio = checked(f"flash_bwd {what}", flash_bwd_reading(torch, q, k, v, do, causal, window))
     o, lse = flash_attention_fwd(q, k, v, causal=causal, window=window, return_lse=True)
     run = lambda: flash_attention_bwd(q, k, v, o, lse, do, causal=causal, window=window)
-    ms, call_ms = time_ms(torch, run)
+    ms, call_ms = time_ms(torch, run, iters, reps)
     qr, kr, vr = (x.detach().requires_grad_(True) for x in (q, k, v))
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
     mask = None if window is None else window_mask(torch, q.shape[1], window, q.device)
@@ -2867,7 +2876,8 @@ def time_gemma_kernels(torch, checked, gen, iters=5, reps=3):
             what = f"gemma train {dname} window={window}"
             out["flash_train"].setdefault(dname, {})["window" if window else "global"] = {
                 "fwd": fwd_row(what, q, k, v, window, True),
-                "bwd": time_flash_bwd(torch, checked, what, q, k, v, do, True, window)}
+                "bwd": time_flash_bwd(torch, checked, what, q, k, v, do, True, window, iters,
+                                      reps)}
         del q, k, v, do
     # paged: the global layers' decode tick, 8 slots x ~2000 live tokens;
     # two disjoint table sets alternate, 67 MB of K/V each (L2: 50 MB)

@@ -578,8 +578,10 @@ __device__ __forceinline__ void dq_body(const CUtensorMap& tq, const CUtensorMap
 
 // Pass 2: dK and dV, reading the lse and Delta that pass 1 wrote.  The
 // maps read the operands' pieces; dK and dV are written through maps of
-// bf16 tensors (NP = 1).
-template <int D, int NP, bool CAUSAL>
+// bf16 tensors (NP = 1).  MASKED: the body holds the masked variant of a
+// tile (a causal diagonal, a window's edge); without either it holds the
+// unmasked one alone, as the encoder's kernel did before windows.
+template <int D, int NP, bool CAUSAL, bool MASKED>
 __device__ __forceinline__ void dkdv_body(const CUtensorMap& tq, const CUtensorMap& tdo,
                                           const CUtensorMap& tk, const CUtensorMap& tv,
                                           const CUtensorMap& tdk, const CUtensorMap& tdv,
@@ -813,10 +815,14 @@ __device__ __forceinline__ void dkdv_body(const CUtensorMap& tq, const CUtensorM
     };
     // causal: the q tiles that hold a row before one of the block's keys;
     // a window: those that hold a row W or more past one of them
-    if ((CAUSAL && k0 + KEYS - 1 > q0) || (p.window > 0 && k0 <= q0 + QT - 1 - p.window))
-      step(std::true_type{});
-    else
+    if constexpr (MASKED) {
+      if ((CAUSAL && k0 + KEYS - 1 > q0) || (p.window > 0 && k0 <= q0 + QT - 1 - p.window))
+        step(std::true_type{});
+      else
+        step(std::false_type{});
+    } else {
       step(std::false_type{});
+    }
   }
 
   const int kr0 = k0 + wg * TILE;
@@ -846,7 +852,7 @@ __global__ void __launch_bounds__(Shape<D, 1>::WG * 128, Shape<D, 1>::DQ_BLOCKS)
   dq_body<D, 1, CAUSAL>(tq, tdo, to, tk, tv, tdq, p);
 }
 
-template <int D, bool CAUSAL>
+template <int D, bool CAUSAL, bool MASKED>
 __global__ void __launch_bounds__(Shape<D, 1>::WG * 128, 1)
     dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tdo,
@@ -854,7 +860,7 @@ __global__ void __launch_bounds__(Shape<D, 1>::WG * 128, 1)
                       const __grid_constant__ CUtensorMap tv,
                       const __grid_constant__ CUtensorMap tdk,
                       const __grid_constant__ CUtensorMap tdv, Params p) {
-  dkdv_body<D, 1, CAUSAL>(tq, tdo, tk, tv, tdk, tdv, p);
+  dkdv_body<D, 1, CAUSAL, MASKED>(tq, tdo, tk, tv, tdk, tdv, p);
 }
 
 // f32 inputs (read as their three bf16 pieces) and gradients; `to`, `tdq`,
@@ -870,7 +876,7 @@ __global__ void __launch_bounds__(Shape<D, 3>::WG * 128, Shape<D, 3>::DQ_BLOCKS)
   dq_body<D, 3, CAUSAL>(tq, tdo, to, tk, tv, tdq, p);
 }
 
-template <int D, bool CAUSAL>
+template <int D, bool CAUSAL, bool MASKED>
 __global__ void __launch_bounds__(Shape<D, 3>::WG * 128, 1)
     dkdv_f32_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tdo,
@@ -878,7 +884,7 @@ __global__ void __launch_bounds__(Shape<D, 3>::WG * 128, 1)
                           const __grid_constant__ CUtensorMap tv,
                           const __grid_constant__ CUtensorMap tdk,
                           const __grid_constant__ CUtensorMap tdv, Params p) {
-  dkdv_body<D, 3, CAUSAL>(tq, tdo, tk, tv, tdk, tdv, p);
+  dkdv_body<D, 3, CAUSAL, MASKED>(tq, tdo, tk, tv, tdk, tdv, p);
 }
 
 // ------------------------------------------------------------------ launch
@@ -1140,16 +1146,23 @@ cudaError_t launch_simt(const Params& p, cudaStream_t st) {
 template <int D, int NP, bool CAUSAL>
 cudaError_t launch(const Params& p, const Operands& x, cudaStream_t st) {
   using T = Shape<D, NP>;
-  auto [dq, dkdv] = [] {
+  // dkdv's masked tile variant only where a causal diagonal or a window's
+  // edge needs it (the unmasked kernel alone runs the encoder's backward)
+  const bool masked = CAUSAL || p.window > 0;
+  auto [dq, dkdv] = [masked] {
     if constexpr (NP == 1)
-      return std::make_pair(dq_wgmma_kernel<D, CAUSAL>, dkdv_wgmma_kernel<D, CAUSAL>);
+      return std::make_pair(dq_wgmma_kernel<D, CAUSAL>,
+                            masked ? dkdv_wgmma_kernel<D, CAUSAL, true>
+                                   : dkdv_wgmma_kernel<D, CAUSAL, CAUSAL>);
     else
-      return std::make_pair(dq_f32_wgmma_kernel<D, CAUSAL>, dkdv_f32_wgmma_kernel<D, CAUSAL>);
+      return std::make_pair(dq_f32_wgmma_kernel<D, CAUSAL>,
+                            masked ? dkdv_f32_wgmma_kernel<D, CAUSAL, true>
+                                   : dkdv_f32_wgmma_kernel<D, CAUSAL, CAUSAL>);
   }();
-  static bool dq_ok = false, dkdv_ok = false;
+  static bool dq_ok = false, dkdv_ok[2] = {false, false};
   cudaError_t e;
   if ((e = set_smem(dq, DqSmem<D, NP>::BYTES, &dq_ok)) != cudaSuccess) return e;
-  if ((e = set_smem(dkdv, KvSmem<D, NP>::BYTES, &dkdv_ok)) != cudaSuccess) return e;
+  if ((e = set_smem(dkdv, KvSmem<D, NP>::BYTES, &dkdv_ok[masked])) != cudaSuccess) return e;
   auto map = [&](CUtensorMap* m, int i, int heads, int rows) {
     return hopper::bhsd_map(m, x.ptr[i], NP * p.B, p.S, heads, D, x.stride[i][0], x.stride[i][1],
                             x.stride[i][2], rows);
