@@ -18,8 +18,10 @@ Phases (any failure exits non-zero before the last line):
               pieces), the bf16 SSD body's product passes and the bf16
               paged body, at every head dim they take, must run on wgmma
               and TMA alone (SASS: HGMMA and UTMALDG, no HMMA; no ptxas
-              C7520); the flash backward's head-dim-256 body runs on the
-              CUDA cores by design (SIMT_FUNCTIONS) and is only logged
+              C7520), and the flash backward's wgmma bodies with a stack
+              frame of 0 bytes; the flash backward's f32 head-dim-256 body
+              runs on the CUDA cores by design (SIMT_FUNCTIONS) and is
+              only logged
   kernels     hold each kernel (forward and backward) against its plain
               PyTorch version (backward: the plain version's autograd) on
               the card, f32 and bf16, at the stated tolerances, up to the
@@ -309,6 +311,9 @@ PAGED_CASES = [  # (B, H, Hkv, D, P, NP, maxp, window, softcap, (pos lo, hi))
 # bert-mlm-120m's attention at the train phases' batch 32 x 512: the shape
 # the train and train_cli phases give the flash forward and backward
 BERT_ATTN = (32, 512, 12, 12, 64, False)
+# phase time's windowed flash backward below D 256, {head dim: window}:
+# bert's shape made causal at D 64, starcoder2-3b's GQA shape at D 128
+WINDOW_TIMED = {64: 128, 128: 200}
 
 # the backward kernel: (B, S, H, Hkv, D, causal[, window]); no softcap yet
 FLASH_BWD_CASES = [
@@ -456,24 +461,33 @@ def _plain_grads(torch, fn, inputs, grad):
     return out.detach(), torch.autograd.grad(out, xs, grad.float())
 
 
+def hidden_mask(torch, S, causal, window, device):
+    """The (query, key) pairs that attention hides, True where hidden, as
+    (S, S) bool: keys after the query when causal, and keys at or before
+    query - window with a window.  ``attn_pairs`` counts its complement."""
+    i = torch.arange(S, device=device)
+    hide = torch.zeros(S, S, dtype=torch.bool, device=device)
+    if causal:
+        hide |= i[None, :] > i[:, None]
+    if window is not None:
+        hide |= i[None, :] <= i[:, None] - window
+    return hide
+
+
 def _attention_grads64(torch, q, k, v, do, causal, window):
     """dq, dk, dv of the plain version's function (softmax attention,
     masked, scale D^-1/2) computed in f64 throughout, on the f32 inputs:
     the f32 backward gate's reference.  The plain version itself takes its
     scores in f32, and at head dim 256 and S 2048 its own f32 rounding
-    reaches 2.76e-5 (PERF.md, PR 22), above the 2e-5 bar; against this
-    reference the gate reads the kernel's error alone."""
+    exceeds the 2e-5 bar (phase time records it beside the kernel's as
+    ``plain_f32_err_vs_f64``; PERF.md §6); against this reference the
+    gate reads the kernel's error alone."""
     xs = [x.detach().double().requires_grad_(True) for x in (q, k, v)]
     S, rep = q.shape[1], q.shape[2] // k.shape[2]
     with torch.enable_grad():
         kr, vr = (x.repeat_interleave(rep, 2) for x in xs[1:])
         s = torch.einsum("bqhd,bkhd->bhqk", xs[0], kr) * q.shape[3]**-0.5
-        i = torch.arange(S, device=q.device)
-        hide = torch.zeros(S, S, dtype=torch.bool, device=q.device)
-        if causal:
-            hide |= i[None, :] > i[:, None]
-        if window is not None:
-            hide |= i[None, :] <= i[:, None] - window
+        hide = hidden_mask(torch, S, causal, window, q.device)
         p = torch.softmax(s.masked_fill(hide, -math.inf), -1)
         out = torch.einsum("bhqk,bkhd->bqhd", p, vr)
     return torch.autograd.grad(out, xs, do.double())
@@ -514,12 +528,7 @@ def flash_bwd_reading(torch, q, k, v, do, causal, window=None):
     qf, kf, vf, dof = (x.float().transpose(1, 2) for x in (q, k, v, do))   # (B,h,S,D)
     kf, vf = (x.repeat_interleave(rep_, dim=1) for x in (kf, vf))
     s = (qf @ kf.transpose(-1, -2)) * D**-0.5
-    i = torch.arange(S, device=q.device)
-    hide = torch.zeros(S, S, dtype=torch.bool, device=q.device)
-    if causal:
-        hide |= i[None, :] > i[:, None]
-    if window is not None:
-        hide |= i[None, :] <= i[:, None] - window
+    hide = hidden_mask(torch, S, causal, window, q.device)
     s = s.masked_fill(hide, ref.NEG_INF)
     del hide
     p = torch.softmax(s, dim=-1)                                  # (B,H,S,S)
@@ -903,6 +912,23 @@ WGMMA_FUNCTIONS = (("flash_attention", "flash_fwd_wgmma"), ("flash_attention_bwd
 SIMT_FUNCTIONS = (("flash_attention_bwd", "dq_simt"), ("flash_attention_bwd", "dkdv_simt"))
 
 
+# the sources whose wgmma bodies must keep every array in registers: ptxas
+# reports a stack frame of 0 bytes for each (the flash backward's dK and dV
+# accumulators at head dim 256 are 64 floats each a thread, sized by a
+# template; an array moved to local memory would show here)
+FRAMELESS_SOURCES = ("flash_attention_bwd",)
+
+
+def stack_frame_faults(ptxas):
+    """The functions of ``ptxas_report``'s report whose names hold "wgmma"
+    and whose stack frame is not 0 bytes."""
+    import re
+
+    return [f"{fn}: {line}" for fn, lines in ptxas.items() if "wgmma" in fn
+            for line in lines if (m := re.match(r"(\d+) bytes stack frame", line))
+            and int(m.group(1))]
+
+
 def wgmma_route_faults(sass, part):
     """What keeps the functions named by ``part`` in ``parse_sass``'s
     counts off the wgmma and TMA route: none found, or one without HGMMA
@@ -918,8 +944,9 @@ def wgmma_build_facts(rec):
     """The flash forward and backward (bf16 and f32), the bf16 SSD body and
     the bf16 paged body as built: ptxas's report (registers, spill bytes)
     and SASS counts of every instance of ``WGMMA_FUNCTIONS``.  Fails unless
-    each runs on HGMMA and UTMALDG with no HMMA, or if ptxas serialized a
-    wgmma (its warning C7520)."""
+    each runs on HGMMA and UTMALDG with no HMMA, if ptxas serialized a
+    wgmma (its warning C7520), or if a wgmma body of
+    ``FRAMELESS_SOURCES`` has a stack frame."""
     from repro_torch.kernels import _build
 
     facts, faults = {}, []
@@ -937,6 +964,8 @@ def wgmma_build_facts(rec):
                     log(f"{name} {k} (CUDA cores, no wgmma by design): SASS {v}; "
                         f"ptxas {ptxas.get(k, 'not built in this run')}")
         faults += [w for w in ptxas.get("warnings", []) if "C7520" in w]
+        if name in FRAMELESS_SOURCES:
+            faults += stack_frame_faults(ptxas)
         facts[name] = {"ptxas": ptxas, "sass": sass}
     if faults:
         fail(f"the product kernels do not run on wgmma and TMA alone: {faults}")
@@ -1900,14 +1929,15 @@ def run_ssm_train(torch, rec, B=16, S=1024, n_functions=400):
 
 def check_gemma_train_path(torch, rec):
     """gemma3-4b at full width, 2 layers (local with window 1024, global),
-    B 1 x S 1100 (past the window and ragged against every tile), one
-    step: ``check_lm_train_path``.  The cpu side's forward and backward
-    costs about 16 s a thousand tokens on the card machine's 8 cores,
-    nearly all of it the tied unembedding at vocab 262144 (B 2 x S 1500
-    with 5 steps took 343 s: PERF.md, PR 22), hence 1100 tokens and one
-    step."""
+    B 2 x S 1100 (past the window, ragged against every tile, and a batch
+    row past the first), 3 steps, so that AdamW moves q_norm, k_norm,
+    post1 and post2 over steps on both sides: ``check_lm_train_path``.
+    The cpu side's forward and backward costs about 16 s a thousand
+    tokens on the card machine's 8 cores, nearly all of it the tied
+    unembedding at vocab 262144 (B 2 x S 1500 with 5 steps took 343 s,
+    PERF.md §6); 4 of them at 2200 tokens take about 140 s."""
     check_lm_train_path(torch, rec, "gemma_train_path", gemma_cfg(2), train_launches_per_step,
-                        B=1, S=1100, n_steps=1)
+                        B=2, S=1100, n_steps=3)
 
 
 def run_gemma_train(torch, rec, B=4, S=2048, n_functions=400, steps=20):
@@ -2613,7 +2643,8 @@ def _flash_peak(q):
 
 def attn_pairs(S, causal, window=None):
     """The (query, key) pairs a row-wise mask leaves: keys j <= i when
-    causal, and j > i - window with a window."""
+    causal, and j > i - window with a window (the pairs ``hidden_mask``
+    does not hide)."""
     import numpy as np
 
     if window is None:
@@ -2671,8 +2702,7 @@ def sdpa_bwd(torch, q, k, v, do, causal):
 
 def window_mask(torch, S, window, device):
     """SDPA's boolean mask (True: attend) of a causal sliding window."""
-    i = torch.arange(S, device=device)
-    return (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+    return ~hidden_mask(torch, S, True, window, device)
 
 
 def time_flash_bwd(torch, checked, what, q, k, v, do, causal, window=None, iters=20, reps=5):
@@ -2702,6 +2732,15 @@ def time_flash_bwd(torch, checked, what, q, k, v, do, causal, window=None, iters
                                                enable_gqa=q.shape[2] != k.shape[2])
     plain_ms = eager_ms(torch, lambda: torch.autograd.grad(
         o_plain, (qr, kr, vr), do, retain_graph=True))
+    f32 = q.dtype == torch.float32
+    plain_err = None
+    if f32:     # the plain f32 version against the gate's f64 reference
+        got = torch.autograd.grad(o_plain, (qr, kr, vr), do, retain_graph=True)
+        want = _attention_grads64(torch, q, k, v, do, causal, window)
+        plain_err = max((g.double() - w).abs().max().item() for g, w in zip(got, want))
+        del got, want
+        log(f"time flash_bwd {what}: the plain f32 version against f64: max_abs_err "
+            f"{plain_err:.3e}, error/limit {plain_err / F32_TOL:.3f}")
     lib_eager = eager_ms(torch, lambda: torch.autograd.grad(
         o_lib, (qt, kt, vt), do.transpose(1, 2), retain_graph=True))
     del o_plain, o_lib
@@ -2714,13 +2753,14 @@ def time_flash_bwd(torch, checked, what, q, k, v, do, causal, window=None, iters
             log(f"time flash_bwd {what}: SDPA's backward op not timed: {e}")
             lib_ms = lib_call_ms = None
     bound = flash_bwd_bound(q, k, causal, window=window)
-    f32 = q.dtype == torch.float32
     lib_op = "efficient" if f32 else "flash"
     res = {"shape": list(q.shape) + [k.shape[2]], "dtype": str(q.dtype).split(".")[1],
            "causal": causal, "window": window, "ms": ms,
            "call_ms": call_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
            "library_call_ms": lib_call_ms, "library_eager_ms": lib_eager,
            "bound_ms": bound[0], "bound_by": bound[1], "err_over_limit": ratio,
+           "plain_f32_err_vs_f64": plain_err,
+           "plain_f32_err_over_limit": plain_err / F32_TOL if f32 else None,
            "bound_simt_ms": flash_bwd_bound(q, k, causal, PEAK_F32_FLOPS, window)[0]
            if f32 else None,
            "by_kernel": device_ms_by_kernel(torch, run),
@@ -3073,12 +3113,18 @@ def time_train_kernels(torch, checked, gen, T=3904, V=32768):
         torch, lambda: flash_attention_bwd(qs, ks, vs, os_, lse_s, dos, causal=False),
         iters=50, warm=5)
     log(f"time flash_bwd host cost of a call: {out['flash_train']['bwd']['host_call_ms']} ms")
+    out["flash_bwd_window_d64"] = time_flash_bwd(
+        torch, checked, f"train shape causal window={WINDOW_TIMED[64]}", q, k, v, do, True,
+        WINDOW_TIMED[64])
     # the serve shape (starcoder2-3b's attention at S 1024), whose kv heads
     # give the dkdv pass only 16 blocks
     q, do = (torch.randn(1, 1024, 24, 128, generator=gen, device="cuda").to(bf)
              for _ in range(2))
     k, v = (torch.randn(1, 1024, 2, 128, generator=gen, device="cuda").to(bf) for _ in range(2))
     out["flash_bwd_gqa"] = time_flash_bwd(torch, checked, "gqa causal", q, k, v, do, True)
+    out["flash_bwd_gqa_window"] = time_flash_bwd(
+        torch, checked, f"gqa causal window={WINDOW_TIMED[128]}", q, k, v, do, True,
+        WINDOW_TIMED[128])
     del q, k, v, do, qs, ks, vs, dos, os_, lse_s
     out["xent"] = {}
     for dname in ("float32", "bfloat16"):
@@ -3156,6 +3202,8 @@ def kernel_records(rec):
                                      "library_eager_ms": bwd.get("library_eager_ms"),
                                      "by_kernel": bwd.get("by_kernel"),
                                      "gqa_causal_shape": t.get("flash_bwd_gqa"),
+                                     "gqa_causal_window_shape": t.get("flash_bwd_gqa_window"),
+                                     "train_shape_causal_window": t.get("flash_bwd_window_d64"),
                                      "train_shape_f32": ft32.get("bwd"),
                                      "gemma_train_shape": {d: {k: r.get("bwd")
                                                                for k, r in v.items()}
@@ -3273,6 +3321,8 @@ def summary(rec):
             "flash_bwd_train_f32_ms":
                 rec.get("time", {}).get("flash_train_f32", {}).get("bwd", {}).get("ms"),
             "flash_bwd_gqa_ms": rec.get("time", {}).get("flash_bwd_gqa", {}).get("ms"),
+            "flash_bwd_window_ms": {k: rec.get("time", {}).get(k, {}).get("ms") for k in (
+                "flash_bwd_window_d64", "flash_bwd_gqa_window")},
             "paged_ms": rec.get("time", {}).get("paged", {}).get("ms"),
             "ssd_ms": {k: v["ms"] for k, v in rec.get("time", {}).get("ssd", {}).items()},
             "ssd_bwd_ms": {k: v["ms"] for k, v in rec.get("time", {}).get("ssd_bwd", {}).items()}}

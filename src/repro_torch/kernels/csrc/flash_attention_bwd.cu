@@ -591,6 +591,7 @@ __device__ __forceinline__ void dkdv_body(const CUtensorMap& tq, const CUtensorM
   constexpr int KEYS = WG * TILE, NPAIR = hopper::n_pairs(NP);
   constexpr int NH = Shape<D, NP>::NH, DH = D / NH;  // this block's columns of dK and dV
   static_assert(NP == 1 || NH == 1, "the f32 epilogue stores whole rows");
+  static_assert(D % NH == 0 && DH % BOX == 0, "a block's columns are whole boxes");
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = align_1024(smem_raw);
   uint64_t* kv_full = reinterpret_cast<uint64_t*>(sm + L::BAR);
@@ -685,7 +686,7 @@ __device__ __forceinline__ void dkdv_body(const CUtensorMap& tq, const CUtensorM
   float s[QT / 2], dp[QT / 2], dk[DH / 2], dv[DH / 2];
   uint32_t pa[NP][QT / 16][4], da[QT / 16][4];
 #pragma unroll
-  for (int x = 0; x < D / 2; ++x) dk[x] = dv[x] = 0.f;
+  for (int x = 0; x < DH / 2; ++x) dk[x] = dv[x] = 0.f;
   auto fence_pa = [&] {
 #pragma unroll
     for (int pc = 0; pc < NP; ++pc)
@@ -908,7 +909,7 @@ struct Operands {
 // The CUDA-core body of head dim 256 (gemma3) in f32, whose three bf16
 // pieces do not fit the wgmma bodies' shared memory (one warpgroup's
 // resident Q and dO pieces alone take 192 KB): the same two passes, in
-// f32 and f64 arithmetic on the f32 inputs, each sum in a fixed order (no
+// f32 arithmetic on the f32 inputs, each sum in a fixed order (no
 // atomics: gradients repeat bit for bit).  A block of SNT threads takes
 // SR q rows (dq) or SR keys (dkdv) of one head and streams tiles of ST
 // keys (dq) or ST q rows (dkdv, over the rep heads of its kv head)
@@ -916,13 +917,13 @@ struct Operands {
 // of a warp read distinct banks.  Per tile each thread forms two scores
 // and their dP as D-long dot products, the block writes P (dkdv) and dS
 // to shared memory, and each thread adds D / 16 columns of its row's (or
-// key's) gradients: each tile's terms into a fresh f32 partial, added
-// once a tile to an f64 total, so that a rounding error grows with the
-// tile's 32 terms, not with the thousands of keys or rows (rep x S for
-// dK and dV) the sum runs over.  The dot products, and Delta = rowsum(dO
-// O), accumulate in f64: dS = P (dP - Delta) subtracts two numbers of
-// size |dO| |V| ~ sqrt(D).  Masks are selects.  Only the tiles that meet
-// the causal and window ranges are visited.  Its redesign (pieces split
+// key's) gradients: each tile's terms into a fresh partial, added once
+// a tile to the total, so that a rounding error grows with the tile's 32
+// terms, not with the thousands of keys or rows (rep x S for dK and dV)
+// the sum runs over.  Against the function evaluated in f64 this body is
+// as close at gemma3's train shape as one with f64 dot products, Delta
+// and totals was, and 1.55x faster (PERF.md §6).  Masks are selects.
+// Only the tiles that meet the causal and window ranges are visited.  Its redesign (pieces split
 // in shared memory, or on the bf16 body's halves) is queued in ROADMAP.
 constexpr int SR = 16;   // q rows (dq) or keys (dkdv) of a block
 constexpr int ST = 32;   // keys (dq) or q rows (dkdv) of a streamed tile
@@ -946,17 +947,17 @@ __device__ __forceinline__ void rows_to_smem(float* dst, const void* src, long l
   }
 }
 
-// a . b and c . d of D-long f32 rows, accumulated in f64
+// a . b and c . d of D-long f32 rows
 template <int D>
 __device__ __forceinline__ void dot2(const float* a, const float* b, const float* c,
-                                     const float* d, double* ab, double* cd) {
-  double x[2] = {0.0, 0.0}, y[2] = {0.0, 0.0};
+                                     const float* d, float* ab, float* cd) {
+  float x[2] = {0.f, 0.f}, y[2] = {0.f, 0.f};
 #pragma unroll 4
   for (int i = 0; i < D; i += 2)
 #pragma unroll
     for (int u = 0; u < 2; ++u) {
-      x[u] = fma(static_cast<double>(a[i + u]), static_cast<double>(b[i + u]), x[u]);
-      y[u] = fma(static_cast<double>(c[i + u]), static_cast<double>(d[i + u]), y[u]);
+      x[u] = fmaf(a[i + u], b[i + u], x[u]);
+      y[u] = fmaf(c[i + u], d[i + u], y[u]);
     }
   *ab = x[0] + x[1];
   *cd = y[0] + y[1];
@@ -988,18 +989,18 @@ __global__ void __launch_bounds__(SNT) dq_simt_kernel(Params p) {
   const int warp = tid / 32, lane = tid % 32, n_st = (S + TILE - 1) / TILE;
   for (int r = warp; r < SR; r += SNT / 32) {
     const int row = q0 + r;
-    double acc = 0.0;
+    float acc = 0.f;
     if (row < S) {
       const float* o = static_cast<const float*>(p.o) + b * p.o_sb + row * p.o_ss + h * p.o_sh;
       for (int d = lane; d < D; d += 32)
-        acc = fma(static_cast<double>(o[d]), static_cast<double>(dos[r * LD + d]), acc);
+        acc = fmaf(o[d], dos[r * LD + d], acc);
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
     if (lane == 0) {
       lse2[r] = row < S ? p.lse[(static_cast<long long>(b) * p.H + h) * S + row] * LOG2E
                         : INFINITY;
-      dl[r] = row < S ? static_cast<float>(acc) : 0.f;
+      dl[r] = row < S ? acc : 0.f;
       if (row < S) {
         float* stat = p.delta + ((static_cast<long long>(b) * p.H + h) * n_st + row / TILE) * 2 * TILE;
         stat[row % TILE] = lse2[r];
@@ -1012,9 +1013,9 @@ __global__ void __launch_bounds__(SNT) dq_simt_kernel(Params p) {
   const int k_lo = p.window > 0 ? max(0, q0 - p.window + 1) : 0;
   const int sr = tid / 16, sk = tid % 16, row = q0 + sr;
   const float scale2 = p.scale * LOG2E;
-  double acc[NC];
+  float acc[NC];
 #pragma unroll
-  for (int j = 0; j < NC; ++j) acc[j] = 0.0;
+  for (int j = 0; j < NC; ++j) acc[j] = 0.f;
   for (int k0 = k_lo / ST * ST; k0 <= k_hi; k0 += ST) {
     __syncthreads();  // the previous tile's K, V and dS are consumed
     rows_to_smem<D>(ks, p.k, p.k_sb, p.k_ss, p.k_sh, b, hk, k0, ST, S);
@@ -1023,12 +1024,12 @@ __global__ void __launch_bounds__(SNT) dq_simt_kernel(Params p) {
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const int kk = sk + 16 * e;
-      double sc, dp;
+      float sc, dp;
       dot2<D>(qs + sr * LD, ks + kk * LD, dos + sr * LD, vs + kk * LD, &sc, &dp);
       const float pr = hidden(p, k0 + kk, row)
                            ? 0.f
-                           : exp2f(fmaf(static_cast<float>(sc), scale2, -lse2[sr]));
-      ds[sr * ST + kk] = pr * static_cast<float>(dp - dl[sr]);
+                           : exp2f(fmaf(sc, scale2, -lse2[sr]));
+      ds[sr * ST + kk] = pr * (dp - dl[sr]);
     }
     __syncthreads();
     float part[NC];  // this tile's dS K
@@ -1045,7 +1046,7 @@ __global__ void __launch_bounds__(SNT) dq_simt_kernel(Params p) {
   if (row < S) {
     float* dst = static_cast<float*>(p.dq) + ((static_cast<long long>(b) * S + row) * p.H + h) * D;
 #pragma unroll
-    for (int j = 0; j < NC; ++j) dst[sk + 16 * j] = static_cast<float>(acc[j] * p.scale);
+    for (int j = 0; j < NC; ++j) dst[sk + 16 * j] = acc[j] * p.scale;
   }
 }
 
@@ -1071,9 +1072,9 @@ __global__ void __launch_bounds__(SNT) dkdv_simt_kernel(Params p) {
   const int r_hi = p.window > 0 ? min(S - 1, min(k0 + SR, S) - 2 + p.window) : S - 1;
   const int sk = tid / 16, sr = tid % 16, key = k0 + sk;
   const float scale2 = p.scale * LOG2E;
-  double dk[NC], dv[NC];
+  float dk[NC], dv[NC];
 #pragma unroll
-  for (int j = 0; j < NC; ++j) dk[j] = dv[j] = 0.0;
+  for (int j = 0; j < NC; ++j) dk[j] = dv[j] = 0.f;
   for (int hh = 0; hh < rep; ++hh) {
     const int h = hk * rep + hh;
     for (int r0 = r_lo / ST * ST; r0 <= r_hi; r0 += ST) {
@@ -1091,13 +1092,13 @@ __global__ void __launch_bounds__(SNT) dkdv_simt_kernel(Params p) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int rr = sr + 16 * e;
-        double sc, dp;
+        float sc, dp;
         dot2<D>(ks + sk * LD, qs + rr * LD, vs + sk * LD, dos + rr * LD, &sc, &dp);
         const float pr = hidden(p, key, r0 + rr)
                              ? 0.f
-                             : exp2f(fmaf(static_cast<float>(sc), scale2, -lse2[rr]));
+                             : exp2f(fmaf(sc, scale2, -lse2[rr]));
         pt[sk * ST + rr] = pr;
-        dst[sk * ST + rr] = pr * static_cast<float>(dp - dl[rr]);
+        dst[sk * ST + rr] = pr * (dp - dl[rr]);
       }
       __syncthreads();
       float pv[NC], pk[NC];  // this tile's P^T dO and dS^T q
@@ -1124,8 +1125,8 @@ __global__ void __launch_bounds__(SNT) dkdv_simt_kernel(Params p) {
     float* dvp = static_cast<float*>(p.dv) + off;
 #pragma unroll
     for (int j = 0; j < NC; ++j) {
-      dkp[sr + 16 * j] = static_cast<float>(dk[j] * p.scale);
-      dvp[sr + 16 * j] = static_cast<float>(dv[j]);
+      dkp[sr + 16 * j] = dk[j] * p.scale;
+      dvp[sr + 16 * j] = dv[j];
     }
   }
 }

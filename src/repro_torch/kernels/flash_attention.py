@@ -6,7 +6,7 @@ takes as the vjp of ``flash_attention_ref``).
 
 Both run on the tensor cores (wgmma) in either dtype, except the f32
 backward at head dim 256, which runs a simpler body on the CUDA cores
-(``dq_simt_kernel``, ``dkdv_simt_kernel``: f32 and f64 arithmetic).
+(``dq_simt_kernel``, ``dkdv_simt_kernel``: f32 arithmetic).
 bf16 inputs are the products' operands as they are.  f32 inputs are first split, by a
 pre-pass of the same launch, into three bf16 pieces each (x = x0 + x1 +
 x2, ``ref.split3``), and every f32 product is the sum of the six bf16

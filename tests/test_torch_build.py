@@ -575,3 +575,75 @@ def test_ssm_launches_per_step_at_the_train_shape():
         "ssd_scan": 48, "ssd_scan_bwd": 24, "fused_xent": 14, "fused_xent_bwd": 7}
     assert cs.ssm_launches_per_step(cfg, 16, 1024, 2) == {
         "ssd_scan": 96, "ssd_scan_bwd": 48, "fused_xent": 16, "fused_xent_bwd": 8}
+
+
+@pytest.mark.parametrize("S,causal,window", [
+    (9, True, None), (9, False, None), (37, True, 5), (37, True, 1), (64, True, 64),
+    (37, True, 100)])
+def test_hidden_mask_is_the_rule_the_bounds_count(S, causal, window):
+    """One masking rule: the gate's reference and the SDPA yardstick hide
+    what ``hidden_mask`` hides, and the bounds count what it leaves."""
+    import torch
+
+    cs = _chip_smoke()
+    hide = cs.hidden_mask(torch, S, causal, window, "cpu")
+    i = torch.arange(S)
+    want = torch.zeros(S, S, dtype=torch.bool)
+    for q in range(S):
+        for k in range(S):
+            want[q, k] = (causal and k > q) or (window is not None and k <= q - window)
+    assert torch.equal(hide, want)
+    assert cs.attn_pairs(S, causal, window) == float((~hide).sum())
+    if window is not None:
+        assert torch.equal(cs.window_mask(torch, S, window, "cpu"), ~hide)
+    assert not hide[i, i].any()                    # a query always sees its own key
+
+
+def test_stack_frame_faults_names_the_wgmma_bodies_with_a_frame():
+    cs = _chip_smoke()
+    report = {"warnings": [],
+              "_Z15dkdv_wgmma_kernelILi256ELb1EEvv": [
+                  "256 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+                  "ptxas info    : Used 176 registers"],
+              "_Z13dq_wgmma_kernelILi64ELb0EEvv": [
+                  "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"],
+              "_Z15dq_simt_kernelILi256EEv6Params": [
+                  "64 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"]}
+    assert cs.stack_frame_faults(report) == [
+        "_Z15dkdv_wgmma_kernelILi256ELb1EEvv: 256 bytes stack frame, 0 bytes spill stores, "
+        "0 bytes spill loads"]
+    assert cs.FRAMELESS_SOURCES == ("flash_attention_bwd",)
+
+
+def _zeroing_loops(text):
+    """[(array, its declared size, the loop's bound)] of every loop of the
+    form ``for (int x = 0; x < N; ++x) a[x] = b[x] = 0`` in a kernel
+    source, each array taken at its latest declaration above the loop."""
+    decl = re.compile(r"\b(?:float|double|uint32_t)\s+([^;(]*\[[^;]*);")
+    loop = re.compile(r"for \(int (\w+) = 0; \1 < ([^;]+); \+\+\1\) ((?:\w+\[\1\] = )+)0")
+    sizes, out = {}, []
+    for line in text.splitlines():
+        for m in decl.finditer(line):
+            for a in re.finditer(r"(\w+)\[([^\]]+)\]", m.group(1)):
+                sizes[a.group(1)] = a.group(2)
+        for m in loop.finditer(line):
+            for a in re.findall(r"(\w+)\[", m.group(3)):
+                out.append((a, sizes.get(a), m.group(2).strip()))
+    return out
+
+
+@pytest.mark.parametrize("source", sorted(p.name for p in _build.CSRC.glob("*.cu")))
+def test_zeroing_loops_stay_inside_their_arrays(source):
+    """A register array zeroed by a loop is zeroed to its declared size, no
+    further (the flash backward's dK and dV at head dim 256 hold half the
+    head dim's columns, DH / 2 floats, not D / 2)."""
+    loops = _zeroing_loops((_build.CSRC / source).read_text())
+    assert all(size is not None and size == bound for _, size, bound in loops), loops
+    if source == "flash_attention_bwd.cu":
+        assert ("dk", "DH / 2", "DH / 2") in loops and ("dv", "DH / 2", "DH / 2") in loops
+
+
+def test_zeroing_loop_check_sees_a_loop_past_its_array():
+    text = "  float s[QT / 2], dk[DH / 2], dv[DH / 2];\n" \
+           "  for (int x = 0; x < D / 2; ++x) dk[x] = dv[x] = 0.f;\n"
+    assert _zeroing_loops(text) == [("dk", "DH / 2", "D / 2"), ("dv", "DH / 2", "D / 2")]
