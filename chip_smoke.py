@@ -15,13 +15,12 @@
 Phases (any failure exits non-zero before the last line):
   build       build the CUDA kernels from src/repro_torch/kernels/csrc/;
               the flash forward and backward (bf16, and f32 on three bf16
-              pieces), the bf16 SSD body's product passes and the bf16
-              paged body, at every head dim they take, must run on wgmma
-              and TMA alone (SASS: HGMMA and UTMALDG, no HMMA; no ptxas
-              C7520), and the flash backward's wgmma bodies with a stack
-              frame of 0 bytes; the flash backward's f32 head-dim-256 body
-              runs on the CUDA cores by design (SIMT_FUNCTIONS) and is
-              only logged
+              pieces), the bf16 SSD body's product passes, the SSD
+              backward's product passes (bf16, and f32 on pieces) and the
+              bf16 paged body, at every head dim they take, must run on
+              wgmma and TMA alone (SASS: HGMMA and UTMALDG, no HMMA; no
+              ptxas C7520), and the flash and SSD backwards' wgmma bodies
+              with a stack frame of 0 bytes
   kernels     hold each kernel (forward and backward) against its plain
               PyTorch version (backward: the plain version's autograd) on
               the card, f32 and bf16, at the stated tolerances, up to the
@@ -29,8 +28,8 @@ Phases (any failure exits non-zero before the last line):
               shapes
   faults      planted faults: builds copies of the kernels with one known
               bug each and checks that the kernel gate fails them (runs
-              after ddp; the builds start with the build phase at the
-              lowest CPU priority)
+              after ddp; the builds start once the build phase is done, at
+              the lowest CPU priority)
   path        starcoder2-3b at full width, depth cut to 2 layers, f32: the
               paged engine on cuda and on cpu (plain versions) must agree on
               prefill and decode logits and give the same greedy tokens
@@ -158,8 +157,9 @@ OUT = ROOT / "chiprun_out"
 # ssm_train_path runs before train_cli: launch.train.main leaves the process
 # one intra-op thread (its bit-exact resume needs it), which would slow the
 # full-width CPU reference of ssm_train_path 3.5x.  faults runs late: its
-# builds, started at the lowest CPU priority beside the build phase, take
-# the cores the phases between leave idle
+# builds, started at the lowest CPU priority once the build phase is done,
+# take the cores the phases between leave idle (started beside it, they
+# slowed it from about 60 s to 193 s)
 PHASES = ("build", "kernels", "path", "serve", "gemma_path", "gemma_serve", "ssm_path",
           "ssm_serve", "train_path", "train", "ssm_train_path", "gemma_train_path", "train_cli",
           "ssm_train", "gemma_train", "ddp_path", "ddp", "faults", "time")
@@ -335,9 +335,9 @@ FLASH_BWD_CASES = [
     (2, 333, 8, 2, 128, True, 50), (2, 129, 4, 4, 64, True, 1),
     (1, 200, 6, 2, 128, False, 33),
     # head dim 256 (bf16: one warpgroup, 32-key and 32-row tiles, dK and
-    # dV in two halves; f32: the CUDA-core body, 16 rows or keys a block):
-    # gemma3's train shape with its window and without, and the tiles'
-    # edges
+    # dV in two halves; f32: one warpgroup, the resident tile in f32,
+    # 16-key and 16-row tiles, dQ, dK and dV in two halves): gemma3's train
+    # shape with its window and without, and the tiles' edges
     GEMMA_TRAIN_ATTN + (GEMMA_WINDOW,), GEMMA_TRAIN_ATTN,
     (2, 77, 8, 4, 256, False), (1, 130, 8, 4, 256, True, 40), (2, 33, 8, 2, 256, False, 16),
     (2, 96, 8, 4, 256, True), (1, 200, 4, 4, 256, False, 70),
@@ -376,10 +376,16 @@ MAMBA2_TRAIN = (16, 1024, 24, 64, 1, 128, 256)
 SSD_BWD_CASES = [  # (B, S, H, P, G, N, chunk, a non-zero gstate)
     (*MAMBA2_TRAIN, False),                 # the train shape; train mode's zero gstate
     (2, 1000, 24, 64, 1, 128, 256, False),  # S ragged inside the last chunk
-    (2, 700, 8, 64, 2, 128, 256, True),     # G 2 at H 8, a non-zero gstate
+    (2, 700, 8, 64, 2, 128, 256, True),     # G 2 at H 8, a non-zero gstate; S ragged in a tile
     (1, 100, 24, 64, 1, 128, 256, True),    # S < chunk
     (2, 300, 8, 16, 2, 16, 32, True),       # the reduced shapes: P 16, chunk 32
     (2, 250, 6, 32, 3, 8, 96, True),        # chunk 96 (32-row tiles), P 32, N 8, G 3
+    # the wgmma body's edges (64-row tiles, chunks of 64-256, N 64 and 128)
+    (1, 1024, 80, 64, 1, 64, 256, False),   # zamba2-2.7b's N 64 at H 80
+    (2, 200, 8, 64, 4, 64, 64, True),       # chunk 64: one tile a chunk, G 4
+    (1, 333, 6, 64, 3, 128, 128, True),     # chunk 128, G 3, S ragged inside a tile
+    (1, 450, 4, 64, 2, 64, 192, False),     # chunk 192, G 2
+    (1, 40, 24, 64, 1, 128, 256, True),     # S < 64: one partial tile
 ]
 
 
@@ -785,6 +791,21 @@ FAULTS = [
      "for (int r = 0; r < rep; ++r) sb += p.dBh[head0 + r * p.N];  // dB: the group's heads, in order",
      "for (int r = 0; r < rep - 1; ++r) sb += p.dBh[head0 + r * p.N];  // dB: the group's heads, in order",
      "bfloat16"),
+    ("ssd_scan_bwd", ("ssd_scan_bwd",),
+     "wgmma body's pair pass: M and W enter dx, dB and dC without their lo piece",
+     "hopper::pack_bf16_pieces<NPA>(v[8 * kc + 2 * e], v[8 * kc + 2 * e + 1], w);  // M's or W's pieces",
+     "hopper::pack_bf16_pieces<NPA>(v[8 * kc + 2 * e], v[8 * kc + 2 * e + 1], w); w[1] = 0;  "
+     "// M's or W's pieces", "bfloat16"),
+    ("flash_attention_bwd", ("flash_attention_bwd",),
+     "f32 D 256, dkdv's dV block: P^T enters dV += P^T dO as bf16(P^T) alone",
+     "hopper::pack_bf16_pieces<NP>(s[8 * kc + 2 * e], s[8 * kc + 2 * e + 1], w);  // dV block: P^T's pieces",
+     "hopper::pack_bf16_pieces<NP>(s[8 * kc + 2 * e], s[8 * kc + 2 * e + 1], w);"
+     + F32_PIECES_DROPPED + "  // dV block: P^T's pieces", "float32"),
+    ("flash_attention_bwd", ("flash_attention_bwd",),
+     "f32 D 256: the resident tile enters S and dP (dq) and S^T and dP^T (the dK block) as bf16 alone",
+     "hopper::pack_bf16_pieces<NP>(v.x, v.y, w);  // the resident tile's pieces",
+     "hopper::pack_bf16_pieces<NP>(v.x, v.y, w);" + F32_PIECES_DROPPED
+     + "  // the resident tile's pieces", "float32"),
 ]
 KERNELS = ("flash_attention", "flash_attention_bwd", "paged_attention", "fused_xent",
            "fused_xent_bwd", "ssd_scan", "ssd_scan_bwd")
@@ -802,8 +823,9 @@ def _start_nvcc(src, lib, nice=False):
 def start_fault_builds():
     """Write the faulty sources under build/kernels/faults/ and start one
     nvcc for each, at the lowest CPU priority (the phases before phase
-    faults keep the cores they need); returns {index in FAULTS: (process,
-    library path)}."""
+    faults keep the cores they need; call it once the build phase is
+    done, which these builds would slow); returns {index in FAULTS:
+    (process, library path)}."""
     from repro_torch.kernels import _build
 
     d = _build.BUILD_DIR / "faults"
@@ -902,21 +924,17 @@ WGMMA_FUNCTIONS = (("flash_attention", "flash_fwd_wgmma"), ("flash_attention_bwd
                    ("flash_attention", "flash_fwd_f32_wgmma"),
                    ("flash_attention_bwd", "dq_f32_wgmma"),
                    ("flash_attention_bwd", "dkdv_f32_wgmma"), ("ssd_scan", "ssd_state_wgmma"),
-                   ("ssd_scan", "ssd_out_wgmma"), ("paged_attention", "paged_wgmma"))
-
-
-# the f32 flash backward's body at head dim 256, on the CUDA cores by
-# design (its three bf16 pieces do not fit the wgmma bodies' shared
-# memory; ROADMAP queues its redesign): named here and left out of the
-# route check; the build phase logs its ptxas report
-SIMT_FUNCTIONS = (("flash_attention_bwd", "dq_simt"), ("flash_attention_bwd", "dkdv_simt"))
+                   ("ssd_scan", "ssd_out_wgmma"), ("ssd_scan_bwd", "ssd_bwd_state_wgmma"),
+                   ("ssd_scan_bwd", "ssd_bwd_pair_wgmma"), ("paged_attention", "paged_wgmma"))
 
 
 # the sources whose wgmma bodies must keep every array in registers: ptxas
 # reports a stack frame of 0 bytes for each (the flash backward's dK and dV
 # accumulators at head dim 256 are 64 floats each a thread, sized by a
-# template; an array moved to local memory would show here)
-FRAMELESS_SOURCES = ("flash_attention_bwd",)
+# template; the SSD backward's pair pass holds dB or dC, dx, two tile
+# products and the pieces of M or W; an array moved to local memory would
+# show here)
+FRAMELESS_SOURCES = ("flash_attention_bwd", "ssd_scan_bwd")
 
 
 def stack_frame_faults(ptxas):
@@ -941,8 +959,8 @@ def wgmma_route_faults(sass, part):
 
 
 def wgmma_build_facts(rec):
-    """The flash forward and backward (bf16 and f32), the bf16 SSD body and
-    the bf16 paged body as built: ptxas's report (registers, spill bytes)
+    """The flash forward and backward (bf16 and f32), the bf16 SSD body,
+    the SSD backward's wgmma body and the bf16 paged body as built: ptxas's report (registers, spill bytes)
     and SASS counts of every instance of ``WGMMA_FUNCTIONS``.  Fails unless
     each runs on HGMMA and UTMALDG with no HMMA, if ptxas serialized a
     wgmma (its warning C7520), or if a wgmma body of
@@ -958,11 +976,6 @@ def wgmma_build_facts(rec):
                 if part in k:
                     log(f"{name} {k}: SASS {v}; ptxas {ptxas.get(k, 'not built in this run')}")
             faults += wgmma_route_faults(sass, part)
-        for _, part in (f for f in SIMT_FUNCTIONS if f[0] == name):
-            for k, v in sass.items():
-                if part in k:
-                    log(f"{name} {k} (CUDA cores, no wgmma by design): SASS {v}; "
-                        f"ptxas {ptxas.get(k, 'not built in this run')}")
         faults += [w for w in ptxas.get("warnings", []) if "C7520" in w]
         if name in FRAMELESS_SOURCES:
             faults += stack_frame_faults(ptxas)
@@ -972,6 +985,7 @@ def wgmma_build_facts(rec):
     rec["flash_fwd_build"] = facts["flash_attention"]
     rec["flash_bwd_build"] = facts["flash_attention_bwd"]
     rec["ssd_build"] = facts["ssd_scan"]
+    rec["ssd_bwd_build"] = facts["ssd_scan_bwd"]
     rec["paged_build"] = facts["paged_attention"]
 
 
@@ -2535,7 +2549,7 @@ def run_ddp(torch, rec, B=16, S=512, n_functions=3000, steps=20):
     rec["ddp"] = res
 
 
-REPO_KERNELS = ("flash_fwd", "dq_wgmma", "dkdv_wgmma", "dq_mma", "dkdv_mma", "dq_f32", "_simt_kernel",
+REPO_KERNELS = ("flash_fwd", "dq_wgmma", "dkdv_wgmma", "dq_mma", "dkdv_mma", "dq_f32",
                 "dkdv_f32", "delta_kernel", "split3", "xent_fwd", "xent_bwd", "paged_partial",
                 "paged_wgmma", "paged_combine", "ssd_scan_kernel", "ssd_state_wgmma",
                 "ssd_carry", "ssd_out_wgmma", "ssd_bwd_")
@@ -3016,14 +3030,16 @@ def ssd_bwd_work(B, S, H, P, G, N, L, es):
 def time_ssd_bwd(torch, checked, gen):
     """The backward kernel at mamba2-130m's train shape (MAMBA2_TRAIN, a
     zero gstate as in train mode) in f32 (the CLI's) and bf16, against
-    its bound (by operations and by bytes, at the f32 CUDA-core peak and
-    at the bf16 peak) and the plain version's autograd (eager).  No
-    PyTorch call computes it: no library yardstick."""
+    its bound (by operations and by bytes: bf16 at the bf16 peak, f32 on
+    three pieces at a sixth of it, PEAK_F32_SPLIT_FLOPS, with the CUDA
+    cores' f32 bound beside it as ``bound_simt_ms``) and the plain
+    version's autograd (eager).  No PyTorch call computes it: no library
+    yardstick."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.ssd_scan import ssd_scan_bwd
 
     out = {}
-    for dname, peak in (("float32", PEAK_F32_FLOPS), ("bfloat16", PEAK_BF16_FLOPS)):
+    for dname, peak in (("float32", PEAK_F32_SPLIT_FLOPS), ("bfloat16", PEAK_BF16_FLOPS)):
         dtype = getattr(torch, dname)
         case = (*MAMBA2_TRAIN, False)
         ins = _ssd_bwd_inputs(torch, case, dtype, gen)
@@ -3043,6 +3059,8 @@ def time_ssd_bwd(torch, checked, gen):
                       "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound[0],
                       "bound_by": bound[1], "bound_ops_ms": flops / peak * 1e3,
                       "bound_bytes_ms": nbytes / PEAK_BYTES * 1e3, "flops": flops,
+                      "bound_simt_ms": _bound(flops, nbytes, PEAK_F32_FLOPS)[0]
+                      if dname == "float32" else None,
                       "bytes": nbytes, "err_over_limit": ratio,
                       "by_kernel": device_ms_by_kernel(torch, run),
                       "plain": "autograd backward of ref.ssd_ref, eager (CUDA events)"}
@@ -3212,6 +3230,7 @@ def kernel_records(rec):
              "fused_xent_bwd": {"bf16": xe.get("bfloat16", {}).get("bwd")},
              "ssd_scan": {"f32": ssd.get("float32"), "zamba2_bf16": ssd.get("zamba2_bf16")},
              "ssd_scan_bwd": {"bf16": ssd_bwd.get("bfloat16"),
+                              "bound_simt_ms": ssd_bwd.get("float32", {}).get("bound_simt_ms"),
                               "bound_ops_ms": ssd_bwd.get("float32", {}).get("bound_ops_ms"),
                               "bound_bytes_ms": ssd_bwd.get("float32", {}).get("bound_bytes_ms")}}
     csrc = "src/repro_torch/kernels/csrc/"
@@ -3361,12 +3380,12 @@ def main():
     from repro_torch.kernels import _build
 
     against = parse_against(args.against)
-    fault_builds = start_fault_builds() if "faults" in phases else None
     against_builds = start_against_builds(against)
     t0 = time.perf_counter()
     _build.build_all()
     rec["build_s"] = time.perf_counter() - t0
     log(f"build: {rec['build_s']:.1f}s")
+    fault_builds = start_fault_builds() if "faults" in phases else None
     rec["ptxas"] = {name: ptxas_report(text) for name, text in _build.build_log.items()}
     for name, report in rec["ptxas"].items():
         for fn, lines in report.items():

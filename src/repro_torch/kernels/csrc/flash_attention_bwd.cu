@@ -68,7 +68,7 @@
 // products of one pass, in 176 registers instead of 300.  A sliding
 // window: dq visits only the key tiles that meet (q - W, q], dkdv only
 // the q tiles that meet [k, k + W); tiles across the window's edge take
-// the masked variant.  f32 at D 256 runs the CUDA-core body below.
+// the masked variant.
 //
 // f32 body (`dq_f32_wgmma_kernel`, `dkdv_f32_wgmma_kernel`: the exactness
 // path, the train CLI's dtype): the same two passes (`dq_body`,
@@ -107,6 +107,26 @@
 //   dkdv forms P^T and dS^T, then holds P^T's pieces and dS^T's in turn in
 //   one set of A registers for dV += P^T dO and dK += dS^T Q; the
 //   gradients are stored in f32 from the fragments.
+// - D 256 (`Shape<256, 3>`, gemma3's f32 training): the pieces of one
+//   warpgroup's two resident tiles would take 192 KB, so dq holds Q's
+//   pieces (96 KB, by TMA) and dO in f32 (64 KB, loaded once by the
+//   block's threads), and dkdv's dK block K's pieces and V in f32.  S = Q
+//   K^T (S^T = K Q^T) reads the pieces from shared memory; dP = dO V^T
+//   (dP^T = V dO^T) takes the f32 tile as the register A operand, each
+//   16-column slice's three pieces formed as it is issued, while S and
+//   the slice before run (`hybrid_products`, `a_pieces`).  dP's pair (0,
+//   0) accumulates apart from the five smaller pairs, the two added in
+//   f32, so that the tensor cores' inexact accumulation over the 96 steps
+//   of a 256-long product runs at the product's size for 16 of them only
+//   (S sums the pairs smallest first, as the D-128 bodies do).  The
+//   streamed side comes as pieces by TMA in 16-row tiles, one stage.  dq
+//   holds dQ whole; dkdv takes dV and dK in two blocks, each over the
+//   whole head dim: the dK block as above (`dk_res_body`), the dV block,
+//   which needs K alone, with K's pieces and two stages (`dv_res_body`).
+//   A gradient keeps three quarters of a thread's values in registers and
+//   the rest in shared memory (the whole in registers spilled).  Forming
+//   the pieces in registers, 16 keys or q rows a tile, sets the pace
+//   (PERF.md §6).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -152,16 +172,24 @@ constexpr float LOG2E = 1.4426950408889634f;
 // q rows in dq, 64 keys in dkdv, each); DQ_BK: keys of a dq stage; QT: q
 // rows of a dkdv stage; DQ_BLOCKS: dq blocks an SM (launch bounds); NH:
 // the parts of the head dim that dkdv splits dK and dV into, a block each
-// (each recomputes S^T and dP^T over the whole head dim).
+// (each recomputes S^T and dP^T over the whole head dim); RES: of the two
+// resident tiles (Q and dO in dq, K and V in dkdv) one is held as pieces
+// and the other in f32, its pieces formed 16 columns at a time as the
+// register A operand of dP (`hybrid_products`), and dkdv's two blocks take
+// dV and dK (`dv_res_body`, `dk_res_body`).
+struct ShapeBase {
+  static constexpr bool RES = false;
+  static constexpr int RREG = 0;  // RES only
+};
 template <int D, int NP>
 struct Shape;
 template <>
-struct Shape<64, 1> {
+struct Shape<64, 1> : ShapeBase {
   static constexpr int WG = 2, DQ_BK = 64, DQ_STAGES = 3, DQ_BLOCKS = 2, QT = 64, KV_STAGES = 3,
                        NH = 1;
 };
 template <>
-struct Shape<128, 1> {
+struct Shape<128, 1> : ShapeBase {
   static constexpr int WG = 2, DQ_BK = 64, DQ_STAGES = 2, DQ_BLOCKS = 1, QT = 64, KV_STAGES = 3,
                        NH = 1;
 };
@@ -169,19 +197,34 @@ struct Shape<128, 1> {
 // x 256 would be 256, so one warpgroup, 32-row tiles, and dK and dV in
 // two halves of 128 columns
 template <>
-struct Shape<256, 1> {
+struct Shape<256, 1> : ShapeBase {
   static constexpr int WG = 1, DQ_BK = 32, DQ_STAGES = 2, DQ_BLOCKS = 1, QT = 32, KV_STAGES = 3,
                        NH = 2;
 };
 template <>
-struct Shape<64, 3> {
+struct Shape<64, 3> : ShapeBase {
   static constexpr int WG = 2, DQ_BK = 64, DQ_STAGES = 2, DQ_BLOCKS = 1, QT = 64, KV_STAGES = 2,
                        NH = 1;
 };
 template <>
-struct Shape<128, 3> {  // one warpgroup: the resident pieces of two would need 288 KB
+struct Shape<128, 3> : ShapeBase {  // one warpgroup: the resident pieces of two would need 288 KB
   static constexpr int WG = 1, DQ_BK = 32, DQ_STAGES = 2, DQ_BLOCKS = 1, QT = 32, KV_STAGES = 2,
                        NH = 1;
+};
+// f32 at D 256: the three pieces of both of one warpgroup's resident
+// tiles would take 192 KB, so one (Q in dq, K in dkdv's dK block) is held
+// as pieces (96 KB) and the other (dO, V) stays f32 (64 KB, RES); the
+// streamed side comes as pieces in 16-row tiles, one stage (48 KB).  dQ is
+// one block's; dkdv takes dV and dK in two blocks (NH), each over the
+// whole head dim (`dv_res_body`, `dk_res_body`).  A gradient keeps its
+// first RREG values a thread (columns 0 .. 191) in registers and the rest
+// in shared memory (16 KB, each thread its own elements): 128 accumulator
+// registers a thread left ptxas too few for the rest and it spilled.
+template <>
+struct Shape<256, 3> {
+  static constexpr int WG = 1, DQ_BK = 16, DQ_STAGES = 1, DQ_BLOCKS = 1, QT = 16, KV_STAGES = 1,
+                       NH = 2, RREG = 96;
+  static constexpr bool RES = true;
 };
 
 // dq: Q, dO (and with bf16 inputs O) of the block's rows as (warpgroup,
@@ -192,10 +235,16 @@ template <int D, int NP>
 struct DqSmem {
   static constexpr int NB = D / BOX, WG = Shape<D, NP>::WG, BK = Shape<D, NP>::DQ_BK;
   static constexpr int STAGES = Shape<D, NP>::DQ_STAGES, KB = BK * BOX * 2;
-  static constexpr int Q = 0, DO = WG * NP * NB * BOX_BYTES, O = 2 * DO;
-  static constexpr int K = O + (NP == 1 ? DO : 0);  // f32 inputs: Delta from device memory
+  // the resident Q's pieces (boxes), then dO's: pieces, or (RES) 64 rows
+  // of D floats
+  static constexpr bool RES = Shape<D, NP>::RES;
+  static constexpr int DOB = RES ? WG * TILE * D * 4 : WG * NP * NB * BOX_BYTES;
+  static constexpr int Q = 0, DO = WG * NP * NB * BOX_BYTES, O = DO + DOB;
+  static constexpr int K = O + (NP == 1 ? DOB : 0);  // f32 inputs: Delta from device memory
   static constexpr int V = K + STAGES * NP * NB * KB;
-  static constexpr int BAR = V + STAGES * NP * NB * KB;
+  // RES: dQ's values past the first RREG a thread
+  static constexpr int ACC = V + STAGES * NP * NB * KB;
+  static constexpr int BAR = ACC + (RES ? WG * 128 * (D / 2 - Shape<D, NP>::RREG) * 4 : 0);
   static constexpr int BYTES = BAR + 8 * (1 + 2 * STAGES) + 1024;  // + alignment slack
 };
 
@@ -206,12 +255,36 @@ template <int D, int NP>
 struct KvSmem {
   static constexpr int NB = D / BOX, WG = Shape<D, NP>::WG, QT = Shape<D, NP>::QT;
   static constexpr int STAGES = Shape<D, NP>::KV_STAGES, QB = QT * BOX * 2, STAT_B = 2 * QT * 4;
-  static constexpr int K = 0, V = WG * NP * NB * BOX_BYTES, Q = 2 * V;
+  // the resident K's pieces (boxes), then V's: pieces, or (RES) 64 rows
+  // of D floats
+  static constexpr bool RES = Shape<D, NP>::RES;
+  static constexpr int VB = RES ? WG * TILE * D * 4 : WG * NP * NB * BOX_BYTES;
+  static constexpr int K = 0, V = WG * NP * NB * BOX_BYTES, Q = V + VB;
   static constexpr int DO = Q + STAGES * NP * NB * QB;
   static constexpr int STAT = DO + STAGES * NP * NB * QB;
-  static constexpr int BAR = STAT + STAGES * STAT_B;
+  // RES: dK's values past the first RREG a thread
+  static constexpr int ACC = STAT + STAGES * STAT_B;
+  static constexpr int BAR = ACC + (RES ? WG * 128 * (D / 2 - Shape<D, NP>::RREG) * 4 : 0);
   static constexpr int BYTES = BAR + 8 * (1 + 2 * STAGES) + 1024;
 };
+
+// dkdv's dV block of a RES shape (dv_res_body): K's pieces as (piece, box)
+// boxes of 64 keys, then Q and dO of two stages, each stage's lse and
+// Delta, dV's shared half, the barriers
+template <int D>
+struct DvSmem {
+  static constexpr int NP = 3, NB = D / BOX, QT = Shape<D, 3>::QT, STAGES = 2;
+  static constexpr int QB = QT * BOX * 2, STAT_B = 2 * QT * 4;
+  static constexpr int K = 0, Q = NP * NB * BOX_BYTES, DO = Q + STAGES * NP * NB * QB;
+  static constexpr int STAT = DO + STAGES * NP * NB * QB;
+  static constexpr int ACC = STAT + STAGES * STAT_B;
+  static constexpr int BAR = ACC + TILE * D / 2 * 4;
+  static constexpr int BYTES = BAR + 8 * (1 + 2 * STAGES) + 1024;
+};
+
+static_assert(DqSmem<256, 3>::BYTES <= 232448 && KvSmem<256, 3>::BYTES <= 232448 &&
+                  DvSmem<256>::BYTES <= 232448,
+              "a block has 227 KB");
 
 __device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
   return p + ((1024 - (hopper::smem_addr(p) & 1023)) & 1023);
@@ -290,21 +363,45 @@ __device__ __forceinline__ void acc_to_boxes(uint8_t* box, const float (&acc)[D 
           __floats2bfloat162_rn(acc[4 * j + 2 * r] * scale, acc[4 * j + 2 * r + 1] * scale);
 }
 
-// The same accumulator times `scale` in f32 straight into rows row0 and
-// row0 + 8 (this thread's) of head h of a contiguous (B, S, heads, D)
-// tensor, 8 bytes a store; rows past S are dropped
-template <int D>
-__device__ __forceinline__ void acc_to_f32(float* out, const float (&acc)[D / 2], float scale,
-                                           int b, int S, int heads, int h, int row0, int t) {
+// A 64 x W accumulator times `scale` in f32 straight into rows row0 and
+// row0 + 8 (this thread's), columns col0 .. col0 + W - 1, of head h of a
+// contiguous (B, S, heads, D) tensor, 8 bytes a store; rows past S are
+// dropped
+template <int D, int W>
+__device__ __forceinline__ void acc_to_f32(float* out, const float (&acc)[W / 2], float scale,
+                                           int b, int S, int heads, int h, int row0, int t,
+                                           int col0) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= S) continue;
+    float* dst = out + ((static_cast<long long>(b) * S + row) * heads + h) * D + col0;
+#pragma unroll
+    for (int j = 0; j < W / 8; ++j)
+      *reinterpret_cast<float2*>(dst + 8 * j + 2 * t) =
+          make_float2(acc[4 * j + 2 * r] * scale, acc[4 * j + 2 * r + 1] * scale);
+  }
+}
+
+// The shared-memory part of an accumulator split at RREG values
+// (add_partial's layout: columns 2 RREG .. D - 1) times `scale` into rows
+// row0 and row0 + 8 of head h of a contiguous (B, S, heads, D) f32 tensor,
+// as acc_to_f32<D, 2 RREG> stores the register part; rows past S dropped
+template <int D, int RREG>
+__device__ __forceinline__ void sacc_to_f32(float* out, const float* sacc, float scale, int b,
+                                            int S, int heads, int h, int row0, int t) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + 8 * r;
     if (row >= S) continue;
     float* dst = out + ((static_cast<long long>(b) * S + row) * heads + h) * D;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = RREG / 4; j < D / 8; ++j) {
+      const int i = 4 * j + 2 * r - RREG;  // the pair (i, i + 1) of the shared values
       *reinterpret_cast<float2*>(dst + 8 * j + 2 * t) =
-          make_float2(acc[4 * j + 2 * r] * scale, acc[4 * j + 2 * r + 1] * scale);
+          make_float2(sacc[i * 128 + threadIdx.x % 128] * scale,
+                      sacc[(i + 1) * 128 + threadIdx.x % 128] * scale);
+    }
   }
 }
 
@@ -323,17 +420,28 @@ __device__ __forceinline__ void store_boxes(const CUtensorMap* map, const uint8_
 
 // acc (64 x D, f32) += A B over the NP-piece pairs, A (64 x K) the pieces
 // in registers and B (K x D) MN-major from `b`, its pieces `piece` bytes
-// apart and its 64-column boxes `box` bytes apart: per 64 columns into a
-// fresh partial on the tensor cores, then added in f32, so that their
-// accumulation (which does not round to nearest: each step can drop up to
-// an ulp of the running sum, always the same way) spans one tile's
-// products instead of the whole sum.  Waits for its products.
-template <int D, int NP, int K>
-__device__ __forceinline__ void add_partial(float (&acc)[D / 2], uint32_t (&a)[NP][K / 16][4],
-                                            uint32_t b, int piece, int box) {
-  float part[32];
+// apart and its 64-column boxes `box` bytes apart: per PW columns (64, or
+// 32 where registers are short) into a fresh partial on the tensor cores,
+// then added in f32, so that their accumulation (which does not round to
+// nearest: each step can drop up to an ulp of the running sum, always the
+// same way) spans one tile's products instead of the whole sum.  Each
+// column's sum is the same at either width.  Waits for its products.
+//
+// RREG < D / 2: `acc` holds the thread's first RREG values (columns 0 ..
+// 2 RREG - 1) and `sacc` (shared memory, 128 floats a value, thread t at t)
+// the rest.
+template <int D, int NP, int K, int PW = 64, int RREG = D / 2>
+__device__ __forceinline__ void add_partial(float (&acc)[RREG], uint32_t (&a)[NP][K / 16][4],
+                                            uint32_t b0, int piece, int box,
+                                            float* sacc = nullptr) {
+  static_assert(PW == 64 || PW == 32, "64- or 32-column partials");
+  float part[PW / 2];
 #pragma unroll
-  for (int h = 0; h < D / 64; ++h) {
+  for (int h = 0; h < D / PW; ++h) {
+    // box h * PW / 64, from byte h % (64 / PW) * PW * 2 of its rows; the
+    // address opaque a partial at a time: no descriptor is computed early
+    uint32_t b = b0 + (h * PW / 64) * box + (h % (64 / PW)) * PW * 2;
+    asm volatile("" : "+r"(b));
 #pragma unroll
     for (int pc = 0; pc < NP; ++pc)
 #pragma unroll
@@ -344,14 +452,134 @@ __device__ __forceinline__ void add_partial(float (&acc)[D / 2], uint32_t (&a)[N
     for (int k = 0; k < hopper::n_pairs(NP); ++k)
 #pragma unroll
       for (int kc = 0; kc < K / 16; ++kc)
-        hopper::wgmma_rs<64, 1>(part, a[hopper::pair_i(NP, k)][kc],
-                                mnmajor<K>(b + hopper::pair_j(NP, k) * piece + h * box, kc),
+        hopper::wgmma_rs<PW, 1>(part, a[hopper::pair_i(NP, k)][kc],
+                                mnmajor<K>(b + hopper::pair_j(NP, k) * piece, kc),
                                 k > 0 || kc > 0);
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
     hopper::fence_regs(part);
+    // part[x]: rows as the accumulator's, columns h PW + 8 (x / 4) + 2 t +
+    // (x & 1): acc's element 4 j + e holds column 8 j + 2 t + (e & 1)
 #pragma unroll
-    for (int x = 0; x < 32; ++x) acc[32 * h + x] += part[x];
+    for (int x = 0; x < PW / 2; ++x) {
+      const int i = PW / 2 * h + x;  // the thread's i-th value
+      if (i < RREG)
+        acc[i] += part[x];
+      else
+        sacc[(i - RREG) * 128 + threadIdx.x % 128] += part[x];
+    }
+  }
+}
+
+// Rows row0 .. row0 + 63 of head h, batch b, of an f32 (B, S, heads, D)
+// tensor into `dst` (64 x D floats, RES), by the 128 threads of the
+// warpgroup; zeros past S.  Column c of row r lies at r D + (c ^ 8 (r % 4)):
+// the eight rows of an A fragment's 8-byte reads then meet every bank twice,
+// the least a warp's 256 bytes take.
+template <int D>
+__device__ __forceinline__ void resident_f32(float* dst, const void* src, long long sb,
+                                             long long ss, long long sh, int b, int h, int row0,
+                                             int S) {
+  const float* base = static_cast<const float*>(src) + b * sb + h * sh;
+  const bool vec = ((reinterpret_cast<uintptr_t>(base) | static_cast<uintptr_t>(ss * 4)) & 15) == 0;
+  for (int i = threadIdx.x % 128; i < TILE * D / 4; i += 128) {
+    const int r = i / (D / 4), c = i % (D / 4) * 4, row = row0 + r;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row < S) {
+      const float* x = base + row * ss + c;
+      v = vec ? *reinterpret_cast<const float4*>(x) : make_float4(x[0], x[1], x[2], x[3]);
+    }
+    *reinterpret_cast<float4*>(dst + r * D + (c ^ ((r & 3) << 3))) = v;
+  }
+}
+
+// The three bf16 pieces of this thread's A fragment of the 16-column slice
+// kk of a resident f32 tile at shared address `x` (resident_f32's layout):
+// rows rl0 and rl0 + 8, columns 16 kk + 2 t and the next, and the same 8
+// columns further
+template <int D>
+__device__ __forceinline__ void a_pieces(uint32_t (&a)[3][4], uint32_t x, int rl0, int kk,
+                                         int t) {
+  // the address and the swizzle, opaque a slice at a time: the compiler
+  // would otherwise compute the offsets of every slice once, ahead of the
+  // tile loop, and hold all of them in registers
+  int sw = (rl0 & 3) << 3;  // (r & 3) << 3 of both rows
+  asm volatile("" : "+r"(sw), "+r"(x));
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    constexpr int NP = 3;
+    const int r = rl0 + 8 * (e & 1), c = 16 * kk + 2 * t + 8 * (e >> 1);
+    float2 v;
+    asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n"
+                 : "=f"(v.x), "=f"(v.y)
+                 : "r"(x + 4u * static_cast<uint32_t>(r * D + (c ^ sw))));
+    uint32_t w[NP];
+    hopper::pack_bf16_pieces<NP>(v.x, v.y, w);  // the resident tile's pieces
+#pragma unroll
+    for (int pc = 0; pc < NP; ++pc) a[pc][e] = w[pc];
+  }
+}
+
+// S = Xa Ya^T and dP = Xb Yb^T (64 x N each, f32 on pieces) of a RES body:
+// Xa's pieces resident in shared memory (64 rows as (piece, box) boxes from
+// xa, K-major), Xb resident in f32 at xb (A from registers, each
+// 16-column slice's pieces formed as it is issued), Ya and Yb the streamed
+// tiles' pieces (N rows, K-major, `piece` bytes apart).  S is the sum over
+// the piece pairs, the smallest first, over the whole head dim, one commit
+// group, as the D-128 bodies form it; dP per slice the six pairs, the pair
+// (0, 0) into `d` and the five smaller into `d_lo` (the caller adds the
+// two in f32), so that the tensor cores' accumulation, which drops up to
+// an ulp of the running sum a step, runs 16 steps at the size of the
+// product and the other 80 at 2^-8 of it.  A slice's pieces are formed
+// while S and the slice before run, in two register sets in turn.
+// Returns with the products in flight (the caller waits with
+// wgmma_wait<0>).
+template <int N, int D>
+__device__ __forceinline__ void hybrid_products(float (&s)[N / 2], float (&d)[N / 2],
+                                                float (&d_lo)[N / 2], uint32_t xa, uint32_t xb,
+                                                uint32_t ya, uint32_t yb, int piece, int rl0,
+                                                int t) {
+  constexpr int NP = 3, NB = D / BOX;
+  uint32_t a[2][3][4];
+  // the last tile's sums are dead: zeros, so that no register stays live
+  // across the tile for them
+#pragma unroll
+  for (int x = 0; x < N / 2; ++x) s[x] = d[x] = d_lo[x] = 0.f;
+  hopper::fence_regs(s);
+  hopper::fence_regs(d);
+  hopper::fence_regs(d_lo);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int k = 0; k < hopper::n_pairs(NP); ++k) {
+    uint32_t xk = xa, yk = ya;  // opaque a pair at a time: no descriptor is computed early
+    asm volatile("" : "+r"(xk), "+r"(yk));
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      hopper::wgmma_ss<N, 0, 0>(s, kmajor<TILE>(xk + hopper::pair_i(NP, k) * NB * BOX_BYTES, kk),
+                                kmajor<N>(yk + hopper::pair_j(NP, k) * piece, kk), k > 0 || kk > 0);
+  }
+  hopper::wgmma_commit();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t (&x)[3][4] = a[kk & 1];
+    if (kk >= 2) hopper::wgmma_wait<1>();  // the slice two back is done: its set is free
+    a_pieces<D>(x, xb, rl0, kk, t);
+#pragma unroll
+    for (int pc = 0; pc < 3; ++pc) hopper::fence_regs(x[pc]);
+    // the streamed tile's address, opaque a slice at a time, so that no
+    // slice's descriptors are computed (and held in registers) before it
+    uint32_t y = yb;
+    asm volatile("" : "+r"(y));
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < hopper::n_pairs(3); ++k) {
+      const int i = hopper::pair_i(3, k), j = hopper::pair_j(3, k);
+      if (i == 0 && j == 0)
+        hopper::wgmma_rs<N, 0>(d, x[0], kmajor<N>(y, kk), kk > 0);
+      else
+        hopper::wgmma_rs<N, 0>(d_lo, x[i], kmajor<N>(y + j * piece, kk), kk > 0 || k > 0);
+    }
+    hopper::wgmma_commit();
   }
 }
 
@@ -366,6 +594,8 @@ __device__ __forceinline__ void dq_body(const CUtensorMap& tq, const CUtensorMap
   using L = DqSmem<D, NP>;
   constexpr int NB = L::NB, STAGES = L::STAGES, WG = L::WG, BK = L::BK, KB = L::KB;
   constexpr int ROWS = WG * TILE, NPAIR = hopper::n_pairs(NP);
+  constexpr bool RES = Shape<D, NP>::RES;
+  static_assert(!RES || (NP == 3 && WG == 1), "a resident f32 tile: f32 inputs, one warpgroup");
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = align_1024(smem_raw);
   uint64_t* qo_full = reinterpret_cast<uint64_t*>(sm + L::BAR);
@@ -419,8 +649,8 @@ __device__ __forceinline__ void dq_body(const CUtensorMap& tq, const CUtensorMap
     hopper::mbar_fence_init();
   }
   __syncthreads();
-  if (tid == 0) {
-    hopper::mbar_expect_tx(qo_full, (NP == 1 ? 3 : 2) * WG * NP * NB * BOX_BYTES);
+  if (tid == 0) {  // RES: Q's pieces alone (dO is read in f32 below)
+    hopper::mbar_expect_tx(qo_full, (NP == 1 ? 3 : RES ? 1 : 2) * WG * NP * NB * BOX_BYTES);
     for (int w = 0; w < WG; ++w)
 #pragma unroll
       for (int pc = 0; pc < NP; ++pc)
@@ -428,7 +658,8 @@ __device__ __forceinline__ void dq_body(const CUtensorMap& tq, const CUtensorMap
         for (int x = 0; x < NB; ++x) {
           const int off = ((w * NP + pc) * NB + x) * BOX_BYTES, row = q0 + w * TILE;
           hopper::tma_load_4d(sm + L::Q + off, &tq, qo_full, x * BOX, h, row, pc * p.B + b);
-          hopper::tma_load_4d(sm + L::DO + off, &tdo, qo_full, x * BOX, h, row, pc * p.B + b);
+          if constexpr (!RES)
+            hopper::tma_load_4d(sm + L::DO + off, &tdo, qo_full, x * BOX, h, row, pc * p.B + b);
           if constexpr (NP == 1)
             hopper::tma_load_4d(sm + L::O + off, &to, qo_full, x * BOX, h, row, b);
         }
@@ -446,6 +677,12 @@ __device__ __forceinline__ void dq_body(const CUtensorMap& tq, const CUtensorMap
 
   // Delta and lse * log2(e) of this thread's rows (past S: 0 and +inf, so
   // that P = 0), and both for pass 2, by the first thread of each row
+  const uint32_t dof = hopper::smem_addr(sm + L::DO);
+  if constexpr (RES) {  // the rows' dO in f32, while Q's pieces and the first stage load
+    resident_f32<D>(reinterpret_cast<float*>(sm + L::DO), p.dout, p.do_sb, p.do_ss, p.do_sh, b, h,
+                    r0, S);
+    hopper::named_barrier(1, 128);
+  }
   hopper::mbar_wait(qo_full, 0);
   const int n_qt = (S + TILE - 1) / TILE;
   float lse2[2], dl[2];
@@ -466,10 +703,16 @@ __device__ __forceinline__ void dq_body(const CUtensorMap& tq, const CUtensorMap
     }
   }
 
-  float s[BK / 2], dp[BK / 2], dq[D / 2];
+  // RES: dQ's first RREG values a thread here, the others in shared memory
+  constexpr int DQR = RES ? Shape<D, NP>::RREG : D / 2;
+  float s[BK / 2], dp[BK / 2], dq[DQR];
+  float dp_lo[RES ? BK / 2 : 1];  // RES: dP's small piece pairs
   uint32_t da[NP][BK / 16][4];
+  float* sacc = reinterpret_cast<float*>(sm + L::ACC);
 #pragma unroll
-  for (int x = 0; x < D / 2; ++x) dq[x] = 0.f;
+  for (int x = 0; x < DQR; ++x) dq[x] = 0.f;
+  if constexpr (RES)
+    for (int x = 0; x < D / 2 - DQR; ++x) sacc[x * 128 + tid % 128] = 0.f;
   auto fence_all = [&] {
     hopper::fence_regs(s);
     hopper::fence_regs(dp);
@@ -497,26 +740,36 @@ __device__ __forceinline__ void dq_body(const CUtensorMap& tq, const CUtensorMap
     auto step = [&](auto masked) {
       const uint32_t kst = k_s + st * NP * NB * KB, vst = v_s + st * NP * NB * KB;
       hopper::mbar_wait(&kv_full[st], (i / STAGES) & 1);
-      fence_all();
-      hopper::wgmma_fence();
+      if constexpr (RES) {  // S, and dP whole: dp + dp_lo
+        hybrid_products<BK, D>(s, dp, dp_lo, q_s, dof, kst, vst, NB * KB, rl0, t);
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(s);
+        hopper::fence_regs(dp);
+        hopper::fence_regs(dp_lo);
 #pragma unroll
-      for (int k = 0; k < NPAIR; ++k)
+        for (int x = 0; x < BK / 2; ++x) dp[x] += dp_lo[x];
+      } else {
+        fence_all();
+        hopper::wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk)
-          hopper::wgmma_ss<BK, 0, 0>(s, kmajor<TILE>(q_s + hopper::pair_i(NP, k) * NB * BOX_BYTES, kk),
-                                     kmajor<BK>(kst + hopper::pair_j(NP, k) * NB * KB, kk),
-                                     k > 0 || kk > 0);
-      hopper::wgmma_commit();
+        for (int k = 0; k < NPAIR; ++k)
 #pragma unroll
-      for (int k = 0; k < NPAIR; ++k)
+          for (int kk = 0; kk < D / 16; ++kk)
+            hopper::wgmma_ss<BK, 0, 0>(
+                s, kmajor<TILE>(q_s + hopper::pair_i(NP, k) * NB * BOX_BYTES, kk),
+                kmajor<BK>(kst + hopper::pair_j(NP, k) * NB * KB, kk), k > 0 || kk > 0);
+        hopper::wgmma_commit();
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk)
-          hopper::wgmma_ss<BK, 0, 0>(dp, kmajor<TILE>(do_s + hopper::pair_i(NP, k) * NB * BOX_BYTES, kk),
-                                     kmajor<BK>(vst + hopper::pair_j(NP, k) * NB * KB, kk),
-                                     k > 0 || kk > 0);
-      hopper::wgmma_commit();
-      hopper::wgmma_wait<1>();
-      hopper::fence_regs(s);
+        for (int k = 0; k < NPAIR; ++k)
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk)
+            hopper::wgmma_ss<BK, 0, 0>(
+                dp, kmajor<TILE>(do_s + hopper::pair_i(NP, k) * NB * BOX_BYTES, kk),
+                kmajor<BK>(vst + hopper::pair_j(NP, k) * NB * KB, kk), k > 0 || kk > 0);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<1>();
+        hopper::fence_regs(s);
+      }
       // s[x]: row r0 + rl0 + 8 ((x >> 1) & 1), key k0 + 8 (x / 4) + 2 t + (x & 1)
 #pragma unroll
       for (int x = 0; x < BK / 2; ++x) {
@@ -528,8 +781,10 @@ __device__ __forceinline__ void dq_body(const CUtensorMap& tq, const CUtensorMap
           s[x] = key >= S || (CAUSAL && key > row) || behind ? 0.f : s[x];
         }
       }
-      hopper::wgmma_wait<0>();
-      hopper::fence_regs(dp);
+      if constexpr (!RES) {
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(dp);
+      }
 #pragma unroll
       for (int x = 0; x < BK / 2; ++x)
         dp[x] = s[x] * (dp[x] - dl[(x >> 1) & 1]);  // dq: dS = P (dP - Delta)
@@ -552,7 +807,7 @@ __device__ __forceinline__ void dq_body(const CUtensorMap& tq, const CUtensorMap
         hopper::wgmma_wait<0>();
         fence_all();
       } else {
-        add_partial<D, NP, BK>(dq, da, kst, NB * KB, KB);  // dQ += dS K, per tile
+        add_partial<D, NP, BK, RES ? 32 : 64, DQR>(dq, da, kst, NB * KB, KB, sacc);  // dQ += dS K
       }
       if (lane == 0) hopper::mbar_arrive(&kv_empty[st]);
     };
@@ -572,7 +827,9 @@ __device__ __forceinline__ void dq_body(const CUtensorMap& tq, const CUtensorMap
     hopper::named_barrier(1 + wg, 128);
     if (tid % 128 == 0) store_boxes<NB>(&tdq, sm + L::Q + wg * NB * BOX_BYTES, h, r0, b);
   } else {
-    acc_to_f32<D>(static_cast<float*>(p.dq), dq, p.scale, b, S, p.H, h, r0 + rl0, t);
+    acc_to_f32<D, 2 * DQR>(static_cast<float*>(p.dq), dq, p.scale, b, S, p.H, h, r0 + rl0, t, 0);
+    if constexpr (RES)
+      sacc_to_f32<D, DQR>(static_cast<float*>(p.dq), sacc, p.scale, b, S, p.H, h, r0 + rl0, t);
   }
 }
 
@@ -838,9 +1095,313 @@ __device__ __forceinline__ void dkdv_body(const CUtensorMap& tq, const CUtensorM
       store_boxes<DH / BOX>(&tdv, sm + L::V + wg * NB * BOX_BYTES, hk, kr0, b, part * DH);
     }
   } else {
-    acc_to_f32<D>(static_cast<float*>(p.dk), dk, p.scale, b, S, p.Hkv, hk, key0, t);
-    acc_to_f32<D>(static_cast<float*>(p.dv), dv, 1.f, b, S, p.Hkv, hk, key0, t);
+    acc_to_f32<D, D>(static_cast<float*>(p.dk), dk, p.scale, b, S, p.Hkv, hk, key0, t, 0);
+    acc_to_f32<D, D>(static_cast<float*>(p.dv), dv, 1.f, b, S, p.Hkv, hk, key0, t, 0);
   }
+}
+
+// Pass 2 of a RES shape (f32 at D 256): per (64 keys, kv head, batch) two
+// blocks, one a gradient over the whole head dim (dv_res_body the other).
+// The dK block: the same ring over rep heads x q tiles as dkdv_body, one
+// warpgroup; S^T = K Q^T and dP^T = V dO^T with K and V f32 in shared
+// memory (hybrid_products: K's pieces by TMA from split3's scratch, V in
+// f32), then dK += dS^T Q.
+template <int D, bool CAUSAL, bool MASKED>
+__device__ __forceinline__ void dk_res_body(const CUtensorMap& tq, const CUtensorMap& tdo,
+                                            const CUtensorMap& tk, const Params& p) {
+  using L = KvSmem<D, 3>;
+  constexpr int NP = 3, NB = L::NB, STAGES = L::STAGES, QT = L::QT, QB = L::QB;
+  constexpr int RREG = Shape<D, NP>::RREG;
+  static_assert(L::WG == 1 && Shape<D, NP>::NH == 2, "a block a gradient, one warpgroup");
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align_1024(smem_raw);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(sm + L::BAR);
+  uint64_t* q_full = kv_full + 1;
+  uint64_t* q_empty = q_full + STAGES;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, t = lane % 4;
+  const int S = p.S, nk = (S + TILE - 1) / TILE, bid = blockIdx.x / 2;
+  int kt, hk, b;
+  if (CAUSAL) {
+    hk = bid % p.Hkv;
+    b = bid / p.Hkv % p.B;
+    kt = bid / (p.Hkv * p.B);
+  } else {
+    kt = bid % nk;
+    hk = bid / nk % p.Hkv;
+    b = bid / (nk * p.Hkv);
+  }
+  const int k0 = kt * TILE, rep = p.H / p.Hkv;
+  const int n_qt = (S + QT - 1) / QT, n_st = (S + TILE - 1) / TILE;
+  const int qt_lo = CAUSAL ? k0 / QT : 0;
+  const int qt_hi = p.window > 0 ? min(n_qt, (k0 + TILE - 2 + p.window) / QT + 1) : n_qt;
+  const int nq = qt_hi - qt_lo, n_iter = rep * nq;
+
+  auto load_q = [&](int i) {  // as dkdv_body's: Q, dO, lse and Delta of iteration i
+    const int s = i % STAGES, h = hk * rep + i / nq, qt = qt_lo + i % nq;
+    hopper::mbar_expect_tx(&q_full[s], 2 * NP * NB * QB + L::STAT_B);
+#pragma unroll
+    for (int pc = 0; pc < NP; ++pc)
+#pragma unroll
+      for (int x = 0; x < NB; ++x) {
+        const int off = ((s * NP + pc) * NB + x) * QB;
+        hopper::tma_load_4d(sm + L::Q + off, &tq, &q_full[s], x * BOX, h, qt * QT, pc * p.B + b);
+        hopper::tma_load_4d(sm + L::DO + off, &tdo, &q_full[s], x * BOX, h, qt * QT, pc * p.B + b);
+      }
+    const float* stat = p.delta + ((static_cast<long long>(b) * p.H + h) * n_st + qt * QT / TILE) *
+                                      2 * TILE + qt * QT % TILE;
+    uint8_t* dst = sm + L::STAT + s * L::STAT_B;
+    hopper::bulk_load(dst, stat, QT * 4, &q_full[s]);
+    hopper::bulk_load(dst + QT * 4, stat + TILE, QT * 4, &q_full[s]);
+  };
+  if (tid == 0) {
+    hopper::mbar_init(kv_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&q_full[s], 1);
+      hopper::mbar_init(&q_empty[s], 4);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    hopper::mbar_expect_tx(kv_full, NP * NB * BOX_BYTES);
+#pragma unroll
+    for (int pc = 0; pc < NP; ++pc)
+#pragma unroll
+      for (int x = 0; x < NB; ++x)
+        hopper::tma_load_4d(sm + L::K + (pc * NB + x) * BOX_BYTES, &tk, kv_full, x * BOX, hk, k0,
+                            pc * p.B + b);
+    for (int i = 0; i < min(STAGES, n_iter); ++i) load_q(i);
+  }
+  // the keys' V in f32, while K's pieces and the first stage load
+  resident_f32<D>(reinterpret_cast<float*>(sm + L::V), p.v, p.v_sb, p.v_ss, p.v_sh, b, hk, k0, S);
+  hopper::named_barrier(1, 128);
+  hopper::mbar_wait(kv_full, 0);
+
+  const int rl0 = warp * 16 + lane / 4, key0 = k0 + rl0;
+  const uint32_t k_s = hopper::smem_addr(sm + L::K), vf = hopper::smem_addr(sm + L::V);
+  const uint32_t q_s = hopper::smem_addr(sm + L::Q), do_s = hopper::smem_addr(sm + L::DO);
+  const float scale2 = p.scale * LOG2E;
+  // dK's first RREG values a thread here, the others in shared memory
+  float s[QT / 2], dp[QT / 2], dp_lo[QT / 2], acc[RREG];
+  uint32_t pa[NP][QT / 16][4];
+  float* sacc = reinterpret_cast<float*>(sm + L::ACC);
+#pragma unroll
+  for (int x = 0; x < RREG; ++x) acc[x] = 0.f;
+  for (int x = 0; x < D / 2 - RREG; ++x) sacc[x * 128 + tid] = 0.f;
+
+  for (int i = 0; i < n_iter; ++i) {
+    const int st = i % STAGES, q0 = (qt_lo + i % nq) * QT;
+    if (tid == 0 && i >= 1 && i - 1 + STAGES < n_iter) {
+      hopper::mbar_wait(&q_empty[(i - 1) % STAGES], ((i - 1) / STAGES) & 1);
+      load_q(i - 1 + STAGES);
+    }
+    __syncwarp();
+    auto step = [&](auto masked) {
+      const uint32_t qst = q_s + st * NP * NB * QB, dost = do_s + st * NP * NB * QB;
+      const float* lse2 = reinterpret_cast<const float*>(sm + L::STAT + st * L::STAT_B);
+      const float* dl = lse2 + QT;
+      hopper::mbar_wait(&q_full[st], (i / STAGES) & 1);
+      hybrid_products<QT, D>(s, dp, dp_lo, k_s, vf, qst, dost, NB * QB, rl0, t);
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(s);
+      hopper::fence_regs(dp);
+      hopper::fence_regs(dp_lo);
+      // s[4 j + e]: key key0 + 8 (e >> 1), q row q0 + 8 j + 2 t + (e & 1)
+#pragma unroll
+      for (int j = 0; j < QT / 8; ++j) {
+        const float2 l = *reinterpret_cast<const float2*>(lse2 + 8 * j + 2 * t);
+        const float2 d = *reinterpret_cast<const float2*>(dl + 8 * j + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int x = 4 * j + e;
+          float pt = hopper::exp2_approx(fmaf(s[x], scale2, -(e & 1 ? l.y : l.x)));
+          if constexpr (decltype(masked)::value) {
+            const int key = key0 + 8 * (e >> 1), row = q0 + 8 * j + 2 * t + (e & 1);
+            pt = (CAUSAL && key > row) || (p.window > 0 && key <= row - p.window) ? 0.f : pt;
+          }
+          s[x] = pt * (dp[x] + dp_lo[x] - (e & 1 ? d.y : d.x));  // dS^T = P^T (dP^T - Delta)
+        }
+      }
+#pragma unroll
+      for (int kc = 0; kc < QT / 16; ++kc)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          uint32_t w[NP];
+          hopper::pack_bf16_pieces<NP>(s[8 * kc + 2 * e], s[8 * kc + 2 * e + 1], w);  // dS^T's pieces
+#pragma unroll
+          for (int pc = 0; pc < NP; ++pc) pa[pc][kc][e] = w[pc];
+        }
+      add_partial<D, NP, QT, 32, RREG>(acc, pa, qst, NB * QB, QB, sacc);  // dK += dS^T Q
+      if (lane == 0) hopper::mbar_arrive(&q_empty[st]);
+    };
+    if constexpr (MASKED) {
+      if ((CAUSAL && k0 + TILE - 1 > q0) || (p.window > 0 && k0 <= q0 + QT - 1 - p.window))
+        step(std::true_type{});
+      else
+        step(std::false_type{});
+    } else {
+      step(std::false_type{});
+    }
+  }
+  if (k0 >= S) return;
+  acc_to_f32<D, 2 * RREG>(static_cast<float*>(p.dk), acc, p.scale, b, S, p.Hkv, hk, key0, t, 0);
+  sacc_to_f32<D, RREG>(static_cast<float*>(p.dk), sacc, p.scale, b, S, p.Hkv, hk, key0, t);
+}
+
+// The dV block of a RES shape (dk_res_body the other): S^T = K Q^T and dV
+// += P^T dO need K alone,
+// so the block holds K's three pieces (96 KB, by TMA from split3's
+// scratch) and reads them as the shared-memory A operand, as the D-128
+// body does, with no pieces to form: per q tile S^T is the sum over the
+// piece pairs, the smallest first, over the whole head dim, then P^T's
+// pieces give dV += P^T dO in 32-column partials (dV's upper half in
+// shared memory).  Two stages of Q and dO.
+template <int D, bool CAUSAL, bool MASKED>
+__device__ __forceinline__ void dv_res_body(const CUtensorMap& tq, const CUtensorMap& tdo,
+                                            const CUtensorMap& tk, const Params& p) {
+  using L = DvSmem<D>;
+  constexpr int NP = 3, NB = L::NB, STAGES = L::STAGES, QT = L::QT, QB = L::QB;
+  constexpr int NPAIR = hopper::n_pairs(NP);
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align_1024(smem_raw);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(sm + L::BAR);
+  uint64_t* q_full = kv_full + 1;
+  uint64_t* q_empty = q_full + STAGES;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, t = lane % 4;
+  const int S = p.S, nk = (S + TILE - 1) / TILE, bid = blockIdx.x / 2;
+  int kt, hk, b;
+  if (CAUSAL) {
+    hk = bid % p.Hkv;
+    b = bid / p.Hkv % p.B;
+    kt = bid / (p.Hkv * p.B);
+  } else {
+    kt = bid % nk;
+    hk = bid / nk % p.Hkv;
+    b = bid / (nk * p.Hkv);
+  }
+  const int k0 = kt * TILE, rep = p.H / p.Hkv;
+  const int n_qt = (S + QT - 1) / QT, n_st = (S + TILE - 1) / TILE;
+  const int qt_lo = CAUSAL ? k0 / QT : 0;
+  const int qt_hi = p.window > 0 ? min(n_qt, (k0 + TILE - 2 + p.window) / QT + 1) : n_qt;
+  const int nq = qt_hi - qt_lo, n_iter = rep * nq;
+
+  auto load_q = [&](int i) {  // Q, dO, lse and Delta of iteration i, as dkdv_body's
+    const int s = i % STAGES, h = hk * rep + i / nq, qt = qt_lo + i % nq;
+    hopper::mbar_expect_tx(&q_full[s], 2 * NP * NB * QB + L::STAT_B);
+#pragma unroll
+    for (int pc = 0; pc < NP; ++pc)
+#pragma unroll
+      for (int x = 0; x < NB; ++x) {
+        const int off = ((s * NP + pc) * NB + x) * QB;
+        hopper::tma_load_4d(sm + L::Q + off, &tq, &q_full[s], x * BOX, h, qt * QT, pc * p.B + b);
+        hopper::tma_load_4d(sm + L::DO + off, &tdo, &q_full[s], x * BOX, h, qt * QT, pc * p.B + b);
+      }
+    const float* stat = p.delta + ((static_cast<long long>(b) * p.H + h) * n_st + qt * QT / TILE) *
+                                      2 * TILE + qt * QT % TILE;
+    uint8_t* dst = sm + L::STAT + s * L::STAT_B;
+    hopper::bulk_load(dst, stat, QT * 4, &q_full[s]);
+    hopper::bulk_load(dst + QT * 4, stat + TILE, QT * 4, &q_full[s]);
+  };
+  if (tid == 0) {
+    hopper::mbar_init(kv_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&q_full[s], 1);
+      hopper::mbar_init(&q_empty[s], 4);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    hopper::mbar_expect_tx(kv_full, NP * NB * BOX_BYTES);
+#pragma unroll
+    for (int pc = 0; pc < NP; ++pc)
+#pragma unroll
+      for (int x = 0; x < NB; ++x)
+        hopper::tma_load_4d(sm + L::K + (pc * NB + x) * BOX_BYTES, &tk, kv_full, x * BOX, hk, k0,
+                            pc * p.B + b);
+    for (int i = 0; i < min(STAGES, n_iter); ++i) load_q(i);
+  }
+
+  const int rl0 = warp * 16 + lane / 4, key0 = k0 + rl0;
+  const uint32_t k_s = hopper::smem_addr(sm + L::K);
+  const uint32_t q_s = hopper::smem_addr(sm + L::Q), do_s = hopper::smem_addr(sm + L::DO);
+  const float scale2 = p.scale * LOG2E;
+  float s[QT / 2], acc[D / 4];
+  uint32_t pa[NP][QT / 16][4];
+  float* sacc = reinterpret_cast<float*>(sm + L::ACC);
+#pragma unroll
+  for (int x = 0; x < D / 4; ++x) acc[x] = 0.f;
+  for (int x = 0; x < D / 4; ++x) sacc[x * 128 + tid] = 0.f;
+  hopper::mbar_wait(kv_full, 0);
+
+  for (int i = 0; i < n_iter; ++i) {
+    const int st = i % STAGES, q0 = (qt_lo + i % nq) * QT;
+    if (tid == 0 && i >= 1 && i - 1 + STAGES < n_iter) {
+      hopper::mbar_wait(&q_empty[(i - 1) % STAGES], ((i - 1) / STAGES) & 1);
+      load_q(i - 1 + STAGES);
+    }
+    __syncwarp();
+    auto step = [&](auto masked) {
+      const uint32_t qst = q_s + st * NP * NB * QB, dost = do_s + st * NP * NB * QB;
+      const float* lse2 = reinterpret_cast<const float*>(sm + L::STAT + st * L::STAT_B);
+      hopper::mbar_wait(&q_full[st], (i / STAGES) & 1);
+#pragma unroll
+      for (int x = 0; x < QT / 2; ++x) s[x] = 0.f;  // the last tile's are dead
+      hopper::fence_regs(s);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < NPAIR; ++k) {  // S^T = K Q^T, a pair at a time
+        uint32_t ks = k_s, qs = qst;  // opaque: no pair's descriptors are computed early
+        asm volatile("" : "+r"(ks), "+r"(qs));
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          hopper::wgmma_ss<QT, 0, 0>(s, kmajor<TILE>(ks + hopper::pair_i(NP, k) * NB * BOX_BYTES, kk),
+                                     kmajor<QT>(qs + hopper::pair_j(NP, k) * NB * QB, kk),
+                                     k > 0 || kk > 0);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(s);
+      // s[4 j + e]: key key0 + 8 (e >> 1), q row q0 + 8 j + 2 t + (e & 1)
+#pragma unroll
+      for (int j = 0; j < QT / 8; ++j) {
+        const float2 l = *reinterpret_cast<const float2*>(lse2 + 8 * j + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int x = 4 * j + e;
+          s[x] = hopper::exp2_approx(fmaf(s[x], scale2, -(e & 1 ? l.y : l.x)));
+          if constexpr (decltype(masked)::value) {
+            const int key = key0 + 8 * (e >> 1), row = q0 + 8 * j + 2 * t + (e & 1);
+            s[x] = (CAUSAL && key > row) || (p.window > 0 && key <= row - p.window) ? 0.f : s[x];
+          }
+        }
+      }
+#pragma unroll
+      for (int kc = 0; kc < QT / 16; ++kc)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          uint32_t w[NP];
+          hopper::pack_bf16_pieces<NP>(s[8 * kc + 2 * e], s[8 * kc + 2 * e + 1], w);  // dV block: P^T's pieces
+#pragma unroll
+          for (int pc = 0; pc < NP; ++pc) pa[pc][kc][e] = w[pc];
+        }
+      add_partial<D, NP, QT, 32, D / 4>(acc, pa, dost, NB * QB, QB, sacc);  // dV += P^T dO
+      if (lane == 0) hopper::mbar_arrive(&q_empty[st]);
+    };
+    if constexpr (MASKED) {
+      if ((CAUSAL && k0 + TILE - 1 > q0) || (p.window > 0 && k0 <= q0 + QT - 1 - p.window))
+        step(std::true_type{});
+      else
+        step(std::false_type{});
+    } else {
+      step(std::false_type{});
+    }
+  }
+  if (k0 >= S) return;
+  acc_to_f32<D, D / 2>(static_cast<float*>(p.dv), acc, 1.f, b, S, p.Hkv, hk, key0, t, 0);
+  sacc_to_f32<D, D / 4>(static_cast<float*>(p.dv), sacc, 1.f, b, S, p.Hkv, hk, key0, t);
 }
 
 // bf16 inputs and gradients
@@ -885,7 +1446,14 @@ __global__ void __launch_bounds__(Shape<D, 3>::WG * 128, 1)
                           const __grid_constant__ CUtensorMap tv,
                           const __grid_constant__ CUtensorMap tdk,
                           const __grid_constant__ CUtensorMap tdv, Params p) {
-  dkdv_body<D, 3, CAUSAL, MASKED>(tq, tdo, tk, tv, tdk, tdv, p);
+  if constexpr (Shape<D, 3>::RES) {  // even blocks dV, odd ones dK
+    if (blockIdx.x % 2 == 0)
+      dv_res_body<D, CAUSAL, MASKED>(tq, tdo, tk, p);
+    else
+      dk_res_body<D, CAUSAL, MASKED>(tq, tdo, tk, p);
+  } else {
+    dkdv_body<D, 3, CAUSAL, MASKED>(tq, tdo, tk, tv, tdk, tdv, p);
+  }
 }
 
 // ------------------------------------------------------------------ launch
@@ -904,245 +1472,6 @@ struct Operands {
   const void* ptr[5];
   long long stride[5][3];
 };
-
-// ---------------------------------------------------------------- D 256
-// The CUDA-core body of head dim 256 (gemma3) in f32, whose three bf16
-// pieces do not fit the wgmma bodies' shared memory (one warpgroup's
-// resident Q and dO pieces alone take 192 KB): the same two passes, in
-// f32 arithmetic on the f32 inputs, each sum in a fixed order (no
-// atomics: gradients repeat bit for bit).  A block of SNT threads takes
-// SR q rows (dq) or SR keys (dkdv) of one head and streams tiles of ST
-// keys (dq) or ST q rows (dkdv, over the rep heads of its kv head)
-// through shared memory, rows padded to D + 1 floats so that the threads
-// of a warp read distinct banks.  Per tile each thread forms two scores
-// and their dP as D-long dot products, the block writes P (dkdv) and dS
-// to shared memory, and each thread adds D / 16 columns of its row's (or
-// key's) gradients: each tile's terms into a fresh partial, added once
-// a tile to the total, so that a rounding error grows with the tile's 32
-// terms, not with the thousands of keys or rows (rep x S for dK and dV)
-// the sum runs over.  Against the function evaluated in f64 this body is
-// as close at gemma3's train shape as one with f64 dot products, Delta
-// and totals was, and 1.55x faster (PERF.md §6).  Masks are selects.
-// Only the tiles that meet the causal and window ranges are visited.  Its redesign (pieces split
-// in shared memory, or on the bf16 body's halves) is queued in ROADMAP.
-constexpr int SR = 16;   // q rows (dq) or keys (dkdv) of a block
-constexpr int ST = 32;   // keys (dq) or q rows (dkdv) of a streamed tile
-constexpr int SNT = 256;
-
-template <int D>
-constexpr int simt_smem_floats() {  // the larger of the two passes' layouts
-  return 2 * SR * (D + 1) + 2 * ST * (D + 1) + 2 * SR * ST + 2 * ST;
-}
-
-// rows r0 .. r0 + n - 1 of head h, batch b, of a (B, S, heads, D) tensor
-// into `dst` as f32, row stride D + 1; zeros past S
-template <int D>
-__device__ __forceinline__ void rows_to_smem(float* dst, const void* src, long long sb,
-                                             long long ss, long long sh, int b, int h, int r0,
-                                             int n, int S) {
-  const float* base = static_cast<const float*>(src) + b * sb + h * sh;
-  for (int i = threadIdx.x; i < n * D; i += SNT) {
-    const int r = i / D, d = i % D, row = r0 + r;
-    dst[r * (D + 1) + d] = row < S ? base[row * ss + d] : 0.f;
-  }
-}
-
-// a . b and c . d of D-long f32 rows
-template <int D>
-__device__ __forceinline__ void dot2(const float* a, const float* b, const float* c,
-                                     const float* d, float* ab, float* cd) {
-  float x[2] = {0.f, 0.f}, y[2] = {0.f, 0.f};
-#pragma unroll 4
-  for (int i = 0; i < D; i += 2)
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      x[u] = fmaf(a[i + u], b[i + u], x[u]);
-      y[u] = fmaf(c[i + u], d[i + u], y[u]);
-    }
-  *ab = x[0] + x[1];
-  *cd = y[0] + y[1];
-}
-
-__device__ __forceinline__ bool hidden(const Params& p, int key, int row) {
-  return key >= p.S || row >= p.S || (p.causal && key > row) ||
-         (p.window > 0 && key <= row - p.window);  // simt: outside the window
-}
-
-// Pass 1 at D 256: dQ, and each row's Delta and lse * log2(e) for pass 2.
-template <int D>
-__global__ void __launch_bounds__(SNT) dq_simt_kernel(Params p) {
-  constexpr int LD = D + 1, NC = D / 16;
-  extern __shared__ float fsm[];
-  float* qs = fsm;               // [SR][LD]
-  float* dos = qs + SR * LD;     // [SR][LD]
-  float* ks = dos + SR * LD;     // [ST][LD]
-  float* vs = ks + ST * LD;      // [ST][LD]
-  float* ds = vs + ST * LD;      // [SR][ST]
-  float* lse2 = ds + SR * ST;    // [SR]
-  float* dl = lse2 + SR;         // [SR]
-  const int q0 = blockIdx.x * SR, h = blockIdx.y, b = blockIdx.z, S = p.S;
-  const int hk = h / (p.H / p.Hkv), tid = threadIdx.x;
-  rows_to_smem<D>(qs, p.q, p.q_sb, p.q_ss, p.q_sh, b, h, q0, SR, S);
-  rows_to_smem<D>(dos, p.dout, p.do_sb, p.do_ss, p.do_sh, b, h, q0, SR, S);
-  __syncthreads();
-  // Delta = rowsum(dO O) and lse * log2(e) (past S: 0 and +inf); a warp a row
-  const int warp = tid / 32, lane = tid % 32, n_st = (S + TILE - 1) / TILE;
-  for (int r = warp; r < SR; r += SNT / 32) {
-    const int row = q0 + r;
-    float acc = 0.f;
-    if (row < S) {
-      const float* o = static_cast<const float*>(p.o) + b * p.o_sb + row * p.o_ss + h * p.o_sh;
-      for (int d = lane; d < D; d += 32)
-        acc = fmaf(o[d], dos[r * LD + d], acc);
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    if (lane == 0) {
-      lse2[r] = row < S ? p.lse[(static_cast<long long>(b) * p.H + h) * S + row] * LOG2E
-                        : INFINITY;
-      dl[r] = row < S ? acc : 0.f;
-      if (row < S) {
-        float* stat = p.delta + ((static_cast<long long>(b) * p.H + h) * n_st + row / TILE) * 2 * TILE;
-        stat[row % TILE] = lse2[r];
-        stat[TILE + row % TILE] = dl[r];
-      }
-    }
-  }
-  // the keys any row of the block sees: (q0 - W, last row] (causal)
-  const int k_hi = p.causal ? min(q0 + SR, S) - 1 : S - 1;
-  const int k_lo = p.window > 0 ? max(0, q0 - p.window + 1) : 0;
-  const int sr = tid / 16, sk = tid % 16, row = q0 + sr;
-  const float scale2 = p.scale * LOG2E;
-  float acc[NC];
-#pragma unroll
-  for (int j = 0; j < NC; ++j) acc[j] = 0.f;
-  for (int k0 = k_lo / ST * ST; k0 <= k_hi; k0 += ST) {
-    __syncthreads();  // the previous tile's K, V and dS are consumed
-    rows_to_smem<D>(ks, p.k, p.k_sb, p.k_ss, p.k_sh, b, hk, k0, ST, S);
-    rows_to_smem<D>(vs, p.v, p.v_sb, p.v_ss, p.v_sh, b, hk, k0, ST, S);
-    __syncthreads();
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int kk = sk + 16 * e;
-      float sc, dp;
-      dot2<D>(qs + sr * LD, ks + kk * LD, dos + sr * LD, vs + kk * LD, &sc, &dp);
-      const float pr = hidden(p, k0 + kk, row)
-                           ? 0.f
-                           : exp2f(fmaf(sc, scale2, -lse2[sr]));
-      ds[sr * ST + kk] = pr * (dp - dl[sr]);
-    }
-    __syncthreads();
-    float part[NC];  // this tile's dS K
-#pragma unroll
-    for (int j = 0; j < NC; ++j) part[j] = 0.f;
-    for (int kk = 0; kk < ST; ++kk) {
-      const float w = ds[sr * ST + kk];
-#pragma unroll
-      for (int j = 0; j < NC; ++j) part[j] = fmaf(w, ks[kk * LD + sk + 16 * j], part[j]);
-    }
-#pragma unroll
-    for (int j = 0; j < NC; ++j) acc[j] += part[j];
-  }
-  if (row < S) {
-    float* dst = static_cast<float*>(p.dq) + ((static_cast<long long>(b) * S + row) * p.H + h) * D;
-#pragma unroll
-    for (int j = 0; j < NC; ++j) dst[sk + 16 * j] = acc[j] * p.scale;
-  }
-}
-
-// Pass 2 at D 256: dK and dV, reading the lse and Delta that pass 1 wrote.
-template <int D>
-__global__ void __launch_bounds__(SNT) dkdv_simt_kernel(Params p) {
-  constexpr int LD = D + 1, NC = D / 16;
-  extern __shared__ float fsm[];
-  float* ks = fsm;               // [SR][LD]
-  float* vs = ks + SR * LD;      // [SR][LD]
-  float* qs = vs + SR * LD;      // [ST][LD]
-  float* dos = qs + ST * LD;     // [ST][LD]
-  float* pt = dos + ST * LD;     // [SR][ST]: P^T
-  float* dst = pt + SR * ST;     // [SR][ST]: dS^T
-  float* lse2 = dst + SR * ST;   // [ST]
-  float* dl = lse2 + ST;         // [ST]
-  const int k0 = blockIdx.x * SR, hk = blockIdx.y, b = blockIdx.z, S = p.S;
-  const int rep = p.H / p.Hkv, tid = threadIdx.x, n_st = (S + TILE - 1) / TILE;
-  rows_to_smem<D>(ks, p.k, p.k_sb, p.k_ss, p.k_sh, b, hk, k0, SR, S);
-  rows_to_smem<D>(vs, p.v, p.v_sb, p.v_ss, p.v_sh, b, hk, k0, SR, S);
-  // the rows that see a key of the block: [k0 (causal), last key + W - 1]
-  const int r_lo = p.causal ? k0 : 0;
-  const int r_hi = p.window > 0 ? min(S - 1, min(k0 + SR, S) - 2 + p.window) : S - 1;
-  const int sk = tid / 16, sr = tid % 16, key = k0 + sk;
-  const float scale2 = p.scale * LOG2E;
-  float dk[NC], dv[NC];
-#pragma unroll
-  for (int j = 0; j < NC; ++j) dk[j] = dv[j] = 0.f;
-  for (int hh = 0; hh < rep; ++hh) {
-    const int h = hk * rep + hh;
-    for (int r0 = r_lo / ST * ST; r0 <= r_hi; r0 += ST) {
-      __syncthreads();  // the previous tile's q, dO, P^T and dS^T are consumed
-      rows_to_smem<D>(qs, p.q, p.q_sb, p.q_ss, p.q_sh, b, h, r0, ST, S);
-      rows_to_smem<D>(dos, p.dout, p.do_sb, p.do_ss, p.do_sh, b, h, r0, ST, S);
-      if (tid < ST) {
-        const int row = r0 + tid;
-        const float* stat =
-            p.delta + ((static_cast<long long>(b) * p.H + h) * n_st + row / TILE) * 2 * TILE;
-        lse2[tid] = row < S ? stat[row % TILE] : INFINITY;
-        dl[tid] = row < S ? stat[TILE + row % TILE] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int rr = sr + 16 * e;
-        float sc, dp;
-        dot2<D>(ks + sk * LD, qs + rr * LD, vs + sk * LD, dos + rr * LD, &sc, &dp);
-        const float pr = hidden(p, key, r0 + rr)
-                             ? 0.f
-                             : exp2f(fmaf(sc, scale2, -lse2[rr]));
-        pt[sk * ST + rr] = pr;
-        dst[sk * ST + rr] = pr * (dp - dl[rr]);
-      }
-      __syncthreads();
-      float pv[NC], pk[NC];  // this tile's P^T dO and dS^T q
-#pragma unroll
-      for (int j = 0; j < NC; ++j) pv[j] = pk[j] = 0.f;
-      for (int rr = 0; rr < ST; ++rr) {
-        const float pw = pt[sk * ST + rr], dw = dst[sk * ST + rr];
-#pragma unroll
-        for (int j = 0; j < NC; ++j) {
-          pv[j] = fmaf(pw, dos[rr * LD + sr + 16 * j], pv[j]);
-          pk[j] = fmaf(dw, qs[rr * LD + sr + 16 * j], pk[j]);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < NC; ++j) {
-        dv[j] += pv[j];
-        dk[j] += pk[j];
-      }
-    }
-  }
-  if (key < S) {
-    const long long off = ((static_cast<long long>(b) * S + key) * p.Hkv + hk) * D;
-    float* dkp = static_cast<float*>(p.dk) + off;
-    float* dvp = static_cast<float*>(p.dv) + off;
-#pragma unroll
-    for (int j = 0; j < NC; ++j) {
-      dkp[sr + 16 * j] = dk[j] * p.scale;
-      dvp[sr + 16 * j] = dv[j];
-    }
-  }
-}
-
-template <int D>
-cudaError_t launch_simt(const Params& p, cudaStream_t st) {
-  constexpr int smem = simt_smem_floats<D>() * 4;
-  static bool dq_ok = false, dkdv_ok = false;
-  cudaError_t e;
-  if ((e = set_smem(dq_simt_kernel<D>, smem, &dq_ok)) != cudaSuccess) return e;
-  if ((e = set_smem(dkdv_simt_kernel<D>, smem, &dkdv_ok)) != cudaSuccess) return e;
-  dq_simt_kernel<D><<<dim3((p.S + SR - 1) / SR, p.H, p.B), SNT, smem, st>>>(p);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  dkdv_simt_kernel<D><<<dim3((p.S + SR - 1) / SR, p.Hkv, p.B), SNT, smem, st>>>(p);
-  return cudaGetLastError();
-}
 
 template <int D, int NP, bool CAUSAL>
 cudaError_t launch(const Params& p, const Operands& x, cudaStream_t st) {
@@ -1163,7 +1492,14 @@ cudaError_t launch(const Params& p, const Operands& x, cudaStream_t st) {
   static bool dq_ok = false, dkdv_ok[2] = {false, false};
   cudaError_t e;
   if ((e = set_smem(dq, DqSmem<D, NP>::BYTES, &dq_ok)) != cudaSuccess) return e;
-  if ((e = set_smem(dkdv, KvSmem<D, NP>::BYTES, &dkdv_ok[masked])) != cudaSuccess) return e;
+  // a RES shape's dV and dK blocks take different layouts: the larger
+  constexpr int kv_bytes = [] {
+    if constexpr (T::RES)
+      return DvSmem<D>::BYTES > KvSmem<D, NP>::BYTES ? DvSmem<D>::BYTES : KvSmem<D, NP>::BYTES;
+    else
+      return KvSmem<D, NP>::BYTES;
+  }();
+  if ((e = set_smem(dkdv, kv_bytes, &dkdv_ok[masked])) != cudaSuccess) return e;
   auto map = [&](CUtensorMap* m, int i, int heads, int rows) {
     return hopper::bhsd_map(m, x.ptr[i], NP * p.B, p.S, heads, D, x.stride[i][0], x.stride[i][1],
                             x.stride[i][2], rows);
@@ -1186,8 +1522,8 @@ cudaError_t launch(const Params& p, const Operands& x, cudaStream_t st) {
   const unsigned n2 = (p.S + T::WG * TILE - 1) / (T::WG * TILE);
   dq<<<n2 * p.H * p.B, T::WG * 128, DqSmem<D, NP>::BYTES, st>>>(tq, tdo, to, tk, tv, tdq, p);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  dkdv<<<n2 * p.Hkv * p.B * T::NH, T::WG * 128, KvSmem<D, NP>::BYTES, st>>>(
-      tq2, tdo2, tk2, tv2, tdk, tdv, p);
+  dkdv<<<n2 * p.Hkv * p.B * T::NH, T::WG * 128, kv_bytes, st>>>(tq2, tdo2, tk2, tv2, tdk, tdv,
+                                                                p);
   return cudaGetLastError();
 }
 
@@ -1203,36 +1539,31 @@ cudaError_t launch_d(const Params& p, int dtype, void* pieces, cudaStream_t st) 
                                    {{p.q_sb, p.q_ss, p.q_sh}, {p.k_sb, p.k_ss, p.k_sh},
                                     {p.v_sb, p.v_ss, p.v_sh}, {p.o_sb, p.o_ss, p.o_sh},
                                     {p.do_sb, p.do_ss, p.do_sh}}}, st);
-  if (dtype != 0) return cudaErrorInvalidValue;
-  if constexpr (D == 256) {  // f32: the CUDA-core body
-    return launch_simt<D>(p, st);
-  } else {
-    if (pieces == nullptr) return cudaErrorInvalidValue;
-    // f32: q, k, v and dO into their pieces, one (3, B, S, heads, D) bf16
-    // tensor each, one after the other in the caller's scratch; Delta reads
-    // the f32 O and dO
-    const long long rq = static_cast<long long>(p.S) * p.H * D;
-    const long long rk = static_cast<long long>(p.S) * p.Hkv * D;
-    __nv_bfloat16* pq = static_cast<__nv_bfloat16*>(pieces);
-    __nv_bfloat16* pk = pq + 3 * p.B * rq;
-    __nv_bfloat16* pv = pk + 3 * p.B * rk;
-    __nv_bfloat16* pdo = pv + 3 * p.B * rk;
-    const hopper::SplitArgs a{
-        {static_cast<const float*>(p.q), static_cast<const float*>(p.k),
-         static_cast<const float*>(p.v), static_cast<const float*>(p.dout)},
-        {pq, pk, pv, pdo},
-        {p.q_sb, p.k_sb, p.v_sb, p.do_sb},
-        {p.q_ss, p.k_ss, p.v_ss, p.do_ss},
-        {p.q_sh, p.k_sh, p.v_sh, p.do_sh},
-        {p.H, p.Hkv, p.Hkv, p.H}};
-    cudaError_t e = hopper::split3(a, 4, p.B, p.S, D, st);
-    if (e != cudaSuccess) return e;
-    const long long sq[3] = {rq, static_cast<long long>(p.H) * D, D};
-    const long long sk[3] = {rk, static_cast<long long>(p.Hkv) * D, D};
-    return launch_causal<D, 3>(p, {{pq, pk, pv, nullptr, pdo},
-                                   {{sq[0], sq[1], sq[2]}, {sk[0], sk[1], sk[2]},
-                                    {sk[0], sk[1], sk[2]}, {0, 0, 0}, {sq[0], sq[1], sq[2]}}}, st);
-  }
+  if (dtype != 0 || pieces == nullptr) return cudaErrorInvalidValue;
+  // f32: q, k, v and dO into their pieces, one (3, B, S, heads, D) bf16
+  // tensor each, one after the other in the caller's scratch; Delta (and at
+  // D 256 the resident tiles) read the f32 tensors
+  const long long rq = static_cast<long long>(p.S) * p.H * D;
+  const long long rk = static_cast<long long>(p.S) * p.Hkv * D;
+  __nv_bfloat16* pq = static_cast<__nv_bfloat16*>(pieces);
+  __nv_bfloat16* pk = pq + 3 * p.B * rq;
+  __nv_bfloat16* pv = pk + 3 * p.B * rk;
+  __nv_bfloat16* pdo = pv + 3 * p.B * rk;
+  const hopper::SplitArgs a{
+      {static_cast<const float*>(p.q), static_cast<const float*>(p.k),
+       static_cast<const float*>(p.v), static_cast<const float*>(p.dout)},
+      {pq, pk, pv, pdo},
+      {p.q_sb, p.k_sb, p.v_sb, p.do_sb},
+      {p.q_ss, p.k_ss, p.v_ss, p.do_ss},
+      {p.q_sh, p.k_sh, p.v_sh, p.do_sh},
+      {p.H, p.Hkv, p.Hkv, p.H}};
+  cudaError_t e = hopper::split3(a, 4, p.B, p.S, D, st);
+  if (e != cudaSuccess) return e;
+  const long long sq[3] = {rq, static_cast<long long>(p.H) * D, D};
+  const long long sk[3] = {rk, static_cast<long long>(p.Hkv) * D, D};
+  return launch_causal<D, 3>(p, {{pq, pk, pv, nullptr, pdo},
+                                 {{sq[0], sq[1], sq[2]}, {sk[0], sk[1], sk[2]},
+                                  {sk[0], sk[1], sk[2]}, {0, 0, 0}, {sq[0], sq[1], sq[2]}}}, st);
 }
 
 }  // namespace
@@ -1243,8 +1574,8 @@ cudaError_t launch_d(const Params& p, int dtype, void* pieces, cudaStream_t st) 
 // float32 (then `pieces` is bf16 scratch of 3 B S (2 H + 2 Hkv) D elements
 // for q, k, v and dout as three bf16 pieces each), 1 = bfloat16 (then q,
 // k, v, o and dout must start on a 16-byte boundary with strides of whole
-// 16 bytes: the TMA's rule).  window: <= 0 for none.  D 256 runs the
-// CUDA-core body (`pieces` unused).  Returns a cudaError_t (0 = launched).
+// 16 bytes: the TMA's rule).  window: <= 0 for none.  Returns a
+// cudaError_t (0 = launched).
 // `pieces` and `window` come last, after the stream, so that a caller
 // passing them can drive a build of an earlier source.
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,

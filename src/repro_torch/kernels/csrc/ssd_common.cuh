@@ -1,6 +1,7 @@
 // Pieces the SSD scan's forward (ssd_scan.cu) and backward (ssd_scan_bwd.cu)
 // share: blocks of NT threads loading rows of f32 or bf16 into f32 shared
-// memory, writing outputs in either dtype, and a block-wide prefix sum.
+// memory, writing outputs in either dtype, a block-wide prefix sum, and the
+// chunk cumsum of the bodies on one warpgroup.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -72,6 +73,39 @@ __device__ __forceinline__ float block_inclusive_scan(float v, float* wsum) {
   if (w > 0) v += wsum[w - 1];
   __syncthreads();   // wsum is free again for the caller
   return v;
+}
+
+// dts[i] = dt of step i of the chunk (0 past S) and acs[i] its inclusive
+// cumsum of dt A, for i < L <= 256, by 128 threads taking two steps each,
+// in one fixed order: every pass that calls it (the forward's bf16 body and
+// the backward's wgmma body) computes the same bits.
+__device__ __forceinline__ void chunk_cumsum(const float* dtc, int dt_ss, int valid, float A,
+                                             int L, float* dts, float* acs, float* wsum) {
+  const int t = threadIdx.x, lane = t & 31, w = t >> 5;
+  const int i0 = 2 * t;
+  const float d0 = i0 < valid ? dtc[static_cast<long long>(i0) * dt_ss] : 0.f;
+  const float d1 = i0 + 1 < valid ? dtc[static_cast<long long>(i0 + 1) * dt_ss] : 0.f;
+  const float a0 = d0 * A, a1 = d1 * A;
+  float v = a0 + a1;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float u = __shfl_up_sync(0xffffffffu, v, o);
+    if (lane >= o) v += u;
+  }
+  float ex = __shfl_up_sync(0xffffffffu, v, 1);   // this lane's exclusive prefix
+  if (lane == 31) wsum[w] = v;
+  __syncthreads();
+  float base = 0.f;
+  for (int k = 0; k < w; ++k) base += wsum[k];
+  ex = lane == 0 ? base : base + ex;
+  if (i0 < L) {
+    dts[i0] = d0;
+    acs[i0] = ex + a0;
+  }
+  if (i0 + 1 < L) {
+    dts[i0 + 1] = d1;
+    acs[i0 + 1] = (ex + a0) + a1;
+  }
 }
 
 }  // namespace

@@ -306,38 +306,6 @@ struct WParams {
   int B, S, H, G, N, L, nc;
 };
 
-// dts[i] = dt of step i of the chunk (0 past S) and acs[i] its inclusive
-// cumsum of dt A, for i < L <= 256, by 128 threads taking two steps each,
-// in one fixed order: every pass computes the same bits.
-__device__ __forceinline__ void chunk_cumsum(const float* dtc, int dt_ss, int valid, float A,
-                                             int L, float* dts, float* acs, float* wsum) {
-  const int t = threadIdx.x, lane = t & 31, w = t >> 5;
-  const int i0 = 2 * t;
-  const float d0 = i0 < valid ? dtc[static_cast<long long>(i0) * dt_ss] : 0.f;
-  const float d1 = i0 + 1 < valid ? dtc[static_cast<long long>(i0 + 1) * dt_ss] : 0.f;
-  const float a0 = d0 * A, a1 = d1 * A;
-  float v = a0 + a1;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const float u = __shfl_up_sync(0xffffffffu, v, o);
-    if (lane >= o) v += u;
-  }
-  float ex = __shfl_up_sync(0xffffffffu, v, 1);   // this lane's exclusive prefix
-  if (lane == 31) wsum[w] = v;
-  __syncthreads();
-  float base = 0.f;
-  for (int k = 0; k < w; ++k) base += wsum[k];
-  ex = lane == 0 ? base : base + ex;
-  if (i0 < L) {
-    dts[i0] = d0;
-    acs[i0] = ex + a0;
-  }
-  if (i0 + 1 < L) {
-    dts[i0 + 1] = d1;
-    acs[i0 + 1] = (ex + a0) + a1;
-  }
-}
-
 // pass 1 shared memory, bytes from a 1024-aligned base: B of the chunk
 // (N / 64 boxes of L rows), (w x)_hi (in place of x), (w x)_lo, then f32
 // dt, acs, w (L each), 4 warp sums and the barrier

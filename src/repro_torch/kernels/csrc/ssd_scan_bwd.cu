@@ -21,55 +21,86 @@
 // plain code (ssd_chunk_states + ssd_carry, ssd_chunk_state_grads +
 // ssd_carry_grads, ssd_chunk_grads, ssd_head_sums).
 //
-// Five launches, no atomics: every sum is taken in one fixed order, so the
-// gradients repeat bit for bit (the resume gates depend on it).
-//   1. ssd_bwd_state: one block per (chunk, head, batch) takes the chunk's
-//      cumsum and writes its own state update U_c = sum_s w_s B_s x_s^T,
-//      its decay exp(acs_L), and V_c = sum_l exp(acs_l) C_l gy_l^T, what
-//      y's inter-chunk term sends back to the state entering the chunk.
+// No atomics: every sum is taken in one fixed order, so the gradients
+// repeat bit for bit (the resume gates depend on it).
+//
+// Bound on the H100 (989 TFLOP/s bf16, 3.35 TB/s; f32 operands as three
+// bf16 pieces run at a sixth of that, the CUDA cores at 67).  The function
+// needs, per (batch, head, chunk of n steps), five products over the
+// chunk's (n, N, P): U_c, V_c, B dS, dS x and S gy; over the n (n + 1) / 2
+// causal pairs, gy x^T (P) and M^T gy for dx (P).  Per (batch, group,
+// chunk) it needs C B^T over the pairs and the weighted sums for dB and dC
+// (N each): those are linear in the pair weights, so the weights summed
+// over the group's heads serve them once.  At mamba2-130m's train shape (B
+// 16, S 1024, H 24, P 64, G 1, N 128, L 256) that is 46.8 GFLOP: 0.047 ms
+// at the bf16 peak, 0.284 ms at a sixth of it (0.698 on the CUDA cores);
+// moving the inputs and the gradients once takes 0.055 ms in bf16, its
+// bound there.
+//
+// wgmma body (P 64, N 64 or 128, L a multiple of 64 up to 256: every SSM
+// config of the repo; `kernels/ssd_scan.py:bwd_wgmma_body` is the same
+// rule), both dtypes.  Every operand tile is loaded by TMA (128-byte
+// swizzle, rows past S filled with zeros), every product is a wgmma of one
+// warpgroup with f32 accumulators.  bf16 inputs are exact operands; f32
+// ones are first split into three bf16 pieces (hopper::split3), each
+// product the sum over the piece pairs i + j <= 2.  An f32 intermediate
+// (w x and e gy, the pair weights M and W, the carried states) enters as
+// hi + lo, two bf16 terms within 2^-16 of it, as the forward's w x does.
+//   1. ssd_bwd_state_wgmma: per (chunk, head, batch) and side, U_c = B^T
+//      diag(w) x or V_c = C^T diag(e) gy over 64-step tiles (B^T read
+//      MN-major), and the chunk's decay exp(acs_L).
 //   2. ssd_bwd_carry: the only sequential part, elementwise on (N, P) in
 //      chunk order: state_in(c + 1) = exp(acs_L(c)) state_in(c) + U_c
 //      forwards (from zeros), dS_out(c - 1) = exp(acs_L(c)) dS_out(c) + V_c
 //      backwards from dS_out(last) = the final state's gradient; each
 //      replaces its U_c or V_c in place.
+//   3. ssd_bwd_pair_wgmma, two launches, one block per (64-row tile,
+//      chunk, head, batch), 6144 at the train shape: sweep 1 holds B_s and
+//      x_s and walks the l tiles on or after s: P1 = B_s C_l^T and P2 =
+//      x_s gy_l^T, then in registers R = P2 P1 E (its row sums: ddt's and
+//      acs's terms at s), M = P1 E dt_s and W = P2 E dt_s, which as the
+//      register A operand give dx_s += M gy_l and dB_s += W C_l (gy and C
+//      read MN-major); before the walk the state terms w_s B_s dS and w_s
+//      x_s dS^T, with B_s . dS x_s.  Sweep 2 holds C_l and gy_l and walks
+//      the s tiles on or before l: dC_l += W B_s, acs's terms at l, and
+//      first e_l gy_l S^T with C_l . S gy_l.  The diagonal tile takes the
+//      compile-time mask variant (the exponent masked before the exp).
+//      dB and dC go out per head in f32.
+//   4. ssd_bwd_tail: per (chunk, head, batch), acs's gradient from the two
+//      sweeps (plus the state update's and the decay's terms at the chunk's
+//      end), its reverse cumsum da, ddt = direct terms + A da, dA's partial.
+//   5. ssd_bwd_heads and ssd_bwd_dA: dB and dC as the sums of each group's
+//      heads, in head order, in the inputs' dtype; dA as the sum of its
+//      (batch, chunk) partials, in order.
+// One block per tile rather than per (chunk, group) with the group's heads
+// summed inside: the latter gives 64 blocks for 132 SMs at the train shape
+// (B 16, 4 chunks, G 1); this gives 6144 a sweep.
+//
+// CUDA-core body (the reduced test shapes: P 16 or 32, N 8 or 16, chunk 32
+// or 96): five launches, every operand read as f32 and all arithmetic f32
+// for both dtypes (the only bf16 roundings are those of dx, dB and dC on
+// the way out).
+//   1. ssd_bwd_state: one block per (chunk, head, batch) takes the chunk's
+//      cumsum and writes its own state update U_c = sum_s w_s B_s x_s^T,
+//      its decay exp(acs_L), and V_c = sum_l exp(acs_l) C_l gy_l^T.
+//   2. ssd_bwd_carry, as above.
 //   3. ssd_bwd_grad: one block per (chunk, head, batch).  Two sweeps over
 //      the causal pairs of TL-row tiles (TL = 64, or 32 when L is not a
-//      multiple of 64): sweep 1 holds an s tile and walks the l tiles on or
-//      after it (dx, dB, ddt's direct terms and acs's gradient at s, plus
-//      the state terms of the s rows from dS), sweep 2 holds an l tile and
-//      walks the s tiles on or before it (dC, acs's gradient at l, plus the
-//      inter-chunk terms from S).  Each pair recomputes C B^T and gy x^T
-//      on the CUDA cores in f32 from register tiles.  Then the reverse
-//      cumsum gives ddt and the block's partial of dA.  dB and dC go out
-//      per head in f32.
-//   4. ssd_bwd_heads: dB and dC as the sums of each group's heads, in head
-//      order, in the inputs' dtype.
-//   5. ssd_bwd_dA: dA as the sum of its (batch, chunk) partials, in order.
+//      multiple of 64), as the wgmma body's, each pair recomputing C B^T
+//      and gy x^T on the CUDA cores in f32 from register tiles.  Then the
+//      reverse cumsum gives ddt and the block's partial of dA.
+//   4., 5. ssd_bwd_heads and ssd_bwd_dA, as above.
 // A ragged S is not padded in memory: steps past S load as zeros (dt = 0:
 // E and w stay finite and every product with them vanishes), so the last
 // chunk's acs_L is its last real step's, and nothing past S is stored.
-// Every operand is read as f32 and all arithmetic is f32, for both dtypes:
-// the only bf16 roundings are those of dx, dB and dC on the way out.
-//
-// Bound on the H100 (67 TFLOP/s f32 outside the tensor cores, 989 bf16,
-// 3.35 TB/s).  The function needs, per (batch, head, chunk of n steps),
-// five products over the chunk's (n, N, P): U_c, V_c, B dS, dS x and S gy;
-// over the n (n + 1) / 2 causal pairs, gy x^T (P) and M^T gy for dx (P).
-// Per (batch, group, chunk) it needs C B^T over the pairs and the weighted
-// sums for dB and dC (N each): those are linear in the pair weights, so the
-// weights summed over the group's heads serve them once.  At mamba2-130m's
-// train shape (B 16, S 1024, H 24, P 64, G 1, N 128, L 256) that is 46.8
-// GFLOP, 0.70 ms at the f32 peak, 0.047 ms at the bf16 one; moving the
-// inputs and the gradients once takes 0.055 ms in bf16, its bound there.
-// This body runs every product on the CUDA cores in f32, and the dB and dC
-// sums per head: a simple kernel that is right, far from the bf16 bound (a
-// wgmma / TMA redesign is ROADMAP B4).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 
+#include "hopper.cuh"
 #include "ssd_common.cuh"
 
 namespace {
@@ -97,6 +128,14 @@ struct Params {
   float* dCh;           // (B, S, H, N): dC of each head
   float* cdec;          // (B, nc, H): exp(acs_L) of each chunk
   float* dAp;           // (B, nc, H): the chunks' partials of dA
+  // the wgmma body's scratch: per chunk (B, nc, H) and step of it, ddt's
+  // direct terms, acs's gradient from the s and from the l sweep, and the
+  // state update's terms of acs_L's gradient; f32 inputs' pieces
+  float* ddt1;
+  float* dacs1;
+  float* dacs2;
+  float* qv;
+  __nv_bfloat16* pieces;  // (3, B, S, H, P) of x, then of gy; (3, B, S, G, N) of B, then of C
   int B, S, H, P, G, N, L, nc;
 };
 
@@ -635,6 +674,740 @@ __global__ void __launch_bounds__(NT) ssd_bwd_dA_kernel(Params p) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// wgmma body (P 64, N 64 or 128, L a multiple of 64 up to 256: every SSM
+// config of the repo; kernels/ssd_scan.py:bwd_wgmma_body is the same rule),
+// f32 inputs as NP = 3 bf16 pieces, bf16 as they are (NP = 1); see the
+// header.  Every block is one warpgroup.
+// ---------------------------------------------------------------------------
+
+constexpr int WG = 128;          // threads of a block: one warpgroup
+constexpr int TR = 64;           // rows of a tile: a wgmma's M, a TMA box's rows
+constexpr int WP = 64;           // P of the body: one 128-byte box row
+constexpr int BOX = TR * 128;    // bytes of a 64 x 64 bf16 box
+
+__host__ __device__ constexpr bool wgmma_shape(int P, int N, int L) {
+  return P == WP && (N == 64 || N == 128) && L % TR == 0 && L >= TR && L <= 256;
+}
+
+// the pieces an intermediate f32 operand (w x, e gy, the pair weights M and
+// W, the carried states) enters a product as: hi + lo, whose sum is within
+// 2^-16 of it, in both dtypes (an input is NP pieces)
+constexpr int NPA = 2;
+
+// the piece pairs (i, j) of a product of an na-piece operand and an
+// nb-piece one that carry f32's precision, i + j <= 2, the smallest first
+__host__ __device__ constexpr int n_pairs2(int na, int nb) {
+  int n = 0;
+  for (int lv = 2; lv >= 0; --lv)
+    for (int i = 0; i <= lv; ++i) n += i < na && lv - i < nb;
+  return n;
+}
+__host__ __device__ constexpr int pair2_i(int na, int nb, int k) {
+  for (int lv = 2; lv >= 0; --lv)
+    for (int i = 0; i <= lv; ++i)
+      if (i < na && lv - i < nb && k-- == 0) return i;
+  return 0;
+}
+__host__ __device__ constexpr int pair2_j(int na, int nb, int k) {
+  for (int lv = 2; lv >= 0; --lv)
+    for (int i = 0; i <= lv; ++i)
+      if (i < na && lv - i < nb && k-- == 0) return lv - i;
+  return 0;
+}
+
+__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0], b = reinterpret_cast<const float4*>(p)[1];
+  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w, v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+}
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&v)[8]) {
+  const uint4 r = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[e]));
+    v[2 * e] = f.x;
+    v[2 * e + 1] = f.y;
+  }
+}
+
+// eight f32 values as NPA bf16 pieces (hopper::pack_bf16_pieces), each
+// piece's eight in one 16-byte chunk of a swizzled box row
+template <int NPA>
+__device__ __forceinline__ void store_pieces8(uint8_t* dst, int piece_bytes, int r, int c8,
+                                              const float (&v)[8]) {
+  uint32_t w[4][NPA];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) hopper::pack_bf16_pieces<NPA>(v[2 * e], v[2 * e + 1], w[e]);
+  const int off = r * 128 + (((c8 >> 3) ^ (r & 7)) << 4);  // the 128-byte swizzle
+#pragma unroll
+  for (int pc = 0; pc < NPA; ++pc)
+    *reinterpret_cast<uint4*>(dst + pc * piece_bytes + off) =
+        make_uint4(w[0][pc], w[1][pc], w[2][pc], w[3][pc]);
+}
+
+// this thread's share of rows r0 .. r0 + 63 (zeros at and past `valid`)
+// of a chunk's (steps, 64) tensor at `src` (row stride `ss` elements):
+// eight elements of each of four rows
+template <typename T>
+__device__ __forceinline__ void tile_rows(float (&v)[4][8], const T* src, long long ss, int r0,
+                                          int valid) {
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int i = threadIdx.x + u * WG, row = r0 + (i >> 3);
+    if (row < valid) {
+      load8(src + row * ss + (i & 7) * 8, v[u]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) v[u][k] = 0.f;
+    }
+  }
+}
+
+// tile_rows' share, row i times f[r0 + i], as NPA pieces into swizzled 64 x
+// 64 boxes at `dst`, BOX bytes apart
+template <int NPA>
+__device__ __forceinline__ void scaled_pieces(uint8_t* dst, float (&v)[4][8], int r0,
+                                              const float* f) {
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int i = threadIdx.x + u * WG, r = i >> 3;
+    const float s = f[r0 + r];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) v[u][k] *= s;
+    store_pieces8<NPA>(dst, BOX, r, (i & 7) * 8, v[u]);
+  }
+}
+
+// an f32 (N, 64) state as NPA pieces, each N swizzled rows of 128 bytes
+// (read MN-major as the B of B_s dS, K-major as the B of x_s dS^T)
+template <int NPA>
+__device__ __forceinline__ void state_tile(uint8_t* dst, const float* src, int N) {
+  for (int i = threadIdx.x; i < N * 8; i += WG) {
+    const int r = i >> 3, c8 = (i & 7) * 8;
+    float v[8];
+    load8(src + r * WP + c8, v);
+    store_pieces8<NPA>(dst, N * 128, r, c8, v);
+  }
+}
+
+// columns n and n + 1 (n even) of row r of a tile held as NP pieces of NB
+// swizzled boxes each ([piece][box]), summed back to f32
+template <int NP, int NB>
+__device__ __forceinline__ float2 tile_pair(const uint8_t* m, int r, int n) {
+  const int cc = n % 64, off = r * 128 + ((((cc >> 3) ^ (r & 7)) << 4) | ((cc & 7) * 2));
+  float2 acc = make_float2(0.f, 0.f);
+#pragma unroll
+  for (int pc = NP - 1; pc >= 0; --pc) {  // the smallest piece first
+    const uint32_t w = *reinterpret_cast<const uint32_t*>(m + (pc * NB + n / 64) * BOX + off);
+    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w));
+    acc.x += f.x;
+    acc.y += f.y;
+  }
+  return acc;
+}
+
+// pass 1 of the body, shared memory from a 1024-aligned base: two stages
+// of a 64-step tile (NP pieces of the N / 64 boxes of B or C, then the NPA
+// pieces of w x or e gy), f32 dt, acs and the row weights (256 each), 4
+// warp sums, the barriers
+template <int NP, int N>
+struct StateSmem {
+  static constexpr int NB = N / 64;
+  static constexpr int VEC = NP * NB * BOX, STAGE_B = VEC + NPA * BOX;
+  static constexpr int F = 2 * STAGE_B;
+  static constexpr int BAR = F + (3 * 256 + 4) * 4;
+  static constexpr int BYTES = BAR + 8 * 2 + 1024;
+};
+
+// pass 1: U_c = B^T diag(w) x (blockIdx.z even) or V_c = C^T diag(e) gy
+// (odd) of one (chunk, head, batch), and the chunk's decay.  The 64-step
+// tiles of B or C come by TMA through two stages; the threads read each
+// tile's x (gy) one tile ahead into registers, form w x (e gy) in f32 and
+// write its hi and lo beside them; U or V (N x 64) accumulates over the
+// tiles on the tensor cores, B^T read MN-major, each pair of pieces a
+// product.
+template <int NP, int N>
+__global__ void __launch_bounds__(WG)
+    ssd_bwd_state_wgmma_kernel(const __grid_constant__ CUtensorMap tb,
+                               const __grid_constant__ CUtensorMap tc, Params p) {
+  using T = std::conditional_t<NP == 1, __nv_bfloat16, float>;
+  using Ly = StateSmem<NP, N>;
+  constexpr int NB = Ly::NB;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = smem_raw + ((1024 - (hopper::smem_addr(smem_raw) & 1023)) & 1023);
+  float* dts = reinterpret_cast<float*>(sm + Ly::F);
+  float* acs = dts + 256;
+  float* fv = acs + 256;
+  float* wsum = fv + 256;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + Ly::BAR);
+
+  const int tid = threadIdx.x, L = p.L;
+  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z >> 1, which = blockIdx.z & 1;
+  const int c0 = c * L, valid = min(L, p.S - c0), nt = (valid + TR - 1) / TR;
+  const int g = h / (p.H / p.G);
+  const CUtensorMap* tm = which ? &tc : &tb;
+  const long long xss = static_cast<long long>(p.H) * WP;
+  const T* vec = static_cast<const T*>(which ? p.gy : p.x) +
+                 (static_cast<long long>(b) * p.S + c0) * xss + h * WP;
+  auto load = [&](int j) {  // B's (or C's) tile j into stage j % 2 (thread 0)
+    uint8_t* dst = sm + (j & 1) * Ly::STAGE_B;
+    hopper::mbar_expect_tx(&full[j & 1], Ly::VEC);
+#pragma unroll
+    for (int pc = 0; pc < NP; ++pc)
+#pragma unroll
+      for (int x = 0; x < NB; ++x)
+        hopper::tma_load_4d(dst + (pc * NB + x) * BOX, tm, &full[j & 1], x * 64, g, c0 + j * TR,
+                            pc * p.B + b);
+  };
+  if (tid == 0) {
+    hopper::mbar_init(&full[0], 1);
+    hopper::mbar_init(&full[1], 1);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0)
+    for (int j = 0; j < min(2, nt); ++j) load(j);
+  chunk_cumsum(p.dt + (static_cast<long long>(b) * p.S + c0) * p.H + h, p.H, valid, p.A[h], L,
+               dts, acs, wsum);
+  __syncthreads();
+  const float acs_L = acs[L - 1];
+  for (int i = tid; i < L; i += WG)
+    fv[i] = which ? expf(acs[i]) : expf(acs_L - acs[i]) * dts[i];  // e, or w
+  if (tid == 0 && which == 0)
+    p.cdec[(static_cast<long long>(b) * p.nc + c) * p.H + h] = expf(acs_L);
+  __syncthreads();
+
+  float u[NB][32], rows[4][8];
+  tile_rows<T>(rows, vec, xss, 0, valid);
+  for (int j = 0; j < nt; ++j) {
+    uint8_t* stage = sm + (j & 1) * Ly::STAGE_B;
+    scaled_pieces<NPA>(stage + Ly::VEC, rows, j * TR, fv);
+    if (j + 1 < nt) tile_rows<T>(rows, vec, xss, (j + 1) * TR, valid);  // in flight meanwhile
+    hopper::fence_proxy_async();
+    __syncthreads();
+    hopper::mbar_wait(&full[j & 1], (j >> 1) & 1);
+    const uint32_t ms = hopper::smem_addr(stage), vs = hopper::smem_addr(stage + Ly::VEC);
+#pragma unroll
+    for (int mt = 0; mt < NB; ++mt) hopper::fence_regs(u[mt]);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int mt = 0; mt < NB; ++mt)
+#pragma unroll
+      for (int k = 0; k < n_pairs2(NP, NPA); ++k)
+#pragma unroll
+        for (int kc = 0; kc < TR / 16; ++kc)
+          hopper::wgmma_ss<64, 1, 1>(
+              u[mt],
+              hopper::desc_sw128(ms + (pair2_i(NP, NPA, k) * NB + mt) * BOX + kc * 2048, BOX, 1024),
+              hopper::desc_sw128(vs + pair2_j(NP, NPA, k) * BOX + kc * 2048, BOX, 1024),
+              j > 0 || k > 0 || kc > 0);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+#pragma unroll
+    for (int mt = 0; mt < NB; ++mt) hopper::fence_regs(u[mt]);
+    __syncthreads();  // every thread is past the stage: refill it
+    if (tid == 0 && j + 2 < nt) load(j + 2);
+  }
+
+  // rows 16 warp + lane / 4 (+ 8) of box mt, columns 8 j + 2 (lane % 4)
+  const int warp = tid / 32, lane = tid % 32;
+  float* out = (which ? p.dstates : p.states) +
+               ((static_cast<long long>(b) * p.nc + c) * p.H + h) * N * WP;
+#pragma unroll
+  for (int mt = 0; mt < NB; ++mt)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int n = mt * 64 + warp * 16 + lane / 4 + 8 * r;
+#pragma unroll
+      for (int j = 0; j < WP / 8; ++j)
+        *reinterpret_cast<float2*>(out + n * WP + 8 * j + 2 * (lane % 4)) =
+            make_float2(u[mt][4 * j + 2 * r], u[mt][4 * j + 2 * r + 1]);
+    }
+}
+
+// pass 3 of the body, shared memory from a 1024-aligned base: the
+// resident tile's mat (B or C: NP pieces of N / 64 boxes) and vec (x or
+// gy: NP pieces of a box), two stages of a streamed tile (per piece its N
+// / 64 mat boxes, then its vec box), the state's hi and lo (N rows each),
+// f32 dt and acs (256 each) and 4 warp sums, the barriers.  Where the
+// state fits in stage 1 (ALIAS: f32, and bf16 at N 64) it lies there, and
+// that stage's first tile is loaded once the state terms are done: f32 at
+// N 128 takes 216 KB so; bf16 fits two blocks an SM.
+template <int NP, int N>
+struct PairSmem {
+  static constexpr int NB = N / 64, STAGES = 2;
+  static constexpr int RM = 0, RV = RM + NP * NB * BOX, STG = RV + NP * BOX;
+  static constexpr int STAGE_B = NP * (NB + 1) * BOX, STATE_B = NPA * N * 128;
+  static constexpr bool ALIAS = STATE_B <= STAGE_B;
+  static constexpr int ST = STG + (ALIAS ? 1 : STAGES) * STAGE_B;
+  static constexpr int F = STG + STAGES * STAGE_B + (ALIAS ? 0 : STATE_B);
+  static constexpr int BAR = F + (2 * 256 + 4) * 4;
+  static constexpr int BYTES = BAR + 8 * (1 + 2 * STAGES) + 1024;
+};
+
+static_assert(PairSmem<3, 128>::BYTES <= 232448 && StateSmem<3, 128>::BYTES <= 232448,
+              "a block has 227 KB");
+
+// pass 3: the tile pairs of one chunk, one block per (64-row tile, chunk,
+// head, batch).  SW = 1: the block holds B_s and x_s of an s tile and
+// walks the l tiles on or after it: dx_s, this head's dB_s, ddt's direct
+// terms and acs's gradient at s.  SW = 2: it holds C_l and gy_l of an l
+// tile and walks the s tiles on or before it: this head's dC_l and acs's
+// gradient at l.  Maps: the resident tile's mat and vec, the streamed
+// tiles' mat and vec (piece pc of batch b at pc B + b).  Per streamed
+// tile, P1 = mat_res mat_str^T (C B over N) and P2 = vec_res vec_str^T (gy x
+// over P) on wgmma, with E = exp(acs_l - acs_s) (the exponent masked before
+// the exp on the diagonal tile, a compile-time variant) and dt_s:
+//   SW 1 (rows s, columns l): R = P2 P1 E summed along the row;
+//        M = P1 E dt_s and W = P2 E dt_s, each as NPA pieces the register
+//        A of dx_s += M gy_l and dB_s += W C_l (gy and C read MN-major);
+//   SW 2 (rows l, columns s): R dt_s summed along the row; W = P2 E dt_s
+//        the A of dC_l += W B_s.
+// Before the walk, the state terms: SW 1: dB_s = w_s x_s dS^T and dx_s =
+// w_s B_s dS, with B_s . dS x_s for ddt and acs; SW 2: dC_l = e_l gy_l
+// S^T, with C_l . S gy_l for acs.
+template <int NP, int N, int SW>
+__global__ void __launch_bounds__(WG)
+    ssd_bwd_pair_wgmma_kernel(const __grid_constant__ CUtensorMap rmat,
+                              const __grid_constant__ CUtensorMap rvec,
+                              const __grid_constant__ CUtensorMap smat,
+                              const __grid_constant__ CUtensorMap svec, Params p) {
+  using T = std::conditional_t<NP == 1, __nv_bfloat16, float>;
+  using Ly = PairSmem<NP, N>;
+  constexpr int NB = Ly::NB, STAGES = Ly::STAGES;
+  const int L = p.L, R = L / TR;
+  // block order: the heads fastest, then chunks, batches, and the tiles
+  // with the most partners first
+  int idx = blockIdx.x;
+  const int h = idx % p.H;
+  idx /= p.H;
+  const int c = idx % p.nc;
+  idx /= p.nc;
+  const int b = idx % p.B;
+  const int ti = SW == 1 ? idx / p.B : R - 1 - idx / p.B;  // the resident tile
+  const int c0 = c * L, valid = min(L, p.S - c0), r0 = ti * TR;
+  if (r0 >= valid) return;  // the whole tile lies past S
+  const int nt = (valid + TR - 1) / TR;
+  const int first = SW == 1 ? ti : 0;  // the streamed tiles first .. first + n_str - 1
+  const int n_str = SW == 1 ? nt - ti : ti + 1;
+  const int g = h / (p.H / p.G);
+
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = smem_raw + ((1024 - (hopper::smem_addr(smem_raw) & 1023)) & 1023);
+  float* dts = reinterpret_cast<float*>(sm + Ly::F);
+  float* acs = dts + 256;
+  float* wsum = acs + 256;
+  uint64_t* res_full = reinterpret_cast<uint64_t*>(sm + Ly::BAR);
+  uint64_t* full = res_full + 1;   // [s]: the streamed tile in stage s arrived
+  uint64_t* empty = full + STAGES;  // [s]: every warp is done with stage s
+
+  const int tid = threadIdx.x;
+  auto load_tile = [&](int i) {  // streamed tile first + i into stage i % STAGES (thread 0)
+    const int s = i % STAGES, row = c0 + (first + i) * TR;
+    uint8_t* dst = sm + Ly::STG + s * Ly::STAGE_B;
+    hopper::mbar_expect_tx(&full[s], Ly::STAGE_B);
+#pragma unroll
+    for (int pc = 0; pc < NP; ++pc) {
+#pragma unroll
+      for (int x = 0; x < NB; ++x)
+        hopper::tma_load_4d(dst + (pc * (NB + 1) + x) * BOX, &smat, &full[s], x * 64, g, row,
+                            pc * p.B + b);
+      hopper::tma_load_4d(dst + (pc * (NB + 1) + NB) * BOX, &svec, &full[s], 0, h, row,
+                          pc * p.B + b);
+    }
+  };
+  if (tid == 0) {
+    hopper::mbar_init(res_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], WG / 32);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    hopper::mbar_expect_tx(res_full, NP * (NB + 1) * BOX);
+#pragma unroll
+    for (int pc = 0; pc < NP; ++pc) {
+#pragma unroll
+      for (int x = 0; x < NB; ++x)
+        hopper::tma_load_4d(sm + Ly::RM + (pc * NB + x) * BOX, &rmat, res_full, x * 64, g, c0 + r0,
+                            pc * p.B + b);
+      hopper::tma_load_4d(sm + Ly::RV + pc * BOX, &rvec, res_full, 0, h, c0 + r0, pc * p.B + b);
+    }
+    for (int i = 0; i < min(Ly::ALIAS ? 1 : STAGES, n_str); ++i) load_tile(i);
+  }
+  chunk_cumsum(p.dt + (static_cast<long long>(b) * p.S + c0) * p.H + h, p.H, valid, p.A[h], L,
+               dts, acs, wsum);
+  const long long so = ((static_cast<long long>(b) * p.nc + c) * p.H + h) * N * WP;
+  state_tile<NPA>(sm + Ly::ST, (SW == 1 ? p.dstates : p.states) + so, N);
+  hopper::fence_proxy_async();
+  __syncthreads();
+
+  const int warp = tid / 32, lane = tid % 32, t = lane % 4;
+  const int rw0 = warp * 16 + lane / 4;  // this thread's rows rw0 and rw0 + 8 of the tile
+  const float acs_L = acs[L - 1];
+  float acs_r[2], dt_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    acs_r[r] = acs[r0 + rw0 + 8 * r];
+    dt_r[r] = dts[r0 + rw0 + 8 * r];
+  }
+  const uint32_t rm0 = hopper::smem_addr(sm + Ly::RM), rv0 = hopper::smem_addr(sm + Ly::RV);
+  const uint32_t sts = hopper::smem_addr(sm + Ly::ST);
+  constexpr int NPS = n_pairs2(NP, NPA);  // pairs of an input and the state (or M, W)
+
+  // o2: dB_s (SW 1) or dC_l (SW 2), N columns; o1: dx_s (SW 1), 64 columns
+  constexpr int O1 = SW == 1 ? 32 : 1;
+  float o2[N / 2], o1[O1];
+#pragma unroll
+  for (int x = 0; x < N / 2; ++x) o2[x] = 0.f;
+#pragma unroll
+  for (int x = 0; x < O1; ++x) o1[x] = 0.f;
+  hopper::mbar_wait(res_full, 0);
+  hopper::fence_regs(o2);
+  hopper::fence_regs(o1);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int k = 0; k < NPS; ++k)  // o2 = vec state^T, the state read K-major
+#pragma unroll
+    for (int kk = 0; kk < WP / 16; ++kk)
+      hopper::wgmma_ss<N, 0, 0>(o2, hopper::desc_sw128(rv0 + pair2_i(NP, NPA, k) * BOX + kk * 32, 16, 1024),
+                                hopper::desc_sw128(sts + pair2_j(NP, NPA, k) * N * 128 + kk * 32, 16, 1024),
+                                k > 0 || kk > 0);
+  if constexpr (SW == 1) {
+#pragma unroll
+    for (int k = 0; k < NPS; ++k)  // o1 = B_s dS, dS read MN-major
+#pragma unroll
+      for (int kk = 0; kk < N / 16; ++kk)
+        hopper::wgmma_ss<64, 0, 1>(
+            o1,
+            hopper::desc_sw128(rm0 + (pair2_i(NP, NPA, k) * NB + kk / 4) * BOX + (kk % 4) * 32, 16, 1024),
+            hopper::desc_sw128(sts + pair2_j(NP, NPA, k) * N * 128 + kk * 2048, BOX, 1024),
+            k > 0 || kk > 0);
+  }
+  hopper::wgmma_commit();
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(o2);
+  hopper::fence_regs(o1);
+  if constexpr (Ly::ALIAS) {  // the state is read: stage 1 takes its first tile
+    __syncthreads();
+    if (tid == 0 && n_str > 1) load_tile(1);
+  }
+  // q: the rows' mat . o2 (SW 1: B_s . dS x_s; SW 2: C_l . S gy_l), then
+  // o2 and o1 scaled by the rows' weights (SW 1: w_s; SW 2: e_l)
+  float q[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float2 m = tile_pair<NP, NB>(sm + Ly::RM, rw0 + 8 * r, 8 * j + 2 * t);
+      q[r] = fmaf(m.y, o2[4 * j + 2 * r + 1], fmaf(m.x, o2[4 * j + 2 * r], q[r]));
+    }
+  // the rows' state terms of ddt and of acs's gradient go to the scratch
+  // now (the walk's sums are added to them at the end): nothing of them
+  // stays in registers across the walk
+  const long long srow = ((static_cast<long long>(b) * p.nc + c) * p.H + h) * L;
+  float rowf[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    q[r] += __shfl_xor_sync(0xffffffffu, q[r], 1);
+    q[r] += __shfl_xor_sync(0xffffffffu, q[r], 2);
+    const float to_end = expf(acs_L - acs_r[r]);
+    rowf[r] = SW == 1 ? to_end * dt_r[r] : expf(acs_r[r]);
+    const long long at = srow + r0 + rw0 + 8 * r;
+    if (t == 0) {
+      if constexpr (SW == 1) {
+        p.ddt1[at] = to_end * q[r];
+        p.qv[at] = rowf[r] * q[r];
+        p.dacs1[at] = -(rowf[r] * q[r]);
+      } else {
+        p.dacs2[at] = rowf[r] * q[r];
+      }
+    }
+  }
+#pragma unroll
+  for (int x = 0; x < N / 2; ++x) o2[x] *= rowf[(x >> 1) & 1];
+  if constexpr (SW == 1)
+#pragma unroll
+    for (int x = 0; x < 32; ++x) o1[x] *= rowf[(x >> 1) & 1];
+
+  float p1[32], p2[32], rs[2] = {0.f, 0.f};
+  uint32_t pa[NPA][TR / 16][4];
+  auto fence_pa = [&] {
+#pragma unroll
+    for (int pc = 0; pc < NPA; ++pc)
+#pragma unroll
+      for (int kc = 0; kc < TR / 16; ++kc) hopper::fence_regs(pa[pc][kc]);
+  };
+  auto pack = [&](const float (&v)[32]) {  // v's NPA pieces as register A fragments
+#pragma unroll
+    for (int kc = 0; kc < TR / 16; ++kc)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        uint32_t w[NPA];
+        hopper::pack_bf16_pieces<NPA>(v[8 * kc + 2 * e], v[8 * kc + 2 * e + 1], w);  // M's or W's pieces
+#pragma unroll
+        for (int pc = 0; pc < NPA; ++pc) pa[pc][kc][e] = w[pc];
+      }
+  };
+  // acc += pa (64 x 64 rows of the tile by the streamed tile's rows) times
+  // `box` (the streamed rows by ON columns, MN-major, its ON / 64 boxes
+  // BOX bytes apart, its pieces (NB + 1) BOX apart)
+  auto product = [&](auto& acc, uint32_t box, auto on) {
+    constexpr int ON = decltype(on)::value;
+    fence_pa();
+    hopper::fence_regs(acc);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < n_pairs2(NPA, NP); ++k) {
+      uint32_t bk = box;  // opaque a pair at a time: its descriptors are computed as issued
+      asm volatile("" : "+r"(bk));
+#pragma unroll
+      for (int kc = 0; kc < TR / 16; ++kc)
+        hopper::wgmma_rs<ON, 1>(acc, pa[pair2_i(NPA, NP, k)][kc],
+                                hopper::desc_sw128(bk + pair2_j(NPA, NP, k) * (NB + 1) * BOX +
+                                                       kc * 2048, BOX, 1024),
+                                1);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+    fence_pa();
+  };
+
+  for (int i = 0; i < n_str; ++i) {
+    const int st = i % STAGES, o0 = (first + i) * TR;  // the streamed tile's first step
+    // refill the stage that every warp released in the previous iteration
+    if (tid == 0 && i >= 1 && i - 1 + STAGES < n_str) {
+      hopper::mbar_wait(&empty[(i - 1) % STAGES], ((i - 1) / STAGES) & 1);
+      load_tile(i - 1 + STAGES);
+    }
+    __syncwarp();
+    auto step = [&](auto masked) {
+      const uint32_t stg = hopper::smem_addr(sm + Ly::STG + st * Ly::STAGE_B);
+      hopper::mbar_wait(&full[st], (i / STAGES) & 1);
+#pragma unroll
+      for (int x = 0; x < 32; ++x) p1[x] = p2[x] = 0.f;  // the last tile's are dead
+      hopper::fence_regs(p1);
+      hopper::fence_regs(p2);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < hopper::n_pairs(NP); ++k) {  // P1 = mat_res mat_str^T over N
+        // the addresses opaque a pair at a time: the compiler would otherwise
+        // compute every descriptor of the tile up front and hold them
+        uint32_t rm = rm0, rv = rv0, sg = stg;
+        asm volatile("" : "+r"(rm), "+r"(rv), "+r"(sg));
+#pragma unroll
+        for (int kk = 0; kk < N / 16; ++kk)
+          hopper::wgmma_ss<64, 0, 0>(
+              p1,
+              hopper::desc_sw128(rm + (hopper::pair_i(NP, k) * NB + kk / 4) * BOX + (kk % 4) * 32,
+                                 16, 1024),
+              hopper::desc_sw128(sg + (hopper::pair_j(NP, k) * (NB + 1) + kk / 4) * BOX +
+                                     (kk % 4) * 32, 16, 1024),
+              k > 0 || kk > 0);
+#pragma unroll
+        for (int kk = 0; kk < WP / 16; ++kk)  // P2 = vec_res vec_str^T over P
+          hopper::wgmma_ss<64, 0, 0>(
+              p2, hopper::desc_sw128(rv + hopper::pair_i(NP, k) * BOX + kk * 32, 16, 1024),
+              hopper::desc_sw128(sg + (hopper::pair_j(NP, k) * (NB + 1) + NB) * BOX + kk * 32,
+                                 16, 1024),
+              k > 0 || kk > 0);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(p1);
+      hopper::fence_regs(p2);
+      // x: row rw0 + 8 ((x >> 1) & 1) of the tile, column 8 (x / 4) + 2 t +
+      // (x & 1) of the streamed tile
+#pragma unroll
+      for (int x = 0; x < 32; ++x) {
+        const int r = (x >> 1) & 1, col = o0 + 8 * (x >> 2) + 2 * t + (x & 1);
+        const int row = r0 + rw0 + 8 * r;
+        const int l = SW == 1 ? col : row, s = SW == 1 ? row : col;
+        float ex = acs[l] - acs[s];
+        if constexpr (decltype(masked)::value) ex = s <= l ? ex : -INFINITY;
+        const float e = expf(ex);
+        const float rr = p2[x] * p1[x] * e;
+        if constexpr (SW == 1) {
+          rs[r] += rr;
+          const float wgt = e * dt_r[r];
+          p1[x] *= wgt;  // M
+          p2[x] *= wgt;  // W
+        } else {
+          const float d = dts[s];
+          rs[r] = fmaf(rr, d, rs[r]);
+          p2[x] *= e * d;  // W
+        }
+      }
+      if constexpr (SW == 1) {
+        pack(p1);
+        product(o1, stg + NB * BOX, std::integral_constant<int, 64>{});  // dx_s += M gy_l
+      }
+      pack(p2);
+      product(o2, stg, std::integral_constant<int, N>{});  // dB_s += W C_l, dC_l += W B_s
+      if (lane == 0) hopper::mbar_arrive(&empty[st]);
+    };
+    if ((SW == 1 && i == 0) || (SW == 2 && i == n_str - 1))
+      step(std::true_type{});  // the diagonal tile
+    else
+      step(std::false_type{});
+  }
+
+  // the rows' sums over the four threads of each row, then the outputs;
+  // nothing past S is stored
+  const long long xss = static_cast<long long>(p.H) * WP, hss = static_cast<long long>(p.H) * N;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
+    rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
+    const int step = r0 + rw0 + 8 * r;
+    if (t == 0) {  // the same thread wrote the state terms
+      if constexpr (SW == 1) {
+        p.ddt1[srow + step] += rs[r];
+        p.dacs1[srow + step] -= dt_r[r] * rs[r];
+      } else {
+        p.dacs2[srow + step] += rs[r];
+      }
+    }
+    if (step >= valid) continue;
+    const long long at = static_cast<long long>(b) * p.S + c0 + step;
+    float* o2row = (SW == 1 ? p.dBh : p.dCh) + at * hss + static_cast<long long>(h) * N;
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+      *reinterpret_cast<float2*>(o2row + 8 * j + 2 * t) =
+          make_float2(o2[4 * j + 2 * r], o2[4 * j + 2 * r + 1]);
+    if constexpr (SW == 1) {
+      T* dxrow = static_cast<T*>(p.dx) + at * xss + h * WP;
+#pragma unroll
+      for (int j = 0; j < WP / 8; ++j) {
+        if constexpr (NP == 1)
+          *reinterpret_cast<__nv_bfloat162*>(dxrow + 8 * j + 2 * t) =
+              __floats2bfloat162_rn(o1[4 * j + 2 * r], o1[4 * j + 2 * r + 1]);
+        else
+          *reinterpret_cast<float2*>(dxrow + 8 * j + 2 * t) =
+              make_float2(o1[4 * j + 2 * r], o1[4 * j + 2 * r + 1]);
+      }
+    }
+  }
+}
+
+// pass 4 of the body: per (chunk, head, batch), acs's gradient from the two
+// sweeps' rows (steps past S count 0), plus at the chunk's end the state
+// update's terms (the sum of qv) and the decay's exp(acs_L) <dS, S>; its
+// reverse cumsum da; ddt = the direct terms + A da, and dA's partial
+// sum_s dt_s da_s.  Every sum in one fixed order.
+__global__ void __launch_bounds__(NT) ssd_bwd_tail_kernel(Params p) {
+  __shared__ float da[MAX_L];
+  __shared__ float wsum[16];
+  const int t = threadIdx.x, c = blockIdx.x, h = blockIdx.y, b = blockIdx.z, L = p.L;
+  const int c0 = c * L, valid = min(L, p.S - c0);
+  const long long blk = (static_cast<long long>(b) * p.nc + c) * p.H + h;
+  const long long srow = blk * L, so = blk * p.N * p.P;
+  float dot = 0.f;
+  for (int e = t; e < p.N * p.P; e += NT) dot = fmaf(p.dstates[so + e], p.states[so + e], dot);
+  dot = block_sum(dot, wsum);  // thread 0's
+  float q = t < valid ? p.qv[srow + t] : 0.f;
+  q = block_sum(q, wsum);
+  if (t < L) da[t] = t < valid ? p.dacs1[srow + t] + p.dacs2[srow + t] : 0.f;
+  __syncthreads();
+  if (t == 0) da[L - 1] += q + p.cdec[blk] * dot;
+  __syncthreads();
+  float v = t < L ? da[L - 1 - t] : 0.f;  // da_s = the sum over i >= s
+  v = block_inclusive_scan(v, wsum);
+  if (t < L) da[L - 1 - t] = v;
+  __syncthreads();
+  float part = 0.f;
+  if (t < valid) {
+    const long long at = (static_cast<long long>(b) * p.S + c0 + t) * p.H + h;
+    p.ddt[at] = fmaf(p.A[h], da[t], p.ddt1[srow + t]);
+    part = p.dt[at] * da[t];
+  }
+  part = block_sum(part, wsum);
+  if (t == 0) p.dAp[blk] = part;
+}
+
+template <int NP, int N>
+cudaError_t launch_wgmma(const Params& p, const void* const (&in)[4], cudaStream_t stream) {
+  using SL = StateSmem<NP, N>;
+  using PL = PairSmem<NP, N>;
+  auto k1 = ssd_bwd_state_wgmma_kernel<NP, N>;
+  auto k3 = ssd_bwd_pair_wgmma_kernel<NP, N, 1>;
+  auto k4 = ssd_bwd_pair_wgmma_kernel<NP, N, 2>;
+  static bool configured = false;  // once, before any graph capture
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(k1, cudaFuncAttributeMaxDynamicSharedMemorySize, SL::BYTES);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(k3, cudaFuncAttributeMaxDynamicSharedMemorySize, PL::BYTES);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(k4, cudaFuncAttributeMaxDynamicSharedMemorySize, PL::BYTES);
+    if (e != cudaSuccess) return e;
+    configured = true;
+  }
+  // x, gy (NP B, S, H, 64) and B, C (NP B, S, G, N): the inputs, or their pieces
+  const long long xs = static_cast<long long>(p.H) * WP, bs = static_cast<long long>(p.G) * N;
+  CUtensorMap tx, tgy, tb, tc;
+  if (!hopper::bhsd_map(&tx, in[0], NP * p.B, p.S, p.H, WP, p.S * xs, xs, WP, TR) ||
+      !hopper::bhsd_map(&tgy, in[1], NP * p.B, p.S, p.H, WP, p.S * xs, xs, WP, TR) ||
+      !hopper::bhsd_map(&tb, in[2], NP * p.B, p.S, p.G, N, p.S * bs, bs, N, TR) ||
+      !hopper::bhsd_map(&tc, in[3], NP * p.B, p.S, p.G, N, p.S * bs, bs, N, TR))
+    return cudaErrorInvalidValue;
+  k1<<<dim3(p.nc, p.H, 2 * p.B), WG, SL::BYTES, stream>>>(tb, tc, p);
+  if (cudaError_t e = cudaGetLastError(); e != cudaSuccess) return e;
+  ssd_bwd_carry_kernel<<<dim3((N * WP / 4 + NT - 1) / NT, p.H, p.B), NT, 0, stream>>>(p);
+  if (cudaError_t e = cudaGetLastError(); e != cudaSuccess) return e;
+  const unsigned n_pair = static_cast<unsigned>(p.L / TR) * p.B * p.nc * p.H;
+  k3<<<n_pair, WG, PL::BYTES, stream>>>(tb, tx, tc, tgy, p);  // s tiles: B, x held; C, gy stream
+  if (cudaError_t e = cudaGetLastError(); e != cudaSuccess) return e;
+  k4<<<n_pair, WG, PL::BYTES, stream>>>(tc, tgy, tb, tx, p);  // l tiles: C, gy held; B, x stream
+  if (cudaError_t e = cudaGetLastError(); e != cudaSuccess) return e;
+  ssd_bwd_tail_kernel<<<dim3(p.nc, p.H, p.B), NT, 0, stream>>>(p);
+  if (cudaError_t e = cudaGetLastError(); e != cudaSuccess) return e;
+  const long long n_heads = static_cast<long long>(p.B) * p.S * p.G * N;
+  ssd_bwd_heads_kernel<std::conditional_t<NP == 1, __nv_bfloat16, float>>
+      <<<static_cast<unsigned>((n_heads + NT - 1) / NT), NT, 0, stream>>>(p);
+  if (cudaError_t e = cudaGetLastError(); e != cudaSuccess) return e;
+  ssd_bwd_dA_kernel<<<1, NT, 0, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// f32 inputs: x, gy, B and C into their three pieces in the scratch first
+template <int N>
+cudaError_t launch_wgmma_f32(const Params& p, cudaStream_t stream) {
+  const long long nx = static_cast<long long>(p.B) * p.S * p.H * WP;
+  const long long nb = static_cast<long long>(p.B) * p.S * p.G * N;
+  __nv_bfloat16* px = p.pieces;
+  __nv_bfloat16* pgy = px + 3 * nx;
+  __nv_bfloat16* pb = pgy + 3 * nx;
+  __nv_bfloat16* pcm = pb + 3 * nb;
+  const long long xs = static_cast<long long>(p.H) * WP, bs = static_cast<long long>(p.G) * N;
+  const hopper::SplitArgs ax{{static_cast<const float*>(p.x), static_cast<const float*>(p.gy)},
+                             {px, pgy},
+                             {p.S * xs, p.S * xs},
+                             {xs, xs},
+                             {WP, WP},
+                             {p.H, p.H}};
+  const hopper::SplitArgs ab{{static_cast<const float*>(p.Bm), static_cast<const float*>(p.Cm)},
+                             {pb, pcm},
+                             {p.S * bs, p.S * bs},
+                             {bs, bs},
+                             {N, N},
+                             {p.G, p.G}};
+  cudaError_t e = hopper::split3(ax, 2, p.B, p.S, WP, stream);
+  if (e == cudaSuccess) e = hopper::split3(ab, 2, p.B, p.S, N, stream);
+  if (e != cudaSuccess) return e;
+  return launch_wgmma<3, N>(p, {px, pgy, pb, pcm}, stream);
+}
+
+cudaError_t launch_body(const Params& p, int dtype, cudaStream_t stream) {
+  if (dtype == 1)
+    return p.N == 64 ? launch_wgmma<1, 64>(p, {p.x, p.gy, p.Bm, p.Cm}, stream)
+                     : launch_wgmma<1, 128>(p, {p.x, p.gy, p.Bm, p.Cm}, stream);
+  return p.N == 64 ? launch_wgmma_f32<64>(p, stream) : launch_wgmma_f32<128>(p, stream);
+}
+
 template <typename T, int TL, int PJ>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   constexpr int P = 16 * PJ;
@@ -683,8 +1456,10 @@ cudaError_t launch_t(const Params& p, cudaStream_t stream) {
 // gstate, ddt and dA are f32.  All tensors contiguous and 16-byte aligned.
 // Takes L a multiple of 32 up to 256, N a multiple of 4 up to 128, P 16,
 // 32 or 64, H a multiple of G.  `work` is f32 scratch of 2 B nc H N P + 2 B
-// S H N + 2 B nc H floats, nc = ceil(S / L).  Returns a cudaError_t (0 =
-// launched).
+// S H N + 2 B nc H floats, nc = ceil(S / L), and at the wgmma body's shapes
+// (wgmma_shape) 4 B nc H L more from the next multiple of 4 floats on,
+// then with f32 inputs 3 (B S H P + B S G N) floats (the bf16 pieces of x,
+// gy, B and C).  Returns a cudaError_t (0 = launched).
 extern "C" int ssd_scan_bwd(const void* x, const float* dt, const float* A, const void* Bm,
                             const void* Cm, const void* gy, const float* gstate, void* dx,
                             float* ddt, float* dA, void* dB, void* dC, float* work, int B, int S,
@@ -695,12 +1470,17 @@ extern "C" int ssd_scan_bwd(const void* x, const float* dt, const float* A, cons
   const int nc = (S + L - 1) / L;
   const long long n_states = static_cast<long long>(B) * nc * H * N * P;
   const long long n_heads = static_cast<long long>(B) * S * H * N;
+  const long long n_chunks = static_cast<long long>(B) * nc * H, n_steps = n_chunks * L;
+  float* tail = work + (2 * n_states + 2 * n_heads + 2 * n_chunks + 3) / 4 * 4;
   Params p{x, dt, A, Bm, Cm, gy, gstate, dx, ddt, dA, dB, dC,
            work, work + n_states, work + 2 * n_states, work + 2 * n_states + n_heads,
-           work + 2 * n_states + 2 * n_heads,
-           work + 2 * n_states + 2 * n_heads + static_cast<long long>(B) * nc * H,
+           work + 2 * n_states + 2 * n_heads, work + 2 * n_states + 2 * n_heads + n_chunks,
+           tail, tail + n_steps, tail + 2 * n_steps, tail + 3 * n_steps,
+           reinterpret_cast<__nv_bfloat16*>(tail + 4 * n_steps),
            B, S, H, P, G, N, L, nc};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if ((dtype == 0 || dtype == 1) && wgmma_shape(P, N, L))
+    return static_cast<int>(launch_body(p, dtype, st));
   if (dtype == 0) return static_cast<int>(launch_t<float>(p, st));
   if (dtype == 1) return static_cast<int>(launch_t<__nv_bfloat16>(p, st));
   return static_cast<int>(cudaErrorInvalidValue);

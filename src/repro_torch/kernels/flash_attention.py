@@ -4,16 +4,17 @@
 ``csrc/flash_attention_bwd.cu`` (the backward, which the JAX package
 takes as the vjp of ``flash_attention_ref``).
 
-Both run on the tensor cores (wgmma) in either dtype, except the f32
-backward at head dim 256, which runs a simpler body on the CUDA cores
-(``dq_simt_kernel``, ``dkdv_simt_kernel``: f32 arithmetic).
-bf16 inputs are the products' operands as they are.  f32 inputs are first split, by a
-pre-pass of the same launch, into three bf16 pieces each (x = x0 + x1 +
-x2, ``ref.split3``), and every f32 product is the sum of the six bf16
-products of pieces i + j <= 2, exact in the f32 accumulator: f32
-accuracy (the terms dropped are of order 2^-24 |A| |B|) at a sixth of
-the bf16 rate, against the CUDA cores' 67 TFLOP/s.  The wrapper
-allocates the pieces as bf16 scratch.
+Both run on the tensor cores (wgmma) in either dtype and at every head
+dim.  bf16 inputs are the products' operands as they are.  f32 inputs
+are first split, by a pre-pass of the same launch, into three bf16
+pieces each (x = x0 + x1 + x2, ``ref.split3``), and every f32 product is
+the sum of the six bf16 products of pieces i + j <= 2, exact in the f32
+accumulator: f32 accuracy (the terms dropped are of order 2^-24 |A|
+|B|) at a sixth of the bf16 rate, against the CUDA cores' 67 TFLOP/s.
+The f32 backward at head dim 256 keeps its resident tile in f32 and
+forms that tile's pieces in registers (``ref.flash_bwd_d256_emulated``
+is its arithmetic on the CPU).  The wrapper allocates the pieces as
+bf16 scratch.
 
 Takes CUDA tensors only; ``kernels/ops.py`` sends CPU tensors to the
 plain version in ``kernels/ref.py``."""
@@ -137,10 +138,9 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     if S == 0 or B == 0:
         return dq, dk, dv
     # scratch: each row's Delta = rowsum(do * o) and its lse in base 2, in
-    # q tiles of 64 rows, then (f32 on the tensor cores, D < 256) the
-    # pieces of q, k, v and do
+    # q tiles of 64 rows, then (f32) the pieces of q, k, v and do
     delta = torch.empty((B, H, -(-S // 64), 2, 64), dtype=torch.float32, device=q.device)
-    pieces = _pieces(q, 2 * q.numel() + k.numel() + v.numel()) if D < 256 else None
+    pieces = _pieces(q, 2 * q.numel() + k.numel() + v.numel())
     err = _build.function("flash_attention_bwd", "flash_attention_bwd", BWD_ARGTYPES)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),

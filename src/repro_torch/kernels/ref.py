@@ -57,6 +57,90 @@ def split3(x):
     return tuple(pieces)
 
 
+def piece_product(eq, a, b, na: int, nb: int):
+    """``einsum(eq, a, b)`` as the kernels form an f32 product on the bf16
+    tensor cores when ``a`` enters as ``na`` pieces of ``split3`` and ``b``
+    as ``nb``: the sum over the piece pairs (i, j), i < na, j < nb and i + j
+    <= 2, of products of bf16 values summed in f32, the smallest terms
+    first.  One piece is the operand rounded to bf16 (exact for an operand
+    that holds bf16 values already); two are hi + lo, within 2^-16 of it;
+    three carry f32's 24 bits."""
+    ap, bp = split3(a)[:na], split3(b)[:nb]
+    out = None
+    for lv in (2, 1, 0):
+        for i in range(lv + 1):
+            if i < na and lv - i < nb:
+                t = torch.einsum(eq, ap[i].float(), bp[lv - i].float())
+                out = t if out is None else out + t
+    return out
+
+
+def flash_bwd_d256_emulated(q, k, v, do, *, causal: bool = True,
+                            window: Optional[int] = None, pieces: int = 3,
+                            bk: int = 16, qt: int = 16):
+    """The f32 flash backward's arithmetic at head dim 256
+    (``csrc/flash_attention_bwd.cu``, ``Shape<256, 3>``) on the CPU, for
+    holding its precision against the JAX package: -> (dq, dk, dv) f32.
+
+    S = Q K^T from the pieces of both sides, the six pairs smallest first;
+    dP = dO V^T likewise (dO's pieces formed in registers on the card, the
+    same values) but with the pair (0, 0) summed apart from the five
+    smaller pairs and the two added in f32; lse from the f32 forward, P = exp(S scale - lse), Delta =
+    rowsum(dO O) and dS = P (dP - Delta) in f32.  dQ adds, key tile by key
+    tile (``bk`` keys, in order), a fresh partial of the six piece products
+    of dS K; dK and dV add one of dS^T Q and P^T dO per q tile (``qt``
+    rows), the rep query heads of a kv head outer and the q tiles inner,
+    as dkdv's ring runs.  ``pieces`` = 1 is the same with plain bf16
+    operands."""
+    q, k, v, do = (x.float() for x in (q, k, v, do))
+    B, S, H, D = q.shape
+    Hkv = k.shape[2]
+    rep = H // Hkv
+    scale = D**-0.5
+    kr, vr = (x.repeat_interleave(rep, dim=2) for x in (k, v))
+
+    def res_prod(eq, a, b):
+        ap, bp = split3(a)[:pieces], split3(b)[:pieces]
+        hi = torch.einsum(eq, ap[0].float(), bp[0].float())
+        lo = None
+        for lv in (2, 1):
+            for i in range(lv + 1):
+                if i < pieces and lv - i < pieces:
+                    t = torch.einsum(eq, ap[i].float(), bp[lv - i].float())
+                    lo = t if lo is None else lo + t
+        return hi if lo is None else hi + lo
+
+    qi = torch.arange(S)[:, None]
+    kj = torch.arange(S)[None, :]
+    hide = torch.zeros((S, S), dtype=torch.bool)
+    if causal:
+        hide |= kj > qi
+    if window is not None:
+        hide |= kj <= qi - window
+    s32 = torch.einsum("bqhd,bkhd->bhqk", q, kr) * scale          # the forward's, in f32
+    lse = torch.logsumexp(s32.masked_fill(hide, NEG_INF), dim=-1, keepdim=True)
+    o = torch.einsum("bhqk,bkhd->bqhd", torch.exp(s32.masked_fill(hide, NEG_INF) - lse), vr)
+    delta = (do * o).sum(-1).permute(0, 2, 1)[..., None]           # (B,H,S,1)
+    s = piece_product("bqhd,bkhd->bhqk", q, kr, pieces, pieces)
+    p = torch.exp(s * scale - lse).masked_fill(hide, 0.0)
+    dp = res_prod("bqhd,bkhd->bhqk", do, vr)
+    ds = p * (dp - delta)
+    n = 3 if pieces == 3 else 1
+    dq = torch.zeros_like(q)
+    for k0 in range(0, S, bk):
+        dq = dq + piece_product("bhqk,bkhd->bqhd", ds[..., k0:k0 + bk], kr[:, k0:k0 + bk], n, n)
+    dk = torch.zeros_like(k)
+    dv = torch.zeros_like(v)
+    for r in range(rep):
+        heads = torch.arange(Hkv) * rep + r
+        for q0 in range(0, S, qt):
+            rows = slice(q0, q0 + qt)
+            pt, dst = p[:, heads, rows], ds[:, heads, rows]
+            dv = dv + piece_product("bhqk,bqhd->bkhd", pt, do[:, rows][:, :, heads], n, n)
+            dk = dk + piece_product("bhqk,bqhd->bkhd", dst, q[:, rows][:, :, heads], n, n)
+    return dq * scale, dk * scale, dv
+
+
 def paged_attention_ref(q, k_pages, v_pages, block_tables, seq_lens, *,
                         window: Optional[int] = None, softcap: float = 0.0,
                         scale: Optional[float] = None):
@@ -326,6 +410,120 @@ def ssd_bwd_ref(x, dt, A, B, C, gy, gstate, chunk: int):
     dB, dC, dA = ssd_head_sums(dB_h, dC_h, dA_part, B.shape[2])
     return (dx.to(x.dtype), ddt.to(dt.dtype), dA.to(A.dtype),
             dB.to(x.dtype).to(B.dtype), dC.to(x.dtype).to(C.dtype))
+
+
+def ssd_bwd_wgmma_emulated(x, dt, A, B, C, gy, gstate, chunk: int, *, n_in: int,
+                           n_mid: int, tile: int = 64):
+    """The arithmetic of the SSD backward's wgmma body
+    (``csrc/ssd_scan_bwd.cu``) on the CPU, for holding its precision against
+    the JAX package: -> (dx, ddt, dA, dB, dC) f32.  Every product of two
+    operands is a ``piece_product``: an input enters as ``n_in`` pieces (1
+    for bf16 values, exact; 3 for f32), an f32 intermediate (w x and e gy in
+    the state pass, the pair weights M and W, the carried states) as
+    ``n_mid`` (the kernel's 2, hi + lo, in both dtypes).  The passes and
+    their order: each chunk's U_c and V_c over its ``tile``-step tiles, the
+    two carries in f32; then per chunk sweep 1 (each s tile: the state
+    terms w_s B_s dS and w_s x_s dS^T first, then the l tiles on or after
+    it: P1 = B_s C_l^T, P2 = x_s gy_l^T, R = P2 P1 E summed along s's row,
+    dx_s += M gy_l and dB_s += W C_l with M = P1 E dt_s and W = P2 E dt_s)
+    and sweep 2 (each l tile: e_l gy_l S^T, then the s tiles on or before
+    it: R dt_s summed along l's row, dC_l += W B_s); acs's gradient, its
+    reverse cumsum, ddt and dA's partials in f32; a group's heads summed
+    in head order."""
+    rep = x.shape[2] // B.shape[2]
+    S = x.shape[1]
+    xs, gys = x.float(), gy.float()
+    Bh, Ch = (t.float().repeat_interleave(rep, dim=2) for t in (B, C))
+
+    def tiles(n):
+        return [(t0, min(n, t0 + tile)) for t0 in range(0, n, tile)]
+
+    us, vs, decs = [], [], []
+    for sl, d, acs in _chunk_steps(dt, A, S, chunk):
+        w = torch.exp(acs[:, -1:] - acs) * d
+        e = torch.exp(acs)
+        u = v = 0
+        for t0, t1 in tiles(d.shape[1]):
+            bl = slice(sl.start + t0, sl.start + t1)
+            u = u + piece_product("blhn,blhp->bhnp", Bh[:, bl],
+                                  w[:, t0:t1, :, None] * xs[:, bl], n_in, n_mid)
+            v = v + piece_product("blhn,blhp->bhnp", Ch[:, bl],
+                                  e[:, t0:t1, :, None] * gys[:, bl], n_in, n_mid)
+        us.append(u)
+        vs.append(v)
+        decs.append(torch.exp(acs[:, -1]))
+    decay = torch.stack(decs, 1)
+    states_in, _ = ssd_carry(torch.stack(us, 1), decay)
+    dstates = ssd_carry_grads(torch.stack(vs, 1), decay, gstate)
+
+    out = {k: [] for k in ("dx", "ddt", "dA", "dB", "dC")}
+    for c, (sl, d, acs) in enumerate(_chunk_steps(dt, A, S, chunk)):
+        n = d.shape[1]
+        Bc, Cc, xc, gc = (t[:, sl] for t in (Bh, Ch, xs, gys))
+        S_in, dS = states_in[:, c], dstates[:, c]
+        acs_L = acs[:, -1:]
+        to_end = torch.exp(acs_L - acs)
+        w = to_end * d
+        e = torch.exp(acs)
+
+        def E(l0, l1, s0, s1):  # (B, l, s, H): exp(acs_l - acs_s), s <= l
+            ok = torch.arange(s0, s1)[None, :] <= torch.arange(l0, l1)[:, None]
+            diff = acs[:, l0:l1, None, :] - acs[:, None, s0:s1, :]
+            return torch.exp(torch.where(ok[None, :, :, None], diff, float("-inf")))
+
+        dx, dBh, dCh = (torch.zeros_like(t) for t in (xc, Bc, Cc))
+        ddt1, dacs1, dacs2, qv = (torch.zeros_like(d) for _ in range(4))
+        for s0, s1 in tiles(n):                        # sweep 1: an s tile
+            Bs, xsr, ds_ = Bc[:, s0:s1], xc[:, s0:s1], d[:, s0:s1]
+            o2 = piece_product("bshp,bhnp->bshn", xsr, dS, n_in, n_mid)
+            o1 = piece_product("bshn,bhnp->bshp", Bs, dS, n_in, n_mid)
+            q = (Bs * o2).sum(-1)
+            ws = w[:, s0:s1]
+            o1, o2 = o1 * ws[..., None], o2 * ws[..., None]
+            rs = 0
+            for l0, l1 in tiles(n):
+                if l0 < s0:
+                    continue
+                Cl, gl = Cc[:, l0:l1], gc[:, l0:l1]
+                p1 = piece_product("bshn,blhn->bslh", Bs, Cl, n_in, n_in)
+                p2 = piece_product("bshp,blhp->bslh", xsr, gl, n_in, n_in)
+                Et = E(l0, l1, s0, s1).transpose(1, 2)    # (B, s, l, H)
+                rs = rs + (p2 * p1 * Et).sum(2)
+                wgt = Et * ds_[:, :, None]
+                o1 = o1 + piece_product("bslh,blhp->bshp", p1 * wgt, gl, n_mid, n_in)
+                o2 = o2 + piece_product("bslh,blhn->bshn", p2 * wgt, Cl, n_mid, n_in)
+            ddt1[:, s0:s1] = to_end[:, s0:s1] * q + rs
+            qv[:, s0:s1] = ws * q
+            dacs1[:, s0:s1] = -ws * q - ds_ * rs
+            dx[:, s0:s1], dBh[:, s0:s1] = o1, o2
+        for l0, l1 in tiles(n):                        # sweep 2: an l tile
+            Cl, gl = Cc[:, l0:l1], gc[:, l0:l1]
+            o2 = piece_product("blhp,bhnp->blhn", gl, S_in, n_in, n_mid)
+            el = e[:, l0:l1]
+            q = (Cl * o2).sum(-1)
+            o2 = o2 * el[..., None]
+            rs = 0
+            for s0, s1 in tiles(n):
+                if s0 > l0:
+                    break
+                Bs, xsr, ds_ = Bc[:, s0:s1], xc[:, s0:s1], d[:, s0:s1]
+                p1 = piece_product("blhn,bshn->blsh", Cl, Bs, n_in, n_in)
+                p2 = piece_product("blhp,bshp->blsh", gl, xsr, n_in, n_in)
+                wgt = E(l0, l1, s0, s1) * ds_[:, None]
+                rs = rs + (p2 * p1 * wgt).sum(2)
+                o2 = o2 + piece_product("blsh,bshn->blhn", p2 * wgt, Bs, n_mid, n_in)
+            dacs2[:, l0:l1] = el * q + rs
+            dCh[:, l0:l1] = o2
+        dacs = dacs1 + dacs2
+        last = qv.sum(1) + torch.exp(acs_L[:, 0]) * (dS * S_in).sum((-2, -1))
+        dacs = torch.cat([dacs[:, :-1], dacs[:, -1:] + last[:, None]], 1)
+        da = dacs.flip(1).cumsum(1).flip(1)
+        for k, val in (("dx", dx), ("ddt", ddt1 + A.float() * da), ("dA", (d * da).sum(1)),
+                       ("dB", dBh), ("dC", dCh)):
+            out[k].append(val)
+    dB, dC, dA = ssd_head_sums(torch.cat(out["dB"], 1), torch.cat(out["dC"], 1),
+                               torch.stack(out["dA"], 1), B.shape[2])
+    return torch.cat(out["dx"], 1), torch.cat(out["ddt"], 1), dA, dB, dC
 
 
 def ssd_step(state, x, dt, A, B, C):

@@ -8,7 +8,13 @@ plain version in ``kernels/ref.py``.  bf16 inputs at the shapes of
 ``wgmma_body`` (every SSM config of the repo) run the forward's
 three-pass body on TMA loads and wgmma products; f32 inputs, and bf16 at
 other shapes (the reduced test configs), run the one-pass body on the
-CUDA cores.  The backward runs on the CUDA cores in f32 for both dtypes."""
+CUDA cores.  The backward at the shapes of ``bwd_wgmma_body`` (every SSM
+config of the repo, both dtypes) runs its products on TMA loads and
+wgmma: bf16 operands as they are, f32 ones as three bf16 pieces
+(``ref.split3``), an f32 intermediate (the pair weights, the carried
+states) as hi + lo in bf16 or as three pieces in f32; its bound is the
+bf16 peak's (f32: a sixth of it).  The reduced shapes keep the backward's
+body on the CUDA cores (f32 arithmetic for both dtypes)."""
 from __future__ import annotations
 
 import ctypes
@@ -31,6 +37,31 @@ def wgmma_body(dtype, P: int, N: int, chunk: int) -> bool:
     bf16, P 64, N 64 or 128, chunk a multiple of 64 up to 256."""
     return (dtype == torch.bfloat16 and P == 64 and N in (64, 128)
             and chunk % 64 == 0 and 64 <= chunk <= 256)
+
+
+def bwd_wgmma_body(P: int, N: int, chunk: int) -> bool:
+    """Whether the backward runs a call of these shapes on its wgmma body
+    (``csrc/ssd_scan_bwd.cu``'s ``wgmma_shape``, the same rule), in either
+    dtype: P 64, N 64 or 128, chunk a multiple of 64 up to 256."""
+    return P == 64 and N in (64, 128) and chunk % 64 == 0 and 64 <= chunk <= 256
+
+
+def bwd_work_floats(Bb: int, S: int, H: int, P: int, G: int, N: int, chunk: int,
+                    dtype) -> int:
+    """The f32 scratch (in floats) of one backward call, as the C entry
+    lays it out: the chunk states and their gradients (B,nc,H,N,P) each,
+    dB and dC per head (B,S,H,N) each, the chunk decays and dA's partials
+    (B,nc,H) each; at the wgmma body's shapes four (B,nc,H,chunk) rows
+    from the next multiple of 4 floats on, and with f32 inputs the bf16
+    pieces of x, gy, B and C."""
+    nc = -(-S // chunk)
+    n = 2 * Bb * nc * H * N * P + 2 * Bb * S * H * N + 2 * Bb * nc * H
+    if not bwd_wgmma_body(P, N, chunk):
+        return n
+    n = -(-n // 4) * 4 + 4 * Bb * nc * H * chunk
+    if dtype == torch.float32:
+        n += 3 * (Bb * S * H * P + Bb * S * G * N)
+    return n
 
 
 def _check(x, dt, A, B, C, chunk):
@@ -147,7 +178,7 @@ def ssd_scan_bwd(x, dt, A, B, C, gy, gstate, chunk: int):
     B and C reach the scan in x's dtype, so their gradients are rounded to
     it first.  Recomputes the chunk states from the inputs (nothing of the
     forward is kept); P must be 16, 32 or 64.  One call counts one launch,
-    under ``ssd_scan_bwd``."""
+    under ``ssd_scan_bwd``, however many kernels it runs."""
     _check(x, dt, A, B, C, chunk)
     Bb, S, H, P = x.shape
     G, N = B.shape[2], B.shape[3]
@@ -165,8 +196,7 @@ def ssd_scan_bwd(x, dt, A, B, C, gy, gstate, chunk: int):
     dA = torch.empty((H,), dtype=torch.float32, device=x.device)
     dB = torch.empty((Bb, S, G, N), dtype=x.dtype, device=x.device)
     dC = torch.empty_like(dB)
-    nc = -(-S // chunk)
-    work = torch.empty(2 * Bb * nc * H * N * P + 2 * Bb * S * H * N + 2 * Bb * nc * H,
+    work = torch.empty(bwd_work_floats(Bb, S, H, P, G, N, chunk, x.dtype),
                        dtype=torch.float32, device=x.device)
     if S == 0 or Bb == 0:
         for t in (dx, ddt, dA, dB, dC):

@@ -113,8 +113,9 @@ def test_planted_faults_hold_their_lines_once_and_cover_every_kernel():
     kernel of the gate, each pass of the bf16 SSD body (its product
     passes and the carry) holds a fault of its own, and the paged body on
     wgmma holds two beside the combine's one.  Each f32 flash body (the
-    forward, dq, dkdv) holds one fault read in f32 that keeps only the
-    first bf16 piece of one of its operands."""
+    forward, dq, dkdv, the D-256 backward's forming of its resident
+    tile's pieces and its dV block) holds one fault read in f32 that keeps
+    only the first bf16 piece of one of its operands."""
     cs = _chip_smoke()
     for name, kernels, bug, old, new, dname in cs.FAULTS:
         text = (_build.CSRC / f"{name}.cu").read_text()
@@ -125,7 +126,8 @@ def test_planted_faults_hold_their_lines_once_and_cover_every_kernel():
         assert (cs.F32_PIECES_DROPPED in new) == (dname == "float32"), bug
     f32 = [f for f in cs.FAULTS if f[5] == "float32"]
     for name, body in (("flash_attention", "fwd_body"), ("flash_attention_bwd", "dq_body"),
-                       ("flash_attention_bwd", "dkdv_body")):
+                       ("flash_attention_bwd", "dkdv_body"), ("flash_attention_bwd", "a_pieces"),
+                       ("flash_attention_bwd", "dv_res_body")):
         text = _device_body((_build.CSRC / f"{name}.cu").read_text(), body)
         assert sum(f[0] == name and f[3] in text for f in f32) == 1, body
     covered = {k for f in cs.FAULTS for k in f[1]}
@@ -230,6 +232,8 @@ def test_wgmma_functions_name_kernels_of_their_sources():
     assert {p for n, p in cs.WGMMA_FUNCTIONS if n == "ssd_scan"} == {
         "ssd_state_wgmma", "ssd_out_wgmma"}
     assert {p for n, p in cs.WGMMA_FUNCTIONS if n == "paged_attention"} == {"paged_wgmma"}
+    assert {p for n, p in cs.WGMMA_FUNCTIONS if n == "ssd_scan_bwd"} == {
+        "ssd_bwd_state_wgmma", "ssd_bwd_pair_wgmma"}
     for src in _build.CSRC.glob("*.cu"):
         for fn in _kernel_bodies(src.read_text()):
             assert cs._kernel_class(fn) == "repo kernels", (src.name, fn)
@@ -364,6 +368,43 @@ def test_ssd_shape_rule_serves_every_ssm_config_on_the_bf16_body():
     assert not wgmma_body(torch.bfloat16, r.head_dim, r.d_state, r.chunk)
 
 
+def test_ssd_bwd_shape_rule_serves_every_ssm_config_on_the_wgmma_body():
+    """Every SSM config of the repo (the JAX package's registry and the
+    port's mamba2-130m) takes the backward's wgmma body in both dtypes,
+    and the reduced config's shapes the CUDA-core body; the rule is the C
+    source's ``wgmma_shape``, and the scratch the wrapper sizes is what the
+    C entry lays out (the wgmma body's rows from a multiple of 4 floats,
+    f32 inputs' pieces after them)."""
+    import torch
+
+    from repro.configs import get_config as jget_config
+    from repro.configs import list_archs as jlist_archs
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels.ssd_scan import bwd_wgmma_body, bwd_work_floats
+
+    ssm = [jget_config(n) for n in jlist_archs() if jget_config(n).ssm is not None]
+    for cfg in [*ssm, get_config("mamba2-130m")]:
+        s = cfg.ssm
+        assert bwd_wgmma_body(s.head_dim, s.d_state, s.chunk), cfg.name
+    r = reduced(get_config("mamba2-130m")).ssm
+    assert not bwd_wgmma_body(r.head_dim, r.d_state, r.chunk)
+    src = (_build.CSRC / "ssd_scan_bwd.cu").read_text()
+    assert "return P == WP && (N == 64 || N == 128) && L % TR == 0 && L >= TR && L <= 256;" in src
+    for P, N, L in ((64, 64, 64), (64, 128, 256), (64, 128, 192), (64, 96, 64), (32, 64, 64),
+                    (64, 64, 32), (64, 64, 320)):
+        assert bwd_wgmma_body(P, N, L) == (P == 64 and N in (64, 128) and L % 64 == 0
+                                           and 64 <= L <= 256)
+    Bb, S, H, P, G, N, L = 3, 700, 6, 64, 2, 128, 256
+    nc = -(-S // L)
+    base = 2 * Bb * nc * H * N * P + 2 * Bb * S * H * N + 2 * Bb * nc * H
+    tail = -(-base // 4) * 4 + 4 * Bb * nc * H * L
+    assert bwd_work_floats(Bb, S, H, P, G, N, L, torch.bfloat16) == tail
+    assert bwd_work_floats(Bb, S, H, P, G, N, L, torch.float32) == \
+        tail + 3 * (Bb * S * H * P + Bb * S * G * N)
+    assert bwd_work_floats(Bb, S, H, 32, G, N, L, torch.float32) == \
+        2 * Bb * nc * H * N * 32 + 2 * Bb * S * H * N + 2 * Bb * nc * H
+
+
 def test_ssd_limits_add_the_bf16_bodys_terms_only_where_it_runs():
     import torch
 
@@ -489,9 +530,11 @@ ptxas warning : Registers are spilled to local memory in function '_Z6kernelILi6
 def test_ssd_bwd_source_is_built_for_sm_90a_with_its_c_entry(tmp_path, monkeypatch):
     """The SSD backward's source is one of the sources the build compiles,
     for sm_90a; its C entry takes the wrapper's arguments (13 pointers, 8
-    ints, the stream); its five kernels sum in a fixed order (no atomics)
-    and each planted fault of the backward lies in a pass of its own (the
-    reverse carry, the head sums)."""
+    ints, the stream); its kernels (the CUDA-core body's five, the wgmma
+    body's state, pair and tail passes beside the carry, head sums and dA
+    they share) sum in a fixed order (no atomics) and each planted fault
+    of the backward lies in a pass of its own (the reverse carry, the head
+    sums, the wgmma body's pair pass)."""
     from repro_torch.kernels.ssd_scan import BWD_ARGTYPES
 
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "kernels")
@@ -510,10 +553,13 @@ def test_ssd_bwd_source_is_built_for_sm_90a_with_its_c_entry(tmp_path, monkeypat
     assert not re.search(r"\batomic\w*\(", text)
     bodies = _kernel_bodies(text)
     assert sorted(bodies) == ["ssd_bwd_carry_kernel", "ssd_bwd_dA_kernel", "ssd_bwd_grad_kernel",
-                              "ssd_bwd_heads_kernel", "ssd_bwd_state_kernel"]
+                              "ssd_bwd_heads_kernel", "ssd_bwd_pair_wgmma_kernel",
+                              "ssd_bwd_state_kernel", "ssd_bwd_state_wgmma_kernel",
+                              "ssd_bwd_tail_kernel"]
     faults = [f[3] for f in _chip_smoke().FAULTS if f[0] == "ssd_scan_bwd"]
     assert [sum(old in bodies[k] for old in faults) for k in
-            ("ssd_bwd_carry_kernel", "ssd_bwd_heads_kernel")] == [1, 1]
+            ("ssd_bwd_carry_kernel", "ssd_bwd_heads_kernel", "ssd_bwd_pair_wgmma_kernel")] \
+        == [1, 1, 1]
 
 
 @pytest.mark.parametrize("B,S,H,P,G,N,L", [
@@ -541,10 +587,14 @@ def test_ssd_bwd_work_counts_the_products_once(B, S, H, P, G, N, L):
 def test_ssd_bwd_cases_and_bound_at_the_train_shape():
     """The backward's gate meets mamba2-130m's train shape, a ragged S, G 2
     at H 8, S shorter than the chunk and a non-zero gstate, each a shape
-    the wrapper takes; at the train shape it needs 46.8 GFLOP (0.698 ms at
-    the f32 CUDA-core peak, 0.0473 ms at the bf16 one) and moves 183.5 MB
+    the wrapper takes, and under the wgmma body's rule (``bwd_wgmma_body``)
+    each chunk it takes (64, 128, 192, 256), G 1 to 4, zamba2-2.7b's N 64
+    at H 80, S ragged inside a 64-row tile and S < 64, with the reduced
+    shapes on the CUDA-core body; at the train shape it needs 46.8 GFLOP
+    (0.698 ms at the f32 CUDA-core peak, 0.284 ms on three pieces at a
+    sixth of the bf16 peak, 0.0473 ms at the bf16 one) and moves 183.5 MB
     in bf16 (0.0548 ms), so in bf16 its bound is the bytes'."""
-    from repro_torch.kernels.ssd_scan import BWD_HEAD_DIMS
+    from repro_torch.kernels.ssd_scan import BWD_HEAD_DIMS, bwd_wgmma_body
 
     cs = _chip_smoke()
     cases = cs.SSD_BWD_CASES
@@ -559,8 +609,15 @@ def test_ssd_bwd_cases_and_bound_at_the_train_shape():
     flops, nbytes = cs.ssd_bwd_work(*cs.MAMBA2_TRAIN, 2)
     assert flops == pytest.approx(46.764e9, rel=1e-4) and nbytes == pytest.approx(183.5e6, rel=1e-3)
     assert cs._bound(flops, nbytes, cs.PEAK_F32_FLOPS)[0] == pytest.approx(0.698, rel=1e-3)
+    assert cs._bound(flops, nbytes, cs.PEAK_F32_SPLIT_FLOPS)[0] == pytest.approx(0.2837, rel=1e-3)
     ms, by = cs._bound(flops, nbytes, cs.PEAK_BF16_FLOPS)
     assert by == "bytes" and ms == pytest.approx(0.05478, rel=1e-3)
+    body = [c for c in cases if bwd_wgmma_body(c[3], c[5], c[6])]
+    assert {c[6] for c in body} == {64, 128, 192, 256}
+    assert {c[4] for c in body} >= {1, 2, 3, 4}
+    assert any(c[2] == 80 and c[5] == 64 for c in body)
+    assert any(c[1] % 64 and c[1] > 64 for c in body) and any(c[1] < 64 for c in body)
+    assert any(not bwd_wgmma_body(c[3], c[5], c[6]) for c in cases)
 
 
 def test_ssm_launches_per_step_at_the_train_shape():
@@ -612,17 +669,21 @@ def test_stack_frame_faults_names_the_wgmma_bodies_with_a_frame():
     assert cs.stack_frame_faults(report) == [
         "_Z15dkdv_wgmma_kernelILi256ELb1EEvv: 256 bytes stack frame, 0 bytes spill stores, "
         "0 bytes spill loads"]
-    assert cs.FRAMELESS_SOURCES == ("flash_attention_bwd",)
+    assert cs.FRAMELESS_SOURCES == ("flash_attention_bwd", "ssd_scan_bwd")
 
 
 def _zeroing_loops(text):
     """[(array, its declared size, the loop's bound)] of every loop of the
     form ``for (int x = 0; x < N; ++x) a[x] = b[x] = 0`` in a kernel
-    source, each array taken at its latest declaration above the loop."""
+    source, each array taken at its latest declaration above the loop (a
+    local array, or a reference parameter such as ``float (&s)[N / 2]``)."""
     decl = re.compile(r"\b(?:float|double|uint32_t)\s+([^;(]*\[[^;]*);")
+    param = re.compile(r"\b(?:float|double|uint32_t)\s+\(&(\w+)\)\[([^\]]+)\]")
     loop = re.compile(r"for \(int (\w+) = 0; \1 < ([^;]+); \+\+\1\) ((?:\w+\[\1\] = )+)0")
     sizes, out = {}, []
     for line in text.splitlines():
+        for m in param.finditer(line):
+            sizes[m.group(1)] = m.group(2)
         for m in decl.finditer(line):
             for a in re.finditer(r"(\w+)\[([^\]]+)\]", m.group(1)):
                 sizes[a.group(1)] = a.group(2)
@@ -647,3 +708,6 @@ def test_zeroing_loop_check_sees_a_loop_past_its_array():
     text = "  float s[QT / 2], dk[DH / 2], dv[DH / 2];\n" \
            "  for (int x = 0; x < D / 2; ++x) dk[x] = dv[x] = 0.f;\n"
     assert _zeroing_loops(text) == [("dk", "DH / 2", "D / 2"), ("dv", "DH / 2", "D / 2")]
+    text = "void f(float (&s)[N / 2], float (&d)[N]) {\n" \
+           "  for (int x = 0; x < N; ++x) s[x] = d[x] = 0.f;\n"
+    assert _zeroing_loops(text) == [("s", "N / 2", "N"), ("d", "N", "N")]

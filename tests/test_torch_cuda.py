@@ -269,8 +269,9 @@ def test_flash_bwd_bf16_kernel_tile_edges(cuda, S, D, causal, rep):
     (600, 64, 4, True, 200), (513, 128, 4, True, 100), (300, 64, 1, False, 64),
     (130, 256, 2, True, 40), (77, 256, 2, False, None), (700, 256, 2, True, 256)])
 def test_flash_bwd_kernel_window_and_head_dim_256(cuda, S, D, rep, causal, window, dtype):
-    """The backward with a sliding window (the wgmma bodies at D 64 and
-    128, the CUDA-core body at D 256) against the plain version's autograd,
+    """The backward with a sliding window (the wgmma bodies at D 64, 128
+    and 256; f32 at D 256 with its resident tile in f32) against the plain
+    version's autograd,
     per element under chip_smoke.py's gate (f32: 2e-5; bf16: u (|want| +
     want_abs) + 1e-5)."""
     g = torch.Generator(device=cuda).manual_seed(S * D + rep)
