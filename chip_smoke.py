@@ -62,37 +62,38 @@ Phases (any failure exits non-zero before the last line):
               mamba2-130m at full width, depth cut to 2 layers, f32, B 2 x
               S 600 (a full chunk and a ragged one): the same next-token
               batches and initial parameters on cuda and on cpu must agree
-              on the loss, every gradient leaf and 5 steps; the same
-              gradients computed twice on the card are equal bit for bit
+              on 3 steps' losses and every gradient leaf of the first; the
+              same gradients computed twice on the card are equal bit for
+              bit.  The cpu side runs in a process of its own, started
+              with the script at nice 15
   gemma_train_path
               gemma3-4b at full width, 2 layers (local, global), f32, B 1 x
-              S 1100, one step: as ssm_train_path (the windowed flash
+              S 1100, 2 steps: as ssm_train_path (the windowed flash
               backward at head dim 256)
   train_cli   bert-mlm-120m at full width and depth, f32 (the launcher's
               defaults), batch 32 x 512 from the DataPipeline over a
-              3000-function corpus, through repro_torch.launch.train.main:
-              (a) 20 steps with the R3 autotune; (b) the same run with
-              sharded checkpoints, stopped after the step-10 one; (d) that
+              1000-function corpus, through repro_torch.launch.train.main:
+              (a) 10 steps with the R3 autotune; (b) the same run with
+              sharded checkpoints, stopped after the step-5 one; (d) that
               checkpoint resumed through runner.resume and TrainLoop with
               the device prefetch 4 deep, and (c) through a fresh main
-              (depth 2), whose losses at steps 11-20 must each equal (a)'s
+              (depth 2), whose losses at steps 6-10 must each equal (a)'s
               bit for bit; launch counts per step as in train, every batch
               placed by the device prefetch, the loss falling; the
-              prefetch's batches equal to the host's at depths 2 and 4; then
-              python -m repro_torch.launch.train as a subprocess
+              prefetch's batches equal to the host's at depths 2 and 4
   ssm_train   mamba2-130m at full width and depth, B 16 x S 1024 from the
-              DataPipeline: (a) 20 steps of repro_torch.launch.train.main
-              at its f32 defaults, checkpointed every 10 steps; (b) (a)'s
-              step-10 checkpoint resumed, whose losses at steps 11-20
+              DataPipeline: (a) 10 steps of repro_torch.launch.train.main
+              at its f32 defaults, checkpointed every 5 steps; (b) (a)'s
+              step-5 checkpoint resumed, whose losses at steps 6-10
               must equal (a)'s bit for bit; (c)
-              20 steps of trainer.train with bf16 parameters and
+              10 steps of trainer.train with bf16 parameters and
               activations at microbatch 2, every gradient handed to AdamW
               in f32; the loss falls in each, and every SSD scan and loss
               chunk, forward and backward, goes through the kernels
               (launch counts per step); step time, MFU and device busy
   gemma_train gemma3-4b at full width, depth cut to 6 (5 local, 1 global), B
               4 x S 2048 from the DataPipeline with the launcher's rolled
-              labels: (a) 20 steps of trainer.train in f32, (b) 20 in bf16
+              labels: (a) 10 steps of trainer.train in f32, (b) 10 in bf16
               at microbatch 2; the loss falls, launches per step exact
               (2L flash forwards, L backwards, 2C and C xent at V 262144),
               step time, MFU and device busy
@@ -107,10 +108,10 @@ Phases (any failure exits non-zero before the last line):
   ddp         bert-mlm-120m at full width and depth, f32, through
               python -m torch.distributed.run --nproc-per-node 2 -m
               repro_torch.launch.train (gloo on the one card), --batch 16 a
-              rank from the DataPipeline, lr 1e-5, 20 steps: rank 0's losses within
+              rank from the DataPipeline, lr 1e-5, 10 steps: rank 0's losses within
               1e-4 of one process at --batch 32, the ranks' parameters
-              equal, launches and 11 all-reduces per rank per step; stopped
-              after step 11 and resumed by 2 ranks, bit for bit; then 20
+              equal, launches and 11 all-reduces per rank per step; its
+              step-5 checkpoint resumed by 2 ranks, bit for bit; then 10
               steps at the launcher's lr 3e-3 by 2 ranks (spawned by the
               phase), equal bit for bit to one process forming the
               gradient in the ranks' f32 order with no collective (the
@@ -144,25 +145,30 @@ checkout of the repository (it imports src/repro_torch).
 from __future__ import annotations
 
 import argparse
+import atexit
 import dataclasses
 import json
 import math
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
+T_START = time.perf_counter()
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "chiprun_out"
-# ssm_train_path runs before train_cli: launch.train.main leaves the process
-# one intra-op thread (its bit-exact resume needs it), which would slow the
-# full-width CPU reference of ssm_train_path 3.5x.  faults runs late: its
-# builds, started at the lowest CPU priority once the build phase is done,
-# take the cores the phases between leave idle (started beside it, they
-# slowed it from about 60 s to 193 s)
-PHASES = ("build", "kernels", "path", "serve", "gemma_path", "gemma_serve", "ssm_path",
-          "ssm_serve", "train_path", "train", "ssm_train_path", "gemma_train_path", "train_cli",
-          "ssm_train", "gemma_train", "ddp_path", "ddp", "faults", "time")
+# The cuda-against-cpu checks run first, while the planted faults' builds
+# (started at the lowest CPU priority once the build phase is done) take
+# the host: nice or not, they slowed the host-bound serve phases 2-3x
+# where they overlapped them (and the build from about 60 s to 193 s when
+# started beside it), and no check records a time.  They also run before
+# train_cli: launch.train.main leaves the process one intra-op thread (its
+# bit-exact resume needs it), which slows their CPU references 3.5x.
+# faults runs late, once its builds are done.
+PHASES = ("build", "kernels", "path", "gemma_path", "ssm_path", "train_path", "ssm_train_path",
+          "gemma_train_path", "ddp_path", "serve", "gemma_serve", "ssm_serve", "train",
+          "train_cli", "ssm_train", "gemma_train", "ddp", "faults", "time")
 AGAINST_PHASES = ("serve", "ssm_serve", "train", "time")   # the phases --against runs again
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the bounds below use them
@@ -231,7 +237,7 @@ def fail(msg: str):
 
 
 def log(msg: str):
-    print(f"[chip_smoke] {msg}", flush=True)
+    print(f"[chip_smoke] {time.perf_counter() - T_START:7.1f}s {msg}", flush=True)
 
 
 def gpu_line() -> str:
@@ -893,18 +899,25 @@ def ptxas_report(log):
 def parse_sass(text):
     """{kernel function: {instruction: count}} in ``cuobjdump -sass``
     output: HGMMA (wgmma), UTMALDG / UTMASTG (TMA load / store), HMMA
-    (mma.sync)."""
+    (mma.sync), each as a whole word.  Counted over each function's text
+    at once: a library's SASS runs to millions of lines, which a regular
+    expression per line read in tens of seconds."""
     import re
 
-    res, fn = {}, None
-    for line in text.splitlines():
-        if line.strip().startswith("Function :"):
-            fn = line.split(":", 1)[1].strip()
-            res[fn] = dict.fromkeys(("HGMMA", "UTMALDG", "UTMASTG", "HMMA"), 0)
-        elif fn:
-            for op in res[fn]:
-                res[fn][op] += len(re.findall(rf"\b{op}\b", line))
-    return res
+    word = lambda c: c.isalnum() or c == "_"
+
+    def count(op, body):
+        n = i = 0
+        while (i := body.find(op, i)) >= 0:
+            j = i + len(op)
+            if (i == 0 or not word(body[i - 1])) and (j == len(body) or not word(body[j])):
+                n += 1
+            i = j
+        return n
+
+    parts = re.split(r"^[ \t]*Function :(.*)$", text, flags=re.M)
+    return {fn.strip(): {op: count(op, body) for op in ("HGMMA", "UTMALDG", "UTMASTG", "HMMA")}
+            for fn, body in zip(parts[1::2], parts[2::2])}
 
 
 def sass_counts(lib):
@@ -965,12 +978,18 @@ def wgmma_build_facts(rec):
     each runs on HGMMA and UTMALDG with no HMMA, if ptxas serialized a
     wgmma (its warning C7520), or if a wgmma body of
     ``FRAMELESS_SOURCES`` has a stack frame."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from repro_torch.kernels import _build
 
+    names = list(dict(WGMMA_FUNCTIONS))
+    with ThreadPoolExecutor(len(names)) as pool:    # one cuobjdump a library, all at once
+        all_sass = dict(zip(names, pool.map(
+            lambda n: sass_counts(_build._lib_path(_build.CSRC / f"{n}.cu")), names)))
     facts, faults = {}, []
-    for name in dict(WGMMA_FUNCTIONS):
+    for name in names:
         ptxas = rec["ptxas"].get(name, {})
-        sass = sass_counts(_build._lib_path(_build.CSRC / f"{name}.cu"))
+        sass = all_sass[name]
         for _, part in (f for f in WGMMA_FUNCTIONS if f[0] == name):
             for k, v in sass.items():
                 if part in k:
@@ -1537,17 +1556,24 @@ def check_prefetch(torch, pipe, n=16):
     return out
 
 
-def run_train_cli(torch, rec, B=32, S=512, n_functions=3000):
+# the corpus of train_cli's and ddp's DataPipeline: about 570 rows of 512
+# tokens, 17 batches of 32 an epoch (3000 functions gave 1699 rows and
+# took 43 s to build on the card machine)
+CLI_FUNCTIONS = 1000
+
+
+def run_train_cli(torch, rec, B=32, S=512, n_functions=CLI_FUNCTIONS, steps=10):
     """bert-mlm-120m at full width and depth through
-    repro_torch.launch.train.main, over one DataPipeline data dir: (a) 20
-    steps with the R3 autotune; (b) the same run with --ckpt-dir and
-    --ckpt-every 10, stopped by the fault point after its step-10
-    checkpoint (the lr schedule spans --steps, so the run that is
-    resumed must be launched with --steps 20); (d) steps 10 to 20 from
+    repro_torch.launch.train.main, over one DataPipeline data dir: (a)
+    ``steps`` steps with the R3 autotune; (b) the same run with --ckpt-dir
+    and --ckpt-every steps/2, stopped by the fault point after that
+    checkpoint (the lr schedule spans --steps, so the run that is resumed
+    must be launched with the same --steps); (d) the second half from
     that checkpoint through runner.resume and TrainLoop, the device
-    prefetch 4 deep; (c) a fresh main with --resume, steps 10 to 20 at
+    prefetch 4 deep; (c) a fresh main with --resume, the second half at
     the CLI's depth 2.  (c) and (d) must each repeat (a)'s losses bit for
-    bit.  Then the module entry point once as a subprocess."""
+    bit.  The module entry point, as a user runs it, is phase ddp's
+    torchrun."""
     import os
     import shutil
 
@@ -1572,7 +1598,8 @@ def run_train_cli(torch, rec, B=32, S=512, n_functions=3000):
     base = ["--arch", "bert-mlm-120m", "--batch", str(B), "--seq", str(S),
             "--n-functions", str(n_functions), "--data-dir", str(data), "--log-every", "1"]
     want = train_launches_per_step(cfg, B, S)
-    res = {"batch": B, "seq": S, "n_functions": n_functions, "launches_per_step_want": want}
+    res = {"batch": B, "seq": S, "n_functions": n_functions, "steps": steps,
+           "launches_per_step_want": want}
 
     def counted(tag, argv, n_steps, train=None):
         """One run, through cli.main(base + argv) unless ``train`` is
@@ -1595,22 +1622,25 @@ def run_train_cli(torch, rec, B=32, S=512, n_functions=3000):
                  f"device prefetch for {n_steps} steps")
         return state, tlog
 
+    half = steps // 2
     # (a) the uninterrupted run, workers auto-tuned
-    state_a, log_a = counted("a", ["--steps", "20", "--workers", "0"], 20)
+    state_a, log_a = counted("a", ["--steps", str(steps), "--workers", "0"], steps)
     losses_a = res["a"]["losses"]
-    if len(losses_a) != 20 or not all(math.isfinite(x) for x in losses_a) \
+    if len(losses_a) != steps or not all(math.isfinite(x) for x in losses_a) \
             or not losses_a[-1] < losses_a[0]:
         fail(f"train_cli a: losses {losses_a}")
     del state_a
 
-    # (b) the same run with checkpoints, stopped after its step-10 checkpoint
-    ckpt_argv = ["--steps", "20", "--workers", "2", "--ckpt-dir", str(ck), "--ckpt-every", "10"]
-    fault = {"REPRO_FAULT_PHASE": "step", "REPRO_FAULT_STEP": "10", "REPRO_FAULT_MODE": "raise"}
+    # (b) the same run with checkpoints, stopped after its step-``half`` checkpoint
+    ckpt_argv = ["--steps", str(steps), "--workers", "2", "--ckpt-dir", str(ck),
+                 "--ckpt-every", str(half)]
+    fault = {"REPRO_FAULT_PHASE": "step", "REPRO_FAULT_STEP": str(half),
+             "REPRO_FAULT_MODE": "raise"}
     os.environ.update(fault)
     ops.reset_launch_counts()
     try:
         cli.main(base + ckpt_argv)
-        fail("train_cli b: the fault point at step 10 did not stop the run")
+        fail(f"train_cli b: the fault point at step {half} did not stop the run")
     except TransientWorkerError as e:
         log(f"train_cli b: stopped as planned: {e}")
     finally:
@@ -1619,21 +1649,23 @@ def run_train_cli(torch, rec, B=32, S=512, n_functions=3000):
     torch.cuda.synchronize()
     counts_b = dict(ops.launch_counts)
     res["b"] = {"argv": ckpt_argv, "launches": counts_b,
-                "launches_per_step": {k: counts_b.get(k, 0) / 11 for k in want}}
+                "launches_per_step": {k: counts_b.get(k, 0) / (half + 1) for k in want}}
     if res["b"]["launches_per_step"] != {k: float(v) for k, v in want.items()}:
-        fail(f"train_cli b: launches {counts_b} over 11 steps, expected {want} a step")
-    if ckpt.latest_step(str(ck)) != 10:
-        fail(f"train_cli b: newest committed checkpoint {ckpt.latest_step(str(ck))}, not 10")
-    shard = Path(ckpt.step_dir(str(ck), 10)) / "shard-00000.npz"
+        fail(f"train_cli b: launches {counts_b} over {half + 1} steps, expected {want} a step")
+    if ckpt.latest_step(str(ck)) != half:
+        fail(f"train_cli b: newest committed checkpoint {ckpt.latest_step(str(ck))}, "
+             f"not {half}")
+    shard = Path(ckpt.step_dir(str(ck), half)) / "shard-00000.npz"
     res["b"]["ckpt_bytes"] = shard.stat().st_size
     with np.load(shard) as z:
         res["b"]["ckpt_opt_step"] = int(z["opt/step"])
-    if res["b"]["ckpt_opt_step"] != 10:
-        fail(f"train_cli b: ckpt-00000010 holds opt/step {res['b']['ckpt_opt_step']}")
+    if res["b"]["ckpt_opt_step"] != half:
+        fail(f"train_cli b: the step-{half} checkpoint holds opt/step "
+             f"{res['b']['ckpt_opt_step']}")
 
     # (d) the same resume through the library's entry points, with the
-    # pipeline's device prefetch 4 deep (the CLI's is 2): steps 11-20 must
-    # again be (a)'s, bit for bit.  Runner and pipeline are built as the
+    # pipeline's device prefetch 4 deep (the CLI's is 2): the second half
+    # must again be (a)'s, bit for bit.  Runner and pipeline are built as the
     # CLI builds them.
     run = default_run_config(cfg, ShapeConfig("cli", S, B, "train"))
     pipe = DataPipeline.build(str(data), n_functions=n_functions, seq_len=S, batch_size=B,
@@ -1641,15 +1673,16 @@ def run_train_cli(torch, rec, B=32, S=512, n_functions=3000):
                               work_fn=cli.make_work_fn(cfg))
     try:
         runner = StepRunner(build_model(cfg), run,
-                            AdamWConfig(lr=3e-3, warmup_steps=2, total_steps=20))
-        state_d, start = resume(str(ck), runner, pipeline=pipe, step=10)
-        state_d, _ = counted("d", ["resume(step=10)", "device_prefetch=4"], 10,
+                            AdamWConfig(lr=3e-3, warmup_steps=2, total_steps=steps))
+        state_d, start = resume(str(ck), runner, pipeline=pipe, step=half)
+        state_d, _ = counted("d", [f"resume(step={half})", "device_prefetch=4"], steps - half,
                              lambda: TrainLoop(runner, log_every=1).run(
-                                 pipe, 20, state=state_d, start_step=start))
-        if res["d"]["steps"] != list(range(11, 21)) or res["d"]["losses"] != losses_a[10:]:
+                                 pipe, steps, state=state_d, start_step=start))
+        if res["d"]["steps"] != list(range(half + 1, steps + 1)) \
+                or res["d"]["losses"] != losses_a[half:]:
             fail(f"train_cli d: resumed losses at prefetch depth 4 "
                  f"{list(zip(res['d']['steps'], res['d']['losses']))} "
-                 f"!= uninterrupted {losses_a[10:]}")
+                 f"!= uninterrupted {losses_a[half:]}")
 
         # where a step's time goes, on the CLI's f32 path and its batches
         p50 = log_a.telemetry["step_time_p50"]
@@ -1661,25 +1694,14 @@ def run_train_cli(torch, rec, B=32, S=512, n_functions=3000):
     finally:
         pipe.close()
 
-    # (c) resumed in a fresh main: steps 11-20 must be (a)'s, bit for bit
-    state_c, log_c = counted("c", ckpt_argv + ["--resume", "--keep-last-k", "1"], 10)
-    if res["c"]["steps"] != list(range(11, 21)) or res["c"]["losses"] != losses_a[10:]:
+    # (c) resumed in a fresh main: the second half must be (a)'s, bit for bit
+    state_c, log_c = counted("c", ckpt_argv + ["--resume", "--keep-last-k", "1"], steps - half)
+    if res["c"]["steps"] != list(range(half + 1, steps + 1)) \
+            or res["c"]["losses"] != losses_a[half:]:
         fail(f"train_cli c: resumed losses {list(zip(res['c']['steps'], res['c']['losses']))} "
-             f"!= uninterrupted {losses_a[10:]}")
+             f"!= uninterrupted {losses_a[half:]}")
     res["resume_bit_exact"] = True
     del state_c
-
-    # the module entry point, as a user runs it
-    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
-    t0 = time.perf_counter()
-    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", *base, "--steps", "3",
-                          "--workers", "2"], cwd=ROOT, env=env, capture_output=True, text=True,
-                         timeout=600)
-    res["module_run"] = {"rc": out.returncode, "wall_s": time.perf_counter() - t0,
-                         "tail": out.stdout[-1500:], "stderr_tail": out.stderr[-1500:]}
-    if out.returncode != 0 or "[done]" not in out.stdout:
-        fail(f"train_cli: python -m repro_torch.launch.train exited {out.returncode}: "
-             f"{out.stderr[-2000:]}")
     shutil.rmtree(ck, ignore_errors=True)
 
     t_a, t_c = log_a.telemetry, res["c"]["telemetry"]
@@ -1687,14 +1709,14 @@ def run_train_cli(torch, rec, B=32, S=512, n_functions=3000):
     res.update(step_time_p50_ms=p50 * 1e3, tokens_per_s=tokens / p50,
                mfu=model_flops(cfg, tokens) / (p50 * DEFAULT_PEAK_FLOPS),
                data_wait_share=t_a["data_wait_s"] / t_a["total_s"],
-               data_wait_ms_per_step=t_a["data_wait_s"] / 20 * 1e3,
+               data_wait_ms_per_step=t_a["data_wait_s"] / steps * 1e3,
                autotune={"n_workers": t_a["n_workers"], "device_prefetch": t_a["device_prefetch"]},
                ckpt_host_copy_ms=t_c["ckpt_host_copy_s"] * 1e3,
                ckpt_write_ms=t_c["ckpt_write_s"] * 1e3, ckpt_saves=t_c["ckpt_saves"],
                ckpt_bytes=res["b"]["ckpt_bytes"],
                first_loss=losses_a[0], last_loss=losses_a[-1], launches=res["a"]["launches"])
     log("train_cli: " + json.dumps({k: v for k, v in res.items()
-                                    if k not in ("a", "b", "c", "profile", "module_run")}))
+                                    if k not in ("a", "b", "c", "profile")}))
     rec["train_cli"] = res
 
 
@@ -1731,94 +1753,186 @@ def ssm_launches_per_step(cfg, B, S, micro=1):
             "fused_xent": 2 * n_chunks * micro, "fused_xent_bwd": n_chunks * micro}
 
 
-def check_ssm_train_path(torch, rec):
-    """mamba2-130m at full width, 2 layers, f32, B 2 x S 600 (a full chunk
-    and a ragged one): ``check_lm_train_path``."""
+def lm_path_spec(key):
+    """(cfg, launches_per_step, B, S, n_steps) of the next-token check
+    ``key``, both models at full width and 2 layers, f32.
+    ssm_train_path: mamba2-130m, B 2 x S 600 (a full chunk and a ragged
+    one), 3 steps.  gemma_train_path: gemma3-4b (local with window 1024,
+    global), B 1 x S 1100 (past the window and ragged against every
+    tile), 2 steps, so that the second step's loss reads AdamW's move of
+    q_norm, k_norm, post1 and post2; the kernel gate holds the windowed
+    backward at B 2 and 4.  Its cpu side is nearly all the tied
+    unembedding at vocab 262144: B 2 x S 1100 over four forward and
+    backward passes took 167 s on the card machine's 8 cores (PERF.md
+    §6)."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import MAMBA, LayerSpec, uniform_schedule
 
-    cfg = dataclasses.replace(get_config("mamba2-130m"),
-                              schedule=uniform_schedule(2, LayerSpec(kind=MAMBA, has_mlp=False)))
-    check_lm_train_path(torch, rec, "ssm_train_path", cfg, ssm_launches_per_step, B=2, S=600,
-                        n_steps=5)
+    if key == "ssm_train_path":
+        cfg = dataclasses.replace(get_config("mamba2-130m"),
+                                  schedule=uniform_schedule(2, LayerSpec(kind=MAMBA, has_mlp=False)))
+        return cfg, ssm_launches_per_step, 2, 600, 3
+    return gemma_cfg(2), train_launches_per_step, 1, 1100, 2
 
 
-def check_lm_train_path(torch, rec, key, cfg, launches_per_step, B, S, n_steps):
-    """A next-token model ``cfg`` at full width, f32: loss and every
-    gradient leaf of one B x S batch, then ``n_steps`` train steps, on
-    cuda and on cpu from the same parameters and batches (PATH_REL_TOL
-    per leaf and per loss); on cuda the gradients of the same batch
-    twice, which must be equal bit for bit, and the kernel launches
-    ``launches_per_step(cfg, B, S)`` a forward and backward."""
-    import copy
-
+def lm_train_side(torch, key, dev):
+    """One side of ``check_lm_train_path`` on ``dev``: ``n_steps`` train
+    steps of the model built from seed 0 on the lm_batches of seed 1; the
+    gradients AdamW gets in the first step, every step's loss and the
+    kernel launches.  On cuda first the gradients of the first batch
+    twice, which must be equal bit for bit."""
     from repro_torch.configs import default_run_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.core.accum import accumulate_grads
     from repro_torch.kernels import ops
     from repro_torch.models.model import build_model
+    from repro_torch.train import train_step as ts
     from repro_torch.train.optimizer import AdamWConfig
-    from repro_torch.train.train_step import init_state, loss_for, make_train_step
 
+    t0 = time.perf_counter()
+    cfg, _, B, S, n_steps = lm_path_spec(key)
     run = default_run_config(cfg, ShapeConfig(key, S, B, "train"))
     opt = AdamWConfig(lr=1e-4, warmup_steps=2, total_steps=n_steps)
-    model_cpu = build_model(cfg, seed=0, device="cpu")
-    batches = lm_batches(torch, cfg.vocab_size, n_steps + 1, B, S, seed=1)
-    res = {}
-    for dev in ("cpu", "cuda"):
-        t0 = time.perf_counter()
-        model = copy.deepcopy(model_cpu).to(dev)
-        state = init_state(model, run, seed=None)
-        on = lambda b: {k: v.to(dev) for k, v in b.items()}
-        grad = lambda: accumulate_grads(lambda p, b: loss_for(model, p, b, run=run),
-                                        state["params"], on(batches[0]), 1)
-        ops.reset_launch_counts()
-        loss, grads, _ = grad()
-        grads = {k: g.detach().cpu().clone() for k, g in grads.items()}
-        if dev == "cuda":
-            _, again, _ = grad()
-            unequal = [k for k, g in again.items() if not torch.equal(g.cpu(), grads[k])]
-            if unequal:
-                fail(f"{key}: the same gradients twice differ in {unequal}")
-            del again
-        step = make_train_step(model, run, opt)
-        losses = [step(state, on(b))[1]["loss"].item() for b in batches[1:]]
-        res[dev] = (loss.item(), grads, losses, dict(ops.launch_counts))
-        log(f"{key} {dev}: loss {loss.item():.6f}, steps {losses}, "
-            f"launches {res[dev][3]}, {time.perf_counter() - t0:.1f}s")
-        del model, state, step
-    n_fb = 2 + n_steps
-    want = {k: v * n_fb for k, v in launches_per_step(cfg, B, S).items()}
-    if res["cpu"][3] or res["cuda"][3] != want:
-        fail(f"{key}: cuda launches {res['cuda'][3]} (expected {want}), "
-             f"cpu launches {res['cpu'][3]}")
+    model = build_model(cfg, seed=0, device="cpu").to(dev)
+    state = ts.init_state(model, run, seed=None)
+    batches = [{k: v.to(dev) for k, v in b.items()}
+               for b in lm_batches(torch, cfg.vocab_size, n_steps, B, S, seed=1)]
+    ops.reset_launch_counts()
+    if dev == "cuda":
+        grad = lambda: accumulate_grads(lambda p, b: ts.loss_for(model, p, b, run=run),
+                                        state["params"], batches[0], 1)[1]
+        first = {k: g.detach().clone() for k, g in grad().items()}
+        again = grad()
+        unequal = [k for k, g in again.items() if not torch.equal(g, first[k])]
+        if unequal:
+            fail(f"{key}: the same gradients twice differ in {unequal}")
+        del first, again
+    grads, real = {}, ts.adamw_update
+
+    def spy(c, g, opt_state, params):
+        if not grads:
+            grads.update((k, v.detach().to("cpu", copy=True)) for k, v in g.items())
+        return real(c, g, opt_state, params)
+
+    step = ts.make_train_step(model, run, opt)
+    ts.adamw_update = spy
+    try:
+        losses = [step(state, b)[1]["loss"].item() for b in batches]
+    finally:
+        ts.adamw_update = real
+    out = {"loss": losses[0], "grads": grads, "losses": losses,
+           "launches": dict(ops.launch_counts), "seconds": time.perf_counter() - t0}
+    log(f"{key} {dev}: steps {losses}, launches {out['launches']}, {out['seconds']:.1f}s")
+    return out
+
+
+# The cpu sides of the next-token checks each run in a process of their
+# own (``--cpu-ref KEY``), started with the script at nice 15, so that
+# their minutes of 8-core work overlap the phases before them: the
+# build's and the phases' threads come first, the planted faults' builds
+# (nice 19) after.  gemma_train_path's took 94 s of its phase's 109 in
+# process (PERF.md §6).
+CPU_REF_KEYS = ("ssm_train_path", "gemma_train_path")
+_children = []                      # processes the script stops if it ends early
+
+
+def stop_children():
+    for p in _children:
+        if p.poll() is None:
+            p.terminate()
+            try:
+                p.wait(10)
+            except subprocess.TimeoutExpired:
+                p.kill()
+
+
+def cpu_ref_file(key):
+    return ROOT / "build" / "cpu_ref" / f"{key}.pt"
+
+
+def start_cpu_refs(phases):
+    """{key: process} of the cpu sides of the next-token checks in
+    ``phases``."""
+    import os
+
+    procs = {}
+    for key in CPU_REF_KEYS:
+        if key in phases:
+            out = cpu_ref_file(key)
+            out.parent.mkdir(parents=True, exist_ok=True)
+            out.unlink(missing_ok=True)
+            with open(out.with_suffix(".log"), "w") as f:
+                procs[key] = subprocess.Popen(
+                    ["nice", "-n", "15", sys.executable, str(ROOT / "chip_smoke.py"),
+                     "--cpu-ref", key], cwd=ROOT, stdout=f, stderr=subprocess.STDOUT,
+                    env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+            _children.append(procs[key])
+    return procs
+
+
+def cpu_ref_worker(torch, key):
+    """The body of a ``--cpu-ref KEY`` process."""
+    torch.save(lm_train_side(torch, key, "cpu"), cpu_ref_file(key))
+
+
+def cpu_side(torch, key, procs):
+    """The cpu side of ``key``, from its process of ``start_cpu_refs``."""
+    p = procs[key]
+    t0 = time.perf_counter()
+    try:
+        p.wait(timeout=900)
+    except subprocess.TimeoutExpired:
+        fail(f"{key}: the cpu side's process outlasted 900 s")
+    text = cpu_ref_file(key).with_suffix(".log").read_text()
+    if p.returncode != 0:
+        fail(f"{key}: the cpu side's process exited {p.returncode}: {text[-3000:]}")
+    log(f"{key}: waited {time.perf_counter() - t0:.1f}s for the cpu side's process: "
+        f"{text.strip().splitlines()[-1] if text.strip() else ''}")
+    return torch.load(cpu_ref_file(key))
+
+
+def check_lm_train_path(torch, rec, key, procs):
+    """A next-token model of ``lm_path_spec(key)`` on cuda and on cpu from
+    the same parameters and batches (``lm_train_side``): the first step's
+    loss and every gradient leaf, and every step's loss, within
+    PATH_REL_TOL; on cuda the first batch's gradients twice equal bit for
+    bit, and the kernel launches ``launches_per_step(cfg, B, S)`` a
+    forward and backward."""
+    cfg, launches_per_step, B, S, n_steps = lm_path_spec(key)
+    cuda = lm_train_side(torch, key, "cuda")
+    cpu = cpu_side(torch, key, procs)
+    want = {k: v * (2 + n_steps) for k, v in launches_per_step(cfg, B, S).items()}
+    if cpu["launches"] or cuda["launches"] != want:
+        fail(f"{key}: cuda launches {cuda['launches']} (expected {want}), "
+             f"cpu launches {cpu['launches']}")
     rel = lambda a, b: abs(a - b) / abs(b)
-    errs = {"loss": rel(res["cuda"][0], res["cpu"][0]),
-            "steps": max(rel(a, b) for a, b in zip(res["cuda"][2], res["cpu"][2]))}
-    gc, gp = res["cuda"][1], res["cpu"][1]
+    errs = {"loss": rel(cuda["loss"], cpu["loss"]),
+            "steps": max(rel(a, b) for a, b in zip(cuda["losses"], cpu["losses"]))}
+    gc, gp = cuda["grads"], cpu["grads"]
     leaf = {k: ((gc[k] - gp[k]).abs().max() / gp[k].abs().max()).item() for k in gp}
     errs["grad_leaf"] = max(leaf.values())
     worst = max(leaf, key=leaf.get)
     log(f"{key}: relative errors {errs} (tol {PATH_REL_TOL}); worst leaf {worst}")
-    if not all(v <= PATH_REL_TOL for v in errs.values()) \
-            or not all(math.isfinite(x) for x in res["cuda"][2]):
+    if not all(v <= PATH_REL_TOL for v in errs.values()) or sorted(gc) != sorted(gp) \
+            or not all(math.isfinite(x) for x in cuda["losses"]):
         fail(f"{key}: cuda and cpu differ: {errs}, worst leaf {worst} {leaf[worst]}")
     rec[key] = {"rel_err": errs, "worst_leaf": worst, "grad_leaf_rel": leaf,
-                "losses_cuda": res["cuda"][2], "losses_cpu": res["cpu"][2],
-                "launches": res["cuda"][3], "repeat_bit_equal": True}
+                "losses_cuda": cuda["losses"], "losses_cpu": cpu["losses"],
+                "launches": cuda["launches"], "repeat_bit_equal": True,
+                "seconds_cuda": cuda["seconds"], "seconds_cpu": cpu["seconds"]}
 
 
-def run_ssm_train(torch, rec, B=16, S=1024, n_functions=400):
+def run_ssm_train(torch, rec, B=16, S=1024, n_functions=400, steps=10):
     """mamba2-130m at full width and depth, B x S from one DataPipeline
     data dir (400 functions: 103 rows of 1024, 6 batches an epoch, which
-    the 20 steps wrap; the corpus build grows with the function count):
-    (a) 20 steps of launch.train.main (f32, 2 loader workers, a
-    checkpoint every 10 steps; phase train_cli runs the R3 autotune and
-    stops a run at its fault point); (b) --resume from (a)'s step-10
-    checkpoint, whose losses at steps 11-20 must be (a)'s bit for bit;
-    (c) 20 steps of trainer.train
+    the 10 steps wrap; the corpus build grows with the function count):
+    (a) ``steps`` steps of launch.train.main (f32, 2 loader workers, a
+    checkpoint every steps/2; phase train_cli runs the R3 autotune and
+    stops a run at its fault point); (b) --resume from (a)'s first
+    checkpoint, whose losses over the second half must be (a)'s bit for
+    bit; (c) ``steps`` steps of trainer.train
     with bf16 parameters and activations at microbatch 2 on the
-    pipeline's first 20 batches, every gradient AdamW gets checked to be
+    pipeline's first batches, every gradient AdamW gets checked to be
     f32.  Launches per step, the loss falling, step p50, tokens/s, MFU;
     where the step's device time goes (torch.profiler) for (a) and (c)."""
     import shutil
@@ -1843,7 +1957,7 @@ def run_ssm_train(torch, rec, B=16, S=1024, n_functions=400):
     base = ["--arch", "mamba2-130m", "--batch", str(B), "--seq", str(S),
             "--n-functions", str(n_functions), "--data-dir", str(data), "--log-every", "1"]
     tokens = B * S
-    res = {"batch": B, "seq": S}
+    res = {"batch": B, "seq": S, "steps": steps}
 
     def counted(tag, fn, n_steps, want):
         ops.reset_launch_counts()
@@ -1870,22 +1984,26 @@ def run_ssm_train(torch, rec, B=16, S=1024, n_functions=400):
         return state, tlog
 
     want = ssm_launches_per_step(cfg, B, S)
-    # (a) the uninterrupted CLI run, checkpointed at steps 10 and 20
-    ckpt_argv = ["--steps", "20", "--workers", "2", "--ckpt-dir", str(ck), "--ckpt-every", "10"]
-    state_a, _ = counted("a", lambda: cli.main(base + ckpt_argv), 20, want)
+    half = steps // 2
+    # (a) the uninterrupted CLI run, checkpointed at steps ``half`` and ``steps``
+    ckpt_argv = ["--steps", str(steps), "--workers", "2", "--ckpt-dir", str(ck),
+                 "--ckpt-every", str(half)]
+    state_a, _ = counted("a", lambda: cli.main(base + ckpt_argv), steps, want)
     losses_a = res["a"]["losses"]
-    if len(losses_a) != 20 or not losses_a[-1] < losses_a[0]:
+    if len(losses_a) != steps or not losses_a[-1] < losses_a[0]:
         fail(f"ssm_train a: losses {losses_a}")
     del state_a
-    if not (Path(ckpt.step_dir(str(ck), 10)) / "manifest.json").exists():
-        fail("ssm_train a: no committed step-10 checkpoint")
+    if not (Path(ckpt.step_dir(str(ck), half)) / "manifest.json").exists():
+        fail(f"ssm_train a: no committed step-{half} checkpoint")
 
-    # (b) steps 11-20 again, resumed from (a)'s step-10 checkpoint
+    # (b) the second half again, resumed from (a)'s step-``half`` checkpoint
     state_b, _ = counted("b", lambda: cli.main(base + ckpt_argv + ["--resume", "--ckpt-step",
-                                                                    "10"]), 10, want)
-    if res["b"]["steps"] != list(range(11, 21)) or res["b"]["losses"] != losses_a[10:]:
+                                                                    str(half)]),
+                         steps - half, want)
+    if res["b"]["steps"] != list(range(half + 1, steps + 1)) \
+            or res["b"]["losses"] != losses_a[half:]:
         fail(f"ssm_train b: resumed losses {list(zip(res['b']['steps'], res['b']['losses']))} "
-             f"!= uninterrupted {losses_a[10:]}")
+             f"!= uninterrupted {losses_a[half:]}")
     res["resume_bit_exact"] = True
     shutil.rmtree(ck, ignore_errors=True)
 
@@ -1893,20 +2011,20 @@ def run_ssm_train(torch, rec, B=16, S=1024, n_functions=400):
     pipe = DataPipeline.build(str(data), n_functions=n_functions, seq_len=S, batch_size=B,
                               vocab_size=cfg.vocab_size, work_fn=cli.make_work_fn(cfg))
     try:
-        host = [pipe.peek_batch(k) for k in range(20)]
+        host = [pipe.peek_batch(k) for k in range(steps)]
     finally:
         pipe.close()
     runner = StepRunner(build_model(cfg), default_run_config(cfg, ShapeConfig("cli", S, B, "train")),
-                        AdamWConfig(lr=3e-3, warmup_steps=2, total_steps=20))
+                        AdamWConfig(lr=3e-3, warmup_steps=2, total_steps=steps))
     res["a"]["profile"] = profile_steps(torch, runner, state_b,
-                                        [runner.place_batch(b) for b in host[:2]],
+                                        [runner.place_batch(b) for b in host[:1]],
                                         res["a"]["step_time_p50_ms"] / 1e3)
     del state_b, runner
 
     # (c) bf16 parameters and activations at microbatch 2 through trainer.train
     run = RunConfig(model=cfg, shape=ShapeConfig("ssm_train_bf16", S, B, "train"), sharding="ddp",
                     param_dtype="bfloat16", activation_dtype="bfloat16", microbatch=2)
-    opt = AdamWConfig(lr=1e-3, warmup_steps=5, total_steps=20)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=5, total_steps=steps)
     dtypes = set()
     real = ts.adamw_update
 
@@ -1917,9 +2035,9 @@ def run_ssm_train(torch, rec, B=16, S=1024, n_functions=400):
     ts.adamw_update = spy
     try:
         model = build_model(cfg, seed=0, device="cuda")
-        state_c, _ = counted("c", lambda: train(model, run, opt, iter(host), steps=20,
+        state_c, _ = counted("c", lambda: train(model, run, opt, iter(host), steps=steps,
                                                 log_every=1, seed=0),
-                             20, ssm_launches_per_step(cfg, B, S, 2))
+                             steps, ssm_launches_per_step(cfg, B, S, 2))
     finally:
         ts.adamw_update = real
     res["c"]["adamw_grad_dtypes"] = sorted(dtypes)
@@ -1929,7 +2047,7 @@ def run_ssm_train(torch, rec, B=16, S=1024, n_functions=400):
         fail(f"ssm_train c: losses {res['c']['losses']}")
     runner = StepRunner(model, run, opt)
     res["c"]["profile"] = profile_steps(torch, runner, state_c,
-                                        [runner.place_batch(b) for b in host[:2]],
+                                        [runner.place_batch(b) for b in host[:1]],
                                         res["c"]["step_time_p50_ms"] / 1e3)
     res["c"]["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
     del state_c, runner, model
@@ -1941,20 +2059,7 @@ def run_ssm_train(torch, rec, B=16, S=1024, n_functions=400):
     rec["ssm_train"] = res
 
 
-def check_gemma_train_path(torch, rec):
-    """gemma3-4b at full width, 2 layers (local with window 1024, global),
-    B 2 x S 1100 (past the window, ragged against every tile, and a batch
-    row past the first), 3 steps, so that AdamW moves q_norm, k_norm,
-    post1 and post2 over steps on both sides: ``check_lm_train_path``.
-    The cpu side's forward and backward costs about 16 s a thousand
-    tokens on the card machine's 8 cores, nearly all of it the tied
-    unembedding at vocab 262144 (B 2 x S 1500 with 5 steps took 343 s,
-    PERF.md §6); 4 of them at 2200 tokens take about 140 s."""
-    check_lm_train_path(torch, rec, "gemma_train_path", gemma_cfg(2), train_launches_per_step,
-                        B=2, S=1100, n_steps=3)
-
-
-def run_gemma_train(torch, rec, B=4, S=2048, n_functions=400, steps=20):
+def run_gemma_train(torch, rec, B=4, S=2048, n_functions=400, steps=10):
     """gemma3-4b at full width, depth cut to 6 (its first pattern group:
     5 local layers with window 1024, then a global one; at full depth the
     f32 parameters, gradients and AdamW state alone take about 62 GB), B x
@@ -1985,7 +2090,8 @@ def run_gemma_train(torch, rec, B=4, S=2048, n_functions=400, steps=20):
     if not all(torch.equal(b["labels"], torch.roll(b["tokens"], -1, 1)) for b in host):
         fail("gemma_train: the pipeline's labels are not the tokens rolled by one")
     tokens = B * S
-    res = {"batch": B, "seq": S, "layers": cfg.n_layers, "data_s": time.perf_counter() - t0,
+    res = {"batch": B, "seq": S, "layers": cfg.n_layers, "steps": steps,
+           "data_s": time.perf_counter() - t0,
            "model_flops_per_step": model_flops(cfg, tokens)}
     for tag, dtype, micro, lr in (("a", "float32", 1, 1e-3), ("b", "bfloat16", 2, 1e-3)):
         run = RunConfig(model=cfg, shape=ShapeConfig(f"gemma_train_{tag}", S, B, "train"),
@@ -2045,7 +2151,7 @@ DDP_WORLD = 2
 # collective (recorded as ``shards_vs_batch``; PERF.md, data parallel).
 DDP_GRAD_REL = 1e-5
 DDP_LOSS_REL = 1e-5                  # ddp_path: each step's loss, against the 8-row batch
-DDP_TRAJ_REL = 1e-4                  # ddp: rank 0's losses against one process, 20 steps
+DDP_TRAJ_REL = 1e-4                  # ddp: rank 0's losses against one process, 10 steps
 # the ddp phase's learning rate.  Data parallelism reorders f32 sums (3
 # loss chunks of 244 positions against 5 of 122, 16-row against 32-row
 # products), and AdamW's early steps are nearly lr * sign(g): a gradient
@@ -2309,7 +2415,7 @@ def ddp_profile_rank(torch, info, spec):
     return res
 
 
-# the ddp phase's witness of f32 reordering: 20 steps at the launcher's
+# the ddp phase's witness of f32 reordering: 10 steps at the launcher's
 # default lr on batches from WITNESS_SEED, by 2 ranks and by one process
 # in the ranks' order (gated bit for bit) and in the batch's (recorded)
 WITNESS_LR = 3e-3
@@ -2365,7 +2471,7 @@ def max_rel(a, b):
     return max(abs(x - y) / abs(y) for x, y in zip(a, b))
 
 
-def torchrun_train(args, tag, env=None, timeout=900):
+def torchrun_train(args, tag, timeout=900):
     """``python -m torch.distributed.run --standalone --nproc-per-node
     DDP_WORLD -m repro_torch.launch.train ARGS``: returns (exit code, each
     rank's stdout and stderr, torchrun's own output), the ranks' from
@@ -2379,8 +2485,16 @@ def torchrun_train(args, tag, env=None, timeout=900):
            "--nproc-per-node", str(DDP_WORLD), "--log-dir", str(logs), "--redirects", "3",
            "-m", "repro_torch.launch.train", *args]
     t0 = time.perf_counter()
-    out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=timeout,
-                         env={**os.environ, "PYTHONPATH": str(ROOT / "src"), **(env or {})})
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True,
+                            env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    _children.append(proc)
+    try:
+        stdout, stderr = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        stop_children()
+        raise
+    out = subprocess.CompletedProcess(cmd, proc.returncode, stdout, stderr)
     ranks = []
     for r in range(DDP_WORLD):
         found = sorted(logs.glob(f"**/attempt_0/{r}/stdout.log"))
@@ -2426,15 +2540,15 @@ def _shards_equal(a, b, keys=None):
             all(np.array_equal(x[k], y[k]) for k in names)
 
 
-def run_ddp(torch, rec, B=16, S=512, n_functions=3000, steps=20):
+def run_ddp(torch, rec, B=16, S=512, n_functions=CLI_FUNCTIONS, steps=10):
     """bert-mlm-120m at full width and depth through ``torch.distributed.run
     -m repro_torch.launch.train`` with 2 ranks on the card (gloo), f32,
-    --batch 16 a rank from the DataPipeline: (a) 20 steps with a final
-    checkpoint; (b) the same stopped after step 11 (a checkpoint at 10);
-    (c) resumed by 2 ranks to 20; all at lr DDP_LR.  Against one process
+    --batch 16 a rank from the DataPipeline: (a) ``steps`` steps with
+    checkpoints at steps/2 and at the end; (c) resumed by 2 ranks from
+    (a)'s first one to ``steps``; both at lr DDP_LR.  Against one process
     at --batch 32 in this process: rank 0's losses within DDP_TRAJ_REL; the ranks'
     checkpoints of (a) equal each other (replicas) and (c)'s, bit for bit;
-    launches and all-reduces per rank per step.  Then 20 steps at
+    launches and all-reduces per rank per step.  Then ``steps`` steps at
     WITNESS_LR by one process in two f32 orders (``order_witness``) and by
     2 ranks spawned here, which also time the step and profile it: the
     ranks' losses equal each other and the one process's in their order
@@ -2459,14 +2573,9 @@ def run_ddp(torch, rec, B=16, S=512, n_functions=3000, steps=20):
     res = {"batch_per_rank": B, "world": DDP_WORLD, "seq": S, "steps": steps,
            "launches_per_step_want": want}
 
-    # the one-process run at the global batch, in this process
-    ops.reset_launch_counts()
-    _, log_one = cli.main(base + ["--batch", str(B * DDP_WORLD)])
-    one = [m["loss"] for m in log_one.metrics]
-    res["one_process"] = {"losses": one, "step_time_p50_ms":
-                          log_one.telemetry["step_time_p50"] * 1e3}
-
-    rc, ranks_a, out = torchrun_train(base + ["--batch", str(B), "--ckpt-dir", str(ck_a)], "a")
+    half = steps // 2
+    rc, ranks_a, out = torchrun_train(base + ["--batch", str(B), "--ckpt-dir", str(ck_a),
+                                             "--ckpt-every", str(half)], "a")
     if rc != 0:
         fail(f"ddp a: torchrun exited {rc}: {out.stderr[-2000:]} "
              f"{[r['stderr'][-2000:] for r in ranks_a]}")
@@ -2485,11 +2594,6 @@ def run_ddp(torch, rec, B=16, S=512, n_functions=3000, steps=20):
         if n_red is None or float(n_red) != nb or nb != 11 or \
                 _field(f.get("gradsync"), "hooks_once") != "True":
             bad.append(f"rank {r}: {f.get('gradsync')} for {nb} buckets (11 expected)")
-    l0 = res["rank0"]["losses"]
-    rel = max_rel(l0, one) if None not in l0 else math.inf
-    res["traj_max_rel_err"] = rel
-    if not rel <= DDP_TRAJ_REL:
-        bad.append(f"rank 0 losses {l0} vs one process {one}: max rel {rel}")
     if parsed[0][0] != parsed[1][0]:
         bad.append("the ranks printed different losses")
     shard = lambda d, r: Path(ckpt.step_dir(str(d), steps)) / f"shard-{r:05d}.npz"
@@ -2498,20 +2602,48 @@ def run_ddp(torch, rec, B=16, S=512, n_functions=3000, steps=20):
     if bad:
         fail("ddp a: " + "; ".join(bad))
 
-    # (b) stopped after step 11, its step-10 checkpoint committed; (c) resumed
-    fault = {"REPRO_FAULT_PHASE": "step", "REPRO_FAULT_STEP": "10", "REPRO_FAULT_MODE": "raise"}
-    ck_args = base + ["--batch", str(B), "--ckpt-dir", str(ck_b), "--ckpt-every", "10"]
-    rc_b, ranks_b, _ = torchrun_train(ck_args, "b", env=fault)
-    if rc_b == 0 or not all("TransientWorkerError" in r["stderr"] for r in ranks_b) \
-            or ckpt.latest_step(str(ck_b)) != 10:
-        fail(f"ddp b: exit {rc_b}, newest checkpoint {ckpt.latest_step(str(ck_b))} (10 wanted)")
-    rc_c, ranks_c, out = torchrun_train(ck_args + ["--resume"], "c")
+    # (c) resumed by 2 ranks from a copy of (a)'s step-``half`` checkpoint
+    # (its own directory, so that (a)'s final one stays to compare with).
+    # It is not timed, so it runs in a thread while this process runs the
+    # one-process references on the card: the run at the global batch,
+    # then order_witness.  A run stopped by a step fault and resumed under
+    # torchrun is the CPU test
+    # test_two_processes_stopped_and_resumed_repeat_their_losses.
+    shutil.copytree(ckpt.step_dir(str(ck_a), half), ckpt.step_dir(str(ck_b), half))
+    ck_args = base + ["--batch", str(B), "--ckpt-dir", str(ck_b), "--ckpt-every", str(half)]
+    resumed = {}
+
+    def resume():
+        try:
+            resumed["c"] = torchrun_train(ck_args + ["--resume"], "c")
+        except Exception as e:      # noqa: BLE001 - reported below
+            resumed["error"] = repr(e)
+
+    thread = threading.Thread(target=resume, daemon=True)
+    thread.start()
+    ops.reset_launch_counts()
+    _, log_one = cli.main(base + ["--batch", str(B * DDP_WORLD)])
+    one = [m["loss"] for m in log_one.metrics]
+    res["one_process"] = {"losses": one, "beside": "run c",
+                          "step_time_p50_ms": log_one.telemetry["step_time_p50"] * 1e3}
+    plain, shards = order_witness(torch, B, S, steps, WITNESS_LR)
+    torch.cuda.empty_cache()
+    thread.join()
+
+    l0 = res["rank0"]["losses"]
+    rel = max_rel(l0, one) if None not in l0 else math.inf
+    res["traj_max_rel_err"] = rel
+    if not rel <= DDP_TRAJ_REL:
+        fail(f"ddp a: rank 0 losses {l0} vs one process {one}: max rel {rel}")
+    if "error" in resumed:
+        fail(f"ddp c: {resumed['error']}")
+    rc_c, ranks_c, out = resumed["c"]
     if rc_c != 0:
         fail(f"ddp c: torchrun exited {rc_c}: {[r['stderr'][-2000:] for r in ranks_c]}")
     for r, rank in enumerate(ranks_c):
         losses, _ = _cli_lines(rank["stdout"])
-        want_c = {i: parsed[r][0][i] for i in range(11, steps + 1)}
-        if f"[resume] host {r} restored shard at step 10" not in rank["stdout"] \
+        want_c = {i: parsed[r][0][i] for i in range(half + 1, steps + 1)}
+        if f"[resume] host {r} restored shard at step {half}" not in rank["stdout"] \
                 or losses != want_c or not _shards_equal(shard(ck_a, r), shard(ck_b, r)):
             fail(f"ddp c: rank {r} resumed losses {losses} != uninterrupted {want_c}, or "
                  "its final checkpoint differs")
@@ -2526,8 +2658,6 @@ def run_ddp(torch, rec, B=16, S=512, n_functions=3000, steps=20):
                mfu_per_card=model_flops(cfg, tokens) / DDP_WORLD / (p50 * PEAK_BF16_FLOPS),
                plan=f0.get("plan"), gradsync_line=f0.get("gradsync"),
                launches=parsed[0][1].get("launches", {}))
-    plain, shards = order_witness(torch, B, S, steps, WITNESS_LR)
-    torch.cuda.empty_cache()
     res["profile"] = spawn_ddp("profile", {"batch": B, "seq": S, "steps": steps,
                                            "lr": WITNESS_LR})
     ranks = [p.pop("losses") for p in res["profile"]]
@@ -3355,6 +3485,7 @@ def main():
                          "build of the kernel its file name names")
     ap.add_argument("--ddp-worker", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--ddp-spec", default="{}", help=argparse.SUPPRESS)
+    ap.add_argument("--cpu-ref", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     phases = args.phases.split(",")
     if not set(phases) <= set(PHASES):
@@ -3363,9 +3494,12 @@ def main():
         fail(f"{ROOT} is not a checkout of the repository (no src/repro_torch)")
     import torch
 
+    sys.path.insert(0, str(ROOT / "src"))
+    if args.cpu_ref:            # the cpu side of a next-token check
+        cpu_ref_worker(torch, args.cpu_ref)
+        return
     if not torch.cuda.is_available():
         fail("no CUDA device")
-    sys.path.insert(0, str(ROOT / "src"))
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 phases in full f32
     torch.backends.cudnn.allow_tf32 = False
     if args.ddp_worker:         # one rank of a spawn_ddp run
@@ -3376,6 +3510,8 @@ def main():
         f"python {sys.version.split()[0]}")
     rec = {"gpu": card, "torch": torch.__version__, "cuda": torch.version.cuda}
     t_all = time.perf_counter()
+    atexit.register(stop_children)
+    cpu_refs = start_cpu_refs(phases)
 
     from repro_torch.kernels import _build
 
@@ -3403,9 +3539,13 @@ def main():
                                                        key="ssm_serve"),
              "train_path": check_train_path,
              "train": run_train, "train_cli": run_train_cli,
-             "ssm_train_path": check_ssm_train_path, "ssm_train": run_ssm_train,
+             "ssm_train_path": lambda torch, rec: check_lm_train_path(
+                 torch, rec, "ssm_train_path", cpu_refs),
+             "ssm_train": run_ssm_train,
              "gemma_path": check_gemma_path, "gemma_serve": run_gemma_serve,
-             "gemma_train_path": check_gemma_train_path, "gemma_train": run_gemma_train,
+             "gemma_train_path": lambda torch, rec: check_lm_train_path(
+                 torch, rec, "gemma_train_path", cpu_refs),
+             "gemma_train": run_gemma_train,
              "ddp_path": check_ddp_path,
              "ddp": run_ddp, "time": time_kernels}
     for ph in PHASES[1:]:
