@@ -357,22 +357,32 @@ XENT_CASES = [  # (T, V)
     (64, 50),        # less than one tile
 ]
 
-SSD_CASES = [  # (B, S, H, P, G, N, chunk, scale of A)
-    (1, 1024, 24, 64, 1, 128, 256, 1.0),    # mamba2-130m's prefill at S = 1024
-    (1, 321, 24, 64, 1, 128, 256, 1.0),     # a full chunk and a ragged one of 65
-    (1, 65, 24, 64, 1, 128, 256, 1.0),      # the shortest serve prompt: one partial chunk
-    (2, 300, 8, 16, 2, 16, 32, 1.0),        # the reduced shapes, G = 2, ragged
-    (2, 200, 8, 32, 4, 64, 64, 1.0),        # G = 4, the 64-row tiles at chunk 64
-    (2, 250, 6, 16, 3, 8, 96, 1.0),         # chunk 96 (32-row tiles past the first), N 8
-    (1, 600, 4, 64, 1, 128, 256, 50.0),     # decays past f32's exp range above the diagonal
-    # the bf16 body's edges (64-row tiles, 64-step key tiles, chunks of 64-256)
-    (1, 1024, 80, 64, 1, 64, 256, 1.0),     # zamba2-2.7b's N 64 at H 80
-    (2, 700, 8, 64, 2, 128, 256, 1.0),      # B 2, G 2, S ragged inside a 64-row tile
-    (1, 40, 24, 64, 1, 128, 256, 1.0),      # S < 64: one partial tile
-    (1, 512, 24, 64, 1, 128, 256, 1.0),     # S an exact multiple of the chunk
-    (2, 200, 8, 64, 4, 64, 64, 1.0),        # chunk 64: one tile a chunk, G 4
-    (1, 333, 6, 64, 3, 128, 128, 1.0),      # chunk 128, G 3
-    (1, 450, 4, 64, 2, 64, 192, 1.0),       # chunk 192
+# (B, S, H, P, G, N, chunk, scale of A, C tied to B).  Each case runs in
+# both dtypes.  The last one is sharp: with |A| at most 0.01 the chunks'
+# |cumsum(dt A)| stays near 2, so the f32 limit is about 2e-6 of want_abs
+# (1e-4 at scale 1), and with C equal to B the score of a step with itself
+# is the sum of its absolute terms: the first rows of the first chunk,
+# whose y has a term or two, are held to 2e-6 of those terms (with B and
+# C drawn apart their scores cancel to about a seventh of want_abs, and
+# map(S) on two pieces passes at 0.5-0.8 of the limit; the CPU emulation,
+# tests/test_torch_ssd_split.py)
+SSD_CASES = [
+    (1, 1024, 24, 64, 1, 128, 256, 1.0, False),    # mamba2-130m's prefill at S = 1024
+    (1, 321, 24, 64, 1, 128, 256, 1.0, False),     # a full chunk and a ragged one of 65
+    (1, 65, 24, 64, 1, 128, 256, 1.0, False),      # the shortest serve prompt: one partial chunk
+    (2, 300, 8, 16, 2, 16, 32, 1.0, False),        # the reduced shapes, G = 2, ragged
+    (2, 200, 8, 32, 4, 64, 64, 1.0, False),        # G = 4, the 64-row tiles at chunk 64
+    (2, 250, 6, 16, 3, 8, 96, 1.0, False),         # chunk 96 (32-row tiles past the first), N 8
+    (1, 600, 4, 64, 1, 128, 256, 50.0, False),     # decays past f32's exp range above the diagonal
+    # the three-pass bodies' edges (64-row tiles, 64-step key tiles, chunks of 64-256)
+    (1, 1024, 80, 64, 1, 64, 256, 1.0, False),     # zamba2-2.7b's N 64 at H 80
+    (2, 700, 8, 64, 2, 128, 256, 1.0, False),      # B 2, G 2, S ragged inside a 64-row tile
+    (1, 40, 24, 64, 1, 128, 256, 1.0, False),      # S < 64: one partial tile
+    (1, 512, 24, 64, 1, 128, 256, 1.0, False),     # S an exact multiple of the chunk
+    (2, 200, 8, 64, 4, 64, 64, 1.0, False),        # chunk 64: one tile a chunk, G 4
+    (1, 333, 6, 64, 3, 128, 128, 1.0, False),      # chunk 128, G 3
+    (1, 450, 4, 64, 2, 64, 192, 1.0, False),       # chunk 192
+    (1, 1024, 24, 64, 1, 128, 256, 0.01, True),    # mamba2-130m's prefill, sharp (see above)
 ]
 
 
@@ -590,20 +600,24 @@ def xent_readings(torch, logits, labels, g):
 
 
 def _ssd_inputs(torch, case, dtype, gen):
-    """x, B, C normal in ``dtype``; dt softplus of a normal; A < 0 with
-    |A| log-uniform in [0.01, 1] times the case's scale, so some heads
-    carry their state across chunks and some forget within a few steps."""
-    B, S, H, P, G, N, _, scale = case
+    """x, B, C normal in ``dtype`` (C equal to B where the case ties
+    them); dt softplus of a normal; A < 0 with |A| log-uniform in [0.01,
+    1] times the case's scale, so some heads carry their state across
+    chunks and some forget within a few steps."""
+    B, S, H, P, G, N, _, scale, tied = case
     mk = lambda *s: torch.randn(*s, generator=gen, device="cuda")
     u = torch.rand(H, generator=gen, device="cuda")
     A = -torch.exp(math.log(0.01) * u) * scale
     dt = torch.nn.functional.softplus(mk(B, S, H))
-    return mk(B, S, H, P).to(dtype), dt, A, mk(B, S, G, N).to(dtype), mk(B, S, G, N).to(dtype)
+    x, Bm, Cm = mk(B, S, H, P).to(dtype), mk(B, S, G, N).to(dtype), mk(B, S, G, N).to(dtype)
+    return x, dt, A, Bm, Bm.clone() if tied else Cm
 
 
 def ssd_limits(torch, x, dt, A, N, chunk):
     """(u_out, y's factor of want_abs, the state's factor of want_abs) of
-    the ssd_scan gate (see SSD_REL) for a call on these inputs."""
+    the ssd_scan gate (see SSD_REL) for a call on these inputs.  The bf16
+    body's terms only where it runs: the f32 body on three bf16 pieces
+    adds no bf16 rounding, and f32 calls keep the f32 gate."""
     from repro_torch.kernels.ssd_scan import wgmma_body
 
     S = x.shape[1]
@@ -639,7 +653,7 @@ def _ssd_bwd_inputs(torch, case, dtype, gen):
     """The scan's inputs (``_ssd_inputs``, A at scale 1), gy in ``dtype``
     and an f32 gstate, normal or (train mode) zero."""
     B, S, H, P, G, N, chunk, nonzero = case
-    ins = _ssd_inputs(torch, (B, S, H, P, G, N, chunk, 1.0), dtype, gen)
+    ins = _ssd_inputs(torch, (B, S, H, P, G, N, chunk, 1.0, False), dtype, gen)
     gy = torch.randn(B, S, H, P, generator=gen, device="cuda").to(dtype)
     gstate = torch.randn(B, H, N, P, generator=gen, device="cuda")
     return (*ins, gy, gstate if nonzero else torch.zeros_like(gstate))
@@ -725,8 +739,10 @@ def check_kernels(torch, rec):
 # planted faults: (source in csrc/, the kernels it serves, the bug, source
 # text, its replacement, the dtype of the readings); the gate of one of
 # those kernels must fail each on at least one case.  The f32 ones keep
-# only the first bf16 piece of one operand of each f32 body
+# only the first bf16 piece of one operand of each f32 body (the f32 SSD
+# forward's map(S): its first two)
 F32_PIECES_DROPPED = " if constexpr (NP == 3) w[1] = w[2] = 0;"
+F32_THIRD_PIECE_DROPPED = " if constexpr (NP == 3) w[2] = 0;"   # hi + lo left
 FAULTS = [
     ("flash_attention", ("flash_attention",),
      "bf16 body drops keys 0-63 of every row that sees more than 512 keys",
@@ -790,6 +806,14 @@ FAULTS = [
     ("ssd_scan", ("ssd_scan",), "bf16 body: the out pass drops exp(acs_l) from C . state",
      "for (int x = 0; x < 32; ++x) y[x] *= expf(acs_row[(x >> 1) & 1]);",
      "for (int x = 0; x < 32; ++x) y[x] *= 1.f;", "bfloat16"),
+    ("ssd_scan", ("ssd_scan",), "f32 body: map(S) enters y without its third piece",
+     "hopper::pack_bf16_pieces<NP>(s[8 * kc + 2 * e], s[8 * kc + 2 * e + 1], w);  // map(S)'s pieces",
+     "hopper::pack_bf16_pieces<NP>(s[8 * kc + 2 * e], s[8 * kc + 2 * e + 1], w);"
+     + F32_THIRD_PIECE_DROPPED + "  // map(S)'s pieces", "float32"),
+    ("ssd_scan", ("ssd_scan",), "f32 body: state_in enters C . state_in as bf16(state_in) alone",
+     "hopper::pack_bf16_pieces<NP>(e[2 * i], e[2 * i + 1], w);  // state_in's pieces",
+     "hopper::pack_bf16_pieces<NP>(e[2 * i], e[2 * i + 1], w);" + F32_PIECES_DROPPED
+     + "  // state_in's pieces", "float32"),
     ("ssd_scan_bwd", ("ssd_scan_bwd",), "backward: the reverse carry drops exp(acs_L)",
      "r = make_float4(fmaf(d, r.x, v.x), fmaf(d, r.y, v.y), fmaf(d, r.z, v.z), fmaf(d, r.w, v.w));",
      "r = make_float4(r.x + v.x, r.y + v.y, r.z + v.z, r.w + v.w);", "bfloat16"),
@@ -930,14 +954,15 @@ def sass_counts(lib):
 
 
 # the product passes that must run on wgmma and TMA alone: the bf16 bodies
-# and the f32 flash bodies on three bf16 pieces; (kernel source, a part of
-# each of its functions' names)
+# and the f32 flash and SSD bodies on three bf16 pieces; (kernel source, a
+# part of each of its functions' names)
 WGMMA_FUNCTIONS = (("flash_attention", "flash_fwd_wgmma"), ("flash_attention_bwd", "dq_wgmma"),
                    ("flash_attention_bwd", "dkdv_wgmma"),
                    ("flash_attention", "flash_fwd_f32_wgmma"),
                    ("flash_attention_bwd", "dq_f32_wgmma"),
                    ("flash_attention_bwd", "dkdv_f32_wgmma"), ("ssd_scan", "ssd_state_wgmma"),
-                   ("ssd_scan", "ssd_out_wgmma"), ("ssd_scan_bwd", "ssd_bwd_state_wgmma"),
+                   ("ssd_scan", "ssd_out_wgmma"), ("ssd_scan", "ssd_state_f32_wgmma"),
+                   ("ssd_scan", "ssd_out_f32_wgmma"), ("ssd_scan_bwd", "ssd_bwd_state_wgmma"),
                    ("ssd_scan_bwd", "ssd_bwd_pair_wgmma"), ("paged_attention", "paged_wgmma"))
 
 
@@ -945,9 +970,10 @@ WGMMA_FUNCTIONS = (("flash_attention", "flash_fwd_wgmma"), ("flash_attention_bwd
 # reports a stack frame of 0 bytes for each (the flash backward's dK and dV
 # accumulators at head dim 256 are 64 floats each a thread, sized by a
 # template; the SSD backward's pair pass holds dB or dC, dx, two tile
-# products and the pieces of M or W; an array moved to local memory would
-# show here)
-FRAMELESS_SOURCES = ("flash_attention_bwd", "ssd_scan_bwd")
+# products and the pieces of M or W; the f32 SSD forward's out pass y, a
+# partial, S and map(S)'s three pieces; an array moved to local memory
+# would show here)
+FRAMELESS_SOURCES = ("flash_attention_bwd", "ssd_scan_bwd", "ssd_scan")
 
 
 def stack_frame_faults(ptxas):
@@ -2682,7 +2708,8 @@ def run_ddp(torch, rec, B=16, S=512, n_functions=CLI_FUNCTIONS, steps=10):
 REPO_KERNELS = ("flash_fwd", "dq_wgmma", "dkdv_wgmma", "dq_mma", "dkdv_mma", "dq_f32",
                 "dkdv_f32", "delta_kernel", "split3", "xent_fwd", "xent_bwd", "paged_partial",
                 "paged_wgmma", "paged_combine", "ssd_scan_kernel", "ssd_state_wgmma",
-                "ssd_carry", "ssd_out_wgmma", "ssd_bwd_")
+                "ssd_carry", "ssd_out_wgmma", "ssd_state_f32_wgmma", "ssd_out_f32_wgmma",
+                "ssd_bwd_")
 
 
 def _kernel_class(name):
@@ -3109,30 +3136,44 @@ def ssd_work(B, S, H, P, G, N, L, es):
 
 def time_ssd(torch, checked, gen):
     """ssd_scan at mamba2-130m's prefill of 1024 tokens (B 1, H 24, P 64,
-    G 1, N 128, chunk 256), in bf16 (the serve path's dtype) and f32, and
-    in bf16 at zamba2-2.7b's (H 80, N 64).  No PyTorch call computes SSD:
-    no library yardstick."""
+    G 1, N 128, chunk 256), in bf16 (the serve path's dtype) and f32, in
+    bf16 at zamba2-2.7b's (H 80, N 64), and in f32 at mamba2-130m's train
+    shape (MAMBA2_TRAIN, the CLI's dtype; no plain timing there, the
+    plain version is no yardstick of speed).  f32 bounds at the split
+    peak, PEAK_F32_SPLIT_FLOPS, with the CUDA cores' beside it
+    (``bound_simt_ms``).  No PyTorch call computes SSD: no library
+    yardstick."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.ssd_scan import ssd_scan_fwd
 
     mamba2, zamba2 = SSD_CASES[0], next(c for c in SSD_CASES if c[2] == 80)
+    train = (*MAMBA2_TRAIN, 1.0, False)
     out = {}
     for key, case, dname, peak in (("bfloat16", mamba2, "bfloat16", PEAK_BF16_FLOPS),
-                                   ("float32", mamba2, "float32", PEAK_F32_FLOPS),
-                                   ("zamba2_bf16", zamba2, "bfloat16", PEAK_BF16_FLOPS)):
+                                   ("float32", mamba2, "float32", PEAK_F32_SPLIT_FLOPS),
+                                   ("zamba2_bf16", zamba2, "bfloat16", PEAK_BF16_FLOPS),
+                                   ("float32_train", train, "float32", PEAK_F32_SPLIT_FLOPS)):
         dtype = getattr(torch, dname)
         x, dt, A, Bm, Cm = _ssd_inputs(torch, case, dtype, gen)
         ratio = checked(f"ssd_scan {key}", ssd_reading(torch, x, dt, A, Bm, Cm, case[6]))
-        ms, call_ms = time_ms(torch, lambda: ssd_scan_fwd(x, dt, A, Bm, Cm, case[6]))
-        plain_ms, plain_call_ms = time_ms(torch, lambda: ref.ssd_ref(x, dt, A, Bm, Cm, case[6]))
-        bound = _bound(*ssd_work(*case[:7], x.element_size()), peak)
+        run = lambda: ssd_scan_fwd(x, dt, A, Bm, Cm, case[6])
+        ms, call_ms = time_ms(torch, run)
+        plain_ms = plain_call_ms = None
+        if key != "float32_train":
+            plain_ms, plain_call_ms = time_ms(torch, lambda: ref.ssd_ref(x, dt, A, Bm, Cm, case[6]))
+        flops, nbytes = ssd_work(*case[:7], x.element_size())
+        bound = _bound(flops, nbytes, peak)
         out[key] = {"shape": list(case[:7]), "dtype": dname, "ms": ms, "call_ms": call_ms,
                     "plain_ms": plain_ms, "plain_call_ms": plain_call_ms,
                     "library_ms": None, "bound_ms": bound[0], "bound_by": bound[1],
-                    "err_over_limit": ratio,
-                    "by_kernel": device_ms_by_kernel(
-                        torch, lambda: ssd_scan_fwd(x, dt, A, Bm, Cm, case[6]))}
+                    "err_over_limit": ratio, "by_kernel": device_ms_by_kernel(torch, run)}
+        if dname == "float32":
+            out[key].update({"bound_simt_ms": _bound(flops, nbytes, PEAK_F32_FLOPS)[0],
+                             "bound_ops_ms": flops / peak * 1e3,
+                             "bound_bytes_ms": nbytes / PEAK_BYTES * 1e3,
+                             "flops": flops, "bytes": nbytes})
         log(f"time ssd_scan {key}: {out[key]}")
+        del x, dt, A, Bm, Cm
     return out
 
 
@@ -3319,7 +3360,8 @@ def kernel_records(rec):
     with its bound at PEAK_F32_SPLIT_FLOPS and, as ``bound_simt_ms``, at
     the CUDA cores' f32 peak; fused_xent: the f32 logits
     the train path feeds it, with bf16 under ``bf16``; ssd_scan: the bf16
-    prefill at S=1024, with f32 under ``f32``; its backward: mamba2-130m's
+    prefill at S=1024, with f32 under ``f32`` and f32 at mamba2-130m's
+    train shape under ``f32_train_shape``; its backward: mamba2-130m's
     train shape in f32, the CLI's, with bf16 under ``bf16``).  The
     ssm_train path's launches are run (a)'s, the CLI's; run (c)'s, bf16 at
     microbatch 2, are under ``ssm_train_bf16``."""
@@ -3358,7 +3400,8 @@ def kernel_records(rec):
                                                            for d, v in gtrain.items()}},
              "fused_xent": {"bf16": xe.get("bfloat16", {}).get("fwd")},
              "fused_xent_bwd": {"bf16": xe.get("bfloat16", {}).get("bwd")},
-             "ssd_scan": {"f32": ssd.get("float32"), "zamba2_bf16": ssd.get("zamba2_bf16")},
+             "ssd_scan": {"f32": ssd.get("float32"), "zamba2_bf16": ssd.get("zamba2_bf16"),
+                          "f32_train_shape": ssd.get("float32_train")},
              "ssd_scan_bwd": {"bf16": ssd_bwd.get("bfloat16"),
                               "bound_simt_ms": ssd_bwd.get("float32", {}).get("bound_simt_ms"),
                               "bound_ops_ms": ssd_bwd.get("float32", {}).get("bound_ops_ms"),

@@ -1,13 +1,16 @@
 // Pieces the SSD scan's forward (ssd_scan.cu) and backward (ssd_scan_bwd.cu)
 // share: blocks of NT threads loading rows of f32 or bf16 into f32 shared
-// memory, writing outputs in either dtype, a block-wide prefix sum, and the
-// chunk cumsum of the bodies on one warpgroup.
+// memory, writing outputs in either dtype, a block-wide prefix sum; and for
+// the bodies on one warpgroup, their tile shapes, the chunk cumsum and the
+// forming of an f32 tile's bf16 pieces in swizzled shared memory.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -105,6 +108,75 @@ __device__ __forceinline__ void chunk_cumsum(const float* dtc, int dt_ss, int va
   if (i0 + 1 < L) {
     dts[i0 + 1] = d1;
     acs[i0 + 1] = (ex + a0) + a1;
+  }
+}
+
+// the wgmma bodies: one warpgroup a block, 64-row tiles, P 64
+constexpr int WG = 128;          // threads of a block: one warpgroup
+constexpr int TR = 64;           // rows of a tile: a wgmma's M, a TMA box's rows
+constexpr int WP = 64;           // P of the body: one 128-byte box row
+constexpr int BOX = TR * 128;    // bytes of a 64 x 64 bf16 box
+
+__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0], b = reinterpret_cast<const float4*>(p)[1];
+  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w, v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+}
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&v)[8]) {
+  const uint4 r = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[e]));
+    v[2 * e] = f.x;
+    v[2 * e + 1] = f.y;
+  }
+}
+
+// eight f32 values as NPA bf16 pieces (hopper::pack_bf16_pieces), each
+// piece's eight in one 16-byte chunk of a swizzled box row
+template <int NPA>
+__device__ __forceinline__ void store_pieces8(uint8_t* dst, int piece_bytes, int r, int c8,
+                                              const float (&v)[8]) {
+  uint32_t w[4][NPA];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) hopper::pack_bf16_pieces<NPA>(v[2 * e], v[2 * e + 1], w[e]);
+  const int off = r * 128 + (((c8 >> 3) ^ (r & 7)) << 4);  // the 128-byte swizzle
+#pragma unroll
+  for (int pc = 0; pc < NPA; ++pc)
+    *reinterpret_cast<uint4*>(dst + pc * piece_bytes + off) =
+        make_uint4(w[0][pc], w[1][pc], w[2][pc], w[3][pc]);
+}
+
+// this thread's share of rows r0 .. r0 + 63 (zeros at and past `valid`)
+// of a chunk's (steps, 64) tensor at `src` (row stride `ss` elements):
+// eight elements of each of four rows
+template <typename T>
+__device__ __forceinline__ void tile_rows(float (&v)[4][8], const T* src, long long ss, int r0,
+                                          int valid) {
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int i = threadIdx.x + u * WG, row = r0 + (i >> 3);
+    if (row < valid) {
+      load8(src + row * ss + (i & 7) * 8, v[u]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) v[u][k] = 0.f;
+    }
+  }
+}
+
+// tile_rows' share, row i times f[r0 + i], as NPA pieces into swizzled 64 x
+// 64 boxes at `dst`, BOX bytes apart
+template <int NPA>
+__device__ __forceinline__ void scaled_pieces(uint8_t* dst, float (&v)[4][8], int r0,
+                                              const float* f) {
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int i = threadIdx.x + u * WG, r = i >> 3;
+    const float s = f[r0 + r];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) v[u][k] *= s;
+    store_pieces8<NPA>(dst, BOX, r, (i & 7) * 8, v[u]);
   }
 }
 

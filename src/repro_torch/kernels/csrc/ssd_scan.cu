@@ -13,15 +13,18 @@
 // zeros (dt = 0: decay 1, no update), are skipped where a whole tile lies
 // past S, and are never stored.
 //
-// Bound on the H100 (989 TFLOP/s bf16, 67 f32, 3.35 TB/s).  The function
+// Bound on the H100 (989 TFLOP/s bf16, 67 f32, 3.35 TB/s; f32 operands as
+// three bf16 pieces run at a sixth of the bf16 peak).  The function
 // needs, per (batch, head, chunk of n steps), C . state (n N P
 // multiply-adds), the masked product with x over the causal triangle
 // (n (n + 1) / 2 P) and B^T x (n N P), and C B^T over the triangle (n (n +
 // 1) / 2 N) once per (batch, group, chunk).  At mamba2-130m's prefill (B 1,
 // S 1024, H 24, P 64, G 1, N 128, L 256) that is 1.24 GFLOP: 0.0013 ms in
-// bf16, 0.0186 in f32; moving x, y, B, C, dt and the state once takes
-// 0.0023 ms in bf16, so the bf16 scan is bound by bytes, the f32 one by
-// operations.
+// bf16; in f32 0.0075 ms on three pieces, 0.0186 on the CUDA cores;
+// moving x, y, B, C, dt and the state once takes 0.0023 ms in bf16, so
+// the bf16 scan is bound by bytes, the f32 one by operations.  At its
+// train shape (B 16) the f32 scan is 19.9 GFLOP and 232 MB: 0.121 ms on
+// three pieces, 0.297 on the CUDA cores, 0.069 by bytes.
 //
 // bf16 body (P 64, N 64 or 128, L 64, 128, 192 or 256: every SSM config of
 // the repo; kernels/ssd_scan.py:wgmma_body is the same rule), three
@@ -67,8 +70,35 @@
 // wgmma operands (each within 2^-8 of its part of y's absolute terms) and
 // the hi + lo residual of w x (2^-16); chip_smoke.py's gate names each.
 //
-// f32 body, and bf16 at other shapes (the reduced test configs: P 16 or
-// 32, N 8 or 16, chunk 32 or 96): the TPU kernel's sequential chunk axis
+// f32 body (the bf16 body's shapes), the same three passes on three bf16
+// pieces of every f32 operand (csrc/hopper.cuh: x = x0 + x1 + x2 carries
+// f32's 24 bits; a product is the six piece pairs i + j <= 2, smallest
+// first), so it adds no bf16 rounding to the f32 arithmetic:
+//   0. hopper::split3 writes x, B and C as three bf16 pieces each into the
+//      scratch (a (3 B, S, heads, D) tensor each, read by TMA).
+//   1. ssd_state_f32_wgmma: U_c = B^T diag(w) x over 64-step tiles through
+//      two stages, B's pieces by TMA and w x formed in f32 from x and
+//      written as its three pieces beside them; a tile's six products go
+//      into a fresh partial added to U in f32 (the tensor cores'
+//      accumulation does not round to nearest, so a long sum in one
+//      accumulator would drift).
+//   2. ssd_carry_pieces: the carry in f32, state_in also going out as its
+//      three pieces.
+//   3. ssd_out_f32_wgmma: one block per 64-row tile (195 KB at N 128, one
+//      an SM): y = exp(acs_l) (C . state_in) first, state_in's pieces in
+//      the second B stage; then per key tile S = C B^T, map(S) in f32
+//      registers packed as three pieces of the register A operand, and
+//      map(S) x as a fresh partial added to y in f32.  B's and x's pieces
+//      have rings of two stages each: S of tile j and the product of tile
+//      j - 1 are issued together, so B_j is free a tile before x_j and the
+//      next B tile loads a whole tile ahead.  y goes out in f32 from the
+//      registers.  C B^T is again recomputed by each head.
+// Its scratch: 302 MB a call at the train shape (kernels/ssd_scan.py:
+// work_floats).
+//
+// One-pass body, for the shapes the three-pass bodies do not take (the
+// reduced test configs: P 16 or 32, N 8 or 16, chunk 32 or 96), both
+// dtypes: the TPU kernel's sequential chunk axis
 // becomes a loop over chunks inside one block, with the state in shared
 // memory.  One block of 256 threads (a 16 x 16 grid) per (16 columns of
 // P, h, b), 96 blocks at the serving shape; per chunk the block holds in
@@ -286,10 +316,6 @@ cudaError_t launch_t(const Params& p, int B, cudaStream_t stream) {
 // bf16 body: three passes on TMA loads and wgmma products; see the header.
 // ---------------------------------------------------------------------------
 
-constexpr int WG = 128;            // one warpgroup a block (passes 1 and 3)
-constexpr int TR = 64;             // rows of a tile: a wgmma's M, a TMA box's rows
-constexpr int WP = 64;             // P of the bf16 body: one 128-byte box row
-constexpr int BOX = TR * 128;      // bytes of a 64 x 64 bf16 box
 constexpr int CARRY_NT = 256;      // threads of a carry block
 
 __host__ __device__ constexpr bool wgmma_shape(int P, int N, int L) {
@@ -723,15 +749,550 @@ cudaError_t launch_bf16_body(const Params& p, int B, int passes, cudaStream_t st
   return launch_wgmma<128>(p, B, passes, stream);
 }
 
+// ---------------------------------------------------------------------------
+// f32 body: the bf16 body's three passes with every f32 operand, and every
+// f32 intermediate, as three bf16 pieces; see the header.
+// ---------------------------------------------------------------------------
+
+constexpr int NP = 3;   // the bf16 pieces of an f32 operand (hopper::split3)
+
+// pass 1 shared memory, bytes from a 1024-aligned base: two stages of a
+// 64-step tile (the NP pieces of B's N / 64 boxes, then the NP pieces of w
+// x), f32 dt, acs and w (256 each), 4 warp sums, the barriers: 148 KB at N
+// 128
+template <int N>
+struct StateF32Smem {
+  static constexpr int NB = N / 64;
+  static constexpr int VEC = NP * NB * BOX, STAGE_B = VEC + NP * BOX;
+  static constexpr int F = 2 * STAGE_B;
+  static constexpr int BAR = F + (3 * 256 + 4) * 4;
+  static constexpr int BYTES = BAR + 8 * 2 + 1024;
+};
+
+// pass 1 in f32: U_c = B^T diag(w) x of one (chunk, head, batch), and the
+// chunk's decay.  The 64-step tiles of B's pieces come by TMA through two
+// stages; the threads read each tile's x in f32 one tile ahead, form w x
+// and write its NP pieces beside them.  A tile's six piece products go
+// into a fresh partial, added to U in f32 (the tensor cores' accumulation
+// does not round to nearest).
+template <int N>
+__global__ void __launch_bounds__(WG) ssd_state_f32_wgmma_kernel(const __grid_constant__ CUtensorMap tb,
+                                                                 const float* x, WParams p) {
+  using Ly = StateF32Smem<N>;
+  constexpr int NB = Ly::NB;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = smem_raw + ((1024 - (hopper::smem_addr(smem_raw) & 1023)) & 1023);
+  float* dts = reinterpret_cast<float*>(sm + Ly::F);
+  float* acs = dts + 256;
+  float* wdec = acs + 256;
+  float* wsum = wdec + 256;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + Ly::BAR);
+
+  const int tid = threadIdx.x, L = p.L;
+  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int c0 = c * L, valid = min(L, p.S - c0), nt = (valid + TR - 1) / TR;
+  const int g = h / (p.H / p.G);
+  const long long xss = static_cast<long long>(p.H) * WP;
+  const float* xc = x + (static_cast<long long>(b) * p.S + c0) * xss + h * WP;
+  auto load = [&](int j) {  // B's pieces of tile j into stage j % 2 (thread 0)
+    uint8_t* dst = sm + (j & 1) * Ly::STAGE_B;
+    hopper::mbar_expect_tx(&full[j & 1], Ly::VEC);
+#pragma unroll
+    for (int pc = 0; pc < NP; ++pc)
+#pragma unroll
+      for (int q = 0; q < NB; ++q)
+        hopper::tma_load_4d(dst + (pc * NB + q) * BOX, &tb, &full[j & 1], q * 64, g, c0 + j * TR,
+                            pc * p.B + b);
+  };
+  if (tid == 0) {
+    hopper::mbar_init(&full[0], 1);
+    hopper::mbar_init(&full[1], 1);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0)
+    for (int j = 0; j < min(2, nt); ++j) load(j);
+  chunk_cumsum(p.dt + (static_cast<long long>(b) * p.S + c0) * p.H + h, p.H, valid, p.A[h], L,
+               dts, acs, wsum);
+  __syncthreads();
+  const float acs_L = acs[L - 1];
+  for (int i = tid; i < L; i += WG) wdec[i] = expf(acs_L - acs[i]) * dts[i];
+  if (tid == 0) p.cdec[(static_cast<long long>(b) * p.nc + c) * p.H + h] = expf(acs_L);
+  __syncthreads();
+
+  float u[NB][32], part[NB][32], rows[4][8];
+#pragma unroll
+  for (int mt = 0; mt < NB; ++mt)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) u[mt][e] = 0.f;
+  tile_rows<float>(rows, xc, xss, 0, valid);
+  for (int j = 0; j < nt; ++j) {
+    uint8_t* stage = sm + (j & 1) * Ly::STAGE_B;
+    scaled_pieces<NP>(stage + Ly::VEC, rows, j * TR, wdec);
+    if (j + 1 < nt) tile_rows<float>(rows, xc, xss, (j + 1) * TR, valid);  // in flight meanwhile
+    hopper::fence_proxy_async();
+    __syncthreads();
+    hopper::mbar_wait(&full[j & 1], (j >> 1) & 1);
+    const uint32_t ms = hopper::smem_addr(stage), vs = hopper::smem_addr(stage + Ly::VEC);
+#pragma unroll
+    for (int mt = 0; mt < NB; ++mt) hopper::fence_regs(part[mt]);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int mt = 0; mt < NB; ++mt)
+#pragma unroll
+      for (int k = 0; k < hopper::n_pairs(NP); ++k)
+#pragma unroll
+        for (int kc = 0; kc < TR / 16; ++kc)
+          hopper::wgmma_ss<64, 1, 1>(
+              part[mt],
+              hopper::desc_sw128(ms + (hopper::pair_i(NP, k) * NB + mt) * BOX + kc * 2048, BOX,
+                                 1024),
+              hopper::desc_sw128(vs + hopper::pair_j(NP, k) * BOX + kc * 2048, BOX, 1024),
+              k > 0 || kc > 0);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+#pragma unroll
+    for (int mt = 0; mt < NB; ++mt) {
+      hopper::fence_regs(part[mt]);
+#pragma unroll
+      for (int e = 0; e < 32; ++e) u[mt][e] += part[mt][e];   // U += this tile's partial
+    }
+    __syncthreads();  // every thread is past the stage: refill it
+    if (tid == 0 && j + 2 < nt) load(j + 2);
+  }
+
+  // rows 16 warp + lane / 4 (+ 8) of box mt, columns 8 j + 2 (lane % 4)
+  const int warp = tid / 32, lane = tid % 32;
+  float* U = p.states + ((static_cast<long long>(b) * p.nc + c) * p.H + h) * N * WP;
+#pragma unroll
+  for (int mt = 0; mt < NB; ++mt)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int n = mt * 64 + warp * 16 + lane / 4 + 8 * r;
+#pragma unroll
+      for (int j = 0; j < WP / 8; ++j)
+        *reinterpret_cast<float2*>(U + n * WP + 8 * j + 2 * (lane % 4)) =
+            make_float2(u[mt][4 * j + 2 * r], u[mt][4 * j + 2 * r + 1]);
+    }
+}
+
+// pass 2 in f32: the carry of the bf16 body, with state_in going out as its
+// NP pieces (piece m of the (B, nc, H, N, P) states at m B nc H N P)
+__global__ void __launch_bounds__(CARRY_NT) ssd_carry_pieces_kernel(WParams p) {
+  const int n4 = p.N * WP / 4;
+  const int q = blockIdx.x * CARRY_NT + threadIdx.x;
+  if (q >= n4) return;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const long long step = static_cast<long long>(p.H) * n4;   // float4s from chunk to chunk
+  const long long piece = static_cast<long long>(p.B) * p.nc * step;   // from piece to piece
+  float4* u = reinterpret_cast<float4*>(p.states) +
+              (static_cast<long long>(b) * p.nc * p.H + h) * n4 + q;
+  uint2* pieces = reinterpret_cast<uint2*>(p.states_bf) +
+                  (static_cast<long long>(b) * p.nc * p.H + h) * n4 + q;
+  const float* dec = p.cdec + static_cast<long long>(b) * p.nc * p.H + h;
+  float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int c0 = 0; c0 < p.nc; c0 += 4) {
+    float4 v[4];
+    float d[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (c0 + k < p.nc) {
+        v[k] = u[(c0 + k) * step];
+        d[k] = dec[(c0 + k) * p.H];
+      }
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (c0 + k < p.nc) {
+        u[(c0 + k) * step] = s;      // the state entering the chunk, and its pieces
+        const float e[4] = {s.x, s.y, s.z, s.w};
+        uint32_t out[NP][2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          uint32_t w[NP];
+          hopper::pack_bf16_pieces<NP>(e[2 * i], e[2 * i + 1], w);  // state_in's pieces
+#pragma unroll
+          for (int m = 0; m < NP; ++m) out[m][i] = w[m];
+        }
+#pragma unroll
+        for (int m = 0; m < NP; ++m)
+          pieces[m * piece + (c0 + k) * step] = make_uint2(out[m][0], out[m][1]);
+        s = make_float4(fmaf(d[k], s.x, v[k].x), fmaf(d[k], s.y, v[k].y),
+                        fmaf(d[k], s.z, v[k].z), fmaf(d[k], s.w, v[k].w));
+      }
+  }
+  reinterpret_cast<float4*>(p.fstate)[(static_cast<long long>(b) * p.H + h) * n4 + q] = s;
+}
+
+// pass 3 shared memory, bytes from a 1024-aligned base: the C tile's NP
+// pieces of N / 64 boxes (MAT bytes), two stages of a key tile's B pieces
+// (MAT each; stage 1 holds state_in's NP pieces of N rows, MAT bytes too,
+// until C . state_in is done), two stages of its x pieces (NP boxes each),
+// then f32 dt and acs (256 each), 4 warp sums and 9 barriers: 195 KB at N
+// 128, one block an SM.
+template <int N>
+struct OutF32Smem {
+  static constexpr int NB = N / 64;
+  static constexpr int MAT = NP * NB * BOX;
+  static constexpr int BS = MAT, XS = 3 * MAT, F = XS + 2 * NP * BOX;
+  static constexpr int BAR = F + (2 * 256 + 4) * 4;
+  static constexpr int BYTES = BAR + 8 * 9 + 1024;
+};
+
+static_assert(StateF32Smem<128>::BYTES <= 232448 && OutF32Smem<128>::BYTES <= 232448,
+              "a block has 227 KB");
+
+// pass 3 in f32: y of one 64-row tile as the bf16 out pass computes it,
+// every product the six piece pairs, smallest first.  y = exp(acs_l) (C .
+// state_in) first; then per key tile j, S = C B_j^T, map(S) in f32
+// registers as the NP pieces of the register A operand, and map(S) x_j as a
+// fresh partial added to y in f32.  B's and x's pieces come through two
+// rings of their own: S of tile j and the product of tile j - 1 are issued
+// together, so B_j is released a tile before x_j and the next B tile is
+// loaded a whole tile ahead.  y goes out in f32 from the registers.
+template <int N>
+__global__ void __launch_bounds__(WG)
+    ssd_out_f32_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
+                             const __grid_constant__ CUtensorMap tb,
+                             const __grid_constant__ CUtensorMap tc,
+                             const __grid_constant__ CUtensorMap ts, WParams p, float* yout) {
+  using Ly = OutF32Smem<N>;
+  constexpr int NB = Ly::NB;
+  const int L = p.L, R = L / TR;
+  // block order: the heads fastest, then chunks, batches, and the row
+  // tiles with the most key tiles first
+  int idx = blockIdx.x;
+  const int h = idx % p.H;
+  idx /= p.H;
+  const int c = idx % p.nc;
+  idx /= p.nc;
+  const int b = idx % p.B;
+  const int r = R - 1 - idx / p.B;        // row tile; key tiles 0 .. r
+  const int c0 = c * L, l0 = r * TR;
+  const int valid = min(L, p.S - c0);
+  if (l0 >= valid) return;                // the whole tile lies past S
+  const int g = h / (p.H / p.G);
+
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = smem_raw + ((1024 - (hopper::smem_addr(smem_raw) & 1023)) & 1023);
+  float* dts = reinterpret_cast<float*>(sm + Ly::F);
+  float* acs = dts + 256;
+  float* wsum = acs + 256;
+  uint64_t* c_full = reinterpret_cast<uint64_t*>(sm + Ly::BAR);   // C and state_in arrived
+  uint64_t* b_full = c_full + 1;    // [s]: B's pieces of a key tile in B stage s arrived
+  uint64_t* b_empty = b_full + 2;   // [s]: every warp is done with B stage s
+  uint64_t* x_full = b_empty + 2;   // [s]: x's pieces of a key tile in x stage s arrived
+  uint64_t* x_empty = x_full + 2;   // [s]: every warp is done with x stage s
+
+  const int tid = threadIdx.x;
+  auto load_b = [&](int j) {  // B's pieces of key tile j into B stage j % 2 (thread 0)
+    uint8_t* dst = sm + Ly::BS + (j & 1) * Ly::MAT;
+    hopper::mbar_expect_tx(&b_full[j & 1], Ly::MAT);
+#pragma unroll
+    for (int pc = 0; pc < NP; ++pc)
+#pragma unroll
+      for (int q = 0; q < NB; ++q)
+        hopper::tma_load_4d(dst + (pc * NB + q) * BOX, &tb, &b_full[j & 1], q * 64, g,
+                            c0 + j * TR, pc * p.B + b);
+  };
+  auto load_x = [&](int j) {  // x's pieces of key tile j into x stage j % 2 (thread 0)
+    uint8_t* dst = sm + Ly::XS + (j & 1) * NP * BOX;
+    hopper::mbar_expect_tx(&x_full[j & 1], NP * BOX);
+#pragma unroll
+    for (int pc = 0; pc < NP; ++pc)
+      hopper::tma_load_4d(dst + pc * BOX, &tx, &x_full[j & 1], 0, h, c0 + j * TR, pc * p.B + b);
+  };
+  if (tid == 0) {
+    hopper::mbar_init(c_full, 1);
+    for (int s = 0; s < 2; ++s) {
+      hopper::mbar_init(&b_full[s], 1);
+      hopper::mbar_init(&b_empty[s], WG / 32);
+      hopper::mbar_init(&x_full[s], 1);
+      hopper::mbar_init(&x_empty[s], WG / 32);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    hopper::mbar_expect_tx(c_full, 2 * Ly::MAT);
+#pragma unroll
+    for (int pc = 0; pc < NP; ++pc) {
+#pragma unroll
+      for (int q = 0; q < NB; ++q)
+        hopper::tma_load_4d(sm + (pc * NB + q) * BOX, &tc, c_full, q * 64, g, c0 + l0,
+                            pc * p.B + b);
+      hopper::tma_load_4d(sm + Ly::BS + Ly::MAT + pc * NB * BOX, &ts, c_full, 0, 0, c * p.H + h,
+                          pc * p.B + b);   // state_in's piece pc, N rows, in B stage 1
+    }
+    load_b(0);
+    load_x(0);
+    if (r >= 1) load_x(1);
+  }
+  chunk_cumsum(p.dt + (static_cast<long long>(b) * p.S + c0) * p.H + h, p.H, valid, p.A[h], L,
+               dts, acs, wsum);
+  __syncthreads();
+
+  const int warp = tid / 32, lane = tid % 32, t = lane % 4;
+  const int row0 = l0 + warp * 16 + lane / 4;   // this thread's rows row0, row0 + 8
+  const float acs_row[2] = {acs[row0], acs[row0 + 8]};
+  const uint32_t c_smem = hopper::smem_addr(sm), b_smem = hopper::smem_addr(sm + Ly::BS),
+                 x_smem = hopper::smem_addr(sm + Ly::XS);
+  const uint32_t st_smem = b_smem + Ly::MAT;
+  float y[32], o[32], s[32];
+  uint32_t pa[NP][TR / 16][4];
+  auto c_desc = [&](int pc, int kk) {   // C's piece pc, K-major: k-step kk in box kk / 4
+    return hopper::desc_sw128(c_smem + (pc * NB + kk / 4) * BOX + (kk % 4) * 32, 16, 1024);
+  };
+  auto issue_inter = [&] {      // o = C . state_in, state_in MN-major
+#pragma unroll
+    for (int k = 0; k < hopper::n_pairs(NP); ++k)
+#pragma unroll
+      for (int kk = 0; kk < N / 16; ++kk)
+        hopper::wgmma_ss<64, 0, 1>(
+            o, c_desc(hopper::pair_i(NP, k), kk),
+            hopper::desc_sw128(st_smem + hopper::pair_j(NP, k) * NB * BOX + kk * 2048, BOX, 1024),
+            k > 0 || kk > 0);
+    hopper::wgmma_commit();
+  };
+  auto issue_s = [&](int j) {   // s = C B_j^T, both K-major
+    const uint32_t bs = b_smem + (j & 1) * Ly::MAT;
+#pragma unroll
+    for (int k = 0; k < hopper::n_pairs(NP); ++k)
+#pragma unroll
+      for (int kk = 0; kk < N / 16; ++kk)
+        hopper::wgmma_ss<64, 0, 0>(
+            s, c_desc(hopper::pair_i(NP, k), kk),
+            hopper::desc_sw128(bs + (hopper::pair_j(NP, k) * NB + kk / 4) * BOX + (kk % 4) * 32,
+                               16, 1024),
+            k > 0 || kk > 0);
+    hopper::wgmma_commit();
+  };
+  auto issue_px = [&](int j) {  // o = map(S_j) x_j, x MN-major
+    const uint32_t xs = x_smem + (j & 1) * NP * BOX;
+#pragma unroll
+    for (int k = 0; k < hopper::n_pairs(NP); ++k)
+#pragma unroll
+      for (int kc = 0; kc < TR / 16; ++kc)
+        hopper::wgmma_rs<64, 1>(o, pa[hopper::pair_i(NP, k)][kc],
+                                hopper::desc_sw128(xs + hopper::pair_j(NP, k) * BOX + kc * 2048,
+                                                   BOX, 1024),
+                                k > 0 || kc > 0);
+    hopper::wgmma_commit();
+  };
+  auto fence_all = [&] {
+    hopper::fence_regs(s);
+    hopper::fence_regs(o);
+#pragma unroll
+    for (int m = 0; m < NP; ++m)
+#pragma unroll
+      for (int kc = 0; kc < TR / 16; ++kc) hopper::fence_regs(pa[m][kc]);
+  };
+  // s[x]: row row0 + 8 ((x >> 1) & 1), key 64 j + 8 (x / 4) + 2 t + (x & 1)
+  auto map = [&](int j, auto masked) {
+#pragma unroll
+    for (int x = 0; x < 32; ++x) {
+      const int key = j * TR + (x / 4) * 8 + 2 * t + (x & 1);
+      float e = acs_row[(x >> 1) & 1] - acs[key];
+      if constexpr (decltype(masked)::value)
+        e = key <= row0 + 8 * ((x >> 1) & 1) ? e : -INFINITY;
+      s[x] = s[x] * expf(e) * dts[key];
+    }
+  };
+  auto pack = [&] {             // map(S) as NP pieces of the register A operand
+#pragma unroll
+    for (int kc = 0; kc < TR / 16; ++kc)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        uint32_t w[NP];
+        hopper::pack_bf16_pieces<NP>(s[8 * kc + 2 * e], s[8 * kc + 2 * e + 1], w);  // map(S)'s pieces
+#pragma unroll
+        for (int m = 0; m < NP; ++m) pa[m][kc][e] = w[m];
+      }
+  };
+  auto add_o = [&] {
+#pragma unroll
+    for (int x = 0; x < 32; ++x) y[x] += o[x];
+  };
+
+  // y = exp(acs_l) (C . state_in), which frees B stage 1 for key tile 1;
+  // then S of key tile 0
+  auto first = [&](auto masked) {
+    hopper::mbar_wait(c_full, 0);
+    hopper::mbar_wait(&b_full[0], 0);
+    fence_all();
+    hopper::wgmma_fence();
+    issue_inter();
+    hopper::wgmma_wait<0>();
+    fence_all();
+    if (lane == 0) hopper::mbar_arrive(&b_empty[1]);   // state_in read
+    if (tid == 0 && r >= 1) {
+      hopper::mbar_wait(&b_empty[1], 0);
+      load_b(1);
+    }
+    __syncwarp();
+    hopper::wgmma_fence();
+    issue_s(0);
+#pragma unroll
+    for (int x = 0; x < 32; ++x) y[x] = o[x] * expf(acs_row[(x >> 1) & 1]);
+    hopper::wgmma_wait<0>();
+    fence_all();
+    if (lane == 0) hopper::mbar_arrive(&b_empty[0]);   // B_0 read
+    map(0, masked);
+    pack();
+  };
+  if (r == 0)
+    first(std::true_type{});
+  else
+    first(std::false_type{});
+  // S of key tile j with the product of tile j - 1; the diagonal tile r
+  // masked.  B_k's release is the (k + 1) / 2-th of its stage (B stage 1
+  // released state_in first), x_k's the k / 2-th: at the start of
+  // iteration j thread 0 loads B_{j+1} over B_{j-1} and x_j over x_{j-2},
+  // each released at the end of iteration j - 1.
+  for (int j = 1; j <= r; ++j) {
+    if (tid == 0) {
+      if (j + 1 <= r) {
+        hopper::mbar_wait(&b_empty[(j + 1) & 1], (j >> 1) & 1);
+        load_b(j + 1);
+      }
+      if (j >= 2) {
+        hopper::mbar_wait(&x_empty[j & 1], ((j - 2) >> 1) & 1);
+        load_x(j);
+      }
+    }
+    __syncwarp();
+    auto step = [&](auto masked) {
+      hopper::mbar_wait(&b_full[j & 1], (j >> 1) & 1);
+      hopper::mbar_wait(&x_full[(j - 1) & 1], ((j - 1) >> 1) & 1);
+      fence_all();
+      hopper::wgmma_fence();
+      issue_s(j);
+      issue_px(j - 1);
+      hopper::wgmma_wait<1>();
+      hopper::fence_regs(s);
+      map(j, masked);
+      hopper::wgmma_wait<0>();
+      fence_all();
+      if (lane == 0) {
+        hopper::mbar_arrive(&b_empty[j & 1]);         // B_j read
+        hopper::mbar_arrive(&x_empty[(j - 1) & 1]);   // x_{j-1} read
+      }
+      add_o();
+      pack();
+    };
+    if (j == r)
+      step(std::true_type{});
+    else
+      step(std::false_type{});
+  }
+  hopper::mbar_wait(&x_full[r & 1], (r >> 1) & 1);
+  fence_all();
+  hopper::wgmma_fence();
+  issue_px(r);
+  hopper::wgmma_wait<0>();
+  fence_all();
+  add_o();
+
+  // y in f32 straight from the registers: a warp's store covers 8 rows of
+  // 32 bytes; rows past S are not written
+  float* yt = yout + ((static_cast<long long>(b) * p.S + c0 + l0) * p.H + h) * WP;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int rl = warp * 16 + lane / 4 + 8 * hr;
+    if (l0 + rl < valid) {
+#pragma unroll
+      for (int j = 0; j < WP / 8; ++j)
+        *reinterpret_cast<float2*>(yt + static_cast<long long>(rl) * p.H * WP + 8 * j + 2 * t) =
+            make_float2(y[4 * j + 2 * hr], y[4 * j + 2 * hr + 1]);
+    }
+  }
+}
+
+// the f32 body's passes (`passes` as launch_wgmma's).  Its scratch follows
+// the bf16 body's layout with state_in's NP pieces in place of its bf16
+// copy, then (from a multiple of 4 floats) the NP pieces of x, B and C
+template <int N>
+cudaError_t launch_f32_wgmma(const Params& p, int B, int passes, cudaStream_t stream) {
+  using SL = StateF32Smem<N>;
+  using OL = OutF32Smem<N>;
+  auto k1 = ssd_state_f32_wgmma_kernel<N>;
+  auto k3 = ssd_out_f32_wgmma_kernel<N>;
+  static bool configured = false;   // once, before any graph capture
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(k1, cudaFuncAttributeMaxDynamicSharedMemorySize, SL::BYTES);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(k3, cudaFuncAttributeMaxDynamicSharedMemorySize, OL::BYTES);
+    if (e != cudaSuccess) return e;
+    configured = true;
+  }
+  const int S = p.S, H = p.H, G = p.G, L = p.L;
+  const int nc = (S + L - 1) / L;
+  const long long n_states = static_cast<long long>(B) * nc * H * N * WP;
+  float* states = p.fstate + static_cast<long long>(B) * H * N * WP;
+  __nv_bfloat16* st_pieces = reinterpret_cast<__nv_bfloat16*>(states + n_states);
+  float* cdec = reinterpret_cast<float*>(st_pieces + NP * n_states);
+  const long long n_dec = (static_cast<long long>(B) * nc * H + 3) / 4 * 4;
+  const long long xs = static_cast<long long>(H) * WP, bs = static_cast<long long>(G) * N;
+  __nv_bfloat16* px = reinterpret_cast<__nv_bfloat16*>(cdec + n_dec);
+  __nv_bfloat16* pb = px + static_cast<long long>(NP) * B * S * xs;
+  __nv_bfloat16* pcm = pb + static_cast<long long>(NP) * B * S * bs;
+  const WParams w{p.dt, p.A, p.fstate, states, st_pieces, cdec, B, S, H, G, N, L, nc};
+  // the pieces as (NP B, S, heads, D): piece m of batch b at m B + b
+  CUtensorMap tx, tb, tc, ts;
+  if (!hopper::bhsd_map(&tx, px, NP * B, S, H, WP, S * xs, xs, WP, TR) ||
+      !hopper::bhsd_map(&tb, pb, NP * B, S, G, N, S * bs, bs, N, TR) ||
+      !hopper::bhsd_map(&tc, pcm, NP * B, S, G, N, S * bs, bs, N, TR))
+    return cudaErrorInvalidValue;
+  // state_in's pieces as (P, N, nc H, NP B), read in boxes of one (N, P) state
+  const uint64_t s_dims[4] = {WP, static_cast<uint64_t>(N), static_cast<uint64_t>(nc) * H,
+                              static_cast<uint64_t>(NP) * B};
+  const uint64_t s_strides[3] = {WP * 2, static_cast<uint64_t>(N) * WP * 2,
+                                 static_cast<uint64_t>(nc) * H * N * WP * 2};
+  const uint32_t s_box[4] = {WP, static_cast<uint32_t>(N), 1, 1};
+  if (!hopper::tensor_map_4d(&ts, st_pieces, s_dims, s_strides, s_box))
+    return cudaErrorInvalidValue;
+  if (passes & 1) {   // x, B and C into their pieces, then the state pass
+    const hopper::SplitArgs ax{{static_cast<const float*>(p.x)}, {px}, {S * xs}, {xs}, {WP}, {H}};
+    const hopper::SplitArgs abc{{static_cast<const float*>(p.Bm), static_cast<const float*>(p.Cm)},
+                                {pb, pcm},
+                                {S * bs, S * bs},
+                                {bs, bs},
+                                {N, N},
+                                {G, G}};
+    cudaError_t e = hopper::split3(ax, 1, B, S, WP, stream);
+    if (e == cudaSuccess) e = hopper::split3(abc, 2, B, S, N, stream);
+    if (e != cudaSuccess) return e;
+    k1<<<dim3(nc, H, B), WG, SL::BYTES, stream>>>(tb, static_cast<const float*>(p.x), w);
+    if (cudaError_t e = cudaGetLastError(); e != cudaSuccess) return e;
+  }
+  if (passes & 2) {
+    const dim3 grid((N * WP / 4 + CARRY_NT - 1) / CARRY_NT, H, B);
+    ssd_carry_pieces_kernel<<<grid, CARRY_NT, 0, stream>>>(w);
+    if (cudaError_t e = cudaGetLastError(); e != cudaSuccess) return e;
+  }
+  if (passes & 4) {
+    k3<<<B * H * nc * (L / TR), WG, OL::BYTES, stream>>>(tx, tb, tc, ts, w, static_cast<float*>(p.y));
+    if (cudaError_t e = cudaGetLastError(); e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
+}
+
+cudaError_t launch_f32_body(const Params& p, int B, int passes, cudaStream_t stream) {
+  if (p.N == 64) return launch_f32_wgmma<64>(p, B, passes, stream);
+  return launch_f32_wgmma<128>(p, B, passes, stream);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (x, B, C and y); dt, A and the final
 // state are f32.  All tensors contiguous; x, B, C 16-byte aligned.  Takes
 // L a multiple of 32 up to 256, N a multiple of 4 up to 128, P a multiple
-// of 16, H a multiple of G.  bf16 at P 64, N 64 or 128 and L a multiple of
-// 64 runs the three-pass body, whose scratch follows the final state in
-// `fstate` (16-byte aligned): (B, nc, H, N, P) f32, the same in bf16, and
-// (B, nc, H) f32, nc = ceil(S / L).
+// of 16, H a multiple of G.  At P 64, N 64 or 128 and L a multiple of 64
+// (wgmma_shape) both dtypes run their three-pass body, whose scratch
+// follows the final state in `fstate` (16-byte aligned), nc = ceil(S / L):
+// the chunk states (B, nc, H, N, P) f32; in bf16 their bf16 copy, in f32
+// their three bf16 pieces (3, B, nc, H, N, P); the chunk decays (B, nc, H)
+// f32; and in f32, from the next multiple of 4 floats, the three bf16
+// pieces of x (3, B, S, H, P), of B and of C (3, B, S, G, N) each.
 // Returns a cudaError_t (0 = launched).
 extern "C" int ssd_scan_fwd(const void* x, const float* dt, const float* A, const void* Bm,
                             const void* Cm, void* y, float* fstate, int B, int S, int H, int P,
@@ -740,22 +1301,27 @@ extern "C" int ssd_scan_fwd(const void* x, const float* dt, const float* A, cons
     return static_cast<int>(cudaErrorInvalidValue);
   Params p{x, dt, A, Bm, Cm, y, fstate, S, H, P, G, N, L};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool body = wgmma_shape(P, N, L);
+  if (dtype == 0 && body) return static_cast<int>(launch_f32_body(p, B, 7, st));
   if (dtype == 0) return static_cast<int>(launch_t<float>(p, B, st));
-  if (dtype == 1 && wgmma_shape(P, N, L)) return static_cast<int>(launch_bf16_body(p, B, 7, st));
+  if (dtype == 1 && body) return static_cast<int>(launch_bf16_body(p, B, 7, st));
   if (dtype == 1) return static_cast<int>(launch_t<__nv_bfloat16>(p, B, st));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// One or more passes of the bf16 body (`passes`: 1 state, 2 carry, 4 out),
-// each reading what the one before it left in `fstate`'s scratch: the
-// card tests hold each pass against its plain version.  Same arguments
-// and layout as ssd_scan_fwd; bf16 at the body's shapes only.
-extern "C" int ssd_scan_bf16_passes(const void* x, const float* dt, const float* A,
-                                    const void* Bm, const void* Cm, void* y, float* fstate, int B,
-                                    int S, int H, int P, int G, int N, int L, int passes,
-                                    void* stream) {
-  if (!wgmma_shape(P, N, L) || G < 1 || H % G || passes < 1 || passes > 7)
+// One or more passes of the three-pass body of `dtype` (`passes`: 1 state,
+// in f32 after splitting x, B and C into their pieces; 2 carry; 4 out),
+// each reading what the one before it left in `fstate`'s scratch: the card
+// tests hold each pass against its plain version.  Same arguments and
+// layout as ssd_scan_fwd; at the bodies' shapes only.
+extern "C" int ssd_scan_passes(const void* x, const float* dt, const float* A, const void* Bm,
+                               const void* Cm, void* y, float* fstate, int B, int S, int H, int P,
+                               int G, int N, int L, int dtype, int passes, void* stream) {
+  if (!wgmma_shape(P, N, L) || G < 1 || H % G || passes < 1 || passes > 7 ||
+      (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   Params p{x, dt, A, Bm, Cm, y, fstate, S, H, P, G, N, L};
-  return static_cast<int>(launch_bf16_body(p, B, passes, static_cast<cudaStream_t>(stream)));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(dtype == 0 ? launch_f32_body(p, B, passes, st)
+                                     : launch_bf16_body(p, B, passes, st));
 }

@@ -298,6 +298,60 @@ def ssd_chunk_outputs(x, dt, A, B, C, states_in, chunk: int):
     return torch.cat(ys, 1).to(x.dtype)
 
 
+def ssd_fwd_wgmma_emulated(x, dt, A, B, C, chunk: int, *, n_in: int, n_mid: int,
+                           tile: int = 64):
+    """The arithmetic of the f32 forward's wgmma body (``csrc/ssd_scan.cu``)
+    on the CPU, for holding its precision against the JAX package: ->
+    (y, final state), f32.  Every product of two operands is a
+    ``piece_product``: an input (x, B, C) enters as ``n_in`` pieces (the
+    kernel's 3), an f32 intermediate (w x in the state pass, the carried
+    state_in and the mapped scores map(S) in the out pass) as ``n_mid``
+    (the kernel's 3).  The passes and their order: each chunk's U_c =
+    B^T diag(w) x, one fresh partial a ``tile``-step tile added in f32; the
+    carry in f32 in chunk order; then per chunk and ``tile``-row tile of y,
+    exp(acs_l) (C_l . state_in), and for each key tile on or before it S =
+    C_l B_s^T, map(S) = S exp(acs_l - acs_s) dt_s (the exponent masked
+    before the exp) and map(S) x_s as a fresh partial added in f32."""
+    rep = x.shape[2] // B.shape[2]
+    S = x.shape[1]
+    xs = x.float()
+    Bh, Ch = (t.float().repeat_interleave(rep, dim=2) for t in (B, C))
+
+    def tiles(n):
+        return [(t0, min(n, t0 + tile)) for t0 in range(0, n, tile)]
+
+    us, decs = [], []
+    for sl, d, acs in _chunk_steps(dt, A, S, chunk):
+        w = torch.exp(acs[:, -1:] - acs) * d
+        u = 0
+        for t0, t1 in tiles(d.shape[1]):
+            bl = slice(sl.start + t0, sl.start + t1)
+            u = u + piece_product("blhn,blhp->bhnp", Bh[:, bl],
+                                  w[:, t0:t1, :, None] * xs[:, bl], n_in, n_mid)
+        us.append(u)
+        decs.append(torch.exp(acs[:, -1]))
+    states_in, final = ssd_carry(torch.stack(us, 1), torch.stack(decs, 1))
+
+    ys = []
+    for c, (sl, d, acs) in enumerate(_chunk_steps(dt, A, S, chunk)):
+        Bc, Cc, xc = (t[:, sl] for t in (Bh, Ch, xs))
+        for l0, l1 in tiles(d.shape[1]):
+            Cl = Cc[:, l0:l1]
+            y = piece_product("blhn,bhnp->blhp", Cl, states_in[:, c], n_in, n_mid) \
+                * torch.exp(acs[:, l0:l1, :, None])
+            for s0, s1 in tiles(d.shape[1]):
+                if s0 > l0:
+                    break
+                ok = torch.arange(s0, s1)[None, :] <= torch.arange(l0, l1)[:, None]
+                diff = acs[:, l0:l1, None, :] - acs[:, None, s0:s1, :]
+                E = torch.exp(torch.where(ok[None, :, :, None], diff, float("-inf")))
+                mapped = piece_product("blhn,bshn->blsh", Cl, Bc[:, s0:s1], n_in, n_in) \
+                    * E * d[:, None, s0:s1]
+                y = y + piece_product("blsh,bshp->blhp", mapped, xc[:, s0:s1], n_mid, n_in)
+            ys.append(y)
+    return torch.cat(ys, 1), final
+
+
 # The backward of ``ssd_ref``, as the four passes of the backward kernel
 # (``csrc/ssd_scan_bwd.cu``).  The states entering each chunk come from the
 # forward's state and carry passes (``ssd_chunk_states``, ``ssd_carry``);

@@ -4,17 +4,21 @@ and ``csrc/ssd_scan_bwd.cu`` (its backward, the JAX package's vjp of
 ``ssd_ref``).
 
 Takes CUDA tensors only; ``kernels/ops.py`` sends CPU tensors to the
-plain version in ``kernels/ref.py``.  bf16 inputs at the shapes of
-``wgmma_body`` (every SSM config of the repo) run the forward's
-three-pass body on TMA loads and wgmma products; f32 inputs, and bf16 at
-other shapes (the reduced test configs), run the one-pass body on the
-CUDA cores.  The backward at the shapes of ``bwd_wgmma_body`` (every SSM
-config of the repo, both dtypes) runs its products on TMA loads and
-wgmma: bf16 operands as they are, f32 ones as three bf16 pieces
-(``ref.split3``), an f32 intermediate (the pair weights, the carried
-states) as hi + lo in bf16 or as three pieces in f32; its bound is the
-bf16 peak's (f32: a sixth of it).  The reduced shapes keep the backward's
-body on the CUDA cores (f32 arithmetic for both dtypes)."""
+plain version in ``kernels/ref.py``.  At P 64, N 64 or 128 and a chunk a
+multiple of 64 up to 256 (every SSM config of the repo) the forward runs
+a body of three passes (state, carry, out) on TMA loads and wgmma
+products: bf16 inputs as they are (``wgmma_body``), f32 ones as three
+bf16 pieces (``f32_wgmma_body``), split first into the scratch, with
+every f32 intermediate (w x, the carried states, the mapped scores) as
+three pieces too.  The reduced test configs' shapes run the one-pass
+body on the CUDA cores in both dtypes.  The backward at the shapes of
+``bwd_wgmma_body`` (every SSM config of the repo, both dtypes) runs its
+products on TMA loads and wgmma: bf16 operands as they are, f32 ones as
+three bf16 pieces (``ref.split3``), an f32 intermediate (the pair
+weights, the carried states) as hi + lo in bf16 or as three pieces in
+f32; its bound is the bf16 peak's (f32: a sixth of it).  The reduced
+shapes keep the backward's body on the CUDA cores (f32 arithmetic for
+both dtypes)."""
 from __future__ import annotations
 
 import ctypes
@@ -28,15 +32,50 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 ARGTYPES = [_P] * 7 + [_I] * 8 + [_P]
 BWD_ARGTYPES = [_P] * 13 + [_I] * 8 + [_P]
 BWD_HEAD_DIMS = (16, 32, 64)    # the backward's P
-PASSES = {"state": 1, "carry": 2, "out": 4}   # the bf16 body's passes, in order
+PASSES = {"state": 1, "carry": 2, "out": 4}   # the three-pass bodies' passes, in order
+PASSES_ARGTYPES = [_P] * 7 + [_I] * 9 + [_P]
+
+
+def _body_shape(P: int, N: int, chunk: int) -> bool:
+    """``csrc/ssd_scan.cu``'s ``wgmma_shape``: P 64, N 64 or 128, chunk a
+    multiple of 64 up to 256."""
+    return P == 64 and N in (64, 128) and chunk % 64 == 0 and 64 <= chunk <= 256
 
 
 def wgmma_body(dtype, P: int, N: int, chunk: int) -> bool:
     """Whether the kernel runs a call of these shapes on its bf16 body of
     three passes (``csrc/ssd_scan.cu``'s ``wgmma_shape``, the same rule):
     bf16, P 64, N 64 or 128, chunk a multiple of 64 up to 256."""
-    return (dtype == torch.bfloat16 and P == 64 and N in (64, 128)
-            and chunk % 64 == 0 and 64 <= chunk <= 256)
+    return dtype == torch.bfloat16 and _body_shape(P, N, chunk)
+
+
+def f32_wgmma_body(dtype, P: int, N: int, chunk: int) -> bool:
+    """Whether the kernel runs a call of these shapes on its f32 body of
+    three passes on three bf16 pieces: f32 at the bf16 body's shapes.  It
+    adds no bf16 rounding to f32 arithmetic (every operand and
+    intermediate carries f32's 24 bits), so the f32 gate holds it as it
+    is."""
+    return dtype == torch.float32 and _body_shape(P, N, chunk)
+
+
+def work_floats(Bb: int, S: int, H: int, P: int, G: int, N: int, chunk: int, dtype) -> int:
+    """The f32 scratch (in floats) that follows the final state (B,H,N,P)
+    in one forward call's buffer, as the C entry lays it out, nc =
+    ceil(S / chunk): for the bf16 body the chunk states (B,nc,H,N,P) in
+    f32, again in bf16, and the chunk decays (B,nc,H); for the f32 body
+    the chunk states in f32, their three bf16 pieces, the decays, and from
+    the next multiple of 4 floats the three bf16 pieces of x (B,S,H,P),
+    of B and of C (B,S,G,N) each.  At mamba2-130m's train shape (B 16, S
+    1024, H 24, N 128, chunk 256) the f32 body's is 302 MB: 50 MB of
+    states, 75 MB of their pieces, 176 MB of the inputs' pieces.  None
+    for the one-pass body."""
+    nc = -(-S // chunk)
+    n_states, n_dec = Bb * nc * H * N * P, Bb * nc * H
+    if wgmma_body(dtype, P, N, chunk):
+        return n_states * 3 // 2 + n_dec
+    if f32_wgmma_body(dtype, P, N, chunk):
+        return n_states * 5 // 2 + -(-n_dec // 4) * 4 + 3 * (Bb * S * H * P + 2 * Bb * S * G * N) // 2
+    return 0
 
 
 def bwd_wgmma_body(P: int, N: int, chunk: int) -> bool:
@@ -97,20 +136,18 @@ def _aligned(t):
 
 def _operands(x, dt, A, B, C, chunk):
     """The kernel's operands, its outputs and the f32 buffer that holds
-    the final state (B,H,N,P) and, for the bf16 body, the scratch after
-    it: the chunk states (B,nc,H,N,P) in f32, again in bf16, and the chunk
-    decays (B,nc,H)."""
+    the final state (B,H,N,P) and, for the three-pass bodies, the scratch
+    after it (``work_floats``)."""
     _check(x, dt, A, B, C, chunk)
     Bb, S, H, P = x.shape
     G, N = B.shape[2], B.shape[3]
     x = _aligned(x)
     ins = (x, dt.float().contiguous(), A.float().contiguous(),
            _aligned(B.to(x.dtype)), _aligned(C.to(x.dtype)))
-    nc = -(-S // chunk)
     n_state = Bb * H * N * P
-    n_work = Bb * nc * H * (N * P * 3 // 2 + 1) if wgmma_body(x.dtype, P, N, chunk) else 0
     y = torch.empty((Bb, S, H, P), dtype=x.dtype, device=x.device)
-    buf = torch.empty(n_state + n_work, dtype=torch.float32, device=x.device)
+    buf = torch.empty(n_state + work_floats(Bb, S, H, P, G, N, chunk, x.dtype),
+                      dtype=torch.float32, device=x.device)
     return ins, y, buf, (Bb, S, H, P, G, N, chunk)
 
 
@@ -120,7 +157,8 @@ def ssd_scan_fwd(x, dt, A, B, C, chunk: int):
     and A are taken in f32, B and C in x's dtype; any S (the ragged last
     chunk is masked), G dividing H.  One call counts one launch, however
     many kernels it runs.  The final state is a view of the buffer that
-    also held the bf16 body's scratch."""
+    also held the three-pass bodies' scratch (``work_floats``): it keeps
+    that buffer alive."""
     ins, y, buf, dims = _operands(x, dt, A, B, C, chunk)
     Bb, S, H, P, G, N, _ = dims
     state = buf[:Bb * H * N * P].view(Bb, H, N, P)
@@ -135,37 +173,43 @@ def ssd_scan_fwd(x, dt, A, B, C, chunk: int):
     return y, state
 
 
-def ssd_scan_bf16_passes(x, dt, A, B, C, chunk: int):
-    """The bf16 body one pass at a time, for holding each pass against its
-    plain version (``ref.ssd_chunk_states``, ``ref.ssd_carry``,
-    ``ref.ssd_ref``) on the card.  Returns a function ``run(pass_name)``
-    that launches that pass, and ``read()`` -> (chunk states (B,nc,H,N,P)
-    f32, the same in bf16, chunk decays (B,nc,H), final state (B,H,N,P),
-    y): the state pass writes the chunks' own updates and decays, the
-    carry pass replaces the updates with the states entering each chunk,
-    writes them in bf16 too and writes the final state, the out pass
-    writes y.  Counts no launch: no path runs it."""
-    if not wgmma_body(x.dtype, x.shape[3], B.shape[3], chunk):
-        raise ValueError(f"ssd_scan bf16 body: not its shape, {x.dtype} x "
+def ssd_scan_passes(x, dt, A, B, C, chunk: int):
+    """The three-pass body of x's dtype one pass at a time, for holding
+    each pass against its plain version (``ref.ssd_chunk_states``,
+    ``ref.ssd_carry``, ``ref.ssd_chunk_outputs``) on the card.  Returns a
+    function ``run(pass_name)`` that launches that pass, and ``read()`` ->
+    (chunk states (B,nc,H,N,P) f32, state_in's operand copy (bf16: the
+    states in bf16, (B,nc,H,N,P); f32: their three bf16 pieces,
+    (3,B,nc,H,N,P)), chunk decays (B,nc,H), final state (B,H,N,P), y): the
+    state pass (in f32 after splitting x, B and C into their pieces)
+    writes the chunks' own updates and decays, the carry pass replaces the
+    updates with the states entering each chunk, writes their operand copy
+    and the final state, the out pass writes y.  Counts no launch: no path
+    runs it."""
+    P, N = x.shape[3], B.shape[3]
+    if not (wgmma_body(x.dtype, P, N, chunk) or f32_wgmma_body(x.dtype, P, N, chunk)):
+        raise ValueError(f"ssd_scan three-pass body: not its shape, {x.dtype} x "
                          f"{tuple(x.shape)}, B {tuple(B.shape)}, chunk {chunk}")
     ins, y, buf, dims = _operands(x, dt, A, B, C, chunk)
     Bb, S, H, P, G, N, _ = dims
     nc = -(-S // chunk)
     n_state, n_chunks = Bb * H * N * P, Bb * nc * H * N * P
-    fn = _build.function("ssd_scan", "ssd_scan_bf16_passes", ARGTYPES)
+    np_ = 1 if x.dtype == torch.bfloat16 else 3      # state_in's bf16 copies
+    fn = _build.function("ssd_scan", "ssd_scan_passes", PASSES_ARGTYPES)
 
     def run(name):
         err = fn(*(t.data_ptr() for t in ins), y.data_ptr(), buf.data_ptr(), *dims,
-                 PASSES[name], torch.cuda.current_stream(x.device).cuda_stream)
+                 DTYPES[x.dtype], PASSES[name], torch.cuda.current_stream(x.device).cuda_stream)
         if err:
             raise RuntimeError(f"ssd_scan {name} pass launch failed: cudaError {err}")
 
     def read():
-        bf = buf[n_state + n_chunks:n_state + n_chunks * 3 // 2]
-        return (buf[n_state:n_state + n_chunks].view(Bb, nc, H, N, P),
-                bf.view(torch.bfloat16).view(Bb, nc, H, N, P),
-                buf[n_state + n_chunks * 3 // 2:].view(Bb, nc, H),
-                buf[:n_state].view(Bb, H, N, P), y)
+        ops = buf[n_state + n_chunks:n_state + n_chunks + n_chunks * np_ // 2]
+        ops = ops.view(torch.bfloat16).view(Bb, nc, H, N, P) if np_ == 1 else \
+            ops.view(torch.bfloat16).view(3, Bb, nc, H, N, P)
+        dec = n_state + n_chunks + n_chunks * np_ // 2
+        return (buf[n_state:n_state + n_chunks].view(Bb, nc, H, N, P), ops,
+                buf[dec:dec + Bb * nc * H].view(Bb, nc, H), buf[:n_state].view(Bb, H, N, P), y)
 
     return run, read
 

@@ -115,7 +115,9 @@ def test_planted_faults_hold_their_lines_once_and_cover_every_kernel():
     wgmma holds two beside the combine's one.  Each f32 flash body (the
     forward, dq, dkdv, the D-256 backward's forming of its resident
     tile's pieces and its dV block) holds one fault read in f32 that keeps
-    only the first bf16 piece of one of its operands."""
+    only the first bf16 piece of one of its operands; the f32 SSD body's
+    out pass one that keeps map(S)'s first two pieces, and its carry one
+    that keeps state_in's first."""
     cs = _chip_smoke()
     for name, kernels, bug, old, new, dname in cs.FAULTS:
         text = (_build.CSRC / f"{name}.cu").read_text()
@@ -123,7 +125,8 @@ def test_planted_faults_hold_their_lines_once_and_cover_every_kernel():
         assert new != old and text.replace(old, new).count(new) == 1
         assert set(kernels) <= set(cs.KERNELS)
         assert dname in ("bfloat16", "float32")
-        assert (cs.F32_PIECES_DROPPED in new) == (dname == "float32"), bug
+        dropped = cs.F32_PIECES_DROPPED in new or cs.F32_THIRD_PIECE_DROPPED in new
+        assert dropped == (dname == "float32"), bug
     f32 = [f for f in cs.FAULTS if f[5] == "float32"]
     for name, body in (("flash_attention", "fwd_body"), ("flash_attention_bwd", "dq_body"),
                        ("flash_attention_bwd", "dkdv_body"), ("flash_attention_bwd", "a_pieces"),
@@ -133,12 +136,17 @@ def test_planted_faults_hold_their_lines_once_and_cover_every_kernel():
     covered = {k for f in cs.FAULTS for k in f[1]}
     assert covered == set(cs.KERNELS)
     bodies = _kernel_bodies((_build.CSRC / "ssd_scan.cu").read_text())
-    ssd_faults = [f[3] for f in cs.FAULTS if f[0] == "ssd_scan"]
-    passes = [part for name, part in cs.WGMMA_FUNCTIONS if name == "ssd_scan"] + ["ssd_carry"]
+    ssd_faults = [f[3] for f in cs.FAULTS if f[0] == "ssd_scan" and f[5] == "bfloat16"]
+    passes = [part for name, part in cs.WGMMA_FUNCTIONS
+              if name == "ssd_scan" and "f32" not in part] + ["ssd_carry_kernel"]
     assert len(passes) == 3
     for part in passes + ["ssd_scan_kernel"]:
         (fn,) = [k for k in bodies if k.startswith(part)]
         assert sum(old in bodies[fn] for old in ssd_faults) == 1, part
+    ssd_f32 = [f[3] for f in f32 if f[0] == "ssd_scan"]
+    for part, n in (("ssd_out_f32_wgmma", 1), ("ssd_carry_pieces", 1), ("ssd_state_f32_wgmma", 0)):
+        (fn,) = [k for k in bodies if k.startswith(part)]
+        assert sum(old in bodies[fn] for old in ssd_f32) == n, part
     bodies = _kernel_bodies((_build.CSRC / "paged_attention.cu").read_text())
     paged_faults = [f[3] for f in cs.FAULTS if f[0] == "paged_attention"]
     for part, n in (("paged_wgmma", 2), ("paged_combine", 1), ("paged_partial", 0)):
@@ -230,7 +238,8 @@ def test_wgmma_functions_name_kernels_of_their_sources():
         "flash_fwd_wgmma", "dq_wgmma", "dkdv_wgmma",                    # bf16
         "flash_fwd_f32_wgmma", "dq_f32_wgmma", "dkdv_f32_wgmma"}        # f32 on pieces
     assert {p for n, p in cs.WGMMA_FUNCTIONS if n == "ssd_scan"} == {
-        "ssd_state_wgmma", "ssd_out_wgmma"}
+        "ssd_state_wgmma", "ssd_out_wgmma",                             # bf16
+        "ssd_state_f32_wgmma", "ssd_out_f32_wgmma"}                     # f32 on pieces
     assert {p for n, p in cs.WGMMA_FUNCTIONS if n == "paged_attention"} == {"paged_wgmma"}
     assert {p for n, p in cs.WGMMA_FUNCTIONS if n == "ssd_scan_bwd"} == {
         "ssd_bwd_state_wgmma", "ssd_bwd_pair_wgmma"}
@@ -251,8 +260,8 @@ def test_ssd_cases_are_valid_shapes_and_reach_the_bf16_bodys_edges():
     from repro_torch.kernels.ssd_scan import wgmma_body
 
     cases = _chip_smoke().SSD_CASES
-    for B, S, H, P, G, N, chunk, scale in cases:
-        assert B >= 1 and S >= 1 and H % G == 0 and scale > 0
+    for B, S, H, P, G, N, chunk, scale, tied in cases:
+        assert B >= 1 and S >= 1 and H % G == 0 and scale > 0 and tied in (False, True)
         assert P % 16 == 0 and N % 4 == 0 and N <= 128 and chunk % 32 == 0 and chunk <= 256
     new = [c for c in cases if wgmma_body(torch.bfloat16, c[3], c[5], c[6])]
     assert any(c[:7] == (1, 1024, 24, 64, 1, 128, 256) for c in new)
@@ -420,6 +429,90 @@ def test_ssd_limits_add_the_bf16_bodys_terms_only_where_it_runs():
         assert u_out == (cs.BF16_U if dtype == torch.bfloat16 else 0.0)
         assert rel_y == pytest.approx(rel + new * (cs.SSD_U_OPERAND + cs.SSD_U_SPLIT))
         assert rel_st == pytest.approx(rel + new * cs.SSD_U_SPLIT)
+
+
+def test_ssd_f32_body_serves_every_ssm_config_under_the_f32_gate():
+    """In f32 every SSM config of the repo (the JAX package's registry and
+    the port's mamba2-130m) takes the f32 body of three passes on three
+    bf16 pieces, the reduced config's shapes the one-pass body; the rule
+    is the bf16 body's shapes (the C source's one ``wgmma_shape``) in
+    f32.  The gate reads every f32 call with no bf16 term, the sharp case
+    (mamba2-130m's prefill, A at scale 0.01, C tied to B) among them; the
+    C entries take the wrapper's arguments."""
+    import torch
+
+    from repro.configs import get_config as jget_config
+    from repro.configs import list_archs as jlist_archs
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels.ssd_scan import (ARGTYPES, PASSES_ARGTYPES, f32_wgmma_body,
+                                              wgmma_body)
+
+    ssm = [jget_config(n) for n in jlist_archs() if jget_config(n).ssm is not None]
+    for cfg in [*ssm, get_config("mamba2-130m")]:
+        s = cfg.ssm
+        assert f32_wgmma_body(torch.float32, s.head_dim, s.d_state, s.chunk), cfg.name
+        assert not f32_wgmma_body(torch.bfloat16, s.head_dim, s.d_state, s.chunk)
+    r = reduced(get_config("mamba2-130m")).ssm
+    assert not f32_wgmma_body(torch.float32, r.head_dim, r.d_state, r.chunk)
+    for P, N, L in ((64, 64, 64), (64, 128, 256), (64, 128, 192), (64, 96, 64), (32, 64, 64),
+                    (64, 64, 32), (64, 64, 320)):
+        assert f32_wgmma_body(torch.float32, P, N, L) == wgmma_body(torch.bfloat16, P, N, L) \
+            == (P == 64 and N in (64, 128) and L % 64 == 0 and 64 <= L <= 256)
+    cs = _chip_smoke()
+    sharp = [c for c in cs.SSD_CASES if c[8]]
+    assert [c[:8] for c in sharp] == [(1, 1024, 24, 64, 1, 128, 256, 0.01)]
+    for B, S, H, P, G, N, chunk, scale, _ in cs.SSD_CASES:
+        x = torch.zeros(B, S, H, P)
+        dt, A = torch.full((B, S, H), 0.8), torch.full((H,), -scale)
+        u_out, rel_y, rel_st = cs.ssd_limits(torch, x, dt, A, N, chunk)
+        acs_max = 0.8 * scale * min(S, chunk)
+        assert u_out == 0.0 and rel_y == rel_st
+        assert rel_y == pytest.approx(cs.SSD_REL + 8 * cs.F32_EPS * acs_max)
+    text = (_build.CSRC / "ssd_scan.cu").read_text()
+    assert text.count("return P == WP && (N == 64 || N == 128) && L % TR == 0 && L >= TR && "
+                      "L <= 256;") == 1
+    for name, argtypes in (("ssd_scan_fwd", ARGTYPES), ("ssd_scan_passes", PASSES_ARGTYPES)):
+        sig = re.search(rf'extern "C" int {name}\(([^)]*)\)', text).group(1)
+        params = [a.strip() for a in sig.split(",")]
+        assert len(params) == len(argtypes), name
+        assert all("*" in a for a in params[:7]) and params[-1] == "void* stream"
+        assert all(a.startswith("int ") for a in params[7:-1])
+
+
+def test_ssd_forward_scratch_is_the_c_entrys_layout():
+    """``work_floats``: the bf16 body's chunk states in f32 and bf16 and
+    the decays (as before the f32 body); the f32 body's chunk states, their
+    three bf16 pieces, the decays up to a multiple of 4 floats, then the
+    three bf16 pieces of x, B and C; 302 MB at mamba2-130m's train shape;
+    none for the one-pass body."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan import work_floats
+
+    Bb, S, H, P, G, N, L = 3, 700, 6, 64, 2, 128, 256
+    nc = -(-S // L)
+    n_states, n_dec = Bb * nc * H * N * P, Bb * nc * H
+    assert work_floats(Bb, S, H, P, G, N, L, torch.bfloat16) == Bb * nc * H * (N * P * 3 // 2 + 1)
+    assert work_floats(Bb, S, H, P, G, N, L, torch.float32) == \
+        n_states + 3 * n_states // 2 + -(-n_dec // 4) * 4 + 3 * (Bb * S * H * P + 2 * Bb * S * G * N) // 2
+    assert n_dec % 4 and work_floats(Bb, S, H, P, G, N, L, torch.float32) % 4 == 0
+    assert work_floats(Bb, S, H, 32, G, N, L, torch.float32) == 0
+    assert work_floats(Bb, S, H, 16, G, 16, 32, torch.bfloat16) == 0
+    mb = work_floats(16, 1024, 24, 64, 1, 128, 256, torch.float32) * 4 / 1e6
+    assert mb == pytest.approx(302.0, abs=0.05)
+
+
+def test_ssd_f32_bounds_at_the_train_shape():
+    """The f32 forward at mamba2-130m's train shape (MAMBA2_TRAIN): 19.9
+    GFLOP and 232 MB; bound by operations at 989/6 TFLOP/s in 0.121 ms,
+    at the CUDA cores' 67 TFLOP/s in 0.297 ms, by bytes in 0.069 ms."""
+    cs = _chip_smoke()
+    flops, nbytes = cs.ssd_work(*cs.MAMBA2_TRAIN, 4)
+    assert flops == pytest.approx(19.89e9, rel=1e-3) and nbytes == pytest.approx(232.2e6, rel=1e-3)
+    ms, by = cs._bound(flops, nbytes, cs.PEAK_F32_SPLIT_FLOPS)
+    assert by == "operations" and ms == pytest.approx(0.1207, rel=1e-3)
+    assert cs._bound(flops, nbytes, cs.PEAK_F32_FLOPS)[0] == pytest.approx(0.2969, rel=1e-3)
+    assert nbytes / cs.PEAK_BYTES * 1e3 == pytest.approx(0.0693, rel=1e-2)
 
 
 @pytest.mark.parametrize("B,S,H,P,G,N,L", [
@@ -669,7 +762,7 @@ def test_stack_frame_faults_names_the_wgmma_bodies_with_a_frame():
     assert cs.stack_frame_faults(report) == [
         "_Z15dkdv_wgmma_kernelILi256ELb1EEvv: 256 bytes stack frame, 0 bytes spill stores, "
         "0 bytes spill loads"]
-    assert cs.FRAMELESS_SOURCES == ("flash_attention_bwd", "ssd_scan_bwd")
+    assert cs.FRAMELESS_SOURCES == ("flash_attention_bwd", "ssd_scan_bwd", "ssd_scan")
 
 
 def _zeroing_loops(text):

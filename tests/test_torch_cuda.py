@@ -437,13 +437,13 @@ def test_ssd_bf16_passes_match_their_plain_versions(cuda, B, S, H, G, N, chunk):
     order) and its bf16 copy of them (rounded to nearest); the out pass
     against ``ref.ssd_chunk_outputs`` of the kernel's carried states (y's
     bf16 terms)."""
-    from repro_torch.kernels.ssd_scan import ssd_scan_bf16_passes
+    from repro_torch.kernels.ssd_scan import ssd_scan_passes
 
     cs = _chip_smoke()
     x, dt, A, Bm, Cm = _ssd_inputs(cuda, B, S, H, 64, G, N, torch.bfloat16)
     u_out, rel_y, rel_st = cs.ssd_limits(torch, x, dt, A, N, chunk)
     f = [t.float() for t in (x, Bm, Cm)]
-    run, read = ssd_scan_bf16_passes(x, dt, A, Bm, Cm, chunk)
+    run, read = ssd_scan_passes(x, dt, A, Bm, Cm, chunk)
     run("state")
     U, _, dec, _, _ = (t.clone() for t in read())
     want_U, want_dec = ref.ssd_chunk_states(f[0], dt, A, f[1], chunk)
@@ -463,6 +463,45 @@ def test_ssd_bf16_passes_match_their_plain_versions(cuda, B, S, H, G, N, chunk):
     abs_y = ref.ssd_chunk_outputs(f[0].abs(), dt, A, f[1].abs(), f[2].abs(),
                                   states_in.abs(), chunk)
     _assert_within(y, want_y, abs_y, u_out, rel_y - cs.SSD_U_SPLIT)
+
+
+@pytest.mark.parametrize("B,S,H,G,N,chunk", [
+    (1, 1024, 24, 1, 128, 256), (2, 700, 8, 2, 128, 256), (1, 40, 4, 1, 64, 256),
+    (2, 200, 8, 4, 64, 64), (1, 450, 4, 2, 64, 192)])
+def test_ssd_f32_passes_match_their_plain_versions(cuda, B, S, H, G, N, chunk):
+    """Each pass of the f32 body on three bf16 pieces, on the previous
+    pass's own output, under the f32 gate with no bf16 term: the state
+    pass's chunk updates and decays against ``ref.ssd_chunk_states``; the
+    carry against ``ref.ssd_carry`` of the kernel's updates (f32 in the
+    same order), its three pieces of the carried states equal to
+    ``ref.split3`` of them; the out pass against ``ref.ssd_chunk_outputs``
+    of the kernel's carried states."""
+    from repro_torch.kernels.ssd_scan import ssd_scan_passes
+
+    cs = _chip_smoke()
+    x, dt, A, Bm, Cm = _ssd_inputs(cuda, B, S, H, 64, G, N)
+    u_out, rel_y, rel_st = cs.ssd_limits(torch, x, dt, A, N, chunk)
+    assert u_out == 0.0 and rel_y == rel_st
+    run, read = ssd_scan_passes(x, dt, A, Bm, Cm, chunk)
+    run("state")
+    U, _, dec, _, _ = (t.clone() for t in read())
+    want_U, want_dec = ref.ssd_chunk_states(x, dt, A, Bm, chunk)
+    abs_U, _ = ref.ssd_chunk_states(x.abs(), dt, A, Bm.abs(), chunk)
+    _assert_within(U, want_U, abs_U, 0.0, rel_st)
+    _assert_within(dec, want_dec, want_dec, 0.0, rel_st)
+    run("carry")
+    states_in, pieces, _, final, _ = (t.clone() for t in read())
+    want_in, want_final = ref.ssd_carry(U, dec)
+    abs_in, abs_final = ref.ssd_carry(U.abs(), dec)
+    _assert_within(states_in, want_in, abs_in, 0.0, cs.SSD_REL)
+    _assert_within(final, want_final, abs_final, 0.0, cs.SSD_REL)
+    assert pieces.shape[0] == 3
+    assert all(torch.equal(a, b) for a, b in zip(pieces, ref.split3(states_in)))
+    run("out")
+    y = read()[4]
+    want_y = ref.ssd_chunk_outputs(x, dt, A, Bm, Cm, states_in, chunk)
+    abs_y = ref.ssd_chunk_outputs(x.abs(), dt, A, Bm.abs(), Cm.abs(), states_in.abs(), chunk)
+    _assert_within(y, want_y, abs_y, 0.0, rel_y)
 
 
 @pytest.mark.parametrize("N", [64, 128])
