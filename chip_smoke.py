@@ -9,6 +9,7 @@
     python3 chip_smoke.py --phases build,ddp_path,ddp
     python3 chip_smoke.py --phases build,ssm_train_path,ssm_train
     python3 chip_smoke.py --phases build,gemma_path,gemma_serve,gemma_train_path,gemma_train
+    python3 chip_smoke.py --phases build,gemma2_path,gemma2_serve,gemma2_train_path,gemma2_train
     python3 chip_smoke.py --phases build,serve,train,time \
         --against parent=build/parent/flash_attention.cu
 
@@ -48,6 +49,18 @@ Phases (any failure exits non-zero before the last line):
               prompts of 600-3000 tokens; every layer's prefill through
               the flash kernel, every tick the paged kernel in the 5 global
               layers only (the 29 windowed ones decode over their rings)
+  gemma2_path gemma2-27b at full width, 2 layers (local with its window
+              cut to 512, global), f32, weights drawn on the card and
+              copied to the cpu: as path, prompts of 700 and 37 tokens, 9
+              new ones (the long prompt's ring wraps); the attention
+              softcap 50 in the flash and paged kernels
+  gemma2_serve
+              gemma2-27b at full width and depth (46 layers, 54.4 GB of
+              bf16 weights on the one card): 8 requests with prompts of
+              4200-5200 tokens (past the window of 4096, in the 8192-token
+              bucket), 32 new tokens each, 8 slots; 46 flash launches a
+              prefill, the paged kernel in the 23 global layers a tick;
+              the peak of device memory
   ssm_serve   mamba2-130m at full width and depth, bf16: 16 requests; every
               layer of every prefill must have gone through ssd_scan
   train_path  bert-mlm-120m at full width, depth cut to 2 layers, f32: the
@@ -65,11 +78,16 @@ Phases (any failure exits non-zero before the last line):
               on 3 steps' losses and every gradient leaf of the first; the
               same gradients computed twice on the card are equal bit for
               bit.  The cpu side runs in a process of its own, started
-              with the script at nice 15
+              with the script at nice 15 (the cpu sides' process)
   gemma_train_path
-              gemma3-4b at full width, 2 layers (local, global), f32, B 1 x
-              S 1100, 2 steps: as ssm_train_path (the windowed flash
-              backward at head dim 256)
+              gemma3-4b at full width, 2 layers (local with its window cut
+              to 256, global), f32, B 1 x S 396, 2 steps: as
+              ssm_train_path (the windowed flash backward at head dim 256)
+  gemma2_train_path
+              gemma2-27b at full width, 2 layers (local with its window cut
+              to 128, global), f32, B 1 x S 320, 2 steps: as
+              ssm_train_path (the softcap flash backward); both sides'
+              weights drawn on the card (the cpu side's process too)
   train_cli   bert-mlm-120m at full width and depth, f32 (the launcher's
               defaults), batch 32 x 512 from the DataPipeline over a
               1000-function corpus, through repro_torch.launch.train.main:
@@ -93,10 +111,15 @@ Phases (any failure exits non-zero before the last line):
               (launch counts per step); step time, MFU and device busy
   gemma_train gemma3-4b at full width, depth cut to 6 (5 local, 1 global), B
               4 x S 2048 from the DataPipeline with the launcher's rolled
-              labels: (a) 10 steps of trainer.train in f32, (b) 10 in bf16
+              labels: (a) 6 steps of trainer.train in f32, (b) 6 in bf16
               at microbatch 2; the loss falls, launches per step exact
               (2L flash forwards, L backwards, 2C and C xent at V 262144),
               step time, MFU and device busy
+  gemma2_train
+              gemma2-27b at full width, depth 2 (local with window 4096,
+              global), S 8192 from the DataPipeline: (a) 6 steps in f32 at
+              B 1, (b) 6 in bf16 at B 2 and microbatch 2; as gemma_train
+              (the softcap flash backward, V 256000)
   ddp_path    bert-mlm-120m at full width, 2 layers, f32, global batch 8 x
               512 with ragged masks: 2 ranks on the one card over gloo
               (processes spawned by the phase) against one process on the
@@ -123,7 +146,10 @@ Phases (any failure exits non-zero before the last line):
               SSD or its backward) as a yardstick: device time per call
               (CUDA-graph replay) and time per back-to-back call; gemma3's
               head-dim-256 flash forward and backward (window 1024 and
-              none) and paged decode at its serve and train shapes
+              none) and paged decode at its serve and train shapes;
+              gemma2's softcap backward at B 1 x S 8192 (window 4096 and
+              none, bf16 and f32) beside the same body without the cap,
+              its prefill's flash forward and its decode's paged kernel
 
 --against NAME=SOURCE (repeatable) builds SOURCE, another version of the
 kernel source of its file name (csrc/<kernel>.cu; e.g. a parent commit's,
@@ -165,10 +191,17 @@ OUT = ROOT / "chiprun_out"
 # started beside it), and no check records a time.  They also run before
 # train_cli: launch.train.main leaves the process one intra-op thread (its
 # bit-exact resume needs it), which slows their CPU references 3.5x.
-# faults runs late, once its builds are done.
+# faults runs late, once its builds are done.  The gemma2 checks come
+# last among the checks, each after its cpu side's turn in the cpu sides'
+# process (CPU_REF_KEYS); gemma2_train_path, whose cpu side comes last
+# there, after the serve phases.  The device-bound training phases run
+# while that last turn does (it took 146-164 s), and the host-bound serve
+# phases after it: beside it serve's tick p50 read twice as long
+# (PERF.md §6).
 PHASES = ("build", "kernels", "path", "gemma_path", "ssm_path", "train_path", "ssm_train_path",
-          "gemma_train_path", "ddp_path", "serve", "gemma_serve", "ssm_serve", "train",
-          "train_cli", "ssm_train", "gemma_train", "ddp", "faults", "time")
+          "gemma_train_path", "gemma2_path", "ddp_path", "train", "gemma_train", "gemma2_train",
+          "serve", "gemma_serve", "gemma2_serve", "gemma2_train_path", "ssm_serve", "train_cli",
+          "ssm_train", "ddp", "faults", "time")
 AGAINST_PHASES = ("serve", "ssm_serve", "train", "time")   # the phases --against runs again
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the bounds below use them
@@ -222,7 +255,8 @@ XENT_BWD_TOL = (1e-5, 1e-5)
 SSD_REL, F32_EPS = 1e-6, 2.0**-24
 SSD_U_OPERAND, SSD_U_SPLIT = 2.0**-8, 2.0**-16
 # ssd_scan's backward, per element of each gradient (dx, ddt, dA, dB, dC)
-# against the autograd of the plain ssd_ref on the f32 values: |err| <=
+# against the autograd of the plain ssd_ref on the inputs' values in f64
+# (``ssd_bwd_reading``): |err| <=
 # SSD_BWD_REL max|want| + SSD_BWD_ATOL, the JAX ssd tests' 1e-4 taken of the
 # gradient's scale (its sums run over whole chunks, in another order); in
 # bf16 plus u |want| on dx, dB and dC, u = 2^-8: the kernel reads the bf16
@@ -255,8 +289,16 @@ def gpu_line() -> str:
 GEMMA_WINDOW = 1024                        # gemma3-4b's local layers
 GEMMA_SERVE_ATTN = (1, 2048, 8, 4, 256, True)
 GEMMA_TRAIN_ATTN = (4, 2048, 8, 4, 256, True)
+# gemma2-27b's (arXiv:2408.00118): 32 q / 16 kv heads of 128, a window of
+# 4096 in every other layer, the logit softcap 50 and the query scale
+# 144^-0.5; its train shape B 1 x S 8192 (gemma2_train), and a head slice
+# of its 8192-token prefill bucket (the plain forward at all 32 heads
+# would hold 2.1 billion scores)
+GEMMA2_WINDOW, GEMMA2_SOFTCAP, GEMMA2_SCALE = 4096, 50.0, 144.0**-0.5
+GEMMA2_TRAIN_ATTN = (1, 8192, 32, 16, 128, True)
+GEMMA2_PREFILL_SLICE = (1, 8192, 4, 2, 128, True)
 
-FLASH_CASES = [  # (B, S, H, Hkv, D, causal, window, softcap)
+FLASH_CASES = [  # (B, S, H, Hkv, D, causal, window, softcap[, scale])
     (2, 256, 4, 4, 64, True, None, 0.0),       # rep 1
     (1, 300, 8, 2, 128, True, None, 0.0),      # rep 4, ragged S
     (1, 1024, 24, 2, 128, True, None, 0.0),    # rep 12, the serving shape
@@ -284,6 +326,10 @@ FLASH_CASES = [  # (B, S, H, Hkv, D, causal, window, softcap)
     (2, 129, 8, 4, 256, True, 40, 0.0),
     (1, 65, 8, 4, 256, False, None, 0.0),
     (1, 300, 8, 4, 256, False, 100, 20.0),      # non-causal window + softcap
+    # gemma2-27b's prefill at its 8192-token bucket (a head slice, rep 2):
+    # a local layer (window 4096) and a global one, softcap 50
+    GEMMA2_PREFILL_SLICE + (GEMMA2_WINDOW, GEMMA2_SOFTCAP, GEMMA2_SCALE),
+    GEMMA2_PREFILL_SLICE + (None, GEMMA2_SOFTCAP, GEMMA2_SCALE),
 ]
 
 PAGED_CASES = [  # (B, H, Hkv, D, P, NP, maxp, window, softcap, (pos lo, hi))
@@ -311,6 +357,9 @@ PAGED_CASES = [  # (B, H, Hkv, D, P, NP, maxp, window, softcap, (pos lo, hi))
     (8, 8, 4, 256, 16, 1100, 136, None, 0.0, (1800, 2100)),
     (8, 8, 4, 256, 16, 600, 64, 100, 0.0, (0, 1000)),
     (6, 8, 4, 256, 16, 80, 16, None, 0.0, (0, 255)),
+    # gemma2-27b's global layers (rep 2, D 128, softcap 50): 8 slots of
+    # about 5000 tokens, page 16, tables of 336 pages
+    (8, 32, 16, 128, 16, 2689, 336, None, GEMMA2_SOFTCAP, (4200, 5232)),
 ]
 
 
@@ -321,7 +370,9 @@ BERT_ATTN = (32, 512, 12, 12, 64, False)
 # bert's shape made causal at D 64, starcoder2-3b's GQA shape at D 128
 WINDOW_TIMED = {64: 128, 128: 200}
 
-# the backward kernel: (B, S, H, Hkv, D, causal[, window]); no softcap yet
+# the backward kernel: (B, S, H, Hkv, D, causal[, window[, softcap, amp]]);
+# a softcap case takes gemma2's query scale and q drawn times amp
+# (``bwd_case_opts``), so that the scores reach the cap
 FLASH_BWD_CASES = [
     (2, 256, 4, 4, 64, True),       # rep 1, causal
     (1, 300, 8, 2, 128, True),      # rep 4, D 128, ragged S
@@ -347,7 +398,26 @@ FLASH_BWD_CASES = [
     GEMMA_TRAIN_ATTN + (GEMMA_WINDOW,), GEMMA_TRAIN_ATTN,
     (2, 77, 8, 4, 256, False), (1, 130, 8, 4, 256, True, 40), (2, 33, 8, 2, 256, False, 16),
     (2, 96, 8, 4, 256, True), (1, 200, 4, 4, 256, False, 70),
+    # the softcap (D 128, causal, rep 2): the tiles' edges (bf16 64-row
+    # tiles and 128 rows or keys a block; f32 32-row and 32-key tiles) and
+    # ragged S at cap 5 with q times 4 (|t| up to 0.998), windows across
+    # the 128-key tiles, cap 1 with q times 4 (half the scores at |t| >
+    # 0.99, where 1 - t^2 cancels), and gemma2's heads at S 4352, past its
+    # window of 4096 by two tiles, windowed and global
+    *[(2, S, 4, 2, 128, True, None, 5.0, 4.0) for S in (31, 63, 65, 129, 300)],
+    (1, 700, 8, 4, 128, True, 200, 5.0, 4.0), (2, 333, 4, 2, 128, True, 65, GEMMA2_SOFTCAP, 1.0),
+    (1, 257, 4, 2, 128, True, 50, 1.0, 4.0),
+    (1, 4352, 32, 16, 128, True, GEMMA2_WINDOW, GEMMA2_SOFTCAP, 1.0),
+    (1, 4352, 32, 16, 128, True, None, GEMMA2_SOFTCAP, 1.0),
 ]
+
+
+def bwd_case_opts(case):
+    """(window, softcap, amp, scale) of a FLASH_BWD_CASES entry."""
+    opt = case[6:]
+    window = opt[0] if opt else None
+    cap, amp = (opt[1], opt[2]) if len(opt) > 1 else (0.0, 1.0)
+    return window, cap, amp, GEMMA2_SCALE if cap else None
 
 XENT_CASES = [  # (T, V)
     (3904, 32768),   # one loss chunk of the train phase: 32 x 122 rows
@@ -405,10 +475,12 @@ SSD_BWD_CASES = [  # (B, S, H, P, G, N, chunk, a non-zero gstate)
 ]
 
 
-def _flash_inputs(torch, case, dtype, gen):
+def _flash_inputs(torch, case, dtype, gen, amp=1.0):
     B, S, H, Hkv, D, *_ = case
     mk = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(dtype)
-    return mk(B, S, H, D), mk(B, S, Hkv, D), mk(B, S, Hkv, D)
+    q = mk(B, S, H, D) if amp == 1.0 else \
+        (torch.randn(B, S, H, D, generator=gen, device="cuda") * amp).to(dtype)
+    return q, mk(B, S, Hkv, D), mk(B, S, Hkv, D)
 
 
 def paged_tables(torch, case):
@@ -451,27 +523,37 @@ def gate(torch, got, want, want_abs, dname):
     return err.max().item(), (err / lim).max().item()
 
 
-def flash_reading(torch, q, k, v, causal, window=None, softcap=0.0):
+def flash_reading(torch, q, k, v, causal, window=None, softcap=0.0, scale=None):
+    """The forward kernel against the plain version, a group of kv heads
+    at a time (``head_groups``)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention_fwd
 
-    got = flash_attention_fwd(q, k, v, causal=causal, window=window, softcap=softcap)
-    q, k, v = q.float(), k.float(), v.float()
-    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window, softcap=softcap)
-    want_abs = ref.flash_attention_ref(q, k, v.abs(), causal=causal, window=window,
-                                       softcap=softcap)
-    return gate(torch, got, want, want_abs, str(got.dtype).split(".")[1])
+    opts = dict(causal=causal, window=window, softcap=softcap, scale=scale)
+    got = flash_attention_fwd(q, k, v, **opts)
+    B, S, H, _ = q.shape
+    Hkv = k.shape[2]
+    rep_ = H // Hkv
+    readings = []
+    for g0, g1 in head_groups(B, S, Hkv, rep_):
+        qh = q[:, :, g0 * rep_:g1 * rep_].float()
+        kh, vh = k[:, :, g0:g1].float(), v[:, :, g0:g1].float()
+        want = ref.flash_attention_ref(qh, kh, vh, **opts)
+        want_abs = ref.flash_attention_ref(qh, kh, vh.abs(), **opts)
+        readings.append(gate(torch, got[:, :, g0 * rep_:g1 * rep_], want, want_abs,
+                             str(got.dtype).split(".")[1]))
+    return max(readings, key=lambda r: r[1])
 
 
-def paged_reading(torch, q, kp, vp, tables, pos, window=None, softcap=0.0):
+def paged_reading(torch, q, kp, vp, tables, pos, window=None, softcap=0.0, scale=None):
     from repro_torch.kernels import ref
     from repro_torch.kernels.paged_attention import paged_attention_fwd
 
-    got = paged_attention_fwd(q, kp, vp, tables, pos, window=window, softcap=softcap)
+    opts = dict(window=window, softcap=softcap, scale=scale)
+    got = paged_attention_fwd(q, kp, vp, tables, pos, **opts)
     q, kp, vp = q.float(), kp.float(), vp.float()
-    want = ref.paged_attention_ref(q, kp, vp, tables, pos, window=window, softcap=softcap)
-    want_abs = ref.paged_attention_ref(q, kp, vp.abs(), tables, pos, window=window,
-                                       softcap=softcap)
+    want = ref.paged_attention_ref(q, kp, vp, tables, pos, **opts)
+    want_abs = ref.paged_attention_ref(q, kp, vp.abs(), tables, pos, **opts)
     return gate(torch, got, want, want_abs, str(got.dtype).split(".")[1])
 
 
@@ -496,10 +578,11 @@ def hidden_mask(torch, S, causal, window, device):
     return hide
 
 
-def _attention_grads64(torch, q, k, v, do, causal, window):
+def _attention_grads64(torch, q, k, v, do, causal, window, softcap=0.0, scale=None):
     """dq, dk, dv of the plain version's function (softmax attention,
-    masked, scale D^-1/2) computed in f64 throughout, on the f32 inputs:
-    the f32 backward gate's reference.  The plain version itself takes its
+    masked, scale D^-1/2 unless given, the scores capped at c tanh(s / c)
+    with a softcap c) computed in f64 throughout, on the f32 inputs: the
+    f32 backward gate's reference.  The plain version itself takes its
     scores in f32, and at head dim 256 and S 2048 its own f32 rounding
     exceeds the 2e-5 bar (phase time records it beside the kernel's as
     ``plain_f32_err_vs_f64``; PERF.md §6); against this reference the
@@ -508,20 +591,32 @@ def _attention_grads64(torch, q, k, v, do, causal, window):
     S, rep = q.shape[1], q.shape[2] // k.shape[2]
     with torch.enable_grad():
         kr, vr = (x.repeat_interleave(rep, 2) for x in xs[1:])
-        s = torch.einsum("bqhd,bkhd->bhqk", xs[0], kr) * q.shape[3]**-0.5
+        s = torch.einsum("bqhd,bkhd->bhqk", xs[0], kr) * (scale or q.shape[3]**-0.5)
+        if softcap:
+            s = torch.tanh(s / softcap) * softcap
         hide = hidden_mask(torch, S, causal, window, q.device)
         p = torch.softmax(s.masked_fill(hide, -math.inf), -1)
         out = torch.einsum("bhqk,bkhd->bqhd", p, vr)
     return torch.autograd.grad(out, xs, do.double())
 
 
-def flash_bwd_reading(torch, q, k, v, do, causal, window=None):
+def head_groups(B, S, Hkv, rep, budget=2**27):
+    """[(kv head lo, hi)]: the kv heads of a plain reading a group at a
+    time, so that a group's (B, heads, S, S) scores stay under ``budget``
+    elements (gemma2's 32 heads at S 8192 hold 2.1 billion scores; every
+    other case is one group)."""
+    n = max(1, min(Hkv, budget // max(1, B * rep * S * S)))
+    return [(g, min(g + n, Hkv)) for g in range(0, Hkv, n)]
+
+
+def flash_bwd_reading(torch, q, k, v, do, causal, window=None, softcap=0.0, scale=None):
     """The backward kernel (fed the forward kernel's o and lse) against
     the autograd of the plain version on the f32 inputs (f32 kernels: the
-    same function in f64, ``_attention_grads64``).  bf16 limit per
-    element: u (|want| + want_abs) + 1e-5 with u = 2^-8.  The kernel
-    recomputes S and dP exactly (bf16 products, f32 sums) and P in f32
-    from the forward's f32 lse; the bf16 roundings it makes are
+    same function in f64, ``_attention_grads64``), a group of kv heads at
+    a time (``head_groups``: each group's gradients are its own).  bf16
+    limit per element: u (|want| + want_abs) + 1e-5 with u = 2^-8.  The
+    kernel recomputes S and dP exactly (bf16 products, f32 sums) and P in
+    f32 from the forward's f32 lse; the bf16 roundings it makes are
       - its outputs: u |want|;
       - P and dS as operands of dV = P^T dO, dK = dS^T q, dQ = dS K:
         u P^T |dO|, u scale |dS|^T |q|, u scale |dS| |K|;
@@ -530,41 +625,60 @@ def flash_bwd_reading(torch, q, k, v, do, causal, window=None):
         most u Dabs, Dabs = rowsum(|dO| (|O| + P|V|)), so dS by u P Dabs,
         which adds u scale (P Dabs) |K| to dq and u scale (P Dabs)^T |q|
         to dk.
-    want_abs sums those terms for each output (over the rep query heads
-    of a kv head for dk and dv)."""
+    With a softcap c, dS = P (dP - Delta) (1 - t^2), t = tanh(s scale /
+    c): dS and its Delta term carry the factor 1 - t^2.  want_abs sums
+    those terms for each output (over the rep query heads of a kv head for
+    dk and dv)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_fwd
 
-    o, lse = flash_attention_fwd(q, k, v, causal=causal, window=window, return_lse=True)
-    got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal, window=window)
+    opts = dict(causal=causal, window=window, softcap=softcap, scale=scale)
+    o, lse = flash_attention_fwd(q, k, v, return_lse=True, **opts)
+    got = flash_attention_bwd(q, k, v, o, lse, do, **opts)
+    del o, lse
     dname = str(q.dtype).split(".")[1]
-    if dname == "float32":
-        want = _attention_grads64(torch, q, k, v, do, causal, window)
-        return max((gate(torch, g, w, None, dname) for g, w in zip(got, want)),
-                   key=lambda r: r[1])
-    fn = lambda q_, k_, v_: ref.flash_attention_ref(q_, k_, v_, causal=causal, window=window)
-    _, want = _plain_grads(torch, fn, (q, k, v), do)
     B, S, H, D = q.shape
     Hkv = k.shape[2]
     rep_ = H // Hkv
-    qf, kf, vf, dof = (x.float().transpose(1, 2) for x in (q, k, v, do))   # (B,h,S,D)
-    kf, vf = (x.repeat_interleave(rep_, dim=1) for x in (kf, vf))
-    s = (qf @ kf.transpose(-1, -2)) * D**-0.5
-    hide = hidden_mask(torch, S, causal, window, q.device)
-    s = s.masked_fill(hide, ref.NEG_INF)
-    del hide
-    p = torch.softmax(s, dim=-1)                                  # (B,H,S,S)
-    o = p @ vf
-    dabs = (dof.abs() * (o.abs() + p @ vf.abs())).sum(-1, keepdim=True)   # (B,H,S,1)
-    ds = p * (dof @ vf.transpose(-1, -2) - (dof * o).sum(-1, keepdim=True))
-    w = p * dabs + ds.abs()
-    dq_abs = (w @ kf.abs()) * D**-0.5
-    kv_sum = lambda x: x.unflatten(1, (Hkv, rep_)).sum(2).transpose(1, 2)
-    dk_abs = kv_sum((w.transpose(-1, -2) @ qf.abs()) * D**-0.5)
-    dv_abs = kv_sum(p.transpose(-1, -2) @ dof.abs())
-    abs_terms = (dq_abs.transpose(1, 2), dk_abs, dv_abs)
-    return max((gate(torch, g, w, a, dname) for g, w, a in zip(got, want, abs_terms)),
-               key=lambda r: r[1])
+    scale_ = scale or D**-0.5
+    readings = []
+    for g0, g1 in head_groups(B, S, Hkv, rep_):
+        qh, doh = (x[:, :, g0 * rep_:g1 * rep_] for x in (q, do))
+        kh, vh = (x[:, :, g0:g1] for x in (k, v))
+        parts = (got[0][:, :, g0 * rep_:g1 * rep_], got[1][:, :, g0:g1], got[2][:, :, g0:g1])
+        if dname == "float32":
+            want = _attention_grads64(torch, qh, kh, vh, doh, causal, window, softcap, scale)
+            readings += [gate(torch, g, w, None, dname) for g, w in zip(parts, want)]
+            continue
+        fn = lambda q_, k_, v_: ref.flash_attention_ref(q_, k_, v_, **opts)
+        _, want = _plain_grads(torch, fn, (qh, kh, vh), doh)
+        hkv = g1 - g0
+        qf, kf, vf, dof = (x.float().transpose(1, 2) for x in (qh, kh, vh, doh))   # (B,h,S,D)
+        kf, vf = (x.repeat_interleave(rep_, dim=1) for x in (kf, vf))
+        s = (qf @ kf.transpose(-1, -2)) * scale_
+        cap = 1.0
+        if softcap:
+            t = torch.tanh(s / softcap)
+            s, cap = t * softcap, 1 - t * t                       # cap: the derivative
+            del t
+        hide = hidden_mask(torch, S, causal, window, q.device)
+        s = s.masked_fill(hide, ref.NEG_INF)
+        del hide
+        p = torch.softmax(s, dim=-1)                              # (B,h,S,S)
+        del s
+        o = p @ vf
+        dabs = (dof.abs() * (o.abs() + p @ vf.abs())).sum(-1, keepdim=True)   # (B,h,S,1)
+        ds = p * (dof @ vf.transpose(-1, -2) - (dof * o).sum(-1, keepdim=True))
+        w = (p * dabs + ds.abs()) * cap
+        del ds, cap
+        dq_abs = (w @ kf.abs()) * scale_
+        kv_sum = lambda x: x.unflatten(1, (hkv, rep_)).sum(2).transpose(1, 2)
+        dk_abs = kv_sum((w.transpose(-1, -2) @ qf.abs()) * scale_)
+        dv_abs = kv_sum(p.transpose(-1, -2) @ dof.abs())
+        del w, p
+        abs_terms = (dq_abs.transpose(1, 2), dk_abs, dv_abs)
+        readings += [gate(torch, g, w_, a, dname) for g, w_, a in zip(parts, want, abs_terms)]
+    return max(readings, key=lambda r: r[1])
 
 
 def _xent_inputs(torch, case, dtype, gen):
@@ -661,19 +775,23 @@ def _ssd_bwd_inputs(torch, case, dtype, gen):
 
 def ssd_bwd_reading(torch, x, dt, A, Bm, Cm, gy, gstate, chunk):
     """The backward kernel's five gradients against the autograd of the
-    plain ssd_ref on the f32 values (see SSD_BWD_REL); the worst."""
+    plain ssd_ref on the inputs' values in f64 (see SSD_BWD_REL); the
+    worst.  dA sums terms over every step that can cancel, and the plain
+    f32 version is then off by a share of the gate on its own (0.70 of it
+    on the card at one SSD_BWD_CASES draw): against f64 the gate reads the
+    kernel's error alone, as the f32 flash backward's does."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.ssd_scan import ssd_scan_bwd
 
     got = ssd_scan_bwd(x, dt, A, Bm, Cm, gy, gstate, chunk)
-    xs = [t.detach().float().requires_grad_(True) for t in (x, dt, A, Bm, Cm)]
+    xs = [t.detach().double().requires_grad_(True) for t in (x, dt, A, Bm, Cm)]
     with torch.enable_grad():
         outs = ref.ssd_ref(*xs, chunk)
-    want = torch.autograd.grad(outs, xs, (gy.float(), gstate.float()))
+    want = torch.autograd.grad(outs, xs, (gy.double(), gstate.double()))
     u = BF16_U if x.dtype == torch.bfloat16 else 0.0
     out = []
     for name, g, w in zip(("dx", "ddt", "dA", "dB", "dC"), got, want):
-        err = (g.float() - w).abs()
+        err = (g.double() - w).abs()
         lim = (u if name in ("dx", "dB", "dC") else 0.0) * w.abs() \
             + SSD_BWD_REL * w.abs().max() + SSD_BWD_ATOL
         out.append((err.max().item(), (err / lim).max().item()))
@@ -682,45 +800,46 @@ def ssd_bwd_reading(torch, x, dt, A, Bm, Cm, gy, gstate, chunk):
 
 def kernel_readings(torch, dname, only=None):
     """(kernel, case, max abs error, error / limit) for every case, on
-    inputs drawn from one seed; ``only``: the kernels to read."""
+    inputs drawn from one seed, each as it is read; ``only``: the kernels
+    to read."""
     dtype = getattr(torch, dname)
     want = lambda *names: only is None or any(n in only for n in names)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    out = []
     if want("flash_attention"):
         for case in FLASH_CASES:
-            causal, window, cap = case[5:]
-            out.append(("flash_attention", case, *flash_reading(
-                torch, *_flash_inputs(torch, case, dtype, gen), causal, window, cap)))
+            causal, window, cap, *scale = case[5:]
+            yield ("flash_attention", case, *flash_reading(
+                torch, *_flash_inputs(torch, case, dtype, gen), causal, window, cap,
+                *scale))
     if want("paged_attention"):
         for case in PAGED_CASES:
             window, cap = case[7:9]
-            out.append(("paged_attention", case, *paged_reading(
-                torch, *_paged_inputs(torch, case, dtype, gen), window, cap)))
+            yield ("paged_attention", case, *paged_reading(
+                torch, *_paged_inputs(torch, case, dtype, gen), window, cap))
     if want("flash_attention_bwd"):
         for case in FLASH_BWD_CASES:
-            B, S, H, Hkv, D, causal, *window = case
-            q, k, v = _flash_inputs(torch, (B, S, H, Hkv, D), dtype, gen)
+            B, S, H, Hkv, D, causal = case[:6]
+            window, cap, amp, scale = bwd_case_opts(case)
+            q, k, v = _flash_inputs(torch, (B, S, H, Hkv, D), dtype, gen, amp)
             do = torch.randn(B, S, H, D, generator=gen, device="cuda").to(dtype)
             if case == BERT_ATTN and want("flash_attention"):    # its forward too
-                out.append(("flash_attention", case, *flash_reading(torch, q, k, v, causal)))
-            out.append(("flash_attention_bwd", case, *flash_bwd_reading(
-                torch, q, k, v, do, causal, window[0] if window else None)))
+                yield ("flash_attention", case, *flash_reading(torch, q, k, v, causal))
+            yield ("flash_attention_bwd", case, *flash_bwd_reading(
+                torch, q, k, v, do, causal, window, cap, scale))
             del q, k, v, do
     if want("fused_xent", "fused_xent_bwd"):
         for case in XENT_CASES:
             fwd, bwd = xent_readings(torch, *_xent_inputs(torch, case, dtype, gen))
-            out.append(("fused_xent", case, *fwd))
-            out.append(("fused_xent_bwd", case, *bwd))
+            yield ("fused_xent", case, *fwd)
+            yield ("fused_xent_bwd", case, *bwd)
     if want("ssd_scan"):
         for case in SSD_CASES:
-            out.append(("ssd_scan", case, *ssd_reading(
-                torch, *_ssd_inputs(torch, case, dtype, gen), case[6])))
+            yield ("ssd_scan", case, *ssd_reading(
+                torch, *_ssd_inputs(torch, case, dtype, gen), case[6]))
     if want("ssd_scan_bwd"):
         for case in SSD_BWD_CASES:
-            out.append(("ssd_scan_bwd", case, *ssd_bwd_reading(
-                torch, *_ssd_bwd_inputs(torch, case, dtype, gen), case[6])))
-    return out
+            yield ("ssd_scan_bwd", case, *ssd_bwd_reading(
+                torch, *_ssd_bwd_inputs(torch, case, dtype, gen), case[6]))
 
 
 def check_kernels(torch, rec):
@@ -790,6 +909,10 @@ FAULTS = [
      "const bool behind = p.window > 0 && key <= row - p.window;  // dq: outside the window",
      "const bool behind = p.window > 0 && key < row - p.window;  // dq: outside the window",
      "bfloat16"),
+    ("flash_attention_bwd", ("flash_attention_bwd",),
+     "dq with a softcap: dS without the cap's derivative 1 - t^2",
+     "s[x] = hopper::exp2_approx(fmaf(th, post, -lse2[r])) * fmaf(-th, th, 1.f);  // dq: P (1 - t^2)",
+     "s[x] = hopper::exp2_approx(fmaf(th, post, -lse2[r]));  // dq: P (1 - t^2)", "bfloat16"),
     ("flash_attention", ("flash_attention",),
      "D-256 tiles: S = Q K^T skips the last 64-column box of the head dim",
      "for (int kk = 0; kk < D / 16; ++kk)",
@@ -841,46 +964,78 @@ KERNELS = ("flash_attention", "flash_attention_bwd", "paged_attention", "fused_x
            "fused_xent_bwd", "ssd_scan", "ssd_scan_bwd")
 
 
-def _start_nvcc(src, lib, nice=False):
-    """nvcc for ``src`` into ``lib``; ``nice``: at the lowest CPU priority."""
+def _start_nvcc(src, lib, nice=False, log_to=None):
+    """nvcc for ``src`` into ``lib``; ``nice``: at the lowest CPU priority;
+    its output to the file ``log_to``, else a pipe."""
     from repro_torch.kernels import _build
 
-    return subprocess.Popen((["nice", "-n", "19"] if nice else []) + _build.nvcc_command(src, lib),
-                            stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
+    out = open(log_to, "w") if log_to else subprocess.PIPE
+    try:
+        return subprocess.Popen((["nice", "-n", "19"] if nice else []) +
+                                _build.nvcc_command(src, lib), stdout=out,
+                                stderr=subprocess.STDOUT, text=True,
+                                start_new_session=True)   # a group of its own: stop_children
+    finally:
+        if log_to:
+            out.close()
+
+
+# nvcc processes of the planted faults at a time: each build of a flash
+# source holds a GB or two, and all of them at once beside the cpu sides'
+# process met the card machine's 96 GiB
+FAULT_BUILDS_AT_ONCE = 8
 
 
 def start_fault_builds():
-    """Write the faulty sources under build/kernels/faults/ and start one
-    nvcc for each, at the lowest CPU priority (the phases before phase
-    faults keep the cores they need; call it once the build phase is
-    done, which these builds would slow); returns {index in FAULTS:
-    (process, library path)}."""
+    """Write the faulty sources under build/kernels/faults/ and start nvcc
+    for the first FAULT_BUILDS_AT_ONCE of them, at the lowest CPU priority
+    (the phases before phase faults keep the cores they need; call it once
+    the build phase is done, which these builds would slow);
+    ``pump_fault_builds`` starts the others as these end, between the
+    phases.  Returns {index in FAULTS: [process or None, library path,
+    source]}; each build's output goes to a log beside its library."""
     from repro_torch.kernels import _build
 
     d = _build.BUILD_DIR / "faults"
     d.mkdir(parents=True, exist_ok=True)
-    procs = {}
+    builds = {}
     for i, (name, _, _, old, new, _) in enumerate(FAULTS):
         text = (_build.CSRC / f"{name}.cu").read_text()
         if text.count(old) != 1:
             fail(f"faults: {name}.cu does not hold {old!r} once; update FAULTS")
         src, lib = d / f"{name}-{i}.cu", d / f"lib{name}-{i}.so"
         src.write_text(text.replace(old, new))
-        procs[i] = (_start_nvcc(src, lib, nice=True), lib)
-    return procs
+        builds[i] = [None, lib, src]
+    pump_fault_builds(builds)
+    return builds
 
 
-def check_faults(torch, rec, procs):
+def pump_fault_builds(builds, at_once=FAULT_BUILDS_AT_ONCE):
+    """Start the next of ``builds`` (in FAULTS order) while fewer than
+    ``at_once`` run."""
+    running = sum(b[0] is not None and b[0].poll() is None for b in builds.values())
+    for b in builds.values():
+        if running >= at_once:
+            break
+        if b[0] is None:
+            b[0] = _start_nvcc(b[2], b[1], nice=True, log_to=b[1].with_suffix(".log"))
+            _children.append(b[0])           # stopped if the script ends first
+            running += 1
+
+
+def check_faults(torch, rec, builds):
     import ctypes
+    import os
 
     from repro_torch.kernels import _build
 
     res = []
     for i, (name, kernels, bug, _, _, dname) in enumerate(FAULTS):
-        proc, lib = procs[i]
-        out, _ = proc.communicate()
+        pump_fault_builds(builds, at_once=os.cpu_count() or FAULT_BUILDS_AT_ONCE)
+        proc, lib, _ = builds[i]
+        proc.wait()
         if proc.returncode != 0:
+            out = lib.with_suffix(".log").read_text()
             fail(f"faults: the faulty {name} did not build:\n{out}")
         good = _build.swap(name, ctypes.CDLL(str(lib)))
         try:
@@ -1138,52 +1293,77 @@ def _tap(eng, log_):
     eng._prefill, eng._decode = prefill, decode
 
 
-def compare_engines(torch, name, cfg, prompts, max_new, want_launches, engine_kw=None):
-    """The paged engine on cuda and on cpu (plain versions) from the same
-    f32 weights: each prefill's and decode tick's logits within
-    PATH_REL_TOL of the largest cpu logit, the same greedy tokens; the
-    cuda run's kernel launches must equal ``want_launches(engine)`` and
-    the cpu run must launch none.  ``engine_kw``: the engines' pool
-    sizes (default 4 slots of up to 32 pages of 16 tokens)."""
-    import copy
-
+def engine_side(torch, cfg, prompts, max_new, engine_kw, model):
+    """The paged engine over ``model`` (f32) serving ``prompts``: every
+    prefill's and decode tick's logits (host copies), the greedy tokens,
+    the kernel launches and the decode ticks."""
     from repro_torch.configs import default_run_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import serve
-    from repro_torch.models.model import build_model
     from repro_torch.serve.engine import PagedServeEngine
 
     run = default_run_config(cfg, ShapeConfig("serve", 0, 0, "decode"))
-    model_cpu = build_model(cfg, seed=0, device="cpu")
-    model_gpu = copy.deepcopy(model_cpu).to("cuda")   # the same weights
-    engine_kw = engine_kw or dict(page=16, n_pages=128, max_slots=4, max_pages=32)
-    eng_cpu, eng_gpu = (PagedServeEngine(m, run, **engine_kw) for m in (model_cpu, model_gpu))
-    logs, outs = {}, {}
-    for dev, eng in (("cpu", eng_cpu), ("cuda", eng_gpu)):
-        logs[dev] = []
-        _tap(eng, logs[dev])
-        ops.reset_launch_counts()
-        outs[dev] = serve(eng, prompts, max_new=max_new)
-        counts = dict(ops.launch_counts)
-        log(f"{name} {dev}: launches {counts}, ticks {eng.decode_ticks}")
-        if dev == "cuda" and counts != want_launches(eng):
+    eng = PagedServeEngine(model, run, **engine_kw)
+    logs = []
+    _tap(eng, logs)
+    ops.reset_launch_counts()
+    outs = serve(eng, prompts, max_new=max_new)
+    return {"logs": logs, "outs": outs, "launches": dict(ops.launch_counts),
+            "decode_ticks": eng.decode_ticks}
+
+
+PATH_ENGINE_KW = dict(page=16, n_pages=128, max_slots=4, max_pages=32)
+
+
+def compare_engines(torch, name, cfg, prompts, max_new, want_launches, engine_kw=None,
+                    cpu=None):
+    """The paged engine on cuda and on cpu (plain versions) from the same
+    f32 weights: each prefill's and decode tick's logits within
+    PATH_REL_TOL of the largest cpu logit, the same greedy tokens; the
+    cuda run's kernel launches must equal ``want_launches(decode ticks)``
+    and the cpu run must launch none.  ``engine_kw``: the engines' pool
+    sizes (default PATH_ENGINE_KW).  The weights are drawn from seed 0 on
+    the card and copied to the cpu (the card draws gemma2's 2.3 G in a
+    second, the cpu in about 25).  ``cpu``: the cpu side's
+    ``engine_side``, run elsewhere on the same weights (a process of its
+    own, ``--cpu-ref``)."""
+    import copy
+
+    from repro_torch.models.model import build_model
+
+    engine_kw = engine_kw or PATH_ENGINE_KW
+    model_gpu = build_model(cfg, seed=0, device="cuda")
+    sides = {}
+    if cpu is None:
+        model_cpu = copy.deepcopy(model_gpu).to("cpu")   # the same weights
+        sides["cpu"] = engine_side(torch, cfg, prompts, max_new, engine_kw, model_cpu)
+        del model_cpu
+    else:
+        sides["cpu"] = cpu
+    sides["cuda"] = engine_side(torch, cfg, prompts, max_new, engine_kw, model_gpu)
+    for dev, side in sides.items():
+        counts, ticks = side["launches"], side["decode_ticks"]
+        log(f"{name} {dev}: launches {counts}, ticks {ticks}")
+        if dev == "cuda" and counts != want_launches(ticks):
             fail(f"{name}: the cuda run did not go through the kernels: {counts}, "
-                 f"expected {want_launches(eng)}")
+                 f"expected {want_launches(ticks)}")
         if dev == "cpu" and counts:
             fail(f"{name}: the cpu run launched kernels: {counts}")
+    outs = {dev: side["outs"] for dev, side in sides.items()}
     if outs["cpu"] != outs["cuda"]:
         fail(f"{name}: greedy tokens differ: cpu {outs['cpu']} cuda {outs['cuda']}")
     worst = 0.0
-    for (kind, a), (_, b) in zip(logs["cpu"], logs["cuda"], strict=True):
+    for (kind, a), (_, b) in zip(sides["cpu"]["logs"], sides["cuda"]["logs"], strict=True):
         rel = ((a - b).abs().max() / a.abs().max()).item()
         worst = max(worst, rel)
         if not torch.isfinite(b).all() or not rel <= PATH_REL_TOL:
             fail(f"{name}: {kind} logits differ, relative error {rel}")
-    log(f"{name}: {len(logs['cpu'])} logit sets agree, max relative error "
+    n_sets = len(sides["cpu"]["logs"])
+    log(f"{name}: {n_sets} logit sets agree, max relative error "
         f"{worst:.3e} (tol {PATH_REL_TOL}); tokens equal")
-    return {"max_rel_err": worst, "logit_sets": len(logs["cpu"]), "tokens": outs["cuda"],
-            "decode_ticks": eng_gpu.decode_ticks}
+    return {"max_rel_err": worst, "logit_sets": n_sets, "tokens": outs["cuda"],
+            "decode_ticks": sides["cuda"]["decode_ticks"]}
 
 
 def check_path(torch, rec):
@@ -1197,8 +1377,7 @@ def check_path(torch, rec):
     prompts = random_prompts(2, [300, 37], cfg.vocab_size, seed=1)
     rec["path"] = compare_engines(
         torch, "path", cfg, prompts, 9,
-        lambda eng: {"flash_attention": 2 * len(prompts),
-                     "paged_attention": 2 * eng.decode_ticks})
+        lambda ticks: {"flash_attention": 2 * len(prompts), "paged_attention": 2 * ticks})
 
 
 def check_ssm_path(torch, rec):
@@ -1211,20 +1390,20 @@ def check_ssm_path(torch, rec):
     # 300 tokens: a full chunk of 256 carries its state into a ragged one of 44
     prompts = random_prompts(2, [300, 37], cfg.vocab_size, seed=1)
     rec["ssm_path"] = compare_engines(torch, "ssm_path", cfg, prompts, 9,
-                                      lambda eng: {"ssd_scan": 2 * len(prompts)})
+                                      lambda ticks: {"ssd_scan": 2 * len(prompts)})
 
 
-def gemma_cfg(n_layers):
+def gemma_cfg(n_layers, window=None):
     """gemma3-4b at full width, its depth cut to ``n_layers``: 2, one
-    local layer (window 1024) and one global; 6, the first pattern group
-    once (5 local, 1 global); 34, the whole model."""
+    local layer (window 1024, or ``window``) and one global; 6, the first
+    pattern group once (5 local, 1 global); 34, the whole model."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ATTN, LayerSpec, ScheduleGroup
 
     cfg = get_config("gemma3-4b")
     if n_layers == cfg.n_layers:
         return cfg
-    local, glob = LayerSpec(kind=ATTN, window=GEMMA_WINDOW), LayerSpec(kind=ATTN)
+    local, glob = LayerSpec(kind=ATTN, window=window or GEMMA_WINDOW), LayerSpec(kind=ATTN)
     pattern = {2: (local, glob), 6: (local,) * 5 + (glob,)}[n_layers]
     return dataclasses.replace(cfg, schedule=(ScheduleGroup(pattern=pattern, repeats=1),))
 
@@ -1242,9 +1421,82 @@ def check_gemma_path(torch, rec):
     prompts = random_prompts(2, [1500, 37], cfg.vocab_size, seed=1)
     rec["gemma_path"] = compare_engines(
         torch, "gemma_path", cfg, prompts, 9,
-        lambda eng: {"flash_attention": 2 * len(prompts),
-                     "paged_attention": global_attn_layers(cfg) * eng.decode_ticks},
+        lambda ticks: {"flash_attention": 2 * len(prompts),
+                       "paged_attention": global_attn_layers(cfg) * ticks},
         engine_kw=dict(page=16, n_pages=256, max_slots=4, max_pages=128))
+
+
+def gemma2_cfg(n_layers, window=None):
+    """gemma2-27b at full width, its depth cut to ``n_layers`` (2: one
+    local layer and one global), the local layers' window cut to
+    ``window`` (the cuda-against-cpu checks, whose cpu sides would
+    otherwise run 4096-token prompts through 2.3 G parameters); 46, the
+    whole model."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ATTN, LayerSpec, ScheduleGroup
+
+    cfg = get_config("gemma2-27b")
+    if n_layers == cfg.n_layers:
+        return cfg
+    local = LayerSpec(kind=ATTN, window=window or GEMMA2_WINDOW)
+    return dataclasses.replace(cfg, schedule=(
+        ScheduleGroup(pattern=(local, LayerSpec(kind=ATTN)), repeats=n_layers // 2),))
+
+
+GEMMA2_PATH_KW = dict(page=16, n_pages=128, max_slots=4, max_pages=64)
+
+
+def gemma2_path_spec():
+    """(cfg, prompts, new tokens) of gemma2_path: gemma2-27b at full width,
+    2 layers (local with its window cut to 512, global), prompts of 700
+    tokens (past the window: a ragged ring fill under the 1024-token
+    bucket) and 37, 9 new tokens, so the long prompt's decode writes over
+    its ring's oldest positions."""
+    from repro_torch.launch.serve import random_prompts
+
+    cfg = gemma2_cfg(2, window=512)
+    return cfg, random_prompts(2, [700, 37], cfg.vocab_size, seed=1), 9
+
+
+def gemma2_path_cpu_side(torch):
+    """gemma2_path's cpu side (``engine_side`` on the weights drawn from
+    seed 0 on the card and copied to the cpu), for a ``--cpu-ref``
+    process."""
+    from repro_torch.models.model import build_model
+
+    t0 = time.perf_counter()
+    cfg, prompts, max_new = gemma2_path_spec()
+    model = build_model(cfg, seed=0, device="cuda").to("cpu")
+    torch.cuda.empty_cache()
+    side = engine_side(torch, cfg, prompts, max_new, GEMMA2_PATH_KW, model)
+    log(f"gemma2_path cpu: {len(side['logs'])} logit sets, ticks {side['decode_ticks']}, "
+        f"{time.perf_counter() - t0:.1f}s")
+    return side
+
+
+def check_gemma2_path(torch, rec, proc):
+    """gemma2_path (``gemma2_path_spec``), f32, the weights drawn on the
+    card; the cpu side runs in a process of its own from the start (its
+    2.3 G parameters take minutes of the 8 cores).  Every prefill launches
+    the flash kernel in both layers (softcap 50, the query scale
+    144^-0.5), every tick the paged kernel in the global layer only."""
+    cfg, prompts, max_new = gemma2_path_spec()
+    rec["gemma2_path"] = compare_engines(
+        torch, "gemma2_path", cfg, prompts, max_new,
+        lambda ticks: {"flash_attention": 2 * len(prompts),
+                       "paged_attention": global_attn_layers(cfg) * ticks},
+        engine_kw=GEMMA2_PATH_KW, cpu=cpu_side(torch, "gemma2_path", proc))
+
+
+def run_gemma2_serve(torch, rec):
+    """gemma2-27b at full width and depth, bf16 (54.4 GB of weights):
+    8 requests with prompts uniform in 4200-5200 tokens (past the window
+    of 4096, in the 8192-token bucket), 32 new tokens each, 8 slots of up
+    to 328 pages of 16 tokens (2688 pages: 8.1 GB, the 23 windowed
+    layers' rings 6.2 GB); the peak of device memory; device busy of an
+    8192-token prefill and of a tick."""
+    run_serve(torch, rec, arch="gemma2-27b", key="gemma2_serve", lens=(4200, 5200),
+              n_pages=2688, max_pages=328, prefill_S=8192, n_req=8, prefill_n=2)
 
 
 def run_gemma_serve(torch, rec):
@@ -1266,12 +1518,14 @@ def global_attn_layers(cfg):
 
 
 def run_serve(torch, rec, seed=0, arch="starcoder2-3b", key="serve", lens=(65, 1024),
-              n_pages=1024, max_pages=128, prefill_S=1024):
+              n_pages=1024, max_pages=128, prefill_S=1024, n_req=16, prefill_n=3):
     """``arch`` at full width and depth in bf16, random weights from
-    ``seed``: 16 requests, prompts uniform in ``lens`` tokens, 32 new
-    tokens each, all submitted at once; 8 slots, page 16.  Every layer's
-    prefill must launch its kernel (flash, or ssd_scan), and every decode
-    tick the paged kernel once a global attention layer."""
+    ``seed``: ``n_req`` requests, prompts uniform in ``lens`` tokens, 32
+    new tokens each, all submitted at once; 8 slots, page 16.  Every
+    layer's prefill must launch its kernel (flash, or ssd_scan), and
+    every decode tick the paged kernel once a global attention layer.
+    ``prefill_n``: the prefills of ``prefill_S`` tokens the profile
+    reads."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -1279,13 +1533,17 @@ def run_serve(torch, rec, seed=0, arch="starcoder2-3b", key="serve", lens=(65, 1
     from repro_torch.launch.serve import build_engine, random_prompts, serve
 
     cfg = get_config(arch)
-    n_req, max_new = 16, 32
+    max_new = 32
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     eng = build_engine(cfg, device="cuda", dtype="bfloat16", seed=seed, page=16,
                        n_pages=n_pages, max_slots=8, max_pages=max_pages)
     torch.cuda.synchronize()
+    built_gib = torch.cuda.memory_allocated() / 2**30
     log(f"{key}: model + pools built in {time.perf_counter() - t0:.1f}s, "
-        f"pools {eng.kv.pool_bytes() / 2**20:.0f} MiB")
+        f"pools {eng.kv.pool_bytes() / 2**20:.0f} MiB, {built_gib:.1f} GiB on the card "
+        f"(peak {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB)")
     serve(eng, random_prompts(1, [64], cfg.vocab_size, seed + 99), max_new=2)  # warm-up
     lens = np.random.RandomState(seed).randint(lens[0], lens[1] + 1, n_req).tolist()
     prompts = random_prompts(n_req, lens, cfg.vocab_size, seed + 1)
@@ -1315,10 +1573,11 @@ def run_serve(torch, rec, seed=0, arch="starcoder2-3b", key="serve", lens=(65, 1
            "seconds": dt, "tokens_per_s": n_req * max_new / dt,
            "ttft_p50_ms": float(np.median(eng.samples["ttft_ms"])),
            "decode_tick_p50_ms": float(np.median(eng.samples["decode_tick_ms"])),
-           "decode_ticks": ticks, "launches": counts}
+           "decode_ticks": ticks, "launches": counts,
+           "built_gib": built_gib, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
     log(f"{key}: {json.dumps({k: v for k, v in res.items() if k != 'prompt_lens'})}")
     rec[key] = res
-    rec[f"{key}_prefill_profile"] = profile_prefill(torch, eng, cfg, S=prefill_S)
+    rec[f"{key}_prefill_profile"] = profile_prefill(torch, eng, cfg, S=prefill_S, n=prefill_n)
     rec[f"{key}_decode_profile"] = profile_ticks(torch, eng, cfg, res["decode_tick_p50_ms"])
     del eng
     torch.cuda.empty_cache()
@@ -1783,14 +2042,16 @@ def lm_path_spec(key):
     """(cfg, launches_per_step, B, S, n_steps) of the next-token check
     ``key``, both models at full width and 2 layers, f32.
     ssm_train_path: mamba2-130m, B 2 x S 600 (a full chunk and a ragged
-    one), 3 steps.  gemma_train_path: gemma3-4b (local with window 1024,
-    global), B 1 x S 1100 (past the window and ragged against every
-    tile), 2 steps, so that the second step's loss reads AdamW's move of
-    q_norm, k_norm, post1 and post2; the kernel gate holds the windowed
-    backward at B 2 and 4.  Its cpu side is nearly all the tied
-    unembedding at vocab 262144: B 2 x S 1100 over four forward and
-    backward passes took 167 s on the card machine's 8 cores (PERF.md
-    §6)."""
+    one), 3 steps.  gemma_train_path: gemma3-4b (local with its window cut
+    from 1024 to 256, global), B 1 x S 396 (past the window and ragged
+    against every tile), 2 steps, so that the second step's loss reads
+    AdamW's move of q_norm, k_norm, post1 and post2; the kernel gate holds
+    the windowed backward at its window of 1024 at B 2 and 4.  Its cpu
+    side is nearly all the tied unembedding at vocab 262144: B 1 x S 1100
+    took 133 s of the cpu sides' process (PERF.md §6), so S 396 and a window
+    to match.  gemma2_train_path: gemma2-27b (local with its window cut to 128,
+    global; the kernel gate holds the window of 4096 at S 4352), B 1 x S
+    320 (past the window, ragged against every tile), 2 steps."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import MAMBA, LayerSpec, uniform_schedule
 
@@ -1798,15 +2059,19 @@ def lm_path_spec(key):
         cfg = dataclasses.replace(get_config("mamba2-130m"),
                                   schedule=uniform_schedule(2, LayerSpec(kind=MAMBA, has_mlp=False)))
         return cfg, ssm_launches_per_step, 2, 600, 3
-    return gemma_cfg(2), train_launches_per_step, 1, 1100, 2
+    if key == "gemma2_train_path":
+        return gemma2_cfg(2, window=128), train_launches_per_step, 1, 320, 2
+    return gemma_cfg(2, window=256), train_launches_per_step, 1, 396, 2
 
 
 def lm_train_side(torch, key, dev):
     """One side of ``check_lm_train_path`` on ``dev``: ``n_steps`` train
-    steps of the model built from seed 0 on the lm_batches of seed 1; the
-    gradients AdamW gets in the first step, every step's loss and the
-    kernel launches.  On cuda first the gradients of the first batch
-    twice, which must be equal bit for bit."""
+    steps of the model drawn from seed 0 on the card (both sides: the
+    cpu would take about 25 s for gemma2's 2.3 G parameters) on the
+    lm_batches of seed 1; the gradients AdamW gets in the first step,
+    every step's loss and the kernel launches.  On cuda first the
+    gradients of the first batch twice, which must be equal bit for
+    bit."""
     from repro_torch.configs import default_run_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.core.accum import accumulate_grads
@@ -1819,7 +2084,9 @@ def lm_train_side(torch, key, dev):
     cfg, _, B, S, n_steps = lm_path_spec(key)
     run = default_run_config(cfg, ShapeConfig(key, S, B, "train"))
     opt = AdamWConfig(lr=1e-4, warmup_steps=2, total_steps=n_steps)
-    model = build_model(cfg, seed=0, device="cpu").to(dev)
+    model = build_model(cfg, seed=0, device="cuda").to(dev)
+    if dev == "cpu":                        # the draw's memory back to the card
+        torch.cuda.empty_cache()
     state = ts.init_state(model, run, seed=None)
     batches = [{k: v.to(dev) for k, v in b.items()}
                for b in lm_batches(torch, cfg.vocab_size, n_steps, B, S, seed=1)]
@@ -1835,9 +2102,12 @@ def lm_train_side(torch, key, dev):
         del first, again
     grads, real = {}, ts.adamw_update
 
+    # the first step's gradients, kept as they are: AdamW reads them
+    # without writing, and the step drops them from the parameters
+    # (p.grad = None), so no copy is needed (2.3 G floats for gemma2)
     def spy(c, g, opt_state, params):
         if not grads:
-            grads.update((k, v.detach().to("cpu", copy=True)) for k, v in g.items())
+            grads.update((k, v.detach()) for k, v in g.items())
         return real(c, g, opt_state, params)
 
     step = ts.make_train_step(model, run, opt)
@@ -1852,24 +2122,36 @@ def lm_train_side(torch, key, dev):
     return out
 
 
-# The cpu sides of the next-token checks each run in a process of their
-# own (``--cpu-ref KEY``), started with the script at nice 15, so that
-# their minutes of 8-core work overlap the phases before them: the
-# build's and the phases' threads come first, the planted faults' builds
-# (nice 19) after.  gemma_train_path's took 94 s of its phase's 109 in
-# process (PERF.md §6).
-CPU_REF_KEYS = ("ssm_train_path", "gemma_train_path")
+# The cpu sides of gemma2_path and of the next-token checks run in one
+# process of their own (``--cpu-ref KEY,...``), started with the script
+# at nice 15, one after another in this order, so that their minutes of
+# 8-core work overlap the phases before them (the build's and the
+# phases' threads come first, the planted faults' builds, nice 19,
+# after), and so that one at a time holds the host's memory: gemma2's
+# f32 training side alone takes 46 GB of the card machine's 96 GiB.
+# gemma_train_path's took 94 s of its phase's 109 in process (PERF.md §6).
+CPU_REF_KEYS = ("ssm_train_path", "gemma_train_path", "gemma2_path", "gemma2_train_path")
 _children = []                      # processes the script stops if it ends early
 
 
 def stop_children():
+    """Each child's process group (nvcc's cicc and ptxas with it)."""
+    import os
+    import signal
+
+    def signal_group(p, sig):
+        try:
+            os.killpg(p.pid, sig)
+        except (ProcessLookupError, PermissionError):   # not a group of its own
+            p.send_signal(sig)
+
     for p in _children:
         if p.poll() is None:
-            p.terminate()
+            signal_group(p, signal.SIGTERM)
             try:
                 p.wait(10)
             except subprocess.TimeoutExpired:
-                p.kill()
+                signal_group(p, signal.SIGKILL)
 
 
 def cpu_ref_file(key):
@@ -1877,47 +2159,58 @@ def cpu_ref_file(key):
 
 
 def start_cpu_refs(phases):
-    """{key: process} of the cpu sides of the next-token checks in
-    ``phases``."""
+    """The process of the cpu sides of ``phases`` (CPU_REF_KEYS), or None."""
     import os
 
-    procs = {}
-    for key in CPU_REF_KEYS:
-        if key in phases:
-            out = cpu_ref_file(key)
-            out.parent.mkdir(parents=True, exist_ok=True)
-            out.unlink(missing_ok=True)
-            with open(out.with_suffix(".log"), "w") as f:
-                procs[key] = subprocess.Popen(
-                    ["nice", "-n", "15", sys.executable, str(ROOT / "chip_smoke.py"),
-                     "--cpu-ref", key], cwd=ROOT, stdout=f, stderr=subprocess.STDOUT,
-                    env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
-            _children.append(procs[key])
-    return procs
+    keys = [key for key in CPU_REF_KEYS if key in phases]
+    if not keys:
+        return None
+    for key in keys:
+        cpu_ref_file(key).parent.mkdir(parents=True, exist_ok=True)
+        cpu_ref_file(key).unlink(missing_ok=True)
+    with open(cpu_ref_file("cpu_ref").with_suffix(".log"), "w") as f:
+        proc = subprocess.Popen(
+            ["nice", "-n", "15", sys.executable, str(ROOT / "chip_smoke.py"),
+             "--cpu-ref", ",".join(keys)], cwd=ROOT, stdout=f, stderr=subprocess.STDOUT,
+            env={**os.environ, "PYTHONPATH": str(ROOT / "src")}, start_new_session=True)
+    _children.append(proc)
+    return proc
 
 
-def cpu_ref_worker(torch, key):
-    """The body of a ``--cpu-ref KEY`` process."""
-    torch.save(lm_train_side(torch, key, "cpu"), cpu_ref_file(key))
+def cpu_ref_worker(torch, keys):
+    """The body of a ``--cpu-ref KEY,...`` process: each key's side in
+    turn, written whole (a file renamed into place) before the next one
+    starts."""
+    import gc
+
+    for key in keys.split(","):
+        side = gemma2_path_cpu_side(torch) if key == "gemma2_path" else \
+            lm_train_side(torch, key, "cpu")
+        tmp = cpu_ref_file(key).with_suffix(".tmp")
+        torch.save(side, tmp)
+        tmp.rename(cpu_ref_file(key))
+        del side
+        gc.collect()
 
 
-def cpu_side(torch, key, procs):
-    """The cpu side of ``key``, from its process of ``start_cpu_refs``."""
-    p = procs[key]
+def cpu_side(torch, key, proc):
+    """The cpu side of ``key``, from the process of ``start_cpu_refs``,
+    once its file is written (at most 900 s from now)."""
     t0 = time.perf_counter()
-    try:
-        p.wait(timeout=900)
-    except subprocess.TimeoutExpired:
-        fail(f"{key}: the cpu side's process outlasted 900 s")
-    text = cpu_ref_file(key).with_suffix(".log").read_text()
-    if p.returncode != 0:
-        fail(f"{key}: the cpu side's process exited {p.returncode}: {text[-3000:]}")
-    log(f"{key}: waited {time.perf_counter() - t0:.1f}s for the cpu side's process: "
-        f"{text.strip().splitlines()[-1] if text.strip() else ''}")
-    return torch.load(cpu_ref_file(key))
+    out = cpu_ref_file(key)
+    while not out.exists():
+        if proc.poll() is not None and not out.exists():
+            text = cpu_ref_file("cpu_ref").with_suffix(".log").read_text()
+            fail(f"{key}: the cpu sides' process exited {proc.returncode} without it: "
+                 f"{text[-3000:]}")
+        if time.perf_counter() - t0 > 900:
+            fail(f"{key}: the cpu side took more than 900 s more")
+        time.sleep(0.2)
+    log(f"{key}: waited {time.perf_counter() - t0:.1f}s for the cpu side")
+    return torch.load(out, mmap=True)
 
 
-def check_lm_train_path(torch, rec, key, procs):
+def check_lm_train_path(torch, rec, key, proc):
     """A next-token model of ``lm_path_spec(key)`` on cuda and on cpu from
     the same parameters and batches (``lm_train_side``): the first step's
     loss and every gradient leaf, and every step's loss, within
@@ -1926,7 +2219,7 @@ def check_lm_train_path(torch, rec, key, procs):
     forward and backward."""
     cfg, launches_per_step, B, S, n_steps = lm_path_spec(key)
     cuda = lm_train_side(torch, key, "cuda")
-    cpu = cpu_side(torch, key, procs)
+    cpu = cpu_side(torch, key, proc)
     want = {k: v * (2 + n_steps) for k, v in launches_per_step(cfg, B, S).items()}
     if cpu["launches"] or cuda["launches"] != want:
         fail(f"{key}: cuda launches {cuda['launches']} (expected {want}), "
@@ -1934,8 +2227,11 @@ def check_lm_train_path(torch, rec, key, procs):
     rel = lambda a, b: abs(a - b) / abs(b)
     errs = {"loss": rel(cuda["loss"], cpu["loss"]),
             "steps": max(rel(a, b) for a, b in zip(cuda["losses"], cpu["losses"]))}
-    gc, gp = cuda["grads"], cpu["grads"]
-    leaf = {k: ((gc[k] - gp[k]).abs().max() / gp[k].abs().max()).item() for k in gp}
+    gc, gp = cuda["grads"], cpu["grads"]      # compared on the card, a leaf at a time
+    leaf = {}
+    for k in gp:
+        want = gp[k].to(gc[k].device)
+        leaf[k] = ((gc[k] - want).abs().max() / want.abs().max()).item()
     errs["grad_leaf"] = max(leaf.values())
     worst = max(leaf, key=leaf.get)
     log(f"{key}: relative errors {errs} (tol {PATH_REL_TOL}); worst leaf {worst}")
@@ -2085,7 +2381,7 @@ def run_ssm_train(torch, rec, B=16, S=1024, n_functions=400, steps=10):
     rec["ssm_train"] = res
 
 
-def run_gemma_train(torch, rec, B=4, S=2048, n_functions=400, steps=10):
+def run_gemma_train(torch, rec, B=4, S=2048, n_functions=400, steps=6):
     """gemma3-4b at full width, depth cut to 6 (its first pattern group:
     5 local layers with window 1024, then a global one; at full depth the
     f32 parameters, gradients and AdamW state alone take about 62 GB), B x
@@ -2094,6 +2390,33 @@ def run_gemma_train(torch, rec, B=4, S=2048, n_functions=400, steps=10):
     activations, (b) ``steps`` with bf16 ones at microbatch 2 (gradients
     summed in f32).  The loss falls in each; launches per step exact; step
     p50, tokens/s, MFU (6ND) and where the device time goes."""
+    cfg = dataclasses.replace(gemma_cfg(6), max_position=max(S, 2048))
+    run_lm_train(torch, rec, "gemma_train", cfg, S, n_functions, steps,
+                 (("a", "float32", B, 1), ("b", "bfloat16", B, 2)))
+
+
+def run_gemma2_train(torch, rec, S=8192, n_functions=400, steps=6):
+    """gemma2-27b at full width, depth cut to 2 (a local layer with its
+    window of 4096 and a global one; the whole model's f32 parameters,
+    gradients and AdamW state would take about 435 GB), S 8192 from the
+    DataPipeline: (a) ``steps`` steps of trainer.train in f32 at B 1 (37
+    GB of parameters, gradients and moments), each the next row of the
+    pipeline's B-2 batches, (b) ``steps`` in bf16 at B 2 and microbatch 2;
+    as gemma_train: the softcap backward at S 8192 past the window, the
+    loss at vocab 256000 through the final softcap."""
+    run_lm_train(torch, rec, "gemma2_train", gemma2_cfg(2), S, n_functions, steps,
+                 (("a", "float32", 1, 1), ("b", "bfloat16", 2, 2)), n_prof=1)
+
+
+def run_lm_train(torch, rec, key, cfg, S, n_functions, steps, runs, n_prof=2):
+    """``cfg`` trained by trainer.train on the DataPipeline's next-token
+    batches of S tokens (the launcher's rolled labels), one run per
+    (tag, dtype, B, microbatch) of ``runs``, ``steps`` steps each at lr
+    1e-3: the pipeline's batches hold the largest B, and a run of fewer
+    rows takes them in order, B rows a step.  The loss falls in each run,
+    launches per step exact; step p50, tokens/s, MFU (6ND), the peak of
+    device memory and (over ``n_prof`` profiled steps) where the device
+    time goes."""
     from repro_torch.configs.base import RunConfig, ShapeConfig
     from repro_torch.core.scaling import model_flops
     from repro_torch.data import DataPipeline
@@ -2104,62 +2427,68 @@ def run_gemma_train(torch, rec, B=4, S=2048, n_functions=400, steps=10):
     from repro_torch.train.runner import DEFAULT_PEAK_FLOPS, StepRunner
     from repro_torch.train.trainer import train
 
-    cfg = dataclasses.replace(gemma_cfg(6), max_position=max(S, 2048))
-    data = ROOT / "build" / "gemma_train" / "data"
+    B_max = max(r[2] for r in runs)
+    data = ROOT / "build" / key / "data"
     t0 = time.perf_counter()
-    pipe = DataPipeline.build(str(data), n_functions=n_functions, seq_len=S, batch_size=B,
+    pipe = DataPipeline.build(str(data), n_functions=n_functions, seq_len=S, batch_size=B_max,
                               vocab_size=cfg.vocab_size, work_fn=cli.make_work_fn(cfg))
     try:
         host = [pipe.peek_batch(k) for k in range(steps)]
     finally:
         pipe.close()
     if not all(torch.equal(b["labels"], torch.roll(b["tokens"], -1, 1)) for b in host):
-        fail("gemma_train: the pipeline's labels are not the tokens rolled by one")
-    tokens = B * S
-    res = {"batch": B, "seq": S, "layers": cfg.n_layers, "steps": steps,
-           "data_s": time.perf_counter() - t0,
-           "model_flops_per_step": model_flops(cfg, tokens)}
-    for tag, dtype, micro, lr in (("a", "float32", 1, 1e-3), ("b", "bfloat16", 2, 1e-3)):
-        run = RunConfig(model=cfg, shape=ShapeConfig(f"gemma_train_{tag}", S, B, "train"),
+        fail(f"{key}: the pipeline's labels are not the tokens rolled by one")
+    res = {"seq": S, "layers": cfg.n_layers, "steps": steps,
+           "data_s": time.perf_counter() - t0}
+    for tag, dtype, B, micro in runs:
+        batches = [{k: v[i:i + B] for k, v in b.items()}
+                   for b in host for i in range(0, B_max, B)][:steps]
+        tokens = B * S
+        run = RunConfig(model=cfg, shape=ShapeConfig(f"{key}_{tag}", S, B, "train"),
                         sharding="ddp", param_dtype=dtype, activation_dtype=dtype,
                         microbatch=micro if micro > 1 else 0)
-        opt = AdamWConfig(lr=lr, warmup_steps=5, total_steps=steps)
+        opt = AdamWConfig(lr=1e-3, warmup_steps=max(1, steps // 2), total_steps=steps)
         want = train_launches_per_step(cfg, B, S, micro)
-        model = build_model(cfg, seed=0, device="cuda")
+        torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
+        model = build_model(cfg, seed=0, device="cuda")
         ops.reset_launch_counts()
         t0 = time.perf_counter()
-        state, tlog = train(model, run, opt, iter(host), steps=steps, log_every=1, seed=0)
+        state, tlog = train(model, run, opt, iter(batches), steps=steps, log_every=1, seed=0)
         torch.cuda.synchronize()
         counts = dict(ops.launch_counts)
         per_step = {k: counts.get(k, 0) / steps for k in want}
         losses = [m["loss"] for m in tlog.metrics]
         p50 = tlog.telemetry["step_time_p50"]
-        r = {"dtype": dtype, "microbatch": micro, "wall_s": time.perf_counter() - t0,
+        r = {"dtype": dtype, "batch": B, "microbatch": micro,
+             "wall_s": time.perf_counter() - t0,
              "launches": counts, "launches_per_step": per_step, "launches_per_step_want": want,
              "losses": losses, "step_time_p50_ms": p50 * 1e3, "tokens_per_s": tokens / p50,
+             "model_flops_per_step": model_flops(cfg, tokens),
              "mfu": model_flops(cfg, tokens) / (p50 * DEFAULT_PEAK_FLOPS),
              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
              "telemetry": tlog.telemetry}
-        log(f"gemma_train {tag}: launches {counts} over {steps} steps, per step {per_step}, "
-            f"p50 {p50 * 1e3:.1f} ms, losses {losses[0]:.4f} -> {losses[-1]:.4f}")
+        log(f"{key} {tag}: launches {counts} over {steps} steps, per step {per_step}, "
+            f"p50 {p50 * 1e3:.1f} ms, losses {losses[0]:.4f} -> {losses[-1]:.4f}, "
+            f"peak {r['peak_mem_gib']:.1f} GiB")
         if per_step != {k: float(v) for k, v in want.items()}:
-            fail(f"gemma_train {tag}: kernel launches per step {per_step}, expected {want}")
+            fail(f"{key} {tag}: kernel launches per step {per_step}, expected {want}")
         if len(losses) != steps or not all(math.isfinite(x) for x in losses) \
                 or not losses[-1] < losses[0]:
-            fail(f"gemma_train {tag}: losses {losses}")
+            fail(f"{key} {tag}: losses {losses}")
         runner = StepRunner(model, run, opt)
         r["profile"] = profile_steps(torch, runner, state,
-                                     [runner.place_batch(b) for b in host[:2]], p50)
+                                     [runner.place_batch(b) for b in batches[:n_prof]], p50)
         res[tag] = r
         del state, runner, model, tlog
         torch.cuda.empty_cache()
     a = res["a"]
-    res.update(launches=a["launches"], first_loss=a["losses"][0], last_loss=a["losses"][-1],
-               step_time_p50_ms=a["step_time_p50_ms"], tokens_per_s=a["tokens_per_s"],
-               mfu=a["mfu"])
-    log("gemma_train: " + json.dumps({k: v for k, v in res.items() if k not in ("a", "b")}))
-    rec["gemma_train"] = res
+    res.update(batch=a["batch"], launches=a["launches"], first_loss=a["losses"][0],
+               last_loss=a["losses"][-1], step_time_p50_ms=a["step_time_p50_ms"],
+               tokens_per_s=a["tokens_per_s"], mfu=a["mfu"],
+               model_flops_per_step=a["model_flops_per_step"])
+    log(f"{key}: " + json.dumps({k: v for k, v in res.items() if k not in ("a", "b")}))
+    rec[key] = res
 
 
 # ---------------------------------------------------------------------------
@@ -2512,8 +2841,8 @@ def torchrun_train(args, tag, timeout=900):
            "-m", "repro_torch.launch.train", *args]
     t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                            text=True,
-                            env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+                            text=True, env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+                            start_new_session=True)
     _children.append(proc)
     try:
         stdout, stderr = proc.communicate(timeout=timeout)
@@ -3030,7 +3359,136 @@ def time_kernels(torch, rec, strict=True):
     rec["time"] = {"flash": flash, "paged": paged, "ssd": time_ssd(torch, checked, gen),
                    "ssd_bwd": time_ssd_bwd(torch, checked, gen),
                    **time_train_kernels(torch, checked, gen),
-                   "gemma": time_gemma_kernels(torch, checked, gen)}
+                   "gemma": time_gemma_kernels(torch, checked, gen),
+                   "gemma2": time_gemma2_kernels(torch, checked, gen)}
+
+
+def plain_ms_by_groups(torch, q, k, v, opts, do=None):
+    """ms of the plain version on q, k, v a group of kv heads at a time
+    (``head_groups``; gemma2's 32 heads at S 8192 whole would hold 2.1
+    billion f32 scores a tensor), summed over the groups, the better of
+    two passes: with ``do`` its autograd backward alone (each group's
+    forward untimed), else its forward; CUDA events around each group."""
+    from repro_torch.kernels import ref
+
+    B, S, H, _ = q.shape
+    Hkv = k.shape[2]
+    rep_ = H // Hkv
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    best = None
+    for _ in range(2):
+        total = 0.0
+        for g0, g1 in head_groups(B, S, Hkv, rep_):
+            xs = [x.detach().requires_grad_(do is not None)
+                  for x in (q[:, :, g0 * rep_:g1 * rep_], k[:, :, g0:g1], v[:, :, g0:g1])]
+            if do is None:
+                a.record()
+                ref.flash_attention_ref(*xs, **opts)
+                b.record()
+            else:
+                with torch.enable_grad():
+                    o = ref.flash_attention_ref(*xs, **opts)
+                a.record()
+                torch.autograd.grad(o, xs, do[:, :, g0 * rep_:g1 * rep_])
+                b.record()
+                del o
+            b.synchronize()
+            total += a.elapsed_time(b)
+        best = total if best is None else min(best, total)
+    return best
+
+
+def time_gemma2_kernels(torch, checked, gen, iters=3, reps=2):
+    """gemma2-27b's attention kernels (32 q / 16 kv heads of 128, causal,
+    the query scale 144^-0.5): the flash backward with the softcap 50 at
+    the gemma2_train shape B 1 x S 8192, bf16 and f32, with the local
+    layers' window of 4096 and without, each beside the same body without
+    the cap on the same inputs; the flash forward at an 8192-token prefill
+    (bf16, window and none); the paged decode of its global layers, 8 slots
+    of about 5000 tokens.  No PyTorch call takes a softcap (SDPA has
+    none): no library time.  The plain times go a group of kv heads at a
+    time (``plain_ms_by_groups``)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_fwd
+    from repro_torch.kernels.paged_attention import paged_attention_fwd
+
+    none = "none (SDPA takes no softcap)"
+    mk = lambda shape, dtype: torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+    out = {"flash_bwd": {}, "flash_fwd": {}}
+    B, S, H, Hkv, D, _ = GEMMA2_TRAIN_ATTN
+    for dname in ("bfloat16", "float32"):
+        dtype = getattr(torch, dname)
+        q, do = (mk((B, S, H, D), dtype) for _ in range(2))
+        k, v = (mk((B, S, Hkv, D), dtype) for _ in range(2))
+        rows = out["flash_bwd"].setdefault(dname, {})
+        for window in (GEMMA2_WINDOW, None):
+            for cap in (GEMMA2_SOFTCAP, 0.0):
+                what = f"gemma2 train {dname} window={window} softcap={cap}"
+                opts = dict(causal=True, window=window, softcap=cap, scale=GEMMA2_SCALE)
+                ratio = checked(f"flash_bwd {what}", flash_bwd_reading(
+                    torch, q, k, v, do, True, window, cap, GEMMA2_SCALE))
+                o, lse = flash_attention_fwd(q, k, v, return_lse=True, **opts)
+                run = lambda: flash_attention_bwd(q, k, v, o, lse, do, **opts)
+                ms, call_ms = time_ms(torch, run, iters, reps)
+                bound = flash_bwd_bound(q, k, True, window=window)
+                row = {"shape": list(q.shape) + [Hkv], "dtype": dname, "window": window,
+                       "softcap": cap, "ms": ms, "call_ms": call_ms, "bound_ms": bound[0],
+                       "bound_by": bound[1], "err_over_limit": ratio}
+                if dtype == torch.float32:
+                    row["bound_simt_ms"] = flash_bwd_bound(q, k, True, PEAK_F32_FLOPS, window)[0]
+                if cap:
+                    row.update(plain_ms=plain_ms_by_groups(torch, q, k, v, opts, do),
+                               library_ms=None, library=none,
+                               plain="autograd backward, a kv head at a time (CUDA events)",
+                               by_kernel=device_ms_by_kernel(torch, run, n=3))
+                del o, lse
+                rows[("window" if window else "global") + ("" if cap else "_nocap")] = row
+                log(f"time flash_bwd {what}: {row}")
+        del q, k, v, do
+    q = mk((B, S, H, D), torch.bfloat16)
+    k, v = (mk((B, S, Hkv, D), torch.bfloat16) for _ in range(2))
+    for window in (GEMMA2_WINDOW, None):
+        what = f"gemma2 prefill window={window}"
+        opts = dict(causal=True, window=window, softcap=GEMMA2_SOFTCAP, scale=GEMMA2_SCALE)
+        ratio = checked(f"flash {what}", flash_reading(torch, q, k, v, **opts))
+        ms, call_ms = time_ms(torch, lambda: flash_attention_fwd(q, k, v, **opts), iters, reps)
+        bound = flash_bound(q, k, True, lse=False, window=window)
+        row = {"shape": list(q.shape) + [Hkv], "dtype": "bfloat16", "window": window,
+               "softcap": GEMMA2_SOFTCAP, "ms": ms, "call_ms": call_ms,
+               "plain_ms": plain_ms_by_groups(torch, q, k, v, opts), "library_ms": None,
+               "library": none, "bound_ms": bound[0], "bound_by": bound[1],
+               "err_over_limit": ratio}
+        out["flash_fwd"]["window" if window else "global"] = row
+        log(f"time flash {what}: {row}")
+    del q, k, v
+    # paged: the 23 global layers' decode tick, 8 slots x ~5000 live
+    # tokens; two disjoint table sets alternate, 165 MB of K/V each
+    B, H, Hkv, D, P, maxp, R = 8, 32, 16, 128, 16, 336, 2
+    NP = 1 + R * B * maxp
+    kp, vp = (mk((NP, P, Hkv, D), torch.bfloat16) for _ in range(2))
+    q = mk((B, H, D), torch.bfloat16)
+    pos = torch.tensor([5000 - 9 * b for b in range(B)], dtype=torch.int32, device="cuda")
+    ids = torch.randperm(NP - 1, generator=torch.Generator().manual_seed(5)) + 1
+    tables = [ids[r * B * maxp:(r + 1) * B * maxp].reshape(B, maxp).int().cuda()
+              for r in range(R)]
+    live = int((pos + 1).sum())
+    nbytes = live * 2 * Hkv * D * 2 + 2 * q.numel() * 2 + B * (maxp + 1) * 4
+    b = _bound(4 * H * D * live, nbytes, PEAK_BF16_FLOPS)
+    opts = dict(softcap=GEMMA2_SOFTCAP, scale=GEMMA2_SCALE)
+    ratio = max(checked(f"paged gemma2 table set {r}",
+                        paged_reading(torch, q, kp, vp, tables[r], pos, **opts))
+                for r in range(R))
+    it = iter(range(10**9))
+    run = lambda: paged_attention_fwd(q, kp, vp, tables[next(it) % R], pos, **opts)
+    ms, call_ms = time_ms(torch, run)
+    plain_ms, _ = time_ms(torch, lambda: ref.paged_attention_ref(
+        q, kp, vp, tables[next(it) % R], pos, **opts))
+    out["paged"] = {"shape": [B, H, Hkv, D, P], "live_tokens": live, "softcap": GEMMA2_SOFTCAP,
+                    "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms, "library_ms": None,
+                    "bound_ms": b[0], "bound_by": b[1], "err_over_limit": ratio,
+                    "by_kernel": device_ms_by_kernel(torch, run)}
+    log(f"time paged gemma2: {out['paged']}")
+    return out
 
 
 def time_gemma_kernels(torch, checked, gen, iters=5, reps=3):
@@ -3369,10 +3827,11 @@ def kernel_records(rec):
     t = rec.get("time", {})
     paths = {key: rec.get(key, {}).get("launches", {})
              for key in ("serve", "ssm_serve", "train", "train_cli", "ssm_train", "ddp",
-                         "gemma_serve", "gemma_train")}
+                         "gemma_serve", "gemma_train", "gemma2_serve", "gemma2_train")}
     paths["ssm_train_bf16"] = rec.get("ssm_train", {}).get("c", {}).get("launches", {})
     paths["gemma_train_bf16"] = rec.get("gemma_train", {}).get("b", {}).get("launches", {})
-    gm = t.get("gemma", {})
+    paths["gemma2_train_bf16"] = rec.get("gemma2_train", {}).get("b", {}).get("launches", {})
+    gm, gm2 = t.get("gemma", {}), t.get("gemma2", {})
     gtrain = gm.get("flash_train", {})      # {dtype: {"window" | "global": {fwd, bwd}}}
     flash_top = next((x for x in t.get("flash", []) if x["S"] == 1024), {})
     ft, xe = t.get("flash_train", {}), t.get("xent", {})
@@ -3383,10 +3842,12 @@ def kernel_records(rec):
                                  "train_shape_f32": ft32.get("fwd"),
                                  "gemma_serve_shape": gm.get("flash_serve"),
                                  "gemma_train_shape": {d: {k: r.get("fwd") for k, r in v.items()}
-                                                       for d, v in gtrain.items()}},
+                                                       for d, v in gtrain.items()},
+                                 "gemma2_prefill_shape": gm2.get("flash_fwd")},
              "paged_attention": {**{k: t.get("paged", {}).get(k)
                                     for k in ("call_ms", "host_call_ms", "by_kernel")},
-                                 "gemma_shape": gm.get("paged")},
+                                 "gemma_shape": gm.get("paged"),
+                                 "gemma2_shape": gm2.get("paged")},
              "flash_attention_bwd": {"call_ms": bwd.get("call_ms"),
                                      "host_call_ms": bwd.get("host_call_ms"),
                                      "library_eager_ms": bwd.get("library_eager_ms"),
@@ -3397,7 +3858,8 @@ def kernel_records(rec):
                                      "train_shape_f32": ft32.get("bwd"),
                                      "gemma_train_shape": {d: {k: r.get("bwd")
                                                                for k, r in v.items()}
-                                                           for d, v in gtrain.items()}},
+                                                           for d, v in gtrain.items()},
+                                     "gemma2_train_shape_softcap": gm2.get("flash_bwd")},
              "fused_xent": {"bf16": xe.get("bfloat16", {}).get("fwd")},
              "fused_xent_bwd": {"bf16": xe.get("bfloat16", {}).get("bwd")},
              "ssd_scan": {"f32": ssd.get("float32"), "zamba2_bf16": ssd.get("zamba2_bf16"),
@@ -3487,6 +3949,21 @@ def summary(rec):
             "gemma_prefill_2048_device_busy_ms":
                 rec.get("gemma_serve_prefill_profile", {}).get("device_busy_ms"),
             "gemma_train_path_rel_err": rec.get("gemma_train_path", {}).get("rel_err"),
+            "gemma2_path_max_rel_err": rec.get("gemma2_path", {}).get("max_rel_err"),
+            "gemma2_serve": {k: rec.get("gemma2_serve", {}).get(k)
+                             for k in keys + ("peak_mem_gib",)},
+            "gemma2_tick_device_busy_ms":
+                rec.get("gemma2_serve_decode_profile", {}).get("device_busy_ms"),
+            "gemma2_prefill_8192_device_busy_ms":
+                rec.get("gemma2_serve_prefill_profile", {}).get("device_busy_ms"),
+            "gemma2_train_path_rel_err": rec.get("gemma2_train_path", {}).get("rel_err"),
+            "gemma2_train": {tag: {k: rec.get("gemma2_train", {}).get(tag, {}).get(k) for k in (
+                "step_time_p50_ms", "tokens_per_s", "mfu", "peak_mem_gib")} | {
+                "device_busy_ms": rec.get("gemma2_train", {}).get(tag, {}).get(
+                    "profile", {}).get("device_busy_ms")} for tag in ("a", "b")},
+            "gemma2_softcap_bwd_ms": {d: {k: r.get("ms") for k, r in rows.items()}
+                                      for d, rows in rec.get("time", {}).get("gemma2", {}).get(
+                                          "flash_bwd", {}).items()},
             "gemma_train": {tag: {k: rec.get("gemma_train", {}).get(tag, {}).get(k) for k in (
                 "step_time_p50_ms", "tokens_per_s", "mfu")} | {
                 "device_busy_ms": rec.get("gemma_train", {}).get(tag, {}).get(
@@ -3589,6 +4066,11 @@ def main():
              "gemma_train_path": lambda torch, rec: check_lm_train_path(
                  torch, rec, "gemma_train_path", cpu_refs),
              "gemma_train": run_gemma_train,
+             "gemma2_path": lambda torch, rec: check_gemma2_path(torch, rec, cpu_refs),
+             "gemma2_serve": run_gemma2_serve,
+             "gemma2_train_path": lambda torch, rec: check_lm_train_path(
+                 torch, rec, "gemma2_train_path", cpu_refs),
+             "gemma2_train": run_gemma2_train,
              "ddp_path": check_ddp_path,
              "ddp": run_ddp, "time": time_kernels}
     for ph in PHASES[1:]:
@@ -3600,6 +4082,8 @@ def main():
                 steps[ph](torch, rec)
             rec.setdefault("phase_s", {})[ph] = time.perf_counter() - t0
             log(f"phase {ph}: {rec['phase_s'][ph]:.1f}s")
+            if fault_builds:
+                pump_fault_builds(fault_builds)
     rec["seconds"] = time.perf_counter() - t_all
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(rec, indent=1))

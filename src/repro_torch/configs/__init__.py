@@ -10,6 +10,7 @@ from repro_torch.configs.base import (ModelConfig, RunConfig,  # noqa: F401
 
 ARCHS = {
     "bert-mlm-120m": "bert_mlm_120m",
+    "gemma2-27b": "gemma2_27b",
     "gemma3-4b": "gemma3_4b",
     "mamba2-130m": "mamba2_130m",
     "starcoder2-3b": "starcoder2_3b",

@@ -9,10 +9,16 @@
 //   dP = dO v^T,   Delta = rowsum(dO * O),   dS = P * (dP - Delta)
 //   dV = P^T dO,   dK = scale * dS^T q,      dQ = scale * dS k,
 // so no (S, S) score or probability matrix ever reaches device memory.
+// With a logit softcap c the scores are c tanh(scale q k^T / c), and with
+// t = tanh(scale q k^T / c) (the forward's lse is that of the capped
+// scores)
+//   P  = exp(c t - lse),   dS = P * (dP - Delta) * (1 - t^2),
+// the rest as above: dS carries the cap's derivative, dV does not.
 // Causal or not, with a sliding window or not (key j is seen by row i
 // when i - W < j, and j <= i if causal), any GQA ratio (kv head = h /
 // rep: dK and dV sum over the rep query heads of their kv head), D in
-// {64, 128, 256}, ragged S.  The logit softcap is refused by the wrapper.
+// {64, 128, 256}, ragged S.  The softcap is built at D 128 and causal
+// (gemma2's attention), in both dtypes; the wrapper refuses the others.
 //
 // No atomics: dQ has its own pass over the q tiles (it recomputes S and
 // dP, seven products instead of FlashAttention-2's five with a float
@@ -69,6 +75,14 @@
 // window: dq visits only the key tiles that meet (q - W, q], dkdv only
 // the q tiles that meet [k, k + W); tiles across the window's edge take
 // the masked variant.
+// The softcap is a compile-time choice of both passes (CAP), as in the
+// forward, so that no branch on it lies near a wgmma.  Each pass computes
+// t with the accurate tanhf while dP runs (tanh.approx's ~2^-11 times a
+// cap of 50 would miss the f32 bar), and 1 - t^2 as one fma (rounded once;
+// where |t| is near 1 its absolute error stays an ulp or two of t).  dq
+// keeps P (1 - t^2) in the score registers, since it needs P for nothing
+// else; dkdv keeps t there and forms P = exp2(c log2(e) t - lse log2(e))
+// and dS^T once dP^T is in, so neither pass holds a register array more.
 //
 // f32 body (`dq_f32_wgmma_kernel`, `dkdv_f32_wgmma_kernel`: the exactness
 // path, the train CLI's dtype): the same two passes (`dq_body`,
@@ -160,6 +174,7 @@ struct Params {
   int causal;
   float scale;
   int window;  // <= 0: no window
+  float softcap;  // > 0: the logit softcap (CAP bodies only)
 };
 
 constexpr int BOX = 64;                    // columns of a box: 128 bytes of bf16, the swizzle span
@@ -586,7 +601,8 @@ __device__ __forceinline__ void hybrid_products(float (&s)[N / 2], float (&d)[N 
 // Pass 1: dQ, and each row's Delta and lse * log2(e) for pass 2.  The maps
 // read the operands' pieces (B' = NP B, piece p of batch b at p B + b); O
 // (read for Delta) and dQ (written) are maps of bf16 tensors (NP = 1).
-template <int D, int NP, bool CAUSAL>
+// CAP: the scores are softcapped (see the header).
+template <int D, int NP, bool CAUSAL, bool CAP>
 __device__ __forceinline__ void dq_body(const CUtensorMap& tq, const CUtensorMap& tdo,
                                         const CUtensorMap& to, const CUtensorMap& tk,
                                         const CUtensorMap& tv, const CUtensorMap& tdq,
@@ -596,6 +612,7 @@ __device__ __forceinline__ void dq_body(const CUtensorMap& tq, const CUtensorMap
   constexpr int ROWS = WG * TILE, NPAIR = hopper::n_pairs(NP);
   constexpr bool RES = Shape<D, NP>::RES;
   static_assert(!RES || (NP == 3 && WG == 1), "a resident f32 tile: f32 inputs, one warpgroup");
+  static_assert(!(CAP && RES), "no softcap in the resident-tile bodies");
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = align_1024(smem_raw);
   uint64_t* qo_full = reinterpret_cast<uint64_t*>(sm + L::BAR);
@@ -674,6 +691,8 @@ __device__ __forceinline__ void dq_body(const CUtensorMap& tq, const CUtensorMap
   const uint32_t k_s = hopper::smem_addr(sm + L::K);
   const uint32_t v_s = hopper::smem_addr(sm + L::V);
   const float scale2 = p.scale * LOG2E;
+  // CAP: t = tanh(s scale / c), the capped score in base 2 t c log2(e)
+  const float pre = CAP ? p.scale / p.softcap : 0.f, post = CAP ? p.softcap * LOG2E : 0.f;
 
   // Delta and lse * log2(e) of this thread's rows (past S: 0 and +inf, so
   // that P = 0), and both for pass 2, by the first thread of each row
@@ -774,7 +793,12 @@ __device__ __forceinline__ void dq_body(const CUtensorMap& tq, const CUtensorMap
 #pragma unroll
       for (int x = 0; x < BK / 2; ++x) {
         const int r = (x >> 1) & 1;
-        s[x] = hopper::exp2_approx(fmaf(s[x], scale2, -lse2[r]));
+        if constexpr (CAP) {
+          const float th = tanhf(s[x] * pre);  // t
+          s[x] = hopper::exp2_approx(fmaf(th, post, -lse2[r])) * fmaf(-th, th, 1.f);  // dq: P (1 - t^2)
+        } else {
+          s[x] = hopper::exp2_approx(fmaf(s[x], scale2, -lse2[r]));
+        }
         if constexpr (decltype(masked)::value) {
           const int key = k0 + (x / 4) * 8 + 2 * t + (x & 1), row = r0 + rl0 + 8 * r;
           const bool behind = p.window > 0 && key <= row - p.window;  // dq: outside the window
@@ -837,8 +861,9 @@ __device__ __forceinline__ void dq_body(const CUtensorMap& tq, const CUtensorMap
 // maps read the operands' pieces; dK and dV are written through maps of
 // bf16 tensors (NP = 1).  MASKED: the body holds the masked variant of a
 // tile (a causal diagonal, a window's edge); without either it holds the
-// unmasked one alone, as the encoder's kernel did before windows.
-template <int D, int NP, bool CAUSAL, bool MASKED>
+// unmasked one alone, as the encoder's kernel did before windows.  CAP:
+// the scores are softcapped (see the header).
+template <int D, int NP, bool CAUSAL, bool MASKED, bool CAP>
 __device__ __forceinline__ void dkdv_body(const CUtensorMap& tq, const CUtensorMap& tdo,
                                           const CUtensorMap& tk, const CUtensorMap& tv,
                                           const CUtensorMap& tdk, const CUtensorMap& tdv,
@@ -937,6 +962,7 @@ __device__ __forceinline__ void dkdv_body(const CUtensorMap& tq, const CUtensorM
   const uint32_t do_s = hopper::smem_addr(sm + L::DO);
   const uint32_t col = part * (DH / BOX) * QB;  // this block's columns of a q or dO tile
   const float scale2 = p.scale * LOG2E;
+  const float pre = CAP ? p.scale / p.softcap : 0.f, post = CAP ? p.softcap * LOG2E : 0.f;
 
   // P^T and dS^T as A operands: bf16 inputs keep both (one commit for dV
   // and dK); on pieces `pa` holds P^T's and then dS^T's
@@ -1000,16 +1026,21 @@ __device__ __forceinline__ void dkdv_body(const CUtensorMap& tq, const CUtensorM
       hopper::wgmma_wait<1>();
       hopper::fence_regs(s);
       // s[4 j + e]: key key0 + 8 (e >> 1), q row q0 + 8 j + 2 t + (e & 1)
+      auto hidden = [&](int j, int e) {
+        const int key = key0 + 8 * (e >> 1), row = q0 + 8 * j + 2 * t + (e & 1);
+        return (CAUSAL && key > row) || (p.window > 0 && key <= row - p.window);
+      };
 #pragma unroll
       for (int j = 0; j < QT / 8; ++j) {
-        const float2 l = *reinterpret_cast<const float2*>(lse2 + 8 * j + 2 * t);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int x = 4 * j + e;
-          s[x] = hopper::exp2_approx(fmaf(s[x], scale2, -(e & 1 ? l.y : l.x)));
-          if constexpr (decltype(masked)::value) {
-            const int key = key0 + 8 * (e >> 1), row = q0 + 8 * j + 2 * t + (e & 1);
-            s[x] = (CAUSAL && key > row) || (p.window > 0 && key <= row - p.window) ? 0.f : s[x];
+          if constexpr (CAP) {  // t while dP^T runs; P^T with dS^T below
+            s[x] = tanhf(s[x] * pre);
+          } else {
+            const float2 l = *reinterpret_cast<const float2*>(lse2 + 8 * j + 2 * t);
+            s[x] = hopper::exp2_approx(fmaf(s[x], scale2, -(e & 1 ? l.y : l.x)));
+            if constexpr (decltype(masked)::value) s[x] = hidden(j, e) ? 0.f : s[x];
           }
         }
       }
@@ -1018,8 +1049,19 @@ __device__ __forceinline__ void dkdv_body(const CUtensorMap& tq, const CUtensorM
         for (int j = 0; j < QT / 8; ++j) {
           const float2 d = *reinterpret_cast<const float2*>(dl + 8 * j + 2 * t);
 #pragma unroll
-          for (int e = 0; e < 4; ++e)
-            dp[4 * j + e] = s[4 * j + e] * (dp[4 * j + e] - (e & 1 ? d.y : d.x));  // dS^T
+          for (int e = 0; e < 4; ++e) {
+            const int x = 4 * j + e;
+            if constexpr (CAP) {  // s holds t: P^T, and dS^T = P^T (dP^T - Delta) (1 - t^2)
+              const float2 l = *reinterpret_cast<const float2*>(lse2 + 8 * j + 2 * t);
+              const float th = s[x];
+              float pt = hopper::exp2_approx(fmaf(th, post, -(e & 1 ? l.y : l.x)));
+              if constexpr (decltype(masked)::value) pt = hidden(j, e) ? 0.f : pt;
+              dp[x] = pt * (dp[x] - (e & 1 ? d.y : d.x)) * fmaf(-th, th, 1.f);  // dkdv: dS^T
+              s[x] = pt;
+            } else {
+              dp[x] = s[x] * (dp[x] - (e & 1 ? d.y : d.x));  // dS^T
+            }
+          }
         }
       };
       if constexpr (NP == 1) {
@@ -1404,17 +1446,17 @@ __device__ __forceinline__ void dv_res_body(const CUtensorMap& tq, const CUtenso
   sacc_to_f32<D, D / 4>(static_cast<float*>(p.dv), sacc, 1.f, b, S, p.Hkv, hk, key0, t);
 }
 
-// bf16 inputs and gradients
-template <int D, bool CAUSAL>
+// bf16 inputs and gradients; CAP: the softcapped scores
+template <int D, bool CAUSAL, bool CAP>
 __global__ void __launch_bounds__(Shape<D, 1>::WG * 128, Shape<D, 1>::DQ_BLOCKS)
     dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
                     const __grid_constant__ CUtensorMap to, const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdq,
                     Params p) {
-  dq_body<D, 1, CAUSAL>(tq, tdo, to, tk, tv, tdq, p);
+  dq_body<D, 1, CAUSAL, CAP>(tq, tdo, to, tk, tv, tdq, p);
 }
 
-template <int D, bool CAUSAL, bool MASKED>
+template <int D, bool CAUSAL, bool MASKED, bool CAP>
 __global__ void __launch_bounds__(Shape<D, 1>::WG * 128, 1)
     dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tdo,
@@ -1422,12 +1464,12 @@ __global__ void __launch_bounds__(Shape<D, 1>::WG * 128, 1)
                       const __grid_constant__ CUtensorMap tv,
                       const __grid_constant__ CUtensorMap tdk,
                       const __grid_constant__ CUtensorMap tdv, Params p) {
-  dkdv_body<D, 1, CAUSAL, MASKED>(tq, tdo, tk, tv, tdk, tdv, p);
+  dkdv_body<D, 1, CAUSAL, MASKED, CAP>(tq, tdo, tk, tv, tdk, tdv, p);
 }
 
 // f32 inputs (read as their three bf16 pieces) and gradients; `to`, `tdq`,
 // `tdk` and `tdv` are not read
-template <int D, bool CAUSAL>
+template <int D, bool CAUSAL, bool CAP>
 __global__ void __launch_bounds__(Shape<D, 3>::WG * 128, Shape<D, 3>::DQ_BLOCKS)
     dq_f32_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                         const __grid_constant__ CUtensorMap tdo,
@@ -1435,10 +1477,10 @@ __global__ void __launch_bounds__(Shape<D, 3>::WG * 128, Shape<D, 3>::DQ_BLOCKS)
                         const __grid_constant__ CUtensorMap tk,
                         const __grid_constant__ CUtensorMap tv,
                         const __grid_constant__ CUtensorMap tdq, Params p) {
-  dq_body<D, 3, CAUSAL>(tq, tdo, to, tk, tv, tdq, p);
+  dq_body<D, 3, CAUSAL, CAP>(tq, tdo, to, tk, tv, tdq, p);
 }
 
-template <int D, bool CAUSAL, bool MASKED>
+template <int D, bool CAUSAL, bool MASKED, bool CAP>
 __global__ void __launch_bounds__(Shape<D, 3>::WG * 128, 1)
     dkdv_f32_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tdo,
@@ -1446,13 +1488,14 @@ __global__ void __launch_bounds__(Shape<D, 3>::WG * 128, 1)
                           const __grid_constant__ CUtensorMap tv,
                           const __grid_constant__ CUtensorMap tdk,
                           const __grid_constant__ CUtensorMap tdv, Params p) {
+  static_assert(!(CAP && Shape<D, 3>::RES), "no softcap in the resident-tile bodies");
   if constexpr (Shape<D, 3>::RES) {  // even blocks dV, odd ones dK
     if (blockIdx.x % 2 == 0)
       dv_res_body<D, CAUSAL, MASKED>(tq, tdo, tk, p);
     else
       dk_res_body<D, CAUSAL, MASKED>(tq, tdo, tk, p);
   } else {
-    dkdv_body<D, 3, CAUSAL, MASKED>(tq, tdo, tk, tv, tdk, tdv, p);
+    dkdv_body<D, 3, CAUSAL, MASKED, CAP>(tq, tdo, tk, tv, tdk, tdv, p);
   }
 }
 
@@ -1473,7 +1516,7 @@ struct Operands {
   long long stride[5][3];
 };
 
-template <int D, int NP, bool CAUSAL>
+template <int D, int NP, bool CAUSAL, bool CAP>
 cudaError_t launch(const Params& p, const Operands& x, cudaStream_t st) {
   using T = Shape<D, NP>;
   // dkdv's masked tile variant only where a causal diagonal or a window's
@@ -1481,13 +1524,13 @@ cudaError_t launch(const Params& p, const Operands& x, cudaStream_t st) {
   const bool masked = CAUSAL || p.window > 0;
   auto [dq, dkdv] = [masked] {
     if constexpr (NP == 1)
-      return std::make_pair(dq_wgmma_kernel<D, CAUSAL>,
-                            masked ? dkdv_wgmma_kernel<D, CAUSAL, true>
-                                   : dkdv_wgmma_kernel<D, CAUSAL, CAUSAL>);
+      return std::make_pair(dq_wgmma_kernel<D, CAUSAL, CAP>,
+                            masked ? dkdv_wgmma_kernel<D, CAUSAL, true, CAP>
+                                   : dkdv_wgmma_kernel<D, CAUSAL, CAUSAL, CAP>);
     else
-      return std::make_pair(dq_f32_wgmma_kernel<D, CAUSAL>,
-                            masked ? dkdv_f32_wgmma_kernel<D, CAUSAL, true>
-                                   : dkdv_f32_wgmma_kernel<D, CAUSAL, CAUSAL>);
+      return std::make_pair(dq_f32_wgmma_kernel<D, CAUSAL, CAP>,
+                            masked ? dkdv_f32_wgmma_kernel<D, CAUSAL, true, CAP>
+                                   : dkdv_f32_wgmma_kernel<D, CAUSAL, CAUSAL, CAP>);
   }();
   static bool dq_ok = false, dkdv_ok[2] = {false, false};
   cudaError_t e;
@@ -1527,9 +1570,16 @@ cudaError_t launch(const Params& p, const Operands& x, cudaStream_t st) {
   return cudaGetLastError();
 }
 
+// The softcap is built at D 128 and causal alone (gemma2); the wrapper
+// refuses the rest
 template <int D, int NP>
 cudaError_t launch_causal(const Params& p, const Operands& x, cudaStream_t st) {
-  return p.causal ? launch<D, NP, true>(p, x, st) : launch<D, NP, false>(p, x, st);
+  if (p.softcap > 0.f) {
+    if constexpr (D == 128)
+      if (p.causal) return launch<D, NP, true, true>(p, x, st);
+    return cudaErrorInvalidValue;
+  }
+  return p.causal ? launch<D, NP, true, false>(p, x, st) : launch<D, NP, false, false>(p, x, st);
 }
 
 template <int D>
@@ -1575,9 +1625,10 @@ cudaError_t launch_d(const Params& p, int dtype, void* pieces, cudaStream_t st) 
 // for q, k, v and dout as three bf16 pieces each), 1 = bfloat16 (then q,
 // k, v, o and dout must start on a 16-byte boundary with strides of whole
 // 16 bytes: the TMA's rule).  window: <= 0 for none.  Returns a
-// cudaError_t (0 = launched).
-// `pieces` and `window` come last, after the stream, so that a caller
-// passing them can drive a build of an earlier source.
+// cudaError_t (0 = launched).  softcap: > 0 for the logit softcap (built
+// at D 128, causal).
+// `pieces`, `window` and `softcap` come last, after the stream, so that a
+// caller passing them can drive a build of an earlier source.
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                                    const void* dout, const float* lse, float* delta, void* dq,
                                    void* dk, void* dv, long long q_sb, long long q_ss,
@@ -1587,10 +1638,10 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
                                    long long o_sh, long long do_sb, long long do_ss,
                                    long long do_sh, int B, int S, int H, int Hkv, int D,
                                    int dtype, int causal, float scale, void* stream,
-                                   void* pieces, int window) {
+                                   void* pieces, int window, float softcap) {
   Params p{q,    k,    v,    o,    dout, lse,  delta, dq,    dk,    dv,    q_sb,  q_ss,
            q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,  o_sb,  o_ss,  o_sh,  do_sb, do_ss,
-           do_sh, B,   S,    H,    Hkv,  causal, scale, window};
+           do_sh, B,   S,    H,    Hkv,  causal, scale, window, softcap};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B <= 0 || S <= 0) return 0;
   if (D == 64) return static_cast<int>(launch_d<64>(p, dtype, pieces, st));

@@ -43,9 +43,11 @@
 // swizzle, rows past S filled with zeros), every product is a wgmma of one
 // warpgroup with f32 accumulators.  bf16 inputs are exact operands; f32
 // ones are first split into three bf16 pieces (hopper::split3), each
-// product the sum over the piece pairs i + j <= 2.  An f32 intermediate
-// (w x and e gy, the pair weights M and W, the carried states) enters as
-// hi + lo, two bf16 terms within 2^-16 of it, as the forward's w x does.
+// product the sum over the piece pairs i + j <= 2.  The pair weights M and
+// W enter as hi + lo, two bf16 terms within 2^-16 of them, as the
+// forward's w x does; the carried states and what they sum (w x, e gy) as
+// three pieces, f32's precision, since acs's gradient takes their terms
+// and its sums into dA cancel (NPX).
 //   1. ssd_bwd_state_wgmma: per (chunk, head, batch) and side, U_c = B^T
 //      diag(w) x or V_c = C^T diag(e) gy over 64-step tiles (B^T read
 //      MN-major), and the chunk's decay exp(acs_L).
@@ -685,10 +687,18 @@ __host__ __device__ constexpr bool wgmma_shape(int P, int N, int L) {
   return P == WP && (N == 64 || N == 128) && L % TR == 0 && L >= TR && L <= 256;
 }
 
-// the pieces an intermediate f32 operand (w x, e gy, the pair weights M and
-// W, the carried states) enters a product as: hi + lo, whose sum is within
-// 2^-16 of it, in both dtypes (an input is NP pieces)
+// the pieces an intermediate f32 operand enters a product as, in both
+// dtypes (an input is NP pieces).  The pair weights M and W: hi + lo (NPA),
+// whose sum is within 2^-16 of them; they feed dx, dB and dC alone.  The
+// carried states and what they sum (w x, e gy): three (NPX), f32's
+// precision, since they give acs's gradient its state terms C_l . S gy_l
+// and B_s . dS x_s, whose sums into dA cancel: with hi + lo there a bf16
+// gate case (B 2, S 700, H 8, G 2) read dA 1.44x the gate's 1e-4 of its
+// largest value against the function in f64, and three pieces hold it
+// near the plain f32 version's own error (PERF.md §6).  dx's state term
+// w_s B_s dS takes the state's first two pieces (hi + lo), as dx's M terms.
 constexpr int NPA = 2;
+constexpr int NPX = 3;
 
 // the piece pairs (i, j) of a product of an na-piece operand and an
 // nb-piece one that carry f32's precision, i + j <= 2, the smallest first
@@ -740,13 +750,13 @@ __device__ __forceinline__ float2 tile_pair(const uint8_t* m, int r, int n) {
 }
 
 // pass 1 of the body, shared memory from a 1024-aligned base: two stages
-// of a 64-step tile (NP pieces of the N / 64 boxes of B or C, then the NPA
+// of a 64-step tile (NP pieces of the N / 64 boxes of B or C, then the NPX
 // pieces of w x or e gy), f32 dt, acs and the row weights (256 each), 4
 // warp sums, the barriers
 template <int NP, int N>
 struct StateSmem {
   static constexpr int NB = N / 64;
-  static constexpr int VEC = NP * NB * BOX, STAGE_B = VEC + NPA * BOX;
+  static constexpr int VEC = NP * NB * BOX, STAGE_B = VEC + NPX * BOX;
   static constexpr int F = 2 * STAGE_B;
   static constexpr int BAR = F + (3 * 256 + 4) * 4;
   static constexpr int BYTES = BAR + 8 * 2 + 1024;
@@ -814,7 +824,7 @@ __global__ void __launch_bounds__(WG)
   tile_rows<T>(rows, vec, xss, 0, valid);
   for (int j = 0; j < nt; ++j) {
     uint8_t* stage = sm + (j & 1) * Ly::STAGE_B;
-    scaled_pieces<NPA>(stage + Ly::VEC, rows, j * TR, fv);
+    scaled_pieces<NPX>(stage + Ly::VEC, rows, j * TR, fv);
     if (j + 1 < nt) tile_rows<T>(rows, vec, xss, (j + 1) * TR, valid);  // in flight meanwhile
     hopper::fence_proxy_async();
     __syncthreads();
@@ -826,13 +836,13 @@ __global__ void __launch_bounds__(WG)
 #pragma unroll
     for (int mt = 0; mt < NB; ++mt)
 #pragma unroll
-      for (int k = 0; k < n_pairs2(NP, NPA); ++k)
+      for (int k = 0; k < n_pairs2(NP, NPX); ++k)
 #pragma unroll
         for (int kc = 0; kc < TR / 16; ++kc)
           hopper::wgmma_ss<64, 1, 1>(
               u[mt],
-              hopper::desc_sw128(ms + (pair2_i(NP, NPA, k) * NB + mt) * BOX + kc * 2048, BOX, 1024),
-              hopper::desc_sw128(vs + pair2_j(NP, NPA, k) * BOX + kc * 2048, BOX, 1024),
+              hopper::desc_sw128(ms + (pair2_i(NP, NPX, k) * NB + mt) * BOX + kc * 2048, BOX, 1024),
+              hopper::desc_sw128(vs + pair2_j(NP, NPX, k) * BOX + kc * 2048, BOX, 1024),
               j > 0 || k > 0 || kc > 0);
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
@@ -861,18 +871,18 @@ __global__ void __launch_bounds__(WG)
 // pass 3 of the body, shared memory from a 1024-aligned base: the
 // resident tile's mat (B or C: NP pieces of N / 64 boxes) and vec (x or
 // gy: NP pieces of a box), two stages of a streamed tile (per piece its N
-// / 64 mat boxes, then its vec box), the state's hi and lo (N rows each),
-// f32 dt and acs (256 each) and 4 warp sums, the barriers.  Where the
-// state fits in stage 1 (ALIAS: f32, and bf16 at N 64) it lies there, and
-// that stage's first tile is loaded once the state terms are done: f32 at
-// N 128 takes 216 KB so; bf16 fits two blocks an SM.
+// / 64 mat boxes, then its vec box), the state's NPX pieces (N rows each),
+// f32 dt and acs (256 each) and 4 warp sums, the barriers.  The state lies
+// in the stages it fits in, ALIAS of them (f32: stage 1; bf16: both), and
+// their first tiles are loaded once the state terms are done: f32 at N 128
+// takes 216 KB so, bf16 at N 128 72 KB.
 template <int NP, int N>
 struct PairSmem {
   static constexpr int NB = N / 64, STAGES = 2;
   static constexpr int RM = 0, RV = RM + NP * NB * BOX, STG = RV + NP * BOX;
-  static constexpr int STAGE_B = NP * (NB + 1) * BOX, STATE_B = NPA * N * 128;
-  static constexpr bool ALIAS = STATE_B <= STAGE_B;
-  static constexpr int ST = STG + (ALIAS ? 1 : STAGES) * STAGE_B;
+  static constexpr int STAGE_B = NP * (NB + 1) * BOX, STATE_B = NPX * N * 128;
+  static constexpr int ALIAS = STATE_B <= STAGE_B ? 1 : STATE_B <= STAGES * STAGE_B ? STAGES : 0;
+  static constexpr int ST = STG + (ALIAS == 1 ? STAGE_B : ALIAS ? 0 : STAGES * STAGE_B);
   static constexpr int F = STG + STAGES * STAGE_B + (ALIAS ? 0 : STATE_B);
   static constexpr int BAR = F + (2 * 256 + 4) * 4;
   static constexpr int BYTES = BAR + 8 * (1 + 2 * STAGES) + 1024;
@@ -968,12 +978,12 @@ __global__ void __launch_bounds__(WG)
                             pc * p.B + b);
       hopper::tma_load_4d(sm + Ly::RV + pc * BOX, &rvec, res_full, 0, h, c0 + r0, pc * p.B + b);
     }
-    for (int i = 0; i < min(Ly::ALIAS ? 1 : STAGES, n_str); ++i) load_tile(i);
+    for (int i = 0; i < min(STAGES - Ly::ALIAS, n_str); ++i) load_tile(i);
   }
   chunk_cumsum(p.dt + (static_cast<long long>(b) * p.S + c0) * p.H + h, p.H, valid, p.A[h], L,
                dts, acs, wsum);
   const long long so = ((static_cast<long long>(b) * p.nc + c) * p.H + h) * N * WP;
-  state_tile<NPA>(sm + Ly::ST, (SW == 1 ? p.dstates : p.states) + so, N);
+  state_tile<NPX>(sm + Ly::ST, (SW == 1 ? p.dstates : p.states) + so, N);
   hopper::fence_proxy_async();
   __syncthreads();
 
@@ -988,7 +998,7 @@ __global__ void __launch_bounds__(WG)
   }
   const uint32_t rm0 = hopper::smem_addr(sm + Ly::RM), rv0 = hopper::smem_addr(sm + Ly::RV);
   const uint32_t sts = hopper::smem_addr(sm + Ly::ST);
-  constexpr int NPS = n_pairs2(NP, NPA);  // pairs of an input and the state (or M, W)
+  constexpr int NPS = n_pairs2(NP, NPX);  // pairs of an input and the state (o2)
 
   // o2: dB_s (SW 1) or dC_l (SW 2), N columns; o1: dx_s (SW 1), 64 columns
   constexpr int O1 = SW == 1 ? 32 : 1;
@@ -1001,16 +1011,21 @@ __global__ void __launch_bounds__(WG)
   hopper::fence_regs(o2);
   hopper::fence_regs(o1);
   hopper::wgmma_fence();
-#pragma unroll
-  for (int k = 0; k < NPS; ++k)  // o2 = vec state^T, the state read K-major
+  // o2 = vec state^T, the state read K-major, a piece pair an iteration:
+  // unrolled, f32's six pairs left the f32 N-128 sweep 1 (255 registers)
+  // an 8-byte spill
+#pragma unroll 1
+  for (int k = 0; k < NPS; ++k)
 #pragma unroll
     for (int kk = 0; kk < WP / 16; ++kk)
-      hopper::wgmma_ss<N, 0, 0>(o2, hopper::desc_sw128(rv0 + pair2_i(NP, NPA, k) * BOX + kk * 32, 16, 1024),
-                                hopper::desc_sw128(sts + pair2_j(NP, NPA, k) * N * 128 + kk * 32, 16, 1024),
+      hopper::wgmma_ss<N, 0, 0>(o2, hopper::desc_sw128(rv0 + pair2_i(NP, NPX, k) * BOX + kk * 32, 16, 1024),
+                                hopper::desc_sw128(sts + pair2_j(NP, NPX, k) * N * 128 + kk * 32, 16, 1024),
                                 k > 0 || kk > 0);
   if constexpr (SW == 1) {
+    // dx's state term alone: the state's hi + lo (its first two pieces)
+    // hold dx, as they hold M's and W's terms of it
 #pragma unroll
-    for (int k = 0; k < NPS; ++k)  // o1 = B_s dS, dS read MN-major
+    for (int k = 0; k < n_pairs2(NP, NPA); ++k)  // o1 = B_s dS, dS read MN-major
 #pragma unroll
       for (int kk = 0; kk < N / 16; ++kk)
         hopper::wgmma_ss<64, 0, 1>(
@@ -1023,9 +1038,10 @@ __global__ void __launch_bounds__(WG)
   hopper::wgmma_wait<0>();
   hopper::fence_regs(o2);
   hopper::fence_regs(o1);
-  if constexpr (Ly::ALIAS) {  // the state is read: stage 1 takes its first tile
+  if constexpr (Ly::ALIAS > 0) {  // the state is read: its stages take their first tiles
     __syncthreads();
-    if (tid == 0 && n_str > 1) load_tile(1);
+    if (tid == 0)
+      for (int i = STAGES - Ly::ALIAS; i < min(STAGES, n_str); ++i) load_tile(i);
   }
   // q: the rows' mat . o2 (SW 1: B_s . dS x_s; SW 2: C_l . S gy_l), then
   // o2 and o1 scaled by the rows' weights (SW 1: w_s; SW 2: e_l)

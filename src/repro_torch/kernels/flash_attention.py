@@ -13,8 +13,10 @@ accumulator: f32 accuracy (the terms dropped are of order 2^-24 |A|
 |B|) at a sixth of the bf16 rate, against the CUDA cores' 67 TFLOP/s.
 The f32 backward at head dim 256 keeps its resident tile in f32 and
 forms that tile's pieces in registers (``ref.flash_bwd_d256_emulated``
-is its arithmetic on the CPU).  The wrapper allocates the pieces as
-bf16 scratch.
+is its arithmetic on the CPU).  The backward takes the logit softcap at
+head dim 128, causal (gemma2-27b's attention), in both dtypes
+(``ref.flash_bwd_softcap_emulated`` is its arithmetic on the CPU).  The
+wrapper allocates the pieces as bf16 scratch.
 
 Takes CUDA tensors only; ``kernels/ops.py`` sends CPU tensors to the
 plain version in ``kernels/ref.py``."""
@@ -31,10 +33,13 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128, 256)
 _P, _L, _I, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
 # the stream, then the f32 inputs' pieces (null for bf16); the backward
-# then its window, after them, so that a library built from a source
-# without it takes the same call
+# then its window and its softcap, after them, so that a library built
+# from a source without them takes the same call
 FWD_ARGTYPES = [_P] * 5 + [_L] * 12 + [_I] * 8 + [_F, _F, _P, _P]
-BWD_ARGTYPES = [_P] * 10 + [_L] * 15 + [_I] * 7 + [_F, _P, _P, _I]
+BWD_ARGTYPES = [_P] * 10 + [_L] * 15 + [_I] * 7 + [_F, _P, _P, _I, _F]
+# the backward's softcap bodies: head dims, causal only (gemma2-27b's
+# attention is D 128, causal)
+BWD_SOFTCAP_HEAD_DIMS = (128,)
 
 
 def _check(q, k, v, window, what="flash_attention kernel"):
@@ -115,11 +120,15 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     ``do`` (B,S,H,D), from the forward's inputs, its output ``o`` and its
     ``lse`` (B,H,S) f32.  Gradients come back contiguous in q's dtype;
     for GQA dk and dv sum over each kv head's query heads.  Deterministic:
-    no atomics.  A logit softcap is not supported yet."""
-    if softcap:
-        raise NotImplementedError(
-            "flash_attention backward kernel: no logit softcap yet")
+    no atomics.  A logit ``softcap`` (the scores c tanh(s / c), whose
+    derivative 1 - tanh^2 dS carries) is built at the head dims of
+    ``BWD_SOFTCAP_HEAD_DIMS`` and causal only."""
     what = "flash_attention_bwd kernel"
+    if softcap and (q.shape[-1] not in BWD_SOFTCAP_HEAD_DIMS or not causal):
+        raise NotImplementedError(
+            f"flash_attention backward kernel: no logit softcap at head_dim "
+            f"{q.shape[-1]}{'' if causal else ', non-causal'} (built: causal, head_dim "
+            f"in {BWD_SOFTCAP_HEAD_DIMS}; ROADMAP B1)")
     _check(q, k, v, window, what)
     B, S, H, D = q.shape
     for name, t in (("o", o), ("do", do)):
@@ -147,7 +156,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
         *do.stride()[:3], B, S, H, k.shape[2], D, DTYPES[q.dtype], int(causal),
         float(scale), torch.cuda.current_stream(q.device).cuda_stream,
-        pieces.data_ptr() if pieces is not None else None, int(window or 0))
+        pieces.data_ptr() if pieces is not None else None, int(window or 0),
+        float(softcap or 0.0))
     if err:
         raise RuntimeError(f"flash_attention_bwd kernel launch failed: cudaError {err}")
     _build.launch_counts["flash_attention_bwd"] += 1

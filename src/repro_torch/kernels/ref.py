@@ -141,6 +141,64 @@ def flash_bwd_d256_emulated(q, k, v, do, *, causal: bool = True,
     return dq * scale, dk * scale, dv
 
 
+def flash_bwd_softcap_emulated(q, k, v, do, *, softcap: float, causal: bool = True,
+                               window: Optional[int] = None, scale: Optional[float] = None,
+                               pieces: int = 3, bk: int = 32, qt: int = 32,
+                               derivative: bool = True):
+    """The flash backward's softcap arithmetic (``csrc/flash_attention_bwd.cu``,
+    the CAP bodies at head dim 128) on the CPU: -> (dq, dk, dv) f32.
+
+    S = Q K^T and dP = dO V^T from the pieces of both sides (``pieces`` =
+    3, the six pairs smallest first; 1: bf16 operands), t = tanh(S scale /
+    c) in f32, lse from the f32 forward of the capped scores, Delta =
+    rowsum(dO O) in f32, P = exp2(c log2(e) t - lse log2(e)) and 1 - t^2
+    as one fma (rounded once).  dq forms P (1 - t^2) first and then dS =
+    that times (dP - Delta); dkdv forms P (dP - Delta) and then times 1 -
+    t^2, as the two passes order them.  dQ adds a fresh partial of dS K a
+    ``bk``-key tile, dK and dV one of dS^T Q and P^T dO a ``qt``-row tile,
+    the rep heads outer (the D-128 f32 shapes: 32 and 32).
+    ``derivative`` False drops 1 - t^2 (what the planted fault does)."""
+    q, k, v, do = (x.float() for x in (q, k, v, do))
+    B, S, H, D = q.shape
+    Hkv = k.shape[2]
+    rep = H // Hkv
+    scale = D**-0.5 if scale is None else scale
+    log2e = torch.tensor(1.4426950408889634, dtype=torch.float32)
+    kr, vr = (x.repeat_interleave(rep, dim=2) for x in (k, v))
+    qi = torch.arange(S)[:, None]
+    kj = torch.arange(S)[None, :]
+    hide = torch.zeros((S, S), dtype=torch.bool)
+    if causal:
+        hide |= kj > qi
+    if window is not None:
+        hide |= kj <= qi - window
+    # the forward's, in f32: the capped scores, their lse and O
+    s32 = torch.tanh(torch.einsum("bqhd,bkhd->bhqk", q, kr) * scale / softcap) * softcap
+    lse = torch.logsumexp(s32.masked_fill(hide, NEG_INF), dim=-1, keepdim=True)
+    o = torch.einsum("bhqk,bkhd->bqhd", torch.exp(s32.masked_fill(hide, NEG_INF) - lse), vr)
+    delta = (do * o).sum(-1).permute(0, 2, 1)[..., None]            # (B,H,S,1)
+    s = piece_product("bqhd,bkhd->bhqk", q, kr, pieces, pieces)
+    t = torch.tanh(s * (scale / softcap))
+    p = torch.exp2(t * (softcap * log2e) - lse * log2e).masked_fill(hide, 0.0)
+    f = (1.0 - t.double() ** 2).float() if derivative else torch.ones_like(t)
+    dp = piece_product("bqhd,bkhd->bhqk", do, vr, pieces, pieces) - delta
+    ds_q, ds_k = (p * f) * dp, (p * dp) * f
+    n = 3 if pieces == 3 else 1
+    dq = torch.zeros_like(q)
+    for k0 in range(0, S, bk):
+        dq = dq + piece_product("bhqk,bkhd->bqhd", ds_q[..., k0:k0 + bk], kr[:, k0:k0 + bk], n, n)
+    dk = torch.zeros_like(k)
+    dv = torch.zeros_like(v)
+    for r in range(rep):
+        heads = torch.arange(Hkv) * rep + r
+        for q0 in range(0, S, qt):
+            rows = slice(q0, q0 + qt)
+            pt, dst = p[:, heads, rows], ds_k[:, heads, rows]
+            dv = dv + piece_product("bhqk,bqhd->bkhd", pt, do[:, rows][:, :, heads], n, n)
+            dk = dk + piece_product("bhqk,bqhd->bkhd", dst, q[:, rows][:, :, heads], n, n)
+    return dq * scale, dk * scale, dv
+
+
 def paged_attention_ref(q, k_pages, v_pages, block_tables, seq_lens, *,
                         window: Optional[int] = None, softcap: float = 0.0,
                         scale: Optional[float] = None):
@@ -186,7 +244,8 @@ def xent_ref(logits, labels):
 def ssd_ref(x, dt, A, B, C, chunk: int, initial_state=None):
     """Mamba2 SSD chunked scan.  x:(B,S,H,P) dt:(B,S,H) A:(H,) < 0,
     B,C:(B,S,G,N), head h reading group h // (H/G).  Returns (y:(B,S,H,P)
-    in x's dtype, final_state:(B,H,N,P) f32).
+    in x's dtype, final_state:(B,H,N,P) f32).  f64 inputs are computed in
+    f64 throughout (the gate's reference), any other dtype in f32.
 
     S is padded with zeros to a multiple of ``chunk``: a padded step has
     dt = 0, so its decay is exp(0) = 1 and it adds nothing to the state.
@@ -197,6 +256,7 @@ def ssd_ref(x, dt, A, B, C, chunk: int, initial_state=None):
     G, N = B.shape[2], B.shape[3]
     rep = H // G
     L = chunk
+    cd = torch.float64 if x.dtype == torch.float64 else torch.float32   # compute dtype
     pad = (-S) % L
     if pad:
         x = F.pad(x, (0, 0, 0, 0, 0, pad))
@@ -205,19 +265,19 @@ def ssd_ref(x, dt, A, B, C, chunk: int, initial_state=None):
         C = F.pad(C, (0, 0, 0, 0, 0, pad))
     nc = (S + pad) // L
 
-    xs = x.reshape(Bb, nc, L, H, Pd).float()
-    dts = dt.reshape(Bb, nc, L, H).float()
-    Bh = B.reshape(Bb, nc, L, G, N).repeat_interleave(rep, dim=3).to(x.dtype).float()
-    Ch = C.reshape(Bb, nc, L, G, N).repeat_interleave(rep, dim=3).to(x.dtype).float()
+    xs = x.reshape(Bb, nc, L, H, Pd).to(cd)
+    dts = dt.reshape(Bb, nc, L, H).to(cd)
+    Bh = B.reshape(Bb, nc, L, G, N).repeat_interleave(rep, dim=3).to(x.dtype).to(cd)
+    Ch = C.reshape(Bb, nc, L, G, N).repeat_interleave(rep, dim=3).to(x.dtype).to(cd)
 
-    acs = torch.cumsum(dts * A.float(), dim=2)               # (B,nc,L,H)
+    acs = torch.cumsum(dts * A.to(cd), dim=2)               # (B,nc,L,H)
     # each chunk's contribution to the running state, and its decay
     decay_out = torch.exp(acs[:, :, -1:, :] - acs)
     cstate = torch.einsum("bclh,bclhn,bclhp->bchnp", decay_out * dts, Bh, xs)
     cdecay = torch.exp(acs[:, :, -1, :])                      # (B,nc,H)
 
-    state = torch.zeros((Bb, H, N, Pd), dtype=torch.float32, device=x.device) \
-        if initial_state is None else initial_state.float()
+    state = torch.zeros((Bb, H, N, Pd), dtype=cd, device=x.device) \
+        if initial_state is None else initial_state.to(cd)
     states_in = []
     for c in range(nc):
         states_in.append(state)
@@ -467,14 +527,16 @@ def ssd_bwd_ref(x, dt, A, B, C, gy, gstate, chunk: int):
 
 
 def ssd_bwd_wgmma_emulated(x, dt, A, B, C, gy, gstate, chunk: int, *, n_in: int,
-                           n_mid: int, tile: int = 64):
+                           n_mid: int, n_state: Optional[int] = None, tile: int = 64):
     """The arithmetic of the SSD backward's wgmma body
     (``csrc/ssd_scan_bwd.cu``) on the CPU, for holding its precision against
     the JAX package: -> (dx, ddt, dA, dB, dC) f32.  Every product of two
     operands is a ``piece_product``: an input enters as ``n_in`` pieces (1
-    for bf16 values, exact; 3 for f32), an f32 intermediate (w x and e gy in
-    the state pass, the pair weights M and W, the carried states) as
-    ``n_mid`` (the kernel's 2, hi + lo, in both dtypes).  The passes and
+    for bf16 values, exact; 3 for f32), the pair weights M and W as
+    ``n_mid`` pieces (the kernel's 2, hi + lo, in both dtypes), the carried
+    states and what they sum (w x and e gy in the state pass) as
+    ``n_state`` (the kernel's 3; default ``n_mid``), but for dx's state
+    term w_s B_s dS, which takes dS as ``n_mid``.  The passes and
     their order: each chunk's U_c and V_c over its ``tile``-step tiles, the
     two carries in f32; then per chunk sweep 1 (each s tile: the state
     terms w_s B_s dS and w_s x_s dS^T first, then the l tiles on or after
@@ -486,6 +548,7 @@ def ssd_bwd_wgmma_emulated(x, dt, A, B, C, gy, gstate, chunk: int, *, n_in: int,
     in head order."""
     rep = x.shape[2] // B.shape[2]
     S = x.shape[1]
+    n_state = n_state or n_mid
     xs, gys = x.float(), gy.float()
     Bh, Ch = (t.float().repeat_interleave(rep, dim=2) for t in (B, C))
 
@@ -500,9 +563,9 @@ def ssd_bwd_wgmma_emulated(x, dt, A, B, C, gy, gstate, chunk: int, *, n_in: int,
         for t0, t1 in tiles(d.shape[1]):
             bl = slice(sl.start + t0, sl.start + t1)
             u = u + piece_product("blhn,blhp->bhnp", Bh[:, bl],
-                                  w[:, t0:t1, :, None] * xs[:, bl], n_in, n_mid)
+                                  w[:, t0:t1, :, None] * xs[:, bl], n_in, n_state)
             v = v + piece_product("blhn,blhp->bhnp", Ch[:, bl],
-                                  e[:, t0:t1, :, None] * gys[:, bl], n_in, n_mid)
+                                  e[:, t0:t1, :, None] * gys[:, bl], n_in, n_state)
         us.append(u)
         vs.append(v)
         decs.append(torch.exp(acs[:, -1]))
@@ -529,7 +592,7 @@ def ssd_bwd_wgmma_emulated(x, dt, A, B, C, gy, gstate, chunk: int, *, n_in: int,
         ddt1, dacs1, dacs2, qv = (torch.zeros_like(d) for _ in range(4))
         for s0, s1 in tiles(n):                        # sweep 1: an s tile
             Bs, xsr, ds_ = Bc[:, s0:s1], xc[:, s0:s1], d[:, s0:s1]
-            o2 = piece_product("bshp,bhnp->bshn", xsr, dS, n_in, n_mid)
+            o2 = piece_product("bshp,bhnp->bshn", xsr, dS, n_in, n_state)
             o1 = piece_product("bshn,bhnp->bshp", Bs, dS, n_in, n_mid)
             q = (Bs * o2).sum(-1)
             ws = w[:, s0:s1]
@@ -552,7 +615,7 @@ def ssd_bwd_wgmma_emulated(x, dt, A, B, C, gy, gstate, chunk: int, *, n_in: int,
             dx[:, s0:s1], dBh[:, s0:s1] = o1, o2
         for l0, l1 in tiles(n):                        # sweep 2: an l tile
             Cl, gl = Cc[:, l0:l1], gc[:, l0:l1]
-            o2 = piece_product("blhp,bhnp->blhn", gl, S_in, n_in, n_mid)
+            o2 = piece_product("blhp,bhnp->blhn", gl, S_in, n_in, n_state)
             el = e[:, l0:l1]
             q = (Cl * o2).sum(-1)
             o2 = o2 * el[..., None]

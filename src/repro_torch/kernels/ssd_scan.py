@@ -14,9 +14,10 @@ three pieces too.  The reduced test configs' shapes run the one-pass
 body on the CUDA cores in both dtypes.  The backward at the shapes of
 ``bwd_wgmma_body`` (every SSM config of the repo, both dtypes) runs its
 products on TMA loads and wgmma: bf16 operands as they are, f32 ones as
-three bf16 pieces (``ref.split3``), an f32 intermediate (the pair
-weights, the carried states) as hi + lo in bf16 or as three pieces in
-f32; its bound is the bf16 peak's (f32: a sixth of it).  The reduced
+three bf16 pieces (``ref.split3``), in both dtypes the pair weights as
+hi + lo and the carried states (and w x, e gy, which they sum) as three
+pieces, so that acs's gradient, whose sums into dA cancel, keeps f32's
+precision; its bound is the bf16 peak's (f32: a sixth of it).  The reduced
 shapes keep the backward's body on the CUDA cores (f32 arithmetic for
 both dtypes)."""
 from __future__ import annotations

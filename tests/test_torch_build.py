@@ -157,15 +157,22 @@ def test_planted_faults_hold_their_lines_once_and_cover_every_kernel():
 def test_flash_cases_are_valid_shapes():
     """Each gate case is a shape the wrapper takes (D 64 / 128 / 256, H a
     multiple of Hkv, window >= 1); gemma3's serve and train shapes are
-    held at D 256 with its window of 1024 and without."""
+    held at D 256 with its window of 1024 and without, and gemma2's
+    8192-token prefill (a head slice at rep 2) at D 128 with its window of
+    4096 and without, its softcap 50 and query scale 144^-0.5."""
     cs = _chip_smoke()
     for case in cs.FLASH_CASES:
-        B, S, H, Hkv, D, causal, window, softcap = case
+        B, S, H, Hkv, D, causal, window, softcap, *scale = case
         assert B >= 1 and S >= 1 and H % Hkv == 0 and D in (64, 128, 256), case
         assert window is None or window >= 1, case
+        assert len(scale) <= 1 and all(0 < x < 1 for x in scale), case
     for shape in (cs.GEMMA_SERVE_ATTN, cs.GEMMA_TRAIN_ATTN):
         assert shape[4] == 256
         assert {c[6] for c in cs.FLASH_CASES if c[:6] == shape} == {1024, None}
+    gemma2 = [c for c in cs.FLASH_CASES if c[:6] == cs.GEMMA2_PREFILL_SLICE]
+    assert cs.GEMMA2_PREFILL_SLICE[1] == 8192 and cs.GEMMA2_PREFILL_SLICE[2:5] == (4, 2, 128)
+    assert {c[6] for c in gemma2} == {4096, None}
+    assert {c[7:] for c in gemma2} == {(50.0, 144.0**-0.5)}
 
 
 def test_flash_bwd_cases_are_valid_shapes_and_cover_the_tile_edges():
@@ -176,9 +183,12 @@ def test_flash_bwd_cases_are_valid_shapes_and_cover_the_tile_edges():
     cs = _chip_smoke()
     cases = cs.FLASH_BWD_CASES
     for case in cases:
-        B, S, H, Hkv, D, causal, *window = case
+        B, S, H, Hkv, D, causal = case[:6]
+        window, softcap, amp, scale = cs.bwd_case_opts(case)
         assert B >= 1 and S >= 1 and H % Hkv == 0 and D in (64, 128, 256), case
-        assert isinstance(causal, bool) and window in ([], [None]) or window[0] >= 1, case
+        assert isinstance(causal, bool) and (window is None or window >= 1), case
+        assert len(case) in (6, 7, 9) and amp >= 1, case
+        assert (scale is None) == (softcap == 0.0), case
     windowed = [c for c in cases if len(c) > 6 and c[6] is not None]
     assert {c[4] for c in windowed} == {64, 128, 256}
     assert {c[5] for c in windowed} == {True, False}
@@ -188,6 +198,57 @@ def test_flash_bwd_cases_are_valid_shapes_and_cover_the_tile_edges():
         assert {c[4] for c in at} == {64, 128}, S
         assert {c[5] for c in at} == {True, False}, S
         assert {c[2] // c[3] for c in at} >= {1, 4}, S
+
+
+def test_flash_bwd_softcap_cases_reach_gemma2_and_the_caps_saturation():
+    """The softcap cases are all at head dim 128, causal, rep 2 (what the
+    softcap bodies are built for, gemma2-27b's attention); they hold
+    gemma2's heads (32 / 16) at S 4352, past its window of 4096, windowed
+    and global at cap 50, the bodies' tile edges (S 31, 63, 65, 129 against
+    32- and 64-row tiles), a window crossing 128-key tiles, and a case
+    whose scores saturate the cap (q drawn times 4 at cap 1)."""
+    cs = _chip_smoke()
+    capped = [c for c in cs.FLASH_BWD_CASES if cs.bwd_case_opts(c)[1]]
+    assert capped and all(c[4] == 128 and c[5] and c[2] // c[3] == 2 for c in capped)
+    gemma2 = [c for c in capped if c[2:4] == (32, 16)]
+    assert {(c[1], c[6], c[7]) for c in gemma2} == {(4352, 4096, 50.0), (4352, None, 50.0)}
+    assert {31, 63, 65, 129} <= {c[1] for c in capped}
+    assert any(c[6] and c[6] % 128 and c[1] > 2 * c[6] for c in capped)
+    assert any(c[8] / c[7] >= 4 for c in capped)
+
+
+def test_flash_bwd_softcap_is_a_template_choice_of_both_passes():
+    """The softcap backward is the compile-time choice CAP of the dq and
+    dkdv bodies, with the accurate tanhf (no tanh.approx) and 1 - t^2 as
+    one fma in each; the C entry takes it last; the launch builds it at
+    the head dims of ``BWD_SOFTCAP_HEAD_DIMS``, causal, and the wrapper
+    refuses the softcap at every other head dim and when not causal,
+    before it looks at the device."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    text = (_build.CSRC / "flash_attention_bwd.cu").read_text()
+    for body in ("dq_body", "dkdv_body"):
+        src = _device_body(text, body)
+        assert re.search(rf"bool CAP>\s*__device__ __forceinline__ void {body}\(", text), body
+        assert "if constexpr (CAP)" in src and "tanhf(" in src and "fmaf(-th, th, 1.f)" in src
+    assert "tanh.approx.f32" not in text               # the PTX instruction
+    assert re.search(r"void\* pieces, int window, float softcap\)", text)
+    assert fa.BWD_ARGTYPES[-1] is fa._F and fa.BWD_ARGTYPES[-2] is fa._I
+    built = re.findall(r"if constexpr \(D == (\d+)\)\s*if \(p\.causal\) return "
+                       r"launch<D, NP, true, true>", text)
+    assert tuple(int(d) for d in built) == fa.BWD_SOFTCAP_HEAD_DIMS == (128,)
+    for D in fa.HEAD_DIMS:
+        q = torch.zeros(1, 4, 2, D)
+        kv = torch.zeros(1, 4, 1, D)
+        lse = torch.zeros(1, 2, 4)
+        for causal in (True, False):
+            refused = D not in fa.BWD_SOFTCAP_HEAD_DIMS or not causal
+            with pytest.raises(NotImplementedError if refused else ValueError):
+                fa.flash_attention_bwd(q, kv, kv, q, lse, q, causal=causal, softcap=50.0)
+            with pytest.raises(ValueError):       # no softcap: to the device check
+                fa.flash_attention_bwd(q, kv, kv, q, lse, q, causal=causal)
 
 
 _SASS = """

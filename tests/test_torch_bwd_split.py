@@ -6,8 +6,8 @@ forms that tile's three bf16 pieces in registers; S and dP add the pair (0,
 0) apart from the five smaller pairs; dQ, dK and dV add a fresh partial of
 six piece products per streamed tile (``ref.flash_bwd_d256_emulated``).
 The SSD backward's wgmma body takes bf16 inputs as they are and f32 ones as
-three pieces, and every f32 intermediate (w x, e gy, the pair weights M
-and W, the carried states) as hi + lo (``ref.ssd_bwd_wgmma_emulated``).
+three pieces, the pair weights M and W as hi + lo, and the carried states
+and what they sum (w x, e gy) as three pieces (``ref.ssd_bwd_wgmma_emulated``).
 Here that arithmetic is emulated in torch and held against the JAX
 package's oracles and their ``jax.vjp`` on
 the same numpy inputs, at the bars ``chip_smoke.py`` holds the kernels to:
@@ -143,14 +143,14 @@ SSD_CASES = [
 @pytest.mark.parametrize("case", SSD_CASES, ids=lambda c: "-".join(map(str, c)))
 def test_ssd_backward_body_holds_the_gate(case, bf16):
     """The emulated body (inputs as they are in bf16, as three pieces in
-    f32; intermediates hi + lo) with a non-zero gstate, against the vjp of
-    the JAX oracle on the same values, within the gate's 1e-4 by a margin
-    (under 1/4)."""
+    f32; M and W hi + lo, the states three pieces) with a non-zero gstate,
+    against the vjp of the JAX oracle on the same values, within the
+    gate's 1e-4 by a margin (under 1/4)."""
     B, S, H, P, G, N, chunk = case
     ins = _ssd_inputs(sum(case), B, S, H, P, G, N, bf16)
     want = _ssd_jax(*ins, chunk)
     got = ref.ssd_bwd_wgmma_emulated(*map(torch.from_numpy, ins), chunk,
-                                     n_in=1 if bf16 else 3, n_mid=2)
+                                     n_in=1 if bf16 else 3, n_mid=2, n_state=3)
     assert _ssd_ratio(got, want) <= 0.25
 
 
@@ -164,6 +164,47 @@ def test_ssd_backward_body_without_the_lo_piece_fails_the_gate(case, bf16):
     got = ref.ssd_bwd_wgmma_emulated(*map(torch.from_numpy, ins), chunk,
                                      n_in=1 if bf16 else 3, n_mid=1)
     assert _ssd_ratio(got, _ssd_jax(*ins, chunk)) > 1.0
+
+
+def _ssd_grads64(ins, chunk):
+    """The plain function's five gradients in f64 (the card gate's
+    reference) for the inputs (x, dt, A, B, C, gy, gstate) as torch."""
+    xd = [t.double().requires_grad_(True) for t in ins[:5]]
+    return torch.autograd.grad(ref.ssd_ref(*xd, chunk), xd,
+                               (ins[5].double(), ins[6].double()))
+
+
+@pytest.mark.parametrize("seed,rho", [(0, 0.02), (1, 0.02), (2, 0.05)])
+def test_ssd_backward_states_in_three_pieces_hold_da_where_it_cancels(seed, rho):
+    """dA sums terms over every step of every chunk; with gstate scaled per
+    head so that each head's dA is ``rho`` of its value at gstate 0, the
+    terms cancel 20-50 fold.  There the body with the carried states (and
+    w x, e gy) as hi + lo misses dA by more than 3x the plain f32
+    autograd's own error against f64, and as three pieces, the kernel's
+    design, stays within 2x of it (at rho 0.02 f32 itself is at or past
+    the gate's 1e-4 of the largest |dA|: PERF.md §7)."""
+    g = torch.Generator().manual_seed(seed)
+    B, S, H, P, G, N, chunk = ((2, 300, 4, 64, 2, 64, 128), (1, 450, 4, 64, 1, 128, 128),
+                               (2, 300, 4, 64, 2, 64, 128))[seed]
+    f = lambda *s: torch.randn(*s, generator=g)
+    A = -torch.exp(np.log(0.01) * torch.rand(H, generator=g))
+    dt = torch.nn.functional.softplus(f(B, S, H))
+    x, Bm, Cm, gy = (t.bfloat16().float() for t in (f(B, S, H, P), f(B, S, G, N),
+                                                    f(B, S, G, N), f(B, S, H, P)))
+    gs = f(B, H, N, P)
+    zero = lambda t: torch.zeros_like(t)
+    a = _ssd_grads64((x, dt, A, Bm, Cm, gy, zero(gs)), chunk)[2]
+    b = _ssd_grads64((x, dt, A, Bm, Cm, zero(gy), gs), chunk)[2]
+    gs = (gs * ((rho - 1) * a / b)[None, :, None, None]).float()
+    ins = (x, dt, A, Bm, Cm, gy, gs)
+    want = _ssd_grads64(ins, chunk)[2]
+    assert want.abs().max() < 2 * rho * a.abs().max()
+    err = lambda got: (got.double() - want).abs().max().item()
+    xs = [t.clone().requires_grad_(True) for t in ins[:5]]
+    f32 = err(torch.autograd.grad(ref.ssd_ref(*xs, chunk), xs, (gy, gs))[2])
+    hi_lo = err(ref.ssd_bwd_wgmma_emulated(*ins, chunk, n_in=1, n_mid=2, n_state=2)[2])
+    three = err(ref.ssd_bwd_wgmma_emulated(*ins, chunk, n_in=1, n_mid=2, n_state=3)[2])
+    assert hi_lo > 3 * f32 and three < 2 * f32, (f32, hi_lo, three)
 
 
 def test_ssd_backward_emulation_with_f32_products_is_the_plain_passes():
