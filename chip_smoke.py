@@ -10,6 +10,7 @@
     python3 chip_smoke.py --phases build,ssm_train_path,ssm_train
     python3 chip_smoke.py --phases build,gemma_path,gemma_serve,gemma_train_path,gemma_train
     python3 chip_smoke.py --phases build,gemma2_path,gemma2_serve,gemma2_train_path,gemma2_train
+    python3 chip_smoke.py --phases build,zamba2_path,zamba2_serve,zamba2_train_path,zamba2_train
     python3 chip_smoke.py --phases build,serve,train,time \
         --against parent=build/parent/flash_attention.cu
 
@@ -18,10 +19,10 @@ Phases (any failure exits non-zero before the last line):
               the flash forward and backward (bf16, and f32 on three bf16
               pieces), the bf16 SSD body's product passes, the SSD
               backward's product passes (bf16, and f32 on pieces) and the
-              bf16 paged body, at every head dim they take, must run on
-              wgmma and TMA alone (SASS: HGMMA and UTMALDG, no HMMA; no
-              ptxas C7520), and the flash and SSD backwards' wgmma bodies
-              with a stack frame of 0 bytes
+              bf16 paged body, at every head dim they take (head dim 80
+              among them), must run on wgmma and TMA alone (SASS: HGMMA
+              and UTMALDG, no HMMA; no ptxas C7520), and the flash and SSD
+              backwards' wgmma bodies with a stack frame of 0 bytes
   kernels     hold each kernel (forward and backward) against its plain
               PyTorch version (backward: the plain version's autograd) on
               the card, f32 and bf16, at the stated tolerances, up to the
@@ -61,6 +62,12 @@ Phases (any failure exits non-zero before the last line):
               bucket), 32 new tokens each, 8 slots; 46 flash launches a
               prefill, the paged kernel in the 23 global layers a tick;
               the peak of device memory
+  zamba2_serve
+              zamba2-2.7b at full width and depth, bf16: 16 requests with
+              prompts of 600-4000 tokens, each prefilled at its exact
+              length, 32 new tokens each, 8 slots; 9 flash launches (the
+              banks' invocations, head dim 80) and 54 ssd_scan a prefill,
+              9 paged launches a tick; the peak of device memory
   ssm_serve   mamba2-130m at full width and depth, bf16: 16 requests; every
               layer of every prefill must have gone through ssd_scan
   train_path  bert-mlm-120m at full width, depth cut to 2 layers, f32: the
@@ -120,6 +127,21 @@ Phases (any failure exits non-zero before the last line):
               global), S 8192 from the DataPipeline: (a) 6 steps in f32 at
               B 1, (b) 6 in bf16 at B 2 and microbatch 2; as gemma_train
               (the softcap flash backward, V 256000)
+  zamba2_train
+              zamba2-2.7b at full width and depth (2.445 G parameters), S
+              4096 from the DataPipeline: (a) 6 steps in f32 at B 1, (b) 6
+              in bf16 at B 4 and microbatch 2; as gemma_train (18 flash
+              forwards, 9 backwards, 108 scans and 54 scan backwards a
+              step and microbatch)
+  zamba2_path zamba2-2.7b at full width, (M, A, M, B), f32, weights drawn
+              on the card: as path, prompts of 300 and 37 tokens, 9 new
+              ones; the shared invocations through the flash and paged
+              kernels at head dim 80, the Mamba2 blocks through ssd_scan
+              (its cpu side in the cpu sides' process)
+  zamba2_train_path
+              zamba2-2.7b at full width, (M, A, M, A) (bank A's gradient
+              the sum of two invocations), f32, B 1 x S 512, 2 steps: as
+              ssm_train_path
   ddp_path    bert-mlm-120m at full width, 2 layers, f32, global batch 8 x
               512 with ragged masks: 2 ranks on the one card over gloo
               (processes spawned by the phase) against one process on the
@@ -149,7 +171,10 @@ Phases (any failure exits non-zero before the last line):
               none) and paged decode at its serve and train shapes;
               gemma2's softcap backward at B 1 x S 8192 (window 4096 and
               none, bf16 and f32) beside the same body without the cap,
-              its prefill's flash forward and its decode's paged kernel
+              its prefill's flash forward and its decode's paged kernel;
+              zamba2's head-dim-80 flash forward and backward at B 1 x S
+              4096 (bf16 and f32), its 4000-token prefill and its paged
+              decode at 8 slots of about 2000 tokens, beside SDPA
 
 --against NAME=SOURCE (repeatable) builds SOURCE, another version of the
 kernel source of its file name (csrc/<kernel>.cu; e.g. a parent commit's,
@@ -197,11 +222,13 @@ OUT = ROOT / "chiprun_out"
 # there, after the serve phases.  The device-bound training phases run
 # while that last turn does (it took 146-164 s), and the host-bound serve
 # phases after it: beside it serve's tick p50 read twice as long
-# (PERF.md §6).
+# (PERF.md §6).  The zamba2 checks' cpu sides come last in that process,
+# and so do the checks, after ddp.
 PHASES = ("build", "kernels", "path", "gemma_path", "ssm_path", "train_path", "ssm_train_path",
           "gemma_train_path", "gemma2_path", "ddp_path", "train", "gemma_train", "gemma2_train",
-          "serve", "gemma_serve", "gemma2_serve", "gemma2_train_path", "ssm_serve", "train_cli",
-          "ssm_train", "ddp", "faults", "time")
+          "zamba2_train", "serve", "gemma_serve", "gemma2_serve", "zamba2_serve",
+          "gemma2_train_path", "ssm_serve", "train_cli", "ssm_train", "ddp", "zamba2_path",
+          "zamba2_train_path", "faults", "time")
 AGAINST_PHASES = ("serve", "ssm_serve", "train", "time")   # the phases --against runs again
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the bounds below use them
@@ -297,6 +324,10 @@ GEMMA_TRAIN_ATTN = (4, 2048, 8, 4, 256, True)
 GEMMA2_WINDOW, GEMMA2_SOFTCAP, GEMMA2_SCALE = 4096, 50.0, 144.0**-0.5
 GEMMA2_TRAIN_ATTN = (1, 8192, 32, 16, 128, True)
 GEMMA2_PREFILL_SLICE = (1, 8192, 4, 2, 128, True)
+# zamba2-2.7b's shared attention (arXiv:2411.15242): MHA, 32 heads of 80,
+# causal; its train shape B 1 x S 4096 (zamba2_train), which is also its
+# longest prefill's (zamba2_serve's prompts reach 4000 tokens)
+ZAMBA2_TRAIN_ATTN = (1, 4096, 32, 32, 80, True)
 
 FLASH_CASES = [  # (B, S, H, Hkv, D, causal, window, softcap[, scale])
     (2, 256, 4, 4, 64, True, None, 0.0),       # rep 1
@@ -330,6 +361,17 @@ FLASH_CASES = [  # (B, S, H, Hkv, D, causal, window, softcap[, scale])
     # a local layer (window 4096) and a global one, softcap 50
     GEMMA2_PREFILL_SLICE + (GEMMA2_WINDOW, GEMMA2_SOFTCAP, GEMMA2_SCALE),
     GEMMA2_PREFILL_SLICE + (None, GEMMA2_SOFTCAP, GEMMA2_SCALE),
+    # head dim 80 (zamba2-2.7b's MHA; laid out as 128, columns 80-127
+    # loaded as zeros): its train shape, which holds its prefills too; the
+    # tiles' edges (bf16: 128 q rows a block, 128-key tiles; f32: 32-key
+    # tiles), S 1, GQA, and the window and softcap the body also takes
+    ZAMBA2_TRAIN_ATTN + (None, 0.0),
+    (2, 256, 4, 4, 80, True, None, 0.0),
+    (1, 300, 8, 2, 80, False, None, 0.0),      # non-causal, rep 4, ragged
+    (2, 1, 4, 4, 80, True, None, 0.0),         # S = 1
+    (1, 1, 8, 8, 80, False, None, 0.0),
+    (2, 127, 4, 2, 80, True, None, 0.0),       # a key short of a tile
+    (1, 129, 4, 4, 80, False, 40, 20.0),       # a key past a tile; window + softcap
 ]
 
 PAGED_CASES = [  # (B, H, Hkv, D, P, NP, maxp, window, softcap, (pos lo, hi))
@@ -360,6 +402,14 @@ PAGED_CASES = [  # (B, H, Hkv, D, P, NP, maxp, window, softcap, (pos lo, hi))
     # gemma2-27b's global layers (rep 2, D 128, softcap 50): 8 slots of
     # about 5000 tokens, page 16, tables of 336 pages
     (8, 32, 16, 128, 16, 2689, 336, None, GEMMA2_SOFTCAP, (4200, 5232)),
+    # head dim 80 (zamba2-2.7b's 9 shared invocations a tick, rep 1): 8
+    # slots of about 2000 tokens, page 16; rep 2, pages of 8, 32 and 64
+    # (a window, a softcap); f32 runs the CUDA-core body (20 lanes of 4)
+    (8, 32, 32, 80, 16, 1100, 136, None, 0.0, (1800, 2100)),
+    (6, 4, 2, 80, 16, 80, 16, None, 0.0, (0, 255)),
+    (4, 8, 8, 80, 8, 64, 12, 40, 0.0, (0, 95)),
+    (6, 4, 4, 80, 32, 80, 16, None, 0.0, (63, 511)),
+    (6, 4, 4, 80, 64, 40, 8, None, 30.0, (0, 511)),
 ]
 
 
@@ -409,6 +459,12 @@ FLASH_BWD_CASES = [
     (1, 257, 4, 2, 128, True, 50, 1.0, 4.0),
     (1, 4352, 32, 16, 128, True, GEMMA2_WINDOW, GEMMA2_SOFTCAP, 1.0),
     (1, 4352, 32, 16, 128, True, None, GEMMA2_SOFTCAP, 1.0),
+    # head dim 80 (zamba2-2.7b: MHA, causal; D 128's tiles): its train
+    # shape, S ragged against the 64-row tiles and the 128-row blocks
+    # (bf16) and the 32-row tiles (f32), causal and not, S 1, GQA
+    ZAMBA2_TRAIN_ATTN,
+    (2, 130, 4, 4, 80, True), (2, 300, 8, 2, 80, False), (2, 77, 4, 4, 80, False),
+    (1, 1, 4, 4, 80, True), (1, 33, 2, 2, 80, True),
 ]
 
 
@@ -475,11 +531,21 @@ SSD_BWD_CASES = [  # (B, S, H, P, G, N, chunk, a non-zero gstate)
 ]
 
 
+def with_slack(torch, x):
+    """``x`` copied to the front of a buffer 1 KB longer than itself: the
+    planted fault that reads each head's row a box past the head dim (the
+    flash backward's maps at an inner extent of 128 at D 80) reads up to
+    96 bytes past the tensor's last row, which then stays inside the
+    buffer."""
+    buf = torch.empty(x.numel() + 1024 // x.element_size(), dtype=x.dtype, device=x.device)
+    return buf[:x.numel()].view(x.shape).copy_(x)
+
+
 def _flash_inputs(torch, case, dtype, gen, amp=1.0):
     B, S, H, Hkv, D, *_ = case
-    mk = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(dtype)
-    q = mk(B, S, H, D) if amp == 1.0 else \
-        (torch.randn(B, S, H, D, generator=gen, device="cuda") * amp).to(dtype)
+    mk = lambda *s: with_slack(torch, torch.randn(*s, generator=gen, device="cuda").to(dtype))
+    q = mk(B, S, H, D) if amp == 1.0 else with_slack(
+        torch, (torch.randn(B, S, H, D, generator=gen, device="cuda") * amp).to(dtype))
     return q, mk(B, S, Hkv, D), mk(B, S, Hkv, D)
 
 
@@ -634,7 +700,7 @@ def flash_bwd_reading(torch, q, k, v, do, causal, window=None, softcap=0.0, scal
 
     opts = dict(causal=causal, window=window, softcap=softcap, scale=scale)
     o, lse = flash_attention_fwd(q, k, v, return_lse=True, **opts)
-    got = flash_attention_bwd(q, k, v, o, lse, do, **opts)
+    got = flash_attention_bwd(q, k, v, with_slack(torch, o), lse, do, **opts)
     del o, lse
     dname = str(q.dtype).split(".")[1]
     B, S, H, D = q.shape
@@ -821,7 +887,8 @@ def kernel_readings(torch, dname, only=None):
             B, S, H, Hkv, D, causal = case[:6]
             window, cap, amp, scale = bwd_case_opts(case)
             q, k, v = _flash_inputs(torch, (B, S, H, Hkv, D), dtype, gen, amp)
-            do = torch.randn(B, S, H, D, generator=gen, device="cuda").to(dtype)
+            do = with_slack(torch, torch.randn(B, S, H, D, generator=gen,
+                                               device="cuda").to(dtype))
             if case == BERT_ATTN and want("flash_attention"):    # its forward too
                 yield ("flash_attention", case, *flash_reading(torch, q, k, v, causal))
             yield ("flash_attention_bwd", case, *flash_bwd_reading(
@@ -913,6 +980,12 @@ FAULTS = [
      "dq with a softcap: dS without the cap's derivative 1 - t^2",
      "s[x] = hopper::exp2_approx(fmaf(th, post, -lse2[r])) * fmaf(-th, th, 1.f);  // dq: P (1 - t^2)",
      "s[x] = hopper::exp2_approx(fmaf(th, post, -lse2[r]));  // dq: P (1 - t^2)", "bfloat16"),
+    ("flash_attention_bwd", ("flash_attention_bwd",),
+     "D 80: the inputs' maps' inner extent is 128 (whole boxes), so a box reads the next "
+     "head's columns 80-127 in place of zeros (into Delta = rowsum(dO O))",
+     "constexpr int MAP_COLS = D;  // the inner extent of the q, k, v, o and dO maps",
+     "constexpr int MAP_COLS = DqSmem<D, NP>::NB * BOX;  // the inner extent of the q, k, v, "
+     "o and dO maps", "bfloat16"),
     ("flash_attention", ("flash_attention",),
      "D-256 tiles: S = Q K^T skips the last 64-column box of the head dim",
      "for (int kk = 0; kk < D / 16; ++kk)",
@@ -1043,18 +1116,21 @@ def check_faults(torch, rec, builds):
                         if r[0] in kernels]
         finally:
             _build.swap(name, good)
-        caught = [(case, err, ratio) for _, case, err, ratio in readings if ratio > 1.0]
-        old = max(err for _, _, err, _ in readings)
+        # a NaN reading (a fault that reads garbage) fails the gate too
+        caught = [(case, err, ratio) for _, case, err, ratio in readings
+                  if not ratio <= 1.0]
+        worst = lambda xs: max(xs, key=lambda x: math.inf if math.isnan(x) else x)
+        old, ratio = worst([r[2] for r in readings]), worst([r[3] for r in readings])
         log(f"faults: {name} {dname} with '{bug}': gate fails {len(caught)} of "
             f"{len(readings)} cases {[c[0] for c in caught]}, max error/limit "
-            f"{max(r[3] for r in readings):.2f}; max abs error {old:.3e}"
+            f"{ratio:.2f}; max abs error {old:.3e}"
             + (f" against the former flat {OLD_BF16_TOL}" if dname == "bfloat16" else ""))
         if not caught:
             fail(f"faults: the kernel gate passed {name} with the planted bug '{bug}'")
         finite = lambda x: x if math.isfinite(x) else str(x)   # the record stays JSON
         res.append({"kernel": name, "dtype": dname, "bug": bug, "cases_failed": len(caught),
                     "cases": len(readings), "failed": [list(map(str, c)) for c in caught],
-                    "max_ratio": finite(max(r[3] for r in readings)),
+                    "max_ratio": finite(ratio),
                     "max_abs_err": finite(old),
                     "former_flat_gate_fails": old > OLD_BF16_TOL if dname == "bfloat16" else None})
     rec["faults"] = res
@@ -1121,6 +1197,17 @@ WGMMA_FUNCTIONS = (("flash_attention", "flash_fwd_wgmma"), ("flash_attention_bwd
                    ("ssd_scan_bwd", "ssd_bwd_pair_wgmma"), ("paged_attention", "paged_wgmma"))
 
 
+# the product passes built at head dim 80 (zamba2-2.7b's), each of whose
+# instances the build gate must find (``D80_TEMPLATE_ARG`` in its mangled
+# name: the first template argument, the head dim, is 80)
+D80_FUNCTIONS = (("flash_attention", "flash_fwd_wgmma"),
+                 ("flash_attention", "flash_fwd_f32_wgmma"),
+                 ("flash_attention_bwd", "dq_wgmma"), ("flash_attention_bwd", "dkdv_wgmma"),
+                 ("flash_attention_bwd", "dq_f32_wgmma"),
+                 ("flash_attention_bwd", "dkdv_f32_wgmma"), ("paged_attention", "paged_wgmma"))
+D80_TEMPLATE_ARG = "ILi80E"
+
+
 # the sources whose wgmma bodies must keep every array in registers: ptxas
 # reports a stack frame of 0 bytes for each (the flash backward's dK and dV
 # accumulators at head dim 256 are 64 floats each a thread, sized by a
@@ -1156,7 +1243,8 @@ def wgmma_build_facts(rec):
     """The flash forward and backward (bf16 and f32), the bf16 SSD body,
     the SSD backward's wgmma body and the bf16 paged body as built: ptxas's report (registers, spill bytes)
     and SASS counts of every instance of ``WGMMA_FUNCTIONS``.  Fails unless
-    each runs on HGMMA and UTMALDG with no HMMA, if ptxas serialized a
+    each runs on HGMMA and UTMALDG with no HMMA, if one of
+    ``D80_FUNCTIONS`` has no head-dim-80 instance, if ptxas serialized a
     wgmma (its warning C7520), or if a wgmma body of
     ``FRAMELESS_SOURCES`` has a stack frame."""
     from concurrent.futures import ThreadPoolExecutor
@@ -1176,6 +1264,9 @@ def wgmma_build_facts(rec):
                 if part in k:
                     log(f"{name} {k}: SASS {v}; ptxas {ptxas.get(k, 'not built in this run')}")
             faults += wgmma_route_faults(sass, part)
+        for _, part in (f for f in D80_FUNCTIONS if f[0] == name):
+            if not any(part in k and D80_TEMPLATE_ARG in k for k in sass):
+                faults.append(f"{name}: no {part} body at head dim 80")
         faults += [w for w in ptxas.get("warnings", []) if "C7520" in w]
         if name in FRAMELESS_SOURCES:
             faults += stack_frame_faults(ptxas)
@@ -1421,8 +1512,7 @@ def check_gemma_path(torch, rec):
     prompts = random_prompts(2, [1500, 37], cfg.vocab_size, seed=1)
     rec["gemma_path"] = compare_engines(
         torch, "gemma_path", cfg, prompts, 9,
-        lambda ticks: {"flash_attention": 2 * len(prompts),
-                       "paged_attention": global_attn_layers(cfg) * ticks},
+        lambda ticks: serve_launches(cfg, len(prompts), ticks),
         engine_kw=dict(page=16, n_pages=256, max_slots=4, max_pages=128))
 
 
@@ -1446,46 +1536,70 @@ def gemma2_cfg(n_layers, window=None):
 GEMMA2_PATH_KW = dict(page=16, n_pages=128, max_slots=4, max_pages=64)
 
 
-def gemma2_path_spec():
-    """(cfg, prompts, new tokens) of gemma2_path: gemma2-27b at full width,
-    2 layers (local with its window cut to 512, global), prompts of 700
-    tokens (past the window: a ragged ring fill under the 1024-token
-    bucket) and 37, 9 new tokens, so the long prompt's decode writes over
-    its ring's oldest positions."""
+def zamba2_cfg(pattern=None):
+    """zamba2-2.7b at full width: the whole model, or its depth cut to one
+    group of ``pattern``, a string of M (a Mamba2 block), A and B (an
+    invocation of bank A or B)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ScheduleGroup
+
+    cfg = get_config("zamba2-2.7b")
+    if pattern is None:
+        return cfg
+    full = cfg.schedule[0].pattern
+    spec = {"M": full[0], "A": full[6], "B": full[13]}
+    return dataclasses.replace(cfg, schedule=(
+        ScheduleGroup(pattern=tuple(spec[c] for c in pattern), repeats=1),))
+
+
+def engine_path_spec(key):
+    """(cfg, prompts, new tokens, engine sizes) of the cuda-against-cpu
+    engine check ``key`` whose cpu side runs in the cpu sides' process.
+    gemma2_path: gemma2-27b at full width, 2 layers (local with its window
+    cut to 512, global), prompts of 700 tokens (past the window: a ragged
+    ring fill under the 1024-token bucket) and 37, 9 new tokens, so the
+    long prompt's decode writes over its ring's oldest positions.
+    zamba2_path: zamba2-2.7b at full width, (M, A, M, B): both banks once,
+    prompts of 300 tokens (a full chunk of 256 and a ragged one) and 37,
+    each prefilled at its exact length, 9 new tokens."""
     from repro_torch.launch.serve import random_prompts
 
-    cfg = gemma2_cfg(2, window=512)
-    return cfg, random_prompts(2, [700, 37], cfg.vocab_size, seed=1), 9
+    if key == "gemma2_path":
+        cfg = gemma2_cfg(2, window=512)
+        return cfg, random_prompts(2, [700, 37], cfg.vocab_size, seed=1), 9, GEMMA2_PATH_KW
+    cfg = zamba2_cfg("MAMB")
+    return cfg, random_prompts(2, [300, 37], cfg.vocab_size, seed=1), 9, PATH_ENGINE_KW
 
 
-def gemma2_path_cpu_side(torch):
-    """gemma2_path's cpu side (``engine_side`` on the weights drawn from
-    seed 0 on the card and copied to the cpu), for a ``--cpu-ref``
-    process."""
+def engine_path_cpu_side(torch, key):
+    """The cpu side of ``engine_path_spec(key)`` (``engine_side`` on the
+    weights drawn from seed 0 on the card and copied to the cpu), for a
+    ``--cpu-ref`` process."""
     from repro_torch.models.model import build_model
 
     t0 = time.perf_counter()
-    cfg, prompts, max_new = gemma2_path_spec()
+    cfg, prompts, max_new, kw = engine_path_spec(key)
     model = build_model(cfg, seed=0, device="cuda").to("cpu")
     torch.cuda.empty_cache()
-    side = engine_side(torch, cfg, prompts, max_new, GEMMA2_PATH_KW, model)
-    log(f"gemma2_path cpu: {len(side['logs'])} logit sets, ticks {side['decode_ticks']}, "
+    side = engine_side(torch, cfg, prompts, max_new, kw, model)
+    log(f"{key} cpu: {len(side['logs'])} logit sets, ticks {side['decode_ticks']}, "
         f"{time.perf_counter() - t0:.1f}s")
     return side
 
 
-def check_gemma2_path(torch, rec, proc):
-    """gemma2_path (``gemma2_path_spec``), f32, the weights drawn on the
-    card; the cpu side runs in a process of its own from the start (its
-    2.3 G parameters take minutes of the 8 cores).  Every prefill launches
-    the flash kernel in both layers (softcap 50, the query scale
-    144^-0.5), every tick the paged kernel in the global layer only."""
-    cfg, prompts, max_new = gemma2_path_spec()
-    rec["gemma2_path"] = compare_engines(
-        torch, "gemma2_path", cfg, prompts, max_new,
-        lambda ticks: {"flash_attention": 2 * len(prompts),
-                       "paged_attention": global_attn_layers(cfg) * ticks},
-        engine_kw=GEMMA2_PATH_KW, cpu=cpu_side(torch, "gemma2_path", proc))
+def check_engine_path(torch, rec, key, proc):
+    """``engine_path_spec(key)``, f32, the weights drawn on the card; the
+    cpu side runs in a process of its own from the start (gemma2's 2.3 G
+    parameters take minutes of the 8 cores).  Every prefill launches the
+    flash kernel in each attention layer (gemma2: softcap 50, the query
+    scale 144^-0.5; zamba2: each bank's invocation at head dim 80) and
+    ssd_scan in each Mamba2 block, every tick the paged kernel in each
+    global attention layer."""
+    cfg, prompts, max_new, kw = engine_path_spec(key)
+    rec[key] = compare_engines(
+        torch, key, cfg, prompts, max_new,
+        lambda ticks: serve_launches(cfg, len(prompts), ticks),
+        engine_kw=kw, cpu=cpu_side(torch, key, proc))
 
 
 def run_gemma2_serve(torch, rec):
@@ -1499,6 +1613,18 @@ def run_gemma2_serve(torch, rec):
               n_pages=2688, max_pages=328, prefill_S=8192, n_req=8, prefill_n=2)
 
 
+def run_zamba2_serve(torch, rec):
+    """zamba2-2.7b at full width and depth, bf16 (4.9 GB of weights): 16
+    requests with prompts uniform in 600-4000 tokens, each prefilled at its
+    exact length, 32 new tokens each, 8 slots of up to 256 pages of 16
+    tokens; a prefill launches the flash kernel 9 times (each bank's
+    invocations, head dim 80) and ssd_scan 54, a tick the paged kernel 9
+    times; the peak of device memory; device busy of a 4000-token prefill
+    and of a tick."""
+    run_serve(torch, rec, arch="zamba2-2.7b", key="zamba2_serve", lens=(600, 4000),
+              n_pages=2048, max_pages=256, prefill_S=4000, prefill_n=1)
+
+
 def run_gemma_serve(torch, rec):
     """gemma3-4b at full width and depth, bf16: 16 requests with prompts
     uniform in 600-3000 tokens (most past the window), 32 new tokens each,
@@ -1508,13 +1634,27 @@ def run_gemma_serve(torch, rec):
               n_pages=2048, max_pages=192, prefill_S=2048)
 
 
-def global_attn_layers(cfg):
-    """The attention layers without a sliding window: the ones that decode
-    through the paged kernel (a windowed layer decodes over its ring)."""
-    from repro_torch.configs.base import ATTN
+def layer_counts(cfg):
+    """(attention invocations, those without a sliding window, Mamba2
+    blocks) of ``cfg``'s schedule: an ATTN layer and each invocation of a
+    shared bank (SHARED_ATTN) count once.  The global ones decode through
+    the paged kernel (a windowed layer decodes over its ring)."""
+    from repro_torch.configs.base import ATTN, MAMBA, SHARED_ATTN
 
-    return sum(g.repeats * sum(s.kind == ATTN and s.window is None for s in g.pattern)
-               for g in cfg.schedule)
+    specs = [s for g in cfg.schedule for _ in range(g.repeats) for s in g.pattern]
+    attn = [s for s in specs if s.kind in (ATTN, SHARED_ATTN)]
+    return len(attn), sum(s.window is None for s in attn), sum(s.kind == MAMBA for s in specs)
+
+
+def serve_launches(cfg, n_prefills, ticks):
+    """The kernel launches of ``n_prefills`` prefills and ``ticks`` decode
+    ticks: the flash kernel in every attention layer and ssd_scan in every
+    Mamba2 block of a prefill, the paged kernel in every global attention
+    layer of a tick (the Mamba2 blocks decode by the plain step)."""
+    n_attn, n_global, n_ssm = layer_counts(cfg)
+    want = {"flash_attention": n_attn * n_prefills, "ssd_scan": n_ssm * n_prefills,
+            "paged_attention": n_global * ticks}
+    return {k: v for k, v in want.items() if v}
 
 
 def run_serve(torch, rec, seed=0, arch="starcoder2-3b", key="serve", lens=(65, 1024),
@@ -1558,9 +1698,7 @@ def run_serve(torch, rec, seed=0, arch="starcoder2-3b", key="serve", lens=(65, 1
     counts = dict(ops.launch_counts)
     ticks = eng.decode_ticks - ticks0
     n_layers = cfg.n_layers
-    want = ({"ssd_scan": n_layers * n_req} if cfg.family == "ssm" else
-            {"flash_attention": n_layers * n_req,
-             "paged_attention": global_attn_layers(cfg) * ticks})
+    want = serve_launches(cfg, n_req, ticks)
     log(f"{key}: launches {counts}, expected {want}, decode ticks {ticks}")
     if len(out) != n_req or any(len(t) != max_new for t in out.values()):
         fail(f"{key}: {len(out)} of {n_req} requests finished")
@@ -1591,6 +1729,9 @@ def _by_class(kern, n):
     return out
 
 
+# The profiles record the device's activity alone: the host's operator
+# events of a step of 55 000 launches (zamba2_train (b)) took the profiler
+# a minute to read back, and nothing here reads them.
 def _device_kernels(torch, prof):
     return [e for e in prof.key_averages()
             if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
@@ -1608,7 +1749,7 @@ def profile_prefill(torch, eng, cfg, S=1024, n=3):
     toks = torch.tensor(random_prompts(1, [S], cfg.vocab_size, 11), device="cuda")
     eng._prefill(eng.model, toks, S)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
             eng._prefill(eng.model, toks, S)
@@ -1641,7 +1782,7 @@ def profile_ticks(torch, eng, cfg, tick_p50_ms, n_ticks=4):
     eng.step()                                  # admit + prefill all 8
     eng.step()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n_ticks):
             eng.step()
@@ -1805,15 +1946,20 @@ def run_train(torch, rec, seed=0, B=32, S=512, steps=20, n_prof=3):
 
 def train_launches_per_step(cfg, B, S, micro=1):
     """Kernel launches of one train step at ``micro`` microbatches: each
-    layer's attention forward, again under remat, and its backward; each
-    loss chunk's nll forward, again under its checkpoint, and its
-    backward; all per microbatch, whose B / micro rows set the chunks."""
+    attention layer's (and bank invocation's) flash forward, again under
+    remat, and its backward; each Mamba2 block's scan the same; each loss
+    chunk's nll forward, again under its checkpoint, and its backward; all
+    per microbatch, whose B / micro rows set the chunks."""
     from repro_torch.train.train_step import loss_chunk_len
 
     n_chunks = -(-S // loss_chunk_len(B // micro, S, cfg.vocab_size, 1))
-    L = cfg.n_layers
-    return {"flash_attention": 2 * L * micro, "flash_attention_bwd": L * micro,
-            "fused_xent": 2 * n_chunks * micro, "fused_xent_bwd": n_chunks * micro}
+    n_attn, _, n_ssm = layer_counts(cfg)
+    out = {}
+    if n_attn:
+        out.update(flash_attention=2 * n_attn * micro, flash_attention_bwd=n_attn * micro)
+    if n_ssm:
+        out.update(ssd_scan=2 * n_ssm * micro, ssd_scan_bwd=n_ssm * micro)
+    return {**out, "fused_xent": 2 * n_chunks * micro, "fused_xent_bwd": n_chunks * micro}
 
 
 def check_prefetch(torch, pipe, n=16):
@@ -2025,19 +2171,6 @@ def lm_batches(torch, vocab, n, B, S, seed):
     return out
 
 
-def ssm_launches_per_step(cfg, B, S, micro=1):
-    """Kernel launches of one mamba2 train step at ``micro`` microbatches:
-    each layer's scan forward, again under remat, and its backward; each
-    loss chunk's nll forward, again under its checkpoint, and its
-    backward; all per microbatch, whose B / micro rows set the chunks."""
-    from repro_torch.train.train_step import loss_chunk_len
-
-    n_chunks = -(-S // loss_chunk_len(B // micro, S, cfg.vocab_size, 1))
-    L = cfg.n_layers
-    return {"ssd_scan": 2 * L * micro, "ssd_scan_bwd": L * micro,
-            "fused_xent": 2 * n_chunks * micro, "fused_xent_bwd": n_chunks * micro}
-
-
 def lm_path_spec(key):
     """(cfg, launches_per_step, B, S, n_steps) of the next-token check
     ``key``, both models at full width and 2 layers, f32.
@@ -2051,16 +2184,20 @@ def lm_path_spec(key):
     took 133 s of the cpu sides' process (PERF.md §6), so S 396 and a window
     to match.  gemma2_train_path: gemma2-27b (local with its window cut to 128,
     global; the kernel gate holds the window of 4096 at S 4352), B 1 x S
-    320 (past the window, ragged against every tile), 2 steps."""
+    320 (past the window, ragged against every tile), 2 steps.
+    zamba2_train_path: zamba2-2.7b, (M, A, M, A): bank A's gradient sums
+    its two invocations, B 1 x S 512 (two chunks of 256), 2 steps."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import MAMBA, LayerSpec, uniform_schedule
 
     if key == "ssm_train_path":
         cfg = dataclasses.replace(get_config("mamba2-130m"),
                                   schedule=uniform_schedule(2, LayerSpec(kind=MAMBA, has_mlp=False)))
-        return cfg, ssm_launches_per_step, 2, 600, 3
+        return cfg, train_launches_per_step, 2, 600, 3
     if key == "gemma2_train_path":
         return gemma2_cfg(2, window=128), train_launches_per_step, 1, 320, 2
+    if key == "zamba2_train_path":
+        return zamba2_cfg("MAMA"), train_launches_per_step, 1, 512, 2
     return gemma_cfg(2, window=256), train_launches_per_step, 1, 396, 2
 
 
@@ -2130,7 +2267,8 @@ def lm_train_side(torch, key, dev):
 # after), and so that one at a time holds the host's memory: gemma2's
 # f32 training side alone takes 46 GB of the card machine's 96 GiB.
 # gemma_train_path's took 94 s of its phase's 109 in process (PERF.md §6).
-CPU_REF_KEYS = ("ssm_train_path", "gemma_train_path", "gemma2_path", "gemma2_train_path")
+CPU_REF_KEYS = ("ssm_train_path", "gemma_train_path", "gemma2_path", "gemma2_train_path",
+                "zamba2_path", "zamba2_train_path")
 _children = []                      # processes the script stops if it ends early
 
 
@@ -2184,8 +2322,8 @@ def cpu_ref_worker(torch, keys):
     import gc
 
     for key in keys.split(","):
-        side = gemma2_path_cpu_side(torch) if key == "gemma2_path" else \
-            lm_train_side(torch, key, "cpu")
+        side = engine_path_cpu_side(torch, key) if key in ("gemma2_path", "zamba2_path") \
+            else lm_train_side(torch, key, "cpu")
         tmp = cpu_ref_file(key).with_suffix(".tmp")
         torch.save(side, tmp)
         tmp.rename(cpu_ref_file(key))
@@ -2305,7 +2443,7 @@ def run_ssm_train(torch, rec, B=16, S=1024, n_functions=400, steps=10):
             fail(f"ssm_train {tag}: losses {losses}")
         return state, tlog
 
-    want = ssm_launches_per_step(cfg, B, S)
+    want = train_launches_per_step(cfg, B, S)
     half = steps // 2
     # (a) the uninterrupted CLI run, checkpointed at steps ``half`` and ``steps``
     ckpt_argv = ["--steps", str(steps), "--workers", "2", "--ckpt-dir", str(ck),
@@ -2359,7 +2497,7 @@ def run_ssm_train(torch, rec, B=16, S=1024, n_functions=400, steps=10):
         model = build_model(cfg, seed=0, device="cuda")
         state_c, _ = counted("c", lambda: train(model, run, opt, iter(host), steps=steps,
                                                 log_every=1, seed=0),
-                             steps, ssm_launches_per_step(cfg, B, S, 2))
+                             steps, train_launches_per_step(cfg, B, S, 2))
     finally:
         ts.adamw_update = real
     res["c"]["adamw_grad_dtypes"] = sorted(dtypes)
@@ -2406,6 +2544,18 @@ def run_gemma2_train(torch, rec, S=8192, n_functions=400, steps=6):
     loss at vocab 256000 through the final softcap."""
     run_lm_train(torch, rec, "gemma2_train", gemma2_cfg(2), S, n_functions, steps,
                  (("a", "float32", 1, 1), ("b", "bfloat16", 2, 2)), n_prof=1)
+
+
+def run_zamba2_train(torch, rec, S=4096, n_functions=400, steps=6):
+    """zamba2-2.7b at full width and depth (2.445 G parameters: f32
+    parameters, gradients and AdamW moments take 39 GB), S 4096 from the
+    DataPipeline: (a) ``steps`` steps in f32 at B 1, (b) ``steps`` in bf16
+    at B 4 and microbatch 2; as gemma_train: per step and microbatch 18
+    flash forwards and 9 backwards at head dim 80 (the banks' invocations,
+    each bank's gradient their sum), 108 scans and 54 backwards, the loss
+    at vocab 32000."""
+    run_lm_train(torch, rec, "zamba2_train", zamba2_cfg(), S, n_functions, steps,
+                 (("a", "float32", 1, 1), ("b", "bfloat16", 4, 2)), n_prof=1)
 
 
 def run_lm_train(torch, rec, key, cfg, S, n_functions, steps, runs, n_prof=2):
@@ -3060,7 +3210,7 @@ def profile_steps(torch, runner, state, batches, step_p50_s):
 
     n = len(batches)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for b in batches:
             state, _ = runner(state, b)
@@ -3360,7 +3510,8 @@ def time_kernels(torch, rec, strict=True):
                    "ssd_bwd": time_ssd_bwd(torch, checked, gen),
                    **time_train_kernels(torch, checked, gen),
                    "gemma": time_gemma_kernels(torch, checked, gen),
-                   "gemma2": time_gemma2_kernels(torch, checked, gen)}
+                   "gemma2": time_gemma2_kernels(torch, checked, gen),
+                   "zamba2": time_zamba2_kernels(torch, checked, gen)}
 
 
 def plain_ms_by_groups(torch, q, k, v, opts, do=None):
@@ -3491,6 +3642,106 @@ def time_gemma2_kernels(torch, checked, gen, iters=3, reps=2):
     return out
 
 
+def flash_fwd_row(torch, checked, what, q, k, v, window, lse, iters, reps):
+    """The causal flash forward at one shape against the gate, its bound,
+    the plain version and SDPA (enable_gqa; a window as an explicit
+    boolean mask), each by CUDA-graph replay."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+
+    ratio = checked(f"flash {what}", flash_reading(torch, q, k, v, True, window))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    mask = None if window is None else window_mask(torch, q.shape[1], window, q.device)
+    run = lambda: flash_attention_fwd(q, k, v, causal=True, window=window, return_lse=lse)
+    ms, call_ms = time_ms(torch, run, iters, reps)
+    plain_ms, _ = time_ms(torch, lambda: ref.flash_attention_ref(
+        q, k, v, causal=True, window=window), iters, reps)
+    lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                 is_causal=mask is None, enable_gqa=True)
+    try:
+        lib_ms, _ = time_ms(torch, lib, iters, reps)
+    except RuntimeError as e:   # a torch whose masked SDPA a graph refuses: eager
+        log(f"time flash {what}: SDPA not captured in a graph ({e}); timed eager")
+        lib_ms = eager_ms(torch, lib, iters)
+    b = flash_bound(q, k, True, lse=lse, window=window)
+    row = {"shape": list(q.shape) + [k.shape[2]], "dtype": str(q.dtype).split(".")[1],
+           "window": window, "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+           "library_ms": lib_ms, "bound_ms": b[0], "bound_by": b[1], "err_over_limit": ratio,
+           "library": "SDPA" + (" with the window as a boolean mask" if window else "")}
+    log(f"time flash {what}: {row}")
+    return row
+
+
+def time_zamba2_kernels(torch, checked, gen, iters=3, reps=2):
+    """zamba2-2.7b's attention kernels at head dim 80 (MHA, 32 heads,
+    causal): the flash forward (with lse) and backward at the zamba2_train
+    shape B 1 x S 4096 in bf16 and f32, the forward at a 4000-token bf16
+    prefill, and the paged decode of its 9 shared invocations, 8 slots of
+    about 2000 tokens, in bf16.  SDPA takes head dim 80: it is each
+    row's yardstick (the paged row's on the slots' keys gathered into a
+    padded batch beforehand, with a boolean mask of the live keys)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.paged_attention import paged_attention_fwd
+
+    mk = lambda shape, dtype: torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+    out = {"flash_train": {}}
+    B, S, H, Hkv, D, _ = ZAMBA2_TRAIN_ATTN
+    for dname in ("bfloat16", "float32"):
+        dtype = getattr(torch, dname)
+        q, do = (mk((B, S, H, D), dtype) for _ in range(2))
+        k, v = (mk((B, S, Hkv, D), dtype) for _ in range(2))
+        what = f"zamba2 train {dname}"
+        out["flash_train"][dname] = {
+            "fwd": flash_fwd_row(torch, checked, what, q, k, v, None, True, iters, reps),
+            "bwd": time_flash_bwd(torch, checked, what, q, k, v, do, True, None, iters, reps)}
+        del q, k, v, do
+    q = mk((B, 4000, H, D), torch.bfloat16)
+    k, v = (mk((B, 4000, Hkv, D), torch.bfloat16) for _ in range(2))
+    out["flash_prefill"] = flash_fwd_row(torch, checked, "zamba2 prefill", q, k, v, None,
+                                         False, iters, reps)
+    del q, k, v
+    # paged: a tick's shared invocation, 8 slots x ~2000 live tokens; two
+    # disjoint table sets alternate, 84 MB of K/V each (L2: 50 MB)
+    B, H, Hkv, D, P, maxp, R = 8, 32, 32, 80, 16, 128, 2
+    NP = 1 + R * B * maxp
+    kp, vp = (mk((NP, P, Hkv, D), torch.bfloat16) for _ in range(2))
+    q = mk((B, H, D), torch.bfloat16)
+    pos = torch.tensor([2000 - 9 * b for b in range(B)], dtype=torch.int32, device="cuda")
+    ids = torch.randperm(NP - 1, generator=torch.Generator().manual_seed(6)) + 1
+    tables = [ids[r * B * maxp:(r + 1) * B * maxp].reshape(B, maxp).int().cuda()
+              for r in range(R)]
+    live = int((pos + 1).sum())
+    nbytes = live * 2 * Hkv * D * 2 + 2 * q.numel() * 2 + B * (maxp + 1) * 4
+    b = _bound(4 * H * D * live, nbytes, PEAK_BF16_FLOPS)
+    ratio = max(checked(f"paged zamba2 table set {r}",
+                        paged_reading(torch, q, kp, vp, tables[r], pos)) for r in range(R))
+    it = iter(range(10**9))
+    run = lambda: paged_attention_fwd(q, kp, vp, tables[next(it) % R], pos)
+    ms, call_ms = time_ms(torch, run)
+    plain_ms, _ = time_ms(torch, lambda: ref.paged_attention_ref(
+        q, kp, vp, tables[next(it) % R], pos))
+    # SDPA on the same keys of table set 0, gathered into (B, H, L, D)
+    # beforehand; a boolean mask of each slot's live keys
+    L = int(pos.max()) + 1
+    keys = lambda pool: pool[tables[0].long()].flatten(1, 2)[:, :L].transpose(1, 2)
+    kd, vd = keys(kp), keys(vp)
+    live_mask = (torch.arange(L, device="cuda")[None] <= pos[:, None].long())[:, None, None]
+    lib_ms, _ = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q[:, :, None], kd, vd, attn_mask=live_mask))
+    out["paged"] = {"shape": [B, H, Hkv, D, P], "live_tokens": live, "ms": ms,
+                    "call_ms": call_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                    "library": "SDPA on the slots' keys gathered into a padded (B, H, L, D) "
+                               "batch beforehand, a boolean mask of the live keys",
+                    "bound_ms": b[0], "bound_by": b[1], "err_over_limit": ratio,
+                    "by_kernel": device_ms_by_kernel(torch, run)}
+    log(f"time paged zamba2: {out['paged']}")
+    return out
+
+
 def time_gemma_kernels(torch, checked, gen, iters=5, reps=3):
     """gemma3-4b's attention kernels at head dim 256, causal: the flash
     forward at a 2048-token serve prefill in bf16, with the local layers'
@@ -3499,35 +3750,11 @@ def time_gemma_kernels(torch, checked, gen, iters=5, reps=3):
     paged decode of its global layers, 8 slots of about 2000 tokens, in
     bf16.  SDPA (enable_gqa; the window as an explicit boolean mask) is
     the yardstick.  Fewer graph replays than the small shapes take."""
-    import torch.nn.functional as F
-
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import flash_attention_fwd
     from repro_torch.kernels.paged_attention import paged_attention_fwd
 
-    def fwd_row(what, q, k, v, window, lse):
-        ratio = checked(f"flash {what}", flash_reading(torch, q, k, v, True, window))
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        mask = None if window is None else window_mask(torch, q.shape[1], window, q.device)
-        run = lambda: flash_attention_fwd(q, k, v, causal=True, window=window, return_lse=lse)
-        ms, call_ms = time_ms(torch, run, iters, reps)
-        plain_ms, _ = time_ms(torch, lambda: ref.flash_attention_ref(
-            q, k, v, causal=True, window=window), iters, reps)
-        lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
-                                                     is_causal=mask is None, enable_gqa=True)
-        try:
-            lib_ms, _ = time_ms(torch, lib, iters, reps)
-        except RuntimeError as e:   # a torch whose masked SDPA a graph refuses: eager
-            log(f"time flash {what}: SDPA not captured in a graph ({e}); timed eager")
-            lib_ms = eager_ms(torch, lib, iters)
-        b = flash_bound(q, k, True, lse=lse, window=window)
-        row = {"shape": list(q.shape) + [k.shape[2]], "dtype": str(q.dtype).split(".")[1],
-               "window": window, "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
-               "library_ms": lib_ms, "bound_ms": b[0], "bound_by": b[1], "err_over_limit": ratio,
-               "library": "SDPA" + (" with the window as a boolean mask" if window else "")}
-        log(f"time flash {what}: {row}")
-        return row
-
+    fwd_row = lambda what, q, k, v, window, lse: flash_fwd_row(
+        torch, checked, what, q, k, v, window, lse, iters, reps)
     mk = lambda shape, dtype: torch.randn(*shape, generator=gen, device="cuda").to(dtype)
     out = {"flash_serve": [], "flash_train": {}}
     B, S, H, Hkv, D, _ = GEMMA_SERVE_ATTN
@@ -3827,11 +4054,14 @@ def kernel_records(rec):
     t = rec.get("time", {})
     paths = {key: rec.get(key, {}).get("launches", {})
              for key in ("serve", "ssm_serve", "train", "train_cli", "ssm_train", "ddp",
-                         "gemma_serve", "gemma_train", "gemma2_serve", "gemma2_train")}
+                         "gemma_serve", "gemma_train", "gemma2_serve", "gemma2_train",
+                         "zamba2_serve", "zamba2_train")}
     paths["ssm_train_bf16"] = rec.get("ssm_train", {}).get("c", {}).get("launches", {})
     paths["gemma_train_bf16"] = rec.get("gemma_train", {}).get("b", {}).get("launches", {})
     paths["gemma2_train_bf16"] = rec.get("gemma2_train", {}).get("b", {}).get("launches", {})
-    gm, gm2 = t.get("gemma", {}), t.get("gemma2", {})
+    paths["zamba2_train_bf16"] = rec.get("zamba2_train", {}).get("b", {}).get("launches", {})
+    gm, gm2, zm = t.get("gemma", {}), t.get("gemma2", {}), t.get("zamba2", {})
+    ztrain = zm.get("flash_train", {})     # {dtype: {fwd, bwd}}
     gtrain = gm.get("flash_train", {})      # {dtype: {"window" | "global": {fwd, bwd}}}
     flash_top = next((x for x in t.get("flash", []) if x["S"] == 1024), {})
     ft, xe = t.get("flash_train", {}), t.get("xent", {})
@@ -3843,11 +4073,14 @@ def kernel_records(rec):
                                  "gemma_serve_shape": gm.get("flash_serve"),
                                  "gemma_train_shape": {d: {k: r.get("fwd") for k, r in v.items()}
                                                        for d, v in gtrain.items()},
-                                 "gemma2_prefill_shape": gm2.get("flash_fwd")},
+                                 "gemma2_prefill_shape": gm2.get("flash_fwd"),
+                                 "zamba2_train_shape": {d: r.get("fwd") for d, r in ztrain.items()},
+                                 "zamba2_prefill_shape": zm.get("flash_prefill")},
              "paged_attention": {**{k: t.get("paged", {}).get(k)
                                     for k in ("call_ms", "host_call_ms", "by_kernel")},
                                  "gemma_shape": gm.get("paged"),
-                                 "gemma2_shape": gm2.get("paged")},
+                                 "gemma2_shape": gm2.get("paged"),
+                                 "zamba2_shape": zm.get("paged")},
              "flash_attention_bwd": {"call_ms": bwd.get("call_ms"),
                                      "host_call_ms": bwd.get("host_call_ms"),
                                      "library_eager_ms": bwd.get("library_eager_ms"),
@@ -3859,7 +4092,9 @@ def kernel_records(rec):
                                      "gemma_train_shape": {d: {k: r.get("bwd")
                                                                for k, r in v.items()}
                                                            for d, v in gtrain.items()},
-                                     "gemma2_train_shape_softcap": gm2.get("flash_bwd")},
+                                     "gemma2_train_shape_softcap": gm2.get("flash_bwd"),
+                                     "zamba2_train_shape": {d: r.get("bwd")
+                                                            for d, r in ztrain.items()}},
              "fused_xent": {"bf16": xe.get("bfloat16", {}).get("fwd")},
              "fused_xent_bwd": {"bf16": xe.get("bfloat16", {}).get("bwd")},
              "ssd_scan": {"f32": ssd.get("float32"), "zamba2_bf16": ssd.get("zamba2_bf16"),
@@ -3964,6 +4199,23 @@ def summary(rec):
             "gemma2_softcap_bwd_ms": {d: {k: r.get("ms") for k, r in rows.items()}
                                       for d, rows in rec.get("time", {}).get("gemma2", {}).get(
                                           "flash_bwd", {}).items()},
+            "zamba2_path_max_rel_err": rec.get("zamba2_path", {}).get("max_rel_err"),
+            "zamba2_train_path_rel_err": rec.get("zamba2_train_path", {}).get("rel_err"),
+            "zamba2_serve": {k: rec.get("zamba2_serve", {}).get(k)
+                             for k in keys + ("peak_mem_gib",)},
+            "zamba2_tick_device_busy_ms":
+                rec.get("zamba2_serve_decode_profile", {}).get("device_busy_ms"),
+            "zamba2_prefill_4000_device_busy_ms":
+                rec.get("zamba2_serve_prefill_profile", {}).get("device_busy_ms"),
+            "zamba2_train": {tag: {k: rec.get("zamba2_train", {}).get(tag, {}).get(k) for k in (
+                "step_time_p50_ms", "tokens_per_s", "mfu", "peak_mem_gib")} | {
+                "device_busy_ms": rec.get("zamba2_train", {}).get(tag, {}).get(
+                    "profile", {}).get("device_busy_ms")} for tag in ("a", "b")},
+            "zamba2_d80_ms": {
+                **{f"{d}_{kind}": r.get(kind, {}).get("ms") for d, r in rec.get("time", {}).get(
+                    "zamba2", {}).get("flash_train", {}).items() for kind in ("fwd", "bwd")},
+                "prefill": rec.get("time", {}).get("zamba2", {}).get("flash_prefill", {}).get("ms"),
+                "paged": rec.get("time", {}).get("zamba2", {}).get("paged", {}).get("ms")},
             "gemma_train": {tag: {k: rec.get("gemma_train", {}).get(tag, {}).get(k) for k in (
                 "step_time_p50_ms", "tokens_per_s", "mfu")} | {
                 "device_busy_ms": rec.get("gemma_train", {}).get(tag, {}).get(
@@ -4066,11 +4318,17 @@ def main():
              "gemma_train_path": lambda torch, rec: check_lm_train_path(
                  torch, rec, "gemma_train_path", cpu_refs),
              "gemma_train": run_gemma_train,
-             "gemma2_path": lambda torch, rec: check_gemma2_path(torch, rec, cpu_refs),
+             "gemma2_path": lambda torch, rec: check_engine_path(torch, rec, "gemma2_path",
+                                                                 cpu_refs),
              "gemma2_serve": run_gemma2_serve,
              "gemma2_train_path": lambda torch, rec: check_lm_train_path(
                  torch, rec, "gemma2_train_path", cpu_refs),
              "gemma2_train": run_gemma2_train,
+             "zamba2_path": lambda torch, rec: check_engine_path(torch, rec, "zamba2_path",
+                                                                 cpu_refs),
+             "zamba2_train_path": lambda torch, rec: check_lm_train_path(
+                 torch, rec, "zamba2_train_path", cpu_refs),
+             "zamba2_serve": run_zamba2_serve, "zamba2_train": run_zamba2_train,
              "ddp_path": check_ddp_path,
              "ddp": run_ddp, "time": time_kernels}
     for ph in PHASES[1:]:

@@ -14,6 +14,7 @@ ARCHS = {
     "gemma3-4b": "gemma3_4b",
     "mamba2-130m": "mamba2_130m",
     "starcoder2-3b": "starcoder2_3b",
+    "zamba2-2.7b": "zamba2_2_7b",
 }
 
 

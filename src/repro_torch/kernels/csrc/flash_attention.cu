@@ -64,6 +64,16 @@
 // an SM, 64 + 64 f32 accumulators a thread; D 256 (gemma3) 64 keys and 2
 // stages (192 KB), 128 + 32 f32 accumulators of O and S a thread, O += P V
 // one wgmma m64n256k16 a 16-key step.
+// D 80 (zamba2-2.7b's shared attention, MHA 32 / 32): laid out as D 128
+// (`hopper::box_cols`), two boxes a row whose tensor maps have an inner
+// extent of 80, so TMA fills columns 80-127 with zeros on every load and
+// the store drops them: S = Q K^T stops after the 5 k-steps of the true
+// head dim (no column past 80 enters a score, so the body does not rely
+// on the zeros: O's columns past 80 are never stored), O += P V runs at
+// N 128 over V's zero columns (a wgmma
+// m64n80k16 would save 3/8 of it; V's MN-major tile then spans two swizzle
+// atoms), and nothing is copied or padded in device memory.  Its tiles are
+// D 128's: the same shared memory and registers a thread.
 //
 //
 // f32 body (`flash_fwd_f32_wgmma_kernel`, the exactness path, the train
@@ -132,12 +142,17 @@ constexpr int BOX = 64;    // columns of a TMA box (128 bytes of bf16: the swizz
 
 // Tiles of the body whose operands are NP bf16 pieces (1: bf16 inputs;
 // 3: f32 inputs, see hopper.cuh).  WG: consumer warpgroups of a block, 64
-// q rows each.
+// q rows each.  D 80 holds D 128's shared-memory layout and accumulators
+// (hopper::box_cols), so it takes D 128's key tiles and stages.
 template <int D, int NP>
 struct Tiles;
 template <>
 struct Tiles<64, 1> {
   static constexpr int BK = 64, STAGES = 3, MIN_BLOCKS = 2, WG = 2;
+};
+template <>
+struct Tiles<80, 1> {
+  static constexpr int BK = 128, STAGES = 2, MIN_BLOCKS = 1, WG = 2;
 };
 template <>
 struct Tiles<128, 1> {
@@ -152,6 +167,10 @@ struct Tiles<64, 3> {
   static constexpr int BK = 64, STAGES = 3, MIN_BLOCKS = 1, WG = 2;
 };
 template <>
+struct Tiles<80, 3> {
+  static constexpr int BK = 32, STAGES = 2, MIN_BLOCKS = 1, WG = 2;
+};
+template <>
 struct Tiles<128, 3> {
   static constexpr int BK = 32, STAGES = 2, MIN_BLOCKS = 1, WG = 2;
 };
@@ -160,12 +179,14 @@ struct Tiles<256, 3> {  // Q's three pieces: 96 KB for one warpgroup's 64 rows
   static constexpr int BK = 16, STAGES = 2, MIN_BLOCKS = 1, WG = 1;
 };
 
-// shared memory, in bytes from a 1024-aligned base: Q as NP pieces of D/64
+// shared memory, in bytes from a 1024-aligned base: Q as NP pieces of NB
 // boxes of WQ rows, then K of every stage, then V of every stage (box x of
-// piece p of stage s at ((s * NP + p) * D/64 + x) boxes), then the barriers
+// piece p of stage s at ((s * NP + p) * NB + x) boxes), then the barriers;
+// NB = box_cols / 64, the boxes of a row (2 at D 80)
 template <int D, int NP>
 struct Smem {
-  static constexpr int NB = D / BOX, BK = Tiles<D, NP>::BK, STAGES = Tiles<D, NP>::STAGES;
+  static constexpr int NB = hopper::box_cols<D>() / BOX;
+  static constexpr int BK = Tiles<D, NP>::BK, STAGES = Tiles<D, NP>::STAGES;
   static constexpr int WQ = 64 * Tiles<D, NP>::WG, WNT = 128 * Tiles<D, NP>::WG;  // q rows, threads
   static constexpr int Q_BOX = WQ * BOX * 2, KV_BOX = BK * BOX * 2;
   static constexpr int K = NP * NB * Q_BOX;
@@ -183,6 +204,7 @@ __device__ __forceinline__ void fwd_body(const CUtensorMap& tq, const CUtensorMa
   using L = Smem<D, NP>;
   constexpr int NB = L::NB, BK = L::BK, STAGES = L::STAGES, NPAIR = hopper::n_pairs(NP);
   constexpr int WQ = L::WQ, WNT = L::WNT;
+  constexpr int DP = NB * BOX;  // O's columns: the head dim's boxes (zeros past D)
   static_assert(STAGES >= 2, "V of tile i is refilled two iterations after its use");
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = smem_raw + ((1024 - (hopper::smem_addr(smem_raw) & 1023)) & 1023);
@@ -275,9 +297,9 @@ __device__ __forceinline__ void fwd_body(const CUtensorMap& tq, const CUtensorMa
   const float pre = CAP ? p.scale / p.softcap : p.scale * LOG2E;
   const float post = p.softcap * LOG2E;
 
-  float o[D / 2], s[BK / 2];
+  float o[DP / 2], s[BK / 2];
 #pragma unroll
-  for (int x = 0; x < D / 2; ++x) o[x] = 0.f;
+  for (int x = 0; x < DP / 2; ++x) o[x] = 0.f;
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};  // l: this thread's columns only
   hopper::mbar_wait(q_full, 0);
 
@@ -330,7 +352,8 @@ __device__ __forceinline__ void fwd_body(const CUtensorMap& tq, const CUtensorMa
     for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
   };
   // S = Q K^T of the tile in stage st, issued: the sum over the piece
-  // pairs (i, j) of Q_i K_j^T, smallest first
+  // pairs (i, j) of Q_i K_j^T, smallest first, over the D / 16 k-steps of
+  // the true head dim
   auto issue_qk = [&](int st) {
 #pragma unroll
     for (int k = 0; k < NPAIR; ++k)
@@ -356,7 +379,7 @@ __device__ __forceinline__ void fwd_body(const CUtensorMap& tq, const CUtensorMa
     for (int k = 0; k < NPAIR; ++k)
 #pragma unroll
       for (int kc = 0; kc < BK / 16; ++kc)
-        hopper::wgmma_rs<D, 1>(
+        hopper::wgmma_rs<DP, 1>(
             o, pa[hopper::pair_i(NP, k)][kc],
             hopper::desc_sw128(
                 v_smem + (st * NP + hopper::pair_j(NP, k)) * NB * L::KV_BOX + kc * 16 * 128,
@@ -374,7 +397,7 @@ __device__ __forceinline__ void fwd_body(const CUtensorMap& tq, const CUtensorMa
   };
   auto rescale_and_pack = [&](const float (&alpha)[2]) {
 #pragma unroll
-    for (int x = 0; x < D / 2; ++x) o[x] *= alpha[(x >> 1) & 1];
+    for (int x = 0; x < DP / 2; ++x) o[x] *= alpha[(x >> 1) & 1];
 #pragma unroll
     for (int kc = 0; kc < BK / 16; ++kc)
 #pragma unroll
@@ -465,8 +488,8 @@ __device__ __forceinline__ void fwd_body(const CUtensorMap& tq, const CUtensorMa
     const float lsum = fmaxf(l[r], 1e-37f);
     const int row = row0 + 8 * r;
     if constexpr (NP == 1) {
-      // O into this warpgroup's Q rows, swizzled as the TMA box expects:
-      // 16-byte chunk c of row rl at chunk c ^ (rl % 8)
+      // O's D columns into this warpgroup's Q rows, swizzled as the TMA box
+      // expects: 16-byte chunk c of row rl at chunk c ^ (rl % 8)
       const int rl = warp * 16 + g + 8 * r;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j)
@@ -610,6 +633,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
            B, S, H, Hkv, causal, window, softcap, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D == 64) return launch_d<64>(p, dtype, pieces, st);
+  if (D == 80) return launch_d<80>(p, dtype, pieces, st);
   if (D == 128) return launch_d<128>(p, dtype, pieces, st);
   if (D == 256) return launch_d<256>(p, dtype, pieces, st);
   return static_cast<int>(cudaErrorInvalidValue);

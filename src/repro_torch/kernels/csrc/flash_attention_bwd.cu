@@ -17,7 +17,7 @@
 // Causal or not, with a sliding window or not (key j is seen by row i
 // when i - W < j, and j <= i if causal), any GQA ratio (kv head = h /
 // rep: dK and dV sum over the rep query heads of their kv head), D in
-// {64, 128, 256}, ragged S.  The softcap is built at D 128 and causal
+// {64, 80, 128, 256}, ragged S.  The softcap is built at D 128 and causal
 // (gemma2's attention), in both dtypes; the wrapper refuses the others.
 //
 // No atomics: dQ has its own pass over the q tiles (it recomputes S and
@@ -75,6 +75,16 @@
 // window: dq visits only the key tiles that meet (q - W, q], dkdv only
 // the q tiles that meet [k, k + W); tiles across the window's edge take
 // the masked variant.
+// D 80 (zamba2-2.7b, MHA 32 / 32, causal): laid out as D 128
+// (`hopper::box_cols`), two boxes a row whose tensor maps have an inner
+// extent of 80, so every load fills columns 80-127 with zeros and every
+// store drops them.  S, dP (and their transposes) stop after the 5
+// k-steps of the true head dim; the bf16 Delta = rowsum(dO O) sums whole
+// boxes, so it relies on the zeros; dQ += dS K, dV += P^T dO and dK += dS^T Q
+// run at N 128 over the zero columns (their columns past 80 stay 0 and
+// are never written: the TMA store drops them, the f32 epilogue stores 80
+// columns).  Its shapes are D 128's, whose shared memory and registers it
+// holds.
 // The softcap is a compile-time choice of both passes (CAP), as in the
 // forward, so that no branch on it lies near a wgmma.  Each pass computes
 // t with the accurate tanhf while dP runs (tanh.approx's ~2^-11 times a
@@ -203,6 +213,12 @@ struct Shape<64, 1> : ShapeBase {
   static constexpr int WG = 2, DQ_BK = 64, DQ_STAGES = 3, DQ_BLOCKS = 2, QT = 64, KV_STAGES = 3,
                        NH = 1;
 };
+// D 80: D 128's layout (hopper::box_cols) and so D 128's tiles
+template <>
+struct Shape<80, 1> : ShapeBase {
+  static constexpr int WG = 2, DQ_BK = 64, DQ_STAGES = 2, DQ_BLOCKS = 1, QT = 64, KV_STAGES = 3,
+                       NH = 1;
+};
 template <>
 struct Shape<128, 1> : ShapeBase {
   static constexpr int WG = 2, DQ_BK = 64, DQ_STAGES = 2, DQ_BLOCKS = 1, QT = 64, KV_STAGES = 3,
@@ -219,6 +235,11 @@ struct Shape<256, 1> : ShapeBase {
 template <>
 struct Shape<64, 3> : ShapeBase {
   static constexpr int WG = 2, DQ_BK = 64, DQ_STAGES = 2, DQ_BLOCKS = 1, QT = 64, KV_STAGES = 2,
+                       NH = 1;
+};
+template <>
+struct Shape<80, 3> : ShapeBase {  // D 128's layout: one warpgroup, as there
+  static constexpr int WG = 1, DQ_BK = 32, DQ_STAGES = 2, DQ_BLOCKS = 1, QT = 32, KV_STAGES = 2,
                        NH = 1;
 };
 template <>
@@ -245,10 +266,12 @@ struct Shape<256, 3> {
 // dq: Q, dO (and with bf16 inputs O) of the block's rows as (warpgroup,
 // piece, box) boxes of 64 rows, then K and V of each stage (box x of piece
 // p of stage s at (s * NP + p) * NB + x, DQ_BK rows a box), then the
-// barriers; bytes from a 1024-aligned base
+// barriers; bytes from a 1024-aligned base.  NB = box_cols / 64, the
+// boxes of a row (2 at D 80)
 template <int D, int NP>
 struct DqSmem {
-  static constexpr int NB = D / BOX, WG = Shape<D, NP>::WG, BK = Shape<D, NP>::DQ_BK;
+  static constexpr int NB = hopper::box_cols<D>() / BOX;
+  static constexpr int WG = Shape<D, NP>::WG, BK = Shape<D, NP>::DQ_BK;
   static constexpr int STAGES = Shape<D, NP>::DQ_STAGES, KB = BK * BOX * 2;
   // the resident Q's pieces (boxes), then dO's: pieces, or (RES) 64 rows
   // of D floats
@@ -268,7 +291,8 @@ struct DqSmem {
 // the barriers
 template <int D, int NP>
 struct KvSmem {
-  static constexpr int NB = D / BOX, WG = Shape<D, NP>::WG, QT = Shape<D, NP>::QT;
+  static constexpr int NB = hopper::box_cols<D>() / BOX;
+  static constexpr int WG = Shape<D, NP>::WG, QT = Shape<D, NP>::QT;
   static constexpr int STAGES = Shape<D, NP>::KV_STAGES, QB = QT * BOX * 2, STAT_B = 2 * QT * 4;
   // the resident K's pieces (boxes), then V's: pieces, or (RES) 64 rows
   // of D floats
@@ -288,7 +312,8 @@ struct KvSmem {
 // Delta, dV's shared half, the barriers
 template <int D>
 struct DvSmem {
-  static constexpr int NP = 3, NB = D / BOX, QT = Shape<D, 3>::QT, STAGES = 2;
+  static constexpr int NP = 3, NB = hopper::box_cols<D>() / BOX, QT = Shape<D, 3>::QT,
+                       STAGES = 2;
   static constexpr int QB = QT * BOX * 2, STAT_B = 2 * QT * 4;
   static constexpr int K = 0, Q = NP * NB * BOX_BYTES, DO = Q + STAGES * NP * NB * QB;
   static constexpr int STAT = DO + STAGES * NP * NB * QB;
@@ -363,12 +388,13 @@ __device__ __forceinline__ float row_dot_f32(const Params& p, int b, int h, int 
   return acc;
 }
 
-// A warpgroup's 64 x D accumulator times `scale`, in bf16, into its D/64
-// boxes at `box`, swizzled as a TMA box expects; this thread holds rows
-// rl0 and rl0 + 8, columns 8 j + 2 t and the next
-template <int D>
-__device__ __forceinline__ void acc_to_boxes(uint8_t* box, const float (&acc)[D / 2],
+// The first D columns of a warpgroup's 64-row accumulator times `scale`,
+// in bf16, into its boxes at `box`, swizzled as a TMA box expects; this
+// thread holds rows rl0 and rl0 + 8, columns 8 j + 2 t and the next
+template <int D, int N>
+__device__ __forceinline__ void acc_to_boxes(uint8_t* box, const float (&acc)[N],
                                              float scale, int rl0, int g, int t) {
+  static_assert(D / 2 <= N, "D columns of the accumulator");
 #pragma unroll
   for (int r = 0; r < 2; ++r)
 #pragma unroll
@@ -378,14 +404,15 @@ __device__ __forceinline__ void acc_to_boxes(uint8_t* box, const float (&acc)[D 
           __floats2bfloat162_rn(acc[4 * j + 2 * r] * scale, acc[4 * j + 2 * r + 1] * scale);
 }
 
-// A 64 x W accumulator times `scale` in f32 straight into rows row0 and
-// row0 + 8 (this thread's), columns col0 .. col0 + W - 1, of head h of a
-// contiguous (B, S, heads, D) tensor, 8 bytes a store; rows past S are
-// dropped
-template <int D, int W>
-__device__ __forceinline__ void acc_to_f32(float* out, const float (&acc)[W / 2], float scale,
+// The first W columns of a 64-row accumulator times `scale` in f32
+// straight into rows row0 and row0 + 8 (this thread's), columns col0 ..
+// col0 + W - 1, of head h of a contiguous (B, S, heads, D) tensor, 8 bytes
+// a store; rows past S are dropped
+template <int D, int W, int N>
+__device__ __forceinline__ void acc_to_f32(float* out, const float (&acc)[N], float scale,
                                            int b, int S, int heads, int h, int row0, int t,
                                            int col0) {
+  static_assert(W / 2 <= N && W <= D, "W columns of the accumulator, inside the row");
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + 8 * r;
@@ -554,7 +581,8 @@ __device__ __forceinline__ void hybrid_products(float (&s)[N / 2], float (&d)[N 
                                                 float (&d_lo)[N / 2], uint32_t xa, uint32_t xb,
                                                 uint32_t ya, uint32_t yb, int piece, int rl0,
                                                 int t) {
-  constexpr int NP = 3, NB = D / BOX;
+  constexpr int NP = 3, NB = hopper::box_cols<D>() / BOX;
+  static_assert(NB * BOX == D, "the resident-tile bodies hold whole boxes");
   uint32_t a[2][3][4];
   // the last tile's sums are dead: zeros, so that no register stays live
   // across the tile for them
@@ -610,6 +638,7 @@ __device__ __forceinline__ void dq_body(const CUtensorMap& tq, const CUtensorMap
   using L = DqSmem<D, NP>;
   constexpr int NB = L::NB, STAGES = L::STAGES, WG = L::WG, BK = L::BK, KB = L::KB;
   constexpr int ROWS = WG * TILE, NPAIR = hopper::n_pairs(NP);
+  constexpr int DP = NB * BOX;  // dQ's columns: the head dim's boxes (zeros past D)
   constexpr bool RES = Shape<D, NP>::RES;
   static_assert(!RES || (NP == 3 && WG == 1), "a resident f32 tile: f32 inputs, one warpgroup");
   static_assert(!(CAP && RES), "no softcap in the resident-tile bodies");
@@ -723,7 +752,7 @@ __device__ __forceinline__ void dq_body(const CUtensorMap& tq, const CUtensorMap
   }
 
   // RES: dQ's first RREG values a thread here, the others in shared memory
-  constexpr int DQR = RES ? Shape<D, NP>::RREG : D / 2;
+  constexpr int DQR = RES ? Shape<D, NP>::RREG : DP / 2;
   float s[BK / 2], dp[BK / 2], dq[DQR];
   float dp_lo[RES ? BK / 2 : 1];  // RES: dP's small piece pairs
   uint32_t da[NP][BK / 16][4];
@@ -826,12 +855,12 @@ __device__ __forceinline__ void dq_body(const CUtensorMap& tq, const CUtensorMap
         hopper::wgmma_fence();
 #pragma unroll
         for (int kc = 0; kc < BK / 16; ++kc)
-          hopper::wgmma_rs<D, 1>(dq, da[0][kc], mnmajor<BK>(kst, kc), 1);
+          hopper::wgmma_rs<DP, 1>(dq, da[0][kc], mnmajor<BK>(kst, kc), 1);
         hopper::wgmma_commit();
         hopper::wgmma_wait<0>();
         fence_all();
       } else {
-        add_partial<D, NP, BK, RES ? 32 : 64, DQR>(dq, da, kst, NB * KB, KB, sacc);  // dQ += dS K
+        add_partial<DP, NP, BK, RES ? 32 : 64, DQR>(dq, da, kst, NB * KB, KB, sacc);  // dQ += dS K
       }
       if (lane == 0) hopper::mbar_arrive(&kv_empty[st]);
     };
@@ -851,7 +880,8 @@ __device__ __forceinline__ void dq_body(const CUtensorMap& tq, const CUtensorMap
     hopper::named_barrier(1 + wg, 128);
     if (tid % 128 == 0) store_boxes<NB>(&tdq, sm + L::Q + wg * NB * BOX_BYTES, h, r0, b);
   } else {
-    acc_to_f32<D, 2 * DQR>(static_cast<float*>(p.dq), dq, p.scale, b, S, p.H, h, r0 + rl0, t, 0);
+    acc_to_f32<D, RES ? 2 * DQR : D>(static_cast<float*>(p.dq), dq, p.scale, b, S, p.H, h,
+                                     r0 + rl0, t, 0);
     if constexpr (RES)
       sacc_to_f32<D, DQR>(static_cast<float*>(p.dq), sacc, p.scale, b, S, p.H, h, r0 + rl0, t);
   }
@@ -871,7 +901,9 @@ __device__ __forceinline__ void dkdv_body(const CUtensorMap& tq, const CUtensorM
   using L = KvSmem<D, NP>;
   constexpr int NB = L::NB, STAGES = L::STAGES, WG = L::WG, QT = L::QT, QB = L::QB;
   constexpr int KEYS = WG * TILE, NPAIR = hopper::n_pairs(NP);
-  constexpr int NH = Shape<D, NP>::NH, DH = D / NH;  // this block's columns of dK and dV
+  // this block's columns of dK and dV (their products' N): at D 80 the
+  // two boxes, zeros past 80
+  constexpr int NH = Shape<D, NP>::NH, DH = hopper::box_cols<D>() / NH;
   static_assert(NP == 1 || NH == 1, "the f32 epilogue stores whole rows");
   static_assert(D % NH == 0 && DH % BOX == 0, "a block's columns are whole boxes");
   extern __shared__ uint8_t smem_raw[];
@@ -1128,8 +1160,8 @@ __device__ __forceinline__ void dkdv_body(const CUtensorMap& tq, const CUtensorM
   const int kr0 = k0 + wg * TILE;
   if (kr0 >= S) return;  // the whole warpgroup lies past S
   if constexpr (NP == 1) {
-    acc_to_boxes<DH>(sm + L::K + wg * NB * BOX_BYTES, dk, p.scale, rl0, g, t);
-    acc_to_boxes<DH>(sm + L::V + wg * NB * BOX_BYTES, dv, 1.f, rl0, g, t);
+    acc_to_boxes<D / NH>(sm + L::K + wg * NB * BOX_BYTES, dk, p.scale, rl0, g, t);
+    acc_to_boxes<D / NH>(sm + L::V + wg * NB * BOX_BYTES, dv, 1.f, rl0, g, t);
     hopper::fence_proxy_async();
     hopper::named_barrier(1 + wg, 128);
     if (tid % 128 == 0) {
@@ -1543,9 +1575,12 @@ cudaError_t launch(const Params& p, const Operands& x, cudaStream_t st) {
       return KvSmem<D, NP>::BYTES;
   }();
   if ((e = set_smem(dkdv, kv_bytes, &dkdv_ok[masked])) != cudaSuccess) return e;
+  // the inputs' maps' inner extent is the true head dim: at D 80 the
+  // second box's columns 80-127 load as zeros, which Delta sums over
+  constexpr int MAP_COLS = D;  // the inner extent of the q, k, v, o and dO maps
   auto map = [&](CUtensorMap* m, int i, int heads, int rows) {
-    return hopper::bhsd_map(m, x.ptr[i], NP * p.B, p.S, heads, D, x.stride[i][0], x.stride[i][1],
-                            x.stride[i][2], rows);
+    return hopper::bhsd_map(m, x.ptr[i], NP * p.B, p.S, heads, MAP_COLS, x.stride[i][0],
+                            x.stride[i][1], x.stride[i][2], rows);
   };
   // dq reads 64-row boxes of q and dO and DQ_BK-row ones of k and v; dkdv
   // 64-row boxes of k and v and QT-row ones of q and dO
@@ -1645,6 +1680,7 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B <= 0 || S <= 0) return 0;
   if (D == 64) return static_cast<int>(launch_d<64>(p, dtype, pieces, st));
+  if (D == 80) return static_cast<int>(launch_d<80>(p, dtype, pieces, st));
   if (D == 128) return static_cast<int>(launch_d<128>(p, dtype, pieces, st));
   if (D == 256) return static_cast<int>(launch_d<256>(p, dtype, pieces, st));
   return static_cast<int>(cudaErrorInvalidValue);

@@ -9,7 +9,11 @@
 // written by a TMA load with a 128-byte swizzle, as rows of 64 bf16
 // (128 bytes), 8 rows to a 1024-byte swizzle atom; a tile wider than 64
 // columns is several such boxes one after the other.  The descriptors
-// below describe exactly that layout.
+// below describe exactly that layout.  A head dim that is not a whole
+// number of boxes (80, zamba2-2.7b's) is laid out as the next whole one
+// (`box_cols`): its tensor maps keep the true inner extent, so TMA fills
+// the columns past it with zeros on every load and drops them on every
+// store.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: libcuda is not linked)
@@ -22,6 +26,19 @@ namespace hopper {
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The columns a head of head dim D takes in shared memory and in the
+// products: whole 64-column boxes.  D 64, 128 and 256 are whole boxes;
+// D 80 takes two boxes, as D 128 does: the boxes' columns 80-127 load as
+// zeros (the tensor maps' inner extent is 80), so S = Q K^T and O += P V
+// read zeros there, and a store drops them.  Fails to build at a head dim
+// that no body is laid out for.
+template <int D>
+__host__ __device__ constexpr int box_cols() {
+  static_assert(D == 64 || D == 80 || D == 128 || D == 256,
+                "a head dim the bodies are laid out for: 64, 80, 128 or 256");
+  return D == 80 ? 128 : D;
 }
 
 // ---------------------------------------------------------------------------
@@ -428,6 +445,8 @@ inline cudaError_t split3(const SplitArgs& a, int n, int B, int S, int D, cudaSt
       static_cast<unsigned>((static_cast<long long>(B) * S * heads * D / 8 + 255) / 256), n);
   if (D == 64)
     split3_kernel<64><<<grid, 256, 0, st>>>(a, B, S);
+  else if (D == 80)
+    split3_kernel<80><<<grid, 256, 0, st>>>(a, B, S);
   else if (D == 128)
     split3_kernel<128><<<grid, 256, 0, st>>>(a, B, S);
   else if (D == 256)

@@ -64,13 +64,21 @@
 // - host: the K and V tensor maps are cached by (base, NP, P, Hkv, D):
 //   an engine's pools never move, so a tick encodes none;
 // - D 256 (gemma3's global layers): a page is four 64-column boxes, O a
-//   wgmma m64n256k16 a 16-key step, 128 + 32 f32 accumulators a thread.
+//   wgmma m64n256k16 a 16-key step, 128 + 32 f32 accumulators a thread;
+// - D 80 (zamba2-2.7b's shared attention, rep 1): laid out as D 128
+//   (`hopper::box_cols`), a page two boxes whose pool map has an inner
+//   extent of 80, so TMA fills columns 80-127 with zeros; S = Q K^T stops
+//   after the head dim's 5 k-steps (Q's columns past 80 are never read),
+//   O += P V runs at N 128 over V's zero columns, and the partial state
+//   stores 80 columns.
 //
 // f32 body (`paged_partial_kernel`, any rep of the dispatch table below,
 // and bf16 outside `wgmma_shape`): eight warps take the split's pages
 // round robin, each a whole page at a time with its own running (m, l,
 // acc), a score a warp-shuffle dot product; the warps' states merge
-// through shared memory.  Its split is the caller's `pps` pages.
+// through shared memory.  Its split is the caller's `pps` pages.  A lane
+// holds EPL elements of a row, EPL = D / 32 where 32 divides D; at D 80,
+// four elements on each of 20 lanes (the other 12 hold zeros).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -142,7 +150,13 @@ __device__ __forceinline__ void live_pages(const Params& p, int pos, int* lo, in
 // partial state of its split.
 template <typename T, int D, int REP>
 __global__ void __launch_bounds__(NW * 32) paged_partial_kernel(Params p) {
-  constexpr int EPL = D / 32;  // elements of D per lane
+  // elements of D per lane, whole vector loads: D / 32, or at D 80 four
+  // on the first LANES = 20 lanes
+  constexpr int EPL = D % 32 == 0 ? D / 32 : 4;
+  constexpr int LANES = D / EPL;
+  static_assert((D == 64 || D == 80 || D == 128 || D == 256) && LANES * EPL == D &&
+                    LANES <= 32,
+                "a head dim the lanes are laid out for");
   extern __shared__ float smem[];
   float* ms = smem;                 // [NW][REP]
   float* ls = ms + NW * REP;        // [NW][REP]
@@ -160,7 +174,8 @@ __global__ void __launch_bounds__(NW * 32) paged_partial_kernel(Params p) {
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int d0 = lane * EPL;
+  const bool holds = lane < LANES;  // the lane holds elements of D
+  const int d0 = holds ? lane * EPL : 0;
   const int P = p.P;
   const long long tok_s = (long long)p.Hkv * D;
   const long long page_s = (long long)P * tok_s;
@@ -169,7 +184,12 @@ __global__ void __launch_bounds__(NW * 32) paged_partial_kernel(Params p) {
   const T* qb = static_cast<const T*>(p.q) + ((long long)b * p.H + g * REP) * D;
 #pragma unroll
   for (int i = 0; i < REP; ++i) {
-    load_f<T, EPL>(qb + i * D + d0, q[i]);
+    if (holds) {
+      load_f<T, EPL>(qb + i * D + d0, q[i]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < EPL; ++e) q[i][e] = 0.f;
+    }
     m[i] = NEG_INF;
     l[i] = 0.f;
 #pragma unroll
@@ -189,9 +209,12 @@ __global__ void __launch_bounds__(NW * 32) paged_partial_kernel(Params p) {
         const int t = t0 + u;
         const int kpos = j * P + t;
         live[u] = t < P && kpos <= pos && (p.window <= 0 || kpos > pos - p.window);
-        if (live[u]) {
+        if (live[u] && holds) {
           load_f<T, EPL>(kbase + page_off + t * tok_s, kx[u]);
           load_f<T, EPL>(vbase + page_off + t * tok_s, vx[u]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < EPL; ++e) kx[u][e] = vx[u][e] = 0.f;
         }
       }
 #pragma unroll
@@ -225,8 +248,9 @@ __global__ void __launch_bounds__(NW * 32) paged_partial_kernel(Params p) {
       ms[warp * REP + i] = m[i];
       ls[warp * REP + i] = l[i];
     }
+    if (holds)
 #pragma unroll
-    for (int e = 0; e < EPL; ++e) accs[(warp * REP + i) * D + d0 + e] = acc[i][e];
+      for (int e = 0; e < EPL; ++e) accs[(warp * REP + i) * D + d0 + e] = acc[i][e];
   }
   __syncthreads();
   const long long row0 = ((long long)b * p.H + g * REP) * p.nsplit + split;  // head i: + i*nsplit
@@ -266,17 +290,17 @@ static_assert(SPLIT_KEYS % STAGE_KEYS == 0 && SPLIT_KEYS / 8 <= 32,
               "a split is whole stages, one producer lane a page");
 
 __host__ __device__ constexpr bool wgmma_shape(int D, int P, int rep) {
-  return (D == 64 || D == 128 || D == 256) && (P == 8 || P == 16 || P == 32 || P == 64) && rep >= 1 &&
-         rep <= 16;
+  return (D == 64 || D == 80 || D == 128 || D == 256) &&
+         (P == 8 || P == 16 || P == 32 || P == 64) && rep >= 1 && rep <= 16;
 }
 
-// shared memory, in bytes from a 1024-aligned base: Q as D/64 boxes of 64
+// shared memory, in bytes from a 1024-aligned base: Q as NB boxes of 64
 // rows, then K of every stage, then V of every stage (box x of stage i at
-// (i * D/64 + x) boxes; page slot u of a stage at rows u*P of each box),
-// then the barriers
+// (i * NB + x) boxes; page slot u of a stage at rows u*P of each box),
+// then the barriers; NB = box_cols / 64, the boxes of a row (2 at D 80)
 template <int D>
 struct WSmem {
-  static constexpr int NB = D / BOX;
+  static constexpr int NB = hopper::box_cols<D>() / BOX;
   static constexpr int K = NB * BOX_BYTES;
   static constexpr int V = K + STAGES * NB * BOX_BYTES;
   static constexpr int BAR = V + STAGES * NB * BOX_BYTES;
@@ -289,6 +313,7 @@ __global__ void __launch_bounds__(WNT) paged_wgmma_kernel(const __grid_constant_
                                                           Params p) {
   using L = WSmem<D>;
   constexpr int NB = L::NB;
+  constexpr int DP = NB * BOX;  // O's columns: the head dim's boxes (zeros past D)
   const int g = blockIdx.x, b = blockIdx.y, split = blockIdx.z;
   // broadcast from lane 0, so that ptxas sees every branch below that
   // depends on pos as warp-uniform (no wgmma in a divergent path)
@@ -385,9 +410,9 @@ __global__ void __launch_bounds__(WNT) paged_wgmma_kernel(const __grid_constant_
   const uint32_t k_smem = hopper::smem_addr(sm + L::K);
   const uint32_t v_smem = hopper::smem_addr(sm + L::V);
 
-  float o[D / 2], s[STAGE_KEYS / 2];
+  float o[DP / 2], s[STAGE_KEYS / 2];
 #pragma unroll
-  for (int x = 0; x < D / 2; ++x) o[x] = 0.f;
+  for (int x = 0; x < DP / 2; ++x) o[x] = 0.f;
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};  // l: this thread's columns only
   uint32_t pa[STAGE_KEYS / 16][4];
   auto fence_all = [&] {
@@ -445,7 +470,7 @@ __global__ void __launch_bounds__(WNT) paged_wgmma_kernel(const __grid_constant_
 #pragma unroll
     for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
 #pragma unroll
-    for (int x = 0; x < D / 2; ++x) o[x] *= alpha[(x >> 1) & 1];
+    for (int x = 0; x < DP / 2; ++x) o[x] *= alpha[(x >> 1) & 1];
 #pragma unroll
     for (int kc = 0; kc < STAGE_KEYS / 16; ++kc)
 #pragma unroll
@@ -458,7 +483,7 @@ __global__ void __launch_bounds__(WNT) paged_wgmma_kernel(const __grid_constant_
     hopper::wgmma_fence();
 #pragma unroll
     for (int kc = 0; kc < STAGE_KEYS / 16; ++kc)
-      hopper::wgmma_rs<D, 1>(
+      hopper::wgmma_rs<DP, 1>(
           o, pa[kc],
           hopper::desc_sw128(v_smem + i * NB * BOX_BYTES + kc * 16 * 128, BOX_BYTES, 1024), 1);
     hopper::wgmma_commit();
@@ -629,12 +654,15 @@ extern "C" int paged_attention_fwd(const void* q, const void* k_pages, const voi
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1 && wgmma_shape(D, P, rep))
     return D == 64    ? by_cap<64>(p, B, NP, st)
+           : D == 80  ? by_cap<80>(p, B, NP, st)
            : D == 128 ? by_cap<128>(p, B, NP, st)
                       : by_cap<256>(p, B, NP, st);
   if (dtype == 0 && D == 64) return by_rep<float, 64>(p, rep, B, st);
+  if (dtype == 0 && D == 80) return by_rep<float, 80>(p, rep, B, st);
   if (dtype == 0 && D == 128) return by_rep<float, 128>(p, rep, B, st);
   if (dtype == 0 && D == 256) return by_rep<float, 256>(p, rep, B, st);
   if (dtype == 1 && D == 64) return by_rep<__nv_bfloat16, 64>(p, rep, B, st);
+  if (dtype == 1 && D == 80) return by_rep<__nv_bfloat16, 80>(p, rep, B, st);
   if (dtype == 1 && D == 128) return by_rep<__nv_bfloat16, 128>(p, rep, B, st);
   if (dtype == 1 && D == 256) return by_rep<__nv_bfloat16, 256>(p, rep, B, st);
   return static_cast<int>(cudaErrorInvalidValue);

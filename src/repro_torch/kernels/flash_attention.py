@@ -5,8 +5,10 @@
 takes as the vjp of ``flash_attention_ref``).
 
 Both run on the tensor cores (wgmma) in either dtype and at every head
-dim.  bf16 inputs are the products' operands as they are.  f32 inputs
-are first split, by a pre-pass of the same launch, into three bf16
+dim of ``HEAD_DIMS``; head dim 80 (zamba2-2.7b's) is laid out as 128, its
+tensor maps' inner extent 80, so the columns past it load as zeros.
+bf16 inputs are the products' operands as they are.  f32 inputs are
+first split, by a pre-pass of the same launch, into three bf16
 pieces each (x = x0 + x1 + x2, ``ref.split3``), and every f32 product is
 the sum of the six bf16 products of pieces i + j <= 2, exact in the f32
 accumulator: f32 accuracy (the terms dropped are of order 2^-24 |A|
@@ -30,7 +32,7 @@ import torch
 from repro_torch.kernels import _build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (64, 80, 128, 256)
 _P, _L, _I, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
 # the stream, then the f32 inputs' pieces (null for bf16); the backward
 # then its window and its softcap, after them, so that a library built

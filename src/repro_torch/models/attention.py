@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.configs.base import ATTN, LayerSpec, ModelConfig
+from repro_torch.configs.base import ATTN, SHARED_ATTN, LayerSpec, ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import apply_rope, rms_normalize, softcap
 from repro_torch.models.params import ParamSpec
@@ -124,7 +124,7 @@ def apply_attn(p, h, cfg: ModelConfig, spec: LayerSpec, *, positions,
     this call updates either in place.  In prefill it is ``{"length":
     L}``, the true prompt length of a right-padded bucket (only
     sliding-window rings read it)."""
-    if spec.kind != ATTN:
+    if spec.kind not in (ATTN, SHARED_ATTN):  # a shared bank attends as ATTN
         raise NotImplementedError(
             f"the port has GQA attention layers only, not {spec.kind} (MLA)")
     B = h.shape[0]

@@ -5,16 +5,20 @@ group are stacked along a leading ``layers`` axis of size ``repeats``,
 as in the JAX package.  Where that package scans the group with
 ``lax.scan``, the port loops over the rows of the stacked axis in Python
 (eager PyTorch has nothing to gain from a scan).  The port has the ATTN
-block with a dense MLP (and gemma's post-norms) and the MAMBA (Mamba2)
-block without one; MoE, MLA, shared banks and cross attention raise
-``NotImplementedError``.
+block with a dense MLP (and gemma's post-norms), the MAMBA (Mamba2) block
+without one, and zamba2's SHARED_ATTN block, whose attention and MLP
+take their parameters from one of the model's ``shared`` banks (its
+stacked position owns none), so that every invocation of a bank reads,
+and adds its gradient into, the same leaves; MoE, MLA and cross
+attention raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ATTN, MAMBA, LayerSpec, ModelConfig, ScheduleGroup
+from repro_torch.configs.base import (ATTN, MAMBA, SHARED_ATTN, LayerSpec, ModelConfig,
+                                      ScheduleGroup)
 from repro_torch.models.attention import apply_attn, attn_specs
 from repro_torch.models.layers import apply_mlp, apply_norm, mlp_specs, norm_specs
 from repro_torch.models.params import ParamTree, stack_specs
@@ -22,11 +26,13 @@ from repro_torch.models.ssm import apply_mamba, ssm_specs
 
 
 def block_specs(cfg: ModelConfig, spec: LayerSpec):
+    if spec.kind == SHARED_ATTN:
+        return {}  # params come from the shared bank
     if (spec.kind, spec.has_mlp) not in ((ATTN, True), (MAMBA, False)) \
             or spec.moe:
         raise NotImplementedError(
-            f"the port has ATTN blocks with a dense MLP and MAMBA blocks "
-            f"without one, not {spec}")
+            f"the port has ATTN blocks with a dense MLP, MAMBA blocks "
+            f"without one and SHARED_ATTN blocks, not {spec}")
     out = {"ln1": norm_specs(cfg),
            "mixer": attn_specs(cfg) if spec.kind == ATTN else ssm_specs(cfg)}
     if cfg.post_norms and spec.kind != MAMBA:
@@ -39,77 +45,97 @@ def block_specs(cfg: ModelConfig, spec: LayerSpec):
     return out
 
 
+def shared_block_specs(cfg: ModelConfig):
+    """zamba2's shared transformer block (attention + MLP): no post-norms."""
+    return {
+        "ln1": norm_specs(cfg),
+        "mixer": attn_specs(cfg),
+        "ln2": norm_specs(cfg),
+        "mlp": mlp_specs(cfg),
+    }
+
+
 def group_specs(cfg: ModelConfig, group: ScheduleGroup):
     per_layer = [block_specs(cfg, s) for s in group.pattern]
     return stack_specs(per_layer, group.repeats)
 
 
-def layer_row(tree, r: int):
+def layer_row(tree, r):
     """Row ``r`` of every leaf of a stacked tree (parameters or cache), as
-    nested dicts of views: writes into a cache row land in the stack."""
+    nested dicts of views: writes into a cache row land in the stack.
+    ``r`` None: the leaves themselves (a shared bank, which has no stack
+    axis, as the inputs of a checkpointed block)."""
     if isinstance(tree, ParamTree):
         return {name: layer_row(child, r)
                 for name, child in list(tree.named_parameters(recurse=False))
                 + list(tree.named_children())}
     if isinstance(tree, dict):
         return {k: layer_row(v, r) for k, v in tree.items()}
-    return tree[r]
+    return tree if r is None else tree[r]
 
 
-def apply_block(bp, h, cfg: ModelConfig, spec: LayerSpec, *, positions,
-                mode: str, cache=None, pos=None, causal: bool = True,
-                paged=None):
-    """Returns (h, new_cache)."""
+def apply_block(bp, shared, h, cfg: ModelConfig, spec: LayerSpec, *,
+                positions, mode: str, cache=None, pos=None,
+                causal: bool = True, paged=None):
+    """Returns (h, new_cache).  A SHARED_ATTN block reads its parameters
+    from ``shared[spec.shared_bank]`` (``bp`` is its empty stacked
+    position), has no post-norms and always its MLP."""
     new_cache = {}
     cache = cache or {}
-    x = apply_norm(bp["ln1"], h, cfg)
+    p = shared[spec.shared_bank] if spec.kind == SHARED_ATTN else bp
+    x = apply_norm(p["ln1"], h, cfg)
     if spec.kind == MAMBA:
-        mx, mc = apply_mamba(bp["mixer"], x, cfg, mode=mode,
+        mx, mc = apply_mamba(p["mixer"], x, cfg, mode=mode,
                              cache=cache.get("mixer"))
-    else:
-        mx, mc = apply_attn(bp["mixer"], x, cfg, spec, positions=positions,
+    else:  # ATTN / SHARED_ATTN
+        mx, mc = apply_attn(p["mixer"], x, cfg, spec, positions=positions,
                             mode=mode, cache=cache.get("mixer"), pos=pos,
                             causal=causal, paged=paged)
     if mc is not None:
         new_cache["mixer"] = mc
-    if cfg.post_norms and spec.kind != MAMBA:
+    if cfg.post_norms and spec.kind not in (MAMBA, SHARED_ATTN):
         mx = apply_norm(bp["post1"], mx, cfg)
     h = h + mx
-    if spec.has_mlp:
-        x = apply_norm(bp["ln2"], h, cfg)
-        mx = apply_mlp(bp["mlp"], x, cfg)
-        if cfg.post_norms:
+    if spec.has_mlp or spec.kind == SHARED_ATTN:
+        x = apply_norm(p["ln2"], h, cfg)
+        mx = apply_mlp(p["mlp"], x, cfg)
+        if cfg.post_norms and spec.kind != SHARED_ATTN:
             mx = apply_norm(bp["post2"], mx, cfg)
         h = h + mx
     return h, new_cache
 
 
-def _train_block(h, bp, cfg: ModelConfig, spec: LayerSpec, positions,
+def _train_block(h, bp, shared, cfg: ModelConfig, spec: LayerSpec, positions,
                  causal: bool):
-    return apply_block(bp, h, cfg, spec, positions=positions, mode="train",
-                       causal=causal)[0]
+    return apply_block(bp, shared, h, cfg, spec, positions=positions,
+                       mode="train", causal=causal)[0]
 
 
-def apply_group(pg, h, cfg: ModelConfig, group: ScheduleGroup, *,
+def apply_group(pg, shared, h, cfg: ModelConfig, group: ScheduleGroup, *,
                 positions, mode: str, cache_g=None, pos=None,
                 causal: bool = True, paged=None, remat: bool = False):
     """Run the group's rows in order.  Returns (h, new_cache_g): in
     prefill the per-layer caches stacked over the ``layers`` axis; in
     decode ``cache_g`` itself, whose pools the layers updated in place.
+    ``shared``: the model's shared banks (None without any).
 
     ``remat`` in train mode checkpoints each LAYER (not the whole
     pattern), as the JAX package's ``jax.checkpoint`` of ``one_block``
     does: the backward recomputes one layer at a time, so a layer's
-    activations live only while its own backward runs."""
+    activations live only while its own backward runs.  A shared block's
+    bank goes into the checkpoint as an input, so that each invocation's
+    gradient adds into the bank's one leaf."""
     new_caches = [[] for _ in group.pattern]
     for r in range(group.repeats):
         for pi, spec in enumerate(group.pattern):
             if remat and mode == "train":
-                h = checkpoint(_train_block, h, layer_row(pg[pi], r), cfg, spec,
-                               positions, causal, use_reentrant=False)
+                bank = {spec.shared_bank: layer_row(shared[spec.shared_bank], None)} \
+                    if spec.kind == SHARED_ATTN else None
+                h = checkpoint(_train_block, h, layer_row(pg[pi], r), bank, cfg,
+                               spec, positions, causal, use_reentrant=False)
                 continue
             cl = layer_row(cache_g[pi], r) if cache_g is not None else None
-            h, nc = apply_block(layer_row(pg[pi], r), h, cfg, spec,
+            h, nc = apply_block(layer_row(pg[pi], r), shared, h, cfg, spec,
                                 positions=positions, mode=mode, cache=cl,
                                 pos=pos, causal=causal, paged=paged)
             new_caches[pi].append(nc)

@@ -57,14 +57,20 @@ def flatten_tree(tree, prefix: str = "") -> Dict[str, object]:
     return {prefix[:-1]: tree}
 
 
-def _fan_in(shape: Tuple[int, ...]) -> int:
+def _fan_in(spec: ParamSpec) -> int:
+    shape = spec.shape
     if len(shape) == 1:
         return shape[-1]
     if len(shape) == 2:
         return shape[0]
-    # stacked / 3D+: the product of all but the last axis, divided by a
-    # leading ``layers`` stack axis that initializers must ignore
-    return max(1, int(np.prod(shape[:-1])) // shape[0])
+    # 3D+: the product of all but the last axis, divided by a leading
+    # ``layers`` stack axis that initializers must ignore.  The JAX
+    # package divides every 3D+ leaf by its first axis, as if each were
+    # stacked; a leaf without the stack axis (zamba2's shared banks:
+    # wq (d, H, D) would get a fan-in of H, 1/sqrt(32) at full size, and
+    # scores in the hundreds) keeps all of its fan-in here.
+    n = int(np.prod(shape[:-1]))
+    return max(1, n // shape[0]) if spec.axes[0] == "layers" else n
 
 
 def _init_leaf(spec: ParamSpec, gen: torch.Generator, dtype, device):
@@ -80,7 +86,7 @@ def _init_leaf(spec: ParamSpec, gen: torch.Generator, dtype, device):
         out = torch.log(u) if spec.init == "ssm_a" else \
             u + torch.log(-torch.expm1(-u))
         return out.to(dtype)
-    scale = spec.scale if spec.scale else 1.0 / np.sqrt(_fan_in(spec.shape))
+    scale = spec.scale if spec.scale else 1.0 / np.sqrt(_fan_in(spec))
     x = torch.randn(spec.shape, generator=gen, dtype=torch.float32,
                     device=device)
     return x.mul_(scale).to(dtype)

@@ -1,8 +1,9 @@
-"""Top-level model assembly: the decoder-only LM and the encoder-only
-model with its MLM head (BERT).
+"""Top-level model assembly: the decoder-only LM (zamba2's hybrid with its
+weight-shared attention banks among them) and the encoder-only model with
+its MLM head (BERT).
 
-Encoder-decoder, VLM and shared-bank models raise
-``NotImplementedError`` until their slices are ported."""
+Encoder-decoder and VLM models raise ``NotImplementedError`` until their
+slices are ported."""
 from __future__ import annotations
 
 from typing import Any, Dict
@@ -10,8 +11,8 @@ from typing import Any, Dict
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.base import ATTN, MAMBA, ModelConfig
-from repro_torch.models.blocks import apply_group, group_specs
+from repro_torch.configs.base import ATTN, MAMBA, SHARED_ATTN, ModelConfig
+from repro_torch.models.blocks import apply_group, group_specs, shared_block_specs
 from repro_torch.models.layers import (add_positions, apply_norm, embed_specs,
                                        embed_tokens, norm_specs, unembed)
 from repro_torch.models.params import ParamSpec
@@ -24,6 +25,12 @@ def _check_supported(cfg: ModelConfig):
             f"{cfg.name}: the port has decoder-only LMs and encoders only")
 
 
+def _n_shared_banks(cfg: ModelConfig) -> int:
+    banks = [s.shared_bank for g in cfg.schedule for s in g.pattern
+             if s.kind == SHARED_ATTN]
+    return (max(banks) + 1) if banks else 0
+
+
 def model_specs(cfg: ModelConfig):
     _check_supported(cfg)
     specs = {
@@ -31,6 +38,9 @@ def model_specs(cfg: ModelConfig):
         "final_norm": norm_specs(cfg),
         "groups": [group_specs(cfg, g) for g in cfg.schedule],
     }
+    nb = _n_shared_banks(cfg)
+    if nb:
+        specs["shared"] = [shared_block_specs(cfg) for _ in range(nb)]
     if cfg.family == "encoder":
         d = cfg.d_model
         specs["mlm"] = {
@@ -84,10 +94,11 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, Any], *, mode: str,
                                  device=tokens.device)[None]
     h = add_positions(params["embed"], h, positions, cfg)
 
+    shared = params["shared"] if _n_shared_banks(cfg) else None
     new_cache_groups = []
     for gi, group in enumerate(cfg.schedule):
         cache_g = cache["groups"][gi] if cache is not None else None
-        h, ncg = apply_group(params["groups"][gi], h, cfg, group,
+        h, ncg = apply_group(params["groups"][gi], shared, h, cfg, group,
                              positions=positions, mode=mode, cache_g=cache_g,
                              pos=pos, causal=causal, paged=paged,
                              remat=remat)
@@ -109,7 +120,8 @@ def cache_shapes(cfg: ModelConfig, B: int, S: int, dtype=torch.bfloat16):
     the stacked ``layers`` axis.  An SSM layer's leaves are its conv
     tails in ``dtype`` and its state, always f32; a sliding-window
     layer's its ring of W = min(window, S) positions and the ring's clock
-    ``pos`` (int32, no batch axis)."""
+    ``pos`` (int32, no batch axis).  A SHARED_ATTN position caches as a
+    global attention layer: each invocation of a bank its own k and v."""
     _check_supported(cfg)
     Hkv, D = cfg.n_kv_heads, cfg.head_dim
     groups = []
@@ -126,7 +138,7 @@ def cache_shapes(cfg: ModelConfig, B: int, S: int, dtype=torch.bfloat16):
                     "conv_C": ((r, B, K - 1, G, N), dtype),
                     "state": ((r, B, H, N, Pd), torch.float32)}})
                 continue
-            if spec.kind != ATTN:
+            if spec.kind not in (ATTN, SHARED_ATTN):
                 raise NotImplementedError(f"no cache layout for {spec}")
             if spec.window is not None:
                 W = min(spec.window, S)

@@ -155,15 +155,15 @@ def test_planted_faults_hold_their_lines_once_and_cover_every_kernel():
 
 
 def test_flash_cases_are_valid_shapes():
-    """Each gate case is a shape the wrapper takes (D 64 / 128 / 256, H a
-    multiple of Hkv, window >= 1); gemma3's serve and train shapes are
+    """Each gate case is a shape the wrapper takes (D 64 / 80 / 128 / 256, H
+    a multiple of Hkv, window >= 1); gemma3's serve and train shapes are
     held at D 256 with its window of 1024 and without, and gemma2's
     8192-token prefill (a head slice at rep 2) at D 128 with its window of
     4096 and without, its softcap 50 and query scale 144^-0.5."""
     cs = _chip_smoke()
     for case in cs.FLASH_CASES:
         B, S, H, Hkv, D, causal, window, softcap, *scale = case
-        assert B >= 1 and S >= 1 and H % Hkv == 0 and D in (64, 128, 256), case
+        assert B >= 1 and S >= 1 and H % Hkv == 0 and D in (64, 80, 128, 256), case
         assert window is None or window >= 1, case
         assert len(scale) <= 1 and all(0 < x < 1 for x in scale), case
     for shape in (cs.GEMMA_SERVE_ATTN, cs.GEMMA_TRAIN_ATTN):
@@ -185,7 +185,7 @@ def test_flash_bwd_cases_are_valid_shapes_and_cover_the_tile_edges():
     for case in cases:
         B, S, H, Hkv, D, causal = case[:6]
         window, softcap, amp, scale = cs.bwd_case_opts(case)
-        assert B >= 1 and S >= 1 and H % Hkv == 0 and D in (64, 128, 256), case
+        assert B >= 1 and S >= 1 and H % Hkv == 0 and D in (64, 80, 128, 256), case
         assert isinstance(causal, bool) and (window is None or window >= 1), case
         assert len(case) in (6, 7, 9) and amp >= 1, case
         assert (scale is None) == (softcap == 0.0), case
@@ -385,9 +385,9 @@ def test_paged_cases_are_valid_shapes_and_reach_the_wgmma_bodys_edges():
 
 def test_paged_shape_rule_sends_every_decode_to_the_wgmma_body():
     """starcoder2-3b's decode at the engine's page size goes to the wgmma
-    body in bf16, as does every config of the repo whose head dim is 64
-    or 128 (the JAX package's registry); f32 and D 80 go to the other
-    body.  The wgmma body's split (SPLIT_KEYS) is the .cu's, and its
+    body in bf16, as does every config of the repo whose head dim is 64,
+    80 or 128 (the JAX package's registry; 80 is zamba2-2.7b's); f32 goes
+    to the other body.  The wgmma body's split (SPLIT_KEYS) is the .cu's, and its
     scratch holds the other body's splits too."""
     import dataclasses
 
@@ -406,11 +406,12 @@ def test_paged_shape_rule_sends_every_decode_to_the_wgmma_body():
     assert wgmma_body(torch.bfloat16, sc.head_dim, page, sc.n_heads // sc.n_kv_heads)
     assert not wgmma_body(torch.float32, sc.head_dim, page, sc.n_heads // sc.n_kv_heads)
     cfgs = [jget_config(n) for n in jlist_archs()]
-    attn = [c for c in cfgs if c.n_heads and c.head_dim in (64, 128)]
-    assert {c.name for c in attn} >= {"starcoder2-3b", "llama3-8b", "qwen2-72b", "gemma2-27b"}
+    attn = [c for c in cfgs if c.n_heads and c.head_dim in (64, 80, 128)]
+    assert {c.name for c in attn} >= {"starcoder2-3b", "llama3-8b", "qwen2-72b", "gemma2-27b",
+                                      "zamba2-2.7b"}
     for c in attn:
         assert wgmma_body(torch.bfloat16, c.head_dim, page, c.n_heads // c.n_kv_heads), c.name
-    assert not wgmma_body(torch.bfloat16, 80, page, 1)
+    assert not wgmma_body(torch.float32, 80, page, 1)
     src = (_build.CSRC / "paged_attention.cu").read_text()
     assert re.search(rf"constexpr int SPLIT_KEYS = {SPLIT_KEYS};", src)
     for P in (8, 16, 32, 64):
@@ -776,15 +777,15 @@ def test_ssd_bwd_cases_and_bound_at_the_train_shape():
 
 def test_ssm_launches_per_step_at_the_train_shape():
     """mamba2-130m at B 16 x S 1024: 24 layers, so 48 scans (remat) and 24
-    backwards a microbatch; loss chunks of 159 positions (7) at 16 rows,
-    of 318 (4) at the 8 rows of microbatch 2."""
+    backwards a microbatch, and no flash launch; loss chunks of 159
+    positions (7) at 16 rows, of 318 (4) at the 8 rows of microbatch 2."""
     from repro_torch.configs import get_config
 
     cfg = get_config("mamba2-130m")
     cs = _chip_smoke()
-    assert cs.ssm_launches_per_step(cfg, 16, 1024) == {
+    assert cs.train_launches_per_step(cfg, 16, 1024) == {
         "ssd_scan": 48, "ssd_scan_bwd": 24, "fused_xent": 14, "fused_xent_bwd": 7}
-    assert cs.ssm_launches_per_step(cfg, 16, 1024, 2) == {
+    assert cs.train_launches_per_step(cfg, 16, 1024, 2) == {
         "ssd_scan": 96, "ssd_scan_bwd": 48, "fused_xent": 16, "fused_xent_bwd": 8}
 
 
