@@ -11,6 +11,8 @@
     python3 chip_smoke.py --phases build,gemma_path,gemma_serve,gemma_train_path,gemma_train
     python3 chip_smoke.py --phases build,gemma2_path,gemma2_serve,gemma2_train_path,gemma2_train
     python3 chip_smoke.py --phases build,zamba2_path,zamba2_serve,zamba2_train_path,zamba2_train
+    python3 chip_smoke.py --phases build,qwen2_path,llama3_train_path,llama3_serve,llama3_train
+    python3 chip_smoke.py --phases build,bert350_train,bert_max_batch
     python3 chip_smoke.py --phases build,serve,train,time \
         --against parent=build/parent/flash_attention.cu
 
@@ -98,38 +100,38 @@ Phases (any failure exits non-zero before the last line):
   train_cli   bert-mlm-120m at full width and depth, f32 (the launcher's
               defaults), batch 32 x 512 from the DataPipeline over a
               1000-function corpus, through repro_torch.launch.train.main:
-              (a) 10 steps with the R3 autotune; (b) the same run with
-              sharded checkpoints, stopped after the step-5 one; (d) that
+              (a) 6 steps with the R3 autotune; (b) the same run with
+              sharded checkpoints, stopped after the step-3 one; (d) that
               checkpoint resumed through runner.resume and TrainLoop with
               the device prefetch 4 deep, and (c) through a fresh main
-              (depth 2), whose losses at steps 6-10 must each equal (a)'s
+              (depth 2), whose losses at steps 4-6 must each equal (a)'s
               bit for bit; launch counts per step as in train, every batch
               placed by the device prefetch, the loss falling; the
               prefetch's batches equal to the host's at depths 2 and 4
   ssm_train   mamba2-130m at full width and depth, B 16 x S 1024 from the
-              DataPipeline: (a) 10 steps of repro_torch.launch.train.main
-              at its f32 defaults, checkpointed every 5 steps; (b) (a)'s
-              step-5 checkpoint resumed, whose losses at steps 6-10
+              DataPipeline: (a) 6 steps of repro_torch.launch.train.main
+              at its f32 defaults, checkpointed every 3 steps; (b) (a)'s
+              step-3 checkpoint resumed, whose losses at steps 4-6
               must equal (a)'s bit for bit; (c)
-              10 steps of trainer.train with bf16 parameters and
+              6 steps of trainer.train with bf16 parameters and
               activations at microbatch 2, every gradient handed to AdamW
               in f32; the loss falls in each, and every SSD scan and loss
               chunk, forward and backward, goes through the kernels
               (launch counts per step); step time, MFU and device busy
   gemma_train gemma3-4b at full width, depth cut to 6 (5 local, 1 global), B
               4 x S 2048 from the DataPipeline with the launcher's rolled
-              labels: (a) 6 steps of trainer.train in f32, (b) 6 in bf16
+              labels: (a) 4 steps of trainer.train in f32, (b) 4 in bf16
               at microbatch 2; the loss falls, launches per step exact
               (2L flash forwards, L backwards, 2C and C xent at V 262144),
               step time, MFU and device busy
   gemma2_train
               gemma2-27b at full width, depth 2 (local with window 4096,
-              global), S 8192 from the DataPipeline: (a) 6 steps in f32 at
-              B 1, (b) 6 in bf16 at B 2 and microbatch 2; as gemma_train
+              global), S 8192 from the DataPipeline: (a) 4 steps in f32 at
+              B 1, (b) 4 in bf16 at B 2 and microbatch 2; as gemma_train
               (the softcap flash backward, V 256000)
   zamba2_train
               zamba2-2.7b at full width and depth (2.445 G parameters), S
-              4096 from the DataPipeline: (a) 6 steps in f32 at B 1, (b) 6
+              4096 from the DataPipeline: (a) 4 steps in f32 at B 1, (b) 4
               in bf16 at B 4 and microbatch 2; as gemma_train (18 flash
               forwards, 9 backwards, 108 scans and 54 scan backwards a
               step and microbatch)
@@ -142,6 +144,39 @@ Phases (any failure exits non-zero before the last line):
               zamba2-2.7b at full width, (M, A, M, A) (bank A's gradient
               the sum of two invocations), f32, B 1 x S 512, 2 steps: as
               ssm_train_path
+  qwen2_path  qwen2-72b at full width, 2 layers (4.25 G parameters), f32,
+              weights drawn on the card: as path, prompts of 300 and 37
+              tokens, 9 new ones; GQA rep 8 in the flash and paged
+              kernels, the qkv bias under RMSNorm, the untied lm_head (its
+              cpu side in the cpu sides' process)
+  llama3_train_path
+              llama3-8b at full width, 2 layers, f32, B 1 x S 400, 2
+              steps: as ssm_train_path (the GQA rep-4 flash backward at
+              head dim 128, the untied lm_head's gradient)
+  llama3_serve
+              llama3-8b at full width and depth, bf16 (16.1 GB of
+              weights): 16 requests with prompts of 600-4000 tokens, 32
+              new tokens each, 8 slots; 32 flash launches a prefill, 32
+              paged a tick; the peak of device memory
+  llama3_train
+              llama3-8b at full width, depth cut to 4 (1.923 G
+              parameters), S 8192 from the DataPipeline: (a) 6 steps in
+              f32 at B 1, (b) 6 in bf16 at B 2 and microbatch 2; as
+              gemma_train (8 flash forwards, 4 backwards, 18 xent forwards
+              and 9 backwards at V 128256 a step and microbatch)
+  bert350_train
+              bert-mlm-350m at full size through
+              repro_torch.launch.train.main at its f32 defaults, batch 32 x
+              512 from train_cli's DataPipeline data dir, 6 steps: the loss
+              falls, launches per step exact; step time and MFU
+  bert_max_batch
+              R5: the largest batch at S 512 whose trainer.train step
+              completes (f32 parameters, bf16 activations, remat), for
+              bert-mlm-120m and bert-mlm-350m, in a process of its own:
+              the peaks of two small batches give a line, then at most 4
+              more steps bracket the limit within 3%; printed beside
+              MemoryModel(param_bytes=4, act_factor=150)'s prediction and
+              the paper's 184 / 20 on the H100 NVL of 94 GB
   ddp_path    bert-mlm-120m at full width, 2 layers, f32, global batch 8 x
               512 with ragged masks: 2 ranks on the one card over gloo
               (processes spawned by the phase) against one process on the
@@ -153,10 +188,10 @@ Phases (any failure exits non-zero before the last line):
   ddp         bert-mlm-120m at full width and depth, f32, through
               python -m torch.distributed.run --nproc-per-node 2 -m
               repro_torch.launch.train (gloo on the one card), --batch 16 a
-              rank from the DataPipeline, lr 1e-5, 10 steps: rank 0's losses within
+              rank from the DataPipeline, lr 1e-5, 6 steps: rank 0's losses within
               1e-4 of one process at --batch 32, the ranks' parameters
               equal, launches and 11 all-reduces per rank per step; its
-              step-5 checkpoint resumed by 2 ranks, bit for bit; then 10
+              step-3 checkpoint resumed by 2 ranks, bit for bit; then 6
               steps at the launcher's lr 3e-3 by 2 ranks (spawned by the
               phase), equal bit for bit to one process forming the
               gradient in the ranks' f32 order with no collective (the
@@ -174,7 +209,11 @@ Phases (any failure exits non-zero before the last line):
               its prefill's flash forward and its decode's paged kernel;
               zamba2's head-dim-80 flash forward and backward at B 1 x S
               4096 (bf16 and f32), its 4000-token prefill and its paged
-              decode at 8 slots of about 2000 tokens, beside SDPA
+              decode at 8 slots of about 2000 tokens, beside SDPA;
+              llama3-8b's flash forward and backward at B 1 x S 8192 (32
+              / 8 heads, bf16 and f32) and the paged decode at 8 slots of
+              about 2000 tokens at rep 4 (llama3) and rep 8 (qwen2-72b),
+              beside SDPA with enable_gqa
 
 --against NAME=SOURCE (repeatable) builds SOURCE, another version of the
 kernel source of its file name (csrc/<kernel>.cu; e.g. a parent commit's,
@@ -197,6 +236,7 @@ from __future__ import annotations
 
 import argparse
 import atexit
+import contextlib
 import dataclasses
 import json
 import math
@@ -210,25 +250,28 @@ T_START = time.perf_counter()
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "chiprun_out"
 # The cuda-against-cpu checks run first, while the planted faults' builds
-# (started at the lowest CPU priority once the build phase is done) take
-# the host: nice or not, they slowed the host-bound serve phases 2-3x
-# where they overlapped them (and the build from about 60 s to 193 s when
-# started beside it), and no check records a time.  They also run before
-# train_cli: launch.train.main leaves the process one intra-op thread (its
-# bit-exact resume needs it), which slows their CPU references 3.5x.
-# faults runs late, once its builds are done.  The gemma2 checks come
-# last among the checks, each after its cpu side's turn in the cpu sides'
-# process (CPU_REF_KEYS); gemma2_train_path, whose cpu side comes last
-# there, after the serve phases.  The device-bound training phases run
-# while that last turn does (it took 146-164 s), and the host-bound serve
-# phases after it: beside it serve's tick p50 read twice as long
-# (PERF.md §6).  The zamba2 checks' cpu sides come last in that process,
-# and so do the checks, after ddp.
+# (started at the lowest CPU priority once the build phase is done) and
+# the build gate's SASS reading take the host: nice or not, the builds
+# slowed the host-bound serve phases 2-3x where they overlapped them (and
+# the build from about 60 s to 193 s when started beside it), and no check
+# records a time.  They also run before train_cli: launch.train.main
+# leaves the process one intra-op thread (its bit-exact resume needs it),
+# which slows a CPU reference run in this process 3.5x.  faults runs late,
+# once its builds are done.  The checks whose cpu sides run in the cpu
+# sides' process (CPU_REF_KEYS) each come after that side's turn.  That
+# process runs for 520 s beside the phases on a slow host: the
+# device-bound training phases and train_cli, bert350_train and ssm_train
+# run while it does, and the host-bound serve phases after it (beside it
+# serve's tick p50 read twice as long, and the serve phases that
+# overlapped the llama3 and qwen2 sides took 19-33 s against 12-23 s
+# without them, PERF.md §6).  The zamba2, qwen2 and llama3 checks, whose
+# sides come last in that process, run after ddp.
 PHASES = ("build", "kernels", "path", "gemma_path", "ssm_path", "train_path", "ssm_train_path",
           "gemma_train_path", "gemma2_path", "ddp_path", "train", "gemma_train", "gemma2_train",
-          "zamba2_train", "serve", "gemma_serve", "gemma2_serve", "zamba2_serve",
-          "gemma2_train_path", "ssm_serve", "train_cli", "ssm_train", "ddp", "zamba2_path",
-          "zamba2_train_path", "faults", "time")
+          "zamba2_train", "llama3_train", "gemma2_train_path", "train_cli", "bert350_train",
+          "ssm_train", "serve", "gemma_serve", "gemma2_serve", "zamba2_serve", "llama3_serve",
+          "ssm_serve", "ddp", "zamba2_path", "zamba2_train_path", "qwen2_path",
+          "llama3_train_path", "bert_max_batch", "faults", "time")
 AGAINST_PHASES = ("serve", "ssm_serve", "train", "time")   # the phases --against runs again
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the bounds below use them
@@ -328,6 +371,14 @@ GEMMA2_PREFILL_SLICE = (1, 8192, 4, 2, 128, True)
 # causal; its train shape B 1 x S 4096 (zamba2_train), which is also its
 # longest prefill's (zamba2_serve's prompts reach 4000 tokens)
 ZAMBA2_TRAIN_ATTN = (1, 4096, 32, 32, 80, True)
+# llama3-8b's attention (arXiv:2407.21783): 32 q / 8 kv heads of 128
+# (rep 4), causal, no softcap; its train shape B 1 x S 8192 (llama3_train),
+# and a head slice of it for the gate (the time phase gates and times
+# all 32 heads).  qwen2-72b's (arXiv:2407.10671): 64 q / 8 kv heads of 128
+# (rep 8), at qwen2_path's 300-token prompt, ragged against every tile
+LLAMA3_TRAIN_ATTN = (1, 8192, 32, 8, 128, True)
+LLAMA3_TRAIN_SLICE = (1, 8192, 8, 2, 128, True)
+QWEN2_PROMPT_ATTN = (1, 300, 64, 8, 128, True)
 
 FLASH_CASES = [  # (B, S, H, Hkv, D, causal, window, softcap[, scale])
     (2, 256, 4, 4, 64, True, None, 0.0),       # rep 1
@@ -372,6 +423,9 @@ FLASH_CASES = [  # (B, S, H, Hkv, D, causal, window, softcap[, scale])
     (1, 1, 8, 8, 80, False, None, 0.0),
     (2, 127, 4, 2, 80, True, None, 0.0),       # a key short of a tile
     (1, 129, 4, 4, 80, False, 40, 20.0),       # a key past a tile; window + softcap
+    # GQA at rep 4 and 8, head dim 128, no softcap: llama3-8b's train shape
+    # (a head slice), qwen2-72b's prompt
+    LLAMA3_TRAIN_SLICE + (None, 0.0), QWEN2_PROMPT_ATTN + (None, 0.0),
 ]
 
 PAGED_CASES = [  # (B, H, Hkv, D, P, NP, maxp, window, softcap, (pos lo, hi))
@@ -410,6 +464,10 @@ PAGED_CASES = [  # (B, H, Hkv, D, P, NP, maxp, window, softcap, (pos lo, hi))
     (4, 8, 8, 80, 8, 64, 12, 40, 0.0, (0, 95)),
     (6, 4, 4, 80, 32, 80, 16, None, 0.0, (63, 511)),
     (6, 4, 4, 80, 64, 40, 8, None, 30.0, (0, 511)),
+    # llama3-8b's decode (rep 4, D 128): 8 slots of 600-4000 tokens, page
+    # 16, as llama3_serve; qwen2-72b's (rep 8), as qwen2_path's
+    (8, 32, 8, 128, 16, 1600, 256, None, 0.0, (600, 4000)),
+    (8, 64, 8, 128, 16, 200, 24, None, 0.0, (0, 340)),
 ]
 
 
@@ -465,6 +523,9 @@ FLASH_BWD_CASES = [
     ZAMBA2_TRAIN_ATTN,
     (2, 130, 4, 4, 80, True), (2, 300, 8, 2, 80, False), (2, 77, 4, 4, 80, False),
     (1, 1, 4, 4, 80, True), (1, 33, 2, 2, 80, True),
+    # GQA at rep 4 and 8, head dim 128, causal, no softcap: llama3-8b's
+    # train shape (a head slice), qwen2-72b's prompt
+    LLAMA3_TRAIN_SLICE, QWEN2_PROMPT_ATTN,
 ]
 
 
@@ -481,6 +542,7 @@ XENT_CASES = [  # (T, V)
     (5, 1001),       # V odd: the scalar loads
     (300, 4099),     # one column past a tile
     (64, 50),        # less than one tile
+    (998, 128256),   # one loss chunk of llama3_train: 998 rows at llama3-8b's vocab
 ]
 
 # (B, S, H, P, G, N, chunk, scale of A, C tied to B).  Each case runs in
@@ -1216,6 +1278,9 @@ D80_TEMPLATE_ARG = "ILi80E"
 # partial, S and map(S)'s three pieces; an array moved to local memory
 # would show here)
 FRAMELESS_SOURCES = ("flash_attention_bwd", "ssd_scan_bwd", "ssd_scan")
+# the build gate's SASS reading runs beside the cuda-against-cpu checks
+# and is gated before this phase, the first that records a time
+SASS_GATED_BY = "ddp_path"
 
 
 def stack_frame_faults(ptxas):
@@ -1239,22 +1304,51 @@ def wgmma_route_faults(sass, part):
             if v["HGMMA"] == 0 or v["UTMALDG"] == 0 or v["HMMA"]]
 
 
-def wgmma_build_facts(rec):
+def start_sass_reads():
+    """``sass_counts`` of every library of ``WGMMA_FUNCTIONS``, each in a
+    process of its own (``chip_smoke.py --sass-counts LIB``), all started
+    at once: {library: process}.  The reading takes about 30 s on the card
+    machine, so it runs beside the first checks (threads of this process
+    slowed the kernel gate 2x, their parsing holding the interpreter), and
+    ``sass_results`` gates it before the first phase from
+    ``SASS_GATED_BY`` on."""
+    import os
+
+    from repro_torch.kernels import _build
+
+    procs = {}
+    for n in dict(WGMMA_FUNCTIONS):
+        procs[n] = subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--sass-counts",
+             str(_build._lib_path(_build.CSRC / f"{n}.cu"))], cwd=ROOT, stdout=subprocess.PIPE,
+            text=True, env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+            start_new_session=True)
+        _children.append(procs[n])
+    return procs
+
+
+def sass_results(procs):
+    """{library: ``parse_sass`` counts} from ``start_sass_reads``'s
+    processes, once each has ended."""
+    out = {}
+    for n, p in procs.items():
+        text, _ = p.communicate()
+        if p.returncode != 0:
+            fail(f"the SASS reading of {n} exited {p.returncode}")
+        out[n] = json.loads(text)
+    return out
+
+
+def wgmma_build_facts(rec, all_sass):
     """The flash forward and backward (bf16 and f32), the bf16 SSD body,
     the SSD backward's wgmma body and the bf16 paged body as built: ptxas's report (registers, spill bytes)
-    and SASS counts of every instance of ``WGMMA_FUNCTIONS``.  Fails unless
+    and SASS counts (``all_sass``: {library: ``parse_sass`` counts}) of
+    every instance of ``WGMMA_FUNCTIONS``.  Fails unless
     each runs on HGMMA and UTMALDG with no HMMA, if one of
     ``D80_FUNCTIONS`` has no head-dim-80 instance, if ptxas serialized a
     wgmma (its warning C7520), or if a wgmma body of
     ``FRAMELESS_SOURCES`` has a stack frame."""
-    from concurrent.futures import ThreadPoolExecutor
-
-    from repro_torch.kernels import _build
-
     names = list(dict(WGMMA_FUNCTIONS))
-    with ThreadPoolExecutor(len(names)) as pool:    # one cuobjdump a library, all at once
-        all_sass = dict(zip(names, pool.map(
-            lambda n: sass_counts(_build._lib_path(_build.CSRC / f"{n}.cu")), names)))
     facts, faults = {}, []
     for name in names:
         ptxas = rec["ptxas"].get(name, {})
@@ -1407,32 +1501,21 @@ def engine_side(torch, cfg, prompts, max_new, engine_kw, model):
 PATH_ENGINE_KW = dict(page=16, n_pages=128, max_slots=4, max_pages=32)
 
 
-def compare_engines(torch, name, cfg, prompts, max_new, want_launches, engine_kw=None,
-                    cpu=None):
+def compare_engines(torch, name, cfg, prompts, max_new, want_launches, engine_kw, cpu):
     """The paged engine on cuda and on cpu (plain versions) from the same
     f32 weights: each prefill's and decode tick's logits within
     PATH_REL_TOL of the largest cpu logit, the same greedy tokens; the
     cuda run's kernel launches must equal ``want_launches(decode ticks)``
     and the cpu run must launch none.  ``engine_kw``: the engines' pool
-    sizes (default PATH_ENGINE_KW).  The weights are drawn from seed 0 on
-    the card and copied to the cpu (the card draws gemma2's 2.3 G in a
-    second, the cpu in about 25).  ``cpu``: the cpu side's
-    ``engine_side``, run elsewhere on the same weights (a process of its
-    own, ``--cpu-ref``)."""
-    import copy
-
+    sizes.  The weights are drawn from seed 0 on the card (the card draws
+    gemma2's 2.3 G in a second, the cpu in about 25); ``cpu``: the cpu
+    side's ``engine_side`` on the same weights, copied to the cpu in a
+    process of its own (``--cpu-ref``)."""
     from repro_torch.models.model import build_model
 
-    engine_kw = engine_kw or PATH_ENGINE_KW
     model_gpu = build_model(cfg, seed=0, device="cuda")
-    sides = {}
-    if cpu is None:
-        model_cpu = copy.deepcopy(model_gpu).to("cpu")   # the same weights
-        sides["cpu"] = engine_side(torch, cfg, prompts, max_new, engine_kw, model_cpu)
-        del model_cpu
-    else:
-        sides["cpu"] = cpu
-    sides["cuda"] = engine_side(torch, cfg, prompts, max_new, engine_kw, model_gpu)
+    sides = {"cpu": cpu,
+             "cuda": engine_side(torch, cfg, prompts, max_new, engine_kw, model_gpu)}
     for dev, side in sides.items():
         counts, ticks = side["launches"], side["decode_ticks"]
         log(f"{name} {dev}: launches {counts}, ticks {ticks}")
@@ -1457,33 +1540,6 @@ def compare_engines(torch, name, cfg, prompts, max_new, want_launches, engine_kw
             "decode_ticks": sides["cuda"]["decode_ticks"]}
 
 
-def check_path(torch, rec):
-    from repro_torch.configs import get_config
-    from repro_torch.configs.base import LayerSpec, uniform_schedule
-    from repro_torch.launch.serve import random_prompts
-
-    cfg = dataclasses.replace(get_config("starcoder2-3b"),
-                              schedule=uniform_schedule(2, LayerSpec()))
-    # a 300-token prompt: 20 pages, three of the paged kernel's 8-page splits
-    prompts = random_prompts(2, [300, 37], cfg.vocab_size, seed=1)
-    rec["path"] = compare_engines(
-        torch, "path", cfg, prompts, 9,
-        lambda ticks: {"flash_attention": 2 * len(prompts), "paged_attention": 2 * ticks})
-
-
-def check_ssm_path(torch, rec):
-    from repro_torch.configs import get_config
-    from repro_torch.configs.base import MAMBA, LayerSpec, uniform_schedule
-    from repro_torch.launch.serve import random_prompts
-
-    cfg = dataclasses.replace(get_config("mamba2-130m"),
-                              schedule=uniform_schedule(2, LayerSpec(kind=MAMBA, has_mlp=False)))
-    # 300 tokens: a full chunk of 256 carries its state into a ragged one of 44
-    prompts = random_prompts(2, [300, 37], cfg.vocab_size, seed=1)
-    rec["ssm_path"] = compare_engines(torch, "ssm_path", cfg, prompts, 9,
-                                      lambda ticks: {"ssd_scan": 2 * len(prompts)})
-
-
 def gemma_cfg(n_layers, window=None):
     """gemma3-4b at full width, its depth cut to ``n_layers``: 2, one
     local layer (window 1024, or ``window``) and one global; 6, the first
@@ -1497,23 +1553,6 @@ def gemma_cfg(n_layers, window=None):
     local, glob = LayerSpec(kind=ATTN, window=window or GEMMA_WINDOW), LayerSpec(kind=ATTN)
     pattern = {2: (local, glob), 6: (local,) * 5 + (glob,)}[n_layers]
     return dataclasses.replace(cfg, schedule=(ScheduleGroup(pattern=pattern, repeats=1),))
-
-
-def check_gemma_path(torch, rec):
-    """gemma3-4b at full width, 2 layers (local, global), f32: prompts of
-    1500 tokens (past the window: a ragged ring fill under the 2048-token
-    bucket) and 37; 9 new tokens, so the long prompt's decode writes over
-    its ring's oldest positions.  Every prefill launches the flash kernel
-    in both layers (the window in the local one), every tick the paged
-    kernel in the global layer only."""
-    from repro_torch.launch.serve import random_prompts
-
-    cfg = gemma_cfg(2)
-    prompts = random_prompts(2, [1500, 37], cfg.vocab_size, seed=1)
-    rec["gemma_path"] = compare_engines(
-        torch, "gemma_path", cfg, prompts, 9,
-        lambda ticks: serve_launches(cfg, len(prompts), ticks),
-        engine_kw=dict(page=16, n_pages=256, max_slots=4, max_pages=128))
 
 
 def gemma2_cfg(n_layers, window=None):
@@ -1552,21 +1591,62 @@ def zamba2_cfg(pattern=None):
         ScheduleGroup(pattern=tuple(spec[c] for c in pattern), repeats=1),))
 
 
+def dense_cfg(arch, n_layers=None):
+    """llama3-8b or qwen2-72b at full width, the whole model or its depth
+    cut to ``n_layers`` (the same layer repeated)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import LayerSpec, uniform_schedule
+
+    cfg = get_config(arch)
+    if n_layers is None:
+        return cfg
+    return dataclasses.replace(cfg, schedule=uniform_schedule(n_layers, LayerSpec()))
+
+
 def engine_path_spec(key):
     """(cfg, prompts, new tokens, engine sizes) of the cuda-against-cpu
     engine check ``key`` whose cpu side runs in the cpu sides' process.
+    path: starcoder2-3b at full width, 2 layers, prompts of 300 tokens (20
+    pages, three of the paged kernel's 8-page splits) and 37, 9 new
+    tokens.  ssm_path: mamba2-130m at full width, 2 layers, prompts of 300
+    tokens (a full chunk of 256 carries its state into a ragged one of
+    44) and 37, 9 new tokens.  gemma_path: gemma3-4b at full width, 2 layers (local with
+    its window of 1024, global), prompts of 1500 tokens (past the window:
+    a ragged ring fill under the 2048-token bucket) and 37, 9 new tokens,
+    so the long prompt's decode writes over its ring's oldest positions.
     gemma2_path: gemma2-27b at full width, 2 layers (local with its window
     cut to 512, global), prompts of 700 tokens (past the window: a ragged
     ring fill under the 1024-token bucket) and 37, 9 new tokens, so the
     long prompt's decode writes over its ring's oldest positions.
     zamba2_path: zamba2-2.7b at full width, (M, A, M, B): both banks once,
     prompts of 300 tokens (a full chunk of 256 and a ragged one) and 37,
-    each prefilled at its exact length, 9 new tokens."""
+    each prefilled at its exact length, 9 new tokens.  qwen2_path:
+    qwen2-72b at full width (64 q / 8 kv heads of 128, qkv bias under
+    RMSNorm, the untied lm_head at vocab 152064), 2 layers (4.25 G
+    parameters, 17 GB in f32), prompts of 300 tokens (ragged against the
+    flash tiles and the pages) and 37, 9 new tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import MAMBA, LayerSpec, uniform_schedule
     from repro_torch.launch.serve import random_prompts
 
+    if key == "ssm_path":
+        cfg = dataclasses.replace(get_config("mamba2-130m"), schedule=uniform_schedule(
+            2, LayerSpec(kind=MAMBA, has_mlp=False)))
+        return cfg, random_prompts(2, [300, 37], cfg.vocab_size, seed=1), 9, PATH_ENGINE_KW
+    if key == "path":
+        cfg = dataclasses.replace(get_config("starcoder2-3b"),
+                                  schedule=uniform_schedule(2, LayerSpec()))
+        return cfg, random_prompts(2, [300, 37], cfg.vocab_size, seed=1), 9, PATH_ENGINE_KW
+    if key == "gemma_path":
+        cfg = gemma_cfg(2)
+        return cfg, random_prompts(2, [1500, 37], cfg.vocab_size, seed=1), 9, dict(
+            page=16, n_pages=256, max_slots=4, max_pages=128)
     if key == "gemma2_path":
         cfg = gemma2_cfg(2, window=512)
         return cfg, random_prompts(2, [700, 37], cfg.vocab_size, seed=1), 9, GEMMA2_PATH_KW
+    if key == "qwen2_path":
+        cfg = dense_cfg("qwen2-72b", 2)
+        return cfg, random_prompts(2, [300, 37], cfg.vocab_size, seed=1), 9, PATH_ENGINE_KW
     cfg = zamba2_cfg("MAMB")
     return cfg, random_prompts(2, [300, 37], cfg.vocab_size, seed=1), 9, PATH_ENGINE_KW
 
@@ -1579,8 +1659,8 @@ def engine_path_cpu_side(torch, key):
 
     t0 = time.perf_counter()
     cfg, prompts, max_new, kw = engine_path_spec(key)
-    model = build_model(cfg, seed=0, device="cuda").to("cpu")
-    torch.cuda.empty_cache()
+    with card_lock(torch):
+        model = build_model(cfg, seed=0, device="cuda").to("cpu")
     side = engine_side(torch, cfg, prompts, max_new, kw, model)
     log(f"{key} cpu: {len(side['logs'])} logit sets, ticks {side['decode_ticks']}, "
         f"{time.perf_counter() - t0:.1f}s")
@@ -1623,6 +1703,17 @@ def run_zamba2_serve(torch, rec):
     and of a tick."""
     run_serve(torch, rec, arch="zamba2-2.7b", key="zamba2_serve", lens=(600, 4000),
               n_pages=2048, max_pages=256, prefill_S=4000, prefill_n=1)
+
+
+def run_llama3_serve(torch, rec):
+    """llama3-8b at full width and depth, bf16 (16.1 GB of weights): 16
+    requests with prompts uniform in 600-4000 tokens (in the 1024-4096
+    buckets), 32 new tokens each, 8 slots of up to 256 pages of 16
+    tokens; a prefill launches the flash kernel 32 times (GQA rep 4), a
+    tick the paged kernel 32 times; the peak of device memory; device busy
+    of a 4096-token prefill and of a tick."""
+    run_serve(torch, rec, arch="llama3-8b", key="llama3_serve", lens=(600, 4000),
+              n_pages=2048, max_pages=256, prefill_S=4096, prefill_n=1)
 
 
 def run_gemma_serve(torch, rec):
@@ -1829,13 +1920,15 @@ def mlm_batches(torch, cfg, n, B, S, seed):
 ZERO_GRAD = {"groups.0.0.mixer.bk": "groups.0.0.mixer.wk"}
 
 
-def check_train_path(torch, rec, B=2, S=128, n_steps=5):
-    """bert-mlm-120m at full width, 2 layers, f32: loss and every gradient
-    leaf of one batch, then ``n_steps`` train steps, on cuda and on cpu
-    from the same parameters and batches.  Relative error: max |cuda -
-    cpu| / max |cpu| <= PATH_REL_TOL per leaf, and per loss."""
-    import copy
+TRAIN_PATH = (2, 128, 5)            # train_path's B, S and steps
 
+
+def train_path_side(torch, dev):
+    """One side of ``check_train_path`` on ``dev``: bert-mlm-120m at full
+    width, 2 layers, f32, drawn from seed 0 on the card (the same
+    parameters on both sides); the loss and every gradient leaf (host
+    copies) of one masked batch, then the losses of TRAIN_PATH's steps,
+    and the kernel launches."""
     from repro_torch.configs import default_run_config, get_config
     from repro_torch.configs.base import LayerSpec, ShapeConfig, uniform_schedule
     from repro_torch.core.accum import accumulate_grads
@@ -1844,34 +1937,45 @@ def check_train_path(torch, rec, B=2, S=128, n_steps=5):
     from repro_torch.train.optimizer import AdamWConfig
     from repro_torch.train.train_step import init_state, loss_for, make_train_step
 
+    B, S, n_steps = TRAIN_PATH
+    t0 = time.perf_counter()
     cfg = dataclasses.replace(get_config("bert-mlm-120m"),
                               schedule=uniform_schedule(2, LayerSpec()))
     run = default_run_config(cfg, ShapeConfig("train_path", S, B, "train"))
     opt = AdamWConfig(lr=1e-4, warmup_steps=2, total_steps=n_steps)
-    model_cpu = build_model(cfg, seed=0, device="cpu")
+    with card_lock(torch, dev == "cpu"):    # the draw's memory back to the card
+        model = build_model(cfg, seed=0, device="cuda").to(dev)
     batches = mlm_batches(torch, cfg, n_steps + 1, B, S, seed=1)
-    res = {}
-    for dev in ("cpu", "cuda"):
-        model = copy.deepcopy(model_cpu).to(dev)
-        state = init_state(model, run, seed=None)
-        on = lambda b: {k: v.to(dev) for k, v in b.items()}
-        ops.reset_launch_counts()
-        loss, grads, _ = accumulate_grads(lambda p, b: loss_for(model, p, b, run=run),
-                                          state["params"], on(batches[0]), 1)
-        grads = {k: g.detach().cpu() for k, g in grads.items()}
-        step = make_train_step(model, run, opt)
-        losses = [step(state, on(b))[1]["loss"].item() for b in batches[1:]]
-        res[dev] = (loss.item(), grads, losses, dict(ops.launch_counts))
-        log(f"train_path {dev}: loss {loss.item():.6f}, steps {losses}, launches {res[dev][3]}")
-    counts = res["cuda"][3]
-    n_fb = 1 + n_steps
-    if res["cpu"][3] or counts.get("flash_attention_bwd") != 2 * n_fb \
+    state = init_state(model, run, seed=None)
+    on = lambda b: {k: v.to(dev) for k, v in b.items()}
+    ops.reset_launch_counts()
+    loss, grads, _ = accumulate_grads(lambda p, b: loss_for(model, p, b, run=run),
+                                      state["params"], on(batches[0]), 1)
+    grads = {k: g.detach().cpu() for k, g in grads.items()}
+    step = make_train_step(model, run, opt)
+    losses = [step(state, on(b))[1]["loss"].item() for b in batches[1:]]
+    out = {"loss": loss.item(), "grads": grads, "losses": losses,
+           "launches": dict(ops.launch_counts), "seconds": time.perf_counter() - t0}
+    log(f"train_path {dev}: loss {out['loss']:.6f}, steps {losses}, launches "
+        f"{out['launches']}, {out['seconds']:.1f}s")
+    return out
+
+
+def check_train_path(torch, rec, proc):
+    """``train_path_side`` on cuda and on cpu (the cpu sides' process):
+    relative error max |cuda - cpu| / max |cpu| <= PATH_REL_TOL per
+    gradient leaf, and per loss; the kernels launched on cuda only."""
+    cuda = train_path_side(torch, "cuda")
+    cpu = cpu_side(torch, "train_path", proc)
+    counts = cuda["launches"]
+    n_fb = 1 + TRAIN_PATH[2]
+    if cpu["launches"] or counts.get("flash_attention_bwd") != 2 * n_fb \
             or counts.get("fused_xent_bwd") != n_fb:
-        fail(f"train_path: cuda launches {counts}, cpu launches {res['cpu'][3]}")
+        fail(f"train_path: cuda launches {counts}, cpu launches {cpu['launches']}")
     rel = lambda a, b: abs(a - b) / abs(b)
-    errs = {"loss": rel(res["cuda"][0], res["cpu"][0])}
-    errs["steps"] = max(rel(a, b) for a, b in zip(res["cuda"][2], res["cpu"][2]))
-    gc, gp = res["cuda"][1], res["cpu"][1]
+    errs = {"loss": rel(cuda["loss"], cpu["loss"]),
+            "steps": max(rel(a, b) for a, b in zip(cuda["losses"], cpu["losses"]))}
+    gc, gp = cuda["grads"], cpu["grads"]
     leaf = {k: ((gc[k] - gp[k]).abs().max() / gp[k].abs().max()).item()
             for k in gp if k not in ZERO_GRAD}
     for k, ref_leaf in ZERO_GRAD.items():
@@ -1880,11 +1984,11 @@ def check_train_path(torch, rec, B=2, S=128, n_steps=5):
     errs["grad_leaf"] = max(leaf.values())
     worst = max(leaf, key=leaf.get)
     log(f"train_path: relative errors {errs} (tol {PATH_REL_TOL}); worst leaf {worst}")
-    if not all(v <= PATH_REL_TOL for v in errs.values()) \
-            or not all(math.isfinite(x) for x in res["cuda"][2]):
+    if not all(v <= PATH_REL_TOL for v in errs.values()) or sorted(gc) != sorted(gp) \
+            or not all(math.isfinite(x) for x in cuda["losses"]):
         fail(f"train_path: cuda and cpu differ: {errs}, worst leaf {worst} {leaf[worst]}")
-    rec["train_path"] = {"rel_err": errs, "worst_leaf": worst, "losses_cuda": res["cuda"][2],
-                         "losses_cpu": res["cpu"][2], "launches": counts}
+    rec["train_path"] = {"rel_err": errs, "worst_leaf": worst, "losses_cuda": cuda["losses"],
+                         "losses_cpu": cpu["losses"], "launches": counts}
 
 
 def run_train(torch, rec, seed=0, B=32, S=512, steps=20, n_prof=3):
@@ -1991,9 +2095,14 @@ def check_prefetch(torch, pipe, n=16):
 # tokens, 17 batches of 32 an epoch (3000 functions gave 1699 rows and
 # took 43 s to build on the card machine)
 CLI_FUNCTIONS = 1000
+# the corpus of the next-token training phases' pipelines: 200 functions
+# give 7 rows of 8192 tokens, 13 of 4096, 26 of 2048 and 52 of 1024
+# (their steps wrap the epoch); 400 took 10-14 s a build on the card
+# machine, and the build's time grows with the count
+LM_FUNCTIONS = 200
 
 
-def run_train_cli(torch, rec, B=32, S=512, n_functions=CLI_FUNCTIONS, steps=10):
+def run_train_cli(torch, rec, B=32, S=512, n_functions=CLI_FUNCTIONS, steps=6):
     """bert-mlm-120m at full width and depth through
     repro_torch.launch.train.main, over one DataPipeline data dir: (a)
     ``steps`` steps with the R3 autotune; (b) the same run with --ckpt-dir
@@ -2151,6 +2260,252 @@ def run_train_cli(torch, rec, B=32, S=512, n_functions=CLI_FUNCTIONS, steps=10):
     rec["train_cli"] = res
 
 
+def run_bert350_train(torch, rec, B=32, S=512, n_functions=CLI_FUNCTIONS, steps=6):
+    """bert-mlm-350m (the paper's larger model: 24 layers, d 1024, 16
+    heads of 64, 337.4 M parameters) at full size through
+    repro_torch.launch.train.main at its defaults (f32, --sharding ddp,
+    one process), B x S from the DataPipeline over train_cli's data dir
+    (the same corpus, sequence length and vocabulary; built here if
+    train_cli has not run), 2 loader workers (train_cli runs the R3
+    autotune): the loss falls, launches per step exact; step p50,
+    tokens/s, MFU and the peak of device memory."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.scaling import model_flops
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as cli
+    from repro_torch.train.runner import DEFAULT_PEAK_FLOPS
+
+    cfg = get_config("bert-mlm-350m")
+    argv = ["--arch", "bert-mlm-350m", "--batch", str(B), "--seq", str(S),
+            "--n-functions", str(n_functions), "--data-dir", str(ROOT / "build" / "train_cli" / "data"),
+            "--steps", str(steps), "--workers", "2", "--log-every", "1"]
+    want = train_launches_per_step(cfg, B, S)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, tlog = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(ops.launch_counts)
+    per_step = {k: counts.get(k, 0) / steps for k in want}
+    losses = [m["loss"] for m in tlog.metrics]
+    log(f"bert350_train: launches {counts} over {steps} steps, per step {per_step}, "
+        f"losses {losses}")
+    if per_step != {k: float(v) for k, v in want.items()}:
+        fail(f"bert350_train: kernel launches per step {per_step}, expected {want}")
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses) \
+            or not losses[-1] < losses[0]:
+        fail(f"bert350_train: losses {losses}")
+    p50 = tlog.telemetry["step_time_p50"]
+    tokens = B * S
+    res = {"argv": argv, "batch": B, "seq": S, "steps": steps, "wall_s": wall,
+           "params": int(model_flops(cfg, 1) / 6), "launches": counts,
+           "launches_per_step": per_step, "losses": losses,
+           "first_loss": losses[0], "last_loss": losses[-1],
+           "step_time_p50_ms": p50 * 1e3, "tokens_per_s": tokens / p50,
+           "mfu": model_flops(cfg, tokens) / (p50 * DEFAULT_PEAK_FLOPS),
+           "model_flops_per_step": model_flops(cfg, tokens),
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "telemetry": tlog.telemetry}
+    log("bert350_train: " + json.dumps({k: v for k, v in res.items()
+                                        if k not in ("losses", "telemetry", "argv")}))
+    rec["bert350_train"] = res
+    del state, tlog
+    torch.cuda.empty_cache()
+
+
+# R5, the paper's largest per-device batch at S 512 (its H100 NVL, 94
+# GB): 184 for bert-mlm-120m and 20 for bert-mlm-350m.  The search starts
+# from the line through the peaks of two small batches, both at or past
+# B 488, where the loss chunk reaches its floor of 8 positions
+# (``train_step.loss_chunk_len``) and its logits, about 1 MB a row in f32,
+# start to grow with B: from B 32 and 64, where the chunk's logits stay
+# at 512 MB, the line put bert-mlm-120m's limit at 4400, and every try
+# down to 4014 ran out of memory
+PAPER_R5 = {"bert-mlm-120m": 184, "bert-mlm-350m": 20}
+MAX_BATCH_SMALL = (512, 640)
+MAX_BATCH_SEQ = 512
+MAX_BATCH_REL = 0.03            # the bracket: oom <= fit (1 + MAX_BATCH_REL)
+MAX_BATCH_TRIES = 4             # steps after the two small batches
+
+
+def find_max_batch(step_peak, small, capacity):
+    """R5 measured: the largest batch whose step fits, bracketed within
+    ``MAX_BATCH_REL``.
+
+    ``step_peak(B)`` runs one step at batch B and returns its peak of
+    device bytes, or raises ``torch.cuda.OutOfMemoryError``.  Both
+    ``small`` batches must fit; then at most ``MAX_BATCH_TRIES`` more
+    steps, each at a batch between the largest that fit (``fit``) and the
+    smallest that did not (``oom``), with r = ``MAX_BATCH_REL``:
+      - before any has run out of memory, the line through the peaks of
+        the two largest fits, solved for ``capacity`` bytes, gives the
+        limit L: the try is L (1 - r/2) while L lies more than r above
+        ``fit``, else fit (1 + r), which either runs out of memory (the
+        bracket is then made) or moves ``fit`` up;
+      - after, oom / (1 + r), which either fits (the bracket is made) or
+        moves ``oom`` down.
+    Returns ``{"fit", "oom", "tries", "line"}`` (``line``: base and slope
+    of the small batches' fit, bytes and bytes a sample) once ``oom <= fit
+    (1 + r)``; raises ``RuntimeError`` if a small batch does not fit or
+    the tries end first (none running out of memory among them).  Any
+    other error of a step propagates."""
+    import torch
+
+    rel = MAX_BATCH_REL
+    b1, b2 = sorted(small)
+    peaks = {}
+    for b in (b1, b2):
+        try:
+            peaks[b] = step_peak(b)
+        except torch.cuda.OutOfMemoryError as e:
+            raise RuntimeError(f"a small batch does not fit: B {b}") from e
+    line = _line(b1, peaks[b1], b2, peaks[b2])
+    tried = [(b1, peaks[b1]), (b2, peaks[b2])]
+    fit, oom = b2, None
+    for _ in range(MAX_BATCH_TRIES):
+        if oom is None:
+            lo, hi = sorted(peaks)[-2:]
+            base, slope = _line(lo, peaks[lo], hi, peaks[hi])
+            limit = (capacity - base) / slope if slope > 0 else math.inf
+            b = math.floor(limit * (1 - rel / 2)) if limit > fit * (1 + rel) \
+                else math.floor(fit * (1 + rel))
+        else:
+            b = math.ceil(oom / (1 + rel))
+        b = max(fit + 1, b if oom is None else min(b, oom - 1))
+        try:
+            peaks[b] = step_peak(b)
+            fit = b
+            tried.append((b, peaks[b]))
+        except torch.cuda.OutOfMemoryError:
+            oom = b
+            tried.append((b, None))
+        if oom is not None and oom <= fit * (1 + rel):
+            return {"fit": fit, "oom": oom, "tries": tried, "line": line}
+    raise RuntimeError(f"no bracket within {rel:.0%} after {MAX_BATCH_TRIES} tries: {tried}")
+
+
+def _line(b1, p1, b2, p2):
+    """(base, slope) of the line through (b1, p1) and (b2, p2)."""
+    slope = (p2 - p1) / (b2 - b1)
+    return p1 - slope * b1, slope
+
+
+def max_batch_worker(torch):
+    """The body of a ``--max-batch-worker`` process (a card to itself, so
+    that an out-of-memory try cannot fragment another process's
+    allocator): for each BERT size, ``find_max_batch`` over
+    one trainer.train step at a time (the train phase's settings: f32
+    parameters, bf16 activations, remat; BERT masks at S 512), each step's
+    peak the allocator's reserved bytes (max_memory_reserved: a try runs
+    out of memory when what the allocator holds, its cached blocks with
+    it, would pass the memory free when the process started; the peak of
+    allocated bytes, also recorded, stayed 5-7 GB below there at the
+    limit, and a line through it put the limit 8-10% too high); the
+    readings as JSON to build/max_batch.json."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.core.scaling import H100_NVL, MemoryModel
+    from repro_torch.models.model import build_model
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.trainer import train
+
+    free, total = torch.cuda.mem_get_info()
+    card_total = torch.cuda.get_device_properties(0).total_memory
+    out = {"gpu": gpu_line(), "free_bytes": free, "total_bytes": total,
+           "card_total_bytes": card_total, "seq": MAX_BATCH_SEQ, "archs": {}}
+    S = MAX_BATCH_SEQ
+    for arch in PAPER_R5:
+        cfg = get_config(arch)
+        model = build_model(cfg, seed=0, device="cuda")
+        opt = AdamWConfig(lr=1e-4, warmup_steps=1, total_steps=1)
+        seconds, allocated = {}, {}
+
+        def step_peak(B):
+            for p in model.parameters():
+                p.grad = None
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            run = RunConfig(model=cfg, shape=ShapeConfig("max_batch", S, B, "train"),
+                            sharding="ddp", param_dtype="float32",
+                            activation_dtype="bfloat16")
+            batch = mlm_batches(torch, cfg, 1, B, S, seed=B)
+            t0 = time.perf_counter()
+            try:
+                _, tlog = train(model, run, opt, iter(batch), steps=1, log_every=1, seed=0)
+                torch.cuda.synchronize()
+            except torch.cuda.OutOfMemoryError:
+                seconds[B] = time.perf_counter() - t0
+                log(f"bert_max_batch {arch}: B {B} out of memory after {seconds[B]:.1f}s")
+                raise
+            seconds[B] = time.perf_counter() - t0
+            loss = tlog.metrics[0]["loss"]
+            if not math.isfinite(loss):
+                raise RuntimeError(f"{arch}: B {B}: loss {loss}")
+            peak = torch.cuda.max_memory_reserved()
+            allocated[B] = torch.cuda.max_memory_allocated()
+            log(f"bert_max_batch {arch}: B {B} fits, peak {peak / 2**30:.2f} GiB reserved, "
+                f"{allocated[B] / 2**30:.2f} GiB allocated, loss {loss:.3f}, {seconds[B]:.1f}s")
+            return peak
+
+        found = find_max_batch(step_peak, MAX_BATCH_SMALL, capacity=free)
+        model_b = MemoryModel(cfg, param_bytes=4, act_factor=150.0)
+        out["archs"][arch] = {
+            **found, "seconds": seconds, "allocated": allocated, "paper": PAPER_R5[arch],
+            "memory_model_card": model_b.max_batch(S, card_total),
+            "memory_model_h100_nvl": model_b.max_batch(S, H100_NVL.hbm_bytes)}
+        log(f"bert_max_batch {arch}: {json.dumps(out['archs'][arch])}")
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    path = ROOT / "build" / "max_batch.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(json.dumps(out))
+
+
+def run_bert_max_batch(torch, rec, proc=None):
+    """R5 on the card: the largest per-device batch at S 512 whose
+    trainer.train step completes, for both BERT sizes, in a process of
+    its own (``max_batch_worker``), started once this process has given
+    its cached blocks back and the cpu sides' process (which draws
+    weights on the card) has ended; printed with the bracket, the line of
+    the small batches, ``MemoryModel(param_bytes=4, act_factor=150)``'s
+    prediction on this card and the H100 NVL, and the paper's 184 / 20."""
+    import gc
+    import os
+
+    if proc is not None and proc.poll() is None:
+        t0 = time.perf_counter()
+        proc.wait(600)
+        log(f"bert_max_batch: waited {time.perf_counter() - t0:.1f}s for the cpu sides' process")
+    gc.collect()
+    torch.cuda.empty_cache()
+    path = ROOT / "build" / "max_batch.json"
+    path.unlink(missing_ok=True)
+    p = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--max-batch-worker"],
+                         cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+                         start_new_session=True)
+    _children.append(p)
+    if p.wait(900) != 0 or not path.exists():
+        fail(f"bert_max_batch: the search process exited {p.returncode}")
+    res = json.loads(path.read_text())
+    for arch, r in res["archs"].items():
+        fit, oom = r["fit"], r["oom"]
+        if not fit < oom <= fit * (1 + MAX_BATCH_REL):
+            fail(f"bert_max_batch {arch}: bracket ({fit}, {oom}) not within {MAX_BATCH_REL:.0%}")
+        log(f"bert_max_batch {arch} at S {res['seq']} on {res['gpu']}: largest B that "
+            f"completed a step {fit}, smallest out of memory {oom}; the small batches' line "
+            f"{r['line'][0] / 2**30:.2f} GiB + {r['line'][1] / 2**20:.1f} MiB a sample reserved; "
+            f"MemoryModel(param_bytes=4, act_factor=150) {r['memory_model_card']} on this card's "
+            f"{res['card_total_bytes'] / 1e9:.1f} GB ({r['memory_model_h100_nvl']} on the H100 "
+            f"NVL's 94 GB); the paper {r['paper']} on the H100 NVL of 94 GB")
+    rec["bert_max_batch"] = res
+
+
 # ---------------------------------------------------------------------------
 # mamba2 training
 # ---------------------------------------------------------------------------
@@ -2184,9 +2539,15 @@ def lm_path_spec(key):
     took 133 s of the cpu sides' process (PERF.md §6), so S 396 and a window
     to match.  gemma2_train_path: gemma2-27b (local with its window cut to 128,
     global; the kernel gate holds the window of 4096 at S 4352), B 1 x S
-    320 (past the window, ragged against every tile), 2 steps.
+    200 (past the window, ragged against every tile), 2 steps, so that
+    the second step's loss reads AdamW's move of a gemma2 model: its cpu
+    side is the longest (S 320 took 112-143 s of the cpu sides' process
+    at 1 step and 256 s at 2), so S 200.
     zamba2_train_path: zamba2-2.7b, (M, A, M, A): bank A's gradient sums
-    its two invocations, B 1 x S 512 (two chunks of 256), 2 steps."""
+    its two invocations, B 1 x S 512 (two chunks of 256), 2 steps.
+    llama3_train_path: llama3-8b (GQA rep 4, the untied lm_head at vocab
+    128256; 1.49 G parameters, its cpu side's f32 state 24 GB), B 1 x S
+    400 (one loss chunk, ragged against every tile), 2 steps."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import MAMBA, LayerSpec, uniform_schedule
 
@@ -2195,9 +2556,11 @@ def lm_path_spec(key):
                                   schedule=uniform_schedule(2, LayerSpec(kind=MAMBA, has_mlp=False)))
         return cfg, train_launches_per_step, 2, 600, 3
     if key == "gemma2_train_path":
-        return gemma2_cfg(2, window=128), train_launches_per_step, 1, 320, 2
+        return gemma2_cfg(2, window=128), train_launches_per_step, 1, 200, 2
     if key == "zamba2_train_path":
         return zamba2_cfg("MAMA"), train_launches_per_step, 1, 512, 2
+    if key == "llama3_train_path":
+        return dense_cfg("llama3-8b", 2), train_launches_per_step, 1, 400, 2
     return gemma_cfg(2, window=256), train_launches_per_step, 1, 396, 2
 
 
@@ -2221,9 +2584,8 @@ def lm_train_side(torch, key, dev):
     cfg, _, B, S, n_steps = lm_path_spec(key)
     run = default_run_config(cfg, ShapeConfig(key, S, B, "train"))
     opt = AdamWConfig(lr=1e-4, warmup_steps=2, total_steps=n_steps)
-    model = build_model(cfg, seed=0, device="cuda").to(dev)
-    if dev == "cpu":                        # the draw's memory back to the card
-        torch.cuda.empty_cache()
+    with card_lock(torch, dev == "cpu"):    # the draw's memory back to the card
+        model = build_model(cfg, seed=0, device="cuda").to(dev)
     state = ts.init_state(model, run, seed=None)
     batches = [{k: v.to(dev) for k, v in b.items()}
                for b in lm_batches(torch, cfg.vocab_size, n_steps, B, S, seed=1)]
@@ -2259,6 +2621,38 @@ def lm_train_side(torch, key, dev):
     return out
 
 
+# The phases whose peak on the card leaves no room for a draw of the cpu
+# sides' process (up to qwen2_path's 17 GB): they and that process's
+# draws take turns through ``card_lock`` (gemma2_train_path's cuda side
+# ran out of memory beside qwen2_path's draw)
+CARD_LOCK_PHASES = ("gemma2_train", "zamba2_train", "llama3_train", "gemma2_serve")
+
+
+@contextlib.contextmanager
+def card_lock(torch, held=True):
+    """One at a time on the card's memory, between this script's
+    processes (a file lock): the cpu sides' process while it draws a
+    model on the card and moves it to the cpu, the main process through
+    the phases of CARD_LOCK_PHASES and the next-token checks' cuda sides.
+    Neither waits for the other while it holds it, and each gives its
+    cached blocks back before it lets go."""
+    if not held:
+        yield
+        return
+    import fcntl
+    import gc
+
+    path = ROOT / "build" / "card.lock"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            gc.collect()
+            torch.cuda.empty_cache()
+
+
 # The cpu sides of gemma2_path and of the next-token checks run in one
 # process of their own (``--cpu-ref KEY,...``), started with the script
 # at nice 15, one after another in this order, so that their minutes of
@@ -2267,8 +2661,11 @@ def lm_train_side(torch, key, dev):
 # after), and so that one at a time holds the host's memory: gemma2's
 # f32 training side alone takes 46 GB of the card machine's 96 GiB.
 # gemma_train_path's took 94 s of its phase's 109 in process (PERF.md §6).
-CPU_REF_KEYS = ("ssm_train_path", "gemma_train_path", "gemma2_path", "gemma2_train_path",
-                "zamba2_path", "zamba2_train_path")
+CPU_REF_KEYS = ("path", "gemma_path", "ssm_path", "train_path", "ssm_train_path",
+                "gemma_train_path", "gemma2_path", "gemma2_train_path", "zamba2_path",
+                "zamba2_train_path", "qwen2_path", "llama3_train_path")
+ENGINE_PATH_KEYS = ("path", "gemma_path", "ssm_path", "gemma2_path", "zamba2_path",
+                    "qwen2_path")
 _children = []                      # processes the script stops if it ends early
 
 
@@ -2322,8 +2719,12 @@ def cpu_ref_worker(torch, keys):
     import gc
 
     for key in keys.split(","):
-        side = engine_path_cpu_side(torch, key) if key in ("gemma2_path", "zamba2_path") \
-            else lm_train_side(torch, key, "cpu")
+        if key in ENGINE_PATH_KEYS:
+            side = engine_path_cpu_side(torch, key)
+        elif key == "train_path":
+            side = train_path_side(torch, "cpu")
+        else:
+            side = lm_train_side(torch, key, "cpu")
         tmp = cpu_ref_file(key).with_suffix(".tmp")
         torch.save(side, tmp)
         tmp.rename(cpu_ref_file(key))
@@ -2356,7 +2757,8 @@ def check_lm_train_path(torch, rec, key, proc):
     bit, and the kernel launches ``launches_per_step(cfg, B, S)`` a
     forward and backward."""
     cfg, launches_per_step, B, S, n_steps = lm_path_spec(key)
-    cuda = lm_train_side(torch, key, "cuda")
+    with card_lock(torch):
+        cuda = lm_train_side(torch, key, "cuda")
     cpu = cpu_side(torch, key, proc)
     want = {k: v * (2 + n_steps) for k, v in launches_per_step(cfg, B, S).items()}
     if cpu["launches"] or cuda["launches"] != want:
@@ -2382,10 +2784,10 @@ def check_lm_train_path(torch, rec, key, proc):
                 "seconds_cuda": cuda["seconds"], "seconds_cpu": cpu["seconds"]}
 
 
-def run_ssm_train(torch, rec, B=16, S=1024, n_functions=400, steps=10):
+def run_ssm_train(torch, rec, B=16, S=1024, n_functions=LM_FUNCTIONS, steps=6):
     """mamba2-130m at full width and depth, B x S from one DataPipeline
-    data dir (400 functions: 103 rows of 1024, 6 batches an epoch, which
-    the 10 steps wrap; the corpus build grows with the function count):
+    data dir (LM_FUNCTIONS: 52 rows of 1024, 3 batches an epoch, which
+    the steps wrap):
     (a) ``steps`` steps of launch.train.main (f32, 2 loader workers, a
     checkpoint every steps/2; phase train_cli runs the R3 autotune and
     stops a run at its fault point); (b) --resume from (a)'s first
@@ -2519,7 +2921,7 @@ def run_ssm_train(torch, rec, B=16, S=1024, n_functions=400, steps=10):
     rec["ssm_train"] = res
 
 
-def run_gemma_train(torch, rec, B=4, S=2048, n_functions=400, steps=6):
+def run_gemma_train(torch, rec, B=4, S=2048, n_functions=LM_FUNCTIONS, steps=4):
     """gemma3-4b at full width, depth cut to 6 (its first pattern group:
     5 local layers with window 1024, then a global one; at full depth the
     f32 parameters, gradients and AdamW state alone take about 62 GB), B x
@@ -2533,7 +2935,7 @@ def run_gemma_train(torch, rec, B=4, S=2048, n_functions=400, steps=6):
                  (("a", "float32", B, 1), ("b", "bfloat16", B, 2)))
 
 
-def run_gemma2_train(torch, rec, S=8192, n_functions=400, steps=6):
+def run_gemma2_train(torch, rec, S=8192, n_functions=LM_FUNCTIONS, steps=4):
     """gemma2-27b at full width, depth cut to 2 (a local layer with its
     window of 4096 and a global one; the whole model's f32 parameters,
     gradients and AdamW state would take about 435 GB), S 8192 from the
@@ -2546,7 +2948,7 @@ def run_gemma2_train(torch, rec, S=8192, n_functions=400, steps=6):
                  (("a", "float32", 1, 1), ("b", "bfloat16", 2, 2)), n_prof=1)
 
 
-def run_zamba2_train(torch, rec, S=4096, n_functions=400, steps=6):
+def run_zamba2_train(torch, rec, S=4096, n_functions=LM_FUNCTIONS, steps=4):
     """zamba2-2.7b at full width and depth (2.445 G parameters: f32
     parameters, gradients and AdamW moments take 39 GB), S 4096 from the
     DataPipeline: (a) ``steps`` steps in f32 at B 1, (b) ``steps`` in bf16
@@ -2556,6 +2958,18 @@ def run_zamba2_train(torch, rec, S=4096, n_functions=400, steps=6):
     at vocab 32000."""
     run_lm_train(torch, rec, "zamba2_train", zamba2_cfg(), S, n_functions, steps,
                  (("a", "float32", 1, 1), ("b", "bfloat16", 4, 2)), n_prof=1)
+
+
+def run_llama3_train(torch, rec, S=8192, n_functions=LM_FUNCTIONS, steps=6):
+    """llama3-8b at full width, depth cut to 4 (1.923 G parameters: f32
+    parameters, gradients and AdamW moments take 31 GB; the whole model's
+    about 128 GB, which waits for FSDP, A8), S 8192 from the DataPipeline:
+    (a) ``steps`` steps in f32 at B 1, (b) ``steps`` in bf16 at B 2 and
+    microbatch 2; as gemma_train: the GQA (rep 4) causal flash backward at
+    head dim 128 without a softcap, the untied lm_head at vocab 128256 in
+    the loss (9 chunks of 998 positions a row)."""
+    run_lm_train(torch, rec, "llama3_train", dense_cfg("llama3-8b", 4), S, n_functions, steps,
+                 (("a", "float32", 1, 1), ("b", "bfloat16", 2, 2)), n_prof=1)
 
 
 def run_lm_train(torch, rec, key, cfg, S, n_functions, steps, runs, n_prof=2):
@@ -2656,7 +3070,7 @@ DDP_WORLD = 2
 # collective (recorded as ``shards_vs_batch``; PERF.md, data parallel).
 DDP_GRAD_REL = 1e-5
 DDP_LOSS_REL = 1e-5                  # ddp_path: each step's loss, against the 8-row batch
-DDP_TRAJ_REL = 1e-4                  # ddp: rank 0's losses against one process, 10 steps
+DDP_TRAJ_REL = 1e-4                  # ddp: rank 0's losses against one process, 6 steps
 # the ddp phase's learning rate.  Data parallelism reorders f32 sums (3
 # loss chunks of 244 positions against 5 of 122, 16-row against 32-row
 # products), and AdamW's early steps are nearly lr * sign(g): a gradient
@@ -2920,7 +3334,7 @@ def ddp_profile_rank(torch, info, spec):
     return res
 
 
-# the ddp phase's witness of f32 reordering: 10 steps at the launcher's
+# the ddp phase's witness of f32 reordering: 6 steps at the launcher's
 # default lr on batches from WITNESS_SEED, by 2 ranks and by one process
 # in the ranks' order (gated bit for bit) and in the batch's (recorded)
 WITNESS_LR = 3e-3
@@ -3045,7 +3459,7 @@ def _shards_equal(a, b, keys=None):
             all(np.array_equal(x[k], y[k]) for k in names)
 
 
-def run_ddp(torch, rec, B=16, S=512, n_functions=CLI_FUNCTIONS, steps=10):
+def run_ddp(torch, rec, B=16, S=512, n_functions=CLI_FUNCTIONS, steps=6):
     """bert-mlm-120m at full width and depth through ``torch.distributed.run
     -m repro_torch.launch.train`` with 2 ranks on the card (gloo), f32,
     --batch 16 a rank from the DataPipeline: (a) ``steps`` steps with
@@ -3357,7 +3771,8 @@ def window_mask(torch, S, window, device):
 
 def time_flash_bwd(torch, checked, what, q, k, v, do, causal, window=None, iters=20, reps=5):
     """The backward kernel at one shape against the gate, its bound, the
-    plain version's autograd (eager) and SDPA's backward op: ``ms`` and
+    plain version's autograd (eager, a group of kv heads at a time:
+    ``plain_ms_by_groups``) and SDPA's backward op: ``ms`` and
     ``library_ms`` by CUDA-graph replay, ``library_eager_ms`` SDPA's
     autograd backward by back-to-back eager calls, and the kernel's
     device time split by its device kernels.  With a (causal) window SDPA
@@ -3365,40 +3780,34 @@ def time_flash_bwd(torch, checked, what, q, k, v, do, causal, window=None, iters
     ``library_ms`` is then its autograd backward, eager."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_fwd
 
     ratio = checked(f"flash_bwd {what}", flash_bwd_reading(torch, q, k, v, do, causal, window))
     o, lse = flash_attention_fwd(q, k, v, causal=causal, window=window, return_lse=True)
     run = lambda: flash_attention_bwd(q, k, v, o, lse, do, causal=causal, window=window)
     ms, call_ms = time_ms(torch, run, iters, reps)
-    qr, kr, vr = (x.detach().requires_grad_(True) for x in (q, k, v))
-    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
-    mask = None if window is None else window_mask(torch, q.shape[1], window, q.device)
-    with torch.enable_grad():
-        o_plain = ref.flash_attention_ref(qr, kr, vr, causal=causal, window=window)
-        o_lib = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
-                                               is_causal=causal and mask is None,
-                                               enable_gqa=q.shape[2] != k.shape[2])
-    plain_ms = eager_ms(torch, lambda: torch.autograd.grad(
-        o_plain, (qr, kr, vr), do, retain_graph=True))
+    plain_ms = plain_ms_by_groups(torch, q, k, v, dict(causal=causal, window=window), do)
     f32 = q.dtype == torch.float32
     plain_err = None
     if f32:     # the plain f32 version against the gate's f64 reference
-        got = torch.autograd.grad(o_plain, (qr, kr, vr), do, retain_graph=True)
-        want = _attention_grads64(torch, q, k, v, do, causal, window)
-        plain_err = max((g.double() - w).abs().max().item() for g, w in zip(got, want))
-        del got, want
+        plain_err = plain_f32_err_by_groups(torch, q, k, v, do, causal, window)
         log(f"time flash_bwd {what}: the plain f32 version against f64: max_abs_err "
             f"{plain_err:.3e}, error/limit {plain_err / F32_TOL:.3f}")
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+    mask = None if window is None else window_mask(torch, q.shape[1], window, q.device)
+    with torch.enable_grad():
+        o_lib = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                               is_causal=causal and mask is None,
+                                               enable_gqa=q.shape[2] != k.shape[2])
     lib_eager = eager_ms(torch, lambda: torch.autograd.grad(
         o_lib, (qt, kt, vt), do.transpose(1, 2), retain_graph=True))
-    del o_plain, o_lib
+    del o_lib
     if window is not None:
         lib_ms, lib_call_ms = lib_eager, None
     else:
         try:
-            lib_ms, lib_call_ms = time_ms(torch, sdpa_bwd(torch, q, k, v, do, causal))
+            lib_ms, lib_call_ms = time_ms(torch, sdpa_bwd(torch, q, k, v, do, causal),
+                                          iters, reps)
         except RuntimeError as e:       # a torch whose flash op this card or graph refuses
             log(f"time flash_bwd {what}: SDPA's backward op not timed: {e}")
             lib_ms = lib_call_ms = None
@@ -3414,7 +3823,7 @@ def time_flash_bwd(torch, checked, what, q, k, v, do, causal, window=None, iters
            "bound_simt_ms": flash_bwd_bound(q, k, causal, PEAK_F32_FLOPS, window)[0]
            if f32 else None,
            "by_kernel": device_ms_by_kernel(torch, run),
-           "plain": "autograd backward, eager (CUDA events)",
+           "plain": "autograd backward, eager, a group of kv heads at a time (CUDA events)",
            "library": f"aten._scaled_dot_product_{lib_op}_attention_backward by CUDA-graph "
                       "replay (K, V repeated to H heads); library_eager_ms: SDPA's "
                       "autograd backward, eager" if window is None else
@@ -3511,7 +3920,8 @@ def time_kernels(torch, rec, strict=True):
                    **time_train_kernels(torch, checked, gen),
                    "gemma": time_gemma_kernels(torch, checked, gen),
                    "gemma2": time_gemma2_kernels(torch, checked, gen),
-                   "zamba2": time_zamba2_kernels(torch, checked, gen)}
+                   "zamba2": time_zamba2_kernels(torch, checked, gen),
+                   "llama3": time_llama3_kernels(torch, checked, gen)}
 
 
 def plain_ms_by_groups(torch, q, k, v, opts, do=None):
@@ -3547,6 +3957,29 @@ def plain_ms_by_groups(torch, q, k, v, opts, do=None):
             total += a.elapsed_time(b)
         best = total if best is None else min(best, total)
     return best
+
+
+def plain_f32_err_by_groups(torch, q, k, v, do, causal, window):
+    """max |error| of the plain version's f32 autograd backward against
+    the same function in f64 (``_attention_grads64``), a group of kv heads
+    at a time (``head_groups``)."""
+    from repro_torch.kernels import ref
+
+    B, S, H, _ = q.shape
+    Hkv = k.shape[2]
+    rep_ = H // Hkv
+    err = 0.0
+    for g0, g1 in head_groups(B, S, Hkv, rep_):
+        xs = [x.detach().requires_grad_(True)
+              for x in (q[:, :, g0 * rep_:g1 * rep_], k[:, :, g0:g1], v[:, :, g0:g1])]
+        dog = do[:, :, g0 * rep_:g1 * rep_]
+        with torch.enable_grad():
+            got = torch.autograd.grad(
+                ref.flash_attention_ref(*xs, causal=causal, window=window), xs, dog)
+        want = _attention_grads64(torch, *xs, dog, causal, window)
+        err = max(err, *((g.double() - w).abs().max().item() for g, w in zip(got, want)))
+        del got, want
+    return err
 
 
 def time_gemma2_kernels(torch, checked, gen, iters=3, reps=2):
@@ -3644,11 +4077,11 @@ def time_gemma2_kernels(torch, checked, gen, iters=3, reps=2):
 
 def flash_fwd_row(torch, checked, what, q, k, v, window, lse, iters, reps):
     """The causal flash forward at one shape against the gate, its bound,
-    the plain version and SDPA (enable_gqa; a window as an explicit
-    boolean mask), each by CUDA-graph replay."""
+    the plain version (a group of kv heads at a time by CUDA events:
+    ``plain_ms_by_groups``) and SDPA (enable_gqa; a window as an explicit
+    boolean mask), the kernel and SDPA by CUDA-graph replay."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention_fwd
 
     ratio = checked(f"flash {what}", flash_reading(torch, q, k, v, True, window))
@@ -3656,8 +4089,7 @@ def flash_fwd_row(torch, checked, what, q, k, v, window, lse, iters, reps):
     mask = None if window is None else window_mask(torch, q.shape[1], window, q.device)
     run = lambda: flash_attention_fwd(q, k, v, causal=True, window=window, return_lse=lse)
     ms, call_ms = time_ms(torch, run, iters, reps)
-    plain_ms, _ = time_ms(torch, lambda: ref.flash_attention_ref(
-        q, k, v, causal=True, window=window), iters, reps)
+    plain_ms = plain_ms_by_groups(torch, q, k, v, dict(causal=True, window=window))
     lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
                                                  is_causal=mask is None, enable_gqa=True)
     try:
@@ -3669,6 +4101,7 @@ def flash_fwd_row(torch, checked, what, q, k, v, window, lse, iters, reps):
     row = {"shape": list(q.shape) + [k.shape[2]], "dtype": str(q.dtype).split(".")[1],
            "window": window, "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
            "library_ms": lib_ms, "bound_ms": b[0], "bound_by": b[1], "err_over_limit": ratio,
+           "plain": "a group of kv heads at a time (CUDA events)",
            "library": "SDPA" + (" with the window as a boolean mask" if window else "")}
     log(f"time flash {what}: {row}")
     return row
@@ -3682,11 +4115,6 @@ def time_zamba2_kernels(torch, checked, gen, iters=3, reps=2):
     about 2000 tokens, in bf16.  SDPA takes head dim 80: it is each
     row's yardstick (the paged row's on the slots' keys gathered into a
     padded batch beforehand, with a boolean mask of the live keys)."""
-    import torch.nn.functional as F
-
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.paged_attention import paged_attention_fwd
-
     mk = lambda shape, dtype: torch.randn(*shape, generator=gen, device="cuda").to(dtype)
     out = {"flash_train": {}}
     B, S, H, Hkv, D, _ = ZAMBA2_TRAIN_ATTN
@@ -3706,39 +4134,79 @@ def time_zamba2_kernels(torch, checked, gen, iters=3, reps=2):
     del q, k, v
     # paged: a tick's shared invocation, 8 slots x ~2000 live tokens; two
     # disjoint table sets alternate, 84 MB of K/V each (L2: 50 MB)
-    B, H, Hkv, D, P, maxp, R = 8, 32, 32, 80, 16, 128, 2
+    out["paged"] = paged_row(torch, checked, mk, "zamba2", 32, 32, 80, seed=6)
+    return out
+
+
+def paged_row(torch, checked, mk, what, H, Hkv, D, P=16, maxp=128, L=2000, seed=6):
+    """The bf16 paged decode of one layer's tick, 8 slots of about ``L``
+    live tokens, against the gate, its bound, the plain version and SDPA
+    (``enable_gqa``) on the slots' keys gathered into a padded (B, Hkv, L,
+    D) batch beforehand with a boolean mask of the live keys; two disjoint
+    table sets alternate."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.paged_attention import paged_attention_fwd
+
+    B, R = 8, 2
     NP = 1 + R * B * maxp
     kp, vp = (mk((NP, P, Hkv, D), torch.bfloat16) for _ in range(2))
     q = mk((B, H, D), torch.bfloat16)
-    pos = torch.tensor([2000 - 9 * b for b in range(B)], dtype=torch.int32, device="cuda")
-    ids = torch.randperm(NP - 1, generator=torch.Generator().manual_seed(6)) + 1
+    pos = torch.tensor([L - 9 * b for b in range(B)], dtype=torch.int32, device="cuda")
+    ids = torch.randperm(NP - 1, generator=torch.Generator().manual_seed(seed)) + 1
     tables = [ids[r * B * maxp:(r + 1) * B * maxp].reshape(B, maxp).int().cuda()
               for r in range(R)]
     live = int((pos + 1).sum())
     nbytes = live * 2 * Hkv * D * 2 + 2 * q.numel() * 2 + B * (maxp + 1) * 4
     b = _bound(4 * H * D * live, nbytes, PEAK_BF16_FLOPS)
-    ratio = max(checked(f"paged zamba2 table set {r}",
+    ratio = max(checked(f"paged {what} table set {r}",
                         paged_reading(torch, q, kp, vp, tables[r], pos)) for r in range(R))
     it = iter(range(10**9))
     run = lambda: paged_attention_fwd(q, kp, vp, tables[next(it) % R], pos)
     ms, call_ms = time_ms(torch, run)
     plain_ms, _ = time_ms(torch, lambda: ref.paged_attention_ref(
         q, kp, vp, tables[next(it) % R], pos))
-    # SDPA on the same keys of table set 0, gathered into (B, H, L, D)
+    # SDPA on the same keys of table set 0, gathered into (B, Hkv, L, D)
     # beforehand; a boolean mask of each slot's live keys
-    L = int(pos.max()) + 1
-    keys = lambda pool: pool[tables[0].long()].flatten(1, 2)[:, :L].transpose(1, 2)
+    Lk = int(pos.max()) + 1
+    keys = lambda pool: pool[tables[0].long()].flatten(1, 2)[:, :Lk].transpose(1, 2)
     kd, vd = keys(kp), keys(vp)
-    live_mask = (torch.arange(L, device="cuda")[None] <= pos[:, None].long())[:, None, None]
+    live_mask = (torch.arange(Lk, device="cuda")[None] <= pos[:, None].long())[:, None, None]
     lib_ms, _ = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        q[:, :, None], kd, vd, attn_mask=live_mask))
-    out["paged"] = {"shape": [B, H, Hkv, D, P], "live_tokens": live, "ms": ms,
-                    "call_ms": call_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                    "library": "SDPA on the slots' keys gathered into a padded (B, H, L, D) "
-                               "batch beforehand, a boolean mask of the live keys",
-                    "bound_ms": b[0], "bound_by": b[1], "err_over_limit": ratio,
-                    "by_kernel": device_ms_by_kernel(torch, run)}
-    log(f"time paged zamba2: {out['paged']}")
+        q[:, :, None], kd, vd, attn_mask=live_mask, enable_gqa=H != Hkv))
+    row = {"shape": [B, H, Hkv, D, P], "live_tokens": live, "ms": ms,
+           "call_ms": call_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+           "library": "SDPA on the slots' keys gathered into a padded (B, Hkv, L, D) "
+                      "batch beforehand, a boolean mask of the live keys",
+           "bound_ms": b[0], "bound_by": b[1], "err_over_limit": ratio,
+           "by_kernel": device_ms_by_kernel(torch, run)}
+    log(f"time paged {what}: {row}")
+    return row
+
+
+def time_llama3_kernels(torch, checked, gen, iters=3, reps=2):
+    """llama3-8b's attention kernels (32 q / 8 kv heads of 128, rep 4,
+    causal, no softcap) at the llama3_train shape B 1 x S 8192: the flash
+    forward (with lse) and backward in bf16 and f32 (``flash_fwd_row``,
+    ``time_flash_bwd``: the plain version a kv head at a time, its
+    (1, 4, 8192, 8192) f32 scores a group); the paged decode at 8 slots
+    of about 2000 tokens at llama3's rep 4 and qwen2-72b's rep 8 (64 / 8
+    heads)."""
+    mk = lambda shape, dtype: torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+    out = {"flash_train": {}}
+    B, S, H, Hkv, D, _ = LLAMA3_TRAIN_ATTN
+    for dname in ("bfloat16", "float32"):
+        dtype = getattr(torch, dname)
+        q, do = (mk((B, S, H, D), dtype) for _ in range(2))
+        k, v = (mk((B, S, Hkv, D), dtype) for _ in range(2))
+        what = f"llama3 train {dname}"
+        out["flash_train"][dname] = {
+            "fwd": flash_fwd_row(torch, checked, what, q, k, v, None, True, iters, reps),
+            "bwd": time_flash_bwd(torch, checked, what, q, k, v, do, True, None, iters, reps)}
+        del q, k, v, do
+    out["paged_rep4"] = paged_row(torch, checked, mk, "llama3 rep 4", 32, 8, 128, seed=7)
+    out["paged_rep8"] = paged_row(torch, checked, mk, "qwen2 rep 8", 64, 8, 128, seed=8)
     return out
 
 
@@ -4055,12 +4523,16 @@ def kernel_records(rec):
     paths = {key: rec.get(key, {}).get("launches", {})
              for key in ("serve", "ssm_serve", "train", "train_cli", "ssm_train", "ddp",
                          "gemma_serve", "gemma_train", "gemma2_serve", "gemma2_train",
-                         "zamba2_serve", "zamba2_train")}
+                         "zamba2_serve", "zamba2_train", "llama3_serve", "llama3_train",
+                         "bert350_train")}
     paths["ssm_train_bf16"] = rec.get("ssm_train", {}).get("c", {}).get("launches", {})
     paths["gemma_train_bf16"] = rec.get("gemma_train", {}).get("b", {}).get("launches", {})
     paths["gemma2_train_bf16"] = rec.get("gemma2_train", {}).get("b", {}).get("launches", {})
     paths["zamba2_train_bf16"] = rec.get("zamba2_train", {}).get("b", {}).get("launches", {})
+    paths["llama3_train_bf16"] = rec.get("llama3_train", {}).get("b", {}).get("launches", {})
     gm, gm2, zm = t.get("gemma", {}), t.get("gemma2", {}), t.get("zamba2", {})
+    l3 = t.get("llama3", {})
+    l3train = l3.get("flash_train", {})     # {dtype: {fwd, bwd}}
     ztrain = zm.get("flash_train", {})     # {dtype: {fwd, bwd}}
     gtrain = gm.get("flash_train", {})      # {dtype: {"window" | "global": {fwd, bwd}}}
     flash_top = next((x for x in t.get("flash", []) if x["S"] == 1024), {})
@@ -4075,12 +4547,16 @@ def kernel_records(rec):
                                                        for d, v in gtrain.items()},
                                  "gemma2_prefill_shape": gm2.get("flash_fwd"),
                                  "zamba2_train_shape": {d: r.get("fwd") for d, r in ztrain.items()},
-                                 "zamba2_prefill_shape": zm.get("flash_prefill")},
+                                 "zamba2_prefill_shape": zm.get("flash_prefill"),
+                                 "llama3_train_shape": {d: r.get("fwd")
+                                                        for d, r in l3train.items()}},
              "paged_attention": {**{k: t.get("paged", {}).get(k)
                                     for k in ("call_ms", "host_call_ms", "by_kernel")},
                                  "gemma_shape": gm.get("paged"),
                                  "gemma2_shape": gm2.get("paged"),
-                                 "zamba2_shape": zm.get("paged")},
+                                 "zamba2_shape": zm.get("paged"),
+                                 "llama3_rep4_shape": l3.get("paged_rep4"),
+                                 "qwen2_rep8_shape": l3.get("paged_rep8")},
              "flash_attention_bwd": {"call_ms": bwd.get("call_ms"),
                                      "host_call_ms": bwd.get("host_call_ms"),
                                      "library_eager_ms": bwd.get("library_eager_ms"),
@@ -4094,7 +4570,9 @@ def kernel_records(rec):
                                                            for d, v in gtrain.items()},
                                      "gemma2_train_shape_softcap": gm2.get("flash_bwd"),
                                      "zamba2_train_shape": {d: r.get("bwd")
-                                                            for d, r in ztrain.items()}},
+                                                            for d, r in ztrain.items()},
+                                     "llama3_train_shape": {d: r.get("bwd")
+                                                            for d, r in l3train.items()}},
              "fused_xent": {"bf16": xe.get("bfloat16", {}).get("fwd")},
              "fused_xent_bwd": {"bf16": xe.get("bfloat16", {}).get("bwd")},
              "ssd_scan": {"f32": ssd.get("float32"), "zamba2_bf16": ssd.get("zamba2_bf16"),
@@ -4216,6 +4694,29 @@ def summary(rec):
                     "zamba2", {}).get("flash_train", {}).items() for kind in ("fwd", "bwd")},
                 "prefill": rec.get("time", {}).get("zamba2", {}).get("flash_prefill", {}).get("ms"),
                 "paged": rec.get("time", {}).get("zamba2", {}).get("paged", {}).get("ms")},
+            "llama3_serve": {k: rec.get("llama3_serve", {}).get(k)
+                             for k in keys + ("peak_mem_gib",)},
+            "llama3_tick_device_busy_ms":
+                rec.get("llama3_serve_decode_profile", {}).get("device_busy_ms"),
+            "llama3_prefill_4096_device_busy_ms":
+                rec.get("llama3_serve_prefill_profile", {}).get("device_busy_ms"),
+            "llama3_train": {tag: {k: rec.get("llama3_train", {}).get(tag, {}).get(k) for k in (
+                "step_time_p50_ms", "tokens_per_s", "mfu", "peak_mem_gib")} | {
+                "device_busy_ms": rec.get("llama3_train", {}).get(tag, {}).get(
+                    "profile", {}).get("device_busy_ms")} for tag in ("a", "b")},
+            "llama3_train_path_rel_err": rec.get("llama3_train_path", {}).get("rel_err"),
+            "qwen2_path_max_rel_err": rec.get("qwen2_path", {}).get("max_rel_err"),
+            "llama3_attn_ms": {
+                **{f"{d}_{kind}": r.get(kind, {}).get("ms") for d, r in rec.get("time", {}).get(
+                    "llama3", {}).get("flash_train", {}).items() for kind in ("fwd", "bwd")},
+                **{k: rec.get("time", {}).get("llama3", {}).get(k, {}).get("ms")
+                   for k in ("paged_rep4", "paged_rep8")}},
+            "bert350_train": {k: rec.get("bert350_train", {}).get(k) for k in (
+                "step_time_p50_ms", "tokens_per_s", "mfu", "first_loss", "last_loss",
+                "peak_mem_gib")},
+            "bert_max_batch": {a: {k: r.get(k) for k in ("fit", "oom", "memory_model_card",
+                                                         "paper")}
+                               for a, r in rec.get("bert_max_batch", {}).get("archs", {}).items()},
             "gemma_train": {tag: {k: rec.get("gemma_train", {}).get(tag, {}).get(k) for k in (
                 "step_time_p50_ms", "tokens_per_s", "mfu")} | {
                 "device_busy_ms": rec.get("gemma_train", {}).get(tag, {}).get(
@@ -4258,7 +4759,13 @@ def main():
     ap.add_argument("--ddp-worker", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--ddp-spec", default="{}", help=argparse.SUPPRESS)
     ap.add_argument("--cpu-ref", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--max-batch-worker", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--sass-counts", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.sass_counts:        # one library's reading for the build gate
+        sys.path.insert(0, str(ROOT / "src"))
+        print(json.dumps(sass_counts(args.sass_counts)))
+        return
     phases = args.phases.split(",")
     if not set(phases) <= set(PHASES):
         fail(f"unknown phase in {phases}; phases are {PHASES}")
@@ -4276,6 +4783,9 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     if args.ddp_worker:         # one rank of a spawn_ddp run
         ddp_worker(torch, args.ddp_worker, json.loads(args.ddp_spec))
+        return
+    if args.max_batch_worker:   # phase bert_max_batch's search
+        max_batch_worker(torch)
         return
     card = gpu_line()
     log(f"{card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -4302,19 +4812,23 @@ def main():
                                         "0 bytes spill stores, 0 bytes spill loads" not in line):
                     log(f"ptxas {name} {fn}: {line}")
     rec["build_log"] = _build.build_log
-    wgmma_build_facts(rec)
+    sass = start_sass_reads()
     against_libs = load_against(rec, against, against_builds)
     steps = {"kernels": check_kernels,
              "faults": lambda torch, rec: check_faults(torch, rec, fault_builds),
-             "path": check_path, "serve": run_serve, "ssm_path": check_ssm_path,
+             "path": lambda torch, rec: check_engine_path(torch, rec, "path", cpu_refs),
+             "serve": run_serve,
+             "ssm_path": lambda torch, rec: check_engine_path(torch, rec, "ssm_path", cpu_refs),
              "ssm_serve": lambda torch, rec: run_serve(torch, rec, arch="mamba2-130m",
                                                        key="ssm_serve"),
-             "train_path": check_train_path,
+             "train_path": lambda torch, rec: check_train_path(torch, rec, cpu_refs),
              "train": run_train, "train_cli": run_train_cli,
              "ssm_train_path": lambda torch, rec: check_lm_train_path(
                  torch, rec, "ssm_train_path", cpu_refs),
              "ssm_train": run_ssm_train,
-             "gemma_path": check_gemma_path, "gemma_serve": run_gemma_serve,
+             "gemma_path": lambda torch, rec: check_engine_path(torch, rec, "gemma_path",
+                                                                cpu_refs),
+             "gemma_serve": run_gemma_serve,
              "gemma_train_path": lambda torch, rec: check_lm_train_path(
                  torch, rec, "gemma_train_path", cpu_refs),
              "gemma_train": run_gemma_train,
@@ -4329,19 +4843,32 @@ def main():
              "zamba2_train_path": lambda torch, rec: check_lm_train_path(
                  torch, rec, "zamba2_train_path", cpu_refs),
              "zamba2_serve": run_zamba2_serve, "zamba2_train": run_zamba2_train,
+             "qwen2_path": lambda torch, rec: check_engine_path(torch, rec, "qwen2_path",
+                                                                cpu_refs),
+             "llama3_train_path": lambda torch, rec: check_lm_train_path(
+                 torch, rec, "llama3_train_path", cpu_refs),
+             "llama3_serve": run_llama3_serve, "llama3_train": run_llama3_train,
+             "bert350_train": run_bert350_train,
+             "bert_max_batch": lambda torch, rec: run_bert_max_batch(torch, rec, cpu_refs),
              "ddp_path": check_ddp_path,
              "ddp": run_ddp, "time": time_kernels}
     for ph in PHASES[1:]:
+        if sass is not None and PHASES.index(ph) >= PHASES.index(SASS_GATED_BY):
+            wgmma_build_facts(rec, sass_results(sass))
+            sass = None
         if ph in phases:
             t0 = time.perf_counter()
-            if against_libs and ph in AGAINST_PHASES:
-                run_against(torch, rec, ph, steps[ph], against_libs)
-            else:
-                steps[ph](torch, rec)
+            with card_lock(torch, ph in CARD_LOCK_PHASES):
+                if against_libs and ph in AGAINST_PHASES:
+                    run_against(torch, rec, ph, steps[ph], against_libs)
+                else:
+                    steps[ph](torch, rec)
             rec.setdefault("phase_s", {})[ph] = time.perf_counter() - t0
             log(f"phase {ph}: {rec['phase_s'][ph]:.1f}s")
             if fault_builds:
                 pump_fault_builds(fault_builds)
+    if sass is not None:
+        wgmma_build_facts(rec, sass_results(sass))
     rec["seconds"] = time.perf_counter() - t_all
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(rec, indent=1))

@@ -10,9 +10,12 @@ from repro_torch.configs.base import (ModelConfig, RunConfig,  # noqa: F401
 
 ARCHS = {
     "bert-mlm-120m": "bert_mlm_120m",
+    "bert-mlm-350m": "bert_mlm_350m",
     "gemma2-27b": "gemma2_27b",
     "gemma3-4b": "gemma3_4b",
+    "llama3-8b": "llama3_8b",
     "mamba2-130m": "mamba2_130m",
+    "qwen2-72b": "qwen2_72b",
     "starcoder2-3b": "starcoder2_3b",
     "zamba2-2.7b": "zamba2_2_7b",
 }
