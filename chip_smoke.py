@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phases build,ssm_path,ssm_serve
     python3 chip_smoke.py --phases build,train_cli
     python3 chip_smoke.py --phases build,ddp_path,ddp
+    python3 chip_smoke.py --phases build,ddp_path,fsdp_path,ddp,fsdp
     python3 chip_smoke.py --phases build,ssm_train_path,ssm_train
     python3 chip_smoke.py --phases build,gemma_path,gemma_serve,gemma_train_path,gemma_train
     python3 chip_smoke.py --phases build,gemma2_path,gemma2_serve,gemma2_train_path,gemma2_train
@@ -177,8 +178,9 @@ Phases (any failure exits non-zero before the last line):
               more steps bracket the limit within 3%; printed beside
               MemoryModel(param_bytes=4, act_factor=150)'s prediction and
               the paper's 184 / 20 on the H100 NVL of 94 GB
-  ddp_path    bert-mlm-120m at full width, 2 layers, f32, global batch 8 x
-              512 with ragged masks: 2 ranks on the one card over gloo
+  ddp_path    bert-mlm-120m at full width, 2 layers, f32, vocab cut to
+              32767 (32768 until fsdp_path shared the model), global batch
+              8 x 512 with ragged masks: 2 ranks on the one card over gloo
               (processes spawned by the phase) against one process on the
               card: each summed gradient leaf, at bucket sizes 0.05 and 25
               MB, within 1e-5 of its scale of one process computing the
@@ -197,6 +199,37 @@ Phases (any failure exits non-zero before the last line):
               gradient in the ranks' f32 order with no collective (the
               gap to the plain 32-row step recorded); the step's
               all-reduce waits, exposed sync and device busy per rank
+  fsdp_path   ddp_path's model, batch and one-process reference (the odd
+              vocab leaves the out bias whole: the psum bucket runs): 2
+              ranks of ZeRO-3 (scatter_overlap) on the one card over gloo,
+              run in phase ddp's profile ranks after their timed steps
+              when both phases run (the host is quiet by then: in
+              ddp_path's ranks, beside the fault builds and the cpu sides,
+              it took 3x as long): the
+              gathered gradients at 0.05 and 25 MB buckets within 1e-5 of
+              each leaf's scale of one process, on the 8-row batch and on
+              the ranks' row shards, 5 steps of losses within 1e-5;
+              microbatch 2, gathered once and under free_after_use,
+              against ddp at microbatch 2 (2 steps); per rank per step
+              exactly one all-gather and one reduce-scatter a scatter
+              bucket (2 x 2 and 2 under free_after_use) and one
+              all-reduce a psum bucket; each rank's parameters, mu and nu
+              scatter_bytes / 2 + psum_bytes each, the allocator's
+              reading recorded
+  fsdp        bert-mlm-120m at full width and depth, f32, run inside phase
+              ddp: (a) python -m torch.distributed.run --nproc-per-node 2
+              -m repro_torch.launch.train --sharding fsdp with ddp's flags,
+              6 steps checkpointed at step 3, beside ddp's run (c); then,
+              in ddp's profile ranks after their timed steps, the same
+              timed steps under fsdp and (c), the launcher's
+              main resumed in those 2 ranks from (a)'s step-3 checkpoint:
+              grad_sync=scatter_overlap, rank 0's losses within 1e-4 of
+              ddp's one process and 1e-5 of ddp's run (a), the ranks'
+              losses equal, the sub-shard sidecars' parts tiling every
+              leaf once, (c)'s losses and final checkpoints equal (a)'s,
+              launches and collectives per rank per step exact; step p50
+              and tokens/s beside ddp's profile, each rank's state bytes
+              and peak memory beside ddp's run (a)
   time        each kernel at its path's shapes against its plain version,
               its bound and a PyTorch call computing the same function
               (SDPA and its backward op, F.cross_entropy; none computes
@@ -270,8 +303,8 @@ PHASES = ("build", "kernels", "path", "gemma_path", "ssm_path", "train_path", "s
           "gemma_train_path", "gemma2_path", "ddp_path", "train", "gemma_train", "gemma2_train",
           "zamba2_train", "llama3_train", "gemma2_train_path", "train_cli", "bert350_train",
           "ssm_train", "serve", "gemma_serve", "gemma2_serve", "zamba2_serve", "llama3_serve",
-          "ssm_serve", "ddp", "zamba2_path", "zamba2_train_path", "qwen2_path",
-          "llama3_train_path", "bert_max_batch", "faults", "time")
+          "ssm_serve", "ddp", "fsdp_path", "fsdp", "zamba2_path", "zamba2_train_path",
+          "qwen2_path", "llama3_train_path", "bert_max_batch", "faults", "time")
 AGAINST_PHASES = ("serve", "ssm_serve", "train", "time")   # the phases --against runs again
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the bounds below use them
@@ -3143,8 +3176,10 @@ def spawn_ddp(mode, spec, timeout=900):
 
 
 def ddp_worker(torch, mode, spec):
-    """One rank of a ``spawn_ddp`` run: join the group, run ``mode``, and
-    write the result where ``spec["out"]`` says."""
+    """One rank of a ``spawn_ddp`` run: join the group, run ``mode`` (path,
+    profile, fsdp_path), and write the result where ``spec["out"]``
+    says.  The profile ranks also run phase fsdp's part (``spec["fsdp"]``)
+    and fsdp_path (``spec["refs"]``) when asked."""
     import torch.distributed as dist
 
     from repro_torch.distributed import maybe_initialize_distributed
@@ -3152,19 +3187,37 @@ def ddp_worker(torch, mode, spec):
     info = maybe_initialize_distributed()
     res = {"rank": info.rank, "world": info.world, "backend": info.backend,
            "device": str(info.device)}
-    res.update((ddp_path_rank if mode == "path" else ddp_profile_rank)(torch, info, spec))
+    if mode == "path":
+        res.update(ddp_path_rank(torch, info, spec))
+    if mode == "profile":       # then, after ddp's timed steps, phase fsdp's and fsdp_path's
+        res.update(ddp_profile_rank(torch, info, spec))
+        if "fsdp" in spec:
+            res["fsdp_run"] = fsdp_profile_rank(torch, info, spec)
+    if mode == "fsdp_path" or (mode == "profile" and "refs" in spec):
+        res["fsdp"] = fsdp_path_rank(torch, info, spec)
     Path(spec["out"]).write_text(json.dumps(res))
     dist.destroy_process_group()
 
 
-def _ddp_path_setup(torch):
+# ddp_path's and fsdp_path's vocab (32768 before fsdp_path): odd, so that under
+# fsdp mlm.out_bias (V,) has no dimension the 2 ranks divide and stays
+# whole, and the psum bucket runs on the card too; the two phases share
+# one model, batch and one-process reference
+PATH_VOCAB = 32767
+FSDP_MICRO = 2                       # the microbatch-2 branches' count
+FSDP_MICRO_STEPS = 2                 # their steps, and ddp's at microbatch 2 beside them
+FSDP_COUNTS = ("param_all_gather", "grad_reduce_scatter", "grad_all_reduce")
+
+
+def _ddp_path_setup(torch, sharding="ddp"):
     from repro_torch.configs import default_run_config, get_config
     from repro_torch.configs.base import LayerSpec, ShapeConfig, uniform_schedule
     from repro_torch.train.optimizer import AdamWConfig
 
     cfg = dataclasses.replace(get_config("bert-mlm-120m"),
-                              schedule=uniform_schedule(2, LayerSpec()))
-    run = default_run_config(cfg, ShapeConfig("ddp_path", 512, 8, "train"))
+                              schedule=uniform_schedule(2, LayerSpec()), vocab_size=PATH_VOCAB)
+    run = default_run_config(cfg, ShapeConfig(f"{sharding}_path", 512, 8, "train"),
+                             sharding=sharding)
     return cfg, run, AdamWConfig(lr=1e-4, warmup_steps=2, total_steps=5), ddp_batches(torch, cfg, 6)
 
 
@@ -3220,23 +3273,22 @@ def ddp_path_rank(torch, info, spec):
     return out
 
 
-def check_ddp_path(torch, rec):
-    """bert-mlm-120m at full width, 2 layers, f32, global batch 8 x 512
-    with ragged masks: two ranks on the card over gloo against one
-    process on the card (the summed gradients against the same global
-    loss on the ranks' row shards and against the 8-row batch; 5 steps
-    of losses), one all-reduce per bucket per step, every hook once."""
+def one_process_refs(torch, tag, cfg, run, opt, batches):
+    """One process on the card, the references of a 2-rank path check: the
+    gradients of batch 0 (8 rows) and of the same global loss on the
+    ranks' row shards, written where the ranks read them (returned paths),
+    the gap between the two, and 5 steps of losses."""
     import numpy as np
 
     from repro_torch.models.model import build_model
     from repro_torch.train.train_step import (init_state, make_grad_fn, make_train_step,
                                               shard_sums)
 
-    cfg, run, opt, batches = _ddp_path_setup(torch)
+    run = dataclasses.replace(run, sharding="ddp")
     model = build_model(cfg, seed=0, device="cuda")
     on = [{k: v.cuda() for k, v in b.items()} for b in batches]
-    refs = {"batch": ROOT / "build" / "ddp" / "path_ref_batch.npz",
-            "shards": ROOT / "build" / "ddp" / "path_ref_shards.npz"}
+    refs = {"batch": ROOT / "build" / "ddp" / f"{tag}_ref_batch.npz",
+            "shards": ROOT / "build" / "ddp" / f"{tag}_ref_shards.npz"}
     refs["batch"].parent.mkdir(parents=True, exist_ok=True)
     params = init_state(model, run, seed=None)["params"]
     loss, grads, _ = make_grad_fn(model, run)(params, on[0])
@@ -3261,9 +3313,26 @@ def check_ddp_path(torch, rec):
            "shards_vs_batch": {"max_rel_err": err[worst], "worst_leaf": worst}}
     del model, params, grads, shard_grads, state, on
     torch.cuda.empty_cache()
+    return refs, one
+
+
+def check_ddp_path(torch, rec, keep_refs=False):
+    """bert-mlm-120m at full width, 2 layers, f32, global batch 8 x 512
+    with ragged masks: two ranks on the card over gloo against one
+    process on the card (the summed gradients against the same global
+    loss on the ranks' row shards and against the 8-row batch; 5 steps
+    of losses), one all-reduce per bucket per step, every hook once.
+    ``keep_refs``: the one-process references stay for fsdp_path, which
+    phase ddp's profile ranks run on the same model and batch."""
+    cfg, run, opt, batches = _ddp_path_setup(torch)
+    refs, one = one_process_refs(torch, "path", cfg, run, opt, batches)
+    want = one["losses"]
     ranks = spawn_ddp("path", {k: str(v) for k, v in refs.items()})
-    for v in refs.values():
-        v.unlink()
+    if keep_refs:
+        rec["_path_refs"] = refs, one
+    else:
+        for v in refs.values():
+            v.unlink()
     bad = []
     for r in ranks:
         if r["backend"] != "gloo" or r["world"] != DDP_WORLD:
@@ -3292,23 +3361,173 @@ def check_ddp_path(torch, rec):
     rec["ddp_path"] = {"one_process": one, "ranks": ranks}
 
 
-def ddp_profile_rank(torch, info, spec):
+def fsdp_path_rank(torch, info, spec):
+    """fsdp_path on one rank: the gathered gradients of batch 0 at each
+    bucket size of DDP_PATH_MB (donate_gather) against the one-process
+    ones (``spec["refs"]``: shards, batch); ddp at microbatch 2
+    (gradients, FSDP_MICRO_STEPS steps), the reference of the
+    microbatch-2 branches; then each branch's state bytes and its steps
+    at 25 MB (5 at one microbatch), the collectives of each step
+    counted."""
+    import numpy as np
+
+    from repro_torch.distributed import gradsync
+    from repro_torch.distributed.sharding import ParallelPlan
+    from repro_torch.models.model import build_model
+    from repro_torch.train.train_step import (init_state, make_grad_fn, make_train_step,
+                                              shard_state)
+
+    t0 = time.perf_counter()
+    cfg, run, opt, batches = _ddp_path_setup(torch, "fsdp")
+    model = build_model(cfg, seed=0, device=info.device)
+    rows = slice(info.rank * 4, (info.rank + 1) * 4)
+    local = [{k: v[rows].to(info.device) for k, v in b.items()} for b in batches]
+    refs = {}
+    for name, path in spec["refs"].items():
+        with np.load(path) as z:
+            refs[name] = {k: torch.from_numpy(z[k]).to(info.device) for k in z.files}
+
+    def counted(fn):
+        gradsync.reset_counts()
+        res = fn()
+        return res, [gradsync.counts[k] for k in FSDP_COUNTS]
+
+    def worst(ours, ref):
+        err = leaf_errors(ours, ref)
+        k = max(err, key=err.get)
+        return {"max_rel_err": err[k], "worst_leaf": k}
+
+    out = {"grads": {}, "runs": {}}
+    for mb in DDP_PATH_MB:
+        plan = ParallelPlan.for_run(run, info.world, grad_bucket_mb=mb)
+        sp = plan.scatter_plan(model)
+        params = shard_state(init_state(model, run, seed=None),
+                             plan.shard_layout(model, info.rank))["params"]
+        (loss, grads, _), c = counted(lambda: make_grad_fn(model, run, plan)(params, local[0]))
+        out["grads"][str(mb)] = {"grad_sync": plan.grad_sync, "counts": c, "loss": loss.item(),
+                                 "n": [len(sp.scatter), len(sp.psum)],
+                                 **{name: worst(grads, ref) for name, ref in refs.items()}}
+        del params, grads
+    micro = dataclasses.replace(run, microbatch=FSDP_MICRO)
+    ddp = dataclasses.replace(micro, sharding="ddp")
+    dplan = ParallelPlan.for_run(ddp, info.world)
+    _, dgrads, _ = make_grad_fn(model, ddp, dplan)(init_state(model, ddp, seed=None)["params"],
+                                                   local[0])
+    state = init_state(model, ddp, seed=None)
+    step = make_train_step(model, ddp, opt, dplan)
+    out["ddp_micro2_losses"] = [step(state, b)[1]["loss"].item()
+                                for b in local[1:1 + FSDP_MICRO_STEPS]]
+    del state, step
+    for name, r, kw in (("donate_gather", run, {}), ("gather_once", micro, {}),
+                        ("free_after_use", micro, {"free_after_use": True})):
+        plan = ParallelPlan.for_run(r, info.world, **kw)
+        sp = plan.scatter_plan(model)
+        layout = plan.shard_layout(model, info.rank)
+        res = {"micro": r.microbatch or 1, "grad_sync": plan.grad_sync,
+               "n": [len(sp.scatter), len(sp.psum)],
+               "want_bytes": sp.scatter_bytes // 2 + sp.psum_bytes}
+        if res["micro"] > 1:
+            params = shard_state(init_state(model, r, seed=None), layout)["params"]
+            (_, grads, _), res["grad_counts"] = counted(
+                lambda: make_grad_fn(model, r, plan)(params, local[0]))
+            res["vs_ddp"] = worst(grads, dgrads)
+            del params, grads
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        state = shard_state(init_state(model, r, seed=None), layout)
+        torch.cuda.synchronize()
+        res["allocated_delta"] = torch.cuda.memory_allocated() - before
+        res["state_bytes"] = {"params": sum(p.nbytes for p in state["params"].parameters()),
+                              **{m: sum(v.nbytes for v in state["opt"][m].values())
+                                 for m in ("mu", "nu")}}
+        step = make_train_step(model, r, opt, plan)
+        res["losses"], res["step_counts"] = [], []
+        for b in local[1:] if res["micro"] == 1 else local[1:1 + FSDP_MICRO_STEPS]:
+            (state, m), c = counted(lambda: step(state, b))
+            res["losses"].append(m["loss"].item())
+            res["step_counts"].append(c)
+        out["runs"][name] = res
+        del state, step
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def check_fsdp_path(torch, rec):
+    """bert-mlm-120m at full width, 2 layers, f32, vocab PATH_VOCAB, the
+    8 x 512 ragged batch: 2 ZeRO-3 ranks on the card over gloo against one
+    process on the card (their results from phase ddp's profile ranks
+    when that phase ran, else from ranks spawned here): gradients (against the
+    8-row batch and the ranks' row shards, both at DDP_GRAD_REL: on an
+    H100 the batch read 5.7e-6 at vocab 32767, where vocab 32768 read
+    1.04e-5 under ddp; PERF.md §6), losses, the collectives of each
+    branch, each rank's state bytes."""
+    ranks, one = rec.pop("_fsdp_path_ranks", None), rec.pop("_fsdp_path_one", None)
+    if ranks is None:
+        refs, one = one_process_refs(torch, "path", *_ddp_path_setup(torch))
+        got = spawn_ddp("fsdp_path", {"refs": {k: str(v) for k, v in refs.items()}})
+        for v in refs.values():
+            v.unlink()
+        ranks = [{k: r[k] for k in ("rank", "world", "backend")} | r["fsdp"] for r in got]
+    want = one["losses"]
+    bad = []
+    for r in ranks:
+        if r.get("backend", "gloo") != "gloo":
+            bad.append(f"rank {r.get('rank')}: backend {r['backend']}")
+        for mb, g in r["grads"].items():
+            ns, npsum = g["n"]
+            if g["grad_sync"] != "scatter_overlap" or npsum < 1 \
+                    or g["counts"] != [ns, ns, npsum] \
+                    or not g["shards"]["max_rel_err"] <= DDP_GRAD_REL \
+                    or not g["batch"]["max_rel_err"] <= DDP_GRAD_REL \
+                    or not abs(g["loss"] - one["loss"]) <= DDP_LOSS_REL * abs(one["loss"]):
+                bad.append(f"rank {r.get('rank')} at {mb} MB: {g}")
+        for name, x in r["runs"].items():
+            ns, npsum = x["n"]
+            # free_after_use gathers again in each microbatch's backward
+            expect = [2 * x["micro"] * ns, x["micro"] * ns, npsum] \
+                if name == "free_after_use" else [ns, ns, npsum]
+            ref = want if x["micro"] == 1 else r["ddp_micro2_losses"]
+            x["losses_max_rel_err"] = max_rel(x["losses"], ref)
+            if x["grad_sync"] != "scatter_overlap" \
+                    or x["step_counts"] != [expect] * len(ref) \
+                    or x.get("grad_counts", expect) != expect \
+                    or not x.get("vs_ddp", {"max_rel_err": 0})["max_rel_err"] <= DDP_GRAD_REL \
+                    or not x["losses_max_rel_err"] <= DDP_LOSS_REL \
+                    or set(x["state_bytes"].values()) != {x["want_bytes"]}:
+                bad.append(f"rank {r.get('rank')} {name}: {x}")
+    if ranks[0]["grads"][str(DDP_PATH_MB[0])]["n"][0] <= \
+            ranks[0]["grads"][str(DDP_PATH_MB[-1])]["n"][0]:
+        bad.append("the small bucket size did not make more scatter buckets")
+    if any(ranks[0]["runs"][n]["losses"] != ranks[1]["runs"][n]["losses"]
+           for n in ranks[0]["runs"]):
+        bad.append("the ranks' losses differ")
+    log(f"fsdp_path: one process {one}; ranks {json.dumps(ranks)}")
+    if bad:
+        fail("fsdp_path: " + "; ".join(bad))
+    rec["fsdp_path"] = {"one_process": one, "ranks": ranks}
+
+
+def ddp_profile_rank(torch, info, spec, sharding="ddp", profiled=True):
     """The ddp cell's step on one rank, full depth, f32, ``spec["batch"]``
     rows a rank: ``spec["steps"]`` steps at ``spec["lr"]`` on this rank's
     rows of the WITNESS_SEED batches (the losses), timed with the device
     synchronised at the end of the backward and after each wait
     (``BucketedAllReduce.timed``): step wall time, each bucket's
     all-reduce wait and the exposed sync, the first two steps left out;
-    then the step under torch.profiler for its device busy time."""
+    then, when ``profiled``, the step under torch.profiler for its device
+    busy time.  With ``sharding`` fsdp the same step under
+    ``scatter_overlap`` (no bucket hooks: the wall time)."""
     import numpy as np
 
     from repro_torch.models.model import build_model
     from repro_torch.train.runner import StepRunner
 
     B, S, n = spec["batch"], spec["seq"], spec["steps"]
-    cfg, run, opt = witness_setup(B * info.world, S, n, spec["lr"])
+    cfg, run, opt = witness_setup(B * info.world, S, n, spec["lr"], sharding)
     runner = StepRunner(build_model(cfg, seed=0, device=info.device), run, opt)
-    runner.sync.timed = True
+    hooks = runner.sync
+    if hooks is not None:
+        hooks.timed = True
     rows = slice(info.rank * B, (info.rank + 1) * B)
     batches = [runner.place_batch({k: v[rows] for k, v in b.items()})
                for b in mlm_batches(torch, cfg, n, B * info.world, S, WITNESS_SEED)]
@@ -3320,18 +3539,41 @@ def ddp_profile_rank(torch, info, spec):
         state, m = runner(state, b)
         torch.cuda.synchronize()
         wall.append(time.perf_counter() - t0)
-        waits.append(runner.sync.last_wait_s)
-        exposed.append(runner.sync.last_exposed_s)
+        if hooks is not None:
+            waits.append(hooks.last_wait_s)
+            exposed.append(hooks.last_exposed_s)
         losses.append(m["loss"].item())
-    wall, waits, exposed = wall[2:], waits[2:], exposed[2:]
-    p50 = float(np.median(wall))
-    res = {"losses": losses, "step_p50_ms": p50 * 1e3,
-           "exposed_sync_ms": float(np.median(exposed)) * 1e3,
-           "bucket_wait_ms": [float(np.median(w)) * 1e3 for w in zip(*waits)],
-           "bucket_mb": [b.mb for b in runner.sync.buckets]}
-    runner.sync.timed = False
-    res["profile"] = profile_steps(torch, runner, state, batches[:3], p50)
+    p50 = float(np.median(wall[2:]))
+    res = {"losses": losses, "step_p50_ms": p50 * 1e3}
+    if hooks is not None:
+        waits, exposed = waits[2:], exposed[2:]
+        res.update(exposed_sync_ms=float(np.median(exposed)) * 1e3,
+                   bucket_wait_ms=[float(np.median(w)) * 1e3 for w in zip(*waits)],
+                   bucket_mb=[b.mb for b in hooks.buckets])
+        hooks.timed = False
+    if profiled:
+        res["profile"] = profile_steps(torch, runner, state, batches[:3], p50)
     return res
+
+
+def fsdp_profile_rank(torch, info, spec):
+    """Phase fsdp on one rank of the profile spawn, after ddp's timed
+    steps: the same timed steps under fsdp (not profiled), then run (c), the
+    CLI's ``main`` in this rank (its process group the spawn's) resumed
+    from run (a)'s step-3 checkpoint; its losses, and whether its final
+    checkpoint and sidecar equal (a)'s bit for bit."""
+    from repro_torch.launch import train as cli
+    from repro_torch.train import checkpoint as ckpt
+
+    out = {"profile": ddp_profile_rank(torch, info, spec, "fsdp", profiled=False)}
+    f = spec["fsdp"]
+    _, log_c = cli.main(f["args"] + ["--ckpt-dir", f["ck_c"], "--resume"])
+    out["c_losses"] = {s: m["loss"] for s, m in zip(log_c.steps, log_c.metrics)}
+    da, dc = (ckpt.step_dir(f[k], f["steps"]) for k in ("ck_a", "ck_c"))
+    name = f"shard-{info.rank:05d}"
+    out["c_same"] = _shards_equal(Path(da) / f"{name}.npz", Path(dc) / f"{name}.npz") and \
+        sidecars(da, DDP_WORLD)[info.rank] == sidecars(dc, DDP_WORLD)[info.rank]
+    return out
 
 
 # the ddp phase's witness of f32 reordering: 6 steps at the launcher's
@@ -3341,13 +3583,14 @@ WITNESS_LR = 3e-3
 WITNESS_SEED = 11
 
 
-def witness_setup(global_batch, S, steps, lr):
+def witness_setup(global_batch, S, steps, lr, sharding="ddp"):
     from repro_torch.configs import default_run_config, get_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.train.optimizer import AdamWConfig
 
     cfg = get_config("bert-mlm-120m")
-    run = default_run_config(cfg, ShapeConfig("ddp", S, global_batch, "train"))
+    run = default_run_config(cfg, ShapeConfig(sharding, S, global_batch, "train"),
+                             sharding=sharding)
     return cfg, run, AdamWConfig(lr=lr, warmup_steps=2, total_steps=steps)
 
 
@@ -3426,7 +3669,7 @@ def torchrun_train(args, tag, timeout=900):
 
 def _cli_lines(stdout):
     """The launcher's per-step losses {step: loss} and its [gradsync],
-    [kernels] and [telemetry] fields."""
+    [kernels], [telemetry], [plan], [dist] and [memory] fields."""
     import re
 
     losses = {int(m.group(1)): float(m.group(2))
@@ -3435,8 +3678,8 @@ def _cli_lines(stdout):
     for line in stdout.splitlines():
         if line.startswith("[kernels]"):
             fields["launches"] = json.loads(line.split("launches=", 1)[1])
-        elif line.startswith("[gradsync]") or line.startswith("[telemetry]") \
-                or line.startswith("[plan] mode=") or line.startswith("[dist]"):
+        elif line.startswith(("[gradsync]", "[telemetry]", "[plan] mode=", "[dist]",
+                               "[memory]")):
             key = line[1:line.index("]")]
             fields[key] = line
     return losses, fields
@@ -3459,7 +3702,8 @@ def _shards_equal(a, b, keys=None):
             all(np.array_equal(x[k], y[k]) for k in names)
 
 
-def run_ddp(torch, rec, B=16, S=512, n_functions=CLI_FUNCTIONS, steps=6):
+def run_ddp(torch, rec, B=16, S=512, n_functions=CLI_FUNCTIONS, steps=6, with_fsdp=False,
+            with_fsdp_path=False):
     """bert-mlm-120m at full width and depth through ``torch.distributed.run
     -m repro_torch.launch.train`` with 2 ranks on the card (gloo), f32,
     --batch 16 a rank from the DataPipeline: (a) ``steps`` steps with
@@ -3471,7 +3715,14 @@ def run_ddp(torch, rec, B=16, S=512, n_functions=CLI_FUNCTIONS, steps=6):
     WITNESS_LR by one process in two f32 orders (``order_witness``) and by
     2 ranks spawned here, which also time the step and profile it: the
     ranks' losses equal each other and the one process's in their order
-    bit for bit; the gaps to the batch's order recorded."""
+    bit for bit; the gaps to the batch's order recorded.  ``with_fsdp``:
+    phase fsdp's runs, ``--sharding fsdp`` with the same flags: (a) by
+    torchrun beside ddp's (c), its step time taken again in the profile
+    ranks, which then run (c), the CLI's ``main`` resumed from (a)'s
+    step-3 checkpoint; phase fsdp gates them.  ``with_fsdp_path``: the
+    profile ranks run fsdp_path after that (on ddp_path's references, or
+    ones made here); phase fsdp_path gates it."""
+    import os
     import shutil
 
     from repro_torch.configs import get_config
@@ -3527,36 +3778,63 @@ def run_ddp(torch, rec, B=16, S=512, n_functions=CLI_FUNCTIONS, steps=6):
     # one-process references on the card: the run at the global batch,
     # then order_witness.  A run stopped by a step fault and resumed under
     # torchrun is the CPU test
-    # test_two_processes_stopped_and_resumed_repeat_their_losses.
-    shutil.copytree(ckpt.step_dir(str(ck_a), half), ckpt.step_dir(str(ck_b), half))
+    # test_two_processes_stopped_and_resumed_repeat_their_losses.  Phase
+    # fsdp's run (a) runs in a thread beside them too (its steps' time is
+    # taken again, alone, in the profile ranks), and its run (c) in the
+    # profile ranks after their timed steps: a torchrun of its own costs
+    # about 45 s.
+    # the copies are hard links: a run writes each file to a temporary name
+    # and renames it, so (c) never writes into (a)'s files, and the disk
+    # takes 4 GB fewer writes (a run after many writes reads slower)
+    link = dict(copy_function=os.link)
+    shutil.copytree(ckpt.step_dir(str(ck_a), half), ckpt.step_dir(str(ck_b), half), **link)
     ck_args = base + ["--batch", str(B), "--ckpt-dir", str(ck_b), "--ckpt-every", str(half)]
-    resumed = {}
+    runs = {}
 
-    def resume():
+    def torchrun_job(key, args):
         try:
-            resumed["c"] = torchrun_train(ck_args + ["--resume"], "c")
+            runs[key] = torchrun_train(args, key)
         except Exception as e:      # noqa: BLE001 - reported below
-            resumed["error"] = repr(e)
+            runs[key + "_error"] = repr(e)
 
-    thread = threading.Thread(target=resume, daemon=True)
-    thread.start()
+    jobs = [("c", ck_args + ["--resume"])]
+    fsdp = None
+    if with_fsdp:
+        fsdp = {"dirs": [work / "fsdp-a", work / "fsdp-c"], "half": half, "steps": steps,
+                "B": B, "S": S,
+                "args": base + ["--batch", str(B), "--sharding", "fsdp", "--ckpt-every",
+                                str(half)]}
+        for d in fsdp["dirs"]:
+            shutil.rmtree(d, ignore_errors=True)
+        jobs.append(("fsdp-a", fsdp["args"] + ["--ckpt-dir", str(fsdp["dirs"][0])]))
+    threads = [threading.Thread(target=torchrun_job, args=job, daemon=True) for job in jobs]
+    for thread in threads:
+        thread.start()
     ops.reset_launch_counts()
     _, log_one = cli.main(base + ["--batch", str(B * DDP_WORLD)])
     one = [m["loss"] for m in log_one.metrics]
-    res["one_process"] = {"losses": one, "beside": "run c",
+    res["one_process"] = {"losses": one, "beside": "runs c",
                           "step_time_p50_ms": log_one.telemetry["step_time_p50"] * 1e3}
     plain, shards = order_witness(torch, B, S, steps, WITNESS_LR)
     torch.cuda.empty_cache()
-    thread.join()
+    for thread in threads:
+        thread.join()
+    if fsdp is not None:
+        fsdp["a"] = runs.get("fsdp-a") or fail(f"fsdp a: {runs.get('fsdp-a_error')}")
+        if fsdp["a"][0] != 0:
+            fail(f"fsdp a: torchrun exited {fsdp['a'][0]}: {fsdp['a'][2].stderr[-2000:]} "
+                 f"{[r['stderr'][-2000:] for r in fsdp['a'][1]]}")
+        shutil.copytree(ckpt.step_dir(str(fsdp["dirs"][0]), half),
+                        ckpt.step_dir(str(fsdp["dirs"][1]), half), **link)
 
     l0 = res["rank0"]["losses"]
     rel = max_rel(l0, one) if None not in l0 else math.inf
     res["traj_max_rel_err"] = rel
     if not rel <= DDP_TRAJ_REL:
         fail(f"ddp a: rank 0 losses {l0} vs one process {one}: max rel {rel}")
-    if "error" in resumed:
-        fail(f"ddp c: {resumed['error']}")
-    rc_c, ranks_c, out = resumed["c"]
+    if "c_error" in runs:
+        fail(f"ddp c: {runs['c_error']}")
+    rc_c, ranks_c, out = runs["c"]
     if rc_c != 0:
         fail(f"ddp c: torchrun exited {rc_c}: {[r['stderr'][-2000:] for r in ranks_c]}")
     for r, rank in enumerate(ranks_c):
@@ -3576,9 +3854,25 @@ def run_ddp(torch, rec, B=16, S=512, n_functions=CLI_FUNCTIONS, steps=6):
     res.update(step_time_p50_ms=p50 * 1e3, global_tokens_per_s=tokens / p50,
                mfu_per_card=model_flops(cfg, tokens) / DDP_WORLD / (p50 * PEAK_BF16_FLOPS),
                plan=f0.get("plan"), gradsync_line=f0.get("gradsync"),
-               launches=parsed[0][1].get("launches", {}))
-    res["profile"] = spawn_ddp("profile", {"batch": B, "seq": S, "steps": steps,
-                                           "lr": WITNESS_LR})
+               launches=parsed[0][1].get("launches", {}),
+               memory=[memory_fields(f.get("memory")) for _, f in parsed])
+    spec = {"batch": B, "seq": S, "steps": steps, "lr": WITNESS_LR}
+    if fsdp is not None:
+        spec["fsdp"] = {"args": fsdp["args"], "steps": steps,
+                        **{k: str(d) for k, d in zip(("ck_a", "ck_c"), fsdp["dirs"])}}
+    if with_fsdp_path:
+        refs, one = rec.pop("_path_refs", None) or one_process_refs(
+            torch, "path", *_ddp_path_setup(torch))
+        spec["refs"] = {k: str(v) for k, v in refs.items()}
+    res["profile"] = spawn_ddp("profile", spec)
+    if fsdp is not None:
+        fsdp["ranks"] = [p.pop("fsdp_run") for p in res["profile"]]
+        rec["_fsdp_raw"] = fsdp
+    if with_fsdp_path:
+        for v in refs.values():
+            v.unlink()
+        rec["_fsdp_path_ranks"] = [p.pop("fsdp") for p in res["profile"]]
+        rec["_fsdp_path_one"] = one
     ranks = [p.pop("losses") for p in res["profile"]]
     if ranks[0] != ranks[1] or ranks[0] != shards:
         fail(f"ddp witness at lr {WITNESS_LR}: the ranks' losses {ranks} differ from each "
@@ -3596,6 +3890,126 @@ def run_ddp(torch, rec, B=16, S=512, n_functions=CLI_FUNCTIONS, steps=6):
     log("ddp profile: " + json.dumps([{k: v for k, v in p.items() if k != "profile"}
                                       for p in res["profile"]]))
     rec["ddp"] = res
+
+
+def memory_fields(line):
+    """{state_mb, peak_allocated_gib} of a launcher's [memory] line."""
+    return {"state_mb": float((_field(line, "state") or "nan").rstrip("MB")),
+            "peak_allocated_gib": float((_field(line, "peak_allocated") or "nan")
+                                        .rstrip("GiB"))}
+
+
+def tiles_once(global_shape, parts):
+    """Whether the boxes ``parts`` ({start, shape}) lie inside
+    ``global_shape``, are pairwise disjoint and fill it."""
+    vol = lambda shape: math.prod(int(x) for x in shape)
+    for p in parts:
+        if any(a < 0 or a + n > g for a, n, g in zip(p["start"], p["shape"], global_shape)):
+            return False
+    if sum(vol(p["shape"]) for p in parts) != vol(global_shape):
+        return False
+    for i, p in enumerate(parts):
+        for q in parts[i + 1:]:
+            if all(max(a, b) < min(a + m, b + n) for a, m, b, n in
+                   zip(p["start"], p["shape"], q["start"], q["shape"])):
+                return False
+    return True
+
+
+def sidecars(d, world):
+    """Each rank's ``shard-<r>.subshards.json`` of checkpoint directory ``d``
+    (None where missing)."""
+    out = []
+    for r in range(world):
+        f = Path(d) / f"shard-{r:05d}.subshards.json"
+        out.append(json.loads(f.read_text()) if f.exists() else None)
+    return out
+
+
+def check_fsdp(torch, rec):
+    """Phase fsdp: the ZeRO-3 runs that phase ddp ran (``run_ddp(...,
+    with_fsdp=True)``), against ddp's: run (a)'s plan, losses, collectives
+    and launches a step, its sub-shard checkpoints, run (c)'s resume;
+    the profile ranks' step time and tokens/s beside ddp's, each rank's
+    state and peak memory beside ddp's run (a)."""
+    import shutil
+
+    from repro_torch.configs import get_config
+    from repro_torch.train import checkpoint as ckpt
+
+    raw = rec.pop("_fsdp_raw", None)
+    if raw is None:
+        fail("phase fsdp runs its CLI inside phase ddp (after ddp's run (a)): select both")
+    ddp = rec["ddp"]
+    steps, half, B, S = raw["steps"], raw["half"], raw["B"], raw["S"]
+    ck_a = raw["dirs"][0]
+    want = train_launches_per_step(get_config("bert-mlm-120m"), B, S)
+    rc, ranks_a, _ = raw["a"]
+    parsed = [_cli_lines(r["stdout"]) for r in ranks_a]
+    res = {"batch_per_rank": B, "world": DDP_WORLD, "seq": S, "steps": steps,
+           "launches_per_step_want": want}
+    bad = []
+    for r, (losses, f) in enumerate(parsed):
+        plan, gs = f.get("plan", ""), f.get("gradsync", "")
+        ns, npsum = _field(gs, "scatter_buckets"), _field(gs, "psum_buckets")
+        per_step = {k: f.get("launches", {}).get(k, 0) / steps for k in want}
+        res[f"rank{r}"] = {"losses": [losses.get(i) for i in range(1, steps + 1)],
+                           "launches_per_step": per_step, "lines": f,
+                           **memory_fields(f.get("memory"))}
+        if f"process {r}/{DDP_WORLD} backend=gloo" not in f.get("dist", ""):
+            bad.append(f"rank {r} [dist]: {f.get('dist')}")
+        if "mode=fsdp" not in plan or _field(plan, "grad_sync") != "scatter_overlap" \
+                or _field(plan, "gather") is None:
+            bad.append(f"rank {r} [plan]: {plan}")
+        if ns is None or _field(gs, "per_step") != f"{ns}/{ns}/{npsum}":
+            bad.append(f"rank {r} [gradsync]: {gs}")
+        if per_step != {k: float(v) for k, v in want.items()}:
+            bad.append(f"rank {r}: launches per step {per_step}, expected {want}")
+    l0, l1 = res["rank0"]["losses"], res["rank1"]["losses"]
+    if l0 != l1:
+        bad.append(f"the ranks' losses differ: {l0} {l1}")
+    one, dl = ddp["one_process"]["losses"], ddp["rank0"]["losses"]
+    res["traj_max_rel_err"] = max_rel(l0, one) if None not in l0 else math.inf
+    res["vs_ddp_max_rel_err"] = max_rel(l0, dl) if None not in l0 else math.inf
+    if not res["traj_max_rel_err"] <= DDP_TRAJ_REL or \
+            not res["vs_ddp_max_rel_err"] <= DDP_LOSS_REL:
+        bad.append(f"rank 0 losses {l0}: one process {one}, ddp (a) {dl}")
+    for step in (half, steps):
+        subs = sidecars(ckpt.step_dir(str(ck_a), step), DDP_WORLD)
+        if None in subs or subs[0].keys() != subs[1].keys() or not subs[0]:
+            bad.append(f"step {step}: sidecars {[s is not None for s in subs]}")
+            continue
+        untiled = [k for k in subs[0] if not tiles_once(
+            subs[0][k]["global_shape"], subs[0][k]["parts"] + subs[1][k]["parts"])]
+        res[f"sidecar_leaves_step{step}"] = len(subs[0])
+        if untiled:
+            bad.append(f"step {step}: parts do not tile {untiled[:5]}")
+    for r, rank in enumerate(raw["ranks"]):
+        # (c) in full precision, (a) as its launcher printed it
+        losses = {int(i): float(f"{x:.4f}") for i, x in rank["c_losses"].items()}
+        want_c = {i: parsed[r][0].get(i) for i in range(half + 1, steps + 1)}
+        if losses != want_c or not rank["c_same"]:
+            bad.append(f"fsdp c: rank {r} resumed losses {losses} != uninterrupted "
+                       f"{want_c}, or its final checkpoint differs ({rank['c_same']})")
+    if bad:
+        fail("fsdp: " + "; ".join(bad))
+    res["resume_bit_exact"] = True
+    for d in raw["dirs"]:
+        shutil.rmtree(d, ignore_errors=True)
+    f0 = parsed[0][1]
+    prof = [rank["profile"] for rank in raw["ranks"]]
+    p50 = prof[0]["step_p50_ms"] / 1e3
+    res.update(step_time_p50_ms=p50 * 1e3, global_tokens_per_s=B * S * DDP_WORLD / p50,
+               profile=prof, plan=f0.get("plan"), gradsync_line=f0.get("gradsync"),
+               launches=f0.get("launches", {}),
+               memory=[memory_fields(f.get("memory")) for _, f in parsed],
+               cli_step_p50_ms_beside_c=float(_field(f0.get("telemetry"), "step_p50")
+                                              .rstrip("ms")),
+               ddp_beside={"profile_step_p50_ms": [p["step_p50_ms"] for p in ddp["profile"]],
+                           "cli_step_p50_ms": ddp.get("step_time_p50_ms"),
+                           "memory": ddp.get("memory")})
+    log("fsdp: " + json.dumps({k: v for k, v in res.items() if k not in ("rank0", "rank1")}))
+    rec["fsdp"] = res
 
 
 REPO_KERNELS = ("flash_fwd", "dq_wgmma", "dkdv_wgmma", "dq_mma", "dkdv_mma", "dq_f32",
@@ -4504,7 +4918,8 @@ def time_train_kernels(torch, checked, gen, T=3904, V=32768):
 
 def kernel_records(rec):
     """One record per kernel.  ``launches``: the main paths' runs (serve,
-    ssm_serve, train, train_cli's run (a) and rank 0 of ddp's run (a)),
+    ssm_serve, train, train_cli's run (a) and rank 0 of ddp's and fsdp's
+    runs (a)),
     each counted from 0 just before it; the times are those of
     the shape each path runs (flash forward: the serve prefill at S=1024,
     with bert's shape under ``train_shape``; flash backward: bert's shape,
@@ -4522,7 +4937,7 @@ def kernel_records(rec):
     t = rec.get("time", {})
     paths = {key: rec.get(key, {}).get("launches", {})
              for key in ("serve", "ssm_serve", "train", "train_cli", "ssm_train", "ddp",
-                         "gemma_serve", "gemma_train", "gemma2_serve", "gemma2_train",
+                         "fsdp", "gemma_serve", "gemma_train", "gemma2_serve", "gemma2_train",
                          "zamba2_serve", "zamba2_train", "llama3_serve", "llama3_train",
                          "bert350_train")}
     paths["ssm_train_bf16"] = rec.get("ssm_train", {}).get("c", {}).get("launches", {})
@@ -4730,6 +5145,13 @@ def summary(rec):
             "ddp_path_max_rel_err": {name: max((g[name]["max_rel_err"] for r in rec.get(
                 "ddp_path", {}).get("ranks", []) for g in r["grads"].values()), default=None)
                 for name in ("shards", "batch")},
+            "fsdp": {k: rec.get("fsdp", {}).get(k) for k in (
+                "step_time_p50_ms", "global_tokens_per_s", "traj_max_rel_err",
+                "vs_ddp_max_rel_err", "resume_bit_exact", "memory")},
+            "ddp_memory": rec.get("ddp", {}).get("memory"),
+            "fsdp_path_max_rel_err": {name: max((g[name]["max_rel_err"] for r in rec.get(
+                "fsdp_path", {}).get("ranks", []) for g in r["grads"].values()), default=None)
+                for name in ("shards", "batch")},
             "path_max_rel_err": rec.get("path", {}).get("max_rel_err"),
             "ssm_path_max_rel_err": rec.get("ssm_path", {}).get("max_rel_err"),
             "train_path_rel_err": rec.get("train_path", {}).get("rel_err"),
@@ -4850,8 +5272,12 @@ def main():
              "llama3_serve": run_llama3_serve, "llama3_train": run_llama3_train,
              "bert350_train": run_bert350_train,
              "bert_max_batch": lambda torch, rec: run_bert_max_batch(torch, rec, cpu_refs),
-             "ddp_path": check_ddp_path,
-             "ddp": run_ddp, "time": time_kernels}
+             "ddp_path": lambda torch, rec: check_ddp_path(
+                 torch, rec, keep_refs={"fsdp_path", "ddp"} <= set(phases)),
+             "fsdp_path": check_fsdp_path,
+             "ddp": lambda torch, rec: run_ddp(torch, rec, with_fsdp="fsdp" in phases,
+                                               with_fsdp_path="fsdp_path" in phases),
+             "fsdp": check_fsdp, "time": time_kernels}
     for ph in PHASES[1:]:
         if sass is not None and PHASES.index(ph) >= PHASES.index(SASS_GATED_BY):
             wgmma_build_facts(rec, sass_results(sass))

@@ -1,11 +1,11 @@
-"""Bucketed, backward-overlapped gradient synchronisation for ddp.
+"""Bucketed, backward-overlapped gradient synchronisation for ddp and
+fsdp.
 
-The port's copy of the ddp half of the JAX package's
-``distributed/gradsync.py``.  :func:`partition_buckets` slices the flat
-gradient leaf list, in the JAX flatten order (sorted keys,
-``models.params.flatten_tree``; not ``named_parameters()`` order), into
-size-targeted buckets walked back to front, the order the backward
-produces gradients in.  :class:`BucketedAllReduce` issues exactly ONE
+The port's copy of the JAX package's ``distributed/gradsync.py``.
+:func:`partition_buckets` slices the flat gradient leaf list, in the JAX
+flatten order (sorted keys, ``models.params.flatten_tree``; not
+``named_parameters()`` order), into size-targeted buckets walked back to
+front, the order the backward produces gradients in.  :class:`BucketedAllReduce` issues exactly ONE
 ``all_reduce`` per bucket per step: a ``post_accumulate_grad`` hook on
 every parameter counts the bucket's leaves as their ``.grad`` completes
 during the final microbatch's backward, flattens the full bucket into one
@@ -27,26 +27,48 @@ hooks complete in: collectives are matched by their order of issue, so a
 rank that started bucket 3 before bucket 2 would pair it with its peer's
 bucket 2.
 
-``counts["grad_all_reduce"]`` counts the gradient collectives issued in
-this process.  The fsdp half of the JAX module waits for ROADMAP A8.
+fsdp (ZeRO-3, ``scatter_overlap``): :func:`partition_fsdp_buckets`
+splits the leaves into scatter buckets (each leaf cut on its first
+dimension the data-parallel size divides, :func:`shard_dim`) and psum
+buckets (the leaves no such dimension cuts, kept whole).  Each rank holds
+its slice of every scatter leaf.  :func:`gather_fsdp_params` rebuilds the
+full leaves with ONE ``all_gather_into_tensor`` per scatter bucket, in
+forward-layer order, as a ``torch.autograd.Function`` whose backward is
+ONE ``reduce_scatter_tensor`` of the bucket's full gradients: the
+transpose, so that the gradient arrives at each shard already summed.
+:func:`bucketed_psum_scatter` is the same reduce-scatter on gradients
+formed outside autograd (the gather-once path); the whole leaves go
+through :func:`bucketed_all_reduce`.
+
+``counts`` counts the collectives issued in this process:
+``grad_all_reduce``, ``param_all_gather`` (a scatter bucket's gather,
+again when a checkpointed gather runs in the backward),
+``grad_reduce_scatter``, and ``grad_all_gather`` (gradient shards
+gathered for a comparison by ``train_step.make_grad_fn``, not by a step).
 """
 from __future__ import annotations
 
 import collections
+import functools
+import math
 import time
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.accum import fold
 from repro_torch.observability import get_tracer
 
-__all__ = ["DEFAULT_BUCKET_MB", "GradBucket", "BucketedAllReduce",
-           "partition_buckets", "bucketed_all_reduce", "fused_all_reduce",
-           "bucket_plan_stats", "ring_allreduce_bytes", "leaf_nbytes", "metric_series",
-           "counts", "reset_counts", "flat_leaves"]
+__all__ = ["DEFAULT_BUCKET_MB", "GradBucket", "BucketedAllReduce", "FsdpBucketPlan",
+           "partition_buckets", "partition_fsdp_buckets", "shard_dim", "local_shape",
+           "bucketed_all_reduce", "fused_all_reduce", "gather_fsdp_params",
+           "gather_grad_shards", "bucketed_psum_scatter", "fsdp_global_norm",
+           "bucket_plan_stats", "ring_allreduce_bytes", "reduce_scatter_bytes",
+           "all_gather_bytes", "leaf_nbytes", "metric_series", "counts", "reset_counts",
+           "flat_leaves"]
 
 DEFAULT_BUCKET_MB = 25.0
 
@@ -285,6 +307,244 @@ class BucketedAllReduce:
         self.armed = False
         self._works = []
 
+# ---------------------------------------------------------------------------
+# fsdp (ZeRO-3): sharded leaves, per-bucket all-gather / reduce-scatter
+# ---------------------------------------------------------------------------
+
+
+def shard_dim(leaf, n_shards: int) -> Optional[int]:
+    """The dimension a leaf is cut on under ``scatter_overlap``: the FIRST
+    one ``n_shards`` divides, or None (the leaf stays whole).  Dim 0 is
+    not required: a stacked block leaf's leading ``layers`` axis is often
+    1."""
+    if n_shards <= 1:
+        return None
+    for d, s in enumerate(leaf.shape):
+        if s > 0 and s % n_shards == 0:
+            return d
+    return None
+
+
+def local_shape(shape: Sequence[int], dim: int, n_shards: int) -> Tuple[int, ...]:
+    """One rank's shard shape of a leaf cut on ``dim``."""
+    shape = tuple(shape)
+    return shape[:dim] + (shape[dim] // n_shards,) + shape[dim + 1:]
+
+
+@dataclass(frozen=True)
+class FsdpBucketPlan:
+    """The ``scatter_overlap`` communication plan.  ``scatter`` buckets hold
+    cut leaves (one all-gather forward, one reduce-scatter backward);
+    ``psum`` buckets the whole ones (one all-reduce).  ``shard_dims[i]`` is
+    flat leaf i's cut dimension (None: whole); bucket indices are flat leaf
+    positions, as in :class:`GradBucket`."""
+
+    n_shards: int
+    scatter: Tuple[GradBucket, ...]
+    psum: Tuple[GradBucket, ...]
+    shard_dims: Tuple[Optional[int], ...]
+
+    @property
+    def buckets(self) -> Tuple[GradBucket, ...]:
+        """Every bucket, scatter first."""
+        return self.scatter + self.psum
+
+    @property
+    def scatter_indices(self) -> Tuple[int, ...]:
+        return tuple(i for b in self.scatter for i in b.indices)
+
+    @property
+    def scatter_bytes(self) -> int:
+        return sum(b.nbytes for b in self.scatter)
+
+    @property
+    def psum_bytes(self) -> int:
+        return sum(b.nbytes for b in self.psum)
+
+
+def _remap(bucket: GradBucket, orig: Sequence[int]) -> GradBucket:
+    return GradBucket(tuple(orig[i] for i in bucket.indices), bucket.nbytes, bucket.dtype)
+
+
+def partition_fsdp_buckets(leaves: Sequence[torch.Tensor], n_shards: int, *,
+                           bucket_mb: float = DEFAULT_BUCKET_MB,
+                           pinned: Sequence[int] = ()) -> FsdpBucketPlan:
+    """Cut leaves and whole leaves bucketed apart, each group by the
+    reverse-layer walk of :func:`partition_buckets`: a scatter bucket's
+    flat buffer must split into ``n_shards`` equal rows with no padding.
+    ``pinned`` flat indices are kept whole whatever their shape (the JAX
+    fsdp_tp composition pins its tensor-parallel leaves so)."""
+    pin = set(pinned)
+    dims = tuple(None if i in pin else shard_dim(x, n_shards) for i, x in enumerate(leaves))
+    sc = [i for i, d in enumerate(dims) if d is not None]
+    rp = [i for i, d in enumerate(dims) if d is None]
+    scatter = tuple(_remap(b, sc) for b in partition_buckets(
+        [leaves[i] for i in sc], bucket_mb=bucket_mb)) if sc else ()
+    psum = tuple(_remap(b, rp) for b in partition_buckets(
+        [leaves[i] for i in rp], bucket_mb=bucket_mb)) if rp else ()
+    return FsdpBucketPlan(n_shards, scatter, psum, dims)
+
+
+def _leaf_to_blocks(full: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+    """(n, size / n) of a full leaf: row r is rank r's slice along
+    ``dim``, raveled, the layout ``reduce_scatter_tensor`` scatters by
+    leading chunk."""
+    s = full.shape
+    x = full.reshape(s[:dim] + (n, s[dim] // n) + s[dim + 1:])
+    return x.movedim(dim, 0).reshape(n, -1)
+
+
+def _blocks_to_leaf(blocks: torch.Tensor, loc_shape: Sequence[int], dim: int,
+                    n: int) -> torch.Tensor:
+    """Inverse of :func:`_leaf_to_blocks`: the (n, size / n) gathered rows
+    back to the full leaf, the ranks' blocks concatenated along ``dim``."""
+    loc_shape = tuple(loc_shape)
+    x = blocks.reshape((n,) + loc_shape).movedim(0, dim)
+    return x.reshape(loc_shape[:dim] + (n * loc_shape[dim],) + loc_shape[dim + 1:])
+
+
+def _all_gather(flat: torch.Tensor, n: int, group, count: str) -> torch.Tensor:
+    """(n, len) of every rank's ``flat``, one collective counted as ``count``."""
+    out = flat.new_empty(n * flat.numel())
+    counts[count] += 1
+    dist.all_gather_into_tensor(out, flat, group=group)
+    return out.view(n, -1)
+
+
+def _reduce_scatter(blocks: torch.Tensor, group) -> torch.Tensor:
+    """This rank's row of the (n, len) ``blocks`` summed over the ranks."""
+    out = blocks.new_empty(blocks.shape[1])
+    counts["grad_reduce_scatter"] += 1
+    dist.reduce_scatter_tensor(out, blocks.reshape(-1), group=group)
+    return out
+
+
+def _split(flat: torch.Tensor, shapes: Sequence[Tuple[int, ...]]) -> List[torch.Tensor]:
+    out, off = [], 0
+    for shp in shapes:
+        k = math.prod(shp)
+        out.append(flat[off:off + k].view(shp))
+        off += k
+    return out
+
+
+def _gather_bucket(bucket: GradBucket, plan: FsdpBucketPlan, group, parts, count: str):
+    """The full leaves of one scatter bucket from this rank's shards."""
+    n = plan.n_shards
+    flat = torch.cat([p.reshape(-1) for p in parts])
+    g = _all_gather(flat, n, group, count)
+    full, off = [], 0
+    for i, p in zip(bucket.indices, parts):
+        k = p.numel()
+        full.append(_blocks_to_leaf(g[:, off:off + k], p.shape, plan.shard_dims[i], n))
+        off += k
+    return full
+
+
+def _scatter_bucket(bucket: GradBucket, plan: FsdpBucketPlan, group, grads,
+                    shapes) -> List[torch.Tensor]:
+    """This rank's summed shards of one bucket's full gradients."""
+    n = plan.n_shards
+    blocks = torch.cat([_leaf_to_blocks(g, plan.shard_dims[i], n)
+                        for i, g in zip(bucket.indices, grads)], dim=1)
+    return _split(_reduce_scatter(blocks, group), shapes)
+
+
+class _GatherBucket(torch.autograd.Function):
+    """One scatter bucket: forward, ONE all-gather of the shards into the
+    full leaves; backward, its transpose, ONE reduce-scatter of the full
+    leaves' gradients into summed shard gradients.  The backward runs once
+    every used output's gradient is in; an output the loss does not reach
+    reads as zeros, so that every rank issues every bucket's collective.
+    The shards are saved for the backward (their shapes shape its
+    result), so a checkpointed gather runs again there."""
+
+    @staticmethod
+    def forward(ctx, bucket, plan, group, *shards):
+        ctx.set_materialize_grads(True)
+        ctx.bucket, ctx.plan, ctx.group = bucket, plan, group
+        ctx.save_for_backward(*shards)
+        return tuple(_gather_bucket(bucket, plan, group, shards, "param_all_gather"))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        shapes = [s.shape for s in ctx.saved_tensors]
+        parts = _scatter_bucket(ctx.bucket, ctx.plan, ctx.group, grads, shapes)
+        return (None, None, None, *parts)
+
+
+def gather_fsdp_params(leaves: Sequence[torch.Tensor], plan: FsdpBucketPlan, group=None, *,
+                       free_after_use: bool = False) -> List[torch.Tensor]:
+    """The full leaves (flat order) from this rank's ``leaves``: one
+    all-gather per scatter bucket, the buckets in FORWARD layer order (the
+    reverse of their backward-ordered construction); whole leaves pass
+    through.  Differentiable: the gradient of each gathered leaf comes
+    back to its shard through one reduce-scatter a bucket.
+
+    ``free_after_use`` runs each bucket's gather under
+    ``torch.utils.checkpoint``, so that the backward gathers it again
+    (``2 x`` the gather wire a step), as the JAX ``jax.checkpoint`` of the
+    gather.  The tensors that consume a gathered leaf save it themselves
+    (a remat layer's checkpoint saves its inputs), so the gathered tree
+    still lives through the backward, as in JAX's donate_gather step."""
+    out = list(leaves)
+    for b in reversed(plan.scatter):
+        parts = [leaves[i] for i in b.indices]
+        fn = functools.partial(_GatherBucket.apply, b, plan, group)
+        full = checkpoint(fn, *parts, use_reentrant=False) if free_after_use else fn(*parts)
+        for i, f in zip(b.indices, full):
+            out[i] = f
+    return out
+
+
+def gather_grad_shards(grads: Sequence[torch.Tensor], plan: FsdpBucketPlan,
+                       group=None) -> List[torch.Tensor]:
+    """The full gradient leaves from summed shards (whole leaves pass
+    through): one all-gather per scatter bucket, counted as
+    ``grad_all_gather``, for comparing a sharded gradient leaf for leaf."""
+    out = list(grads)
+    with torch.no_grad():
+        for b in reversed(plan.scatter):
+            full = _gather_bucket(b, plan, group, [grads[i] for i in b.indices],
+                                  "grad_all_gather")
+            for i, f in zip(b.indices, full):
+                out[i] = f
+    return out
+
+
+def bucketed_psum_scatter(grads: Sequence[torch.Tensor], plan: FsdpBucketPlan,
+                          group=None) -> List[torch.Tensor]:
+    """Full local gradients (flat order) to summed shards: one
+    reduce-scatter per scatter bucket (the reduce-scatter phase of a ring
+    all-reduce alone: half the ddp wire), one all-reduce per psum bucket
+    (in place).  The result has shard-shaped leaves where the leaf is cut
+    and the whole summed leaf where it is not: the layout the sharded
+    AdamW update reads."""
+    out = list(grads)
+    n = plan.n_shards
+    for b in plan.scatter:
+        shapes = [local_shape(grads[i].shape, plan.shard_dims[i], n) for i in b.indices]
+        for i, g in zip(b.indices, _scatter_bucket(b, plan, group,
+                                                   [grads[i] for i in b.indices], shapes)):
+            out[i] = g
+    bucketed_all_reduce(out, plan.psum, group)
+    return out
+
+
+def fsdp_global_norm(grads: Sequence[torch.Tensor], plan: FsdpBucketPlan,
+                     group=None) -> torch.Tensor:
+    """The global L2 norm of gradients in the ``scatter_overlap`` layout:
+    the shards' squared sums add across the ranks (one scalar
+    all-reduce), the whole leaves, equal on every rank, count once."""
+    sc = set(plan.scatter_indices)
+    dev = grads[0].device
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    sq = lambda g: torch.sum(torch.square(g.float()))
+    sq_shard = sum((sq(g) for i, g in enumerate(grads) if i in sc), zero)
+    sq_rep = sum((sq(g) for i, g in enumerate(grads) if i not in sc), zero.clone())
+    dist.all_reduce(sq_shard, group=group)
+    return torch.sqrt(sq_shard + sq_rep)
+
 
 def bucket_plan_stats(buckets: Sequence[GradBucket]) -> dict:
     """Telemetry summary: collective count and payload distribution."""
@@ -302,6 +562,23 @@ def ring_allreduce_bytes(total_bytes: int, n_devices: int) -> float:
     if n_devices <= 1:
         return 0.0
     return 2.0 * (n_devices - 1) / n_devices * total_bytes
+
+
+def reduce_scatter_bytes(total_bytes: int, n_devices: int) -> float:
+    """Wire bytes per device for a ring reduce-scatter of ``total_bytes``:
+    (n - 1) / n of the payload, HALF the all-reduce (the matching
+    all-gather moved onto the parameters, in the forward)."""
+    if n_devices <= 1:
+        return 0.0
+    return (n_devices - 1) / n_devices * total_bytes
+
+
+def all_gather_bytes(total_bytes: int, n_devices: int) -> float:
+    """Wire bytes per device for a ring all-gather assembling
+    ``total_bytes``: (n - 1) / n of the payload."""
+    if n_devices <= 1:
+        return 0.0
+    return (n_devices - 1) / n_devices * total_bytes
 
 
 def metric_series(info: dict) -> dict:

@@ -1,15 +1,17 @@
 """Per-host batch slicing and the data-parallel plan.
 
 The port's copy of the parts of the JAX package's
-``distributed/sharding.py`` that ddp needs: the two batch-slicing
-helpers the data pipeline uses, the gradient-sync strategy names and the
-ddp subset of ``ParallelPlan``.  The logical axis rules and the sharded
-modes (fsdp, tp, pp) come with ROADMAP A8 and A11.
+``distributed/sharding.py`` that ddp and fsdp need: the two
+batch-slicing helpers the data pipeline uses, the gradient-sync strategy
+names and the data-parallel subset of ``ParallelPlan``, with the fsdp
+state layout (:meth:`ParallelPlan.shard_layout`, the port's
+``scatter_param_specs``).  The logical axis rules and the tensor and
+pipeline modes (tp, fsdp_tp, pp) come with ROADMAP A11.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -44,24 +46,62 @@ def process_batch_slice(global_batch: int, process_index: int,
 # gradient-sync strategies, with the JAX package's names:
 #   bucketed_overlap — one all-reduce per reverse-layer bucket, issued from
 #                      backward hooks (gradsync.BucketedAllReduce)
+#   scatter_overlap  — fsdp (ZeRO-3): parameters and AdamW moments cut over
+#                      the ranks; one all-gather per bucket rebuilds the
+#                      full parameters in the forward, one reduce-scatter
+#                      per bucket returns summed gradient shards in the
+#                      backward (gradsync.gather_fsdp_params)
 #   xla_fused        — the fallback: one all-reduce of the whole tree after
 #                      the backward, the batch split into GLOBAL microbatches
 #                      (the JAX partitioner's path: overlap off, or a
 #                      microbatch count that does not divide the local batch)
 #   none             — one data-parallel shard: nothing to synchronise
 GRAD_SYNC_BUCKETED = "bucketed_overlap"
+GRAD_SYNC_SCATTER = "scatter_overlap"
 GRAD_SYNC_XLA = "xla_fused"
 GRAD_SYNC_NONE = "none"
 
 # the modes of the JAX plan the port does not run yet, with their ROADMAP item
-UNPORTED_MODES = {"fsdp": "A8", "tp": "A11", "fsdp_tp": "A11", "pp": "A11", "pp_dp": "A11"}
+UNPORTED_MODES = {"tp": "A11", "fsdp_tp": "A11", "pp": "A11", "pp_dp": "A11"}
+PORTED_MODES = ("ddp", "fsdp")
+
+
+@dataclass(frozen=True)
+class LeafShard:
+    """One rank's part of a leaf under ``scatter_overlap``: ``size`` rows
+    from ``start`` along ``dim`` of ``global_shape``, or the whole leaf
+    (``dim`` None)."""
+
+    dim: Optional[int]
+    start: int
+    size: int
+    global_shape: Tuple[int, ...]
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        if self.dim is None:
+            return self.global_shape
+        g = self.global_shape
+        return g[:self.dim] + (self.size,) + g[self.dim + 1:]
+
+    @property
+    def offsets(self) -> Tuple[int, ...]:
+        """The shard's first element, per dimension."""
+        return tuple(self.start if d == self.dim else 0 for d in range(len(self.global_shape)))
+
+    def take(self, full: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of the full leaf (a view)."""
+        return full if self.dim is None else full.narrow(self.dim, self.start, self.size)
 
 
 @dataclass(frozen=True)
 class ParallelPlan:
-    """The ddp half of the JAX package's ``ParallelPlan``: which
+    """The data-parallel half of the JAX package's ``ParallelPlan``: which
     gradient-sync strategy keeps the data-parallel replicas equal, over
-    how many shards and at what bucket size.
+    how many shards and at what bucket size.  Under ``scatter_overlap``
+    ``donate_gather`` (at one microbatch) differentiates from the shards
+    through the gather, and ``free_after_use`` gathers each bucket again
+    in the backward (``train_step._scatter_accum``).
 
     Where the JAX plan reads a mesh, this one reads the size of the
     default process group (``world``; ``None`` = no process group, the
@@ -75,34 +115,40 @@ class ParallelPlan:
     grad_bucket_mb: float = 25.0
     overlap: bool = True
     microbatch: int = 1
+    donate_gather: bool = True
+    free_after_use: bool = False
 
     @classmethod
     def make(cls, world: Optional[int], mode: str, global_batch: int, *,
              grad_bucket_mb: float = 25.0, overlap: bool = True,
-             microbatch: int = 1) -> "ParallelPlan":
+             microbatch: int = 1, donate_gather: bool = True,
+             free_after_use: bool = False) -> "ParallelPlan":
         """Plan for one (process group size, mode, global batch).
         ``overlap=False`` pins the fused baseline.  Over more than one
-        process a mode other than ddp raises, naming its ROADMAP item; on
-        one process every mode trains the same (nothing to shard)."""
+        process a mode other than ddp or fsdp raises, naming its ROADMAP
+        item; on one process every mode trains the same (nothing to
+        shard)."""
         if mode in UNPORTED_MODES and world and world > 1:
             raise NotImplementedError(
                 f"sharding mode {mode!r} is not ported yet (ROADMAP "
-                f"{UNPORTED_MODES[mode]}); the port runs ddp")
-        if mode != "ddp" and mode not in UNPORTED_MODES:
+                f"{UNPORTED_MODES[mode]}); the port runs {' and '.join(PORTED_MODES)}")
+        if mode not in PORTED_MODES and mode not in UNPORTED_MODES:
             raise KeyError(f"unknown sharding mode {mode!r}; known: "
-                           f"{sorted(['ddp', *UNPORTED_MODES])}")
+                           f"{sorted([*PORTED_MODES, *UNPORTED_MODES])}")
         return cls(mode=mode, world=world, global_batch=global_batch,
                    grad_bucket_mb=grad_bucket_mb, overlap=overlap,
-                   microbatch=max(1, microbatch))
+                   microbatch=max(1, microbatch), donate_gather=donate_gather,
+                   free_after_use=free_after_use)
 
     @classmethod
     def for_run(cls, run, world: Optional[int] = None, *, grad_bucket_mb: float = 25.0,
-                overlap: bool = True) -> "ParallelPlan":
+                overlap: bool = True, **kw) -> "ParallelPlan":
         """Plan of a ``RunConfig`` (mode, global batch and microbatch
-        count read off ``run``)."""
+        count read off ``run``); ``kw``: ``donate_gather``,
+        ``free_after_use``."""
         return cls.make(world, run.sharding, run.shape.global_batch,
                         grad_bucket_mb=grad_bucket_mb, overlap=overlap,
-                        microbatch=run.microbatch or 1)
+                        microbatch=run.microbatch or 1, **kw)
 
     @property
     def dp_size(self) -> int:
@@ -117,15 +163,15 @@ class ParallelPlan:
 
     @property
     def grad_sync(self) -> str:
-        """``bucketed_overlap`` when the local batch splits into the
-        microbatches and overlap is on; ``xla_fused`` otherwise; ``none``
-        with one shard."""
+        """``bucketed_overlap`` (ddp) or ``scatter_overlap`` (fsdp) when the
+        local batch splits into the microbatches and overlap is on;
+        ``xla_fused`` otherwise; ``none`` with one shard."""
         if self.world is None or self.dp_size <= 1:
             return GRAD_SYNC_NONE
         divisible = self.local_batch % self.microbatch == 0 \
             and self.local_batch >= self.microbatch
         if self.overlap and divisible:
-            return GRAD_SYNC_BUCKETED
+            return GRAD_SYNC_SCATTER if self.mode == "fsdp" else GRAD_SYNC_BUCKETED
         return GRAD_SYNC_XLA
 
     @property
@@ -158,6 +204,34 @@ class ParallelPlan:
 
         return partition_buckets(self.grad_leaves(params, param_dtype),
                                  bucket_mb=self.grad_bucket_mb)
+
+    def scatter_plan(self, params, param_dtype: Optional[torch.dtype] = None):
+        """The ``gradsync.FsdpBucketPlan`` of a ``scatter_overlap`` plan
+        (its buckets and each leaf's cut dimension), sized at gradient
+        width like :meth:`grad_buckets`; None for every other strategy."""
+        if self.grad_sync != GRAD_SYNC_SCATTER:
+            return None
+        from repro_torch.distributed.gradsync import partition_fsdp_buckets
+
+        return partition_fsdp_buckets(self.grad_leaves(params, param_dtype), self.dp_size,
+                                      bucket_mb=self.grad_bucket_mb)
+
+    def shard_layout(self, params, rank: int) -> Dict[str, LeafShard]:
+        """``{leaf name: LeafShard}`` (flat order) of rank ``rank`` under
+        ``scatter_overlap``: each leaf cut on its ``gradsync.shard_dim``
+        into ``dp_size`` equal parts, whole where no dimension divides.
+        The step, the state placement and the checkpoints share it, as the
+        JAX ``scatter_param_specs``."""
+        from repro_torch.distributed.gradsync import flat_leaves, shard_dim
+
+        n = self.dp_size
+        out = {}
+        for name, p in flat_leaves(params):
+            shape = tuple(p.shape)
+            d = shard_dim(p, n)
+            size = shape[d] // n if d is not None else 0
+            out[name] = LeafShard(d, rank * size, size, shape)
+        return out
 
     def describe(self) -> Dict[str, Any]:
         """Flat summary for logs and telemetry (the JAX keys that apply)."""

@@ -10,6 +10,8 @@ parallel over several processes.
       --steps 200 --batch 16 --seq 1024
   PYTHONPATH=src torchrun --standalone --nproc-per-node 2 \\
       -m repro_torch.launch.train --batch 16 --seq 512 [--grad-bucket-mb 25]
+  PYTHONPATH=src torchrun --standalone --nproc-per-node 2 \\
+      -m repro_torch.launch.train --sharding fsdp --batch 16 --seq 512
 
 The twin of the JAX package's ``launch/train.py``, with its flags,
 defaults (f32 parameters and activations through
@@ -37,9 +39,19 @@ one all-reduce per reverse-layer bucket of ``--grad-bucket-mb``.  On
 the card only rank 0 builds the kernels, and the others load them after
 a barrier.
 
+fsdp (``--sharding fsdp``, ZeRO-3, the JAX ``scatter_overlap``): the
+same processes, but each keeps only its slice of every parameter and
+AdamW moment; one all-gather a bucket rebuilds the full parameters in
+the forward and one reduce-scatter a bucket returns the summed gradient
+shards in the backward.  Its checkpoints hold each process's slices
+(``shard-<pidx>.subshards.json`` beside the npz, the JAX format), and
+``--resume`` restores them onto the same plan and process count.  The
+``[plan]`` line prints the gather volume (``gather=...MB``) and
+``[gradsync]`` the collectives issued a step.
+
 Runs on the card unless ``--device cpu`` asks for the CPU (the kernels'
 plain versions; ``--reduced`` makes that quick).  ``--sharding`` takes
-only ``ddp``, and the JAX launcher's other parallel, journal and
+``ddp`` and ``fsdp``, and the JAX launcher's other parallel, journal and
 straggler flags exit with the ROADMAP item that brings them.
 ``main(argv)`` returns ``(state, TrainerLog)``, so the same run can be
 driven in process.  An encoder trains on BERT masks, any other model
@@ -80,8 +92,7 @@ REFUSED_FLAGS = {
     "--journal-dir": "A12", "--journal-k": "A12",
     "--straggler-every": "A12", "--straggler-ratio": "A12",
 }
-SHARDING_ITEMS = {"fsdp": "A8", "tp": "A11", "fsdp_tp": "A11", "pp": "A11",
-                  "pp_dp": "A11"}
+SHARDING_ITEMS = {"tp": "A11", "fsdp_tp": "A11", "pp": "A11", "pp_dp": "A11"}
 PROBE_STEPS = 3        # timed steps of the R3 probe, after one warm-up step
 
 
@@ -119,9 +130,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="prune committed checkpoints beyond the newest "
                          "K after each save (0 = keep all)")
     ap.add_argument("--sharding", default="ddp",
-                    choices=["ddp", *SHARDING_ITEMS],
-                    help="parallelism mode; only ddp (data parallel, one "
-                         "process a shard) is ported")
+                    choices=["ddp", "fsdp", *SHARDING_ITEMS],
+                    help="parallelism mode; ddp (data parallel, one process "
+                         "a shard) and fsdp (ddp with the parameters and "
+                         "moments cut over the processes) are ported")
     ap.add_argument("--grad-bucket-mb", type=float, default=25.0,
                     help="gradient all-reduce bucket size (MB); one "
                          "all-reduce per bucket, issued during the backward")
@@ -147,10 +159,10 @@ def _refuse_unported(ap: argparse.ArgumentParser, args) -> None:
     for flag, item in REFUSED_FLAGS.items():
         if getattr(args, flag[2:].replace("-", "_")) is not None:
             ap.error(f"{flag} is not ported yet (ROADMAP {item})")
-    if args.sharding != "ddp":
+    if args.sharding in SHARDING_ITEMS:
         ap.error(f"--sharding {args.sharding} is not ported yet "
                  f"(ROADMAP {SHARDING_ITEMS[args.sharding]}); the port "
-                 "runs ddp")
+                 "runs ddp and fsdp")
 
 
 def make_work_fn(cfg, process_index: int = 0, process_count: int = 1):
@@ -264,7 +276,7 @@ def _train(args, cfg, device, pipeline, tracer, world: int):
     # every process of the group trains --batch rows of one global batch
     gbatch = args.batch * world
     run = default_run_config(cfg, ShapeConfig("cli", args.seq, gbatch, "train"),
-                             microbatch=args.microbatch)
+                             sharding=args.sharding, microbatch=args.microbatch)
     opt = AdamWConfig(lr=args.lr, warmup_steps=max(2, args.steps // 20),
                       total_steps=args.steps)
     runner = StepRunner(model, run, opt, grad_bucket_mb=args.grad_bucket_mb)
@@ -273,7 +285,8 @@ def _train(args, cfg, device, pipeline, tracer, world: int):
           f"dp_size={gs['dp_size']} grad_sync={gs['grad_sync']} "
           f"buckets={gs['n_buckets']} "
           f"comm={gs['comm_bytes']/1e6:.1f}MB/step "
-          f"wire={gs['wire_bytes_per_device']/1e6:.1f}MB/dev")
+          f"wire={gs['wire_bytes_per_device']/1e6:.1f}MB/dev "
+          f"gather={gs['param_gather_bytes']/1e6:.1f}MB")
     if gs.get("fallback_reason"):
         print(f"[plan] fallback: {gs['fallback_reason']}")
     print(f"[plan] device={runner.device} param_dtype={run.param_dtype} "
@@ -349,13 +362,26 @@ def _train(args, cfg, device, pipeline, tracer, world: int):
           f"ckpt_write={t['ckpt_write_s']*1e3:.1f}ms "
           f"grad_sync={t['grad_sync']}/{t['grad_buckets']}bkt/"
           f"{t['grad_comm_bytes']/1e6:.1f}MB")
+    n_run = args.steps - start_step
+    if runner.scatter is not None:
+        print(f"[gradsync] rank={pidx} all_gathers={t['param_all_gathers']} "
+              f"reduce_scatters={t['grad_reduce_scatters']} "
+              f"all_reduces={t['grad_all_reduces']} "
+              f"per_step={t['param_all_gathers'] / max(n_run, 1):g}/"
+              f"{t['grad_reduce_scatters'] / max(n_run, 1):g}/"
+              f"{t['grad_all_reduces'] / max(n_run, 1):g} "
+              f"scatter_buckets={gs['n_scatter_buckets']} psum_buckets={gs['n_psum_buckets']}")
     if runner.sync is not None:
-        n_run = args.steps - start_step
         print(f"[gradsync] rank={pidx} all_reduces={t['grad_all_reduces']} "
               f"per_step={t['grad_all_reduces'] / max(n_run, 1):g} "
               f"hooks_once={t['grad_hooks_once']} "
               f"exposed_sync_p50={t['grad_exposed_sync_p50_s']*1e3:.2f}ms "
               f"bucket_wait_ms={[round(w * 1e3, 3) for w in t['grad_bucket_wait_s']]}")
+    if device.type == "cuda":
+        held = sum(x.nbytes for x in state["params"].parameters()) + sum(
+            x.nbytes for m in ("mu", "nu") for x in state["opt"][m].values())
+        print(f"[memory] rank={pidx} state={held / 1e6:.1f}MB peak_allocated="
+              f"{torch.cuda.max_memory_allocated(device) / 2**30:.3f}GiB")
     if launches:
         print(f"[kernels] rank={pidx} steps={args.steps - start_step} "
               f"launches={json.dumps(launches, sort_keys=True)}")

@@ -156,6 +156,18 @@ def _module_list(items) -> nn.ModuleList:
     return out
 
 
+def tree_of(module: nn.Module, fn, prefix: str = ""):
+    """The nested dicts and lists of a ``ParamTree``, each parameter
+    replaced by ``fn(dotted name, parameter)``: a tree the model code
+    reads as it reads the module (``ParamTree(tree_of(...))`` builds a
+    module of the same shape)."""
+    if isinstance(module, nn.ModuleList):
+        return [tree_of(m, fn, f"{prefix}{i}.") for i, m in enumerate(module)]
+    out = {k: fn(prefix + k, p) for k, p in module._parameters.items()}
+    out.update({k: tree_of(m, fn, f"{prefix}{k}.") for k, m in module._modules.items()})
+    return out
+
+
 def from_jax_params(np_tree, spec_tree) -> Dict[str, torch.Tensor]:
     """The port's ``state_dict`` for a JAX parameter tree whose leaves are
     numpy arrays, leaf for leaf.  Raises on a missing or extra leaf, or a

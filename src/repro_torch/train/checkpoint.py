@@ -33,8 +33,17 @@ memory on the caller's thread (device leaves into pinned buffers, then a
 synchronise of those copies) and only then returns; the background
 thread only serialises that copy, never a tensor the next step changes.
 
-Cross-process sub-shards (the JAX ``SubShardLeaf``) are not ported: one
-process owns one card until FSDP (ROADMAP A8).
+An fsdp state (``train_step.shard_state``: parameters whose module
+carries ``shard_layout``, moments of the same shapes) is written as the
+JAX package writes a cross-process sharded leaf (``SubShardLeaf``): this
+process's slice of each cut leaf under ``<leaf>@sub0`` and, BEFORE the
+npz, ``shard-<pidx>.subshards.json`` with ``{leaf: {global_shape, parts:
+[{start, shape}]}}``; whole leaves keep their plain keys.  Restore
+reassembles the region the restoring state holds from the stored parts
+(the whole leaf when the state is whole) and raises unless the parts
+cover it exactly once: a checkpoint restores onto the plan and process
+count that wrote it, and resharding is ROADMAP A12's
+``restore_resharded``.
 """
 from __future__ import annotations
 
@@ -81,7 +90,31 @@ def _leaves(tree, path: Tuple = ()) -> Iterator[Tuple[Tuple, Any]]:
 
 class HostState(dict):
     """``{leaf_key: numpy array}``: a state copied to host memory, ready to
-    serialise (bf16 upcast to f32: npz has no bf16)."""
+    serialise (bf16 upcast to f32: npz has no bf16).  ``subs`` is the
+    sub-shard sidecar: ``{leaf_key: {"global_shape", "parts"}}`` for the
+    leaves stored as ``<leaf_key>@sub<k>`` slices."""
+
+    def __init__(self, *args, subs: Optional[Dict[str, Any]] = None, **kw):
+        super().__init__(*args, **kw)
+        self.subs = subs or {}
+
+
+RESHARD = "restoring onto another plan or process count is ROADMAP A12's restore_resharded"
+
+
+def _shard_regions(tree) -> Dict[str, Any]:
+    """``{leaf_key: LeafShard}`` of the cut leaves of an fsdp state (its
+    parameters and both moments share the parameters' ``shard_layout``);
+    empty for any other tree."""
+    params = tree.get("params") if isinstance(tree, dict) else None
+    layout = getattr(params, "shard_layout", None) or {}
+    out = {}
+    for name, sh in layout.items():
+        if sh.dim is None:
+            continue
+        for root in (("params",), ("opt", "mu"), ("opt", "nu")):
+            out[leaf_key((*root, *name.split(".")))] = sh
+    return out
 
 
 def snapshot(tree) -> HostState:
@@ -108,41 +141,59 @@ def snapshot(tree) -> HostState:
             host[leaf_key(path)] = np.array(x)
     for d in devices:
         torch.cuda.current_stream(d).synchronize()
+    regions = _shard_regions(tree)
     out = HostState()
     for k, v in host.items():
         if isinstance(v, torch.Tensor):
             v = (v.float() if v.dtype == torch.bfloat16 else v).numpy()
-        out[k] = v
+        sh = regions.get(k)
+        if sh is None:
+            out[k] = v
+            continue
+        out[f"{k}@sub0"] = v
+        out.subs[k] = {"global_shape": list(sh.global_shape),
+                       "parts": [{"start": list(sh.offsets), "shape": list(v.shape)}]}
     return out
 
 
-def _load_into(tree, data, path: Tuple = ()):
-    """Fill ``tree`` from the flat mapping ``data``: tensors are written in
-    place (cast to their dtype); numpy leaves and numbers come back as
-    new arrays of their dtype.  Returns the tree."""
+def _load_into(tree, data, path: Tuple = (), subs=None, regions=None):
+    """Fill ``tree`` from the flat mapping ``data`` (``subs``: its sub-shard
+    sidecar; ``regions``: the cut leaves of the state being filled, by
+    :func:`_shard_regions`): tensors are written in place (cast to their
+    dtype); numpy leaves and numbers come back as new arrays of their
+    dtype.  Returns the tree."""
+    if regions is None:
+        regions = _shard_regions(tree)
+    get = lambda p, shape: _array(data, p, shape, subs, regions)
     if isinstance(tree, nn.Module):
         with torch.no_grad():
             for name, p in tree.named_parameters():
-                p.copy_(torch.from_numpy(_array(data, (*path, *name.split(".")), p.shape)))
+                p.copy_(torch.from_numpy(get((*path, *name.split(".")), p.shape)))
         return tree
     if isinstance(tree, dict):
         for k in sorted(tree):
-            tree[k] = _load_into(tree[k], data, (*path, *str(k).split(".")))
+            tree[k] = _load_into(tree[k], data, (*path, *str(k).split(".")), subs, regions)
         return tree
     if isinstance(tree, list):
         for i, v in enumerate(tree):
-            tree[i] = _load_into(v, data, (*path, i))
+            tree[i] = _load_into(v, data, (*path, i), subs, regions)
         return tree
     if isinstance(tree, torch.Tensor):
         with torch.no_grad():
-            tree.copy_(torch.from_numpy(_array(data, path, tree.shape)))
+            tree.copy_(torch.from_numpy(get(path, tree.shape)))
         return tree
     want = np.asarray(tree)
-    return np.asarray(_array(data, path, want.shape), dtype=want.dtype)
+    return np.asarray(get(path, want.shape), dtype=want.dtype)
 
 
-def _array(data, path, shape) -> np.ndarray:
+def _array(data, path, shape, subs=None, regions=None) -> np.ndarray:
     key = leaf_key(path)
+    region = (regions or {}).get(key)
+    if subs and key in subs:
+        return _reassemble(data, key, subs[key], tuple(shape), region)
+    if region is not None:
+        raise NotImplementedError(f"{key}: the checkpoint holds the whole leaf and this "
+                                  f"state one shard of it; {RESHARD}")
     if key not in data:
         raise KeyError(f"checkpoint has no leaf {key!r}")
     arr = np.asarray(data[key])
@@ -152,10 +203,42 @@ def _array(data, path, shape) -> np.ndarray:
     return arr
 
 
+def _reassemble(data, key: str, rec, shape, region) -> np.ndarray:
+    """The region ``shape`` at ``region.offsets`` (the whole leaf when
+    ``region`` is None) of a sub-sharded leaf, from its stored parts;
+    raises unless they cover it exactly once."""
+    gshape = tuple(rec["global_shape"])
+    want = region.global_shape if region is not None else shape
+    if tuple(want) != gshape:
+        raise ValueError(f"{key}: checkpoint shape {gshape} != state shape {tuple(want)}")
+    lo = np.array(region.offsets if region is not None else (0,) * len(shape), dtype=np.int64)
+    hi = lo + np.array(shape, dtype=np.int64)
+    out, cover = None, np.zeros(shape, dtype=np.int8)
+    for k, part in enumerate(rec["parts"]):
+        plo = np.array(part["start"], dtype=np.int64)
+        a = np.maximum(lo, plo)
+        b = np.minimum(hi, plo + np.array(part["shape"], dtype=np.int64))
+        if (b <= a).any():
+            continue
+        arr = np.asarray(data[f"{key}@sub{k}"])
+        if out is None:
+            out = np.zeros(shape, dtype=arr.dtype)
+        dst = tuple(slice(x - o, y - o) for x, y, o in zip(a, b, lo))
+        out[dst] = arr[tuple(slice(x - o, y - o) for x, y, o in zip(a, b, plo))]
+        cover[dst] += 1
+    if out is None or not (cover == 1).all():
+        raise NotImplementedError(f"{key}: the stored parts do not cover this state's region "
+                                  f"{lo.tolist()} + {list(shape)} exactly once; {RESHARD}")
+    return out
+
+
 def save(path: str, tree, step: int | None = None) -> str:
     """The flat single-file layout: ``<path>.npz`` + ``<path>.meta.json``."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     flat = snapshot(tree)
+    if flat.subs:
+        raise NotImplementedError("the flat single-file layout cannot hold an fsdp state's "
+                                  "shards; use the sharded ckpt_dir layout (save_sharded)")
     np.savez(path if path.endswith(".npz") else path + ".npz", **flat)
     meta = {"n_arrays": len(flat), "step": step}
     with open(re.sub(r"\.npz$", "", path) + ".meta.json", "w") as f:
@@ -191,9 +274,14 @@ def save_sharded(base_dir: str, tree, *, step: int, process_index: int = 0,
     os.makedirs(d, exist_ok=True)
     flat = snapshot(tree)
     shard = os.path.join(d, _shard_name(process_index))
-    # sidecar FIRST, npz last: "shard npz present" must imply "its
-    # sidecar is present", so a kill between the writes can only leave a
+    # sidecars FIRST, npz last: "shard npz present" must imply "its
+    # sidecars are present", so a kill between the writes can only leave a
     # directory _complete_steps already rejects
+    if flat.subs:
+        sj = re.sub(r"\.npz$", ".subshards.json", shard)
+        with open(sj + ".tmp", "w") as f:
+            json.dump(flat.subs, f)
+        os.replace(sj + ".tmp", sj)
     if pipeline_state is not None:
         if hasattr(pipeline_state, "to_json"):
             pipeline_state = pipeline_state.to_json()
@@ -297,7 +385,7 @@ def restore_sharded(base_dir: str, like, *, step: Optional[int] = None,
     if process_index >= manifest["process_count"]:
         raise ValueError(
             f"process_index {process_index} >= checkpoint process_count "
-            f"{manifest['process_count']}")
+            f"{manifest['process_count']}; {RESHARD}")
     shard = os.path.join(d, _shard_name(process_index))
     tree = restore(shard, like)
     pstate = None
@@ -313,12 +401,13 @@ def restore(path: str, like):
     :func:`restore_sharded`)."""
     if not path.endswith(".npz"):
         path = path + ".npz"
-    if os.path.exists(re.sub(r"\.npz$", ".subshards.json", path)):
-        raise NotImplementedError(
-            f"{path} holds cross-process sub-shards (an FSDP checkpoint); "
-            "restoring them comes with FSDP (ROADMAP A8)")
+    subs = {}
+    sj = re.sub(r"\.npz$", ".subshards.json", path)
+    if os.path.exists(sj):
+        with open(sj) as f:
+            subs = json.load(f)
     with np.load(path) as data:
-        return _load_into(like, data)
+        return _load_into(like, data, subs=subs)
 
 
 class AsyncCheckpointer:

@@ -8,7 +8,11 @@ the parameters and moments in place (no second copy of either).
 
 Decay applies to leaves with ``ndim >= 2``, the JAX rule exactly: on the
 stacked ``layers`` axis that also decays the (layers, d) LayerNorm
-scales and biases and the (layers, H, D) qkv biases.
+scales and biases and the (layers, H, D) qkv biases.  The update is
+elementwise, so the fsdp step runs it on each rank's shards of
+parameters, gradients and moments (a shard keeps its leaf's ndim, so the
+decay rule reads the same); the one quantity across leaves, the clipping
+norm, then comes in as ``grad_norm`` (``gradsync.fsdp_global_norm``).
 """
 from __future__ import annotations
 
@@ -57,12 +61,14 @@ def _global_norm(tree: Dict[str, torch.Tensor]) -> torch.Tensor:
 
 @torch.no_grad()
 def adamw_update(c: AdamWConfig, grads: Dict[str, torch.Tensor], opt_state,
-                 params: Dict[str, torch.Tensor]
+                 params: Dict[str, torch.Tensor], *, grad_norm=None
                  ) -> Tuple[Dict[str, torch.Tensor], Dict, Dict[str, torch.Tensor]]:
     """One AdamW step, in place; returns (params, opt_state, metrics)
-    with metrics ``grad_norm`` and ``lr`` (0-d tensors)."""
+    with metrics ``grad_norm`` and ``lr`` (0-d tensors).  ``grad_norm``:
+    the clipping norm when ``grads`` do not span the whole gradient (fsdp
+    shards); None computes it from ``grads``."""
     step = opt_state["step"]
-    gnorm = _global_norm(grads)
+    gnorm = grad_norm if grad_norm is not None else _global_norm(grads)
     scale = torch.clamp(c.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0) \
         if c.grad_clip else 1.0
     lr = lr_at(c, step).to(gnorm.device)

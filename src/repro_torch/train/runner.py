@@ -43,7 +43,7 @@ from repro_torch.observability import STEP_TIME_BUCKETS_MS, get_tracer
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.faults import fault_point
 from repro_torch.train.optimizer import AdamWConfig
-from repro_torch.train.train_step import init_state, make_train_step
+from repro_torch.train.train_step import init_state, make_train_step, shard_state
 
 __all__ = ["StepRunner", "TrainLoop", "TrainerLog", "AsyncMetrics", "resume",
            "DEFAULT_PEAK_FLOPS"]
@@ -121,7 +121,13 @@ class StepRunner:
     a group of one, the step runs on one process; with a group of N, each
     rank trains its 1/N of ``run.shape.global_batch`` and the gradients
     are summed (``grad_bucket_mb`` sizes the buckets).  Every rank must
-    run the same steps: a collective one rank skips hangs the others."""
+    run the same steps: a collective one rank skips hangs the others.
+
+    Under ``scatter_overlap`` (fsdp) the state is this rank's slices
+    (``layout``, the plan's ``shard_layout``): :meth:`init_state` draws
+    the full tree from the seed, as every rank does, keeps this rank's
+    slices of the parameters and moments and frees the rest before the
+    first step."""
 
     def __init__(self, model: Model, run: RunConfig, opt: AdamWConfig,
                  plan: Optional[ParallelPlan] = None, grad_bucket_mb: float = 25.0):
@@ -135,9 +141,15 @@ class StepRunner:
         self.device = next(model.parameters()).device
         self._step = make_train_step(model, run, opt, plan)
         self.sync = self._step.sync     # the bucket hooks' owner, or None
+        self.scatter = self._step.scatter   # the fsdp bucket plan, or None
+        self.layout = plan.shard_layout(model, dist.get_rank()) \
+            if self.scatter is not None else None
 
-    def init_state(self, seed: int = 0):
-        return init_state(self.model, self.run, seed)
+    def init_state(self, seed: Optional[int] = 0):
+        """The state the step trains: drawn from ``seed`` (None: a copy of
+        the model's parameters), this rank's shards of it under fsdp."""
+        state = init_state(self.model, self.run, seed)
+        return state if self.layout is None else shard_state(state, self.layout)
 
     def place_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         """The batch's leaves (numpy or tensors) on the state's device; a
@@ -153,10 +165,31 @@ class StepRunner:
     def grad_sync_info(self) -> Dict[str, Any]:
         """The plan's grad-sync shape and its communication per step, under
         the JAX runner's keys: strategy, bucket count, each bucket's
-        payload (``bucket_bytes``) and the ring all-reduce's wire bytes
-        per device (``wire_bytes_per_device``)."""
+        payload (``bucket_bytes``) and the gradient wire bytes per device
+        (``wire_bytes_per_device``: the ring all-reduce's, or under
+        ``scatter_overlap`` the reduce-scatter's plus the whole leaves'
+        all-reduce).  Under ``scatter_overlap`` the forward's parameter
+        all-gather rides along (``n_scatter_buckets``,
+        ``param_gather_bytes``, ``gather_wire_bytes_per_device``)."""
         info = dict(self.plan.describe())
-        info.update(n_buckets=0, comm_bytes=0, bucket_bytes=[], wire_bytes_per_device=0.0)
+        info.update(n_buckets=0, comm_bytes=0, bucket_bytes=[], wire_bytes_per_device=0.0,
+                    param_gather_bytes=0, gather_wire_bytes_per_device=0.0)
+        sp = self.scatter
+        if sp is not None:
+            n = self.plan.dp_size
+            info.update(gradsync.bucket_plan_stats(sp.buckets))
+            info["bucket_bytes"] = [b.nbytes for b in sp.buckets]
+            info["n_scatter_buckets"] = len(sp.scatter)
+            info["n_psum_buckets"] = len(sp.psum)
+            info["wire_bytes_per_device"] = (
+                gradsync.reduce_scatter_bytes(sp.scatter_bytes, n)
+                + gradsync.ring_allreduce_bytes(sp.psum_bytes, n))
+            width = torch.empty((), dtype=getattr(torch, self.run.param_dtype)).element_size()
+            leaves = gradsync.flat_leaves(self.model)
+            gather = sum(leaves[i][1].numel() * width for i in sp.scatter_indices)
+            info["param_gather_bytes"] = int(gather)
+            info["gather_wire_bytes_per_device"] = gradsync.all_gather_bytes(gather, n)
+            return info
         buckets = self.plan.grad_buckets(self.model, getattr(torch, self.run.param_dtype))
         if buckets is None:
             return info
@@ -302,7 +335,7 @@ class TrainLoop:
             help="per-step wall time") if self.metrics is not None else None
 
         sync = runner.sync
-        n_reduce0 = gradsync.counts["grad_all_reduce"]
+        counts0 = dict(gradsync.counts)
         hooks_once = True      # every leaf's hook fired once in every step
         exposed, waits = [], []   # per step: host s from backward end to last bucket
         blocked = 0.0          # host time spent waiting (stalls)
@@ -456,10 +489,15 @@ class TrainLoop:
             "grad_buckets": gs["n_buckets"],
             "grad_comm_bytes": gs["comm_bytes"],
             "grad_wire_bytes_per_device": gs["wire_bytes_per_device"],
-            # what this run issued: gradient all-reduces, whether each
+            # scatter_overlap only (0 otherwise): the forward's parameter
+            # all-gather volume, the other half of the decomposed all-reduce
+            "param_gather_bytes": gs["param_gather_bytes"],
+            # what this run issued: gradient all-reduces, parameter
+            # all-gathers and gradient reduce-scatters, whether each
             # leaf's hook fired once a step, and the host's wait for the
             # buckets after the backward (steps after the first)
-            "grad_all_reduces": gradsync.counts["grad_all_reduce"] - n_reduce0,
+            **{f"{k}s": gradsync.counts[k] - counts0.get(k, 0)
+               for k in ("grad_all_reduce", "param_all_gather", "grad_reduce_scatter")},
             "grad_hooks_once": hooks_once if sync is not None else None,
             "grad_exposed_sync_p50_s": float(np.median(exposed[1:]))
             if len(exposed) > 1 else float("nan"),
@@ -482,11 +520,14 @@ def resume(ckpt_dir: str, runner: StepRunner, *, pipeline=None,
 
     Returns ``(state, start_step)``, ready for ``TrainLoop.run(pipeline,
     total_steps, state=state, start_step=start_step)``.  The state is
-    ``init_state(model, run, seed=None)`` (a copy of the runner model's
-    parameters on its device) filled in place from the shard.  When
-    ``pipeline`` is given it is re-aimed at the checkpoint's input
-    position (and the stored layout is checked against it)."""
-    like = init_state(runner.model, runner.run, seed=None)
+    ``runner.init_state(seed=None)`` (a copy of the runner model's
+    parameters on its device, this rank's shards of it under fsdp) filled
+    in place from the shard; an fsdp checkpoint restores onto the plan
+    and process count that wrote it, and any other raises (ROADMAP A12's
+    ``restore_resharded``).  When ``pipeline`` is given it is re-aimed at
+    the checkpoint's input position (and the stored layout is checked
+    against it)."""
+    like = runner.init_state(seed=None)
     state, pstate, manifest = ckpt.restore_sharded(
         ckpt_dir, like, step=step, process_index=process_index)
     if pipeline is not None:

@@ -18,6 +18,14 @@ one all-reduce per reverse-layer bucket from backward hooks, the
 microbatches.  AdamW then applies the same summed gradient on every rank,
 so the replicas stay equal without a broadcast.  ``make_grad_fn`` is the
 step minus the optimizer; both share one core.
+
+Under ``scatter_overlap`` (fsdp, ZeRO-3) the state is each rank's slices
+(:func:`shard_state`): the step gathers the full parameters (one
+all-gather a bucket), runs the same per-shard loss on them, returns
+summed gradient shards (one reduce-scatter a bucket) and whole leaves
+(one all-reduce a bucket), and AdamW updates this rank's shards of
+parameters and moments with the global clipping norm
+(``gradsync.fsdp_global_norm``).
 """
 from __future__ import annotations
 
@@ -33,9 +41,10 @@ from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.core.accum import accumulate_grads, add_into, f32_accumulators
 from repro_torch.distributed import gradsync
 from repro_torch.distributed.sharding import (GRAD_SYNC_BUCKETED, GRAD_SYNC_NONE,
-                                              ParallelPlan)
+                                              GRAD_SYNC_SCATTER, LeafShard, ParallelPlan)
 from repro_torch.kernels import ops as kops
 from repro_torch.models.model import Model
+from repro_torch.models.params import ParamTree, tree_of
 from repro_torch.models.transformer import forward, head_apply
 from repro_torch.train.optimizer import AdamWConfig, adamw_update, init_opt_state
 
@@ -218,9 +227,97 @@ def _fused_accum(model: Model, run: RunConfig, plan: ParallelPlan):
     return accum
 
 
+def _scatter_accum(model: Model, run: RunConfig, plan: ParallelPlan):
+    """The ``scatter_overlap`` (fsdp) core, JAX's ``_scatter_accum`` with its
+    three branches.  ``accum(shard params, local batch) -> (loss, grads,
+    metrics)``: grads in the state's layout (summed shards where a leaf is
+    cut, the whole summed leaf where not), the loss this shard's
+    contribution, the metrics global.  ``accum.scatter`` is the bucket
+    plan.
+
+    * ``donate_gather`` at one microbatch, and ``free_after_use``:
+      differentiate FROM THE SHARDS, the gather inside autograd, so the
+      gradient of each bucket comes back through its reduce-scatter as
+      the backward completes it and the full gradient tree is never
+      formed.  Under ``free_after_use`` each microbatch gathers under
+      ``torch.utils.checkpoint`` and again in its backward (``2 x
+      n_micro`` gathers and ``n_micro`` reduce-scatters a bucket a step).
+    * Otherwise gather ONCE, outside autograd, accumulate the
+      microbatches' full gradients locally (f32 accumulators for bf16
+      parameters, ``core.accum``), then one reduce-scatter a bucket of
+      their mean.
+
+    The whole leaves' gradients are summed by one all-reduce a psum
+    bucket after the backward."""
+    sp = plan.scatter_plan(model, getattr(torch, run.param_dtype))
+    n_micro = run.microbatch or 1
+    names = [k for k, _ in gradsync.flat_leaves(model)]
+
+    def loss_fn(p, b):
+        return loss_for(model, p, b, run=run, dp_size=plan.dp_size)
+
+    def gathered(params, **kw):
+        full = gradsync.gather_fsdp_params([p for _, p in gradsync.flat_leaves(params)],
+                                           sp, **kw)
+        by_name = dict(zip(names, full))
+        return tree_of(params, lambda k, _: by_name[k])
+
+    if (plan.donate_gather and n_micro == 1) or plan.free_after_use:
+        def shard_loss(params, b):
+            return loss_fn(gathered(params, free_after_use=plan.free_after_use), b)
+
+        def accum(params, batch):
+            loss, grads, metrics = accumulate_grads(shard_loss, params, batch, n_micro)
+            gradsync.bucketed_all_reduce([grads[k] for k in names], sp.psum)
+            return loss, grads, metrics
+    else:
+        def accum(params, batch):
+            with torch.no_grad():
+                full = ParamTree(gathered(params))
+            full.requires_grad_(True)
+            loss, grads, metrics = accumulate_grads(loss_fn, full, batch, n_micro)
+            del full
+            shards = gradsync.bucketed_psum_scatter([grads[k] for k in names], sp)
+            return loss, dict(zip(names, shards)), metrics
+
+    accum.sync = None
+    accum.scatter = sp
+    return accum
+
+
+def shard_state(state, layout: Dict[str, LeafShard]):
+    """The fsdp state of one rank from a full state: this rank's slices of
+    the parameters and AdamW moments (``layout``:
+    ``ParallelPlan.shard_layout``), each a copy of its own, so the full
+    leaves are freed with ``state``.  The parameters are a ``ParamTree`` of
+    the model's shape whose ``shard_layout`` attribute is ``layout`` (the
+    checkpoints read it)."""
+    def part(k, x):
+        return layout[k].take(x.detach()).clone()
+
+    full = state["params"]
+    params = ParamTree(tree_of(full, part))
+    params.requires_grad_(True)
+    params.shard_layout = dict(layout)
+    opt = state["opt"]
+    return {"params": params,
+            "opt": {"mu": {k: part(k, v) for k, v in opt["mu"].items()},
+                    "nu": {k: part(k, v) for k, v in opt["nu"].items()},
+                    "step": opt["step"].clone()}}
+
+
 def _accum(model: Model, run: RunConfig, plan: Optional[ParallelPlan]):
     """The gradient core of ``plan``'s strategy: (params, batch) -> (loss,
-    grads, metrics), with ``.sync`` the bucket hooks' owner or None."""
+    grads, metrics), with ``.sync`` the bucket hooks' owner or None.  An
+    fsdp plan runs as ``scatter_overlap`` or raises: the port has no
+    sharded fallback."""
+    if plan is not None and plan.mode == "fsdp" and plan.grad_sync not in (
+            GRAD_SYNC_SCATTER, GRAD_SYNC_NONE):
+        raise ValueError(f"an fsdp plan that reads {plan.grad_sync} "
+                         f"({plan.fallback_reason}) does not run: the port trains fsdp as "
+                         f"{GRAD_SYNC_SCATTER} only")
+    if plan is not None and plan.grad_sync == GRAD_SYNC_SCATTER:
+        return _scatter_accum(model, run, plan)
     if plan is None or plan.grad_sync == GRAD_SYNC_NONE:
         def accum(params, batch):
             return accumulate_grads(lambda p, b: loss_for(model, p, b, run=run),
@@ -238,20 +335,28 @@ def make_train_step(model: Model, run: RunConfig, opt: AdamWConfig,
     """(state, batch) -> (state, metrics); state = {params, opt}, updated
     in place.  ``plan`` picks the gradient sync (module docstring); under
     a data-parallel plan ``batch`` is this rank's shard.  The step's
-    ``sync`` attribute is the bucket hooks' owner (or None)."""
+    ``sync`` attribute is the bucket hooks' owner (or None), its
+    ``scatter`` the fsdp bucket plan (or None).  Under ``scatter_overlap``
+    ``state`` is this rank's shards (:func:`shard_state`)."""
     accum = _accum(model, run, plan)
+    sp = getattr(accum, "scatter", None)
 
     def step(state, batch):
         params = state["params"]
         _, grads, metrics = accum(params, batch)
         named = dict(params.named_parameters())
-        _, new_opt, opt_metrics = adamw_update(opt, grads, state["opt"], named)
+        kw = {}
+        if sp is not None:      # the shards' norm: one scalar all-reduce
+            kw["grad_norm"] = gradsync.fsdp_global_norm(
+                [grads[k] for k, _ in gradsync.flat_leaves(params)], sp)
+        _, new_opt, opt_metrics = adamw_update(opt, grads, state["opt"], named, **kw)
         for p in named.values():
             p.grad = None
         metrics = {**metrics, **opt_metrics}
         return {"params": params, "opt": new_opt}, metrics
 
     step.sync = accum.sync
+    step.scatter = sp
     return step
 
 
@@ -263,15 +368,23 @@ def make_grad_fn(model: Model, run: RunConfig,
     contributions summed) and the gradients are the summed ones, as the
     JAX ``make_grad_fn`` returns them.  As there, with ``microbatch > 1``
     AND a ragged mask the bucketed path (per-shard microbatches) and the
-    fused one (global microbatches) weigh tokens differently."""
+    fused one (global microbatches) weigh tokens differently.  Under
+    ``scatter_overlap`` ``params`` are this rank's shards and the
+    gradients come back whole: the summed shards gathered (one
+    ``grad_all_gather`` a bucket), for comparison leaf for leaf."""
     accum = _accum(model, run, plan)
     sharded = plan is not None and plan.grad_sync != GRAD_SYNC_NONE
+    sp = getattr(accum, "scatter", None)
 
     def grad_fn(params, batch):
         loss, grads, metrics = accum(params, batch)
         if sharded:
             loss = loss.clone()
             dist.all_reduce(loss)
+        if sp is not None:
+            names = [k for k, _ in gradsync.flat_leaves(params)]
+            full = gradsync.gather_grad_shards([grads[k] for k in names], sp)
+            grads = dict(zip(names, full))
         return loss, grads, metrics
 
     grad_fn.sync = accum.sync

@@ -156,7 +156,7 @@ def test_plan_sizes_buckets_at_f32_under_accumulation_and_refuses_other_modes():
     assert one.grad_buckets(model)[0].nbytes == 2 * n
     assert four.grad_buckets(model)[0].nbytes == 4 * n
     assert ParallelPlan.make(2, "ddp", 8, overlap=False).grad_buckets(model) is None
-    for mode, item in (("fsdp", "A8"), ("tp", "A11"), ("pp_dp", "A11")):
+    for mode, item in (("fsdp_tp", "A11"), ("tp", "A11"), ("pp_dp", "A11")):
         with pytest.raises(NotImplementedError, match=item):
             ParallelPlan.make(2, mode, 8)
     assert (GRAD_SYNC_BUCKETED, GRAD_SYNC_XLA, GRAD_SYNC_NONE) == \

@@ -177,7 +177,7 @@ def test_two_processes_print_the_jax_lines(ddp):
         assert f"[dist] torch.distributed initialized: process {rank}/2 backend=gloo" in out
         assert re.search(r"^\[plan\] mode=ddp dp_axes=\['data'\] dp_size=2 "
                          r"grad_sync=bucketed_overlap buckets=(\d+) comm=[\d.]+MB/step "
-                         r"wire=[\d.]+MB/dev$", out, re.M), out
+                         r"wire=[\d.]+MB/dev gather=0\.0MB$", out, re.M), out
         nb = int(re.search(r"buckets=(\d+)", out).group(1))
         assert nb > 1      # --grad-bucket-mb 1 splits the reduced model's 7.4 MB
         assert re.search(rf"^\[telemetry\] .* grad_sync=bucketed_overlap/{nb}bkt/[\d.]+MB$",

@@ -406,8 +406,8 @@ def test_runner_unported_options_raise():
     for kw in ({"journal": object()}, {"straggler_every": 3}):
         with pytest.raises(NotImplementedError, match="A12"):
             TrainLoop(runner, **kw)
-    with pytest.raises(NotImplementedError, match="A8"):
-        StepRunner(model, run, opt, plan=ParallelPlan.make(2, "fsdp", run.shape.global_batch))
+    with pytest.raises(NotImplementedError, match="A11"):
+        StepRunner(model, run, opt, plan=ParallelPlan.make(2, "fsdp_tp", run.shape.global_batch))
 
 
 def test_async_metrics_keeps_push_order_and_bounds_the_window():
