@@ -178,9 +178,8 @@ Phases (any failure exits non-zero before the last line):
               more steps bracket the limit within 3%; printed beside
               MemoryModel(param_bytes=4, act_factor=150)'s prediction and
               the paper's 184 / 20 on the H100 NVL of 94 GB
-  ddp_path    bert-mlm-120m at full width, 2 layers, f32, vocab cut to
-              32767 (32768 until fsdp_path shared the model), global batch
-              8 x 512 with ragged masks: 2 ranks on the one card over gloo
+  ddp_path    bert-mlm-120m at full width, 2 layers, f32, global batch 8 x
+              512 with ragged masks: 2 ranks on the one card over gloo
               (processes spawned by the phase) against one process on the
               card: each summed gradient leaf, at bucket sizes 0.05 and 25
               MB, within 1e-5 of its scale of one process computing the
@@ -199,13 +198,12 @@ Phases (any failure exits non-zero before the last line):
               gradient in the ranks' f32 order with no collective (the
               gap to the plain 32-row step recorded); the step's
               all-reduce waits, exposed sync and device busy per rank
-  fsdp_path   ddp_path's model, batch and one-process reference (the odd
-              vocab leaves the out bias whole: the psum bucket runs): 2
-              ranks of ZeRO-3 (scatter_overlap) on the one card over gloo,
-              run in phase ddp's profile ranks after their timed steps
-              when both phases run (the host is quiet by then: in
-              ddp_path's ranks, beside the fault builds and the cpu sides,
-              it took 3x as long): the
+  fsdp_path   ddp_path's model and batch with the vocab cut to 32767 (the
+              odd vocab leaves the out bias whole: the psum bucket runs):
+              2 ranks of ZeRO-3 (scatter_overlap) on the one card over
+              gloo, run in phase ddp's profile ranks after their timed
+              steps (select both phases; the host is quiet by then), its
+              one-process references made beside ddp's runs (c): the
               gathered gradients at 0.05 and 25 MB buckets within 1e-5 of
               each leaf's scale of one process, on the 8-row batch and on
               the ranks' row shards, 5 steps of losses within 1e-5;
@@ -220,15 +218,15 @@ Phases (any failure exits non-zero before the last line):
               ddp: (a) python -m torch.distributed.run --nproc-per-node 2
               -m repro_torch.launch.train --sharding fsdp with ddp's flags,
               6 steps checkpointed at step 3, beside ddp's run (c); then,
-              in ddp's profile ranks after their timed steps, the same
-              timed steps under fsdp and (c), the launcher's
-              main resumed in those 2 ranks from (a)'s step-3 checkpoint:
+              in ddp's profile ranks after their timed steps, (c), the
+              launcher's main resumed in those 2 ranks from (a)'s step-3
+              checkpoint:
               grad_sync=scatter_overlap, rank 0's losses within 1e-4 of
               ddp's one process and 1e-5 of ddp's run (a), the ranks'
               losses equal, the sub-shard sidecars' parts tiling every
               leaf once, (c)'s losses and final checkpoints equal (a)'s,
-              launches and collectives per rank per step exact; step p50
-              and tokens/s beside ddp's profile, each rank's state bytes
+              launches and collectives per rank per step exact; (c)'s
+              step p50 and tokens/s beside ddp's, each rank's state bytes
               and peak memory beside ddp's run (a)
   time        each kernel at its path's shapes against its plain version,
               its bound and a PyTorch call computing the same function
@@ -3177,9 +3175,9 @@ def spawn_ddp(mode, spec, timeout=900):
 
 def ddp_worker(torch, mode, spec):
     """One rank of a ``spawn_ddp`` run: join the group, run ``mode`` (path,
-    profile, fsdp_path), and write the result where ``spec["out"]``
-    says.  The profile ranks also run phase fsdp's part (``spec["fsdp"]``)
-    and fsdp_path (``spec["refs"]``) when asked."""
+    profile), and write the result where ``spec["out"]`` says.  The
+    profile ranks then run phase fsdp's run (c) (``spec["fsdp"]``) and
+    fsdp_path (``spec["refs"]``) when asked."""
     import torch.distributed as dist
 
     from repro_torch.distributed import maybe_initialize_distributed
@@ -3192,18 +3190,17 @@ def ddp_worker(torch, mode, spec):
     if mode == "profile":       # then, after ddp's timed steps, phase fsdp's and fsdp_path's
         res.update(ddp_profile_rank(torch, info, spec))
         if "fsdp" in spec:
-            res["fsdp_run"] = fsdp_profile_rank(torch, info, spec)
-    if mode == "fsdp_path" or (mode == "profile" and "refs" in spec):
-        res["fsdp"] = fsdp_path_rank(torch, info, spec)
+            res["fsdp_run"] = fsdp_resume_rank(torch, info, spec)
+        if "refs" in spec:
+            res["fsdp_path"] = fsdp_path_rank(torch, info, spec)
     Path(spec["out"]).write_text(json.dumps(res))
     dist.destroy_process_group()
 
 
-# ddp_path's and fsdp_path's vocab (32768 before fsdp_path): odd, so that under
-# fsdp mlm.out_bias (V,) has no dimension the 2 ranks divide and stays
-# whole, and the psum bucket runs on the card too; the two phases share
-# one model, batch and one-process reference
-PATH_VOCAB = 32767
+# fsdp_path's vocab (ddp_path keeps bert's 32768): odd, so that under fsdp
+# mlm.out_bias (V,) has no dimension the 2 ranks divide and stays whole,
+# and the psum bucket runs on the card too
+FSDP_PATH_VOCAB = 32767
 FSDP_MICRO = 2                       # the microbatch-2 branches' count
 FSDP_MICRO_STEPS = 2                 # their steps, and ddp's at microbatch 2 beside them
 FSDP_COUNTS = ("param_all_gather", "grad_reduce_scatter", "grad_all_reduce")
@@ -3214,8 +3211,9 @@ def _ddp_path_setup(torch, sharding="ddp"):
     from repro_torch.configs.base import LayerSpec, ShapeConfig, uniform_schedule
     from repro_torch.train.optimizer import AdamWConfig
 
-    cfg = dataclasses.replace(get_config("bert-mlm-120m"),
-                              schedule=uniform_schedule(2, LayerSpec()), vocab_size=PATH_VOCAB)
+    cfg = get_config("bert-mlm-120m")
+    cfg = dataclasses.replace(cfg, schedule=uniform_schedule(2, LayerSpec()),
+                              vocab_size=FSDP_PATH_VOCAB if sharding == "fsdp" else cfg.vocab_size)
     run = default_run_config(cfg, ShapeConfig(f"{sharding}_path", 512, 8, "train"),
                              sharding=sharding)
     return cfg, run, AdamWConfig(lr=1e-4, warmup_steps=2, total_steps=5), ddp_batches(torch, cfg, 6)
@@ -3316,23 +3314,17 @@ def one_process_refs(torch, tag, cfg, run, opt, batches):
     return refs, one
 
 
-def check_ddp_path(torch, rec, keep_refs=False):
+def check_ddp_path(torch, rec):
     """bert-mlm-120m at full width, 2 layers, f32, global batch 8 x 512
     with ragged masks: two ranks on the card over gloo against one
     process on the card (the summed gradients against the same global
     loss on the ranks' row shards and against the 8-row batch; 5 steps
-    of losses), one all-reduce per bucket per step, every hook once.
-    ``keep_refs``: the one-process references stay for fsdp_path, which
-    phase ddp's profile ranks run on the same model and batch."""
-    cfg, run, opt, batches = _ddp_path_setup(torch)
-    refs, one = one_process_refs(torch, "path", cfg, run, opt, batches)
+    of losses), one all-reduce per bucket per step, every hook once."""
+    refs, one = one_process_refs(torch, "path", *_ddp_path_setup(torch))
     want = one["losses"]
     ranks = spawn_ddp("path", {k: str(v) for k, v in refs.items()})
-    if keep_refs:
-        rec["_path_refs"] = refs, one
-    else:
-        for v in refs.values():
-            v.unlink()
+    for v in refs.values():
+        v.unlink()
     bad = []
     for r in ranks:
         if r["backend"] != "gloo" or r["world"] != DDP_WORLD:
@@ -3453,26 +3445,24 @@ def fsdp_path_rank(torch, info, spec):
 
 
 def check_fsdp_path(torch, rec):
-    """bert-mlm-120m at full width, 2 layers, f32, vocab PATH_VOCAB, the
-    8 x 512 ragged batch: 2 ZeRO-3 ranks on the card over gloo against one
-    process on the card (their results from phase ddp's profile ranks
-    when that phase ran, else from ranks spawned here): gradients (against the
-    8-row batch and the ranks' row shards, both at DDP_GRAD_REL: on an
-    H100 the batch read 5.7e-6 at vocab 32767, where vocab 32768 read
-    1.04e-5 under ddp; PERF.md §6), losses, the collectives of each
-    branch, each rank's state bytes."""
-    ranks, one = rec.pop("_fsdp_path_ranks", None), rec.pop("_fsdp_path_one", None)
-    if ranks is None:
-        refs, one = one_process_refs(torch, "path", *_ddp_path_setup(torch))
-        got = spawn_ddp("fsdp_path", {"refs": {k: str(v) for k, v in refs.items()}})
-        for v in refs.values():
-            v.unlink()
-        ranks = [{k: r[k] for k in ("rank", "world", "backend")} | r["fsdp"] for r in got]
+    """bert-mlm-120m at full width, 2 layers, f32, vocab FSDP_PATH_VOCAB,
+    the 8 x 512 ragged batch: 2 ZeRO-3 ranks on the card over gloo
+    (phase ddp's profile ranks, ``run_ddp(..., with_fsdp_path=True)``)
+    against one process on the card: gradients (against the 8-row batch
+    and the ranks' row shards, both at DDP_GRAD_REL: on an H100 the batch
+    read 5.7e-6 at vocab 32767, where ddp_path's vocab 32768 read 1.04e-5;
+    PERF.md §6), losses, the collectives of each branch, each rank's
+    state bytes."""
+    raw = rec.pop("_fsdp_path", None)
+    if raw is None:
+        fail("phase fsdp_path runs in phase ddp's profile ranks: select both")
+    ranks, one = raw
     want = one["losses"]
     bad = []
     for r in ranks:
-        if r.get("backend", "gloo") != "gloo":
-            bad.append(f"rank {r.get('rank')}: backend {r['backend']}")
+        if r.get("backend") != "gloo" or r.get("world") != DDP_WORLD:
+            bad.append(f"rank {r.get('rank')}: backend {r.get('backend')}, "
+                       f"world {r.get('world')}")
         for mb, g in r["grads"].items():
             ns, npsum = g["n"]
             if g["grad_sync"] != "scatter_overlap" or npsum < 1 \
@@ -3507,27 +3497,23 @@ def check_fsdp_path(torch, rec):
     rec["fsdp_path"] = {"one_process": one, "ranks": ranks}
 
 
-def ddp_profile_rank(torch, info, spec, sharding="ddp", profiled=True):
+def ddp_profile_rank(torch, info, spec):
     """The ddp cell's step on one rank, full depth, f32, ``spec["batch"]``
     rows a rank: ``spec["steps"]`` steps at ``spec["lr"]`` on this rank's
     rows of the WITNESS_SEED batches (the losses), timed with the device
     synchronised at the end of the backward and after each wait
     (``BucketedAllReduce.timed``): step wall time, each bucket's
     all-reduce wait and the exposed sync, the first two steps left out;
-    then, when ``profiled``, the step under torch.profiler for its device
-    busy time.  With ``sharding`` fsdp the same step under
-    ``scatter_overlap`` (no bucket hooks: the wall time)."""
+    then the step under torch.profiler for its device busy time."""
     import numpy as np
 
     from repro_torch.models.model import build_model
     from repro_torch.train.runner import StepRunner
 
     B, S, n = spec["batch"], spec["seq"], spec["steps"]
-    cfg, run, opt = witness_setup(B * info.world, S, n, spec["lr"], sharding)
+    cfg, run, opt = witness_setup(B * info.world, S, n, spec["lr"])
     runner = StepRunner(build_model(cfg, seed=0, device=info.device), run, opt)
-    hooks = runner.sync
-    if hooks is not None:
-        hooks.timed = True
+    runner.sync.timed = True
     rows = slice(info.rank * B, (info.rank + 1) * B)
     batches = [runner.place_batch({k: v[rows] for k, v in b.items()})
                for b in mlm_batches(torch, cfg, n, B * info.world, S, WITNESS_SEED)]
@@ -3539,36 +3525,33 @@ def ddp_profile_rank(torch, info, spec, sharding="ddp", profiled=True):
         state, m = runner(state, b)
         torch.cuda.synchronize()
         wall.append(time.perf_counter() - t0)
-        if hooks is not None:
-            waits.append(hooks.last_wait_s)
-            exposed.append(hooks.last_exposed_s)
+        waits.append(runner.sync.last_wait_s)
+        exposed.append(runner.sync.last_exposed_s)
         losses.append(m["loss"].item())
-    p50 = float(np.median(wall[2:]))
-    res = {"losses": losses, "step_p50_ms": p50 * 1e3}
-    if hooks is not None:
-        waits, exposed = waits[2:], exposed[2:]
-        res.update(exposed_sync_ms=float(np.median(exposed)) * 1e3,
-                   bucket_wait_ms=[float(np.median(w)) * 1e3 for w in zip(*waits)],
-                   bucket_mb=[b.mb for b in hooks.buckets])
-        hooks.timed = False
-    if profiled:
-        res["profile"] = profile_steps(torch, runner, state, batches[:3], p50)
+    wall, waits, exposed = wall[2:], waits[2:], exposed[2:]
+    p50 = float(np.median(wall))
+    res = {"losses": losses, "step_p50_ms": p50 * 1e3,
+           "exposed_sync_ms": float(np.median(exposed)) * 1e3,
+           "bucket_wait_ms": [float(np.median(w)) * 1e3 for w in zip(*waits)],
+           "bucket_mb": [b.mb for b in runner.sync.buckets]}
+    runner.sync.timed = False
+    res["profile"] = profile_steps(torch, runner, state, batches[:3], p50)
     return res
 
 
-def fsdp_profile_rank(torch, info, spec):
-    """Phase fsdp on one rank of the profile spawn, after ddp's timed
-    steps: the same timed steps under fsdp (not profiled), then run (c), the
-    CLI's ``main`` in this rank (its process group the spawn's) resumed
-    from run (a)'s step-3 checkpoint; its losses, and whether its final
-    checkpoint and sidecar equal (a)'s bit for bit."""
+def fsdp_resume_rank(torch, info, spec):
+    """Phase fsdp's run (c) on one rank of the profile spawn, after ddp's
+    timed steps: the CLI's ``main`` in this rank (its process group the
+    spawn's) resumed from run (a)'s step-3 checkpoint; its losses and step
+    p50 (the host is quiet by then), and whether its final checkpoint and
+    sidecar equal (a)'s bit for bit."""
     from repro_torch.launch import train as cli
     from repro_torch.train import checkpoint as ckpt
 
-    out = {"profile": ddp_profile_rank(torch, info, spec, "fsdp", profiled=False)}
     f = spec["fsdp"]
     _, log_c = cli.main(f["args"] + ["--ckpt-dir", f["ck_c"], "--resume"])
-    out["c_losses"] = {s: m["loss"] for s, m in zip(log_c.steps, log_c.metrics)}
+    out = {"c_losses": {s: m["loss"] for s, m in zip(log_c.steps, log_c.metrics)},
+           "c_step_p50_ms": log_c.telemetry["step_time_p50"] * 1e3}
     da, dc = (ckpt.step_dir(f[k], f["steps"]) for k in ("ck_a", "ck_c"))
     name = f"shard-{info.rank:05d}"
     out["c_same"] = _shards_equal(Path(da) / f"{name}.npz", Path(dc) / f"{name}.npz") and \
@@ -3583,14 +3566,13 @@ WITNESS_LR = 3e-3
 WITNESS_SEED = 11
 
 
-def witness_setup(global_batch, S, steps, lr, sharding="ddp"):
+def witness_setup(global_batch, S, steps, lr):
     from repro_torch.configs import default_run_config, get_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.train.optimizer import AdamWConfig
 
     cfg = get_config("bert-mlm-120m")
-    run = default_run_config(cfg, ShapeConfig(sharding, S, global_batch, "train"),
-                             sharding=sharding)
+    run = default_run_config(cfg, ShapeConfig("ddp", S, global_batch, "train"))
     return cfg, run, AdamWConfig(lr=lr, warmup_steps=2, total_steps=steps)
 
 
@@ -3717,11 +3699,11 @@ def run_ddp(torch, rec, B=16, S=512, n_functions=CLI_FUNCTIONS, steps=6, with_fs
     ranks' losses equal each other and the one process's in their order
     bit for bit; the gaps to the batch's order recorded.  ``with_fsdp``:
     phase fsdp's runs, ``--sharding fsdp`` with the same flags: (a) by
-    torchrun beside ddp's (c), its step time taken again in the profile
-    ranks, which then run (c), the CLI's ``main`` resumed from (a)'s
-    step-3 checkpoint; phase fsdp gates them.  ``with_fsdp_path``: the
-    profile ranks run fsdp_path after that (on ddp_path's references, or
-    ones made here); phase fsdp_path gates it."""
+    torchrun beside ddp's (c); (c) the CLI's ``main`` resumed from (a)'s
+    step-3 checkpoint in the profile ranks after their timed steps; phase
+    fsdp gates them.  ``with_fsdp_path``: the profile ranks then run
+    fsdp_path, on one-process references made here beside runs (c);
+    phase fsdp_path gates it."""
     import os
     import shutil
 
@@ -3816,6 +3798,9 @@ def run_ddp(torch, rec, B=16, S=512, n_functions=CLI_FUNCTIONS, steps=6, with_fs
     res["one_process"] = {"losses": one, "beside": "runs c",
                           "step_time_p50_ms": log_one.telemetry["step_time_p50"] * 1e3}
     plain, shards = order_witness(torch, B, S, steps, WITNESS_LR)
+    if with_fsdp_path:
+        path_refs, path_one = one_process_refs(torch, "fsdp_path",
+                                               *_ddp_path_setup(torch, "fsdp"))
     torch.cuda.empty_cache()
     for thread in threads:
         thread.join()
@@ -3861,18 +3846,17 @@ def run_ddp(torch, rec, B=16, S=512, n_functions=CLI_FUNCTIONS, steps=6, with_fs
         spec["fsdp"] = {"args": fsdp["args"], "steps": steps,
                         **{k: str(d) for k, d in zip(("ck_a", "ck_c"), fsdp["dirs"])}}
     if with_fsdp_path:
-        refs, one = rec.pop("_path_refs", None) or one_process_refs(
-            torch, "path", *_ddp_path_setup(torch))
-        spec["refs"] = {k: str(v) for k, v in refs.items()}
+        spec["refs"] = {k: str(v) for k, v in path_refs.items()}
     res["profile"] = spawn_ddp("profile", spec)
     if fsdp is not None:
         fsdp["ranks"] = [p.pop("fsdp_run") for p in res["profile"]]
         rec["_fsdp_raw"] = fsdp
     if with_fsdp_path:
-        for v in refs.values():
+        for v in path_refs.values():
             v.unlink()
-        rec["_fsdp_path_ranks"] = [p.pop("fsdp") for p in res["profile"]]
-        rec["_fsdp_path_one"] = one
+        path_ranks = [{k: p[k] for k in ("rank", "world", "backend")} | p.pop("fsdp_path")
+                      for p in res["profile"]]
+        rec["_fsdp_path"] = path_ranks, path_one
     ranks = [p.pop("losses") for p in res["profile"]]
     if ranks[0] != ranks[1] or ranks[0] != shards:
         fail(f"ddp witness at lr {WITNESS_LR}: the ranks' losses {ranks} differ from each "
@@ -3930,8 +3914,8 @@ def check_fsdp(torch, rec):
     """Phase fsdp: the ZeRO-3 runs that phase ddp ran (``run_ddp(...,
     with_fsdp=True)``), against ddp's: run (a)'s plan, losses, collectives
     and launches a step, its sub-shard checkpoints, run (c)'s resume;
-    the profile ranks' step time and tokens/s beside ddp's, each rank's
-    state and peak memory beside ddp's run (a)."""
+    run (c)'s step p50 and tokens/s (in the quiet profile ranks) beside
+    ddp's, each rank's state and peak memory beside ddp's run (a)."""
     import shutil
 
     from repro_torch.configs import get_config
@@ -3997,10 +3981,10 @@ def check_fsdp(torch, rec):
     for d in raw["dirs"]:
         shutil.rmtree(d, ignore_errors=True)
     f0 = parsed[0][1]
-    prof = [rank["profile"] for rank in raw["ranks"]]
-    p50 = prof[0]["step_p50_ms"] / 1e3
+    p50 = raw["ranks"][0]["c_step_p50_ms"] / 1e3
     res.update(step_time_p50_ms=p50 * 1e3, global_tokens_per_s=B * S * DDP_WORLD / p50,
-               profile=prof, plan=f0.get("plan"), gradsync_line=f0.get("gradsync"),
+               c_step_p50_ms=[rank["c_step_p50_ms"] for rank in raw["ranks"]],
+               plan=f0.get("plan"), gradsync_line=f0.get("gradsync"),
                launches=f0.get("launches", {}),
                memory=[memory_fields(f.get("memory")) for _, f in parsed],
                cli_step_p50_ms_beside_c=float(_field(f0.get("telemetry"), "step_p50")
@@ -5272,9 +5256,7 @@ def main():
              "llama3_serve": run_llama3_serve, "llama3_train": run_llama3_train,
              "bert350_train": run_bert350_train,
              "bert_max_batch": lambda torch, rec: run_bert_max_batch(torch, rec, cpu_refs),
-             "ddp_path": lambda torch, rec: check_ddp_path(
-                 torch, rec, keep_refs={"fsdp_path", "ddp"} <= set(phases)),
-             "fsdp_path": check_fsdp_path,
+             "ddp_path": check_ddp_path, "fsdp_path": check_fsdp_path,
              "ddp": lambda torch, rec: run_ddp(torch, rec, with_fsdp="fsdp" in phases,
                                                with_fsdp_path="fsdp_path" in phases),
              "fsdp": check_fsdp, "time": time_kernels}

@@ -367,15 +367,12 @@ def _remap(bucket: GradBucket, orig: Sequence[int]) -> GradBucket:
 
 
 def partition_fsdp_buckets(leaves: Sequence[torch.Tensor], n_shards: int, *,
-                           bucket_mb: float = DEFAULT_BUCKET_MB,
-                           pinned: Sequence[int] = ()) -> FsdpBucketPlan:
+                           bucket_mb: float = DEFAULT_BUCKET_MB) -> FsdpBucketPlan:
     """Cut leaves and whole leaves bucketed apart, each group by the
     reverse-layer walk of :func:`partition_buckets`: a scatter bucket's
     flat buffer must split into ``n_shards`` equal rows with no padding.
-    ``pinned`` flat indices are kept whole whatever their shape (the JAX
-    fsdp_tp composition pins its tensor-parallel leaves so)."""
-    pin = set(pinned)
-    dims = tuple(None if i in pin else shard_dim(x, n_shards) for i, x in enumerate(leaves))
+    (The JAX ``pinned`` leaves, kept whole for fsdp_tp, come with A11.)"""
+    dims = tuple(shard_dim(x, n_shards) for x in leaves)
     sc = [i for i, d in enumerate(dims) if d is not None]
     rp = [i for i, d in enumerate(dims) if d is None]
     scatter = tuple(_remap(b, sc) for b in partition_buckets(

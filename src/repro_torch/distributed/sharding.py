@@ -99,9 +99,8 @@ class ParallelPlan:
     """The data-parallel half of the JAX package's ``ParallelPlan``: which
     gradient-sync strategy keeps the data-parallel replicas equal, over
     how many shards and at what bucket size.  Under ``scatter_overlap``
-    ``donate_gather`` (at one microbatch) differentiates from the shards
-    through the gather, and ``free_after_use`` gathers each bucket again
-    in the backward (``train_step._scatter_accum``).
+    ``free_after_use`` gathers each bucket again in the backward
+    (``train_step._scatter_accum``).
 
     Where the JAX plan reads a mesh, this one reads the size of the
     default process group (``world``; ``None`` = no process group, the
@@ -115,14 +114,12 @@ class ParallelPlan:
     grad_bucket_mb: float = 25.0
     overlap: bool = True
     microbatch: int = 1
-    donate_gather: bool = True
     free_after_use: bool = False
 
     @classmethod
     def make(cls, world: Optional[int], mode: str, global_batch: int, *,
              grad_bucket_mb: float = 25.0, overlap: bool = True,
-             microbatch: int = 1, donate_gather: bool = True,
-             free_after_use: bool = False) -> "ParallelPlan":
+             microbatch: int = 1, free_after_use: bool = False) -> "ParallelPlan":
         """Plan for one (process group size, mode, global batch).
         ``overlap=False`` pins the fused baseline.  Over more than one
         process a mode other than ddp or fsdp raises, naming its ROADMAP
@@ -137,15 +134,13 @@ class ParallelPlan:
                            f"{sorted([*PORTED_MODES, *UNPORTED_MODES])}")
         return cls(mode=mode, world=world, global_batch=global_batch,
                    grad_bucket_mb=grad_bucket_mb, overlap=overlap,
-                   microbatch=max(1, microbatch), donate_gather=donate_gather,
-                   free_after_use=free_after_use)
+                   microbatch=max(1, microbatch), free_after_use=free_after_use)
 
     @classmethod
     def for_run(cls, run, world: Optional[int] = None, *, grad_bucket_mb: float = 25.0,
                 overlap: bool = True, **kw) -> "ParallelPlan":
         """Plan of a ``RunConfig`` (mode, global batch and microbatch
-        count read off ``run``); ``kw``: ``donate_gather``,
-        ``free_after_use``."""
+        count read off ``run``); ``kw``: ``free_after_use``."""
         return cls.make(world, run.sharding, run.shape.global_batch,
                         grad_bucket_mb=grad_bucket_mb, overlap=overlap,
                         microbatch=run.microbatch or 1, **kw)
@@ -218,18 +213,20 @@ class ParallelPlan:
 
     def shard_layout(self, params, rank: int) -> Dict[str, LeafShard]:
         """``{leaf name: LeafShard}`` (flat order) of rank ``rank`` under
-        ``scatter_overlap``: each leaf cut on its ``gradsync.shard_dim``
-        into ``dp_size`` equal parts, whole where no dimension divides.
+        ``scatter_overlap``: each leaf cut on its :meth:`scatter_plan`
+        dimension into ``dp_size`` equal parts, whole where it has none.
         The step, the state placement and the checkpoints share it, as the
         JAX ``scatter_param_specs``."""
-        from repro_torch.distributed.gradsync import flat_leaves, shard_dim
+        from repro_torch.distributed.gradsync import flat_leaves
 
-        n = self.dp_size
+        sp = self.scatter_plan(params)
+        if sp is None:
+            raise ValueError(f"no shard layout: the plan runs {self.grad_sync}, "
+                             f"not {GRAD_SYNC_SCATTER}")
         out = {}
-        for name, p in flat_leaves(params):
+        for (name, p), d in zip(flat_leaves(params), sp.shard_dims):
             shape = tuple(p.shape)
-            d = shard_dim(p, n)
-            size = shape[d] // n if d is not None else 0
+            size = shape[d] // sp.n_shards if d is not None else 0
             out[name] = LeafShard(d, rank * size, size, shape)
         return out
 

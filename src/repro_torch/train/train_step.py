@@ -235,7 +235,7 @@ def _scatter_accum(model: Model, run: RunConfig, plan: ParallelPlan):
     contribution, the metrics global.  ``accum.scatter`` is the bucket
     plan.
 
-    * ``donate_gather`` at one microbatch, and ``free_after_use``:
+    * One microbatch (JAX's ``donate_gather``), and ``free_after_use``:
       differentiate FROM THE SHARDS, the gather inside autograd, so the
       gradient of each bucket comes back through its reduce-scatter as
       the backward completes it and the full gradient tree is never
@@ -262,7 +262,7 @@ def _scatter_accum(model: Model, run: RunConfig, plan: ParallelPlan):
         by_name = dict(zip(names, full))
         return tree_of(params, lambda k, _: by_name[k])
 
-    if (plan.donate_gather and n_micro == 1) or plan.free_after_use:
+    if n_micro == 1 or plan.free_after_use:
         def shard_loss(params, b):
             return loss_fn(gathered(params, free_after_use=plan.free_after_use), b)
 
