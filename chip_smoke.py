@@ -14,6 +14,7 @@
     python3 chip_smoke.py --phases build,zamba2_path,zamba2_serve,zamba2_train_path,zamba2_train
     python3 chip_smoke.py --phases build,qwen2_path,llama3_train_path,llama3_serve,llama3_train
     python3 chip_smoke.py --phases build,bert350_train,bert_max_batch
+    python3 chip_smoke.py --phases build,mixtral_path,phi35_path,mixtral_train_path,mixtral_serve,mixtral_train
     python3 chip_smoke.py --phases build,serve,train,time \
         --against parent=build/parent/flash_attention.cu
 
@@ -165,6 +166,30 @@ Phases (any failure exits non-zero before the last line):
               f32 at B 1, (b) 6 in bf16 at B 2 and microbatch 2; as
               gemma_train (8 flash forwards, 4 backwards, 18 xent forwards
               and 9 backwards at V 128256 a step and microbatch)
+  mixtral_path, phi35_path
+              mixtral-8x7b and phi3.5-moe (LayerNorm, 16 experts, vocab
+              32064) at full width, 2 MoE layers, f32, weights drawn on
+              the card: as path, prompts of 300 and 37 tokens, 9 new
+              ones; besides, the same experts on cuda and cpu for every
+              token of every layer of every prefill and tick (its cpu
+              side in the cpu sides' process)
+  mixtral_train_path
+              mixtral-8x7b at full width, 1 MoE layer, f32, B 1 x S 256,
+              2 steps: as ssm_train_path, and the aux loss of each step
+              and the experts of every router call (forward and remat)
+  mixtral_serve
+              mixtral-8x7b at full width, 24 of its 32 layers, bf16 (70.2
+              GB of weights): 8 requests with prompts of 600-4000 tokens,
+              32 new tokens each, 8 slots of up to 256 pages; 24 flash
+              launches a prefill, 24 paged a tick; one 4096-token
+              prefill's experts: k of them a token in every layer
+  mixtral_train
+              mixtral-8x7b at full width, depth cut to 2 (3.16 G
+              parameters), S 4096 from the DataPipeline: (a) 4 steps in
+              f32 at B 1, (b) 4 in bf16 at B 2 and microbatch 2; as
+              llama3_train, with the aux loss finite in every step and
+              f32 gradients into AdamW in (b); MFU on the active
+              parameters
   bert350_train
               bert-mlm-350m at full size through
               repro_torch.launch.train.main at its f32 defaults, batch 32 x
@@ -295,14 +320,15 @@ OUT = ROOT / "chiprun_out"
 # run while it does, and the host-bound serve phases after it (beside it
 # serve's tick p50 read twice as long, and the serve phases that
 # overlapped the llama3 and qwen2 sides took 19-33 s against 12-23 s
-# without them, PERF.md §6).  The zamba2, qwen2 and llama3 checks, whose
-# sides come last in that process, run after ddp.
+# without them, PERF.md §6).  The zamba2, qwen2, llama3 and MoE checks,
+# whose sides come last in that process, run after ddp.
 PHASES = ("build", "kernels", "path", "gemma_path", "ssm_path", "train_path", "ssm_train_path",
           "gemma_train_path", "gemma2_path", "ddp_path", "train", "gemma_train", "gemma2_train",
-          "zamba2_train", "llama3_train", "gemma2_train_path", "train_cli", "bert350_train",
-          "ssm_train", "serve", "gemma_serve", "gemma2_serve", "zamba2_serve", "llama3_serve",
-          "ssm_serve", "ddp", "fsdp_path", "fsdp", "zamba2_path", "zamba2_train_path",
-          "qwen2_path", "llama3_train_path", "bert_max_batch", "faults", "time")
+          "zamba2_train", "llama3_train", "mixtral_train", "gemma2_train_path", "train_cli",
+          "bert350_train", "ssm_train", "serve", "gemma_serve", "gemma2_serve", "zamba2_serve",
+          "llama3_serve", "mixtral_serve", "ssm_serve", "ddp", "fsdp_path", "fsdp",
+          "zamba2_path", "zamba2_train_path", "qwen2_path", "llama3_train_path", "mixtral_path",
+          "phi35_path", "mixtral_train_path", "bert_max_batch", "faults", "time")
 AGAINST_PHASES = ("serve", "ssm_serve", "train", "time")   # the phases --against runs again
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the bounds below use them
@@ -1521,12 +1547,13 @@ def engine_side(torch, cfg, prompts, max_new, engine_kw, model):
 
     run = default_run_config(cfg, ShapeConfig("serve", 0, 0, "decode"))
     eng = PagedServeEngine(model, run, **engine_kw)
-    logs = []
+    logs, routes = [], []
     _tap(eng, logs)
     ops.reset_launch_counts()
-    outs = serve(eng, prompts, max_new=max_new)
+    with route_tap(torch, routes):
+        outs = serve(eng, prompts, max_new=max_new)
     return {"logs": logs, "outs": outs, "launches": dict(ops.launch_counts),
-            "decode_ticks": eng.decode_ticks}
+            "decode_ticks": eng.decode_ticks, "routes": routes}
 
 
 PATH_ENGINE_KW = dict(page=16, n_pages=128, max_slots=4, max_pages=32)
@@ -1534,8 +1561,10 @@ PATH_ENGINE_KW = dict(page=16, n_pages=128, max_slots=4, max_pages=32)
 
 def compare_engines(torch, name, cfg, prompts, max_new, want_launches, engine_kw, cpu):
     """The paged engine on cuda and on cpu (plain versions) from the same
-    f32 weights: each prefill's and decode tick's logits within
-    PATH_REL_TOL of the largest cpu logit, the same greedy tokens; the
+    f32 weights: an MoE model's experts the same for every token of every
+    router call (before anything else), each prefill's and decode tick's
+    logits within PATH_REL_TOL of the largest cpu logit, the same greedy
+    tokens; the
     cuda run's kernel launches must equal ``want_launches(decode ticks)``
     and the cpu run must launch none.  ``engine_kw``: the engines' pool
     sizes.  The weights are drawn from seed 0 on the card (the card draws
@@ -1547,6 +1576,8 @@ def compare_engines(torch, name, cfg, prompts, max_new, want_launches, engine_kw
     model_gpu = build_model(cfg, seed=0, device="cuda")
     sides = {"cpu": cpu,
              "cuda": engine_side(torch, cfg, prompts, max_new, engine_kw, model_gpu)}
+    routing = same_routes(torch, name, cpu["routes"], sides["cuda"]["routes"]) \
+        if cfg.moe is not None else {}
     for dev, side in sides.items():
         counts, ticks = side["launches"], side["decode_ticks"]
         log(f"{name} {dev}: launches {counts}, ticks {ticks}")
@@ -1568,7 +1599,7 @@ def compare_engines(torch, name, cfg, prompts, max_new, want_launches, engine_kw
     log(f"{name}: {n_sets} logit sets agree, max relative error "
         f"{worst:.3e} (tol {PATH_REL_TOL}); tokens equal")
     return {"max_rel_err": worst, "logit_sets": n_sets, "tokens": outs["cuda"],
-            "decode_ticks": sides["cuda"]["decode_ticks"]}
+            "decode_ticks": sides["cuda"]["decode_ticks"], **routing}
 
 
 def gemma_cfg(n_layers, window=None):
@@ -1634,6 +1665,67 @@ def dense_cfg(arch, n_layers=None):
     return dataclasses.replace(cfg, schedule=uniform_schedule(n_layers, LayerSpec()))
 
 
+def moe_cfg(arch, n_layers=None):
+    """mixtral-8x7b or phi3.5-moe at full width, the whole model or its
+    depth cut to ``n_layers`` of its own MoE layer (``dense_cfg``'s
+    ``LayerSpec()`` would drop ``moe`` and build a dense MLP of width
+    d_ff)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import uniform_schedule
+
+    cfg = get_config(arch)
+    spec = cfg.schedule[0].pattern[0]
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, schedule=uniform_schedule(n_layers, spec))
+    if not all(s.moe for g in cfg.schedule for s in g.pattern):
+        fail(f"{arch}: a layer of the cut model is not MoE")
+    return cfg
+
+
+@contextlib.contextmanager
+def route_tap(torch, log_, gaps=True):
+    """Every router call of the port's MoE layers (``models.moe.route``)
+    while it is open: its expert indices on the host and, with ``gaps``,
+    the smallest gap between a token's k-th and (k+1)-th probability (a
+    flip of the top k between two devices needs a gap near their error)."""
+    from repro_torch.models import moe
+
+    real = moe.route
+
+    def tapped(p, x, cfg, stat_reduce=None):
+        w, idx, aux = real(p, x, cfg, stat_reduce=stat_reduce)
+        entry = {"idx": idx.cpu()}
+        if gaps:
+            with torch.no_grad():
+                top = torch.softmax(x.float() @ p["router"].float(), -1).topk(
+                    cfg.moe.top_k + 1).values
+            entry["gap"] = (top[:, -2] - top[:, -1]).min().item()
+        log_.append(entry)
+        return w, idx, aux
+
+    moe.route = tapped
+    try:
+        yield log_
+    finally:
+        moe.route = real
+
+
+def same_routes(torch, name, cpu, cuda):
+    """Fails unless both sides' router calls chose the same experts for
+    every token; reports the smallest top-k gap where they did not."""
+    if len(cpu) != len(cuda):
+        fail(f"{name}: {len(cpu)} router calls on cpu, {len(cuda)} on cuda")
+    for i, (a, b) in enumerate(zip(cpu, cuda)):
+        if not torch.equal(a["idx"], b["idx"]):
+            fail(f"{name}: router call {i} chose other experts on cuda than on cpu for "
+                 f"{int((a['idx'] != b['idx']).any(-1).sum())} tokens; smallest top-k gap "
+                 f"cpu {a.get('gap')} cuda {b.get('gap')}")
+    gap = min((a["gap"] for a in cpu if "gap" in a), default=None)
+    log(f"{name}: {len(cpu)} router calls choose the same experts; smallest top-k gap {gap}")
+    return {"router_calls": len(cpu), "min_topk_gap": gap}
+
+
+
 def engine_path_spec(key):
     """(cfg, prompts, new tokens, engine sizes) of the cuda-against-cpu
     engine check ``key`` whose cpu side runs in the cpu sides' process.
@@ -1655,7 +1747,10 @@ def engine_path_spec(key):
     qwen2-72b at full width (64 q / 8 kv heads of 128, qkv bias under
     RMSNorm, the untied lm_head at vocab 152064), 2 layers (4.25 G
     parameters, 17 GB in f32), prompts of 300 tokens (ragged against the
-    flash tiles and the pages) and 37, 9 new tokens."""
+    flash tiles and the pages) and 37, 9 new tokens.  mixtral_path and
+    phi35_path: mixtral-8x7b (8 experts, 3.16 G parameters) and
+    phi3.5-moe (LayerNorm, 16 experts, vocab 32064, 2.86 G) at full width,
+    2 MoE layers, as qwen2_path."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import MAMBA, LayerSpec, uniform_schedule
     from repro_torch.launch.serve import random_prompts
@@ -1677,6 +1772,9 @@ def engine_path_spec(key):
         return cfg, random_prompts(2, [700, 37], cfg.vocab_size, seed=1), 9, GEMMA2_PATH_KW
     if key == "qwen2_path":
         cfg = dense_cfg("qwen2-72b", 2)
+        return cfg, random_prompts(2, [300, 37], cfg.vocab_size, seed=1), 9, PATH_ENGINE_KW
+    if key in ("mixtral_path", "phi35_path"):
+        cfg = moe_cfg("mixtral-8x7b" if key == "mixtral_path" else "phi3.5-moe-42b-a6.6b", 2)
         return cfg, random_prompts(2, [300, 37], cfg.vocab_size, seed=1), 9, PATH_ENGINE_KW
     cfg = zamba2_cfg("MAMB")
     return cfg, random_prompts(2, [300, 37], cfg.vocab_size, seed=1), 9, PATH_ENGINE_KW
@@ -1747,6 +1845,21 @@ def run_llama3_serve(torch, rec):
               n_pages=2048, max_pages=256, prefill_S=4096, prefill_n=1)
 
 
+def run_mixtral_serve(torch, rec):
+    """mixtral-8x7b at full width, 24 of its 32 layers, bf16 (35.09 G
+    parameters, 70.2 GB of weights; the whole model's 93.4 GB do not fit
+    the card): 8 requests with prompts uniform in 600-4000 tokens, 32 new
+    tokens each, 8 slots of up to 256 pages of 16 tokens (2048 pages:
+    3.2 GB); 24 flash launches a prefill and 24 paged a tick; one
+    4096-token prefill's per-expert token counts, k a token in every
+    layer; the peak of device memory; device busy of a 4096-token prefill
+    and of a tick (the router and up to 8 small expert products a layer:
+    host-bound)."""
+    run_serve(torch, rec, arch="mixtral-8x7b", key="mixtral_serve", lens=(600, 4000),
+              n_pages=2048, max_pages=256, prefill_S=4096, n_req=8, prefill_n=1,
+              cfg=moe_cfg("mixtral-8x7b", 24))
+
+
 def run_gemma_serve(torch, rec):
     """gemma3-4b at full width and depth, bf16: 16 requests with prompts
     uniform in 600-3000 tokens (most past the window), 32 new tokens each,
@@ -1780,27 +1893,30 @@ def serve_launches(cfg, n_prefills, ticks):
 
 
 def run_serve(torch, rec, seed=0, arch="starcoder2-3b", key="serve", lens=(65, 1024),
-              n_pages=1024, max_pages=128, prefill_S=1024, n_req=16, prefill_n=3):
-    """``arch`` at full width and depth in bf16, random weights from
-    ``seed``: ``n_req`` requests, prompts uniform in ``lens`` tokens, 32
-    new tokens each, all submitted at once; 8 slots, page 16.  Every
-    layer's prefill must launch its kernel (flash, or ssd_scan), and
-    every decode tick the paged kernel once a global attention layer.
-    ``prefill_n``: the prefills of ``prefill_S`` tokens the profile
-    reads."""
+              n_pages=1024, max_pages=128, prefill_S=1024, n_req=16, prefill_n=3, cfg=None):
+    """``arch`` at full width and depth in bf16 (or ``cfg``, a cut of it),
+    random weights from ``seed``: ``n_req`` requests, prompts uniform in
+    ``lens`` tokens, 32 new tokens each, all submitted at once; 8 slots,
+    page 16.  Every layer's prefill must launch its kernel (flash, or
+    ssd_scan), and every decode tick the paged kernel once a global
+    attention layer.  ``prefill_n``: the prefills of ``prefill_S`` tokens
+    the profile reads; an MoE model's experts are counted over one more
+    (``moe_prefill_experts``)."""
     import numpy as np
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import build_engine, random_prompts, serve
 
-    cfg = get_config(arch)
+    cfg = cfg or get_config(arch)
     max_new = 32
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     eng = build_engine(cfg, device="cuda", dtype="bfloat16", seed=seed, page=16,
                        n_pages=n_pages, max_slots=8, max_pages=max_pages)
+    if cfg.moe is not None:
+        rec[f"{key}_prefill_experts"] = moe_prefill_experts(torch, eng, cfg, prefill_S)
     torch.cuda.synchronize()
     built_gib = torch.cuda.memory_allocated() / 2**30
     log(f"{key}: model + pools built in {time.perf_counter() - t0:.1f}s, "
@@ -1841,6 +1957,28 @@ def run_serve(torch, rec, seed=0, arch="starcoder2-3b", key="serve", lens=(65, 1
     rec[f"{key}_decode_profile"] = profile_ticks(torch, eng, cfg, res["decode_tick_p50_ms"])
     del eng
     torch.cuda.empty_cache()
+
+
+def moe_prefill_experts(torch, eng, cfg, S):
+    """One S-token prefill of an MoE model with its router calls tapped:
+    each layer must route exactly k tokens a token (its per-expert counts
+    sum to k S); the counts of every layer."""
+    from repro_torch.launch.serve import random_prompts
+
+    toks = torch.tensor(random_prompts(1, [S], cfg.vocab_size, 13), device="cuda")
+    routes = []
+    with torch.inference_mode(), route_tap(torch, routes, gaps=False):
+        eng._prefill(eng.model, toks, S)
+    counts = [torch.bincount(r["idx"].reshape(-1), minlength=cfg.moe.n_experts).tolist()
+              for r in routes]
+    k = cfg.moe.top_k
+    if len(counts) != cfg.n_layers or any(sum(c) != k * S for c in counts):
+        fail(f"{cfg.name}: a {S}-token prefill routed {[sum(c) for c in counts]} "
+             f"(token, expert) pairs in its {len(counts)} router calls, not {k * S} in each "
+             f"of {cfg.n_layers}")
+    log(f"{cfg.name}: a {S}-token prefill's experts, layer 0 {counts[0]}, "
+        f"layer {len(counts) - 1} {counts[-1]}")
+    return {"tokens": S, "top_k": k, "per_layer": counts}
 
 
 def _by_class(kern, n):
@@ -2578,7 +2716,10 @@ def lm_path_spec(key):
     its two invocations, B 1 x S 512 (two chunks of 256), 2 steps.
     llama3_train_path: llama3-8b (GQA rep 4, the untied lm_head at vocab
     128256; 1.49 G parameters, its cpu side's f32 state 24 GB), B 1 x S
-    400 (one loss chunk, ragged against every tile), 2 steps."""
+    400 (one loss chunk, ragged against every tile), 2 steps.
+    mixtral_train_path: mixtral-8x7b at 1 MoE layer (1.71 G parameters:
+    its cpu side's f32 state about 27 GB, beside llama3's 24), B 1 x S
+    256, 2 steps; the aux loss and the experts of every router call too."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import MAMBA, LayerSpec, uniform_schedule
 
@@ -2592,6 +2733,8 @@ def lm_path_spec(key):
         return zamba2_cfg("MAMA"), train_launches_per_step, 1, 512, 2
     if key == "llama3_train_path":
         return dense_cfg("llama3-8b", 2), train_launches_per_step, 1, 400, 2
+    if key == "mixtral_train_path":
+        return moe_cfg("mixtral-8x7b", 1), train_launches_per_step, 1, 256, 2
     return gemma_cfg(2, window=256), train_launches_per_step, 1, 396, 2
 
 
@@ -2600,7 +2743,8 @@ def lm_train_side(torch, key, dev):
     steps of the model drawn from seed 0 on the card (both sides: the
     cpu would take about 25 s for gemma2's 2.3 G parameters) on the
     lm_batches of seed 1; the gradients AdamW gets in the first step,
-    every step's loss and the kernel launches.  On cuda first the
+    every step's loss and aux, the experts of each router call of the
+    steps (an MoE model's) and the kernel launches.  On cuda first the
     gradients of the first batch twice, which must be equal bit for
     bit."""
     from repro_torch.configs import default_run_config
@@ -2642,11 +2786,15 @@ def lm_train_side(torch, key, dev):
 
     step = ts.make_train_step(model, run, opt)
     ts.adamw_update = spy
+    routes = []
     try:
-        losses = [step(state, b)[1]["loss"].item() for b in batches]
+        with route_tap(torch, routes):
+            mets = [step(state, b)[1] for b in batches]
     finally:
         ts.adamw_update = real
+    losses = [m["loss"].item() for m in mets]
     out = {"loss": losses[0], "grads": grads, "losses": losses,
+           "aux": [m["aux_loss"].item() for m in mets], "routes": routes,
            "launches": dict(ops.launch_counts), "seconds": time.perf_counter() - t0}
     log(f"{key} {dev}: steps {losses}, launches {out['launches']}, {out['seconds']:.1f}s")
     return out
@@ -2656,7 +2804,8 @@ def lm_train_side(torch, key, dev):
 # sides' process (up to qwen2_path's 17 GB): they and that process's
 # draws take turns through ``card_lock`` (gemma2_train_path's cuda side
 # ran out of memory beside qwen2_path's draw)
-CARD_LOCK_PHASES = ("gemma2_train", "zamba2_train", "llama3_train", "gemma2_serve")
+CARD_LOCK_PHASES = ("gemma2_train", "zamba2_train", "llama3_train", "gemma2_serve",
+                    "mixtral_train", "mixtral_serve")
 
 
 @contextlib.contextmanager
@@ -2694,9 +2843,10 @@ def card_lock(torch, held=True):
 # gemma_train_path's took 94 s of its phase's 109 in process (PERF.md §6).
 CPU_REF_KEYS = ("path", "gemma_path", "ssm_path", "train_path", "ssm_train_path",
                 "gemma_train_path", "gemma2_path", "gemma2_train_path", "zamba2_path",
-                "zamba2_train_path", "qwen2_path", "llama3_train_path")
+                "zamba2_train_path", "qwen2_path", "llama3_train_path", "mixtral_path",
+                "phi35_path", "mixtral_train_path")
 ENGINE_PATH_KEYS = ("path", "gemma_path", "ssm_path", "gemma2_path", "zamba2_path",
-                    "qwen2_path")
+                    "qwen2_path", "mixtral_path", "phi35_path")
 _children = []                      # processes the script stops if it ends early
 
 
@@ -2786,11 +2936,16 @@ def check_lm_train_path(torch, rec, key, proc):
     loss and every gradient leaf, and every step's loss, within
     PATH_REL_TOL; on cuda the first batch's gradients twice equal bit for
     bit, and the kernel launches ``launches_per_step(cfg, B, S)`` a
-    forward and backward."""
+    forward and backward.  An MoE model's steps first choose the same
+    experts on both sides in every router call (the forward's and the
+    remat recompute's), and every step's aux loss agrees within
+    PATH_REL_TOL."""
     cfg, launches_per_step, B, S, n_steps = lm_path_spec(key)
     with card_lock(torch):
         cuda = lm_train_side(torch, key, "cuda")
     cpu = cpu_side(torch, key, proc)
+    routing = same_routes(torch, key, cpu["routes"], cuda["routes"]) \
+        if cfg.moe is not None else {}
     want = {k: v * (2 + n_steps) for k, v in launches_per_step(cfg, B, S).items()}
     if cpu["launches"] or cuda["launches"] != want:
         fail(f"{key}: cuda launches {cuda['launches']} (expected {want}), "
@@ -2798,6 +2953,10 @@ def check_lm_train_path(torch, rec, key, proc):
     rel = lambda a, b: abs(a - b) / abs(b)
     errs = {"loss": rel(cuda["loss"], cpu["loss"]),
             "steps": max(rel(a, b) for a, b in zip(cuda["losses"], cpu["losses"]))}
+    if cfg.moe is not None:
+        if not all(a > 0 and math.isfinite(a) for a in cuda["aux"]):
+            fail(f"{key}: aux losses {cuda['aux']}")
+        errs["aux"] = max(rel(a, b) for a, b in zip(cuda["aux"], cpu["aux"]))
     gc, gp = cuda["grads"], cpu["grads"]      # compared on the card, a leaf at a time
     leaf = {}
     for k in gp:
@@ -2812,7 +2971,8 @@ def check_lm_train_path(torch, rec, key, proc):
     rec[key] = {"rel_err": errs, "worst_leaf": worst, "grad_leaf_rel": leaf,
                 "losses_cuda": cuda["losses"], "losses_cpu": cpu["losses"],
                 "launches": cuda["launches"], "repeat_bit_equal": True,
-                "seconds_cuda": cuda["seconds"], "seconds_cpu": cpu["seconds"]}
+                "seconds_cuda": cuda["seconds"], "seconds_cpu": cpu["seconds"],
+                "aux_cuda": cuda["aux"], **routing}
 
 
 def run_ssm_train(torch, rec, B=16, S=1024, n_functions=LM_FUNCTIONS, steps=6):
@@ -3003,6 +3163,18 @@ def run_llama3_train(torch, rec, S=8192, n_functions=LM_FUNCTIONS, steps=6):
                  (("a", "float32", 1, 1), ("b", "bfloat16", 2, 2)), n_prof=1)
 
 
+def run_mixtral_train(torch, rec, S=4096, n_functions=LM_FUNCTIONS, steps=4):
+    """mixtral-8x7b at full width, depth cut to 2 (3.16 G parameters, 1.05
+    G active: f32 parameters, gradients and AdamW moments take 50.7 GB;
+    the whole model's 747 GB wait for fsdp across cards), S 4096 from the
+    DataPipeline: (a) ``steps`` steps in f32 at B 1, (b) ``steps`` in bf16
+    at B 2 and microbatch 2; as llama3_train, with the aux loss finite in
+    every step, f32 gradients into AdamW in (b) (C12), MFU on the active
+    parameters (6 N_active D)."""
+    run_lm_train(torch, rec, "mixtral_train", moe_cfg("mixtral-8x7b", 2), S, n_functions, steps,
+                 (("a", "float32", 1, 1), ("b", "bfloat16", 2, 2)), n_prof=1)
+
+
 def run_lm_train(torch, rec, key, cfg, S, n_functions, steps, runs, n_prof=2):
     """``cfg`` trained by trainer.train on the DataPipeline's next-token
     batches of S tokens (the launcher's rolled labels), one run per
@@ -3011,14 +3183,17 @@ def run_lm_train(torch, rec, key, cfg, S, n_functions, steps, runs, n_prof=2):
     rows takes them in order, B rows a step.  The loss falls in each run,
     launches per step exact; step p50, tokens/s, MFU (6ND), the peak of
     device memory and (over ``n_prof`` profiled steps) where the device
-    time goes."""
+    time goes; the gradient dtypes AdamW got.  An MoE model's aux loss is
+    finite and positive in every step, and AdamW gets f32 gradients under
+    accumulation."""
     from repro_torch.configs.base import RunConfig, ShapeConfig
     from repro_torch.core.scaling import model_flops
     from repro_torch.data import DataPipeline
     from repro_torch.kernels import ops
     from repro_torch.launch import train as cli
     from repro_torch.models.model import build_model
-    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
     from repro_torch.train.runner import DEFAULT_PEAK_FLOPS, StepRunner
     from repro_torch.train.trainer import train
 
@@ -3046,11 +3221,27 @@ def run_lm_train(torch, rec, key, cfg, S, n_functions, steps, runs, n_prof=2):
         want = train_launches_per_step(cfg, B, S, micro)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        model = build_model(cfg, seed=0, device="cuda")
+        # the state trains the model drawn from seed 0 itself (what
+        # ``train``'s seed 0 draws), so that one copy of the parameters is
+        # on the card: mixtral_train's f32 state takes 50.7 GB of it
+        model = build_model(cfg, seed=0, dtype=getattr(torch, dtype), device="cuda")
+        model.requires_grad_(True)
+        state = {"params": model, "opt": init_opt_state(dict(model.named_parameters()))}
         ops.reset_launch_counts()
+        dtypes, real = set(), ts.adamw_update
+
+        def spy(c, grads, opt_state, params):
+            dtypes.update(str(g.dtype) for g in grads.values())
+            return real(c, grads, opt_state, params)
+
+        ts.adamw_update = spy
         t0 = time.perf_counter()
-        state, tlog = train(model, run, opt, iter(batches), steps=steps, log_every=1, seed=0)
-        torch.cuda.synchronize()
+        try:
+            state, tlog = train(model, run, opt, iter(batches), steps=steps, log_every=1,
+                                state=state)
+            torch.cuda.synchronize()
+        finally:
+            ts.adamw_update = real
         counts = dict(ops.launch_counts)
         per_step = {k: counts.get(k, 0) / steps for k in want}
         losses = [m["loss"] for m in tlog.metrics]
@@ -3062,7 +3253,7 @@ def run_lm_train(torch, rec, key, cfg, S, n_functions, steps, runs, n_prof=2):
              "model_flops_per_step": model_flops(cfg, tokens),
              "mfu": model_flops(cfg, tokens) / (p50 * DEFAULT_PEAK_FLOPS),
              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-             "telemetry": tlog.telemetry}
+             "adamw_grad_dtypes": sorted(dtypes), "telemetry": tlog.telemetry}
         log(f"{key} {tag}: launches {counts} over {steps} steps, per step {per_step}, "
             f"p50 {p50 * 1e3:.1f} ms, losses {losses[0]:.4f} -> {losses[-1]:.4f}, "
             f"peak {r['peak_mem_gib']:.1f} GiB")
@@ -3071,6 +3262,12 @@ def run_lm_train(torch, rec, key, cfg, S, n_functions, steps, runs, n_prof=2):
         if len(losses) != steps or not all(math.isfinite(x) for x in losses) \
                 or not losses[-1] < losses[0]:
             fail(f"{key} {tag}: losses {losses}")
+        if cfg.moe is not None:     # the aux reported, and C12 under accumulation
+            r["aux_losses"] = [m.get("aux_loss") for m in tlog.metrics]
+            if not all(a is not None and math.isfinite(a) and a > 0 for a in r["aux_losses"]):
+                fail(f"{key} {tag}: aux losses {r['aux_losses']}")
+            if micro > 1 and dtypes != {"torch.float32"}:
+                fail(f"{key} {tag}: AdamW got gradients of dtypes {sorted(dtypes)}, not f32")
         runner = StepRunner(model, run, opt)
         r["profile"] = profile_steps(torch, runner, state,
                                      [runner.place_batch(b) for b in batches[:n_prof]], p50)
@@ -4923,12 +5120,13 @@ def kernel_records(rec):
              for key in ("serve", "ssm_serve", "train", "train_cli", "ssm_train", "ddp",
                          "fsdp", "gemma_serve", "gemma_train", "gemma2_serve", "gemma2_train",
                          "zamba2_serve", "zamba2_train", "llama3_serve", "llama3_train",
-                         "bert350_train")}
+                         "bert350_train", "mixtral_serve", "mixtral_train")}
     paths["ssm_train_bf16"] = rec.get("ssm_train", {}).get("c", {}).get("launches", {})
     paths["gemma_train_bf16"] = rec.get("gemma_train", {}).get("b", {}).get("launches", {})
     paths["gemma2_train_bf16"] = rec.get("gemma2_train", {}).get("b", {}).get("launches", {})
     paths["zamba2_train_bf16"] = rec.get("zamba2_train", {}).get("b", {}).get("launches", {})
     paths["llama3_train_bf16"] = rec.get("llama3_train", {}).get("b", {}).get("launches", {})
+    paths["mixtral_train_bf16"] = rec.get("mixtral_train", {}).get("b", {}).get("launches", {})
     gm, gm2, zm = t.get("gemma", {}), t.get("gemma2", {}), t.get("zamba2", {})
     l3 = t.get("llama3", {})
     l3train = l3.get("flash_train", {})     # {dtype: {fwd, bwd}}
@@ -5104,6 +5302,19 @@ def summary(rec):
                 "device_busy_ms": rec.get("llama3_train", {}).get(tag, {}).get(
                     "profile", {}).get("device_busy_ms")} for tag in ("a", "b")},
             "llama3_train_path_rel_err": rec.get("llama3_train_path", {}).get("rel_err"),
+            "mixtral_serve": {k: rec.get("mixtral_serve", {}).get(k)
+                              for k in keys + ("peak_mem_gib",)},
+            "mixtral_tick_device_busy_ms":
+                rec.get("mixtral_serve_decode_profile", {}).get("device_busy_ms"),
+            "mixtral_prefill_4096_device_busy_ms":
+                rec.get("mixtral_serve_prefill_profile", {}).get("device_busy_ms"),
+            "mixtral_train": {tag: {k: rec.get("mixtral_train", {}).get(tag, {}).get(k) for k in (
+                "step_time_p50_ms", "tokens_per_s", "mfu", "peak_mem_gib")} | {
+                "device_busy_ms": rec.get("mixtral_train", {}).get(tag, {}).get(
+                    "profile", {}).get("device_busy_ms")} for tag in ("a", "b")},
+            "moe_paths": {k: {f: rec.get(k, {}).get(f) for f in (
+                "max_rel_err", "rel_err", "router_calls", "min_topk_gap")}
+                for k in ("mixtral_path", "phi35_path", "mixtral_train_path")},
             "qwen2_path_max_rel_err": rec.get("qwen2_path", {}).get("max_rel_err"),
             "llama3_attn_ms": {
                 **{f"{d}_{kind}": r.get(kind, {}).get("ms") for d, r in rec.get("time", {}).get(
@@ -5254,6 +5465,13 @@ def main():
              "llama3_train_path": lambda torch, rec: check_lm_train_path(
                  torch, rec, "llama3_train_path", cpu_refs),
              "llama3_serve": run_llama3_serve, "llama3_train": run_llama3_train,
+             "mixtral_path": lambda torch, rec: check_engine_path(torch, rec, "mixtral_path",
+                                                                  cpu_refs),
+             "phi35_path": lambda torch, rec: check_engine_path(torch, rec, "phi35_path",
+                                                                cpu_refs),
+             "mixtral_train_path": lambda torch, rec: check_lm_train_path(
+                 torch, rec, "mixtral_train_path", cpu_refs),
+             "mixtral_serve": run_mixtral_serve, "mixtral_train": run_mixtral_train,
              "bert350_train": run_bert350_train,
              "bert_max_batch": lambda torch, rec: run_bert_max_batch(torch, rec, cpu_refs),
              "ddp_path": check_ddp_path, "fsdp_path": check_fsdp_path,

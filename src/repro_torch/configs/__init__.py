@@ -15,6 +15,8 @@ ARCHS = {
     "gemma3-4b": "gemma3_4b",
     "llama3-8b": "llama3_8b",
     "mamba2-130m": "mamba2_130m",
+    "mixtral-8x7b": "mixtral_8x7b",
+    "phi3.5-moe-42b-a6.6b": "phi3_5_moe_42b",
     "qwen2-72b": "qwen2_72b",
     "starcoder2-3b": "starcoder2_3b",
     "zamba2-2.7b": "zamba2_2_7b",

@@ -40,11 +40,17 @@ transpose, so that the gradient arrives at each shard already summed.
 formed outside autograd (the gather-once path); the whole leaves go
 through :func:`bucketed_all_reduce`.
 
+MoE: :func:`router_stat_mean` is the port's ``pmean`` of the router's
+batch statistics (``models/moe.py``): ONE all-reduce of ``(me, ce)`` a
+MoE layer a forward (again in a rematerialised layer's recompute), and
+one of ``me``'s cotangent a layer in the backward, its transpose.
+
 ``counts`` counts the collectives issued in this process:
 ``grad_all_reduce``, ``param_all_gather`` (a scatter bucket's gather,
 again when a checkpointed gather runs in the backward),
-``grad_reduce_scatter``, and ``grad_all_gather`` (gradient shards
-gathered for a comparison by ``train_step.make_grad_fn``, not by a step).
+``grad_reduce_scatter``, ``grad_all_gather`` (gradient shards
+gathered for a comparison by ``train_step.make_grad_fn``, not by a
+step), and ``router_stat_all_reduce``.
 """
 from __future__ import annotations
 
@@ -68,7 +74,7 @@ __all__ = ["DEFAULT_BUCKET_MB", "GradBucket", "BucketedAllReduce", "FsdpBucketPl
            "gather_grad_shards", "bucketed_psum_scatter", "fsdp_global_norm",
            "bucket_plan_stats", "ring_allreduce_bytes", "reduce_scatter_bytes",
            "all_gather_bytes", "leaf_nbytes", "metric_series", "counts", "reset_counts",
-           "flat_leaves"]
+           "flat_leaves", "router_stat_mean"]
 
 DEFAULT_BUCKET_MB = 25.0
 
@@ -468,6 +474,39 @@ class _GatherBucket(torch.autograd.Function):
         shapes = [s.shape for s in ctx.saved_tensors]
         parts = _scatter_bucket(ctx.bucket, ctx.plan, ctx.group, grads, shapes)
         return (None, None, None, *parts)
+
+
+class _RouterStatMean(torch.autograd.Function):
+    """(me, ce) -> their means over ``group``: one all-reduce of both.
+    The backward is JAX's transpose of ``pmean``: the mean over the group
+    of ``me``'s cotangent (one all-reduce); ``ce``, a count, has none.
+    Every rank reaches it at the same point of the same graph, so the
+    ranks issue these collectives in one order."""
+
+    @staticmethod
+    def forward(ctx, me, ce, group):
+        ctx.group = group
+        n = dist.get_world_size(group)
+        both = torch.cat([me, ce])
+        dist.all_reduce(both, group=group)
+        counts["router_stat_all_reduce"] += 1
+        me_g, ce_g = (both / n).split(me.shape[0])
+        ctx.mark_non_differentiable(ce_g)
+        return me_g, ce_g
+
+    @staticmethod
+    def backward(ctx, g_me, g_ce):
+        g = g_me.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        counts["router_stat_all_reduce"] += 1
+        return g / dist.get_world_size(ctx.group), None, None
+
+
+def router_stat_mean(me: torch.Tensor, ce: torch.Tensor, group=None):
+    """The MoE router's batch means ``me`` and ``ce`` averaged over the
+    process group (``models.moe.route``'s ``stat_reduce``): with equal
+    shards the mean of the shard means is the global mean."""
+    return _RouterStatMean.apply(me, ce, group)
 
 
 def gather_fsdp_params(leaves: Sequence[torch.Tensor], plan: FsdpBucketPlan, group=None, *,

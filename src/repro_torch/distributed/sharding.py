@@ -106,7 +106,15 @@ class ParallelPlan:
     default process group (``world``; ``None`` = no process group, the
     JAX ``mesh=None``).  As in JAX the batch is sharded over the group
     only when the global batch divides by it; otherwise ``dp_size`` is 1
-    and nothing is synchronised."""
+    and nothing is synchronised.
+
+    An MoE model (``has_moe``, ``n_experts``) rides ``bucketed_overlap``
+    and ``scatter_overlap`` as in JAX: the per-shard step averages the
+    router's batch statistics over the group (``models/moe.py``
+    ``route(stat_reduce=...)``).  Its expert-parallel dispatch
+    (``ep_overlap``, an ``expert`` mesh axis) comes with ROADMAP A11, so
+    :attr:`ep_engaged` is False; the ``xla_fused`` fallback refuses an
+    MoE model over several ranks (ROADMAP C16, ``train_step``)."""
 
     mode: str
     world: Optional[int] = None
@@ -115,11 +123,14 @@ class ParallelPlan:
     overlap: bool = True
     microbatch: int = 1
     free_after_use: bool = False
+    has_moe: bool = False
+    n_experts: int = 0
 
     @classmethod
     def make(cls, world: Optional[int], mode: str, global_batch: int, *,
              grad_bucket_mb: float = 25.0, overlap: bool = True,
-             microbatch: int = 1, free_after_use: bool = False) -> "ParallelPlan":
+             microbatch: int = 1, free_after_use: bool = False,
+             has_moe: bool = False, n_experts: int = 0) -> "ParallelPlan":
         """Plan for one (process group size, mode, global batch).
         ``overlap=False`` pins the fused baseline.  Over more than one
         process a mode other than ddp or fsdp raises, naming its ROADMAP
@@ -134,16 +145,20 @@ class ParallelPlan:
                            f"{sorted([*PORTED_MODES, *UNPORTED_MODES])}")
         return cls(mode=mode, world=world, global_batch=global_batch,
                    grad_bucket_mb=grad_bucket_mb, overlap=overlap,
-                   microbatch=max(1, microbatch), free_after_use=free_after_use)
+                   microbatch=max(1, microbatch), free_after_use=free_after_use,
+                   has_moe=has_moe, n_experts=n_experts)
 
     @classmethod
     def for_run(cls, run, world: Optional[int] = None, *, grad_bucket_mb: float = 25.0,
                 overlap: bool = True, **kw) -> "ParallelPlan":
-        """Plan of a ``RunConfig`` (mode, global batch and microbatch
-        count read off ``run``); ``kw``: ``free_after_use``."""
+        """Plan of a ``RunConfig`` (mode, global batch, microbatch count
+        and the model's experts read off ``run``); ``kw``:
+        ``free_after_use``."""
+        moe = run.model.moe
         return cls.make(world, run.sharding, run.shape.global_batch,
                         grad_bucket_mb=grad_bucket_mb, overlap=overlap,
-                        microbatch=run.microbatch or 1, **kw)
+                        microbatch=run.microbatch or 1, has_moe=moe is not None,
+                        n_experts=moe.n_experts if moe is not None else 0, **kw)
 
     @property
     def dp_size(self) -> int:
@@ -155,6 +170,12 @@ class ParallelPlan:
     def local_batch(self) -> int:
         """Batch rows of one data-parallel shard (one rank)."""
         return self.global_batch // self.dp_size
+
+    @property
+    def ep_engaged(self) -> bool:
+        """The JAX plan's expert-parallel predicate: it needs an ``expert``
+        mesh axis, which the port's plan (one data axis) has not (A11)."""
+        return False
 
     @property
     def grad_sync(self) -> str:
@@ -232,7 +253,11 @@ class ParallelPlan:
 
     def describe(self) -> Dict[str, Any]:
         """Flat summary for logs and telemetry (the JAX keys that apply)."""
-        return {"mode": self.mode, "dp_axes": ["data"] if self.dp_size > 1 else [],
-                "dp_size": self.dp_size, "local_batch": self.local_batch,
-                "microbatch": self.microbatch, "grad_sync": self.grad_sync, "grad_bucket_mb": self.grad_bucket_mb,
-                "fallback_reason": self.fallback_reason}
+        out = {"mode": self.mode, "dp_axes": ["data"] if self.dp_size > 1 else [],
+               "dp_size": self.dp_size, "local_batch": self.local_batch,
+               "microbatch": self.microbatch, "grad_sync": self.grad_sync,
+               "grad_bucket_mb": self.grad_bucket_mb}
+        if self.has_moe:
+            out.update(ep_engaged=self.ep_engaged, ep_size=1, n_experts=self.n_experts)
+        out["fallback_reason"] = self.fallback_reason
+        return out

@@ -5,12 +5,13 @@ group are stacked along a leading ``layers`` axis of size ``repeats``,
 as in the JAX package.  Where that package scans the group with
 ``lax.scan``, the port loops over the rows of the stacked axis in Python
 (eager PyTorch has nothing to gain from a scan).  The port has the ATTN
-block with a dense MLP (and gemma's post-norms), the MAMBA (Mamba2) block
-without one, and zamba2's SHARED_ATTN block, whose attention and MLP
-take their parameters from one of the model's ``shared`` banks (its
-stacked position owns none), so that every invocation of a bank reads,
-and adds its gradient into, the same leaves; MoE, MLA and cross
-attention raise ``NotImplementedError``.
+block with a dense MLP (and gemma's post-norms) or a mixture of experts
+(``models/moe.py``, whose load-balance aux each block returns), the MAMBA
+(Mamba2) block without one, and zamba2's SHARED_ATTN block, whose
+attention and MLP take their parameters from one of the model's
+``shared`` banks (its stacked position owns none), so that every
+invocation of a bank reads, and adds its gradient into, the same leaves;
+MLA and cross attention raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ from repro_torch.configs.base import (ATTN, MAMBA, SHARED_ATTN, LayerSpec, Model
                                       ScheduleGroup)
 from repro_torch.models.attention import apply_attn, attn_specs
 from repro_torch.models.layers import apply_mlp, apply_norm, mlp_specs, norm_specs
+from repro_torch.models.moe import apply_moe, moe_specs
 from repro_torch.models.params import ParamTree, stack_specs
 from repro_torch.models.ssm import apply_mamba, ssm_specs
 
@@ -28,10 +30,9 @@ from repro_torch.models.ssm import apply_mamba, ssm_specs
 def block_specs(cfg: ModelConfig, spec: LayerSpec):
     if spec.kind == SHARED_ATTN:
         return {}  # params come from the shared bank
-    if (spec.kind, spec.has_mlp) not in ((ATTN, True), (MAMBA, False)) \
-            or spec.moe:
+    if (spec.kind, spec.has_mlp) not in ((ATTN, True), (MAMBA, False)):
         raise NotImplementedError(
-            f"the port has ATTN blocks with a dense MLP, MAMBA blocks "
+            f"the port has ATTN blocks with a dense MLP or MoE, MAMBA blocks "
             f"without one and SHARED_ATTN blocks, not {spec}")
     out = {"ln1": norm_specs(cfg),
            "mixer": attn_specs(cfg) if spec.kind == ATTN else ssm_specs(cfg)}
@@ -39,7 +40,10 @@ def block_specs(cfg: ModelConfig, spec: LayerSpec):
         out["post1"] = norm_specs(cfg)
     if spec.has_mlp:
         out["ln2"] = norm_specs(cfg)
-        out["mlp"] = mlp_specs(cfg)
+        if spec.moe:
+            out["moe"] = moe_specs(cfg)
+        else:
+            out["mlp"] = mlp_specs(cfg)
         if cfg.post_norms:
             out["post2"] = norm_specs(cfg)
     return out
@@ -76,10 +80,14 @@ def layer_row(tree, r):
 
 def apply_block(bp, shared, h, cfg: ModelConfig, spec: LayerSpec, *,
                 positions, mode: str, cache=None, pos=None,
-                causal: bool = True, paged=None):
-    """Returns (h, new_cache).  A SHARED_ATTN block reads its parameters
-    from ``shared[spec.shared_bank]`` (``bp`` is its empty stacked
-    position), has no post-norms and always its MLP."""
+                causal: bool = True, paged=None, moe_ctx=None):
+    """Returns (h, new_cache, aux): aux the MoE block's load-balance loss
+    (an f32 tensor; the number 0.0 for every other block, which launches
+    nothing).  A SHARED_ATTN block reads its parameters from
+    ``shared[spec.shared_bank]`` (``bp`` is its empty stacked position),
+    has no post-norms and always its MLP.  ``moe_ctx``: ``apply_moe``'s
+    keywords (``stat_reduce``)."""
+    aux = 0.0
     new_cache = {}
     cache = cache or {}
     p = shared[spec.shared_bank] if spec.kind == SHARED_ATTN else bp
@@ -98,54 +106,64 @@ def apply_block(bp, shared, h, cfg: ModelConfig, spec: LayerSpec, *,
     h = h + mx
     if spec.has_mlp or spec.kind == SHARED_ATTN:
         x = apply_norm(p["ln2"], h, cfg)
-        mx = apply_mlp(p["mlp"], x, cfg)
+        if spec.moe:
+            mx, aux = apply_moe(p["moe"], x, cfg, **(moe_ctx or {}))
+        else:
+            mx = apply_mlp(p["mlp"], x, cfg)
         if cfg.post_norms and spec.kind != SHARED_ATTN:
             mx = apply_norm(bp["post2"], mx, cfg)
         h = h + mx
-    return h, new_cache
+    return h, new_cache, aux
 
 
 def _train_block(h, bp, shared, cfg: ModelConfig, spec: LayerSpec, positions,
-                 causal: bool):
-    return apply_block(bp, shared, h, cfg, spec, positions=positions,
-                       mode="train", causal=causal)[0]
+                 causal: bool, moe_ctx):
+    h, _, aux = apply_block(bp, shared, h, cfg, spec, positions=positions,
+                            mode="train", causal=causal, moe_ctx=moe_ctx)
+    return h, aux
 
 
 def apply_group(pg, shared, h, cfg: ModelConfig, group: ScheduleGroup, *,
                 positions, mode: str, cache_g=None, pos=None,
-                causal: bool = True, paged=None, remat: bool = False):
-    """Run the group's rows in order.  Returns (h, new_cache_g): in
+                causal: bool = True, paged=None, remat: bool = False,
+                moe_ctx=None):
+    """Run the group's rows in order.  Returns (h, new_cache_g, aux): in
     prefill the per-layer caches stacked over the ``layers`` axis; in
-    decode ``cache_g`` itself, whose pools the layers updated in place.
-    ``shared``: the model's shared banks (None without any).
+    decode ``cache_g`` itself, whose pools the layers updated in place;
+    aux the layers' MoE losses summed.  ``shared``: the model's shared
+    banks (None without any).
 
     ``remat`` in train mode checkpoints each LAYER (not the whole
     pattern), as the JAX package's ``jax.checkpoint`` of ``one_block``
     does: the backward recomputes one layer at a time, so a layer's
     activations live only while its own backward runs.  A shared block's
     bank goes into the checkpoint as an input, so that each invocation's
-    gradient adds into the bank's one leaf."""
+    gradient adds into the bank's one leaf.  The checkpoint returns the
+    layer's aux beside h, so that remat keeps the aux's gradient."""
     new_caches = [[] for _ in group.pattern]
+    aux = 0.0
     for r in range(group.repeats):
         for pi, spec in enumerate(group.pattern):
             if remat and mode == "train":
                 bank = {spec.shared_bank: layer_row(shared[spec.shared_bank], None)} \
                     if spec.kind == SHARED_ATTN else None
-                h = checkpoint(_train_block, h, layer_row(pg[pi], r), bank, cfg,
-                               spec, positions, causal, use_reentrant=False)
+                h, a = checkpoint(_train_block, h, layer_row(pg[pi], r), bank, cfg,
+                                  spec, positions, causal, moe_ctx, use_reentrant=False)
+                aux = aux + a
                 continue
             cl = layer_row(cache_g[pi], r) if cache_g is not None else None
-            h, nc = apply_block(layer_row(pg[pi], r), shared, h, cfg, spec,
-                                positions=positions, mode=mode, cache=cl,
-                                pos=pos, causal=causal, paged=paged)
+            h, nc, a = apply_block(layer_row(pg[pi], r), shared, h, cfg, spec,
+                                   positions=positions, mode=mode, cache=cl,
+                                   pos=pos, causal=causal, paged=paged, moe_ctx=moe_ctx)
+            aux = aux + a
             new_caches[pi].append(nc)
     if mode == "decode":
-        return h, cache_g
+        return h, cache_g, aux
     if mode != "prefill":
-        return h, None
+        return h, None, aux
     stacked = []
     for per_row in new_caches:
         stacked.append({part: {k: torch.stack([c[part][k] for c in per_row])
                                for k in per_row[0][part]}
                         for part in per_row[0]})
-    return h, stacked
+    return h, stacked, aux

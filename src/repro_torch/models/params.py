@@ -87,6 +87,15 @@ def _init_leaf(spec: ParamSpec, gen: torch.Generator, dtype, device):
             u + torch.log(-torch.expm1(-u))
         return out.to(dtype)
     scale = spec.scale if spec.scale else 1.0 / np.sqrt(_fan_in(spec))
+    if dtype != torch.float32 and spec.axes[0] == "layers" and len(spec.shape) > 1:
+        # a stacked leaf in a narrower dtype is drawn a ``layers`` row at
+        # a time into its target, so that the f32 temporary is one row
+        # (mixtral's wi at 24 layers would be 45 GB in f32)
+        out = torch.empty(spec.shape, dtype=dtype, device=device)
+        for r in range(spec.shape[0]):
+            out[r] = torch.randn(spec.shape[1:], generator=gen, dtype=torch.float32,
+                                 device=device).mul_(scale)
+        return out
     x = torch.randn(spec.shape, generator=gen, dtype=torch.float32,
                     device=device)
     return x.mul_(scale).to(dtype)

@@ -68,7 +68,7 @@ def head_apply(params, h, cfg: ModelConfig):
 
 def forward(params, cfg: ModelConfig, batch: Dict[str, Any], *, mode: str,
             cache=None, act_dtype=torch.float32, return_hidden: bool = False,
-            paged=None, remat: bool = False):
+            paged=None, remat: bool = False, moe_ctx=None):
     """Returns (logits | hidden, new_cache, aux).
 
     batch keys: tokens (B,S) [decode: (B,1)] and, in decode, pos: the
@@ -76,9 +76,11 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, Any], *, mode: str,
     paged-KV context threaded down to the attention layers (see
     ``serve/paged_cache.py``): in decode the cache leaves are page pools
     addressed through ``paged["tables"]`` and updated in place.  ``aux``
-    (the MoE loss in the JAX package) is always 0 here.  ``remat`` (train
-    mode) recomputes each layer in the backward, as the JAX package's
-    ``jax.checkpoint`` per layer does.
+    is the MoE layers' load-balance loss summed (f32; 0 without MoE);
+    ``moe_ctx``: the MoE layers' ``apply_moe`` keywords (the per-shard
+    loss passes ``stat_reduce``).  ``remat`` (train mode) recomputes each
+    layer in the backward, as the JAX package's ``jax.checkpoint`` per
+    layer does.
     """
     _check_supported(cfg)
     tokens = batch["tokens"]
@@ -95,17 +97,20 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, Any], *, mode: str,
     h = add_positions(params["embed"], h, positions, cfg)
 
     shared = params["shared"] if _n_shared_banks(cfg) else None
+    aux = 0.0
     new_cache_groups = []
     for gi, group in enumerate(cfg.schedule):
         cache_g = cache["groups"][gi] if cache is not None else None
-        h, ncg = apply_group(params["groups"][gi], shared, h, cfg, group,
-                             positions=positions, mode=mode, cache_g=cache_g,
-                             pos=pos, causal=causal, paged=paged,
-                             remat=remat)
+        h, ncg, a = apply_group(params["groups"][gi], shared, h, cfg, group,
+                                positions=positions, mode=mode, cache_g=cache_g,
+                                pos=pos, causal=causal, paged=paged,
+                                remat=remat, moe_ctx=moe_ctx)
+        aux = aux + a
         new_cache_groups.append(ncg)
 
     h = apply_norm(params["final_norm"], h, cfg)
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    if not torch.is_tensor(aux):                # no MoE layer
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
     new_cache = {"groups": new_cache_groups} \
         if mode in ("prefill", "decode") else None
     if return_hidden:

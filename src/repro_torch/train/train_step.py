@@ -99,13 +99,14 @@ def chunked_xent(params, h, labels, loss_mask, cfg: ModelConfig, *,
     return s_nll, s_acc, s_den
 
 
-def shard_sums(model: Model, params, batch: Dict[str, torch.Tensor], run: RunConfig):
+def shard_sums(model: Model, params, batch: Dict[str, torch.Tensor], run: RunConfig,
+               moe_ctx=None):
     """(sum nll, sum correct, loss-mask sum, aux) of the rows in ``batch``;
     the loss blocks' length follows these rows, as in the JAX per-shard
-    call."""
+    call.  ``moe_ctx``: the MoE layers' keywords (``forward``)."""
     cfg = model.cfg
     h, _, aux = forward(params, cfg, batch, mode="train", act_dtype=_act_dtype(run),
-                        return_hidden=True, remat=run.remat)
+                        return_hidden=True, remat=run.remat, moe_ctx=moe_ctx)
     labels = batch["labels"]
     mask = batch.get("loss_mask")
     if mask is None:
@@ -127,8 +128,14 @@ def loss_for(model: Model, params, batch: Dict[str, torch.Tensor], *,
       ``s_nll / global_den + aux / dp_size``, built so that a plain SUM of
       the ranks' gradients is the global-batch gradient.  Only the mask
       sum is reduced before the backward, on a detached tensor; the
-      metrics are reduced with it (outside autograd) and are global."""
-    s_nll, s_acc, s_den, aux = shard_sums(model, params, batch, run)
+      metrics are reduced with it (outside autograd) and are global.  An
+      MoE model's router statistics are averaged over the group
+      (``gradsync.router_stat_mean``, JAX's ``stat_axes``), so that each
+      rank's aux is the global one and ``aux / dp_size`` summed over
+      the ranks gives JAX's gradient."""
+    moe_ctx = {"stat_reduce": gradsync.router_stat_mean} \
+        if dp_size > 1 and model.cfg.moe is not None else None
+    s_nll, s_acc, s_den, aux = shard_sums(model, params, batch, run, moe_ctx=moe_ctx)
     if dp_size > 1:
         red = torch.stack([s_den, s_nll, s_acc, aux]).detach().float()
         dist.all_reduce(red)
@@ -174,7 +181,18 @@ def _fused_accum(model: Model, run: RunConfig, plan: ParallelPlan):
     n_micro`` rows, each averaged over its own global mask sum, and the
     gradients are summed by one all-reduce after the backward.  A rank
     runs the part of each microbatch that lies in its rows (possibly
-    none); one all-reduce of the per-microbatch mask sums comes first."""
+    none); one all-reduce of the per-microbatch mask sums comes first.
+
+    An MoE model raises (ROADMAP C16): a piece's share of its
+    microbatch's aux below is right only for an aux that is a row mean,
+    and the MoE aux is not (JAX computes it on the whole global
+    microbatch)."""
+    if model.cfg.moe is not None and plan.dp_size > 1:
+        raise NotImplementedError(
+            f"{model.cfg.name}: the xla_fused fallback ({plan.fallback_reason}) over "
+            f"{plan.dp_size} ranks would take a piece's share of an MoE aux, which is "
+            f"not a row mean (ROADMAP C16); run bucketed_overlap or scatter_overlap "
+            f"(overlap on, a microbatch count that splits the local batch)")
     n = run.microbatch or 1
     G, local = plan.global_batch, plan.local_batch
     if G % n:

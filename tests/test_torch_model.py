@@ -237,9 +237,9 @@ def test_paged_decode_step_matches_jax(models, use_pallas):
 
 
 def test_unported_layers_raise():
-    """What the port still refuses: MLA, MoE, the encoder-decoder, and a
-    logit softcap in the flash backward kernel (sliding windows, qk-norm
-    and post-norms are ported: the gemma3 slice)."""
+    """What the port still refuses: MLA, the encoder-decoder, and a logit
+    softcap in the flash backward kernel (sliding windows, qk-norm and
+    post-norms are ported: the gemma3 slice; MoE: tests/test_torch_moe.py)."""
     import torch
 
     from repro_torch.configs.base import MLA
@@ -251,9 +251,6 @@ def test_unported_layers_raise():
     assert tuple(pools["groups"][0][0]["mixer"]["pos"].shape) == (1, 1, 16)
     with pytest.raises(NotImplementedError):
         build_model(dataclasses.replace(tcfg, schedule=uniform_schedule(1, LayerSpec(kind=MLA))),
-                    device="cpu")
-    with pytest.raises(NotImplementedError):
-        build_model(dataclasses.replace(tcfg, schedule=uniform_schedule(1, LayerSpec(moe=True))),
                     device="cpu")
     with pytest.raises(NotImplementedError):   # the encoder family is ported (training slice)
         build_model(dataclasses.replace(tcfg, is_encoder_decoder=True), device="cpu")

@@ -190,8 +190,8 @@ def test_zamba2_shared_banks_are_actually_shared():
                 if spec.kind == SHARED_ATTN:
                     bp = blocks.layer_row(tmodel["groups"][0][pi], r)
                     assert bp == {}
-                    y, _ = blocks.apply_block(bp, shared, h, tcfg, spec, positions=positions,
-                                              mode="train")
+                    y, _, _ = blocks.apply_block(bp, shared, h, tcfg, spec,
+                                                 positions=positions, mode="train")
                     out.append((spec.shared_bank, y))
         return out
 
