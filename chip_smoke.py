@@ -324,11 +324,13 @@ OUT = ROOT / "chiprun_out"
 # whose sides come last in that process, run after ddp.
 PHASES = ("build", "kernels", "path", "gemma_path", "ssm_path", "train_path", "ssm_train_path",
           "gemma_train_path", "gemma2_path", "ddp_path", "train", "gemma_train", "gemma2_train",
-          "zamba2_train", "llama3_train", "mixtral_train", "gemma2_train_path", "train_cli",
-          "bert350_train", "ssm_train", "serve", "gemma_serve", "gemma2_serve", "zamba2_serve",
-          "llama3_serve", "mixtral_serve", "ssm_serve", "ddp", "fsdp_path", "fsdp",
+          "zamba2_train", "llama3_train", "mixtral_train", "deepseek_train", "gemma2_train_path",
+          "train_cli", "bert350_train", "ssm_train", "serve", "gemma_serve", "gemma2_serve",
+          "zamba2_serve", "llama3_serve", "mixtral_serve", "deepseek_serve", "ssm_serve", "ddp",
+          "fsdp_path", "fsdp",
           "zamba2_path", "zamba2_train_path", "qwen2_path", "llama3_train_path", "mixtral_path",
-          "phi35_path", "mixtral_train_path", "bert_max_batch", "faults", "time")
+          "phi35_path", "mixtral_train_path", "deepseek_path", "deepseek_train_path",
+          "bert_max_batch", "faults", "time")
 AGAINST_PHASES = ("serve", "ssm_serve", "train", "time")   # the phases --against runs again
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the bounds below use them
@@ -436,6 +438,15 @@ ZAMBA2_TRAIN_ATTN = (1, 4096, 32, 32, 80, True)
 LLAMA3_TRAIN_ATTN = (1, 8192, 32, 8, 128, True)
 LLAMA3_TRAIN_SLICE = (1, 8192, 8, 2, 128, True)
 QWEN2_PROMPT_ATTN = (1, 300, 64, 8, 128, True)
+# deepseek-v2-lite's MLA attention at its train shape (B 1 x S 4096, 16 /
+# 16 heads): q and k at head dim 192 (128 nope + 64 rope), v at 128
+DEEPSEEK_TRAIN_ATTN = (1, 4096, 16, 16, 192, True)
+
+
+def v_dim(D):
+    """v's head dim for q/k head dim D (``hopper::v_dim``): MLA's 192
+    takes v at 128, every other head dim its own."""
+    return 128 if D == 192 else D
 
 FLASH_CASES = [  # (B, S, H, Hkv, D, causal, window, softcap[, scale])
     (2, 256, 4, 4, 64, True, None, 0.0),       # rep 1
@@ -483,6 +494,12 @@ FLASH_CASES = [  # (B, S, H, Hkv, D, causal, window, softcap[, scale])
     # GQA at rep 4 and 8, head dim 128, no softcap: llama3-8b's train shape
     # (a head slice), qwen2-72b's prompt
     LLAMA3_TRAIN_SLICE + (None, 0.0), QWEN2_PROMPT_ATTN + (None, 0.0),
+    # MLA (q/k 192 laid out as 256, v 128; causal): deepseek-v2-lite's train
+    # shape, ragged prefills of 300 and 4000, and the D-256 tiles' edges
+    # (bf16: 128 q rows a block, 64-key tiles; f32: 64 rows, 16-key tiles)
+    DEEPSEEK_TRAIN_ATTN + (None, 0.0), (1, 300, 16, 16, 192, True, None, 0.0),
+    (1, 4000, 16, 16, 192, True, None, 0.0), (2, 1, 4, 4, 192, True, None, 0.0),
+    (2, 129, 4, 2, 192, True, None, 0.0), (1, 65, 4, 4, 192, True, 40, 0.0),
 ]
 
 PAGED_CASES = [  # (B, H, Hkv, D, P, NP, maxp, window, softcap, (pos lo, hi))
@@ -583,6 +600,11 @@ FLASH_BWD_CASES = [
     # GQA at rep 4 and 8, head dim 128, causal, no softcap: llama3-8b's
     # train shape (a head slice), qwen2-72b's prompt
     LLAMA3_TRAIN_SLICE, QWEN2_PROMPT_ATTN,
+    # MLA (q/k 192, v 128; causal; D 256's shapes): deepseek-v2-lite's
+    # train shape, ragged prefills of 300 and 4000, and the tiles' edges
+    # (bf16 32-key and 32-row tiles, f32 16-row tiles), GQA, a window
+    DEEPSEEK_TRAIN_ATTN, (1, 300, 16, 16, 192, True), (1, 4000, 16, 16, 192, True),
+    (2, 33, 4, 4, 192, True), (1, 130, 4, 2, 192, True), (1, 97, 4, 4, 192, True, 40),
 ]
 
 
@@ -665,7 +687,7 @@ def _flash_inputs(torch, case, dtype, gen, amp=1.0):
     mk = lambda *s: with_slack(torch, torch.randn(*s, generator=gen, device="cuda").to(dtype))
     q = mk(B, S, H, D) if amp == 1.0 else with_slack(
         torch, (torch.randn(B, S, H, D, generator=gen, device="cuda") * amp).to(dtype))
-    return q, mk(B, S, Hkv, D), mk(B, S, Hkv, D)
+    return q, mk(B, S, Hkv, D), mk(B, S, Hkv, v_dim(D))
 
 
 def paged_tables(torch, case):
@@ -1006,7 +1028,7 @@ def kernel_readings(torch, dname, only=None):
             B, S, H, Hkv, D, causal = case[:6]
             window, cap, amp, scale = bwd_case_opts(case)
             q, k, v = _flash_inputs(torch, (B, S, H, Hkv, D), dtype, gen, amp)
-            do = with_slack(torch, torch.randn(B, S, H, D, generator=gen,
+            do = with_slack(torch, torch.randn(B, S, H, v_dim(D), generator=gen,
                                                device="cuda").to(dtype))
             if case == BERT_ATTN and want("flash_attention"):    # its forward too
                 yield ("flash_attention", case, *flash_reading(torch, q, k, v, causal))
@@ -1105,6 +1127,15 @@ FAULTS = [
      "constexpr int MAP_COLS = D;  // the inner extent of the q, k, v, o and dO maps",
      "constexpr int MAP_COLS = DqSmem<D, NP>::NB * BOX;  // the inner extent of the q, k, v, "
      "o and dO maps", "bfloat16"),
+    ("flash_attention", ("flash_attention",),
+     "MLA (D 192, v 128): S = Q K^T stops at column 128 (q_rope . k_rope dropped)",
+     "for (int kk = 0; kk < D / 16; ++kk)",
+     "for (int kk = 0; kk < (D == 192 ? 8 : D / 16); ++kk)", "bfloat16"),
+    ("flash_attention_bwd", ("flash_attention_bwd",),
+     "MLA (D 192, v 128): dK's columns 128-191 stored as zeros",
+     "acc_to_boxes<NH == 1 ? D : DH>(sm + L::K + wg * NB * BOX_BYTES, dk, p.scale, rl0, g, t);",
+     "acc_to_boxes<NH == 1 ? D : DH>(sm + L::K + wg * NB * BOX_BYTES, dk, "
+     "D == 192 && part == 1 ? 0.f : p.scale, rl0, g, t);", "bfloat16"),
     ("flash_attention", ("flash_attention",),
      "D-256 tiles: S = Q K^T skips the last 64-column box of the head dim",
      "for (int kk = 0; kk < D / 16; ++kk)",
@@ -1325,6 +1356,10 @@ D80_FUNCTIONS = (("flash_attention", "flash_fwd_wgmma"),
                  ("flash_attention_bwd", "dq_f32_wgmma"),
                  ("flash_attention_bwd", "dkdv_f32_wgmma"), ("paged_attention", "paged_wgmma"))
 D80_TEMPLATE_ARG = "ILi80E"
+# the same for MLA's q/k head dim 192 (v 128, laid out as 256: the D-256
+# bodies' instances at 192)
+D192_FUNCTIONS = D80_FUNCTIONS[:-1]
+D192_TEMPLATE_ARG = "ILi192E"
 
 
 # the sources whose wgmma bodies must keep every array in registers: ptxas
@@ -1402,7 +1437,8 @@ def wgmma_build_facts(rec, all_sass):
     and SASS counts (``all_sass``: {library: ``parse_sass`` counts}) of
     every instance of ``WGMMA_FUNCTIONS``.  Fails unless
     each runs on HGMMA and UTMALDG with no HMMA, if one of
-    ``D80_FUNCTIONS`` has no head-dim-80 instance, if ptxas serialized a
+    ``D80_FUNCTIONS`` has no head-dim-80 instance or one of
+    ``D192_FUNCTIONS`` no head-dim-192 one, if ptxas serialized a
     wgmma (its warning C7520), or if a wgmma body of
     ``FRAMELESS_SOURCES`` has a stack frame."""
     names = list(dict(WGMMA_FUNCTIONS))
@@ -1415,9 +1451,11 @@ def wgmma_build_facts(rec, all_sass):
                 if part in k:
                     log(f"{name} {k}: SASS {v}; ptxas {ptxas.get(k, 'not built in this run')}")
             faults += wgmma_route_faults(sass, part)
-        for _, part in (f for f in D80_FUNCTIONS if f[0] == name):
-            if not any(part in k and D80_TEMPLATE_ARG in k for k in sass):
-                faults.append(f"{name}: no {part} body at head dim 80")
+        for funcs, arg, D in ((D80_FUNCTIONS, D80_TEMPLATE_ARG, 80),
+                              (D192_FUNCTIONS, D192_TEMPLATE_ARG, 192)):
+            for _, part in (f for f in funcs if f[0] == name):
+                if not any(part in k and arg in k for k in sass):
+                    faults.append(f"{name}: no {part} body at head dim {D}")
         faults += [w for w in ptxas.get("warnings", []) if "C7520" in w]
         if name in FRAMELESS_SOURCES:
             faults += stack_frame_faults(ptxas)
@@ -1682,6 +1720,25 @@ def moe_cfg(arch, n_layers=None):
     return cfg
 
 
+def deepseek_cfg(n_layers=None):
+    """deepseek-v2-lite-16b at full width, the whole model (27 MLA layers:
+    the dense layer 0, 26 MoE) or cut to its dense layer 0 and
+    ``n_layers`` - 1 of its MoE layers (``moe_cfg`` refuses a cut with a
+    dense layer)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import MLA
+
+    cfg = get_config("deepseek-v2-lite-16b")
+    if n_layers is not None:
+        dense, moe = cfg.schedule
+        cfg = dataclasses.replace(cfg, schedule=(dense, dataclasses.replace(
+            moe, repeats=n_layers - 1)))
+    specs = [s for g in cfg.schedule for _ in range(g.repeats) for s in g.pattern]
+    if {s.kind for s in specs} != {MLA} or specs[0].moe or not all(s.moe for s in specs[1:]):
+        fail(f"{cfg.name}: the cut is not a dense MLA layer 0 and MoE MLA layers")
+    return cfg
+
+
 @contextlib.contextmanager
 def route_tap(torch, log_, gaps=True):
     """Every router call of the port's MoE layers (``models.moe.route``)
@@ -1750,7 +1807,11 @@ def engine_path_spec(key):
     flash tiles and the pages) and 37, 9 new tokens.  mixtral_path and
     phi35_path: mixtral-8x7b (8 experts, 3.16 G parameters) and
     phi3.5-moe (LayerNorm, 16 experts, vocab 32064, 2.86 G) at full width,
-    2 MoE layers, as qwen2_path."""
+    2 MoE layers, as qwen2_path.  deepseek_path: deepseek-v2-lite-16b at
+    full width (MLA: q/k 192 through the flash kernel in prefill, the
+    absorbed latent decode in plain PyTorch; 64 experts, top 6, 2 shared),
+    its dense layer 0 and one MoE layer (1.085 G parameters), as
+    qwen2_path."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import MAMBA, LayerSpec, uniform_schedule
     from repro_torch.launch.serve import random_prompts
@@ -1775,6 +1836,9 @@ def engine_path_spec(key):
         return cfg, random_prompts(2, [300, 37], cfg.vocab_size, seed=1), 9, PATH_ENGINE_KW
     if key in ("mixtral_path", "phi35_path"):
         cfg = moe_cfg("mixtral-8x7b" if key == "mixtral_path" else "phi3.5-moe-42b-a6.6b", 2)
+        return cfg, random_prompts(2, [300, 37], cfg.vocab_size, seed=1), 9, PATH_ENGINE_KW
+    if key == "deepseek_path":
+        cfg = deepseek_cfg(2)
         return cfg, random_prompts(2, [300, 37], cfg.vocab_size, seed=1), 9, PATH_ENGINE_KW
     cfg = zamba2_cfg("MAMB")
     return cfg, random_prompts(2, [300, 37], cfg.vocab_size, seed=1), 9, PATH_ENGINE_KW
@@ -1860,6 +1924,23 @@ def run_mixtral_serve(torch, rec):
               cfg=moe_cfg("mixtral-8x7b", 24))
 
 
+def run_deepseek_serve(torch, rec):
+    """deepseek-v2-lite-16b whole, bf16 (15.71 G parameters, 31.4 GB of
+    weights): 4 requests with prompts uniform in 600-4000 tokens, 32 new
+    tokens each, 8 slots of up to 256 pages of 16 tokens (2048 pages of
+    the 512-wide latent and the 64-wide rope key: 1.0 GB); 27 flash
+    launches a prefill (MLA at q/k 192, v 128) and no paged launch a tick
+    (MLA decodes over its gathered latent pages in plain PyTorch); one
+    4096-token prefill's per-expert token counts, 6 a token in each of
+    the 26 MoE layers; the peak of device memory; device busy of a
+    4096-token prefill and of a tick (2 profiled ticks).  Cut for the
+    script's time from 8 requests and 4 profiled ticks: a tick of this
+    model takes 8585 launches, about 0.28 s."""
+    run_serve(torch, rec, arch="deepseek-v2-lite-16b", key="deepseek_serve", lens=(600, 4000),
+              n_pages=2048, max_pages=256, prefill_S=4096, n_req=4, prefill_n=1,
+              cfg=deepseek_cfg(), tick_n=2)
+
+
 def run_gemma_serve(torch, rec):
     """gemma3-4b at full width and depth, bf16: 16 requests with prompts
     uniform in 600-3000 tokens (most past the window), 32 new tokens each,
@@ -1870,15 +1951,19 @@ def run_gemma_serve(torch, rec):
 
 
 def layer_counts(cfg):
-    """(attention invocations, those without a sliding window, Mamba2
-    blocks) of ``cfg``'s schedule: an ATTN layer and each invocation of a
-    shared bank (SHARED_ATTN) count once.  The global ones decode through
-    the paged kernel (a windowed layer decodes over its ring)."""
-    from repro_torch.configs.base import ATTN, MAMBA, SHARED_ATTN
+    """(attention invocations, those that decode through the paged
+    kernel, Mamba2 blocks) of ``cfg``'s schedule: an ATTN or MLA layer and
+    each invocation of a shared bank (SHARED_ATTN) count once, and each
+    runs the flash kernel over a whole sequence.  The paged kernel serves
+    the ATTN and SHARED_ATTN ones without a sliding window (a windowed
+    layer decodes over its ring, an MLA layer over its latent pages, both
+    in plain PyTorch)."""
+    from repro_torch.configs.base import ATTN, MAMBA, MLA, SHARED_ATTN
 
     specs = [s for g in cfg.schedule for _ in range(g.repeats) for s in g.pattern]
-    attn = [s for s in specs if s.kind in (ATTN, SHARED_ATTN)]
-    return len(attn), sum(s.window is None for s in attn), sum(s.kind == MAMBA for s in specs)
+    attn = [s for s in specs if s.kind in (ATTN, SHARED_ATTN, MLA)]
+    paged = [s for s in attn if s.kind != MLA and s.window is None]
+    return len(attn), len(paged), sum(s.kind == MAMBA for s in specs)
 
 
 def serve_launches(cfg, n_prefills, ticks):
@@ -1893,7 +1978,8 @@ def serve_launches(cfg, n_prefills, ticks):
 
 
 def run_serve(torch, rec, seed=0, arch="starcoder2-3b", key="serve", lens=(65, 1024),
-              n_pages=1024, max_pages=128, prefill_S=1024, n_req=16, prefill_n=3, cfg=None):
+              n_pages=1024, max_pages=128, prefill_S=1024, n_req=16, prefill_n=3, cfg=None,
+              tick_n=4):
     """``arch`` at full width and depth in bf16 (or ``cfg``, a cut of it),
     random weights from ``seed``: ``n_req`` requests, prompts uniform in
     ``lens`` tokens, 32 new tokens each, all submitted at once; 8 slots,
@@ -1901,7 +1987,8 @@ def run_serve(torch, rec, seed=0, arch="starcoder2-3b", key="serve", lens=(65, 1
     ssd_scan), and every decode tick the paged kernel once a global
     attention layer.  ``prefill_n``: the prefills of ``prefill_S`` tokens
     the profile reads; an MoE model's experts are counted over one more
-    (``moe_prefill_experts``)."""
+    (``moe_prefill_experts``); ``tick_n``: the ticks the decode profile
+    reads."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -1954,7 +2041,8 @@ def run_serve(torch, rec, seed=0, arch="starcoder2-3b", key="serve", lens=(65, 1
     log(f"{key}: {json.dumps({k: v for k, v in res.items() if k != 'prompt_lens'})}")
     rec[key] = res
     rec[f"{key}_prefill_profile"] = profile_prefill(torch, eng, cfg, S=prefill_S, n=prefill_n)
-    rec[f"{key}_decode_profile"] = profile_ticks(torch, eng, cfg, res["decode_tick_p50_ms"])
+    rec[f"{key}_decode_profile"] = profile_ticks(torch, eng, cfg, res["decode_tick_p50_ms"],
+                                                 n_ticks=tick_n)
     del eng
     torch.cuda.empty_cache()
 
@@ -1972,10 +2060,11 @@ def moe_prefill_experts(torch, eng, cfg, S):
     counts = [torch.bincount(r["idx"].reshape(-1), minlength=cfg.moe.n_experts).tolist()
               for r in routes]
     k = cfg.moe.top_k
-    if len(counts) != cfg.n_layers or any(sum(c) != k * S for c in counts):
+    n_moe = sum(g.repeats * sum(int(s.moe) for s in g.pattern) for g in cfg.schedule)
+    if len(counts) != n_moe or any(sum(c) != k * S for c in counts):
         fail(f"{cfg.name}: a {S}-token prefill routed {[sum(c) for c in counts]} "
              f"(token, expert) pairs in its {len(counts)} router calls, not {k * S} in each "
-             f"of {cfg.n_layers}")
+             f"of its {n_moe} MoE layers")
     log(f"{cfg.name}: a {S}-token prefill's experts, layer 0 {counts[0]}, "
         f"layer {len(counts) - 1} {counts[-1]}")
     return {"tokens": S, "top_k": k, "per_layer": counts}
@@ -2719,7 +2808,11 @@ def lm_path_spec(key):
     400 (one loss chunk, ragged against every tile), 2 steps.
     mixtral_train_path: mixtral-8x7b at 1 MoE layer (1.71 G parameters:
     its cpu side's f32 state about 27 GB, beside llama3's 24), B 1 x S
-    256, 2 steps; the aux loss and the experts of every router call too."""
+    256, 2 steps; the aux loss and the experts of every router call too.
+    deepseek_train_path: deepseek-v2-lite-16b, its dense layer 0 and one MoE
+    layer (1.085 G parameters), B 1 x S 256 (past the D-256 tiles' 64-key
+    and 32-row edges; cut from 512 for the cpu side's time, about 58 s at
+    512 beside the serve phases), 2 steps, as mixtral's."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import MAMBA, LayerSpec, uniform_schedule
 
@@ -2735,6 +2828,8 @@ def lm_path_spec(key):
         return dense_cfg("llama3-8b", 2), train_launches_per_step, 1, 400, 2
     if key == "mixtral_train_path":
         return moe_cfg("mixtral-8x7b", 1), train_launches_per_step, 1, 256, 2
+    if key == "deepseek_train_path":
+        return deepseek_cfg(2), train_launches_per_step, 1, 256, 2
     return gemma_cfg(2, window=256), train_launches_per_step, 1, 396, 2
 
 
@@ -2805,7 +2900,7 @@ def lm_train_side(torch, key, dev):
 # draws take turns through ``card_lock`` (gemma2_train_path's cuda side
 # ran out of memory beside qwen2_path's draw)
 CARD_LOCK_PHASES = ("gemma2_train", "zamba2_train", "llama3_train", "gemma2_serve",
-                    "mixtral_train", "mixtral_serve")
+                    "mixtral_train", "mixtral_serve", "deepseek_train", "deepseek_serve")
 
 
 @contextlib.contextmanager
@@ -2844,9 +2939,9 @@ def card_lock(torch, held=True):
 CPU_REF_KEYS = ("path", "gemma_path", "ssm_path", "train_path", "ssm_train_path",
                 "gemma_train_path", "gemma2_path", "gemma2_train_path", "zamba2_path",
                 "zamba2_train_path", "qwen2_path", "llama3_train_path", "mixtral_path",
-                "phi35_path", "mixtral_train_path")
+                "phi35_path", "mixtral_train_path", "deepseek_path", "deepseek_train_path")
 ENGINE_PATH_KEYS = ("path", "gemma_path", "ssm_path", "gemma2_path", "zamba2_path",
-                    "qwen2_path", "mixtral_path", "phi35_path")
+                    "qwen2_path", "mixtral_path", "phi35_path", "deepseek_path")
 _children = []                      # processes the script stops if it ends early
 
 
@@ -3172,6 +3267,21 @@ def run_mixtral_train(torch, rec, S=4096, n_functions=LM_FUNCTIONS, steps=4):
     every step, f32 gradients into AdamW in (b) (C12), MFU on the active
     parameters (6 N_active D)."""
     run_lm_train(torch, rec, "mixtral_train", moe_cfg("mixtral-8x7b", 2), S, n_functions, steps,
+                 (("a", "float32", 1, 1), ("b", "bfloat16", 2, 2)), n_prof=1)
+
+
+def run_deepseek_train(torch, rec, S=4096, n_functions=LM_FUNCTIONS // 2, steps=3):
+    """deepseek-v2-lite-16b at full width, its dense layer 0 and one MoE
+    layer (1.085 G parameters, 583.5 M active: f32 parameters, gradients
+    and AdamW moments take 17.4 GB), S 4096 from the DataPipeline: (a)
+    ``steps`` steps in f32 at B 1, (b) ``steps`` in bf16 at B 2 and
+    microbatch 2; as mixtral_train: the loss falls, the aux loss is finite
+    and positive, launches exact (the flash forward and backward in both
+    MLA layers at q/k 192, v 128), f32 gradients into AdamW in (b), MFU on
+    the active parameters.  Cut for the script's time from 4 steps and a
+    corpus of 200 functions (the 3 batches of 2 x 4096 tokens need far
+    fewer)."""
+    run_lm_train(torch, rec, "deepseek_train", deepseek_cfg(2), S, n_functions, steps,
                  (("a", "float32", 1, 1), ("b", "bfloat16", 2, 2)), n_prof=1)
 
 
@@ -4315,14 +4425,16 @@ def attn_pairs(S, causal, window=None):
 
 
 def flash_bwd_bound(q, k, causal, peak=None, window=None):
-    """(bound ms, what bounds it) of a flash backward: five products (S,
-    dP, dV, dK, dQ) of 2 D flops per unmasked (query, key) pair and head
-    at ``peak`` (default ``_flash_peak``); q, o, do, dq and k, v, dk, dv
+    """(bound ms, what bounds it) of a flash backward: five products per
+    unmasked (query, key) pair and head, S, dK and dQ of 2 D flops, dP and
+    dV of 2 Dv (v's head dim, ``v_dim``), at ``peak`` (default
+    ``_flash_peak``); q, dq, k, dk (D wide) and o, do, v, dv (Dv wide)
     moved once in the inputs' dtype, the f32 lse read once."""
     B, S, H, D = q.shape
+    Hkv, Dv = k.shape[2], v_dim(D)
     pairs = attn_pairs(S, causal, window)
-    nbytes = q.element_size() * B * S * D * (4 * H + 4 * k.shape[2]) + 4 * B * H * S
-    return _bound(10 * B * H * D * pairs, nbytes, peak or _flash_peak(q))
+    nbytes = q.element_size() * B * S * 2 * (H + Hkv) * (D + Dv) + 4 * B * H * S
+    return _bound(2 * B * H * (3 * D + 2 * Dv) * pairs, nbytes, peak or _flash_peak(q))
 
 
 def device_ms_by_kernel(torch, fn, n=10):
@@ -4403,9 +4515,11 @@ def time_flash_bwd(torch, checked, what, q, k, v, do, causal, window=None, iters
         try:
             lib_ms, lib_call_ms = time_ms(torch, sdpa_bwd(torch, q, k, v, do, causal),
                                           iters, reps)
-        except RuntimeError as e:       # a torch whose flash op this card or graph refuses
-            log(f"time flash_bwd {what}: SDPA's backward op not timed: {e}")
-            lib_ms = lib_call_ms = None
+        except RuntimeError as e:       # an op this card, graph or shape (v at its own
+            # head dim) refuses: SDPA's autograd backward, whatever backend it picks
+            log(f"time flash_bwd {what}: SDPA's backward op not timed ({e}); its autograd "
+                f"backward, eager, instead")
+            lib_ms, lib_call_ms = lib_eager, None
     bound = flash_bwd_bound(q, k, causal, window=window)
     lib_op = "efficient" if f32 else "flash"
     res = {"shape": list(q.shape) + [k.shape[2]], "dtype": str(q.dtype).split(".")[1],
@@ -4428,15 +4542,16 @@ def time_flash_bwd(torch, checked, what, q, k, v, do, causal, window=None, iters
 
 
 def flash_bound(q, k, causal, lse, peak=None, window=None):
-    """(bound ms, what bounds it) of a flash forward: 4 D flops per
-    unmasked (query, key) pair and head at ``peak`` (default
-    ``_flash_peak``), q, k, v read and o (and the f32 lse) written once in
-    the inputs' dtype."""
+    """(bound ms, what bounds it) of a flash forward: 2 (D + Dv) flops
+    per unmasked (query, key) pair and head (Q K^T at D, P V at v's head
+    dim Dv, ``v_dim``) at ``peak`` (default ``_flash_peak``), q, k (D
+    wide), v and o (Dv wide) and the f32 lse moved once in the inputs'
+    dtype."""
     B, S, H, D = q.shape
+    Hkv, Dv = k.shape[2], v_dim(D)
     pairs = attn_pairs(S, causal, window)
-    nbytes = q.element_size() * B * S * D * (2 * H + 2 * k.shape[2]) \
-        + (4 * B * H * S if lse else 0)
-    return _bound(4 * B * H * D * pairs, nbytes, peak or _flash_peak(q))
+    nbytes = q.element_size() * B * S * (H + Hkv) * (D + Dv) + (4 * B * H * S if lse else 0)
+    return _bound(2 * B * H * (D + Dv) * pairs, nbytes, peak or _flash_peak(q))
 
 
 def time_kernels(torch, rec, strict=True):
@@ -4516,7 +4631,8 @@ def time_kernels(torch, rec, strict=True):
                    "gemma": time_gemma_kernels(torch, checked, gen),
                    "gemma2": time_gemma2_kernels(torch, checked, gen),
                    "zamba2": time_zamba2_kernels(torch, checked, gen),
-                   "llama3": time_llama3_kernels(torch, checked, gen)}
+                   "llama3": time_llama3_kernels(torch, checked, gen),
+                   "deepseek": time_deepseek_kernels(torch, checked, gen)}
 
 
 def plain_ms_by_groups(torch, q, k, v, opts, do=None):
@@ -4730,6 +4846,35 @@ def time_zamba2_kernels(torch, checked, gen, iters=3, reps=2):
     # paged: a tick's shared invocation, 8 slots x ~2000 live tokens; two
     # disjoint table sets alternate, 84 MB of K/V each (L2: 50 MB)
     out["paged"] = paged_row(torch, checked, mk, "zamba2", 32, 32, 80, seed=6)
+    return out
+
+
+def time_deepseek_kernels(torch, checked, gen, iters=3, reps=2):
+    """deepseek-v2-lite's MLA attention (q/k head dim 192 laid out as 256,
+    v 128; 16 / 16 heads, causal): the flash forward (with lse) and
+    backward at its train shape B 1 x S 4096 in bf16 and f32, and the
+    forward at a 4000-token bf16 prefill, each against the bound on the
+    true work (``flash_bound``: 2 B H (S^2 / 2) (192 + 128) flops
+    forward; ``flash_bwd_bound``: 2 B H (S^2 / 2) (3 192 + 2 128)
+    backward), the plain version and SDPA at E 192, Ev 128 (its backward
+    op where it takes the shape, else its autograd backward)."""
+    mk = lambda shape, dtype: torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+    out = {"flash_train": {}}
+    B, S, H, Hkv, D, _ = DEEPSEEK_TRAIN_ATTN
+    Dv = v_dim(D)
+    for dname in ("bfloat16", "float32"):
+        dtype = getattr(torch, dname)
+        q, k = mk((B, S, H, D), dtype), mk((B, S, Hkv, D), dtype)
+        v, do = mk((B, S, Hkv, Dv), dtype), mk((B, S, H, Dv), dtype)
+        what = f"deepseek train {dname}"
+        out["flash_train"][dname] = {
+            "fwd": flash_fwd_row(torch, checked, what, q, k, v, None, True, iters, reps),
+            "bwd": time_flash_bwd(torch, checked, what, q, k, v, do, True, None, iters, reps)}
+        del q, k, v, do
+    q, k = mk((B, 4000, H, D), torch.bfloat16), mk((B, 4000, Hkv, D), torch.bfloat16)
+    v = mk((B, 4000, Hkv, Dv), torch.bfloat16)
+    out["flash_prefill"] = flash_fwd_row(torch, checked, "deepseek prefill", q, k, v, None,
+                                         False, iters, reps)
     return out
 
 
@@ -5120,16 +5265,20 @@ def kernel_records(rec):
              for key in ("serve", "ssm_serve", "train", "train_cli", "ssm_train", "ddp",
                          "fsdp", "gemma_serve", "gemma_train", "gemma2_serve", "gemma2_train",
                          "zamba2_serve", "zamba2_train", "llama3_serve", "llama3_train",
-                         "bert350_train", "mixtral_serve", "mixtral_train")}
+                         "bert350_train", "mixtral_serve", "mixtral_train", "deepseek_serve",
+                         "deepseek_train")}
     paths["ssm_train_bf16"] = rec.get("ssm_train", {}).get("c", {}).get("launches", {})
     paths["gemma_train_bf16"] = rec.get("gemma_train", {}).get("b", {}).get("launches", {})
     paths["gemma2_train_bf16"] = rec.get("gemma2_train", {}).get("b", {}).get("launches", {})
     paths["zamba2_train_bf16"] = rec.get("zamba2_train", {}).get("b", {}).get("launches", {})
     paths["llama3_train_bf16"] = rec.get("llama3_train", {}).get("b", {}).get("launches", {})
     paths["mixtral_train_bf16"] = rec.get("mixtral_train", {}).get("b", {}).get("launches", {})
+    paths["deepseek_train_bf16"] = rec.get("deepseek_train", {}).get("b", {}).get("launches", {})
     gm, gm2, zm = t.get("gemma", {}), t.get("gemma2", {}), t.get("zamba2", {})
     l3 = t.get("llama3", {})
     l3train = l3.get("flash_train", {})     # {dtype: {fwd, bwd}}
+    ds = t.get("deepseek", {})
+    dstrain = ds.get("flash_train", {})     # {dtype: {fwd, bwd}}
     ztrain = zm.get("flash_train", {})     # {dtype: {fwd, bwd}}
     gtrain = gm.get("flash_train", {})      # {dtype: {"window" | "global": {fwd, bwd}}}
     flash_top = next((x for x in t.get("flash", []) if x["S"] == 1024), {})
@@ -5146,7 +5295,10 @@ def kernel_records(rec):
                                  "zamba2_train_shape": {d: r.get("fwd") for d, r in ztrain.items()},
                                  "zamba2_prefill_shape": zm.get("flash_prefill"),
                                  "llama3_train_shape": {d: r.get("fwd")
-                                                        for d, r in l3train.items()}},
+                                                        for d, r in l3train.items()},
+                                 "deepseek_mla_train_shape": {d: r.get("fwd")
+                                                              for d, r in dstrain.items()},
+                                 "deepseek_mla_prefill_shape": ds.get("flash_prefill")},
              "paged_attention": {**{k: t.get("paged", {}).get(k)
                                     for k in ("call_ms", "host_call_ms", "by_kernel")},
                                  "gemma_shape": gm.get("paged"),
@@ -5169,7 +5321,9 @@ def kernel_records(rec):
                                      "zamba2_train_shape": {d: r.get("bwd")
                                                             for d, r in ztrain.items()},
                                      "llama3_train_shape": {d: r.get("bwd")
-                                                            for d, r in l3train.items()}},
+                                                            for d, r in l3train.items()},
+                                     "deepseek_mla_train_shape": {d: r.get("bwd")
+                                                                  for d, r in dstrain.items()}},
              "fused_xent": {"bf16": xe.get("bfloat16", {}).get("fwd")},
              "fused_xent_bwd": {"bf16": xe.get("bfloat16", {}).get("bwd")},
              "ssd_scan": {"f32": ssd.get("float32"), "zamba2_bf16": ssd.get("zamba2_bf16"),
@@ -5472,6 +5626,11 @@ def main():
              "mixtral_train_path": lambda torch, rec: check_lm_train_path(
                  torch, rec, "mixtral_train_path", cpu_refs),
              "mixtral_serve": run_mixtral_serve, "mixtral_train": run_mixtral_train,
+             "deepseek_path": lambda torch, rec: check_engine_path(torch, rec, "deepseek_path",
+                                                                   cpu_refs),
+             "deepseek_train_path": lambda torch, rec: check_lm_train_path(
+                 torch, rec, "deepseek_train_path", cpu_refs),
+             "deepseek_serve": run_deepseek_serve, "deepseek_train": run_deepseek_train,
              "bert350_train": run_bert350_train,
              "bert_max_batch": lambda torch, rec: run_bert_max_batch(torch, rec, cpu_refs),
              "ddp_path": check_ddp_path, "fsdp_path": check_fsdp_path,

@@ -11,6 +11,7 @@ from repro_torch.configs.base import (ModelConfig, RunConfig,  # noqa: F401
 ARCHS = {
     "bert-mlm-120m": "bert_mlm_120m",
     "bert-mlm-350m": "bert_mlm_350m",
+    "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
     "gemma2-27b": "gemma2_27b",
     "gemma3-4b": "gemma3_4b",
     "llama3-8b": "llama3_8b",

@@ -113,8 +113,9 @@ class ParallelPlan:
     router's batch statistics over the group (``models/moe.py``
     ``route(stat_reduce=...)``).  Its expert-parallel dispatch
     (``ep_overlap``, an ``expert`` mesh axis) comes with ROADMAP A11, so
-    :attr:`ep_engaged` is False; the ``xla_fused`` fallback refuses an
-    MoE model over several ranks (ROADMAP C16, ``train_step``)."""
+    :attr:`ep_engaged` is False.  Under the ``xla_fused`` fallback the
+    step sums each global microbatch's router statistics over its pieces
+    and ranks before the aux (``train_step._fused_accum``)."""
 
     mode: str
     world: Optional[int] = None

@@ -74,6 +74,15 @@
 // m64n80k16 would save 3/8 of it; V's MN-major tile then spans two swizzle
 // atoms), and nothing is copied or padded in device memory.  Its tiles are
 // D 128's: the same shared memory and registers a thread.
+// D 192 with v at 128 (deepseek-v2-lite's MLA, 16 / 16 heads: q and k are
+// 128 nope + 64 rope columns, v 128): q and k laid out as D 256
+// (`hopper::box_cols`) in D 256's tiles, their tensor maps at an inner
+// extent of 192, of which the three boxes that hold columns are loaded
+// (the fourth is never loaded nor read); S = Q K^T stops after the 12
+// k-steps of 192.  V, O and their maps are 128 wide (`hopper::v_dim`):
+// V takes two boxes a stage and O += P V runs at N 128, so the product
+// does no work on columns V does not have.  Nothing is padded or copied
+// in device memory; the f32 pre-pass splits q and k at 192 and v at 128.
 //
 //
 // f32 body (`flash_fwd_f32_wgmma_kernel`, the exactness path, the train
@@ -178,20 +187,25 @@ template <>
 struct Tiles<256, 3> {  // Q's three pieces: 96 KB for one warpgroup's 64 rows
   static constexpr int BK = 16, STAGES = 2, MIN_BLOCKS = 1, WG = 1;
 };
+// D 192 (MLA): D 256's layout of q and k (hopper::box_cols), so its tiles
+template <int NP>
+struct Tiles<192, NP> : Tiles<256, NP> {};
 
 // shared memory, in bytes from a 1024-aligned base: Q as NP pieces of NB
 // boxes of WQ rows, then K of every stage, then V of every stage (box x of
-// piece p of stage s at ((s * NP + p) * NB + x) boxes), then the barriers;
-// NB = box_cols / 64, the boxes of a row (2 at D 80)
+// piece p of stage s at ((s * NP + p) * NB + x) boxes, NBV boxes for V),
+// then the barriers; NB = box_cols / 64, the boxes of a row (2 at D 80, 4
+// at D 192, of which NBL = 3 hold columns); NBV: V's (v_dim's) boxes
 template <int D, int NP>
 struct Smem {
-  static constexpr int NB = hopper::box_cols<D>() / BOX;
+  static constexpr int NB = hopper::box_cols<D>() / BOX, NBL = hopper::data_boxes<D>();
+  static constexpr int DV = hopper::v_dim<D>(), NBV = hopper::box_cols<DV>() / BOX;
   static constexpr int BK = Tiles<D, NP>::BK, STAGES = Tiles<D, NP>::STAGES;
   static constexpr int WQ = 64 * Tiles<D, NP>::WG, WNT = 128 * Tiles<D, NP>::WG;  // q rows, threads
   static constexpr int Q_BOX = WQ * BOX * 2, KV_BOX = BK * BOX * 2;
   static constexpr int K = NP * NB * Q_BOX;
   static constexpr int V = K + STAGES * NP * NB * KV_BOX;
-  static constexpr int BAR = V + STAGES * NP * NB * KV_BOX;
+  static constexpr int BAR = V + STAGES * NP * NBV * KV_BOX;
   static constexpr int BYTES = BAR + 8 * (1 + 4 * STAGES) + 1024;  // + alignment slack
 };
 
@@ -202,9 +216,10 @@ __device__ __forceinline__ void fwd_body(const CUtensorMap& tq, const CUtensorMa
                                          const CUtensorMap& tv, const CUtensorMap& to,
                                          const Params& p) {
   using L = Smem<D, NP>;
-  constexpr int NB = L::NB, BK = L::BK, STAGES = L::STAGES, NPAIR = hopper::n_pairs(NP);
+  constexpr int NB = L::NB, NBL = L::NBL, NBV = L::NBV, DV = L::DV;
+  constexpr int BK = L::BK, STAGES = L::STAGES, NPAIR = hopper::n_pairs(NP);
   constexpr int WQ = L::WQ, WNT = L::WNT;
-  constexpr int DP = NB * BOX;  // O's columns: the head dim's boxes (zeros past D)
+  constexpr int DP = NBV * BOX;  // O's columns: v's boxes (zeros past DV)
   static_assert(STAGES >= 2, "V of tile i is refilled two iterations after its use");
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = smem_raw + ((1024 - (hopper::smem_addr(smem_raw) & 1023)) & 1023);
@@ -243,22 +258,22 @@ __device__ __forceinline__ void fwd_body(const CUtensorMap& tq, const CUtensorMa
   // K, or V, of tile kt_lo + i into stage i % STAGES (thread 0 only)
   auto load_k = [&](int i) {
     const int s = i % STAGES, k0 = (kt_lo + i) * BK;
-    hopper::mbar_expect_tx(&k_full[s], NP * NB * L::KV_BOX);
+    hopper::mbar_expect_tx(&k_full[s], NP * NBL * L::KV_BOX);
 #pragma unroll
     for (int pc = 0; pc < NP; ++pc)
 #pragma unroll
-      for (int x = 0; x < NB; ++x)
+      for (int x = 0; x < NBL; ++x)
         hopper::tma_load_4d(sm + L::K + ((s * NP + pc) * NB + x) * L::KV_BOX, &tk, &k_full[s],
                             x * BOX, hk, k0, pc * p.B + b);
   };
   auto load_v = [&](int i) {
     const int s = i % STAGES, k0 = (kt_lo + i) * BK;
-    hopper::mbar_expect_tx(&v_full[s], NP * NB * L::KV_BOX);
+    hopper::mbar_expect_tx(&v_full[s], NP * NBV * L::KV_BOX);
 #pragma unroll
     for (int pc = 0; pc < NP; ++pc)
 #pragma unroll
-      for (int x = 0; x < NB; ++x)
-        hopper::tma_load_4d(sm + L::V + ((s * NP + pc) * NB + x) * L::KV_BOX, &tv, &v_full[s],
+      for (int x = 0; x < NBV; ++x)
+        hopper::tma_load_4d(sm + L::V + ((s * NP + pc) * NBV + x) * L::KV_BOX, &tv, &v_full[s],
                             x * BOX, hk, k0, pc * p.B + b);
   };
   if (tid == 0) {
@@ -273,11 +288,11 @@ __device__ __forceinline__ void fwd_body(const CUtensorMap& tq, const CUtensorMa
   }
   __syncthreads();
   if (tid == 0) {
-    hopper::mbar_expect_tx(q_full, NP * NB * L::Q_BOX);
+    hopper::mbar_expect_tx(q_full, NP * NBL * L::Q_BOX);
 #pragma unroll
     for (int pc = 0; pc < NP; ++pc)
 #pragma unroll
-      for (int x = 0; x < NB; ++x)
+      for (int x = 0; x < NBL; ++x)
         hopper::tma_load_4d(sm + (pc * NB + x) * L::Q_BOX, &tq, q_full, x * BOX, h, q0,
                             pc * p.B + b);
     for (int i = 0; i < min(STAGES, n_tiles); ++i) {
@@ -382,7 +397,7 @@ __device__ __forceinline__ void fwd_body(const CUtensorMap& tq, const CUtensorMa
         hopper::wgmma_rs<DP, 1>(
             o, pa[hopper::pair_i(NP, k)][kc],
             hopper::desc_sw128(
-                v_smem + (st * NP + hopper::pair_j(NP, k)) * NB * L::KV_BOX + kc * 16 * 128,
+                v_smem + (st * NP + hopper::pair_j(NP, k)) * NBV * L::KV_BOX + kc * 16 * 128,
                 L::KV_BOX, 1024),
             1);
     hopper::wgmma_commit();
@@ -488,18 +503,18 @@ __device__ __forceinline__ void fwd_body(const CUtensorMap& tq, const CUtensorMa
     const float lsum = fmaxf(l[r], 1e-37f);
     const int row = row0 + 8 * r;
     if constexpr (NP == 1) {
-      // O's D columns into this warpgroup's Q rows, swizzled as the TMA box
+      // O's DV columns into this warpgroup's Q rows, swizzled as the TMA box
       // expects: 16-byte chunk c of row rl at chunk c ^ (rl % 8)
       const int rl = warp * 16 + g + 8 * r;
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j)
+      for (int j = 0; j < DV / 8; ++j)
         *reinterpret_cast<__nv_bfloat162*>(sm + (j / 8) * L::Q_BOX + (wg * 64 + rl) * 128 +
                                            ((j % 8) ^ g) * 16 + t * 4) =
             __floats2bfloat162_rn(o[4 * j + 2 * r] / lsum, o[4 * j + 2 * r + 1] / lsum);
     } else if (row < S) {  // f32 O straight from the fragment, 8 bytes a store
       float* orow = static_cast<float*>(p.o) + b * p.o_sb + row * p.o_ss + h * p.o_sh;
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j)
+      for (int j = 0; j < DV / 8; ++j)
         *reinterpret_cast<float2*>(orow + 8 * j + 2 * t) =
             make_float2(o[4 * j + 2 * r] / lsum, o[4 * j + 2 * r + 1] / lsum);
     }
@@ -512,7 +527,7 @@ __device__ __forceinline__ void fwd_body(const CUtensorMap& tq, const CUtensorMa
     hopper::named_barrier(1 + wg, 128);
     if (tid % 128 == 0) {
 #pragma unroll
-      for (int x = 0; x < NB; ++x)
+      for (int x = 0; x < hopper::data_boxes<DV>(); ++x)
         hopper::tma_store_4d(&to, sm + x * L::Q_BOX + wg * 64 * 128, x * BOX, h, r0, b);
       hopper::tma_store_commit();
       hopper::tma_store_wait();
@@ -562,25 +577,32 @@ cudaError_t launch(const Params& p, const Operands& x, cudaStream_t stream) {
     if (e != cudaSuccess) return e;
     configured = true;
   }
+  constexpr int DV = hopper::v_dim<D>();
   const int nb = NP * p.B, BK = Tiles<D, NP>::BK, WQ = Smem<D, NP>::WQ;
-  auto map = [&](CUtensorMap* m, int i, int heads, int rows) {
-    return hopper::bhsd_map(m, x.ptr[i], nb, p.S, heads, D, x.stride[i][0], x.stride[i][1],
+  // each map at its tensor's true inner extent: D for q and k, DV for v
+  // and o
+  auto map = [&](CUtensorMap* m, int i, int heads, int cols, int rows) {
+    return hopper::bhsd_map(m, x.ptr[i], nb, p.S, heads, cols, x.stride[i][0], x.stride[i][1],
                             x.stride[i][2], rows);
   };
   CUtensorMap tq, tk, tv, to{};
-  if (!map(&tq, 0, p.H, WQ) || !map(&tk, 1, p.Hkv, BK) || !map(&tv, 2, p.Hkv, BK) ||
-      (NP == 1 && !hopper::bhsd_map(&to, p.o, p.B, p.S, p.H, D, p.o_sb, p.o_ss, p.o_sh, 64)))
+  if (!map(&tq, 0, p.H, D, WQ) || !map(&tk, 1, p.Hkv, D, BK) || !map(&tv, 2, p.Hkv, DV, BK) ||
+      (NP == 1 && !hopper::bhsd_map(&to, p.o, p.B, p.S, p.H, DV, p.o_sb, p.o_ss, p.o_sh, 64)))
     return cudaErrorInvalidValue;
   const dim3 grid(p.H * p.B * ((p.S + WQ - 1) / WQ));
   kernel<<<grid, Smem<D, NP>::WNT, smem, stream>>>(tq, tk, tv, to, p);
   return cudaGetLastError();
 }
 
+// the softcap is built at the head dims D == DV (MLA has none)
 template <int D, int NP>
 cudaError_t launch_opts(const Params& p, const Operands& x, cudaStream_t st) {
   const bool lse = p.lse != nullptr;
-  if (p.softcap > 0.f)
-    return lse ? launch<D, NP, true, true>(p, x, st) : launch<D, NP, false, true>(p, x, st);
+  if (p.softcap > 0.f) {
+    if constexpr (hopper::v_dim<D>() != D) return cudaErrorInvalidValue;
+    else
+      return lse ? launch<D, NP, true, true>(p, x, st) : launch<D, NP, false, true>(p, x, st);
+  }
   return lse ? launch<D, NP, true, false>(p, x, st) : launch<D, NP, false, false>(p, x, st);
 }
 
@@ -592,33 +614,45 @@ cudaError_t launch_d(const Params& p, int dtype, void* pieces, cudaStream_t st) 
                                                         {p.v_sb, p.v_ss, p.v_sh}}}, st);
   if (dtype != 0 || pieces == nullptr) return cudaErrorInvalidValue;
   // f32: q, k, v into their pieces, one (3, B, S, heads, D) bf16 tensor
-  // each, one after the other in the caller's scratch
+  // each (v's D is DV), one after the other in the caller's scratch
+  constexpr int DV = hopper::v_dim<D>();
   const long long rq = static_cast<long long>(p.S) * p.H * D, rk = static_cast<long long>(p.S) * p.Hkv * D;
+  const long long rv = static_cast<long long>(p.S) * p.Hkv * DV;
   __nv_bfloat16* pq = static_cast<__nv_bfloat16*>(pieces);
   __nv_bfloat16* pk = pq + 3 * p.B * rq;
   __nv_bfloat16* pv = pk + 3 * p.B * rk;
   const hopper::SplitArgs a{{static_cast<const float*>(p.q), static_cast<const float*>(p.k),
-                             static_cast<const float*>(p.v), nullptr},
+                             DV == D ? static_cast<const float*>(p.v) : nullptr, nullptr},
                             {pq, pk, pv, nullptr},
                             {p.q_sb, p.k_sb, p.v_sb, 0},
                             {p.q_ss, p.k_ss, p.v_ss, 0},
                             {p.q_sh, p.k_sh, p.v_sh, 0},
                             {p.H, p.Hkv, p.Hkv, 0}};
-  cudaError_t e = hopper::split3(a, 3, p.B, p.S, D, st);
+  cudaError_t e = hopper::split3(a, DV == D ? 3 : 2, p.B, p.S, D, st);
   if (e != cudaSuccess) return e;
+  if constexpr (DV != D) {  // v at its own head dim
+    const hopper::SplitArgs av{{static_cast<const float*>(p.v), nullptr, nullptr, nullptr},
+                               {pv, nullptr, nullptr, nullptr},
+                               {p.v_sb, 0, 0, 0},
+                               {p.v_ss, 0, 0, 0},
+                               {p.v_sh, 0, 0, 0},
+                               {p.Hkv, 0, 0, 0}};
+    if ((e = hopper::split3(av, 1, p.B, p.S, DV, st)) != cudaSuccess) return e;
+  }
   return launch_opts<D, 3>(p, {{pq, pk, pv}, {{rq, static_cast<long long>(p.H) * D, D},
                                                {rk, static_cast<long long>(p.Hkv) * D, D},
-                                               {rk, static_cast<long long>(p.Hkv) * D, D}}}, st);
+                                               {rv, static_cast<long long>(p.Hkv) * DV, DV}}}, st);
 }
 
 }  // namespace
 
-// dtype: 0 = float32 (then `pieces` is bf16 scratch of 3 B S (H + 2 Hkv) D
-// elements for q, k and v as three bf16 pieces each), 1 = bfloat16 (then q,
+// dtype: 0 = float32 (then `pieces` is bf16 scratch of 3 B S ((H + Hkv) D +
+// Hkv Dv) elements for q, k and v as three bf16 pieces each), 1 = bfloat16 (then q,
 // k, v must start on a 16-byte boundary with strides of whole 16 bytes:
 // the TMA's rule).  lse: (B, H, S) f32, or null for none.  Returns a
 // cudaError_t (0 = launched).  `pieces` comes last, after the stream, so
-// that a caller passing it can drive a build of an earlier source.
+// that a caller passing it can drive a build of an earlier source; `Dv`
+// (v's and o's head dim: D, or 128 at MLA's D 192) after it, likewise.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    float* lse,
                                    long long q_sb, long long q_ss, long long q_sh,
@@ -627,11 +661,13 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
                                    long long o_sb, long long o_ss, long long o_sh,
                                    int B, int S, int H, int Hkv, int D, int dtype,
                                    int causal, int window, float softcap, float scale,
-                                   void* stream, void* pieces) {
+                                   void* stream, void* pieces, int Dv) {
   Params p{q, k, v, o, lse,
            q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh,
            B, S, H, Hkv, causal, window, softcap, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 192 && Dv == 128) return launch_d<192>(p, dtype, pieces, st);
+  if (Dv != D) return static_cast<int>(cudaErrorInvalidValue);
   if (D == 64) return launch_d<64>(p, dtype, pieces, st);
   if (D == 80) return launch_d<80>(p, dtype, pieces, st);
   if (D == 128) return launch_d<128>(p, dtype, pieces, st);

@@ -85,6 +85,19 @@
 // are never written: the TMA store drops them, the f32 epilogue stores 80
 // columns).  Its shapes are D 128's, whose shared memory and registers it
 // holds.
+// D 192 with v at 128 (deepseek-v2-lite's MLA, 16 / 16 heads, causal):
+// q and k laid out as D 256 (`hopper::box_cols`) in D 256's shapes, their
+// maps (and dq's, dk's) at an inner extent of 192, v, o, dO and dv at 128
+// (`hopper::v_dim`).  Only the boxes that hold columns are loaded: three
+// of q and k, two of v, o and dO; the rest of a 256 layout is never
+// loaded, and enters only output columns that are never stored.  S (and
+// S^T) stop after the 12 k-steps of 192, dP (and dP^T) after the 8 of
+// 128; Delta sums v's two boxes.  dQ += dS K runs at N 256 (columns
+// 192-255 dropped), and dkdv's two column halves take dK's columns 0-127
+// and 128-191 and dV's 0-127: the second half's dV product runs over
+// columns V does not have, and its store is skipped.  The f32 bodies
+// (`Shape<256, 3>`'s resident tiles) hold dO and V in f32 at 128 columns,
+// and dQ and dK in registers alone (192 columns: RREG).
 // The softcap is a compile-time choice of both passes (CAP), as in the
 // forward, so that no branch on it lies near a wgmma.  Each pass computes
 // t with the accurate tanhf while dP runs (tanh.approx's ~2^-11 times a
@@ -262,6 +275,9 @@ struct Shape<256, 3> {
                        NH = 2, RREG = 96;
   static constexpr bool RES = true;
 };
+// D 192 (MLA): D 256's layout of q and k (hopper::box_cols), so its shapes
+template <int NP>
+struct Shape<192, NP> : Shape<256, NP> {};
 
 // dq: Q, dO (and with bf16 inputs O) of the block's rows as (warpgroup,
 // piece, box) boxes of 64 rows, then K and V of each stage (box x of piece
@@ -323,7 +339,7 @@ struct DvSmem {
 };
 
 static_assert(DqSmem<256, 3>::BYTES <= 232448 && KvSmem<256, 3>::BYTES <= 232448 &&
-                  DvSmem<256>::BYTES <= 232448,
+                  DvSmem<256>::BYTES <= 232448 && DvSmem<192>::BYTES <= 232448,
               "a block has 227 KB");
 
 __device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
@@ -448,14 +464,15 @@ __device__ __forceinline__ void sacc_to_f32(float* out, const float* sacc, float
 }
 
 // NB boxes at `box` to rows row .. row + 63 of head h of a map, from
-// column col0; after every thread of the warpgroup wrote its part (call
-// from one thread)
+// column col0, the first n of them (the boxes that hold the map's
+// columns); after every thread of the warpgroup wrote its part (call from
+// one thread)
 template <int NB>
 __device__ __forceinline__ void store_boxes(const CUtensorMap* map, const uint8_t* box, int h,
-                                            int row, int b, int col0 = 0) {
+                                            int row, int b, int col0 = 0, int n = NB) {
 #pragma unroll
   for (int x = 0; x < NB; ++x)
-    hopper::tma_store_4d(map, box + x * BOX_BYTES, col0 + x * BOX, h, row, b);
+    if (x < n) hopper::tma_store_4d(map, box + x * BOX_BYTES, col0 + x * BOX, h, row, b);
   hopper::tma_store_commit();
   hopper::tma_store_wait();
 }
@@ -576,13 +593,14 @@ __device__ __forceinline__ void a_pieces(uint32_t (&a)[3][4], uint32_t x, int rl
 // while S and the slice before run, in two register sets in turn.
 // Returns with the products in flight (the caller waits with
 // wgmma_wait<0>).
-template <int N, int D>
+// DV: the head dim of dP's operands (Xb's columns), D that of S's.
+template <int N, int D, int DV = D>
 __device__ __forceinline__ void hybrid_products(float (&s)[N / 2], float (&d)[N / 2],
                                                 float (&d_lo)[N / 2], uint32_t xa, uint32_t xb,
                                                 uint32_t ya, uint32_t yb, int piece, int rl0,
                                                 int t) {
   constexpr int NP = 3, NB = hopper::box_cols<D>() / BOX;
-  static_assert(NB * BOX == D, "the resident-tile bodies hold whole boxes");
+  static_assert(D % 64 == 0 && DV % 64 == 0, "the resident-tile bodies hold whole boxes");
   uint32_t a[2][3][4];
   // the last tile's sums are dead: zeros, so that no register stays live
   // across the tile for them
@@ -603,10 +621,10 @@ __device__ __forceinline__ void hybrid_products(float (&s)[N / 2], float (&d)[N 
   }
   hopper::wgmma_commit();
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
+  for (int kk = 0; kk < DV / 16; ++kk) {
     uint32_t (&x)[3][4] = a[kk & 1];
     if (kk >= 2) hopper::wgmma_wait<1>();  // the slice two back is done: its set is free
-    a_pieces<D>(x, xb, rl0, kk, t);
+    a_pieces<DV>(x, xb, rl0, kk, t);
 #pragma unroll
     for (int pc = 0; pc < 3; ++pc) hopper::fence_regs(x[pc]);
     // the streamed tile's address, opaque a slice at a time, so that no
@@ -639,6 +657,9 @@ __device__ __forceinline__ void dq_body(const CUtensorMap& tq, const CUtensorMap
   constexpr int NB = L::NB, STAGES = L::STAGES, WG = L::WG, BK = L::BK, KB = L::KB;
   constexpr int ROWS = WG * TILE, NPAIR = hopper::n_pairs(NP);
   constexpr int DP = NB * BOX;  // dQ's columns: the head dim's boxes (zeros past D)
+  // v's head dim; the boxes loaded of a q or k row and of a v, o or dO row
+  constexpr int DV = hopper::v_dim<D>(), NBL = hopper::data_boxes<D>();
+  constexpr int NBO = hopper::data_boxes<DV>();
   constexpr bool RES = Shape<D, NP>::RES;
   static_assert(!RES || (NP == 3 && WG == 1), "a resident f32 tile: f32 inputs, one warpgroup");
   static_assert(!(CAP && RES), "no softcap in the resident-tile bodies");
@@ -676,14 +697,16 @@ __device__ __forceinline__ void dq_body(const CUtensorMap& tq, const CUtensorMap
   auto load_kv = [&](int i) {
     const int s = i % STAGES;
     i += kt_lo;
-    hopper::mbar_expect_tx(&kv_full[s], 2 * NP * NB * KB);
+    hopper::mbar_expect_tx(&kv_full[s], NP * (NBL + NBO) * KB);
 #pragma unroll
     for (int pc = 0; pc < NP; ++pc)
 #pragma unroll
-      for (int x = 0; x < NB; ++x) {
+      for (int x = 0; x < NBL; ++x) {
         const int off = ((s * NP + pc) * NB + x) * KB;
         hopper::tma_load_4d(sm + L::K + off, &tk, &kv_full[s], x * BOX, hk, i * BK, pc * p.B + b);
-        hopper::tma_load_4d(sm + L::V + off, &tv, &kv_full[s], x * BOX, hk, i * BK, pc * p.B + b);
+        if (x < NBO)
+          hopper::tma_load_4d(sm + L::V + off, &tv, &kv_full[s], x * BOX, hk, i * BK,
+                              pc * p.B + b);
       }
   };
   if (tid == 0) {
@@ -696,14 +719,16 @@ __device__ __forceinline__ void dq_body(const CUtensorMap& tq, const CUtensorMap
   }
   __syncthreads();
   if (tid == 0) {  // RES: Q's pieces alone (dO is read in f32 below)
-    hopper::mbar_expect_tx(qo_full, (NP == 1 ? 3 : RES ? 1 : 2) * WG * NP * NB * BOX_BYTES);
+    hopper::mbar_expect_tx(qo_full,
+                           (NBL + (NP == 1 ? 2 : RES ? 0 : 1) * NBO) * WG * NP * BOX_BYTES);
     for (int w = 0; w < WG; ++w)
 #pragma unroll
       for (int pc = 0; pc < NP; ++pc)
 #pragma unroll
-        for (int x = 0; x < NB; ++x) {
+        for (int x = 0; x < NBL; ++x) {
           const int off = ((w * NP + pc) * NB + x) * BOX_BYTES, row = q0 + w * TILE;
           hopper::tma_load_4d(sm + L::Q + off, &tq, qo_full, x * BOX, h, row, pc * p.B + b);
+          if (x >= NBO) continue;
           if constexpr (!RES)
             hopper::tma_load_4d(sm + L::DO + off, &tdo, qo_full, x * BOX, h, row, pc * p.B + b);
           if constexpr (NP == 1)
@@ -727,8 +752,8 @@ __device__ __forceinline__ void dq_body(const CUtensorMap& tq, const CUtensorMap
   // that P = 0), and both for pass 2, by the first thread of each row
   const uint32_t dof = hopper::smem_addr(sm + L::DO);
   if constexpr (RES) {  // the rows' dO in f32, while Q's pieces and the first stage load
-    resident_f32<D>(reinterpret_cast<float*>(sm + L::DO), p.dout, p.do_sb, p.do_ss, p.do_sh, b, h,
-                    r0, S);
+    resident_f32<DV>(reinterpret_cast<float*>(sm + L::DO), p.dout, p.do_sb, p.do_ss, p.do_sh, b,
+                     h, r0, S);
     hopper::named_barrier(1, 128);
   }
   hopper::mbar_wait(qo_full, 0);
@@ -739,9 +764,9 @@ __device__ __forceinline__ void dq_body(const CUtensorMap& tq, const CUtensorMap
     const int rl = rl0 + 8 * r, row = r0 + rl;
     float d;
     if constexpr (NP == 1)
-      d = row_dot<NB>(sm + L::O + wg * NB * BOX_BYTES, sm + L::DO + wg * NB * BOX_BYTES, rl, t);
+      d = row_dot<NBO>(sm + L::O + wg * NB * BOX_BYTES, sm + L::DO + wg * NB * BOX_BYTES, rl, t);
     else
-      d = row_dot_f32<D>(p, b, h, row, t);
+      d = row_dot_f32<DV>(p, b, h, row, t);
     dl[r] = row < S ? d : 0.f;
     lse2[r] = row < S ? p.lse[(static_cast<long long>(b) * p.H + h) * S + row] * LOG2E : INFINITY;
     if (t == 0 && row < n_qt * TILE) {
@@ -789,7 +814,7 @@ __device__ __forceinline__ void dq_body(const CUtensorMap& tq, const CUtensorMap
       const uint32_t kst = k_s + st * NP * NB * KB, vst = v_s + st * NP * NB * KB;
       hopper::mbar_wait(&kv_full[st], (i / STAGES) & 1);
       if constexpr (RES) {  // S, and dP whole: dp + dp_lo
-        hybrid_products<BK, D>(s, dp, dp_lo, q_s, dof, kst, vst, NB * KB, rl0, t);
+        hybrid_products<BK, D, DV>(s, dp, dp_lo, q_s, dof, kst, vst, NB * KB, rl0, t);
         hopper::wgmma_wait<0>();
         hopper::fence_regs(s);
         hopper::fence_regs(dp);
@@ -810,7 +835,7 @@ __device__ __forceinline__ void dq_body(const CUtensorMap& tq, const CUtensorMap
 #pragma unroll
         for (int k = 0; k < NPAIR; ++k)
 #pragma unroll
-          for (int kk = 0; kk < D / 16; ++kk)
+          for (int kk = 0; kk < DV / 16; ++kk)
             hopper::wgmma_ss<BK, 0, 0>(
                 dp, kmajor<TILE>(do_s + hopper::pair_i(NP, k) * NB * BOX_BYTES, kk),
                 kmajor<BK>(vst + hopper::pair_j(NP, k) * NB * KB, kk), k > 0 || kk > 0);
@@ -860,7 +885,8 @@ __device__ __forceinline__ void dq_body(const CUtensorMap& tq, const CUtensorMap
         hopper::wgmma_wait<0>();
         fence_all();
       } else {
-        add_partial<DP, NP, BK, RES ? 32 : 64, DQR>(dq, da, kst, NB * KB, KB, sacc);  // dQ += dS K
+        // dQ += dS K (RES: over D's columns alone)
+        add_partial<RES ? D : DP, NP, BK, RES ? 32 : 64, DQR>(dq, da, kst, NB * KB, KB, sacc);
       }
       if (lane == 0) hopper::mbar_arrive(&kv_empty[st]);
     };
@@ -878,7 +904,7 @@ __device__ __forceinline__ void dq_body(const CUtensorMap& tq, const CUtensorMap
     acc_to_boxes<D>(sm + L::Q + wg * NB * BOX_BYTES, dq, p.scale, rl0, g, t);
     hopper::fence_proxy_async();
     hopper::named_barrier(1 + wg, 128);
-    if (tid % 128 == 0) store_boxes<NB>(&tdq, sm + L::Q + wg * NB * BOX_BYTES, h, r0, b);
+    if (tid % 128 == 0) store_boxes<NBL>(&tdq, sm + L::Q + wg * NB * BOX_BYTES, h, r0, b);
   } else {
     acc_to_f32<D, RES ? 2 * DQR : D>(static_cast<float*>(p.dq), dq, p.scale, b, S, p.H, h,
                                      r0 + rl0, t, 0);
@@ -906,6 +932,9 @@ __device__ __forceinline__ void dkdv_body(const CUtensorMap& tq, const CUtensorM
   constexpr int NH = Shape<D, NP>::NH, DH = hopper::box_cols<D>() / NH;
   static_assert(NP == 1 || NH == 1, "the f32 epilogue stores whole rows");
   static_assert(D % NH == 0 && DH % BOX == 0, "a block's columns are whole boxes");
+  // v's head dim; the boxes loaded of a q or k row and of a v or dO row
+  constexpr int DV = hopper::v_dim<D>(), NBL = hopper::data_boxes<D>();
+  constexpr int NBO = hopper::data_boxes<DV>();
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = align_1024(smem_raw);
   uint64_t* kv_full = reinterpret_cast<uint64_t*>(sm + L::BAR);
@@ -943,14 +972,16 @@ __device__ __forceinline__ void dkdv_body(const CUtensorMap& tq, const CUtensorM
   // Q, dO, lse and Delta of iteration i into stage i % STAGES (thread 0 only)
   auto load_q = [&](int i) {
     const int s = i % STAGES, h = hk * rep + i / nq, qt = qt_lo + i % nq;
-    hopper::mbar_expect_tx(&q_full[s], 2 * NP * NB * QB + L::STAT_B);
+    hopper::mbar_expect_tx(&q_full[s], NP * (NBL + NBO) * QB + L::STAT_B);
 #pragma unroll
     for (int pc = 0; pc < NP; ++pc)
 #pragma unroll
-      for (int x = 0; x < NB; ++x) {
+      for (int x = 0; x < NBL; ++x) {
         const int off = ((s * NP + pc) * NB + x) * QB;
         hopper::tma_load_4d(sm + L::Q + off, &tq, &q_full[s], x * BOX, h, qt * QT, pc * p.B + b);
-        hopper::tma_load_4d(sm + L::DO + off, &tdo, &q_full[s], x * BOX, h, qt * QT, pc * p.B + b);
+        if (x < NBO)
+          hopper::tma_load_4d(sm + L::DO + off, &tdo, &q_full[s], x * BOX, h, qt * QT,
+                              pc * p.B + b);
       }
     const float* stat = p.delta + ((static_cast<long long>(b) * p.H + h) * n_st + qt * QT / TILE) *
                                       2 * TILE + qt * QT % TILE;
@@ -972,15 +1003,16 @@ __device__ __forceinline__ void dkdv_body(const CUtensorMap& tq, const CUtensorM
   }
   __syncthreads();
   if (tid == 0) {
-    hopper::mbar_expect_tx(kv_full, 2 * WG * NP * NB * BOX_BYTES);
+    hopper::mbar_expect_tx(kv_full, WG * NP * (NBL + NBO) * BOX_BYTES);
     for (int w = 0; w < WG; ++w)
 #pragma unroll
       for (int pc = 0; pc < NP; ++pc)
 #pragma unroll
-        for (int x = 0; x < NB; ++x) {
+        for (int x = 0; x < NBL; ++x) {
           const int off = ((w * NP + pc) * NB + x) * BOX_BYTES, key = k0 + w * TILE;
           hopper::tma_load_4d(sm + L::K + off, &tk, kv_full, x * BOX, hk, key, pc * p.B + b);
-          hopper::tma_load_4d(sm + L::V + off, &tv, kv_full, x * BOX, hk, key, pc * p.B + b);
+          if (x < NBO)
+            hopper::tma_load_4d(sm + L::V + off, &tv, kv_full, x * BOX, hk, key, pc * p.B + b);
         }
     for (int i = 0; i < min(STAGES, n_iter); ++i) load_q(i);
   }
@@ -1050,7 +1082,7 @@ __device__ __forceinline__ void dkdv_body(const CUtensorMap& tq, const CUtensorM
 #pragma unroll
       for (int k = 0; k < NPAIR; ++k)
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk)
+        for (int kk = 0; kk < DV / 16; ++kk)
           hopper::wgmma_ss<QT, 0, 0>(dp, kmajor<TILE>(v_s + hopper::pair_i(NP, k) * NB * BOX_BYTES, kk),
                                      kmajor<QT>(dost + hopper::pair_j(NP, k) * NB * QB, kk),
                                      k > 0 || kk > 0);
@@ -1160,17 +1192,21 @@ __device__ __forceinline__ void dkdv_body(const CUtensorMap& tq, const CUtensorM
   const int kr0 = k0 + wg * TILE;
   if (kr0 >= S) return;  // the whole warpgroup lies past S
   if constexpr (NP == 1) {
-    acc_to_boxes<D / NH>(sm + L::K + wg * NB * BOX_BYTES, dk, p.scale, rl0, g, t);
-    acc_to_boxes<D / NH>(sm + L::V + wg * NB * BOX_BYTES, dv, 1.f, rl0, g, t);
+    // a block's DH columns (D's, DV's alone when it takes all of them);
+    // the store takes the boxes that hold the gradient's columns
+    acc_to_boxes<NH == 1 ? D : DH>(sm + L::K + wg * NB * BOX_BYTES, dk, p.scale, rl0, g, t);
+    acc_to_boxes<NH == 1 ? DV : DH>(sm + L::V + wg * NB * BOX_BYTES, dv, 1.f, rl0, g, t);
     hopper::fence_proxy_async();
     hopper::named_barrier(1 + wg, 128);
     if (tid % 128 == 0) {
-      store_boxes<DH / BOX>(&tdk, sm + L::K + wg * NB * BOX_BYTES, hk, kr0, b, part * DH);
-      store_boxes<DH / BOX>(&tdv, sm + L::V + wg * NB * BOX_BYTES, hk, kr0, b, part * DH);
+      store_boxes<DH / BOX>(&tdk, sm + L::K + wg * NB * BOX_BYTES, hk, kr0, b, part * DH,
+                            (D - part * DH + BOX - 1) / BOX);
+      store_boxes<DH / BOX>(&tdv, sm + L::V + wg * NB * BOX_BYTES, hk, kr0, b, part * DH,
+                            (DV - part * DH + BOX - 1) / BOX);
     }
   } else {
     acc_to_f32<D, D>(static_cast<float*>(p.dk), dk, p.scale, b, S, p.Hkv, hk, key0, t, 0);
-    acc_to_f32<D, D>(static_cast<float*>(p.dv), dv, 1.f, b, S, p.Hkv, hk, key0, t, 0);
+    acc_to_f32<DV, DV>(static_cast<float*>(p.dv), dv, 1.f, b, S, p.Hkv, hk, key0, t, 0);
   }
 }
 
@@ -1186,6 +1222,8 @@ __device__ __forceinline__ void dk_res_body(const CUtensorMap& tq, const CUtenso
   using L = KvSmem<D, 3>;
   constexpr int NP = 3, NB = L::NB, STAGES = L::STAGES, QT = L::QT, QB = L::QB;
   constexpr int RREG = Shape<D, NP>::RREG;
+  constexpr int DV = hopper::v_dim<D>(), NBL = hopper::data_boxes<D>();
+  constexpr int NBO = hopper::data_boxes<DV>();
   static_assert(L::WG == 1 && Shape<D, NP>::NH == 2, "a block a gradient, one warpgroup");
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = align_1024(smem_raw);
@@ -1213,14 +1251,16 @@ __device__ __forceinline__ void dk_res_body(const CUtensorMap& tq, const CUtenso
 
   auto load_q = [&](int i) {  // as dkdv_body's: Q, dO, lse and Delta of iteration i
     const int s = i % STAGES, h = hk * rep + i / nq, qt = qt_lo + i % nq;
-    hopper::mbar_expect_tx(&q_full[s], 2 * NP * NB * QB + L::STAT_B);
+    hopper::mbar_expect_tx(&q_full[s], NP * (NBL + NBO) * QB + L::STAT_B);
 #pragma unroll
     for (int pc = 0; pc < NP; ++pc)
 #pragma unroll
-      for (int x = 0; x < NB; ++x) {
+      for (int x = 0; x < NBL; ++x) {
         const int off = ((s * NP + pc) * NB + x) * QB;
         hopper::tma_load_4d(sm + L::Q + off, &tq, &q_full[s], x * BOX, h, qt * QT, pc * p.B + b);
-        hopper::tma_load_4d(sm + L::DO + off, &tdo, &q_full[s], x * BOX, h, qt * QT, pc * p.B + b);
+        if (x < NBO)
+          hopper::tma_load_4d(sm + L::DO + off, &tdo, &q_full[s], x * BOX, h, qt * QT,
+                              pc * p.B + b);
       }
     const float* stat = p.delta + ((static_cast<long long>(b) * p.H + h) * n_st + qt * QT / TILE) *
                                       2 * TILE + qt * QT % TILE;
@@ -1238,17 +1278,18 @@ __device__ __forceinline__ void dk_res_body(const CUtensorMap& tq, const CUtenso
   }
   __syncthreads();
   if (tid == 0) {
-    hopper::mbar_expect_tx(kv_full, NP * NB * BOX_BYTES);
+    hopper::mbar_expect_tx(kv_full, NP * NBL * BOX_BYTES);
 #pragma unroll
     for (int pc = 0; pc < NP; ++pc)
 #pragma unroll
-      for (int x = 0; x < NB; ++x)
+      for (int x = 0; x < NBL; ++x)
         hopper::tma_load_4d(sm + L::K + (pc * NB + x) * BOX_BYTES, &tk, kv_full, x * BOX, hk, k0,
                             pc * p.B + b);
     for (int i = 0; i < min(STAGES, n_iter); ++i) load_q(i);
   }
   // the keys' V in f32, while K's pieces and the first stage load
-  resident_f32<D>(reinterpret_cast<float*>(sm + L::V), p.v, p.v_sb, p.v_ss, p.v_sh, b, hk, k0, S);
+  resident_f32<DV>(reinterpret_cast<float*>(sm + L::V), p.v, p.v_sb, p.v_ss, p.v_sh, b, hk, k0,
+                   S);
   hopper::named_barrier(1, 128);
   hopper::mbar_wait(kv_full, 0);
 
@@ -1276,7 +1317,7 @@ __device__ __forceinline__ void dk_res_body(const CUtensorMap& tq, const CUtenso
       const float* lse2 = reinterpret_cast<const float*>(sm + L::STAT + st * L::STAT_B);
       const float* dl = lse2 + QT;
       hopper::mbar_wait(&q_full[st], (i / STAGES) & 1);
-      hybrid_products<QT, D>(s, dp, dp_lo, k_s, vf, qst, dost, NB * QB, rl0, t);
+      hybrid_products<QT, D, DV>(s, dp, dp_lo, k_s, vf, qst, dost, NB * QB, rl0, t);
       hopper::wgmma_wait<0>();
       hopper::fence_regs(s);
       hopper::fence_regs(dp);
@@ -1337,6 +1378,8 @@ __device__ __forceinline__ void dv_res_body(const CUtensorMap& tq, const CUtenso
   using L = DvSmem<D>;
   constexpr int NP = 3, NB = L::NB, STAGES = L::STAGES, QT = L::QT, QB = L::QB;
   constexpr int NPAIR = hopper::n_pairs(NP);
+  constexpr int DV = hopper::v_dim<D>(), NBL = hopper::data_boxes<D>();
+  constexpr int NBO = hopper::data_boxes<DV>();
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = align_1024(smem_raw);
   uint64_t* kv_full = reinterpret_cast<uint64_t*>(sm + L::BAR);
@@ -1363,14 +1406,16 @@ __device__ __forceinline__ void dv_res_body(const CUtensorMap& tq, const CUtenso
 
   auto load_q = [&](int i) {  // Q, dO, lse and Delta of iteration i, as dkdv_body's
     const int s = i % STAGES, h = hk * rep + i / nq, qt = qt_lo + i % nq;
-    hopper::mbar_expect_tx(&q_full[s], 2 * NP * NB * QB + L::STAT_B);
+    hopper::mbar_expect_tx(&q_full[s], NP * (NBL + NBO) * QB + L::STAT_B);
 #pragma unroll
     for (int pc = 0; pc < NP; ++pc)
 #pragma unroll
-      for (int x = 0; x < NB; ++x) {
+      for (int x = 0; x < NBL; ++x) {
         const int off = ((s * NP + pc) * NB + x) * QB;
         hopper::tma_load_4d(sm + L::Q + off, &tq, &q_full[s], x * BOX, h, qt * QT, pc * p.B + b);
-        hopper::tma_load_4d(sm + L::DO + off, &tdo, &q_full[s], x * BOX, h, qt * QT, pc * p.B + b);
+        if (x < NBO)
+          hopper::tma_load_4d(sm + L::DO + off, &tdo, &q_full[s], x * BOX, h, qt * QT,
+                              pc * p.B + b);
       }
     const float* stat = p.delta + ((static_cast<long long>(b) * p.H + h) * n_st + qt * QT / TILE) *
                                       2 * TILE + qt * QT % TILE;
@@ -1388,11 +1433,11 @@ __device__ __forceinline__ void dv_res_body(const CUtensorMap& tq, const CUtenso
   }
   __syncthreads();
   if (tid == 0) {
-    hopper::mbar_expect_tx(kv_full, NP * NB * BOX_BYTES);
+    hopper::mbar_expect_tx(kv_full, NP * NBL * BOX_BYTES);
 #pragma unroll
     for (int pc = 0; pc < NP; ++pc)
 #pragma unroll
-      for (int x = 0; x < NB; ++x)
+      for (int x = 0; x < NBL; ++x)
         hopper::tma_load_4d(sm + L::K + (pc * NB + x) * BOX_BYTES, &tk, kv_full, x * BOX, hk, k0,
                             pc * p.B + b);
     for (int i = 0; i < min(STAGES, n_iter); ++i) load_q(i);
@@ -1402,12 +1447,14 @@ __device__ __forceinline__ void dv_res_body(const CUtensorMap& tq, const CUtenso
   const uint32_t k_s = hopper::smem_addr(sm + L::K);
   const uint32_t q_s = hopper::smem_addr(sm + L::Q), do_s = hopper::smem_addr(sm + L::DO);
   const float scale2 = p.scale * LOG2E;
-  float s[QT / 2], acc[D / 4];
+  // dV (DV columns): a thread's first DV / 4 values here, the rest in
+  // shared memory
+  float s[QT / 2], acc[DV / 4];
   uint32_t pa[NP][QT / 16][4];
   float* sacc = reinterpret_cast<float*>(sm + L::ACC);
 #pragma unroll
-  for (int x = 0; x < D / 4; ++x) acc[x] = 0.f;
-  for (int x = 0; x < D / 4; ++x) sacc[x * 128 + tid] = 0.f;
+  for (int x = 0; x < DV / 4; ++x) acc[x] = 0.f;
+  for (int x = 0; x < DV / 4; ++x) sacc[x * 128 + tid] = 0.f;
   hopper::mbar_wait(kv_full, 0);
 
   for (int i = 0; i < n_iter; ++i) {
@@ -1461,7 +1508,7 @@ __device__ __forceinline__ void dv_res_body(const CUtensorMap& tq, const CUtenso
 #pragma unroll
           for (int pc = 0; pc < NP; ++pc) pa[pc][kc][e] = w[pc];
         }
-      add_partial<D, NP, QT, 32, D / 4>(acc, pa, dost, NB * QB, QB, sacc);  // dV += P^T dO
+      add_partial<DV, NP, QT, 32, DV / 4>(acc, pa, dost, NB * QB, QB, sacc);  // dV += P^T dO
       if (lane == 0) hopper::mbar_arrive(&q_empty[st]);
     };
     if constexpr (MASKED) {
@@ -1474,8 +1521,8 @@ __device__ __forceinline__ void dv_res_body(const CUtensorMap& tq, const CUtenso
     }
   }
   if (k0 >= S) return;
-  acc_to_f32<D, D / 2>(static_cast<float*>(p.dv), acc, 1.f, b, S, p.Hkv, hk, key0, t, 0);
-  sacc_to_f32<D, D / 4>(static_cast<float*>(p.dv), sacc, 1.f, b, S, p.Hkv, hk, key0, t);
+  acc_to_f32<DV, DV / 2>(static_cast<float*>(p.dv), acc, 1.f, b, S, p.Hkv, hk, key0, t, 0);
+  sacc_to_f32<DV, DV / 4>(static_cast<float*>(p.dv), sacc, 1.f, b, S, p.Hkv, hk, key0, t);
 }
 
 // bf16 inputs and gradients; CAP: the softcapped scores
@@ -1578,8 +1625,11 @@ cudaError_t launch(const Params& p, const Operands& x, cudaStream_t st) {
   // the inputs' maps' inner extent is the true head dim: at D 80 the
   // second box's columns 80-127 load as zeros, which Delta sums over
   constexpr int MAP_COLS = D;  // the inner extent of the q, k, v, o and dO maps
+  // v, o and dO at v's head dim (MLA: 128 at D 192)
+  constexpr int DV = hopper::v_dim<D>(), MAP_COLS_V = MAP_COLS - D + DV;
   auto map = [&](CUtensorMap* m, int i, int heads, int rows) {
-    return hopper::bhsd_map(m, x.ptr[i], NP * p.B, p.S, heads, MAP_COLS, x.stride[i][0],
+    const int cols = i == 0 || i == 1 ? MAP_COLS : MAP_COLS_V;
+    return hopper::bhsd_map(m, x.ptr[i], NP * p.B, p.S, heads, cols, x.stride[i][0],
                             x.stride[i][1], x.stride[i][2], rows);
   };
   // dq reads 64-row boxes of q and dO and DQ_BK-row ones of k and v; dkdv
@@ -1591,10 +1641,11 @@ cudaError_t launch(const Params& p, const Operands& x, cudaStream_t st) {
   if constexpr (NP == 1) {  // O and the gradients, bf16 and contiguous
     const long long q_row = static_cast<long long>(p.H) * D;
     const long long kv_row = static_cast<long long>(p.Hkv) * D;
+    const long long v_row = static_cast<long long>(p.Hkv) * DV;
     ok = ok && map(&to, 3, p.H, TILE) &&
          hopper::bhsd_map(&tdq, p.dq, p.B, p.S, p.H, D, p.S * q_row, q_row, D, TILE) &&
          hopper::bhsd_map(&tdk, p.dk, p.B, p.S, p.Hkv, D, p.S * kv_row, kv_row, D, TILE) &&
-         hopper::bhsd_map(&tdv, p.dv, p.B, p.S, p.Hkv, D, p.S * kv_row, kv_row, D, TILE);
+         hopper::bhsd_map(&tdv, p.dv, p.B, p.S, p.Hkv, DV, p.S * v_row, v_row, DV, TILE);
   }
   if (!ok) return cudaErrorInvalidValue;
   const unsigned n2 = (p.S + T::WG * TILE - 1) / (T::WG * TILE);
@@ -1605,16 +1656,21 @@ cudaError_t launch(const Params& p, const Operands& x, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-// The softcap is built at D 128 and causal alone (gemma2); the wrapper
-// refuses the rest
+// The softcap is built at D 128 and causal alone (gemma2), MLA's D 192
+// causal alone, without it; the wrapper refuses the rest
 template <int D, int NP>
 cudaError_t launch_causal(const Params& p, const Operands& x, cudaStream_t st) {
-  if (p.softcap > 0.f) {
-    if constexpr (D == 128)
-      if (p.causal) return launch<D, NP, true, true>(p, x, st);
-    return cudaErrorInvalidValue;
+  if constexpr (D == 192) {
+    if (p.softcap > 0.f || !p.causal) return cudaErrorInvalidValue;
+    return launch<D, NP, true, false>(p, x, st);
+  } else {
+    if (p.softcap > 0.f) {
+      if constexpr (D == 128)
+        if (p.causal) return launch<D, NP, true, true>(p, x, st);
+      return cudaErrorInvalidValue;
+    }
+    return p.causal ? launch<D, NP, true, false>(p, x, st) : launch<D, NP, false, false>(p, x, st);
   }
-  return p.causal ? launch<D, NP, true, false>(p, x, st) : launch<D, NP, false, false>(p, x, st);
 }
 
 template <int D>
@@ -1626,14 +1682,18 @@ cudaError_t launch_d(const Params& p, int dtype, void* pieces, cudaStream_t st) 
                                     {p.do_sb, p.do_ss, p.do_sh}}}, st);
   if (dtype != 0 || pieces == nullptr) return cudaErrorInvalidValue;
   // f32: q, k, v and dO into their pieces, one (3, B, S, heads, D) bf16
-  // tensor each, one after the other in the caller's scratch; Delta (and at
-  // D 256 the resident tiles) read the f32 tensors
+  // tensor each (v's and dO's D is DV), one after the other in the
+  // caller's scratch; Delta (and at D 256 and 192 the resident tiles) read
+  // the f32 tensors
+  constexpr int DV = hopper::v_dim<D>();
   const long long rq = static_cast<long long>(p.S) * p.H * D;
   const long long rk = static_cast<long long>(p.S) * p.Hkv * D;
+  const long long rv = static_cast<long long>(p.S) * p.Hkv * DV;
+  const long long rdo = static_cast<long long>(p.S) * p.H * DV;
   __nv_bfloat16* pq = static_cast<__nv_bfloat16*>(pieces);
   __nv_bfloat16* pk = pq + 3 * p.B * rq;
   __nv_bfloat16* pv = pk + 3 * p.B * rk;
-  __nv_bfloat16* pdo = pv + 3 * p.B * rk;
+  __nv_bfloat16* pdo = pv + 3 * p.B * rv;
   const hopper::SplitArgs a{
       {static_cast<const float*>(p.q), static_cast<const float*>(p.k),
        static_cast<const float*>(p.v), static_cast<const float*>(p.dout)},
@@ -1642,28 +1702,44 @@ cudaError_t launch_d(const Params& p, int dtype, void* pieces, cudaStream_t st) 
       {p.q_ss, p.k_ss, p.v_ss, p.do_ss},
       {p.q_sh, p.k_sh, p.v_sh, p.do_sh},
       {p.H, p.Hkv, p.Hkv, p.H}};
-  cudaError_t e = hopper::split3(a, 4, p.B, p.S, D, st);
+  cudaError_t e;
+  if constexpr (DV == D) {
+    e = hopper::split3(a, 4, p.B, p.S, D, st);
+  } else {  // q and k at D, then v and dO at DV
+    const hopper::SplitArgs av{{a.src[2], a.src[3], nullptr, nullptr},
+                               {pv, pdo, nullptr, nullptr},
+                               {p.v_sb, p.do_sb, 0, 0},
+                               {p.v_ss, p.do_ss, 0, 0},
+                               {p.v_sh, p.do_sh, 0, 0},
+                               {p.Hkv, p.H, 0, 0}};
+    e = hopper::split3(a, 2, p.B, p.S, D, st);
+    if (e == cudaSuccess) e = hopper::split3(av, 2, p.B, p.S, DV, st);
+  }
   if (e != cudaSuccess) return e;
   const long long sq[3] = {rq, static_cast<long long>(p.H) * D, D};
   const long long sk[3] = {rk, static_cast<long long>(p.Hkv) * D, D};
+  const long long sv[3] = {rv, static_cast<long long>(p.Hkv) * DV, DV};
+  const long long sdo[3] = {rdo, static_cast<long long>(p.H) * DV, DV};
   return launch_causal<D, 3>(p, {{pq, pk, pv, nullptr, pdo},
                                  {{sq[0], sq[1], sq[2]}, {sk[0], sk[1], sk[2]},
-                                  {sk[0], sk[1], sk[2]}, {0, 0, 0}, {sq[0], sq[1], sq[2]}}}, st);
+                                  {sv[0], sv[1], sv[2]}, {0, 0, 0}, {sdo[0], sdo[1], sdo[2]}}}, st);
 }
 
 }  // namespace
 
-// Inputs (B, S, H|Hkv, D) with the given strides (elements, D contiguous);
-// lse (B, H, S) f32 from the forward; delta f32 scratch of B H ceil(S/64)
-// 128 elements; dq, dk, dv contiguous in the inputs' dtype.  dtype: 0 =
-// float32 (then `pieces` is bf16 scratch of 3 B S (2 H + 2 Hkv) D elements
-// for q, k, v and dout as three bf16 pieces each), 1 = bfloat16 (then q,
+// Inputs (B, S, H|Hkv, D) with the given strides (elements, D contiguous;
+// v, o and dout at Dv); lse (B, H, S) f32 from the forward; delta f32
+// scratch of B H ceil(S/64) 128 elements; dq, dk, dv contiguous in the
+// inputs' dtype.  dtype: 0 = float32 (then `pieces` is bf16 scratch of 3 B
+// S ((H + Hkv) D + (H + Hkv) Dv) elements for q, k, v and dout as three
+// bf16 pieces each), 1 = bfloat16 (then q,
 // k, v, o and dout must start on a 16-byte boundary with strides of whole
 // 16 bytes: the TMA's rule).  window: <= 0 for none.  Returns a
 // cudaError_t (0 = launched).  softcap: > 0 for the logit softcap (built
 // at D 128, causal).
-// `pieces`, `window` and `softcap` come last, after the stream, so that a
-// caller passing them can drive a build of an earlier source.
+// `pieces`, `window`, `softcap` and `Dv` (v's head dim: D, or 128 at MLA's
+// D 192, causal, no softcap) come last, after the stream, so that a caller
+// passing them can drive a build of an earlier source.
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                                    const void* dout, const float* lse, float* delta, void* dq,
                                    void* dk, void* dv, long long q_sb, long long q_ss,
@@ -1673,12 +1749,14 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
                                    long long o_sh, long long do_sb, long long do_ss,
                                    long long do_sh, int B, int S, int H, int Hkv, int D,
                                    int dtype, int causal, float scale, void* stream,
-                                   void* pieces, int window, float softcap) {
+                                   void* pieces, int window, float softcap, int Dv) {
   Params p{q,    k,    v,    o,    dout, lse,  delta, dq,    dk,    dv,    q_sb,  q_ss,
            q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,  o_sb,  o_ss,  o_sh,  do_sb, do_ss,
            do_sh, B,   S,    H,    Hkv,  causal, scale, window, softcap};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B <= 0 || S <= 0) return 0;
+  if (D == 192 && Dv == 128) return static_cast<int>(launch_d<192>(p, dtype, pieces, st));
+  if (Dv != D) return static_cast<int>(cudaErrorInvalidValue);
   if (D == 64) return static_cast<int>(launch_d<64>(p, dtype, pieces, st));
   if (D == 80) return static_cast<int>(launch_d<80>(p, dtype, pieces, st));
   if (D == 128) return static_cast<int>(launch_d<128>(p, dtype, pieces, st));

@@ -13,7 +13,8 @@
 // number of boxes (80, zamba2-2.7b's) is laid out as the next whole one
 // (`box_cols`): its tensor maps keep the true inner extent, so TMA fills
 // the columns past it with zeros on every load and drops them on every
-// store.
+// store.  MLA's q/k head dim 192 is laid out as 256, its v (`v_dim`) at
+// 128.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: libcuda is not linked)
@@ -32,13 +33,31 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 // products: whole 64-column boxes.  D 64, 128 and 256 are whole boxes;
 // D 80 takes two boxes, as D 128 does: the boxes' columns 80-127 load as
 // zeros (the tensor maps' inner extent is 80), so S = Q K^T and O += P V
-// read zeros there, and a store drops them.  Fails to build at a head dim
-// that no body is laid out for.
+// read zeros there, and a store drops them.  D 192 (MLA's q and k: 128
+// + 64 rope columns) takes D 256's four boxes, of which three hold
+// columns: the bodies load and store those three, S = Q K^T stops after
+// its 12 k-steps, and the fourth box's columns enter only output
+// columns that are never stored.  Fails to build at a head dim that no
+// body is laid out for.
 template <int D>
 __host__ __device__ constexpr int box_cols() {
-  static_assert(D == 64 || D == 80 || D == 128 || D == 256,
-                "a head dim the bodies are laid out for: 64, 80, 128 or 256");
-  return D == 80 ? 128 : D;
+  static_assert(D == 64 || D == 80 || D == 128 || D == 192 || D == 256,
+                "a head dim the bodies are laid out for: 64, 80, 128, 192 or 256");
+  return D == 80 ? 128 : D == 192 ? 256 : D;
+}
+
+// v's head dim for q/k head dim D: D, except MLA's 192, whose v (and so
+// o, dO and dv) has 128 columns
+template <int D>
+__host__ __device__ constexpr int v_dim() {
+  return D == 192 ? 128 : D;
+}
+
+// the 64-column boxes that hold a row of D columns (the rest of a
+// box_cols<D>() layout is never loaded or stored)
+template <int D>
+__host__ __device__ constexpr int data_boxes() {
+  return (D + 63) / 64;
 }
 
 // ---------------------------------------------------------------------------
@@ -449,6 +468,8 @@ inline cudaError_t split3(const SplitArgs& a, int n, int B, int S, int D, cudaSt
     split3_kernel<80><<<grid, 256, 0, st>>>(a, B, S);
   else if (D == 128)
     split3_kernel<128><<<grid, 256, 0, st>>>(a, B, S);
+  else if (D == 192)
+    split3_kernel<192><<<grid, 256, 0, st>>>(a, B, S);
   else if (D == 256)
     split3_kernel<256><<<grid, 256, 0, st>>>(a, B, S);
   else

@@ -71,8 +71,8 @@ class _FlashAttention(torch.autograd.Function):
 def flash_attention(q, k, v, causal: bool = True,
                     window: Optional[int] = None, softcap: float = 0.0,
                     scale: Optional[float] = None):
-    """q:(B,S,H,D), k/v:(B,S,Hkv,D) -> (B,S,H,D); see
-    ``kernels/flash_attention.py``."""
+    """q:(B,S,H,D), k:(B,S,Hkv,D), v:(B,S,Hkv,Dv) -> (B,S,H,Dv), Dv = D
+    or MLA's (192, 128); see ``kernels/flash_attention.py``."""
     return _FlashAttention.apply(q, k, v, causal, window, softcap, scale)
 
 

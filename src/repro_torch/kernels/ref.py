@@ -21,7 +21,8 @@ def flash_attention_ref(q, k, v, *, causal: bool = True,
                         window: Optional[int] = None,
                         softcap: float = 0.0,
                         scale: Optional[float] = None):
-    """q:(B,S,H,D) k,v:(B,S,Hkv,D) -> (B,S,H,D).  GQA by head repeat."""
+    """q:(B,S,H,D) k:(B,S,Hkv,D) v:(B,S,Hkv,Dv) -> (B,S,H,Dv).  GQA by head
+    repeat; v's head dim may differ from q's (MLA: D 192, Dv 128)."""
     B, S, H, D = q.shape
     Hkv = k.shape[2]
     rep = H // Hkv
@@ -40,7 +41,7 @@ def flash_attention_ref(q, k, v, *, causal: bool = True,
     s = s.masked_fill(~ok, NEG_INF)
     w = torch.softmax(s, dim=-1)
     o = torch.einsum("bhrqk,bkhd->bqhrd", w.to(v.dtype), v)
-    return o.reshape(B, S, H, D)
+    return o.reshape(B, S, H, v.shape[-1])
 
 
 def split3(x):

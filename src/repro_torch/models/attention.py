@@ -16,8 +16,13 @@ package routes only causal attention to its Pallas kernel in
 ``sharding.flash_attn_ctx`` under ddp.  Paged decode of a global layer
 goes through ``kernels/ops.paged_attention``; a windowed layer decodes
 by the plain masked attention over its ring, as the JAX package does
-(no kernel there either).  MLA, the contiguous (non-paged) decode cache
-and sequence-sharded decode are not ported yet and raise
+(no kernel there either).  MLA (DeepSeek's multi-head latent attention,
+``apply_mla``) trains and prefills through the same flash kernel at q/k
+head dim 192 and v head dim 128 (the JAX package runs it as q-chunked
+einsums; the port's rule sends every whole-sequence self-attention to the
+kernel), and decodes in the absorbed form over its latent pages in plain
+PyTorch, as the JAX package does.  The contiguous (non-paged) decode
+cache and sequence-sharded decode are not ported yet and raise
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -126,7 +131,7 @@ def apply_attn(p, h, cfg: ModelConfig, spec: LayerSpec, *, positions,
     sliding-window rings read it)."""
     if spec.kind not in (ATTN, SHARED_ATTN):  # a shared bank attends as ATTN
         raise NotImplementedError(
-            f"the port has GQA attention layers only, not {spec.kind} (MLA)")
+            f"apply_attn takes GQA attention layers, not {spec.kind} (apply_mla)")
     B = h.shape[0]
     theta = _theta(cfg, spec)
     if mode in ("train", "prefill"):
@@ -236,3 +241,101 @@ def _fill_cache(k, v, spec: LayerSpec, length=None):
     return {"k": torch.cat([k, k.new_zeros((k.shape[0], pad, *k.shape[2:]))], 1),
             "v": torch.cat([v, v.new_zeros((v.shape[0], pad, *v.shape[2:]))], 1),
             "pos": pos_ids.to(torch.int32)}
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek V2)
+# ---------------------------------------------------------------------------
+
+
+def mla_specs(cfg: ModelConfig):
+    m = cfg.mla
+    H, d = cfg.n_heads, cfg.d_model
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "wq": ParamSpec((d, H, qk), ("embed", "heads", "head_dim")),
+        "wdkv": ParamSpec((d, m.kv_lora_rank + m.qk_rope_head_dim), ("embed", None)),
+        "kv_ln": ParamSpec((m.kv_lora_rank,), (None,), init="ones"),
+        "wuk": ParamSpec((m.kv_lora_rank, H, m.qk_nope_head_dim), (None, "heads", "head_dim")),
+        "wuv": ParamSpec((m.kv_lora_rank, H, m.v_head_dim), (None, "heads", "head_dim")),
+        "wo": ParamSpec((H, m.v_head_dim, d), ("heads", "head_dim", "embed")),
+    }
+
+
+def _heads(x, w):  # "b...r,rhe->b...he"
+    return (x @ w.to(x.dtype).flatten(1)).unflatten(-1, w.shape[1:])
+
+
+def _mla_q(p, h, cfg: ModelConfig, positions):
+    m = cfg.mla
+    q = _heads(h, p["wq"])
+    q_nope = q[..., :m.qk_nope_head_dim]
+    q_rope = apply_rope(q[..., m.qk_nope_head_dim:], positions, cfg.rope_theta)
+    return q_nope, q_rope
+
+
+def _mla_ckv(p, h, cfg: ModelConfig, positions):
+    """The rms-normalised latent (B, S, r) and the one rope key head (B, S, rope)."""
+    m = cfg.mla
+    ckv_full = h @ p["wdkv"].to(h.dtype)
+    ckv = rms_normalize(ckv_full[..., :m.kv_lora_rank]) * p["kv_ln"].to(h.dtype)
+    k_rope = apply_rope(ckv_full[..., m.kv_lora_rank:][:, :, None], positions,
+                        cfg.rope_theta)[:, :, 0]
+    return ckv, k_rope
+
+
+def apply_mla(p, h, cfg: ModelConfig, spec: LayerSpec, *, positions, mode: str,
+              cache=None, pos=None, paged=None):
+    """DeepSeek's multi-head latent attention.  Returns (out, new_cache).
+
+    Train and prefill expand the latent into per-head k_nope and v and run
+    the flash kernel on q = [q_nope, q_rope] and k = [k_nope, k_rope]
+    (the one rope head broadcast to every head) at head dim
+    qk_nope + qk_rope, v at v_head_dim, with the scale (qk_nope +
+    qk_rope)^-0.5; prefill returns the cache ``{"ckv": (B, S, r), "kr":
+    (B, S, rope)}``.  Decode (``paged`` = ``{"tables", "page"}``, ``pos``
+    the per-slot (B,) positions) writes the new latent and rope key into
+    this layer's pools (NP, P, r) and (NP, P, rope) IN PLACE and scores
+    the absorbed query q_nope Wuk against each slot's gathered latent
+    pages plus q_rope against its rope keys, under a per-slot causal
+    mask; o = softmax . ckv . Wuv, as the JAX package computes it."""
+    m = cfg.mla
+    B = h.shape[0]
+    scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+    if mode in ("train", "prefill"):
+        q_nope, q_rope = _mla_q(p, h, cfg, positions)
+        ckv, k_rope = _mla_ckv(p, h, cfg, positions)
+        k_nope = _heads(ckv, p["wuk"])
+        v = _heads(ckv, p["wuv"])
+        q = torch.cat([q_nope, q_rope], -1)
+        k = torch.cat([k_nope, k_rope[:, :, None].expand(*k_rope.shape[:2], cfg.n_heads,
+                                                          m.qk_rope_head_dim)], -1)
+        o = kops.flash_attention(q, k, v, causal=True, window=spec.window, scale=scale)
+        new_cache = {"ckv": ckv, "kr": k_rope} if mode == "prefill" else None
+        return _out_proj(o, p, h), new_cache
+
+    # ------------------------------------------------------------- decode
+    if paged is None or "tables" not in paged:
+        raise NotImplementedError("the port decodes through paged KV only")
+    pos_arr = pos.reshape(B, 1)
+    q_nope, q_rope = _mla_q(p, h, cfg, pos_arr)          # (B,1,H,.)
+    ckv_new, kr_new = _mla_ckv(p, h, cfg, pos_arr)       # (B,1,r) (B,1,rope)
+    P, tables = paged["page"], paged["tables"]
+    maxp = tables.shape[1]
+    pos_l = pos.long()
+    page = tables[torch.arange(B, device=h.device), pos_l // P].long()
+    off = pos_l % P
+    ckv_p, kr_p = cache["ckv"], cache["kr"]
+    ckv_p[page, off] = ckv_new[:, 0].to(ckv_p.dtype)
+    kr_p[page, off] = kr_new[:, 0].to(kr_p.dtype)
+    ckv = ckv_p[tables.long()].reshape(B, maxp * P, -1)
+    kr = kr_p[tables.long()].reshape(B, maxp * P, -1)
+    q_eff = torch.einsum("bqhe,rhe->bqhr", q_nope, p["wuk"].to(h.dtype))
+    s = (torch.einsum("bqhr,bkr->bhqk", q_eff, ckv)
+         + torch.einsum("bqhe,bke->bhqk", q_rope, kr)).float() * scale
+    kpos = torch.arange(maxp * P, device=h.device)
+    s = s + torch.where(kpos[None] <= pos_l[:, None], 0.0, NEG_INF)[:, None, None]
+    w = torch.softmax(s, dim=-1).to(h.dtype)
+    o_lat = torch.einsum("bhqk,bkr->bqhr", w, ckv)
+    o = torch.einsum("bqhr,rhe->bqhe", o_lat, p["wuv"].to(h.dtype))
+    return _out_proj(o, p, h), cache

@@ -11,16 +11,17 @@ block with a dense MLP (and gemma's post-norms) or a mixture of experts
 attention and MLP take their parameters from one of the model's
 ``shared`` banks (its stacked position owns none), so that every
 invocation of a bank reads, and adds its gradient into, the same leaves;
-MLA and cross attention raise ``NotImplementedError``.
+and DeepSeek's MLA block (``attention.apply_mla``) with a dense MLP or a
+mixture of experts.  Cross attention raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import (ATTN, MAMBA, SHARED_ATTN, LayerSpec, ModelConfig,
-                                      ScheduleGroup)
-from repro_torch.models.attention import apply_attn, attn_specs
+from repro_torch.configs.base import (ATTN, MAMBA, MLA, SHARED_ATTN, LayerSpec,
+                                      ModelConfig, ScheduleGroup)
+from repro_torch.models.attention import apply_attn, apply_mla, attn_specs, mla_specs
 from repro_torch.models.layers import apply_mlp, apply_norm, mlp_specs, norm_specs
 from repro_torch.models.moe import apply_moe, moe_specs
 from repro_torch.models.params import ParamTree, stack_specs
@@ -30,12 +31,12 @@ from repro_torch.models.ssm import apply_mamba, ssm_specs
 def block_specs(cfg: ModelConfig, spec: LayerSpec):
     if spec.kind == SHARED_ATTN:
         return {}  # params come from the shared bank
-    if (spec.kind, spec.has_mlp) not in ((ATTN, True), (MAMBA, False)):
+    if (spec.kind, spec.has_mlp) not in ((ATTN, True), (MLA, True), (MAMBA, False)):
         raise NotImplementedError(
-            f"the port has ATTN blocks with a dense MLP or MoE, MAMBA blocks "
-            f"without one and SHARED_ATTN blocks, not {spec}")
-    out = {"ln1": norm_specs(cfg),
-           "mixer": attn_specs(cfg) if spec.kind == ATTN else ssm_specs(cfg)}
+            f"the port has ATTN and MLA blocks with a dense MLP or MoE, MAMBA "
+            f"blocks without one and SHARED_ATTN blocks, not {spec}")
+    mixer = {ATTN: attn_specs, MLA: mla_specs, MAMBA: ssm_specs}[spec.kind]
+    out = {"ln1": norm_specs(cfg), "mixer": mixer(cfg)}
     if cfg.post_norms and spec.kind != MAMBA:
         out["post1"] = norm_specs(cfg)
     if spec.has_mlp:
@@ -95,6 +96,9 @@ def apply_block(bp, shared, h, cfg: ModelConfig, spec: LayerSpec, *,
     if spec.kind == MAMBA:
         mx, mc = apply_mamba(p["mixer"], x, cfg, mode=mode,
                              cache=cache.get("mixer"))
+    elif spec.kind == MLA:
+        mx, mc = apply_mla(p["mixer"], x, cfg, spec, positions=positions, mode=mode,
+                           cache=cache.get("mixer"), pos=pos, paged=paged)
     else:  # ATTN / SHARED_ATTN
         mx, mc = apply_attn(p["mixer"], x, cfg, spec, positions=positions,
                             mode=mode, cache=cache.get("mixer"), pos=pos,
@@ -126,7 +130,7 @@ def _train_block(h, bp, shared, cfg: ModelConfig, spec: LayerSpec, positions,
 def apply_group(pg, shared, h, cfg: ModelConfig, group: ScheduleGroup, *,
                 positions, mode: str, cache_g=None, pos=None,
                 causal: bool = True, paged=None, remat: bool = False,
-                moe_ctx=None):
+                moe_ctx=None, moe_base: int = 0):
     """Run the group's rows in order.  Returns (h, new_cache_g, aux): in
     prefill the per-layer caches stacked over the ``layers`` axis; in
     decode ``cache_g`` itself, whose pools the layers updated in place;
@@ -139,22 +143,30 @@ def apply_group(pg, shared, h, cfg: ModelConfig, group: ScheduleGroup, *,
     activations live only while its own backward runs.  A shared block's
     bank goes into the checkpoint as an input, so that each invocation's
     gradient adds into the bank's one leaf.  The checkpoint returns the
-    layer's aux beside h, so that remat keeps the aux's gradient."""
+    layer's aux beside h, so that remat keeps the aux's gradient.
+
+    ``moe_ctx`` may also be a function of the model's MoE layer index
+    (counted from ``moe_base``, the MoE layers of the groups before) that
+    returns that layer's keywords: the ``xla_fused`` fallback's router
+    statistics are per layer, and the remat recompute must find its own."""
     new_caches = [[] for _ in group.pattern]
     aux = 0.0
+    mi = moe_base
     for r in range(group.repeats):
         for pi, spec in enumerate(group.pattern):
+            ctx = moe_ctx(mi) if spec.moe and callable(moe_ctx) else moe_ctx
+            mi += int(spec.moe)
             if remat and mode == "train":
                 bank = {spec.shared_bank: layer_row(shared[spec.shared_bank], None)} \
                     if spec.kind == SHARED_ATTN else None
                 h, a = checkpoint(_train_block, h, layer_row(pg[pi], r), bank, cfg,
-                                  spec, positions, causal, moe_ctx, use_reentrant=False)
+                                  spec, positions, causal, ctx, use_reentrant=False)
                 aux = aux + a
                 continue
             cl = layer_row(cache_g[pi], r) if cache_g is not None else None
             h, nc, a = apply_block(layer_row(pg[pi], r), shared, h, cfg, spec,
                                    positions=positions, mode=mode, cache=cl,
-                                   pos=pos, causal=causal, paged=paged, moe_ctx=moe_ctx)
+                                   pos=pos, causal=causal, paged=paged, moe_ctx=ctx)
             aux = aux + a
             new_caches[pi].append(nc)
     if mode == "decode":

@@ -11,7 +11,7 @@ from typing import Any, Dict
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.base import ATTN, MAMBA, SHARED_ATTN, ModelConfig
+from repro_torch.configs.base import ATTN, MAMBA, MLA, SHARED_ATTN, ModelConfig
 from repro_torch.models.blocks import apply_group, group_specs, shared_block_specs
 from repro_torch.models.layers import (add_positions, apply_norm, embed_specs,
                                        embed_tokens, norm_specs, unembed)
@@ -78,7 +78,8 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, Any], *, mode: str,
     addressed through ``paged["tables"]`` and updated in place.  ``aux``
     is the MoE layers' load-balance loss summed (f32; 0 without MoE);
     ``moe_ctx``: the MoE layers' ``apply_moe`` keywords (the per-shard
-    loss passes ``stat_reduce``).  ``remat`` (train mode) recomputes each
+    loss passes ``stat_reduce``; ``blocks.apply_group`` also takes a
+    function of the MoE layer index).  ``remat`` (train mode) recomputes each
     layer in the backward, as the JAX package's ``jax.checkpoint`` per
     layer does.
     """
@@ -99,12 +100,14 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, Any], *, mode: str,
     shared = params["shared"] if _n_shared_banks(cfg) else None
     aux = 0.0
     new_cache_groups = []
+    moe_base = 0
     for gi, group in enumerate(cfg.schedule):
         cache_g = cache["groups"][gi] if cache is not None else None
         h, ncg, a = apply_group(params["groups"][gi], shared, h, cfg, group,
                                 positions=positions, mode=mode, cache_g=cache_g,
                                 pos=pos, causal=causal, paged=paged,
-                                remat=remat, moe_ctx=moe_ctx)
+                                remat=remat, moe_ctx=moe_ctx, moe_base=moe_base)
+        moe_base += group.repeats * sum(int(s.moe) for s in group.pattern)
         aux = aux + a
         new_cache_groups.append(ncg)
 
@@ -125,7 +128,8 @@ def cache_shapes(cfg: ModelConfig, B: int, S: int, dtype=torch.bfloat16):
     the stacked ``layers`` axis.  An SSM layer's leaves are its conv
     tails in ``dtype`` and its state, always f32; a sliding-window
     layer's its ring of W = min(window, S) positions and the ring's clock
-    ``pos`` (int32, no batch axis).  A SHARED_ATTN position caches as a
+    ``pos`` (int32, no batch axis); an MLA layer's its latent ``ckv`` (B,
+    S, kv_lora_rank) and rope key ``kr`` (B, S, qk_rope_head_dim).  A SHARED_ATTN position caches as a
     global attention layer: each invocation of a bank its own k and v."""
     _check_supported(cfg)
     Hkv, D = cfg.n_kv_heads, cfg.head_dim
@@ -142,6 +146,12 @@ def cache_shapes(cfg: ModelConfig, B: int, S: int, dtype=torch.bfloat16):
                     "conv_B": ((r, B, K - 1, G, N), dtype),
                     "conv_C": ((r, B, K - 1, G, N), dtype),
                     "state": ((r, B, H, N, Pd), torch.float32)}})
+                continue
+            if spec.kind == MLA:
+                m = cfg.mla
+                layers.append({"mixer": {
+                    "ckv": ((r, B, S, m.kv_lora_rank), dtype),
+                    "kr": ((r, B, S, m.qk_rope_head_dim), dtype)}})
                 continue
             if spec.kind not in (ATTN, SHARED_ATTN):
                 raise NotImplementedError(f"no cache layout for {spec}")

@@ -183,26 +183,74 @@ def _fused_accum(model: Model, run: RunConfig, plan: ParallelPlan):
     runs the part of each microbatch that lies in its rows (possibly
     none); one all-reduce of the per-microbatch mask sums comes first.
 
-    An MoE model raises (ROADMAP C16): a piece's share of its
-    microbatch's aux below is right only for an aux that is a row mean,
-    and the MoE aux is not (JAX computes it on the whole global
-    microbatch)."""
-    if model.cfg.moe is not None and plan.dp_size > 1:
-        raise NotImplementedError(
-            f"{model.cfg.name}: the xla_fused fallback ({plan.fallback_reason}) over "
-            f"{plan.dp_size} ranks would take a piece's share of an MoE aux, which is "
-            f"not a row mean (ROADMAP C16); run bucketed_overlap or scatter_overlap "
-            f"(overlap on, a microbatch count that splits the local batch)")
+    An MoE model's aux, ``E sum(me ce) coef``, is nonlinear in the router
+    means of the whole global microbatch (JAX computes it there), so a
+    piece's share of it is not its own aux.  Over several ranks the step
+    therefore first runs a no-grad forward of its pieces that collects,
+    for each microbatch and MoE layer, the sum of the router
+    probabilities and the experts' token counts, and sums them over the
+    ranks with one all-reduce of an (n_micro, n_moe_layers, E, 2) tensor;
+    a microbatch's token count is its rows times S.  In the gradient pass
+    each piece's router sees ``me = (global sum - piece's pre-pass sum +
+    piece's sum) / T_m`` (its own probabilities carry the gradient, the
+    rest is constant) and ``ce`` = the global counts / T_m, so it computes
+    microbatch m's whole aux, adds ``aux_m / n`` to the loss it
+    differentiates, and the all-reduce of the gradients sums the pieces'
+    partials into the gradient of JAX's aux.  The routes of the pre-pass,
+    the gradient pass and its remat recompute are the same (the dispatch
+    repeats bit for bit).  The price is one more forward of the pieces,
+    on this fallback path only."""
     n = run.microbatch or 1
     G, local = plan.global_batch, plan.local_batch
     if G % n:
         raise ValueError(f"global batch {G} does not split into {n} microbatches")
     c = G // n
+    cfg = model.cfg
+    moe = cfg.moe is not None and plan.dp_size > 1
+
+    def router_sums(params, batch, pieces):
+        """(own, total), each (n_micro, n_moe_layers, E, 2): this rank's
+        pieces' router probability sums and expert counts (a rank holds
+        at most one piece of a microbatch), and their sums over the ranks."""
+        n_moe = sum(g.repeats * sum(int(s.moe) for s in g.pattern) for g in cfg.schedule)
+        own = torch.zeros((n, n_moe, cfg.moe.n_experts, 2), dtype=torch.float32,
+                          device=batch["labels"].device)
+        for m, a, b in pieces:
+            if b <= a:
+                continue
+            T = (b - a) * batch["labels"].shape[1]
+
+            def ctx(li, m=m, T=T):
+                def stat(me, ce):
+                    own[m, li] = torch.stack([me, ce], -1).float() * T
+                    return me, ce
+                return {"stat_reduce": stat}
+
+            with torch.no_grad():
+                forward(params, cfg, {k: v[a:b] for k, v in batch.items()}, mode="train",
+                        act_dtype=_act_dtype(run), return_hidden=True, moe_ctx=ctx)
+        total = own.clone()
+        dist.all_reduce(total)
+        return own, total
+
+    def piece_ctx(own, total, m, T, Tm):
+        """The gradient pass's router statistics for this rank's piece of
+        microbatch m (T of its Tm tokens): the whole microbatch's means,
+        with this piece's probabilities carrying the gradient."""
+        def ctx(li):
+            rest = total[m, li, :, 0] - own[m, li, :, 0]
+            ce = total[m, li, :, 1] / Tm
+
+            def stat(me_piece, _):
+                return (rest + me_piece * T) / Tm, ce
+            return {"stat_reduce": stat}
+        return ctx
 
     def accum(params, batch):
         lo = dist.get_rank() * local
         pieces = [(m, max(m * c, lo) - lo, min((m + 1) * c, lo + local) - lo) for m in range(n)]
         ref = batch["labels"]
+        S = ref.shape[1]
         mask = batch.get("loss_mask")
         if mask is None:
             mask = torch.ones(ref.shape, dtype=torch.float32, device=ref.device)
@@ -210,6 +258,8 @@ def _fused_accum(model: Model, run: RunConfig, plan: ParallelPlan):
                            torch.zeros((), device=ref.device) for _, a, b in pieces])
         dist.all_reduce(den)
         tokens, den = den, torch.clamp(den, min=1.0)
+        if moe:
+            own, total = router_sums(params, batch, pieces)
         named = dict(params.named_parameters())
         for p in named.values():
             p.grad = None
@@ -220,14 +270,18 @@ def _fused_accum(model: Model, run: RunConfig, plan: ParallelPlan):
         for m, a, b in pieces:
             if b <= a:
                 continue
+            ctx = piece_ctx(own, total, m, (b - a) * S, c * S) if moe else None
             s_nll, s_acc, _, aux = shard_sums(model, params,
-                                               {k: v[a:b] for k, v in batch.items()}, run)
-            # aux is a row mean: this piece's share of its microbatch's
+                                               {k: v[a:b] for k, v in batch.items()}, run,
+                                               moe_ctx=ctx)
+            # the piece's part of the reported loss and aux: a row share
+            # (an MoE piece's aux is its whole microbatch's, which its
+            # gradient takes whole: the pieces' partials sum to JAX's)
             share = aux * ((b - a) / c)
-            loss = (s_nll / den[m] + share) / n
+            loss = (s_nll / den[m] + (aux if moe else share)) / n
             loss.backward()
             add_into(acc, named)
-            loss_sum = loss_sum + loss.detach().float()
+            loss_sum = loss_sum + ((s_nll / den[m] + share) / n).detach().float()
             sums[m] = torch.stack([s_nll, s_acc, share]).detach().float()
         for k, p in named.items():
             if p.grad is None and k not in acc:

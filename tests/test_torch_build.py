@@ -155,17 +155,23 @@ def test_planted_faults_hold_their_lines_once_and_cover_every_kernel():
 
 
 def test_flash_cases_are_valid_shapes():
-    """Each gate case is a shape the wrapper takes (D 64 / 80 / 128 / 256, H
-    a multiple of Hkv, window >= 1); gemma3's serve and train shapes are
+    """Each gate case is a shape the wrapper takes (D 64 / 80 / 128 / 256,
+    or MLA's 192 (v 128) causal without a softcap; H a multiple of Hkv,
+    window >= 1); deepseek-v2-lite's train shape and ragged prefills of
+    300 and 4000 are held at D 192; gemma3's serve and train shapes are
     held at D 256 with its window of 1024 and without, and gemma2's
     8192-token prefill (a head slice at rep 2) at D 128 with its window of
     4096 and without, its softcap 50 and query scale 144^-0.5."""
     cs = _chip_smoke()
     for case in cs.FLASH_CASES:
         B, S, H, Hkv, D, causal, window, softcap, *scale = case
-        assert B >= 1 and S >= 1 and H % Hkv == 0 and D in (64, 80, 128, 256), case
+        assert B >= 1 and S >= 1 and H % Hkv == 0 and D in (64, 80, 128, 192, 256), case
+        assert D != 192 or (causal and not softcap and cs.v_dim(D) == 128), case
         assert window is None or window >= 1, case
         assert len(scale) <= 1 and all(0 < x < 1 for x in scale), case
+    assert cs.DEEPSEEK_TRAIN_ATTN == (1, 4096, 16, 16, 192, True)
+    mla = {c[1] for c in cs.FLASH_CASES if c[2:5] == (16, 16, 192)}
+    assert {4096, 300, 4000} <= mla
     for shape in (cs.GEMMA_SERVE_ATTN, cs.GEMMA_TRAIN_ATTN):
         assert shape[4] == 256
         assert {c[6] for c in cs.FLASH_CASES if c[:6] == shape} == {1024, None}
@@ -185,12 +191,15 @@ def test_flash_bwd_cases_are_valid_shapes_and_cover_the_tile_edges():
     for case in cases:
         B, S, H, Hkv, D, causal = case[:6]
         window, softcap, amp, scale = cs.bwd_case_opts(case)
-        assert B >= 1 and S >= 1 and H % Hkv == 0 and D in (64, 80, 128, 256), case
+        assert B >= 1 and S >= 1 and H % Hkv == 0 and D in (64, 80, 128, 192, 256), case
+        assert D != 192 or (causal and not softcap), case
         assert isinstance(causal, bool) and (window is None or window >= 1), case
         assert len(case) in (6, 7, 9) and amp >= 1, case
         assert (scale is None) == (softcap == 0.0), case
     windowed = [c for c in cases if len(c) > 6 and c[6] is not None]
-    assert {c[4] for c in windowed} == {64, 128, 256}
+    assert {c[4] for c in windowed} == {64, 128, 192, 256}
+    mla = {c[1] for c in cases if c[2:5] == (16, 16, 192)}
+    assert cs.DEEPSEEK_TRAIN_ATTN in cases and {4096, 300, 4000} <= mla
     assert {c[5] for c in windowed} == {True, False}
     assert cs.GEMMA_TRAIN_ATTN + (1024,) in cases and cs.GEMMA_TRAIN_ATTN in cases
     for S in (63, 64, 65, 127, 129, 511, 513):
@@ -234,8 +243,8 @@ def test_flash_bwd_softcap_is_a_template_choice_of_both_passes():
         assert re.search(rf"bool CAP>\s*__device__ __forceinline__ void {body}\(", text), body
         assert "if constexpr (CAP)" in src and "tanhf(" in src and "fmaf(-th, th, 1.f)" in src
     assert "tanh.approx.f32" not in text               # the PTX instruction
-    assert re.search(r"void\* pieces, int window, float softcap\)", text)
-    assert fa.BWD_ARGTYPES[-1] is fa._F and fa.BWD_ARGTYPES[-2] is fa._I
+    assert re.search(r"void\* pieces, int window, float softcap, int Dv\)", text)
+    assert fa.BWD_ARGTYPES[-2] is fa._F and fa.BWD_ARGTYPES[-3] is fa._I
     built = re.findall(r"if constexpr \(D == (\d+)\)\s*if \(p\.causal\) return "
                        r"launch<D, NP, true, true>", text)
     assert tuple(int(d) for d in built) == fa.BWD_SOFTCAP_HEAD_DIMS == (128,)
@@ -866,3 +875,48 @@ def test_zeroing_loop_check_sees_a_loop_past_its_array():
     text = "void f(float (&s)[N / 2], float (&d)[N]) {\n" \
            "  for (int x = 0; x < N; ++x) s[x] = d[x] = 0.f;\n"
     assert _zeroing_loops(text) == [("s", "N / 2", "N"), ("d", "N", "N")]
+
+
+def test_mla_head_dims_in_the_flash_sources_and_wrapper():
+    """MLA's q/k head dim 192 is laid out as 256 (``box_cols<192>()``),
+    its v at 128 (``v_dim``); both C entries take v's head dim ``Dv`` last,
+    after the arguments an earlier build takes, as the wrappers' argtypes
+    do; D 192 is dispatched with Dv 128 alone, causal and without a
+    softcap in the backward; the wrapper refuses every (D, Dv) pair but D
+    == Dv in HEAD_DIMS and (192, 128) before it looks at the device."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    hopper = (_build.CSRC / "hopper.cuh").read_text()
+    box = hopper[hopper.index("constexpr int box_cols()"):]
+    box = box[:box.index("\n}\n")]
+    assert "D == 192 ? 256" in box                     # box_cols<192>() == 256
+    assert re.search(r"constexpr int v_dim\(\) \{\s*return D == 192 \? 128 : D;", hopper)
+    assert "split3_kernel<192>" in hopper
+    fwd = (_build.CSRC / "flash_attention.cu").read_text()
+    bwd = (_build.CSRC / "flash_attention_bwd.cu").read_text()
+    assert re.search(r"void\* stream, void\* pieces, int Dv\) \{", fwd)
+    assert re.search(r"void\* pieces, int window, float softcap, int Dv\) \{", bwd)
+    for text in (fwd, bwd):
+        assert re.search(r"if \(D == 192 && Dv == 128\) return", text)
+        assert "if (Dv != D) return static_cast<int>(cudaErrorInvalidValue);" in text
+    assert re.search(r"struct Tiles<192, NP> : Tiles<256, NP>", fwd)
+    assert re.search(r"struct Shape<192, NP> : Shape<256, NP>", bwd)
+    assert re.search(r"if constexpr \(D == 192\) \{\s*if \(p\.softcap > 0\.f \|\| !p\.causal\) "
+                     r"return cudaErrorInvalidValue;", bwd)
+    assert len(fa.FWD_ARGTYPES) == 30 and fa.FWD_ARGTYPES[-1] is fa._I
+    assert fa.FWD_ARGTYPES[-3:-1] == [fa._P, fa._P]           # the stream, the pieces
+    assert len(fa.BWD_ARGTYPES) == 38 and fa.BWD_ARGTYPES[-1] is fa._I
+    assert fa.BWD_ARGTYPES[-3:-1] == [fa._I, fa._F]           # the window, the softcap
+    pairs = [(D, Dv) for D in (48, 64, 80, 96, 128, 192, 256) for Dv in (32, 64, 80, 128, 192, 256)]
+    taken = [p for p in pairs if (p[0] == p[1] and p[0] in fa.HEAD_DIMS) or p == (192, 128)]
+    assert sorted(taken) == sorted([(D, D) for D in fa.HEAD_DIMS] + [(192, 128)])
+    for D, Dv in pairs:
+        q, v = torch.zeros(1, 4, 2, D), torch.zeros(1, 4, 2, Dv)
+        want = "not on a CUDA device" if (D, Dv) in taken else "head dims"
+        with pytest.raises(ValueError, match=want):
+            fa.flash_attention_fwd(q, q, v)
+        with pytest.raises(ValueError, match=want):
+            fa.flash_attention_bwd(q, q, v, torch.zeros(1, 4, 2, Dv), torch.zeros(1, 2, 4),
+                                   torch.zeros(1, 4, 2, Dv))

@@ -237,21 +237,18 @@ def test_paged_decode_step_matches_jax(models, use_pallas):
 
 
 def test_unported_layers_raise():
-    """What the port still refuses: MLA, the encoder-decoder, and a logit
+    """What the port still refuses: the encoder-decoder, and a logit
     softcap in the flash backward kernel (sliding windows, qk-norm and
-    post-norms are ported: the gemma3 slice; MoE: tests/test_torch_moe.py)."""
+    post-norms are ported: the gemma3 slice; MoE: tests/test_torch_moe.py;
+    MLA: tests/test_torch_mla.py)."""
     import torch
 
-    from repro_torch.configs.base import MLA
     from repro_torch.kernels.flash_attention import flash_attention_bwd
 
     _, tcfg = _cfgs()
     windowed = dataclasses.replace(tcfg, schedule=uniform_schedule(1, LayerSpec(window=16)))
     pools = tpaged.build_pools(windowed, page=8, n_pages=4, max_slots=1, device="cpu")
     assert tuple(pools["groups"][0][0]["mixer"]["pos"].shape) == (1, 1, 16)
-    with pytest.raises(NotImplementedError):
-        build_model(dataclasses.replace(tcfg, schedule=uniform_schedule(1, LayerSpec(kind=MLA))),
-                    device="cpu")
     with pytest.raises(NotImplementedError):   # the encoder family is ported (training slice)
         build_model(dataclasses.replace(tcfg, is_encoder_decoder=True), device="cpu")
     q = torch.zeros(1, 4, 2, 64)

@@ -9,7 +9,9 @@ interpret mode, and with its jnp attention); the loss, ``aux_loss`` and
 every gradient leaf at microbatch 1 and 2; 20 steps on the launcher's
 rolled labels; two gloo ranks under ddp and fsdp against JAX's
 two-device step, the router's statistics averaged over the ranks; the
-``xla_fused`` refusal (ROADMAP C16); the launchers.
+``xla_fused`` fallback over two ranks against JAX's (ROADMAP C16, its
+router statistics summed over the pieces of each global microbatch);
+the launchers.
 
 The test models are the reduced configs (``configs.base.reduced``) at 2
 MoE layers, built in both packages by ``dataclasses.replace``, with the
@@ -504,27 +506,167 @@ def test_moe_plan_rides_the_overlap_paths_as_in_jax(mode, axes, gb, micro, overl
     assert ParallelPlan.for_run(run, world, overlap=overlap) == tp
 
 
-def test_fused_fallback_refuses_moe_over_ranks():
-    """The ``xla_fused`` fallback would take a piece's share of the MoE
-    aux, which is not a row mean: over several ranks it raises (ROADMAP
-    C16) for both the step and the grad function; over one process the
-    plan syncs nothing and trains."""
+FUSED_CASES = {"micro1": (1, 8), "straddle": (3, 12)}   # name -> (microbatch, global batch)
+
+FUSED_JAX_BODY = """
+    import json, jax, jax.numpy as jnp, numpy as np
+    from repro.configs.base import RunConfig, ShapeConfig
+    from repro.distributed.sharding import ParallelPlan
+    from repro.launch.mesh import make_host_mesh
+    from repro.models import build_model
+    from repro.train.train_step import init_state, make_grad_fn
+    CFG
+    out, S = OUT_PATH, 32
+    cases = json.loads(CASES_JSON)
+    model = build_model(cfg)
+    mesh = make_host_mesh(2, 1)
+    name = lambda p: '.'.join(str(getattr(k, 'key', getattr(k, 'idx', k))) for k in p)
+    save, params = {}, None
+    for case, (micro, B) in cases.items():
+        rng = np.random.RandomState(2)
+        toks = rng.randint(4, 256, (B, S)).astype(np.int32)
+        mask = (rng.rand(B, S) > 0.2).astype(np.float32)
+        save.update({case + '/tokens': toks, case + '/labels': np.roll(toks, -1, 1),
+                     case + '/mask': mask})
+        run = RunConfig(model=cfg, shape=ShapeConfig('t', S, B, 'train'), sharding='ddp',
+                        param_dtype='float32', activation_dtype='float32', microbatch=micro)
+        if params is None:
+            params = init_state(model, jax.random.PRNGKey(0), run)['params']
+            for p, x in jax.tree_util.tree_flatten_with_path(params)[0]:
+                save['param/' + name(p)] = np.asarray(x)
+        batch = {'tokens': jnp.asarray(toks), 'labels': jnp.asarray(np.roll(toks, -1, 1)),
+                 'loss_mask': jnp.asarray(mask)}
+        plan = ParallelPlan.for_run(run, mesh, overlap=False)
+        save[case + '/grad_sync'] = np.asarray(plan.grad_sync)
+        loss, grads, met = jax.jit(make_grad_fn(model, run, mesh, plan))(params, batch)
+        save[case + '/loss'] = np.asarray(loss)
+        save[case + '/aux_loss'] = np.asarray(met['aux_loss'])
+        for p, g in jax.tree_util.tree_flatten_with_path(grads)[0]:
+            save[case + '/grad/' + name(p)] = np.asarray(g)
+    np.savez(out, **save)
+"""
+
+FUSED_WORKER = """
+    import json, sys, numpy as np, torch
+    torch.set_num_threads(1)
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.distributed import maybe_initialize_distributed
+    from repro_torch.distributed.sharding import ParallelPlan
+    from repro_torch.models import moe as tmoe
+    from repro_torch.models.model import build_model
+    from repro_torch.train.train_step import init_state, make_grad_fn
+    CFG
+    ref, out, cases = sys.argv[1], sys.argv[2], json.loads(sys.argv[3])
+    info = maybe_initialize_distributed('cpu')
+    S = 32
+    z = np.load(ref)
+    model = build_model(cfg, device='cpu')
+    model.load_jax_params({k[6:]: z[k] for k in z.files if k.startswith('param/')})
+    calls, route = [], tmoe.route
+
+    def tap(p, x, cfg, stat_reduce=None):
+        w, idx, aux = route(p, x, cfg, stat_reduce=stat_reduce)
+        calls.append((torch.is_grad_enabled(), idx.clone()))
+        return w, idx, aux
+
+    tmoe.route = tap
+    save = {}
+    for case, (micro, B) in cases.items():
+        rows = slice(info.rank * B // 2, (info.rank + 1) * B // 2)
+        batch = {'tokens': torch.from_numpy(z[case + '/tokens'][rows]),
+                 'labels': torch.from_numpy(z[case + '/labels'][rows]),
+                 'loss_mask': torch.from_numpy(z[case + '/mask'][rows])}
+        run = RunConfig(model=cfg, shape=ShapeConfig('t', S, B, 'train'), sharding='ddp',
+                        param_dtype='float32', activation_dtype='float32', microbatch=micro)
+        plan = ParallelPlan.for_run(run, info.world, overlap=False)
+        save[case + '/grad_sync'] = np.asarray(plan.grad_sync)
+        state = init_state(model, run, seed=None)
+        calls.clear()
+        loss, grads, met = make_grad_fn(model, run, plan)(state['params'], batch)
+        pre = [i for g, i in calls if not g]
+        grad = [i for g, i in calls if g]
+        save[case + '/n_pre'] = np.asarray(len(pre))
+        save[case + '/n_grad'] = np.asarray(len(grad))
+        save[case + '/routes_equal'] = np.asarray(
+            all(any(torch.equal(i, q) for q in pre) for i in grad)
+            and all(any(torch.equal(q, i) for i in grad) for q in pre))
+        save[case + '/loss'] = loss.detach().numpy()
+        save[case + '/aux_loss'] = met['aux_loss'].numpy()
+        for k, g in grads.items():
+            save[case + '/grad/' + k] = g.detach().numpy().copy()
+    np.savez(out, **save)
+    torch.distributed.destroy_process_group()
+"""
+
+
+@pytest.fixture(scope="module")
+def fused_runs(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("moe_fused")
+    ref = str(tmp / "jax.npz")
+    cfg = textwrap.dedent(DP_CFG).strip().replace("\n", "\n    ")
+    run_py(FUSED_JAX_BODY.replace("CFG", cfg).replace("OUT_PATH", repr(ref))
+           .replace("CASES_JSON", repr(json.dumps(FUSED_CASES))), n_devices=2, timeout=400)
+    spawn_ranks(tmp, FUSED_WORKER.replace("CFG", cfg),
+                [ref, str(tmp / "rank{rank}.npz"), json.dumps(FUSED_CASES)], timeout=300)
+    return dict(np.load(ref)), [dict(np.load(tmp / f"rank{r}.npz")) for r in range(2)]
+
+
+def _fused_case_matches_jax(fused_runs, case):
+    """Both ranks' loss, ``aux_loss`` and every gradient leaf within 1e-5
+    of JAX's ``xla_fused`` step on a two-device mesh, and the routes of
+    the no-grad pre-pass equal to those of the gradient pass (and its
+    remat recompute): 2 MoE layers a piece."""
+    z, ranks = fused_runs
+    micro, B = FUSED_CASES[case]
+    assert str(z[case + "/grad_sync"]) == "xla_fused"
+    n_pieces = [sum(1 for m in range(micro)
+                    if max(m * B // micro, r * B // 2) < min((m + 1) * B // micro, (r + 1) * B // 2))
+                for r in range(2)]
+    for r, got in enumerate(ranks):
+        assert str(got[case + "/grad_sync"]) == "xla_fused"
+        assert int(got[case + "/n_pre"]) == 2 * n_pieces[r]
+        assert int(got[case + "/n_grad"]) >= 2 * n_pieces[r]
+        assert bool(got[case + "/routes_equal"])
+        np.testing.assert_allclose(float(got[case + "/loss"]), float(z[case + "/loss"]),
+                                   rtol=LOSS_REL)
+        np.testing.assert_allclose(float(got[case + "/aux_loss"]),
+                                   float(z[case + "/aux_loss"]), rtol=LOSS_REL)
+        keys = [k for k in z if k.startswith(case + "/grad/")]
+        assert len(keys) == len([k for k in got if k.startswith(case + "/grad/")])
+        worst = {k: _leaf_err(got[k], z[k]) for k in keys}
+        assert max(worst.values()) <= 1.0, sorted(worst.items(), key=lambda kv: -kv[1])[:3]
+    return n_pieces
+
+
+def test_fused_fallback_refuses_moe_over_ranks(fused_runs):
+    """ROADMAP C16, repaired: the ``xla_fused`` fallback (overlap off) over
+    two gloo ranks computes JAX's step for an MoE model at microbatch 1,
+    whose one global microbatch spans both ranks' rows: each rank's piece
+    sees the microbatch's whole router statistics from a no-grad pre-pass
+    and one all-reduce (``_fused_accum``).  The plan over one process
+    still syncs nothing and trains, and a dense model's step builds."""
+    assert _fused_case_matches_jax(fused_runs, "micro1") == [1, 1]
     _, tcfg = moe_cfgs("mixtral-8x7b", d_model=64)
     model = build_model(tcfg, device="cpu")
     run = RunConfig(model=tcfg, shape=ShapeConfig("t", 32, 8, "train"), sharding="ddp",
                     param_dtype="float32", activation_dtype="float32")
     plan = ParallelPlan.for_run(run, 2, overlap=False)
     assert plan.grad_sync == "xla_fused" and plan.has_moe
-    with pytest.raises(NotImplementedError, match="C16"):
-        tts.make_train_step(model, run, toptim.AdamWConfig(), plan)
-    with pytest.raises(NotImplementedError, match="C16"):
-        tts.make_grad_fn(model, run, ParallelPlan.for_run(run.with_(microbatch=3), 2))
+    tts.make_train_step(model, run, toptim.AdamWConfig(), plan)
+    tts.make_grad_fn(model, run, ParallelPlan.for_run(run.with_(microbatch=3), 2))
     assert ParallelPlan.for_run(run, None, overlap=False).grad_sync == "none"
     tts.make_train_step(model, run, toptim.AdamWConfig(), ParallelPlan.for_run(run, None))
     dense = dataclasses.replace(reduced(get_config("llama3-8b"), d_model=64))
     drun = run.with_(model=dense)
     tts.make_train_step(build_model(dense, device="cpu"), drun, toptim.AdamWConfig(),
                         ParallelPlan.for_run(drun, 2, overlap=False))
+
+
+def test_fused_fallback_moe_straddling_microbatches_match_jax(fused_runs):
+    """The same at 3 global microbatches of 4 rows over two ranks of 6:
+    the middle one straddles the ranks' rows (rank 0 holds 2 pieces, rank
+    1 holds 2), the others lie on one rank each."""
+    assert _fused_case_matches_jax(fused_runs, "straddle") == [2, 2]
 
 
 DP_B, DP_S = 8, 32

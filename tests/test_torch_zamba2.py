@@ -540,8 +540,8 @@ def test_every_box_count_and_lane_split_is_guarded_for_d80():
     hopper = (_build.CSRC / "hopper.cuh").read_text()
     body = hopper[hopper.index("constexpr int box_cols()"):]
     body = body[:body.index("\n}\n")]
-    assert "static_assert(D == 64 || D == 80 || D == 128 || D == 256" in body
-    assert "return D == 80 ? 128 : D;" in body
+    assert "static_assert(D == 64 || D == 80 || D == 128 || D == 192 || D == 256" in body
+    assert "return D == 80 ? 128 : D == 192 ? 256 : D;" in body
     assert "split3_kernel<80>" in hopper
     for name in ("flash_attention", "flash_attention_bwd", "paged_attention"):
         text = re.sub(r"//[^\n]*", "", (_build.CSRC / f"{name}.cu").read_text())  # the code
